@@ -1,0 +1,26 @@
+"""Event-time watermarks (copy of ``spatialflink_tpu.runtime.watermarks``):
+Flink's bounded out-of-orderness extractor."""
+
+from __future__ import annotations
+
+
+class BoundedOutOfOrderness:
+    """Watermark = max event time seen - allowed lateness."""
+
+    def __init__(self, allowed_lateness_ms: int = 0):
+        self.allowed_lateness_ms = int(allowed_lateness_ms)
+        self._max_ts: int = -(2**63)
+
+    def on_event(self, ts_ms: int) -> int:
+        if ts_ms > self._max_ts:
+            self._max_ts = ts_ms
+        return self.watermark
+
+    @property
+    def watermark(self) -> int:
+        return self._max_ts - self.allowed_lateness_ms
+
+    def is_late(self, ts_ms: int) -> bool:
+        """A record older than the current watermark is late (its windows
+        may already have fired)."""
+        return ts_ms < self.watermark
