@@ -3,9 +3,9 @@
 Reads the same ``conf/spatialflink-conf.yml`` schema as the JAX package —
 the reference's key names, with the leading ``!!`` java type tag tolerated
 — into the same dataclasses. Fields of features this port does not run yet
-(multi-query, panes, mesh parallelism) are parsed so that the driver can
-refuse them; keys no ported code reads (kNN, trajectory, Kafka and output
-settings) are ignored.
+(panes, mesh parallelism) are parsed so that the driver can refuse them;
+keys no ported code reads (trajectory, Kafka and output settings) are
+ignored.
 """
 
 from __future__ import annotations
@@ -141,11 +141,12 @@ class QueryConfig:
 
     option: int = 1
     approximate: bool = False
-    multi_query: bool = False  # not yet ported: the driver refuses it
+    multi_query: bool = False  # all query objects in one dispatch
     parallelism: int = 0       # not yet ported: the driver refuses > 1
     hosts: int = 0             # not yet ported: the driver refuses > 1
     panes: bool = False        # not yet ported: the driver refuses it
     radius: float = 0.0
+    k: int = 10
     query_points: List[Tuple[float, float]] = field(default_factory=list)
     query_polygons: List[List[Tuple[float, float]]] = field(
         default_factory=list)
@@ -164,6 +165,7 @@ class QueryConfig:
             hosts=int(_opt(d, "hosts", 0)),
             panes=bool(_opt(d, "panes", False)),
             radius=float(_opt(d, "radius", 0.0)),
+            k=int(_opt(d, "k", 10)),
             query_points=_coord_pairs(_opt(d, "queryPoints", [])),
             query_polygons=_coord_lists(_opt(d, "queryPolygons", [])),
             query_linestrings=_coord_lists(_opt(d, "queryLineStrings", [])),

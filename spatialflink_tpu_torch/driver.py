@@ -1,18 +1,21 @@
 """Driver (port of ``spatialflink_tpu.driver`` for the windowed point-stream
-range queries).
+range and kNN queries).
 
 ``CASES`` keeps the JAX package's option numbering for the options this
-port runs: 1 (Point stream x Point query), 6 (x Polygon) and 11
-(x LineString), all windowed. Every other option, and every flag or config
-feature not ported yet, is refused with "not yet ported to
-spatialflink_tpu_torch" — never silently ignored.
+port runs, all windowed over a point stream: range 1 (Point query), 6
+(Polygon) and 11 (LineString); kNN 51, 56 and 61 (the same query types).
+``query.multiQuery`` (or ``--multi-query``) answers every configured query
+object of the option's type in one dispatch per window. Every other
+option, and every flag or config feature not ported yet, is refused with
+"not yet ported to spatialflink_tpu_torch" — never silently ignored.
 
     python -m spatialflink_tpu_torch.driver --config conf/spatialflink-conf.yml \\
-        --option 6 --input1 points.csv --format CSV [--output out.geojson] \\
-        [--device cuda|cpu]
+        --option 51 --input1 points.csv --format CSV [--multi-query] \\
+        [--output out.geojson] [--device cuda|cpu]
 
-stdout carries one ``{'window': [start, end], 'count': n}`` line per window,
-as the JAX driver prints them.
+stdout carries one line per window as the JAX driver prints it:
+``{'window': [start, end], 'count': n}`` plus the result's extras (``k``
+for kNN; ``per_query_counts`` and ``queries`` under multiQuery).
 """
 
 from __future__ import annotations
@@ -36,10 +39,11 @@ from spatialflink_tpu_torch.utils import IdInterner
 
 @dataclass(frozen=True)
 class CaseSpec:
-    family: str           # range
+    family: str            # range | knn
     stream: str = "Point"  # geometry type of input stream 1
     query: str = "Point"   # geometry type of the query side
     mode: str = "window"
+    latency: bool = False  # a latency variant (none is ported yet)
 
 
 #: the ported options (numbering of ``spatialflink_tpu.driver.CASES``)
@@ -47,6 +51,9 @@ CASES = {
     1: CaseSpec("range", "Point", "Point"),
     6: CaseSpec("range", "Point", "Polygon"),
     11: CaseSpec("range", "Point", "LineString"),
+    51: CaseSpec("knn", "Point", "Point"),
+    56: CaseSpec("knn", "Point", "Polygon"),
+    61: CaseSpec("knn", "Point", "LineString"),
 }
 
 
@@ -81,8 +88,7 @@ def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
 
 def _check_ported(params: Params) -> None:
     q = params.query
-    for on, what in ((q.multi_query, "query.multiQuery"),
-                     (q.panes, "query.panes"),
+    for on, what in ((q.panes, "query.panes"),
                      (q.parallelism > 1, "query.parallelism > 1"),
                      (q.hosts > 1, "query.hosts > 1"),
                      (params.window.type != "TIME",
@@ -99,10 +105,13 @@ def _query_conf(params: Params) -> QueryConfiguration:
         slide_ms=step_ms,
         allowed_lateness_ms=params.query.allowed_lateness_s * 1000,
         approximate=params.query.approximate,
+        k=params.query.k,
     )
 
 
-def _query_object(params: Params, grid: UniformGrid, kind: str):
+def _query_objects(params: Params, grid: UniformGrid, kind: str) -> list:
+    """Every configured query object of ``kind``; raises when there is
+    none."""
     getter, name = {
         "Point": (params.query_point_objects, "queryPoints"),
         "Polygon": (params.query_polygon_objects, "queryPolygons"),
@@ -111,7 +120,22 @@ def _query_object(params: Params, grid: UniformGrid, kind: str):
     objs = getter(grid)
     if not objs:
         raise ValueError(f"query.{name} is empty")
-    return objs[0]
+    return objs
+
+
+def _run_multi_case(params: Params, spec: CaseSpec, op, s1,
+                    u_grid: UniformGrid, radius: float) -> Iterator:
+    """``query.multiQuery``: answer ALL configured query objects in one
+    dispatch per window via ``run_multi`` (without the flag only the first
+    query object runs, as the reference does)."""
+    if spec.latency:
+        raise ValueError(
+            "multiQuery does not combine with the latency variants "
+            "(per-record latency assumes single-query record lists)")
+    qs = _query_objects(params, u_grid, spec.query)
+    if spec.family == "range":
+        return op.run_multi(s1, qs, radius)
+    return op.run_multi(s1, qs, radius, params.query.k)
 
 
 def run_option(params: Params, stream1: Iterable, *, device="cuda"
@@ -127,16 +151,28 @@ def run_option(params: Params, stream1: Iterable, *, device="cuda"
             f"{', '.join(map(str, sorted(CASES)))})")
     _check_ported(params)
     u_grid, _ = params.grids()
-    cls = getattr(ops, f"{spec.stream}{spec.query}RangeQuery")
+    fam = {"range": "Range", "knn": "KNN"}[spec.family]
+    cls = getattr(ops, f"{spec.stream}{spec.query}{fam}Query")
     op = cls(_query_conf(params), u_grid, device=device)
     s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid))
-    return op.run(s1, _query_object(params, u_grid, spec.query),
-                  params.query.radius)
+    radius = params.query.radius
+    if params.query.multi_query:
+        return _run_multi_case(params, spec, op, s1, u_grid, radius)
+    q = _query_objects(params, u_grid, spec.query)[0]
+    if spec.family == "knn":
+        return op.run(s1, q, radius, params.query.k)
+    return op.run(s1, q, radius)
 
 
 def _emit(result: WindowResult, sink) -> None:
+    if "queries" in result.extras:
+        # multi-query windows: records is a list of Q per-query lists
+        counts = {"count": sum(len(r) for r in result.records),
+                  "per_query_counts": [len(r) for r in result.records]}
+    else:
+        counts = {"count": len(result.records)}
     sink.emit({"window": [result.window_start, result.window_end],
-               "count": len(result.records)})
+               **counts, **result.extras})
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -146,7 +182,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(
         prog="spatialflink-tpu-torch",
         description="spatial stream query driver on PyTorch/CUDA "
-                    "(windowed range options 1, 6, 11)")
+                    "(windowed range options 1, 6, 11 and kNN options 51, "
+                    "56, 61)")
     ap.add_argument("--config", required=True, help="YAML config path")
     ap.add_argument("--input1", help="newline-delimited input file for "
                                      "stream 1")
@@ -154,6 +191,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="override query.option")
     ap.add_argument("--format", default=None,
                     help="override inputStream1.format (CSV/TSV/GeoJSON)")
+    ap.add_argument("--multi-query", action="store_true",
+                    help="answer every configured query object of the "
+                         "option's type in one dispatch per window (same as "
+                         "query.multiQuery)")
     ap.add_argument("--output", default=None,
                     help="also write every result record to this file, one "
                          "GeoJSON feature per line")
@@ -169,6 +210,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     params = Params.from_yaml(args.config)
     if args.option is not None:
         params.query.option = args.option
+    if args.multi_query:
+        params.query.multi_query = True
     if args.format is not None:
         params = dataclasses.replace(
             params, input1=dataclasses.replace(params.input1,
@@ -194,7 +237,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         for result in results:
             _emit(result, sink)
             if out_sink is not None:
-                for rec in result.records:
+                for rec in result.flat_records():
                     out_sink.emit(rec)
             n += 1
     finally:

@@ -1,6 +1,6 @@
 """Spatial object model: host objects and padded device batches."""
 
-from spatialflink_tpu_torch.models.batches import (PointBatch,
+from spatialflink_tpu_torch.models.batches import (EdgeGeomBatch, PointBatch,
                                                     from_jax_arrays,
                                                     single_query_edges)
 from spatialflink_tpu_torch.models.objects import (LineString, MultiPolygon,
@@ -8,4 +8,5 @@ from spatialflink_tpu_torch.models.objects import (LineString, MultiPolygon,
                                                     SpatialObject)
 
 __all__ = ["SpatialObject", "Point", "Polygon", "LineString", "MultiPolygon",
-           "PointBatch", "from_jax_arrays", "single_query_edges"]
+           "EdgeGeomBatch", "PointBatch", "from_jax_arrays",
+           "single_query_edges"]

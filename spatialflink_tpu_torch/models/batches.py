@@ -12,14 +12,15 @@ Conventions, the same as the JAX package's:
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple, Optional, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from spatialflink_tpu_torch.index import UniformGrid
-from spatialflink_tpu_torch.models.objects import _EdgeGeom
-from spatialflink_tpu_torch.utils import bucket_size, pad_to
+from spatialflink_tpu_torch.models.objects import (MultiPolygon, Polygon,
+                                                    _EdgeGeom)
+from spatialflink_tpu_torch.utils import IdInterner, bucket_size, pad_to
 
 #: dtype of each PointBatch field
 POINT_DTYPES = {"x": np.float32, "y": np.float32, "obj_id": np.int32,
@@ -86,6 +87,83 @@ class PointBatch(NamedTuple):
                              for k, v in host.items()})
 
 
+#: dtype of each EdgeGeomBatch field
+GEOM_DTYPES = {"edges": np.float32, "edge_mask": np.bool_,
+               "bbox": np.float32, "obj_id": np.int32, "ts": np.int32,
+               "cell": np.int32, "cells": np.int32, "cells_mask": np.bool_,
+               "is_areal": np.bool_, "valid": np.bool_}
+
+
+class EdgeGeomBatch(NamedTuple):
+    """G polygon/linestring geometries as padded edge arrays on one device
+    (the query side of the multi-query paths). ``is_areal`` is per geometry:
+    polygons count containment (distance 0 inside), linestrings do not."""
+
+    edges: torch.Tensor       # (G, E, 4) f32 [x1, y1, x2, y2] per edge
+    edge_mask: torch.Tensor   # (G, E) bool
+    bbox: torch.Tensor        # (G, 4) f32 [minx, miny, maxx, maxy]
+    obj_id: torch.Tensor      # (G,) i32
+    ts: torch.Tensor          # (G,) i32
+    cell: torch.Tensor        # (G,) i32 representative cell
+    cells: torch.Tensor       # (G, C) i32 overlapped cells, -1 padded
+    cells_mask: torch.Tensor  # (G, C) bool
+    is_areal: torch.Tensor    # (G,) bool
+    valid: torch.Tensor       # (G,) bool
+
+    @property
+    def capacity(self) -> int:
+        return self.edges.shape[-3]
+
+    @staticmethod
+    def from_objects(geoms: Sequence[_EdgeGeom], *, device: torch.device,
+                     interner: Optional[IdInterner] = None, ts_base: int = 0,
+                     pad: Optional[int] = None,
+                     edge_pad: Optional[int] = None,
+                     cell_pad: Optional[int] = None) -> "EdgeGeomBatch":
+        """Pad edges to ``bucket_size(max edges, 8)`` per geometry, cells to
+        ``bucket_size(max cells, 8)`` and the geometry axis to
+        ``bucket_size(G, 8)`` (or the given pads), as the JAX package does,
+        and move to ``device``."""
+        interner = interner if interner is not None else IdInterner()
+        g = len(geoms)
+        edge_arrays = [geo.edge_array() for geo in geoms]
+        max_e = max((e.shape[0] for e, _ in edge_arrays), default=1)
+        E = bucket_size(max_e, 8) if edge_pad is None else edge_pad
+        max_c = max((len(geo.cells) for geo in geoms), default=1) or 1
+        C = bucket_size(max_c, 8) if cell_pad is None else cell_pad
+        edges = np.zeros((g, E, 4), np.float32)
+        emask = np.zeros((g, E), bool)
+        cells = np.full((g, C), -1, np.int32)
+        cmask = np.zeros((g, C), bool)
+        for i, (e, m) in enumerate(edge_arrays):
+            edges[i, :e.shape[0]] = e.astype(np.float32)
+            emask[i, :e.shape[0]] = m
+            cs = sorted(geoms[i].cells)[:C]
+            cells[i, :len(cs)] = cs
+            cmask[i, :len(cs)] = True
+        ts = np.array([geo.timestamp for geo in geoms], np.int64) - int(ts_base)
+        size = bucket_size(g, 8) if pad is None else pad
+        host = {
+            "edges": pad_to(edges, size),
+            "edge_mask": pad_to(emask, size),
+            "bbox": pad_to(np.asarray([geo.bbox for geo in geoms],
+                                      np.float32).reshape(g, 4), size),
+            "obj_id": pad_to(np.array([interner.intern(geo.obj_id)
+                                       for geo in geoms], np.int32), size),
+            "ts": pad_to(ts.astype(np.int32), size),
+            "cell": pad_to(np.array([geo.cell for geo in geoms], np.int32),
+                           size, fill=-1),
+            "cells": pad_to(cells, size, fill=-1),
+            "cells_mask": pad_to(cmask, size),
+            "is_areal": pad_to(np.array(
+                [isinstance(geo, (Polygon, MultiPolygon)) for geo in geoms],
+                bool), size),
+            "valid": pad_to(np.ones(g, bool), size),
+        }
+        return EdgeGeomBatch(**{k: to_device(v, GEOM_DTYPES[k], device)
+                                for k, v in host.items()})
+
+
 def single_query_edges(geom: _EdgeGeom, edge_pad: Optional[int] = None
                        ) -> Tuple[np.ndarray, np.ndarray]:
     """Padded (E,4) f32 / (E,) bool host edge arrays for one query
@@ -101,26 +179,36 @@ QUERY_DTYPES = {"edges": np.float32, "edge_mask": np.bool_,
 
 
 def from_jax_arrays(batch: Mapping[str, np.ndarray], device,
-                    **query: np.ndarray
-                    ) -> Tuple[PointBatch, dict]:
+                    **query) -> Tuple[PointBatch, dict]:
     """State carry from the JAX package: ``batch`` holds the fields of a
     ``spatialflink_tpu`` PointBatch (x, y, obj_id, ts, cell, valid) as host
     arrays, ``query`` any of its query arrays (edges, edge_mask, gn_mask,
-    cn_mask). Returns the port's PointBatch and a dict of
-    query tensors on ``device``, each in its declared dtype whatever dtype
-    the array arrived in."""
+    cn_mask) and, under ``geoms``, the fields of a
+    ``spatialflink_tpu`` EdgeGeomBatch (a mapping, or the NamedTuple
+    itself). Returns the port's PointBatch and a dict of query tensors (an
+    :class:`EdgeGeomBatch` under ``geoms``) on ``device``, each in its
+    declared dtype whatever dtype the array arrived in."""
     from spatialflink_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
     missing = set(POINT_DTYPES) - set(batch)
     if missing:
         raise ValueError(f"PointBatch fields missing: {sorted(missing)}")
-    unknown = set(query) - set(QUERY_DTYPES)
+    unknown = set(query) - set(QUERY_DTYPES) - {"geoms"}
     if unknown:
         raise ValueError(f"unknown query arrays: {sorted(unknown)}")
     pb = PointBatch(**{k: to_device(np.asarray(batch[k]), POINT_DTYPES[k],
                                     dev)
                        for k in PointBatch._fields})
     q = {k: to_device(np.asarray(v), QUERY_DTYPES[k], dev)
-         for k, v in query.items()}
+         for k, v in query.items() if k != "geoms"}
+    if "geoms" in query:
+        geoms = query["geoms"]
+        geoms = geoms._asdict() if hasattr(geoms, "_asdict") else geoms
+        missing = set(GEOM_DTYPES) - set(geoms)
+        if missing:
+            raise ValueError(f"EdgeGeomBatch fields missing: {sorted(missing)}")
+        q["geoms"] = EdgeGeomBatch(**{
+            k: to_device(np.asarray(geoms[k]), GEOM_DTYPES[k], dev)
+            for k in EdgeGeomBatch._fields})
     return pb, q

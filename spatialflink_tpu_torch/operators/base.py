@@ -1,10 +1,15 @@
 """Operator plumbing (port of the windowed path of
 ``spatialflink_tpu.operators.base``): query configuration, deferred device
-results, the pipelined window driver, and query-side precomputation.
+results (selection masks and kNN lists, single- and multi-query), the
+pipelined window driver, the shared multi-query range driver, and
+query-side precomputation.
 
 Not yet ported: realtime and count windows, panes, the device mesh,
-checkpointing, the adaptive grid, and the drive loop's telemetry, latency,
-governor and accounting hooks.
+checkpointing, the adaptive grid, the dynamic query registry, and the
+drive loop's telemetry, latency, governor and accounting hooks. The JAX
+package's single-device seams around the mesh (``_multi_filter_stream``,
+``_knn_multi_result``, ``_multi_results``) have no mesh or realtime mode to
+route here, so the port calls the per-batch closures directly.
 """
 
 from __future__ import annotations
@@ -20,8 +25,9 @@ import torch
 
 from spatialflink_tpu_torch.device import resolve_device
 from spatialflink_tpu_torch.index import UniformGrid
-from spatialflink_tpu_torch.models import (MultiPolygon, Point, PointBatch,
-                                            Polygon, single_query_edges)
+from spatialflink_tpu_torch.models import (EdgeGeomBatch, MultiPolygon,
+                                            Point, PointBatch, Polygon,
+                                            single_query_edges)
 from spatialflink_tpu_torch.models.batches import to_device
 from spatialflink_tpu_torch.runtime import WindowAssembler, WindowSpec
 from spatialflink_tpu_torch.streams.bulk import (LazyRecords, PointChunk,
@@ -48,6 +54,8 @@ class QueryConfiguration:
     # windows in flight on the device before the driver waits on the
     # oldest; >= 2 overlaps host batch assembly with device work
     pipeline_depth: int = 2
+    # kNN result size when the caller gives none (query.k)
+    k: int = 10
 
     def window_spec(self) -> WindowSpec:
         return WindowSpec.sliding(self.window_size_ms, self.slide_ms)
@@ -55,11 +63,21 @@ class QueryConfiguration:
 
 @dataclass
 class WindowResult:
-    """One emitted result: the records selected in [start, end)."""
+    """One emitted result: the records selected in [start, end) — one list
+    per query when ``extras["queries"]`` is set (run_multi windows), and
+    (objID, distance) pairs for kNN."""
 
     window_start: int
     window_end: int
     records: List = field(default_factory=list)
+    extras: dict = field(default_factory=dict)
+
+    def flat_records(self) -> List:
+        """Records flattened across the multi-query axis (the one-record-
+        per-line contract of the record sinks)."""
+        if "queries" in self.extras:
+            return [r for per_query in self.records for r in per_query]
+        return self.records
 
 
 class Deferred:
@@ -141,13 +159,14 @@ class SpatialOperator:
         return mask_stats_fn(batch)
 
     def _defer_with_stats(self, dev, stats, rows) -> Deferred:
-        """``stats`` = (gn_bypassed, dist_evals) device scalars ride the same
-        readback as the result and bump :attr:`pruning` at collect time;
-        ``rows(host_result)`` turns the result into records."""
+        """``stats`` = (gn_bypassed, dist_evals) device counts — scalars, or
+        per-query (Q,) rows summed here — ride the same readback as the
+        result and bump :attr:`pruning` at collect time; ``rows(host_result)``
+        turns the result into records."""
         def collect(host):
             main, gn, evals = host
-            self.pruning["gn-bypassed"] += int(gn)
-            self.pruning["distance-computations"] += int(evals)
+            self.pruning["gn-bypassed"] += int(gn.sum())
+            self.pruning["distance-computations"] += int(evals.sum())
             return rows(main)
         return Deferred((dev, *stats), collect)
 
@@ -158,6 +177,58 @@ class SpatialOperator:
             idx = np.nonzero(m)[0]
             return records.take(idx[idx < len(records)])
         return self._defer_with_stats(mask, stats, rows)
+
+    def _defer_knn(self, res, interner: IdInterner, dist_evals) -> Deferred:
+        """Deferred (objID, distance) list from a (k,) KnnResult, ids
+        resolved through ``interner`` (the window's). ``dist_evals`` feeds
+        the distance-computation counter: kNN has no GN bypass, every
+        candidate-cell point costs one distance."""
+        def collect(host):
+            oid, dist, valid, evals = host
+            self.pruning["distance-computations"] += int(evals.sum())
+            return _knn_pairs(oid, dist, valid, interner)
+        return Deferred((*res, dist_evals), collect)
+
+    def _defer_knn_multi(self, res, interner: IdInterner,
+                         dist_evals) -> Deferred:
+        """Deferred per-query (objID, distance) lists from a (Q, k)
+        KnnResult; ``dist_evals`` (Q,) is summed into the counter."""
+        def collect(host):
+            oid, dist, valid, evals = host
+            self.pruning["distance-computations"] += int(evals.sum())
+            return [_knn_pairs(o, d, v, interner)
+                    for o, d, v in zip(oid, dist, valid)]
+        return Deferred((*res, dist_evals), collect)
+
+    @staticmethod
+    def _query_point_arrays(query_points, device: torch.device):
+        """(qx (Q,) f32, qy (Q,) f32, q_cell (Q,) int32) tensors on
+        ``device`` from a list of query points (built once per run)."""
+        return (to_device([q.x for q in query_points], np.float32, device),
+                to_device([q.y for q in query_points], np.float32, device),
+                to_device([q.cell for q in query_points], np.int32, device))
+
+    def _run_multi_filter(self, stream: Iterable, n_queries: int,
+                          multi_mask_stats) -> Iterator[WindowResult]:
+        """Shared run_multi driver for the range operators:
+        ``multi_mask_stats(batch) -> (masks (Q, N), gn (Q,), evals (Q,))``
+        in one dispatch per window; records become Q per-query record
+        lists, pruning counters sum over the queries."""
+        def eval_batch(records, ts_base):
+            if not len(records):
+                return [[] for _ in range(n_queries)]
+            batch = self._point_batch(records, ts_base)
+            masks, gn_c, evals = multi_mask_stats(batch)
+
+            def rows(m):  # ONE (Q, N) device->host transfer
+                n = len(records)
+                return records.take_many(
+                    [idx[idx < n] for idx in (np.nonzero(r)[0] for r in m)])
+            return self._defer_with_stats(masks, (gn_c, evals), rows)
+
+        for result in self._drive(stream, eval_batch):
+            result.extras["queries"] = n_queries
+            yield result
 
     def _drive(self, stream: Iterable, eval_batch
                ) -> Iterator[WindowResult]:
@@ -188,10 +259,17 @@ class SpatialOperator:
         yield from drain(0)
 
 
+def _knn_pairs(oid, dist, valid, interner: IdInterner) -> List:
+    """The valid slots of one (k,) kNN row as (objID string, distance)."""
+    return [(interner.lookup(int(o)), float(d))
+            for o, d in zip(oid[valid], dist[valid])]
+
+
 class GeomQueryMixin:
-    """Query-side precomputation: dense GN/CN cell masks (union over the
-    query geometry's cells) and the padded query edge array, on the
-    operator's device."""
+    """Query-side precomputation: dense GN/CN/NB cell masks (union over the
+    query geometry's cells; one row per query for the multi-query paths),
+    the padded query edge array, and the Q query geometries as one edge
+    batch, on the operator's device."""
 
     def _query_cells(self, query) -> list:
         if isinstance(query, Point):
@@ -203,6 +281,37 @@ class GeomQueryMixin:
         gn = self.grid.guaranteed_cells_mask(radius, cells)
         cn = self.grid.candidate_cells_mask(radius, cells, gn)
         return tuple(to_device(m, np.bool_, self.device) for m in (gn, cn))
+
+    def _query_nb(self, query, radius: float):
+        """Dense neighbouring-cells (GN ∪ CN) mask of a query; radius 0
+        selects every cell."""
+        return to_device(self.grid.neighboring_cells_mask(
+            radius, self._query_cells(query)), np.bool_, self.device)
+
+    def _stack_query_masks(self, queries, radius: float):
+        """(Q, n*n) GN and CN mask stacks, one row per query (the
+        multi-query form of :meth:`_query_masks`)."""
+        gn, cn = [], []
+        for q in queries:
+            cells = self._query_cells(q)
+            gn.append(self.grid.guaranteed_cells_mask(radius, cells))
+            cn.append(self.grid.candidate_cells_mask(radius, cells, gn[-1]))
+        return tuple(to_device(np.stack(m), np.bool_, self.device)
+                     for m in (gn, cn))
+
+    def _stack_query_nb(self, queries, radius: float):
+        """(Q, n*n) neighbouring-cells masks, one row per query (the
+        multi-query form of :meth:`_query_nb`)."""
+        return to_device(np.stack([self.grid.neighboring_cells_mask(
+            radius, self._query_cells(q)) for q in queries]), np.bool_,
+            self.device)
+
+    def _query_geom_batch(self, queries) -> EdgeGeomBatch:
+        """The Q query geometries as ONE exact-capacity padded edge batch
+        (no bucket padding on the query axis: it must match the (Q,)
+        mask stacks)."""
+        return EdgeGeomBatch.from_objects(queries, device=self.device,
+                                          pad=len(queries))
 
     def _query_edges(self, query):
         e, m = single_query_edges(query)

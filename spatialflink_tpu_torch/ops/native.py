@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-Each ``csrc/<name>.cu`` exports one plain-C launch function. It is compiled
+Each ``csrc/<name>.cu`` exports plain-C launch functions. It is compiled
 at first use with ``nvcc`` into ``_build/lib<name>-<hash>.so`` (the hash
-covers the source and the flags, so an edited source rebuilds) and loaded
-with :mod:`ctypes`. Nothing is built or loaded when this module is
+covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds) and loaded with :mod:`ctypes`. Nothing is built or loaded when this module is
 imported: the CPU tests import every module and have no ``nvcc``.
 
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so that no ``a*b+c`` is fused
@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pip_dist", "range_mask")
+SOURCES = ("pip_dist", "range_mask", "knn_topk", "pip_lattice")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -52,7 +52,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

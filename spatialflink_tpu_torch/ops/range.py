@@ -1,5 +1,8 @@
 """K1: range-query window filter (port of ``spatialflink_tpu.ops.range``:
-``range_filter_point_stats`` and ``range_filter_masks_stats``).
+``range_filter_point_stats``, ``range_filter_masks_stats`` and their Q-row
+forms ``range_filter_point_multi_masks`` and the vmapped
+``range_filter_masks_stats`` of ``ops/geom.py``
+``range_points_to_geom_queries``).
 
 Per window, for each point: guaranteed-cell (GN) points pass without a
 distance computation; candidate-cell (CN) points pass iff their exact
@@ -7,10 +10,11 @@ distance is <= r; approximate mode passes CN points without the check.
 GN/CN membership is Chebyshev layer arithmetic for a point query and a
 gather into dense (n*n,) cell masks for polygon/linestring queries.
 
-Both public functions are wrappers of ONE hand-written CUDA kernel,
-``csrc/range_mask.cu`` (:func:`range_mask_stats`, with a mode argument):
-CUDA tensors launch it (or the call raises), CPU tensors run the ``_plain``
-version beside each wrapper. There is no other path.
+Every public function is a wrapper of ONE hand-written CUDA kernel,
+``csrc/range_mask.cu`` (:func:`range_mask_stats`, with a mode argument and
+a query axis: Q queries in one launch, each row equal to the single-query
+launch): CUDA tensors launch it (or the call raises), CPU tensors run the
+``_plain`` version beside each wrapper. There is no other path.
 
 The kernel replaces the XLA-fused ``range_filter_point_stats``
 (``spatialflink_tpu/ops/range.py:72-96``) and ``range_filter_masks_stats``
@@ -40,8 +44,8 @@ OPS_PER_POINT = {MODE_POINT: 24, MODE_MASKS: 10}
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = (_I, _I, _I, _C, _C, _C, _C, _F, _F, _I, _I, _I, _I, _C, _C, _C,
-             _I, _F, _C, _C, _C, _C)
+_ARGTYPES = (_I, _I, _I, _I, _C, _C, _C, _C, _F, _F, _I, _C, _C, _C, _I, _I,
+             _I, _C, _C, _C, _I, _F, _C, _C, _C, _C)
 
 
 def _require(t, name, dtype, shape, dev):
@@ -59,11 +63,16 @@ def _require(t, name, dtype, shape, dev):
 
 def range_mask_stats(points, *, mode: int, approximate: bool, radius: float,
                      qx: float = 0.0, qy: float = 0.0, q_cell: int = -1,
-                     n: int = 1, gn_layers: int = -1, cn_layers: int = -1,
+                     qxs=None, qys=None, q_cells=None, n: int = 1,
+                     gn_layers: int = -1, cn_layers: int = -1,
                      gn_mask=None, cn_mask=None, dists=None):
-    """Launch the K1 kernel on a CUDA batch: returns ``(mask (N,) bool,
-    dists (N,) f32 or None, counts (2,) int32 = [gn_bypassed,
-    dist_evals])``. ``dists`` is an output in point mode and an input in
+    """Launch the K1 kernel on a CUDA batch: returns ``(mask, dists or
+    None, counts)``. One query — (qx, qy, q_cell) by value, or (C,) cell
+    masks and an (N,) distance row — gives mask (N,) bool, dists (N,) f32
+    and counts (2,) int32 = [gn_bypassed, dist_evals]; Q queries — qxs,
+    qys (Q,) f32 and q_cells (Q,) int32, or (Q, C) masks and (Q, N)
+    distances — give (Q, N) masks and (Q, 2) counts. ``dists`` is an
+    output of the single-query point mode (None otherwise) and an input in
     mask mode."""
     dev = points.x.device
     if dev.type != "cuda":
@@ -73,34 +82,52 @@ def range_mask_stats(points, *, mode: int, approximate: bool, radius: float,
     _require(points.y, "y", torch.float32, (N,), dev)
     _require(points.cell, "cell", torch.int32, (N,), dev)
     _require(points.valid, "valid", torch.bool, (N,), dev)
-    mask = torch.empty(N, dtype=torch.bool, device=dev)
-    counts = torch.empty(2, dtype=torch.int32, device=dev)
     null = None
+    q_ptrs = (null, null, null)
     if mode == MODE_POINT:
-        dists_out = torch.empty(N, dtype=torch.float32, device=dev)
-        ptrs = (null, null, null, 0, dists_out.data_ptr())
+        multi = qxs is not None
+        Q = qxs.shape[0] if multi else 1
+        if multi:
+            _require(qxs, "qxs", torch.float32, (Q,), dev)
+            _require(qys, "qys", torch.float32, (Q,), dev)
+            _require(q_cells, "q_cells", torch.int32, (Q,), dev)
+            q_ptrs = (qxs.data_ptr(), qys.data_ptr(), q_cells.data_ptr())
+        # the Q-row form returns no distances: none are written
+        dists_out = (None if multi else
+                     torch.empty((Q, N), dtype=torch.float32, device=dev))
+        ptrs = (null, null, null, 0,
+                null if dists_out is None else dists_out.data_ptr())
     elif mode == MODE_MASKS:
-        cells = gn_mask.shape[0]
-        _require(gn_mask, "gn_mask", torch.bool, (cells,), dev)
-        _require(cn_mask, "cn_mask", torch.bool, (cells,), dev)
-        _require(dists, "dists", torch.float32, (N,), dev)
+        multi = gn_mask.dim() == 2
+        Q = gn_mask.shape[0] if multi else 1
+        cells = gn_mask.shape[-1]
+        lead = (Q,) if multi else ()
+        _require(gn_mask, "gn_mask", torch.bool, lead + (cells,), dev)
+        _require(cn_mask, "cn_mask", torch.bool, lead + (cells,), dev)
+        _require(dists, "dists", torch.float32, lead + (N,), dev)
         dists_out = None
         ptrs = (gn_mask.data_ptr(), cn_mask.data_ptr(), dists.data_ptr(),
                 cells, null)
     else:
         raise ValueError(f"range_mask_stats: unknown mode {mode}")
+    mask = torch.empty((Q, N), dtype=torch.bool, device=dev)
+    counts = torch.empty((Q, 2), dtype=torch.int32, device=dev)
     launch = native.function("range_mask", "range_mask_stats_launch",
                              _ARGTYPES)
     with torch.cuda.device(dev):
-        err = launch(mode, int(bool(approximate)), N, points.x.data_ptr(),
+        err = launch(mode, int(bool(approximate)), N, Q, points.x.data_ptr(),
                      points.y.data_ptr(), points.cell.data_ptr(),
                      points.valid.data_ptr(), float(qx), float(qy),
-                     int(q_cell), int(n), int(gn_layers), int(cn_layers),
-                     ptrs[0], ptrs[1], ptrs[2], ptrs[3], float(radius),
-                     mask.data_ptr(), ptrs[4], counts.data_ptr(),
+                     int(q_cell), *q_ptrs, int(n), int(gn_layers),
+                     int(cn_layers), ptrs[0], ptrs[1], ptrs[2], ptrs[3],
+                     float(radius), mask.data_ptr(), ptrs[4],
+                     counts.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
     native.check(err, "range_mask_stats")
     range_mask_stats.launches += 1
+    if not multi:
+        return (mask[0], None if dists_out is None else dists_out[0],
+                counts[0])
     return mask, dists_out, counts
 
 
@@ -151,9 +178,47 @@ def range_filter_point_stats(points, qx, qy, q_cell, radius, gn_layers,
     return mask, dists, counts[0], counts[1]
 
 
+def range_filter_point_multi_masks_plain(points, qx, qy, q_cell, radius,
+                                        gn_layers, cn_layers, *, n: int,
+                                        approximate: bool = False):
+    """Plain version of :func:`range_filter_point_multi_masks`: the
+    single-query plain version row by row."""
+    rows = [range_filter_point_stats_plain(
+        points, qx[q], qy[q], q_cell[q], radius, gn_layers, cn_layers, n=n,
+        approximate=approximate) for q in range(qx.shape[0])]
+    mask, _dists, gn, evals = (torch.stack(t) for t in zip(*rows))
+    return mask, gn, evals
+
+
+def range_filter_point_multi_masks(points, qx, qy, q_cell, radius, gn_layers,
+                                   cn_layers, *, n: int,
+                                   approximate: bool = False):
+    """Q query points over one window batch in one launch: ``(masks (Q, N),
+    gn_bypassed (Q,), dist_evals (Q,))``, row q equal to
+    :func:`range_filter_point_stats` of query q (without its distances).
+    ``qx``, ``qy`` (Q,) f32 and ``q_cell`` (Q,) int32 are tensors on the
+    batch's device; the radius and layer counts are shared."""
+    if points.x.device.type == "cpu":
+        return range_filter_point_multi_masks_plain(
+            points, qx, qy, q_cell, radius, gn_layers, cn_layers, n=n,
+            approximate=approximate)
+    mask, _, counts = range_mask_stats(
+        points, mode=MODE_POINT, approximate=approximate, radius=radius,
+        qxs=qx, qys=qy, q_cells=q_cell, n=n, gn_layers=gn_layers,
+        cn_layers=cn_layers)
+    return mask, counts[:, 0], counts[:, 1]
+
+
 def range_filter_masks_stats_plain(points, gn_mask, cn_mask, dists, radius,
                                    *, approximate: bool = False):
-    """Plain version of :func:`range_filter_masks_stats`."""
+    """Plain version of :func:`range_filter_masks_stats` (Q-row inputs run
+    row by row)."""
+    if gn_mask.dim() == 2:
+        rows = [range_filter_masks_stats_plain(points, gn_mask[q], cn_mask[q],
+                                               dists[q], radius,
+                                               approximate=approximate)
+                for q in range(gn_mask.shape[0])]
+        return tuple(torch.stack(t) for t in zip(*rows))
     cell_ok = points.cell >= 0
     cell = torch.clamp_min(points.cell, 0)  # guard the -1 pad; gated below
     in_gn = torch.index_select(gn_mask, 0, cell) & cell_ok
@@ -172,11 +237,13 @@ def range_filter_masks_stats(points, gn_mask, cn_mask, dists, radius, *,
                              approximate: bool = False):
     """Range filter with dense (n*n,) GN/CN cell masks and precomputed
     per-slot distances (polygon/linestring queries): ``(mask, gn_bypassed,
-    dist_evals)``. ``dists`` is only consulted for candidate cells."""
+    dist_evals)``. ``dists`` is only consulted for candidate cells. Q
+    queries at once: (Q, n*n) masks and (Q, N) distances give (Q, N) masks
+    and (Q,) counts, each row that of the single query."""
     if points.x.device.type == "cpu":
         return range_filter_masks_stats_plain(
             points, gn_mask, cn_mask, dists, radius, approximate=approximate)
     mask, _, counts = range_mask_stats(
         points, mode=MODE_MASKS, approximate=approximate, radius=radius,
         gn_mask=gn_mask, cn_mask=cn_mask, dists=dists)
-    return mask, counts[0], counts[1]
+    return mask, counts[..., 0], counts[..., 1]

@@ -6,6 +6,13 @@ The JAX package parses CSV in native C++; this port splits the lines in
 Python and converts the numeric columns with numpy in one call each (no
 native ingest yet). Records that are not plain numeric rows (date-string
 timestamps) parse per field through :func:`formats.parse_timestamp`.
+
+Object ids are interned in the order the JAX package's ingest gives them,
+because kNN breaks distance ties by interned id: a chunk's ids that its
+native parser accepts (CSV/TSV rows with an all-digit timestamp, GeoJSON
+points) in ascending FNV-1a 64 hash order of the id's bytes, the rows it
+hands back to Python (date-string timestamps) in line order after them,
+and Point objects in order of appearance.
 """
 
 from __future__ import annotations
@@ -38,12 +45,43 @@ class ParsedPoints:
         return self.x.shape[0]
 
 
+_FNV_OFFSET = np.uint64(1469598103934665603)
+_FNV_PRIME = np.uint64(1099511628211)
+
+
+def fnv1a64(strings: Sequence[str]) -> np.ndarray:
+    """(n,) uint64 FNV-1a 64 hash of each string's UTF-8 bytes (the id hash
+    of the JAX package's native ingest, ``native/ingest.cpp`` fnv1a)."""
+    raw = [s.encode() for s in strings]
+    n = len(raw)
+    h = np.full(n, _FNV_OFFSET, np.uint64)
+    width = max((len(b) for b in raw), default=0)
+    if not width:
+        return h
+    data = np.array(raw, dtype=f"S{width}").view(np.uint8).reshape(n, width)
+    lens = np.fromiter((len(b) for b in raw), np.int64, count=n)
+    with np.errstate(over="ignore"):
+        for j in range(width):
+            step = (h ^ data[:, j].astype(np.uint64)) * _FNV_PRIME
+            h = np.where(lens > j, step, h)
+    return h
+
+
 def _intern(ids: Sequence[str], interner: IdInterner) -> np.ndarray:
-    """Interned int32 ids, one dict lookup per DISTINCT id string."""
+    """Interned int32 ids, one dict lookup per DISTINCT id string; new ids
+    are interned in ascending :func:`fnv1a64` order."""
     uniq, inv = np.unique(np.asarray(ids, dtype=object), return_inverse=True)
-    table = np.fromiter((interner.intern(s) for s in uniq), np.int32,
-                        count=len(uniq))
+    order = np.argsort(fnv1a64(uniq), kind="stable")
+    table = np.empty(len(uniq), np.int32)
+    table[order] = np.fromiter((interner.intern(s) for s in uniq[order]),
+                               np.int32, count=len(uniq))
     return table[inv.reshape(-1)]
+
+
+def _intern_in_order(ids: Sequence[str], interner: IdInterner) -> np.ndarray:
+    """Interned int32 ids, new ids in order of first appearance."""
+    return np.fromiter((interner.intern(s) for s in ids), np.int32,
+                       count=len(ids))
 
 
 def bulk_parse_csv(lines: Sequence[str], *, delimiter: str = ",",
@@ -65,6 +103,8 @@ def bulk_parse_csv(lines: Sequence[str], *, delimiter: str = ",",
     n = len(rows)
     x = np.array([r[xi] for r in rows], dtype=np.float64)
     y = np.array([r[yi] for r in rows], dtype=np.float64)
+    ids = [r[oi] for r in rows] if oi is not None else [""] * n
+    numeric = None  # every timestamp is an integer
     if ti is None:
         ts = np.zeros(n, np.int64)
     else:
@@ -74,18 +114,29 @@ def bulk_parse_csv(lines: Sequence[str], *, delimiter: str = ",",
         except ValueError:  # date strings: the exact per-field parse
             ts = np.array([formats.parse_timestamp(t, date_format)
                            for t in tcol], dtype=np.int64)
-    oid = (_intern([r[oi] for r in rows], interner) if oi is not None
-           else _intern([""] * n, interner))
+            numeric = np.array([t.isascii() and t.isdigit() for t in tcol],
+                               bool)
+    if numeric is None:
+        oid = _intern(ids, interner)
+    else:  # the JAX native parser's accepted rows first, then the rest
+        oid = np.empty(n, np.int32)
+        acc, rej = np.nonzero(numeric)[0], np.nonzero(~numeric)[0]
+        oid[acc] = _intern([ids[i] for i in acc], interner)
+        oid[rej] = _intern_in_order([ids[i] for i in rej], interner)
     return ParsedPoints(x=x, y=y, ts=ts, obj_id=oid, interner=interner)
 
 
-def points_to_parsed(points: Sequence[Point],
-                     interner: IdInterner) -> ParsedPoints:
+def points_to_parsed(points: Sequence[Point], interner: IdInterner, *,
+                     by_hash: bool = False) -> ParsedPoints:
+    """Point objects as columns; new ids interned in order of appearance,
+    or in :func:`fnv1a64` order (``by_hash``, for records the JAX package
+    ingests natively)."""
+    intern = _intern if by_hash else _intern_in_order
     return ParsedPoints(
         x=np.array([p.x for p in points], np.float64),
         y=np.array([p.y for p in points], np.float64),
         ts=np.array([p.timestamp for p in points], np.int64),
-        obj_id=_intern([p.obj_id for p in points], interner),
+        obj_id=intern([p.obj_id for p in points], interner),
         interner=interner)
 
 
@@ -142,9 +193,14 @@ class LazyRecords:
 
     def take(self, idx) -> "PointRows":
         """The records at window positions ``idx``."""
-        idx = np.asarray(idx, np.int64)
-        return PointRows(tuple(a[idx] for a in self.columns()),
-                         self.interner)
+        return self.take_many([idx])[0]
+
+    def take_many(self, idx_lists) -> List["PointRows"]:
+        """The records at each of several position lists (one per query of
+        a multi-query window), concatenating the window's columns once."""
+        cols = self.columns()
+        return [PointRows(tuple(a[np.asarray(idx, np.int64)] for a in cols),
+                          self.interner) for idx in idx_lists]
 
 
 class PointRows:
@@ -185,8 +241,9 @@ class PointRows:
 def parse_points(items: Sequence, cfg, interner: IdInterner) -> ParsedPoints:
     """One decode chunk -> ParsedPoints. CSV/TSV lines take the columnar
     parse; GeoJSON records (str or dict) and Point objects parse one by
-    one. A record of another geometry type is dropped with a warning (an
-    off-type record in a declared point stream)."""
+    one (GeoJSON ids interned as the JAX native GeoJSON parser does). A
+    record of another geometry type is dropped with a warning (an off-type
+    record in a declared point stream)."""
     fmt = cfg.format.lower()
     if fmt in ("csv", "tsv") and all(isinstance(r, str) for r in items):
         return bulk_parse_csv(
@@ -194,6 +251,7 @@ def parse_points(items: Sequence, cfg, interner: IdInterner) -> ParsedPoints:
             schema=cfg.csv_tsv_schema, date_format=cfg.date_format,
             interner=interner)
     pts = []
+    by_hash = fmt == "geojson" and all(isinstance(r, str) for r in items)
     for r in items:
         if isinstance(r, Point):
             pts.append(r)
@@ -211,4 +269,4 @@ def parse_points(items: Sequence, cfg, interner: IdInterner) -> ParsedPoints:
             raise ValueError(f"input format {cfg.format!r}: not yet ported "
                              "to spatialflink_tpu_torch (point streams in "
                              "CSV, TSV or GeoJSON)")
-    return points_to_parsed(pts, interner)
+    return points_to_parsed(pts, interner, by_hash=by_hash)

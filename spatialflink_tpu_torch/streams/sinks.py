@@ -3,9 +3,11 @@
 
 from __future__ import annotations
 
+import json
 import sys
 from typing import Iterator, Optional
 
+from spatialflink_tpu_torch.models import Point
 from spatialflink_tpu_torch.streams.formats import serialize_geojson
 
 
@@ -20,8 +22,10 @@ class StdoutSink:
 
 
 class FileSink:
-    """Newline-delimited result records, one GeoJSON Feature per line (the
-    JAX driver's default ``--output-format``)."""
+    """Newline-delimited result records: a point as one GeoJSON Feature per
+    line (the JAX driver's default ``--output-format``), any other record
+    (a kNN (objID, distance) pair) as a JSON line, as the JAX sink writes
+    non-spatial records."""
 
     def __init__(self, path: str, *, date_format: Optional[str] = None):
         self.date_format = date_format
@@ -29,8 +33,11 @@ class FileSink:
         self._f = open(path, "w")
 
     def emit(self, record):
-        self._f.write(serialize_geojson(record, date_format=self.date_format)
-                      + "\n")
+        if isinstance(record, Point):
+            line = serialize_geojson(record, date_format=self.date_format)
+        else:
+            line = json.dumps(record, default=str)
+        self._f.write(line + "\n")
         self.records_written += 1
 
     def close(self):

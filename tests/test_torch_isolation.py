@@ -18,7 +18,9 @@ from spatialflink_tpu_torch.config import Params
 from spatialflink_tpu_torch.device import resolve_device
 from spatialflink_tpu_torch.index import UniformGrid
 from spatialflink_tpu_torch.models import from_jax_arrays
-from spatialflink_tpu_torch.operators import (PointGeomRangeQuery,
+from spatialflink_tpu_torch.operators import (PointGeomKNNQuery,
+                                              PointGeomRangeQuery,
+                                              PointPointKNNQuery,
                                               PointPointRangeQuery,
                                               QueryConfiguration)
 
@@ -116,7 +118,8 @@ def test_default_device_raises_without_cuda(no_cuda, tmp_path, capsys):
     grid = UniformGrid(0.0, 1.0, 0.0, 1.0, num_grid_partitions=4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
-    for cls in (PointPointRangeQuery, PointGeomRangeQuery):
+    for cls in (PointPointRangeQuery, PointGeomRangeQuery,
+                PointPointKNNQuery, PointGeomKNNQuery):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(QueryConfiguration(), grid)
     p = Params.from_yaml(CONF)

@@ -1,6 +1,8 @@
 """Options 1, 6 and 11 end to end on the CPU: the PyTorch port's run_option
 (device="cpu") against spatialflink_tpu.driver.run_option on the same seeded
-CSV lines, and the port's CLI output against the JAX driver's.
+CSV lines, and the port's CLI output against the JAX driver's (options 6
+and 51, and a multiQuery option; kNN and multi-query run_option parity is
+in tests/test_torch_knn.py and tests/test_torch_multi.py).
 
 The stream spans several decode chunks and sliding windows, carries
 out-of-order and late records and points outside the grid. Selections must
@@ -9,6 +11,7 @@ radius, where the two packages' float rounding could legitimately differ.
 """
 
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -120,8 +123,90 @@ def test_cli_output_matches_jax(tmp_path, capsys):
         (tmp_path / "jax.out").read_text()
 
 
+def _cli_pair(tmp_path, capsys, args):
+    """(JAX stdout, port stdout, JAX --output text, port --output text) of
+    one CLI invocation on both drivers."""
+    assert JD.main(args + ["--output", str(tmp_path / "jax.out")]) == 0
+    want = capsys.readouterr().out
+    proc = subprocess.run(
+        [sys.executable, "-m", "spatialflink_tpu_torch.driver", *args,
+         "--output", str(tmp_path / "port.out"), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={k: v for k, v in os.environ.items() if k != "PYTHONPATH"})
+    assert proc.returncode == 0, proc.stderr
+    return (want, proc.stdout, (tmp_path / "jax.out").read_text(),
+            (tmp_path / "port.out").read_text())
+
+
+def test_cli_knn_output_matches_jax(tmp_path, capsys):
+    """Option 51 (k from the conf): stdout with the ``k`` extra and the
+    (objID, distance) records of --output, byte for byte."""
+    lines, _, _ = _stream(n=3000, seed=9)
+    inp = tmp_path / "in.csv"
+    inp.write_text("\n".join(lines) + "\n")
+    want, got, jout, pout = _cli_pair(
+        tmp_path, capsys, ["--config", CONF, "--option", "51", "--input1",
+                           str(inp), "--format", "CSV"])
+    assert got == want and want.count("'k': 10") >= 5
+    _assert_knn_records_close(pout, jout)
+
+
+def _assert_knn_records_close(port_text, jax_text):
+    """--output kNN records: the same ids in the same order, distances
+    within 1e-6 relative. (XLA on the CPU contracts dx*dx + dy*dy into
+    fma(dx, dx, dy*dy), which rounds some distances one ulp away from the
+    port's unfused arithmetic, so the digits can differ.)"""
+    port = [json.loads(ln) for ln in port_text.splitlines()]
+    jax_ = [json.loads(ln) for ln in jax_text.splitlines()]
+    assert len(jax_) >= 50 and [o for o, _ in port] == [o for o, _ in jax_]
+    np.testing.assert_allclose([d for _, d in port], [d for _, d in jax_],
+                               rtol=1e-6, atol=0)
+
+
+def test_cli_multi_query_output_matches_jax(tmp_path, capsys):
+    """Option 56 under --multi-query with three query polygons: stdout with
+    ``per_query_counts``, ``k`` and ``queries``, and the flattened records
+    of --output, byte for byte."""
+    import yaml
+
+    with open(CONF) as f:
+        conf = yaml.safe_load(f.read().split("\n", 1)[1])  # the !! tag
+    conf["query"]["queryPolygons"] += [
+        [[116.3, 40.3], [116.6, 40.3], [116.6, 40.6], [116.3, 40.3]],
+        [[115.8, 39.9], [116.1, 39.9], [116.0, 40.2], [115.8, 39.9]]]
+    (tmp_path / "conf.yml").write_text(yaml.safe_dump(conf))
+    lines, _, _ = _stream(n=3000, seed=9)
+    inp = tmp_path / "in.csv"
+    inp.write_text("\n".join(lines) + "\n")
+    want, got, jout, pout = _cli_pair(
+        tmp_path, capsys, ["--config", str(tmp_path / "conf.yml"),
+                           "--option", "56", "--multi-query", "--input1",
+                           str(inp), "--format", "CSV"])
+    assert got == want and want.count("'queries': 3") >= 5
+    assert "'per_query_counts': [10, 10, 10]" in want
+    _assert_knn_records_close(pout, jout)
+
+
+def test_config_reads_k():
+    assert TParams.from_yaml(CONF).query.k == JParams.from_yaml(CONF).query.k \
+        == 10
+    p = TParams.from_dict({
+        "inputStream1": {"topicName": "t", "format": "CSV",
+                         "gridBBox": [0, 0, 1, 1], "numGridCells": 4},
+        "query": {"option": 51, "k": 50}, "window": {"interval": 10}})
+    assert p.query.k == 50
+    assert TD._query_conf(p).k == 50
+
+
+@pytest.mark.parametrize("option", [52, 57, 62])
+def test_realtime_knn_is_refused(option):
+    with pytest.raises(NotImplementedError,
+                       match=f"queryOption {option}: not yet ported"):
+        TD.run_option(_params(TParams, option), [], device="cpu")
+
+
 @pytest.mark.parametrize("argv,message", [
-    (["--option", "51"], "queryOption 51: not yet ported"),
+    (["--option", "52"], "queryOption 52: not yet ported"),
     (["--option", "2"], "queryOption 2: not yet ported"),
     (["--option", "6", "--kafka"], "--kafka: not yet ported"),
     (["--option", "6", "--panes"], "--panes: not yet ported"),
@@ -138,8 +223,8 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, message):
 
 def test_config_features_not_ported_raise():
     p = _params(TParams, 6)
-    p.query.multi_query = True
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    p.query.panes = True
+    with pytest.raises(NotImplementedError, match="query.panes: not yet"):
         TD.run_option(p, [], device="cpu")
 
 
