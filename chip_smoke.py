@@ -10,7 +10,8 @@ its wall seconds):
 
 1. Device: the card's name and power limit; build the CUDA kernels from
    ``spatialflink_tpu_torch/csrc`` (one nvcc per source, all started
-   together) and print the build time.
+   together) and print the build time; each kernel's registers, shared
+   memory and spills (``-Xptxas -v``) are printed before the result.
 2. Kernels against their plain PyTorch versions on the card, bit for bit,
    at the main path's shapes (1,048,576 points over the conf's grid bbox):
    K4 ``pip_dist`` for a 64-edge polygon, a polygon with a hole, the
@@ -18,11 +19,17 @@ its wall seconds):
    edge set; K1 ``range_mask_stats`` in point and cell-mask mode, exact
    and approximate, and with a query axis of 16 (each row also equal to
    the single-query launch); K4x ``pip_lattice`` for 16 query polygons of
-   64 edges plus one linestring, and at the experiment's shape (65,536
-   points x 10,240 four-edge rectangles, a 2.7 GB output); K2 ``knn_topk``
-   with 100,000 object ids at k = 50 and k = 10: point mode, cell mode
-   over K4 distances, 16 queries in both modes, ties at the k-th place,
-   and nothing eligible. Times are CUDA-event medians of 25 launches
+   64 edges plus one linestring (in cell order, as the main path calls it,
+   and in stream order), its cell order alone, its pruning edge cases
+   (points on edges and vertices, at vertex y values, a cell of points
+   within a few margins of an edge, outside the grid; a polygon larger
+   than the bbox, 1,301- and 513-edge rings), and at the experiment's
+   shape (65,536 points x 10,240 four-edge rectangles, a 2.7 GB output);
+   K2 ``knn_topk`` with 100,000 object ids at k = 50 and k = 10: point
+   mode, cell mode over K4 distances, 16 queries in both modes, ties at
+   the k-th place (1 and 16 queries), nothing eligible, every object at
+   one distance (k = 1,024), 3,000 objects at one distance (k = 50) and
+   30 ids (k = 50). Times are CUDA-event medians of 25 launches
    queued behind a sleep kernel (so the host's launch cost is not timed),
    with the 50 MB L2 evicted before each; the bound is max(operations /
    67 TFLOP/s, bytes / 3.35 TB/s). Small inputs are also held against
@@ -41,8 +48,9 @@ its wall seconds):
    after another, option 51 runs once more under torch.profiler (device
    time by kind and the device's busy share), and the CLI runs options 6
    and 51 on a 65,536-row CSV.
-4. Output: the card line, one JSON ``kernels`` line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+4. Output: the build report, the card line, one JSON ``kernels`` line
+   (K4x's entry holds the cell order under ``helpers``), and as the last
+   line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result line when CUDA is not available or the
 package is not beside the script.
@@ -70,6 +78,8 @@ N_STREAM = 1 << 21                # points in the main-path stream
 N_CLI = 1 << 16                   # rows of the CLI's CSV
 N_IDS = 100_000                   # distinct object ids in every stream
 N_QUERIES = 16                    # query points / polygons under multiQuery
+N_EDGE_CASES = 1 << 17            # random points beside K4x's edge cases
+EXP_POINTS, EXP_RECTS = 65_536, 10_240  # the Pallas experiment's shape
 SPAN_MS = 20_000                  # event-time span of the stream
 T0 = 1_700_000_000_000            # stream start, aligned to the 5 s slide
 PEAK_FLOPS = 67e12                # H100 SXM f32, outside the tensor cores
@@ -299,38 +309,43 @@ def kernel_phase(torch, seed: int, timer: Timer):
 
 def lattice_phase(torch, timer: Timer, b):
     """K4x at the main path's shape (the 16 query polygons of the
-    multiQuery runs plus one linestring) and at the experiment's shape;
-    returns the cases and the 16 polygons' (16, N) distance rows."""
+    multiQuery runs plus one linestring, in cell order as the main path
+    calls it, and in stream order), the cell order alone, the pruning edge
+    cases, and the experiment's shape; returns the cases, the cell order's
+    case and the 16 polygons' (16, N) distance rows."""
     from spatialflink_tpu_torch.models import (EdgeGeomBatch, LineString,
-                                                Polygon)
+                                                PointBatch, Polygon)
     from spatialflink_tpu_torch.ops import hopper_kernels as HK
 
     dev = torch.device("cuda")
     grid = _grid()
     cases = []
 
-    def case(name, px, py, gb, plain_reps=REPS):
+    def case(name, pb, gb, plain_reps=REPS, ordered=True, x=None, y=None):
+        px, py = (pb.x, pb.y) if pb is not None else (x, y)
         n = px.shape[0]
         g, e = gb.edges.shape[0], gb.edges.shape[1]
         valid_edges = int(gb.edge_mask.sum())
         args = (px, py, gb.edges, gb.edge_mask, gb.is_areal)
+        kw = dict(cell=pb.cell, num_cells=grid.num_cells) if ordered else {}
         c, got = kernel_case(
-            timer, torch, name, lambda: (HK.pip_lattice(*args),),
+            timer, torch, name, lambda: (HK.pip_lattice(*args, **kw),),
             lambda: (HK.pip_lattice_plain(*args).T,),
             n * valid_edges * HK.OPS_PER_PAIR,
-            n * 8 + g * e * 17 + g + g * n * 4, "K4x",
-            plain_reps=plain_reps, points=n, geometries=g,
-            edges_padded=e, valid_edges=valid_edges)
+            n * (12 if ordered else 8) + g * e * 17 + g + g * n * 4, "K4x",
+            plain_reps=plain_reps, points=n, geometries=g, edges_padded=e,
+            valid_edges=valid_edges, order="cell" if ordered else "stream",
+            write_bound_ms=g * n * 4 / PEAK_BYTES * 1e3)
         cases.append(c)
         return got[0]
 
     polys = [Polygon.create([rg], grid) for rg in query_polygons()]
-    main = EdgeGeomBatch.from_objects(
-        polys + [LineString.create([(116.2, 40.2), (117.0, 40.2),
-                                    (117.0, 40.9)], grid)],
-        device=dev, pad=len(polys) + 1)
-    rows = case(f"{b.capacity}x{len(polys)}polygons+1linestring", b.x, b.y,
-                main)
+    line = LineString.create([(116.2, 40.2), (117.0, 40.2), (117.0, 40.9)],
+                             grid)
+    main = EdgeGeomBatch.from_objects(polys + [line], device=dev,
+                                      pad=len(polys) + 1)
+    shape = f"{b.capacity}x{len(polys)}polygons+1linestring"
+    rows = case(shape, b, main)
     # each row equals K4 on that geometry alone
     for gi in (0, len(polys)):
         one = HK.pip_dist(b.x, b.y, main.edges[gi], main.edge_mask[gi],
@@ -338,12 +353,59 @@ def lattice_phase(torch, timer: Timer, b):
         if not torch.equal(rows[gi], one):
             raise AssertionError(f"pip_lattice row {gi} != pip_dist")
     rows = rows[:len(polys)].contiguous()
+    case(shape, b, main, plain_reps=3, ordered=False)
+    n = b.capacity
+    order_case, _ = kernel_case(
+        timer, torch, f"{n}points",
+        lambda: HK.cell_order(b.cell, grid.num_cells, b.x, b.y),
+        lambda: HK.cell_order_plain(b.cell, grid.num_cells, b.x, b.y),
+        0, n * 12 + n * 12, "cell_order", points=n, cells=grid.num_cells)
+
+    # pruning edge cases at the conf's coordinates: points on edges and
+    # vertices, at vertex y values, 2,048 points of one cell within a few
+    # margins of an edge, and outside the grid (cell -1); a polygon larger
+    # than the bbox and 1,301- and 513-edge rings beside the main geometries
+    rng = np.random.default_rng(11)
+    ring64 = np.asarray(ring(64, 0.35), np.float32)
+    e = np.concatenate([ring64[:-1], ring64[1:]], axis=1)
+    t = rng.random((64, 32)).astype(np.float32)
+    on_x = (e[:, None, 0] + t * (e[:, None, 2] - e[:, None, 0])).ravel()
+    on_y = (e[:, None, 1] + t * (e[:, None, 3] - e[:, None, 1])).ravel()
+    vy = np.repeat(ring64[:, 1], 16)
+    vx = np.tile(np.linspace(BBOX[0], BBOX[2], 16), len(ring64))
+    e0 = e[5]  # one edge; 2,048 points of its midpoint's cell hug it
+    nrm = np.array([e0[3] - e0[1], e0[0] - e0[2]], np.float64)
+    nrm /= np.hypot(*nrm)
+    margin = HK.distance_skip_margin(float(np.abs(e0).max()))
+    along = rng.uniform(0.45, 0.55, 2048)
+    off = rng.choice([-3, -1, 0, 1, 2, 3, 5], 2048) * margin
+    hug_x = e0[0] + along * (e0[2] - e0[0]) + off * nrm[0]
+    hug_y = e0[1] + along * (e0[3] - e0[1]) + off * nrm[1]
+    out_x = rng.uniform(114.0, 115.4, 512)
+    out_y = rng.uniform(39.0, 42.0, 512)
+    m = N_EDGE_CASES
+    ex = np.concatenate([on_x, ring64[:, 0], vx, hug_x, out_x,
+                         rng.uniform(BBOX[0], BBOX[2], m)])
+    ey = np.concatenate([on_y, ring64[:, 1], vy, hug_y, out_y,
+                         rng.uniform(BBOX[1], BBOX[3], m)])
+    eb = PointBatch.from_arrays(ex, ey, device=dev, grid=grid)
+    if not bool((eb.cell[:len(ex)] == -1).any()):
+        raise AssertionError("edge cases: no point outside the grid")
+    big = Polygon.create([[(115.0, 39.0), (118.0, 39.0), (118.0, 42.0),
+                           (115.0, 42.0)]], grid)
+    edge_geoms = EdgeGeomBatch.from_objects(
+        polys + [line, big, Polygon.create([ring(1301, 0.45)], grid),
+                 Polygon.create([ring(513, 0.4)], grid)], device=dev)
+    case(f"edge-cases-{eb.capacity}x{edge_geoms.capacity}geometries", eb,
+         edge_geoms, plain_reps=1)
+    del eb, edge_geoms
 
     # benchmarks/exp_pip_lattice.py:136-146: 65,536 points x 10,240
-    # rectangles of half-sizes 0.01-0.05 inside the bbox
+    # rectangles of half-sizes 0.01-0.05 inside the bbox, in stream order
+    # (the experiment's points carry no cells)
     rng = np.random.default_rng(3)
     rects = []
-    for _ in range(10_240):
+    for _ in range(EXP_RECTS):
         cx = rng.uniform(BBOX[0] + 0.1, BBOX[2] - 0.1)
         cy = rng.uniform(BBOX[1] + 0.1, BBOX[3] - 0.1)
         w, h = rng.uniform(0.01, 0.05, 2)
@@ -351,15 +413,17 @@ def lattice_phase(torch, timer: Timer, b):
             [[(cx - w, cy - h), (cx + w, cy - h), (cx + w, cy + h),
               (cx - w, cy + h), (cx - w, cy - h)]], grid))
     gb = EdgeGeomBatch.from_objects(rects, device=dev, pad=len(rects))
-    px = torch.from_numpy(rng.uniform(BBOX[0], BBOX[2], 65_536)
+    px = torch.from_numpy(rng.uniform(BBOX[0], BBOX[2], EXP_POINTS)
                           .astype(np.float32)).to(dev)
-    py = torch.from_numpy(rng.uniform(BBOX[1], BBOX[3], 65_536)
+    py = torch.from_numpy(rng.uniform(BBOX[1], BBOX[3], EXP_POINTS)
                           .astype(np.float32)).to(dev)
-    case("65536x10240rectangles", px, py, gb, plain_reps=3)
+    case(f"{EXP_POINTS}x{EXP_RECTS}rectangles", None, gb, plain_reps=3,
+         ordered=False, x=px, y=py)
+    del gb
     torch.cuda.empty_cache()
-    if HK.pip_lattice.launches <= 0:
-        raise AssertionError("pip_lattice launched no kernel")
-    return cases, rows
+    if HK.pip_lattice.launches <= 0 or HK.cell_order.launches <= 0:
+        raise AssertionError("pip_lattice or cell_order launched no kernel")
+    return cases, order_case, rows
 
 
 def k1_query_axis_phase(torch, timer: Timer, b, lattice_rows):
@@ -478,28 +542,61 @@ def knn_kernel_phase(torch, seed: int, timer: Timer, lattice_rows):
         ("cells-none-eligible-k10", 10, dict(
             mode=K.MODE_CELLS, num_ids=N_IDS, cell=b.cell, valid=b.valid,
             dists=d_k4[None], nb_mask=torch.zeros_like(nb[:1]))),
+        ("ties-q16-k50", 50, dict(point_kw, qx=torch.cat([tie[0], q16[0][1:]]),
+                                  qy=torch.cat([tie[1], q16[1][1:]]),
+                                  q_cell=torch.cat([tie[2], q16[2][1:]]),
+                                  nb_layers=nb_layers)),
     ]
+    # equal minima past one candidate tile: the selection refines on the
+    # keys' lower bits. Every object at one point (k = 1,024), and 3,000
+    # objects at one point 1e-5 from the query, nearer than any other
+    same = PointBatch.from_arrays(
+        np.full(N_KERNEL, tq[0] + 0.001), np.full(N_KERNEL, tq[1]),
+        device=dev, grid=grid,
+        obj_id=(np.arange(N_KERNEL) % N_IDS).astype(np.int32))
+    x3, y3, oid3 = x.copy(), y.copy(), oid.copy()
+    x3[:3000], y3[:3000] = tq[0] + 1e-5, tq[1]
+    oid3[:3000] = np.arange(3000, dtype=np.int32) * 33
+    near = PointBatch.from_arrays(x3, y3, device=dev, grid=grid, obj_id=oid3)
+    few = PointBatch.from_arrays(x, y, device=dev, grid=grid,
+                                 obj_id=(oid % 30).astype(np.int32))
+    for name, pb, k, ids in (("same-distance-100000ids-k1024", same, K.MAX_K,
+                              N_IDS),
+                             ("same-distance-3000ids-k50", near, 50, N_IDS),
+                             ("30ids-k50", few, 50, 30)):
+        specs.append((name, k, dict(
+            mode=K.MODE_POINT, num_ids=ids, x=pb.x, y=pb.y, cell=pb.cell,
+            valid=pb.valid, n=grid.n, qx=tie[0], qy=tie[1], q_cell=tie[2],
+            nb_layers=grid.n, obj_id=pb.obj_id)))
     cases = []
     for name, k, kw in specs:
+        kw = dict(kw)
+        ids_t = kw.pop("obj_id", b.obj_id)
         q = kw["qx"].shape[0] if "qx" in kw else kw["dists"].shape[0]
         mode = kw["mode"]
         in_bytes = n * (4 + 4 + 1) + (n * 8 + q * 12 if mode == K.MODE_POINT
                                       else q * n * 4 + kw["nb_mask"].numel())
+        ids = kw["num_ids"]
         c, got = kernel_case(
             timer, torch, name,
-            lambda kw=kw, k=k: K.knn_topk(b.obj_id, k=k, **kw),
-            lambda kw=kw, k=k: K.knn_topk_plain(b.obj_id, k=k, **kw),
-            q * n * K.OPS_PER_SLOT[mode] + q * N_IDS,
+            lambda kw=kw, k=k, o=ids_t: K.knn_topk(o, k=k, **kw),
+            lambda kw=kw, k=k, o=ids_t: K.knn_topk_plain(o, k=k, **kw),
+            q * n * K.OPS_PER_SLOT[mode] + q * ids,
             in_bytes + q * k * 9 + q * 4, "K2", queries=q, k=k,
-            object_ids=N_IDS)
+            object_ids=ids)
         c["eligible"] = [int(v) for v in got[3][:2]]
         c["valid_slots"] = int(got[2][0].sum())
         if name.startswith(("none", "cells-none")):
             if bool(got[2].any()) or int(got[3].sum()) != 0:
                 raise AssertionError(f"K2 {name}: found a neighbour")
-        elif not bool(got[2][:, :k].all()):
+        elif not bool(got[2][:, :min(k, ids)].all()):
             raise AssertionError(f"K2 {name}: fewer than k neighbours")
-        if name == "ties-k50":
+        if name.startswith("same-distance"):
+            # the tied objects fill the list in ascending id order
+            tied = got[0][0].cpu().numpy()
+            if not np.all(np.diff(tied) > 0):
+                raise AssertionError(f"K2 {name}: ids {tied[:8]}")
+        if name in ("ties-k50", "ties-q16-k50"):
             # the tied objects fill the list's tail in ascending id order
             ids = got[0][0].cpu().numpy()
             dist = got[1][0].cpu().numpy()
@@ -591,11 +688,12 @@ RUNS = [
     (61, False, None, ("pip_dist", "knn_topk")),
     (1, True, None, ("range_mask_stats",)),
     (51, True, 50, ("knn_topk",)),
-    (6, True, None, ("pip_lattice", "range_mask_stats")),
-    (56, True, None, ("pip_lattice", "knn_topk")),
+    (6, True, None, ("pip_lattice", "cell_order", "range_mask_stats")),
+    (56, True, None, ("pip_lattice", "cell_order", "knn_topk")),
     (11, True, None, ("pip_lattice", "range_mask_stats")),
 ]
-KERNELS = ("pip_dist", "range_mask_stats", "knn_topk", "pip_lattice")
+KERNELS = ("pip_dist", "range_mask_stats", "knn_topk", "pip_lattice",
+           "cell_order")
 
 
 def stream_lines(seed: int, n: int):
@@ -683,7 +781,7 @@ def main_path_phase(card: str, seed: int):
     base = base_params()
     counters = {"pip_dist": HK.pip_dist, "range_mask_stats":
                 R.range_mask_stats, "knn_topk": K.knn_topk,
-                "pip_lattice": HK.pip_lattice}
+                "pip_lattice": HK.pip_lattice, "cell_order": HK.cell_order}
     plain_ops = {
         (R, "range_filter_point_stats"): R.range_filter_point_stats_plain,
         (R, "range_filter_masks_stats"): R.range_filter_masks_stats_plain,
@@ -691,7 +789,7 @@ def main_path_phase(card: str, seed: int):
             R.range_filter_point_multi_masks_plain,
         (HK, "pip_dist"): HK.pip_dist_plain,
         (HK, "pip_lattice"):
-            lambda *a: HK.pip_lattice_plain(*a).T.contiguous(),
+            lambda *a, **_: HK.pip_lattice_plain(*a).T.contiguous(),
         (K, "knn_topk"): K.knn_topk_plain,
     }
     launches = dict.fromkeys(KERNELS, 0)
@@ -925,10 +1023,13 @@ def main(argv=None) -> int:
 
     compile_s = phase("build", native.build)
     log(f"build: per source {json.dumps(compile_s)}")
+    build_report = {name: native.ptxas_report(native.build_log(name))
+                    for name in native.SOURCES}
     timer = Timer(torch)
     k4_cases, k1_cases, batch = phase("kernels-k4-k1", kernel_phase, torch,
                                       args.seed, timer)
-    k4x_cases, rows = phase("kernels-k4x", lattice_phase, torch, timer, batch)
+    k4x_cases, order_case, rows = phase("kernels-k4x", lattice_phase, torch,
+                                        timer, batch)
     k1q_cases = phase("kernels-k1-query-axis", k1_query_axis_phase, torch,
                       timer, batch, rows)
     k2_cases = phase("kernels-k2", knn_kernel_phase, torch, args.seed, timer,
@@ -961,7 +1062,7 @@ def main(argv=None) -> int:
               "spatialflink_tpu/ops/range.py:72", k1_cases + k1q_cases,
               k1_cases[0], f"{N_KERNEL} points, point query"),
         entry("knn_topk", "spatialflink_tpu_torch/csrc/knn_topk.cu",
-              "spatialflink_tpu/ops/knn.py:384", k2_cases, k2_cases[0],
+              "spatialflink_tpu/ops/knn.py:385", k2_cases, k2_cases[0],
               f"{N_KERNEL} points, {N_IDS} object ids, k=50, point query"),
         entry("pip_lattice", "spatialflink_tpu_torch/csrc/pip_lattice.cu",
               "benchmarks/exp_pip_lattice.py:112", k4x_cases, k4x_cases[0],
@@ -973,7 +1074,18 @@ def main(argv=None) -> int:
         "top-k; torch.topk without the dedup is a different function")
     kernels[3]["library_note"] = (
         "no single PyTorch call computes the point x geometry lattice")
+    # the cell order is part of K4x: pip_lattice launches it on the main
+    # path, and K4x's "ms" includes it
+    order = entry("cell_order", "spatialflink_tpu_torch/csrc/cell_order.cu",
+                  "benchmarks/exp_pip_lattice.py:112", [order_case],
+                  order_case, f"{N_KERNEL} points, "
+                  f"{_grid().num_cells} cells")
+    order["library_note"] = ("no single PyTorch call: the plain version "
+                             "is a torch.where, torch.argsort(stable=True) "
+                             "and two gathers")
+    kernels[3]["helpers"] = [order]
     phases["total"] = time.perf_counter() - t_all
+    log("build-report", json.dumps(build_report))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "card": card,
                       "main_path": report, "breakdown": breakdown,

@@ -25,8 +25,8 @@
 //   broadcast); a masked edge is skipped by the whole block at once.
 // - Crossings are counted in an int register (the TPU kernel needed f32).
 //
-// The chunk staging and the per-(point, edge) fold live in pip_edges.cuh,
-// shared with K4x (pip_lattice.cu). Built with --fmad=false so that no
+// The chunk staging and the per-(point, edge) fold live in pip_edges.cuh
+// (K4's own; K4x has its own fold). Built with --fmad=false so that no
 // a*b+c is contracted into an FMA: each operation rounds once, exactly as
 // the plain version's separate PyTorch ops do, and the kernel's result
 // equals the plain version's bit for bit.

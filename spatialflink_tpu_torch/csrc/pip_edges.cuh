@@ -1,7 +1,8 @@
-// Device code shared by K4 (pip_dist.cu: points x ONE geometry) and K4x
-// (pip_lattice.cu: points x G geometries): one chunk of a geometry's edges
-// staged in shared memory, and the fold of that chunk into per-point
-// accumulators (even-odd crossing count, min squared boundary distance).
+// Device code of K4 (pip_dist.cu: points x ONE geometry): one chunk of a
+// geometry's edges staged in shared memory, and the fold of that chunk into
+// per-point accumulators (even-odd crossing count, min squared boundary
+// distance). K4x (pip_lattice.cu) has its own fold, with edge skipping and
+// multi-geometry chunks.
 //
 // The operation order follows spatialflink_tpu_torch/ops/distances.py
 // (point_in_rings, point_segment_dist2) step for step, with the per-edge

@@ -68,12 +68,16 @@ def points_to_geoms_dist(points, geoms):
     return _lattice(points, geoms).T
 
 
-def _lattice(points, geoms):
-    """(G, N) rows of :func:`points_to_geoms_dist`, as K4x writes them."""
+def _lattice(points, geoms, num_cells: int = 0):
+    """(G, N) rows of :func:`points_to_geoms_dist`, as K4x writes them.
+    With the grid's ``num_cells`` the kernel takes the points in cell order
+    (their ``cell`` ids), which lets its warps skip edges; the rows are the
+    same."""
     from spatialflink_tpu_torch.ops import hopper_kernels as HK
 
+    cell = points.cell if num_cells > 0 else None
     return HK.pip_lattice(points.x, points.y, geoms.edges, geoms.edge_mask,
-                          geoms.is_areal)
+                          geoms.is_areal, cell=cell, num_cells=num_cells)
 
 
 def _bbox_rows(points, geoms):
@@ -94,7 +98,8 @@ def knn_points_to_geom_queries(points, geoms, nb_masks, *, k: int,
     bbox distances; the selection is K2's."""
     from spatialflink_tpu_torch.ops import knn as K
 
-    d = _bbox_rows(points, geoms) if approximate else _lattice(points, geoms)
+    d = (_bbox_rows(points, geoms) if approximate
+         else _lattice(points, geoms, nb_masks.shape[-1]))
     return K.knn_masked_stats(points, d, nb_masks, k=k, num_ids=num_ids)
 
 
@@ -107,6 +112,6 @@ def range_points_to_geom_queries(points, queries, gn_masks, cn_masks, radius,
     JAX package do). The filter is K1's mask mode with a query axis."""
     from spatialflink_tpu_torch.ops import range as R
 
-    d = _bbox_rows(points, queries) if approximate else _lattice(points,
-                                                                 queries)
+    d = (_bbox_rows(points, queries) if approximate
+         else _lattice(points, queries, gn_masks.shape[-1]))
     return R.range_filter_masks_stats(points, gn_masks, cn_masks, d, radius)

@@ -45,7 +45,8 @@ _OID_SENTINEL = 2 ** 31 - 1
 MODE_POINT = 0     # point query: Chebyshev layers + point-point distance
 MODE_CELLS = 1     # (Q, N) distances + (Q, n*n) neighbouring-cell masks
 MODE_ELIGIBLE = 2  # (Q, N) distances + (Q, N) eligibility
-#: keys sorted per block in the kernel's selection; k <= TILE // 2
+#: most candidate keys the kernel's selection sorts in one block (its
+#: per-query candidate list); k <= TILE // 2
 TILE = 2048
 MAX_K = TILE // 2
 #: operations per (point, query) slot of the kernel's fold: point mode
@@ -154,6 +155,53 @@ def _require(t, name, dtype, shape, dev):
     return t.data_ptr()
 
 
+def _launch_args(obj_id, *, mode: int, x=None, y=None, cell=None,
+                 valid=None, qx=None, qy=None, q_cell=None, dists=None,
+                 nb_mask=None, eligible=None):
+    """Check every tensor of a K2 launch (device, dtype, shape, contiguity)
+    and return ``(N, Q, num_cells, pointers by name)``, None for the
+    tensors the mode does not read."""
+    dev = obj_id.device
+    N = obj_id.shape[0]
+    p = {name: None for name in ("x", "y", "cell", "valid", "qx", "qy",
+                                 "q_cell", "dists", "nb_mask", "eligible")}
+    p["obj_id"] = _require(obj_id, "obj_id", torch.int32, (N,), dev)
+    cells = 0
+    if mode == MODE_POINT:
+        if qx is None:
+            raise ValueError("knn_topk: qx is required in this mode")
+        Q = qx.shape[0]
+        for name, t, dt in (("x", x, torch.float32), ("y", y, torch.float32),
+                            ("cell", cell, torch.int32),
+                            ("valid", valid, torch.bool)):
+            p[name] = _require(t, name, dt, (N,), dev)
+        for name, t, dt in (("qx", qx, torch.float32),
+                            ("qy", qy, torch.float32),
+                            ("q_cell", q_cell, torch.int32)):
+            p[name] = _require(t, name, dt, (Q,), dev)
+    elif mode in (MODE_CELLS, MODE_ELIGIBLE):
+        if dists is None:
+            raise ValueError("knn_topk: dists is required in this mode")
+        Q = dists.shape[0]
+        p["dists"] = _require(dists, "dists", torch.float32, (Q, N), dev)
+        if mode == MODE_CELLS:
+            if nb_mask is None:
+                raise ValueError("knn_topk: nb_mask is required in this mode")
+            cells = nb_mask.shape[-1]
+            p["cell"] = _require(cell, "cell", torch.int32, (N,), dev)
+            p["valid"] = _require(valid, "valid", torch.bool, (N,), dev)
+            p["nb_mask"] = _require(nb_mask, "nb_mask", torch.bool,
+                                    (Q, cells), dev)
+        else:
+            p["eligible"] = _require(eligible, "eligible", torch.bool,
+                                     (Q, N), dev)
+    else:
+        raise ValueError(f"knn_topk: unknown mode {mode}")
+    if Q < 1:
+        raise ValueError("knn_topk: needs at least one query")
+    return N, Q, cells, p
+
+
 def knn_topk(obj_id, *, mode: int, k: int, num_ids: Optional[int],
              x=None, y=None, cell=None, valid=None, qx=None, qy=None,
              q_cell=None, n: int = 1, nb_layers: int = -1, dists=None,
@@ -168,56 +216,30 @@ def knn_topk(obj_id, *, mode: int, k: int, num_ids: Optional[int],
         raise ValueError(f"knn_topk: obj_id on {dev}, needs cuda")
     _check_k(k)
     num_ids = _num_ids(obj_id) if num_ids is None else int(num_ids)
-    N = obj_id.shape[0]
-    p = {name: None for name in ("x", "y", "cell", "valid", "qx", "qy",
-                                 "q_cell", "dists", "nb_mask", "eligible")}
-    p["obj_id"] = _require(obj_id, "obj_id", torch.int32, (N,), dev)
-    if mode == MODE_POINT:
-        Q = qx.shape[0]
-        for name, t, dt in (("x", x, torch.float32), ("y", y, torch.float32),
-                            ("cell", cell, torch.int32),
-                            ("valid", valid, torch.bool)):
-            p[name] = _require(t, name, dt, (N,), dev)
-        for name, t, dt in (("qx", qx, torch.float32),
-                            ("qy", qy, torch.float32),
-                            ("q_cell", q_cell, torch.int32)):
-            p[name] = _require(t, name, dt, (Q,), dev)
-        cells = 0
-    elif mode in (MODE_CELLS, MODE_ELIGIBLE):
-        Q = dists.shape[0]
-        p["dists"] = _require(dists, "dists", torch.float32, (Q, N), dev)
-        if mode == MODE_CELLS:
-            cells = nb_mask.shape[-1]
-            p["cell"] = _require(cell, "cell", torch.int32, (N,), dev)
-            p["valid"] = _require(valid, "valid", torch.bool, (N,), dev)
-            p["nb_mask"] = _require(nb_mask, "nb_mask", torch.bool,
-                                    (Q, cells), dev)
-        else:
-            cells = 0
-            p["eligible"] = _require(eligible, "eligible", torch.bool,
-                                     (Q, N), dev)
-    else:
-        raise ValueError(f"knn_topk: unknown mode {mode}")
-    tiles = native.function("knn_topk", "knn_topk_tiles", (_I,))(num_ids)
-    best = torch.empty((Q, max(num_ids, 1)), dtype=torch.int32, device=dev)
-    scratch = torch.empty((2, Q, tiles * k), dtype=torch.int64, device=dev)
+    N, Q, cells, p = _launch_args(
+        obj_id, mode=mode, x=x, y=y, cell=cell, valid=valid, qx=qx, qy=qy,
+        q_cell=q_cell, dists=dists, nb_mask=nb_mask, eligible=eligible)
+    zone_ints = native.function("knn_topk", "knn_topk_zone_ints", (_I, _I),
+                                ctypes.c_longlong)(Q, num_ids)
+    best = torch.empty((max(num_ids, 1), Q), dtype=torch.int32, device=dev)
+    zone = torch.empty(zone_ints, dtype=torch.int32, device=dev)
+    cand = torch.empty((Q, TILE), dtype=torch.int64, device=dev)
+    over = torch.empty((Q, max(num_ids, 1)), dtype=torch.int64, device=dev)
     out_oid = torch.empty((Q, k), dtype=torch.int32, device=dev)
     out_dist = torch.empty((Q, k), dtype=torch.float32, device=dev)
     out_valid = torch.empty((Q, k), dtype=torch.bool, device=dev)
-    counts = torch.empty(Q, dtype=torch.int32, device=dev)
     launch = native.function("knn_topk", "knn_topk_launch", _ARGTYPES)
     with torch.cuda.device(dev):
         err = launch(mode, N, Q, num_ids, k, p["obj_id"], p["x"], p["y"],
                      p["cell"], p["valid"], p["qx"], p["qy"], p["q_cell"],
                      int(n), int(nb_layers), p["dists"], p["nb_mask"],
-                     cells, p["eligible"], best.data_ptr(),
-                     scratch[0].data_ptr(), scratch[1].data_ptr(),
-                     out_oid.data_ptr(), out_dist.data_ptr(),
-                     out_valid.data_ptr(), counts.data_ptr(),
+                     cells, p["eligible"], best.data_ptr(), zone.data_ptr(),
+                     cand.data_ptr(), over.data_ptr(), out_oid.data_ptr(),
+                     out_dist.data_ptr(), out_valid.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
     native.check(err, "knn_topk")
     knn_topk.launches += 1
-    return out_oid, out_dist, out_valid, counts
+    return out_oid, out_dist, out_valid, zone[:Q]
 
 
 knn_topk.launches = 0

@@ -3,8 +3,11 @@
 Each ``csrc/<name>.cu`` exports plain-C launch functions. It is compiled
 at first use with ``nvcc`` into ``_build/lib<name>-<hash>.so`` (the hash
 covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
-edited source or header rebuilds) and loaded with :mod:`ctypes`. Nothing is built or loaded when this module is
-imported: the CPU tests import every module and have no ``nvcc``.
+edited source or header rebuilds) and loaded with :mod:`ctypes`. Nothing
+is built or loaded when this module is imported: the CPU tests import every
+module and have no ``nvcc``. Each build keeps ``nvcc``'s output beside the
+library (``.log``): with ``-Xptxas -v`` it states every kernel's registers,
+shared memory and spills, which :func:`ptxas_report` reads.
 
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so that no ``a*b+c`` is fused
 into an FMA (each operation rounds once, as the plain PyTorch versions'
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -26,9 +30,10 @@ from typing import Dict, Iterable, Sequence
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("pip_dist", "range_mask", "knn_topk", "pip_lattice")
+SOURCES = ("pip_dist", "range_mask", "knn_topk", "pip_lattice", "cell_order")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -83,15 +88,66 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         if proc.returncode != 0:
             failed.append(f"{name}.cu:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds
 
 
-def function(name: str, symbol: str, argtypes: Sequence):
-    """The C launch function ``symbol`` of ``lib<name>``, built on first
-    use, with its argument types declared (every pointer and the stream as
+def build_log(name: str) -> str:
+    """``nvcc``'s output of the current build of ``lib<name>`` ("" when it
+    was built before logs were kept)."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+_PTXAS_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+# "Used 32 registers, used 1 barriers, 8 bytes cumulative stack size, 24724
+# bytes smem, ...": the fields between the two vary with the kernel
+_PTXAS_USED = re.compile(r"Used (\d+) registers(?:[^\n]*?, (\d+) bytes smem)?")
+
+
+def _kernel_name(symbol: str) -> str:
+    """The ``*_kernel`` name inside an Itanium-mangled symbol (length-
+    prefixed names after ``_Z`` / ``_ZN``), with ``<true>`` / ``<false>``
+    for a bool template argument; the symbol itself when there is none."""
+    i = 3 if symbol.startswith("_ZN") else 2 if symbol.startswith("_Z") \
+        else len(symbol)
+    while i < len(symbol) and symbol[i].isdigit():
+        j = i
+        while j < len(symbol) and symbol[j].isdigit():
+            j += 1
+        name, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
+        if name.endswith("_kernel"):
+            tmpl = {"ILb1E": "<true>", "ILb0E": "<false>"}.get(
+                symbol[i:i + 5], "")
+            return name + tmpl
+    return symbol
+
+
+def ptxas_report(log: str) -> list:
+    """One entry per kernel of a ``-Xptxas -v`` log: its name, registers
+    per thread, static shared memory bytes and spill store / load bytes."""
+    rows = []
+    parts = _PTXAS_ENTRY.split(log)
+    for symbol, body in zip(parts[1::2], parts[2::2]):
+        used = _PTXAS_USED.search(body)
+        spill = _PTXAS_SPILL.search(body)
+        rows.append({
+            "kernel": _kernel_name(symbol),
+            "registers": int(used.group(1)) if used else None,
+            "smem_bytes": int(used.group(2) or 0) if used else None,
+            "spill_stores": int(spill.group(1)) if spill else None,
+            "spill_loads": int(spill.group(2)) if spill else None})
+    return rows
+
+
+def function(name: str, symbol: str, argtypes: Sequence,
+             restype=ctypes.c_int):
+    """The C function ``symbol`` of ``lib<name>``, built on first use, with
+    its argument types declared (every pointer and the stream as
     ``c_void_p``, or ctypes would pass them as 32-bit ints)."""
     lib = _LIBS.get(name)
     if lib is None:
@@ -101,7 +157,7 @@ def function(name: str, symbol: str, argtypes: Sequence):
         lib = _LIBS[name] = ctypes.CDLL(str(path))
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    fn.restype = restype
     return fn
 
 

@@ -1,5 +1,7 @@
-"""K4, K4x, K1 (single and with a query axis) and K2 against their plain
-PyTorch versions on the card, bit for bit.
+"""K4, K4x (in stream and in cell order, with its pruning edge cases), the
+cell order, K1 (single and with a query axis) and K2 (with its overflow
+and tie cases) against their plain PyTorch versions on the card, bit for
+bit.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -145,12 +147,14 @@ def _lattice_geoms(card):
 
 
 @pytest.mark.cuda
-def test_pip_lattice_kernel_equals_plain(card):
-    _, b = _batch(card)
+@pytest.mark.parametrize("ordered", [False, True])
+def test_pip_lattice_kernel_equals_plain(card, ordered):
+    grid, b = _batch(card)
     gb = _lattice_geoms(card)
     assert gb.edges.shape[1] > HK.EDGE_CHUNK  # several edge chunks
+    kw = dict(cell=b.cell, num_cells=grid.num_cells) if ordered else {}
     launches = HK.pip_lattice.launches
-    got = HK.pip_lattice(b.x, b.y, gb.edges, gb.edge_mask, gb.is_areal)
+    got = HK.pip_lattice(b.x, b.y, gb.edges, gb.edge_mask, gb.is_areal, **kw)
     assert HK.pip_lattice.launches == launches + 1
     assert got.shape == (gb.capacity, b.capacity)
     want = HK.pip_lattice_plain(b.x, b.y, gb.edges, gb.edge_mask, gb.is_areal)
@@ -183,8 +187,10 @@ def _equal(got, want):
 @pytest.mark.parametrize("num_ids", [3_000, 100_000])
 def test_knn_topk_point_mode_equals_plain(card, k, num_ids):
     grid, b = _knn_inputs(card)
-    qx = torch.tensor([5.25, 1.0, 9.5, 3.3], device=card)
-    qy = torch.tensor([4.75, 9.0, 0.5, 3.3], device=card)
+    # 5 queries: the table's per-object reads take the scalar path when Q
+    # is not a multiple of 4
+    qx = torch.tensor([5.25, 1.0, 9.5, 3.3, 7.7], device=card)
+    qy = torch.tensor([4.75, 9.0, 0.5, 3.3, 2.2], device=card)
     qc = torch.tensor([int(grid.assign_cell(float(a), float(c))[0])
                        for a, c in zip(qx.tolist(), qy.tolist())],
                       dtype=torch.int32, device=card)
@@ -225,3 +231,174 @@ def test_knn_topk_cell_and_eligible_modes_equal_plain(card, k):
     assert _equal(got_e, K.knn_topk_plain(b.obj_id, mode=K.MODE_ELIGIBLE,
                                           **kw))
     assert _equal(got_e, got)
+
+
+def _order_inputs(card, n=20_000, seed=5):
+    rng = np.random.default_rng(seed)
+    cell = rng.integers(-3, 130, n).astype(np.int32)  # -1s and out-of-grid
+    cell[:64] = 7  # a long run of one cell
+    px = rng.uniform(0, 10, n).astype(np.float32)
+    py = rng.uniform(0, 10, n).astype(np.float32)
+    return [torch.from_numpy(a).to(card) for a in (cell, px, py)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_cells", [1, 100, 300, 70_000])
+def test_cell_order_kernel_equals_plain(card, num_cells):
+    cell, px, py = _order_inputs(card)
+    launches = HK.cell_order.launches
+    got = HK.cell_order(cell, num_cells, px, py)
+    assert HK.cell_order.launches == launches + 1
+    want = HK.cell_order_plain(cell, num_cells, px, py)
+    assert _equal(got, want)
+
+
+def _edge_case_points(card):
+    """Points of the K4x pruning edge cases over the 10 x 10 grid: on
+    edges and vertices, at vertex y values, a tile of one cell within a
+    margin of an edge, outside the grid (cell -1), plus a random spread."""
+    grid, b = _batch(torch.device("cpu"))
+    pts = [(b.x.numpy()[:5000].astype(np.float64),
+            b.y.numpy()[:5000].astype(np.float64))]
+    square = [(2, 2), (6, 2), (6, 6), (2, 6)]
+    on = [(2.0 + 4.0 * t, 2.0) for t in np.linspace(0, 1, 33)]
+    on += [(6.0, 2.0 + 4.0 * t) for t in np.linspace(0, 1, 33)]
+    on += [tuple(v) for v in square] + [tuple(v) for v in _ring(513)[:64]]
+    pts.append(tuple(np.asarray(c, np.float64) for c in zip(*on)))
+    # y exactly at vertex y values, x across the geometries
+    ys = np.repeat([2.0, 6.0, 5.0, 8.0, 1.0], 200)
+    pts.append((np.tile(np.linspace(0.0, 10.0, 200), 5), ys))
+    # 2,048 points of cell (3, 1) hugging the edge y = 2 from below, and
+    # 2,048 of cell (3, 2) from above, within ~2 margins
+    off = np.float32(2.0) - np.nextafter(np.float32(2.0), np.float32(0))
+    steps = np.array([0, 1, 2, 3, 8, 40, 200, 1000], np.float64) * off
+    xs = np.linspace(3.01, 3.99, 256)
+    pts.append((np.tile(xs, 8), 2.0 - np.repeat(steps, 256) - 1e-12))
+    pts.append((np.tile(xs, 8), 2.0 + np.repeat(steps, 256)))
+    # outside the grid: cell -1
+    pts.append((np.linspace(-2.0, -0.5, 300), np.linspace(-1.0, 12.0, 300)))
+    x = np.concatenate([p[0] for p in pts])
+    y = np.concatenate([p[1] for p in pts])
+    return grid, PointBatch.from_arrays(x, y, device=card, grid=grid)
+
+
+def _edge_case_geoms(card):
+    big = Polygon.create([[(-50, -50), (60, -50), (60, 60), (-50, 60)]])
+    return EdgeGeomBatch.from_objects(
+        [GEOMS[c]() for c in ("polygon", "hole", "linestring", "chunk513",
+                              "large")]
+        + [big, Polygon.create([_ring(8, 1.0)]),
+           LineString.create([(2, 2), (6, 2)])], device=card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ordered", [True, False])
+def test_pip_lattice_pruning_edge_cases_equal_plain(card, ordered):
+    grid, b = _edge_case_points(card)
+    assert bool((b.cell == -1).any())
+    gb = _edge_case_geoms(card)
+    kw = dict(cell=b.cell, num_cells=grid.num_cells) if ordered else {}
+    orders = HK.cell_order.launches
+    got = HK.pip_lattice(b.x, b.y, gb.edges, gb.edge_mask, gb.is_areal, **kw)
+    assert HK.cell_order.launches == orders + int(ordered)
+    want = HK.pip_lattice_plain(b.x, b.y, gb.edges, gb.edge_mask,
+                                gb.is_areal)
+    assert torch.equal(got, want.T)
+    for g in (0, 3, 4, 5):
+        one = HK.pip_dist(b.x, b.y, gb.edges[g], gb.edge_mask[g],
+                          bool(gb.is_areal[g]))
+        assert torch.equal(got[g], one)
+
+
+@pytest.mark.cuda
+def test_pip_lattice_near_edges_at_conf_coordinates(card):
+    """A 64-edge ring at the conf's coordinates (~116, ~40.5, where one ulp
+    is 7.6e-6) with points placed on its edges in f32 and a few ulps off
+    them, sorted so that each warp holds neighbours."""
+    grid = UniformGrid(115.5, 117.6, 39.6, 41.1, num_grid_partitions=100)
+    th = np.linspace(0, 2 * np.pi, 64, endpoint=False)
+    ring = [(116.6 + 0.35 * float(np.cos(t)), 40.55 + 0.35 * float(np.sin(t)))
+            for t in th]
+    poly = Polygon.create([ring + [ring[0]]], grid)
+    e = single_query_edges(poly)[0][:64].astype(np.float32)
+    rng = np.random.default_rng(9)
+    t = rng.random((64, 64)).astype(np.float32)
+    ex = e[:, None, 0] + t * (e[:, None, 2] - e[:, None, 0])
+    ey = e[:, None, 1] + t * (e[:, None, 3] - e[:, None, 1])
+    shift = rng.integers(-4, 5, ex.shape).astype(np.float32)
+    ex = ex + shift * np.spacing(ex)
+    ey = ey - shift * np.spacing(ey)
+    x = np.concatenate([ex.ravel(), rng.uniform(115.5, 117.6, 20_000)])
+    y = np.concatenate([ey.ravel(), rng.uniform(39.6, 41.1, 20_000)])
+    b = PointBatch.from_arrays(x, y, device=card, grid=grid)
+    gb = EdgeGeomBatch.from_objects([poly], device=card)
+    got = HK.pip_lattice(b.x, b.y, gb.edges, gb.edge_mask, gb.is_areal,
+                         cell=b.cell, num_cells=grid.num_cells)
+    want = HK.pip_lattice_plain(b.x, b.y, gb.edges, gb.edge_mask,
+                                gb.is_areal)
+    assert torch.equal(got, want.T)
+
+
+def _same_point_inputs(card, n, ids):
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    oid = (np.arange(n) % ids).astype(np.int32)
+    b = PointBatch.from_arrays(np.full(n, 5.25), np.full(n, 4.75),
+                               device=card, grid=grid, obj_id=oid)
+    q = [torch.tensor([5.0], device=card), torch.tensor([5.0], device=card),
+         torch.tensor([int(grid.assign_cell(5.0, 5.0)[0])],
+                      dtype=torch.int32, device=card)]
+    return grid, b, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ids,k", [(100_000, 100_000, K.MAX_K),
+                                     (6_000, 3_000, 50), (3_000, 30, 50)])
+def test_knn_topk_equal_distances_equal_plain(card, n, ids, k):
+    """Every object at one distance: the boundary bin holds them all, so
+    the selection refines on the key's lower bits (or, with fewer ids than
+    k, takes every object)."""
+    grid, b, (qx, qy, qc) = _same_point_inputs(card, n, ids)
+    kw = dict(mode=K.MODE_POINT, k=k, num_ids=ids, x=b.x, y=b.y, cell=b.cell,
+              valid=b.valid, qx=qx, qy=qy, q_cell=qc, n=grid.n,
+              nb_layers=grid.n)
+    got = K.knn_topk(b.obj_id, **kw)
+    want = K.knn_topk_plain(b.obj_id, **kw)
+    assert _equal(got, want)
+    assert got[0][0, :min(k, ids)].tolist() == list(range(min(k, ids)))
+    assert int(got[2][0].sum()) == min(k, ids)
+
+
+@pytest.mark.cuda
+def test_knn_topk_ties_with_sixteen_queries_equal_plain(card):
+    grid, b = _knn_inputs(card)
+    rng = np.random.default_rng(6)
+    qx = torch.from_numpy(np.r_[5.25, rng.uniform(0, 10, 15)]
+                          .astype(np.float32)).to(card)
+    qy = torch.from_numpy(np.r_[4.75, rng.uniform(0, 10, 15)]
+                          .astype(np.float32)).to(card)
+    qc = torch.tensor([int(grid.assign_cell(float(a), float(c))[0])
+                       for a, c in zip(qx.tolist(), qy.tolist())],
+                      dtype=torch.int32, device=card)
+    for k in (10, 50, 300):
+        kw = dict(mode=K.MODE_POINT, k=k, num_ids=3_000, x=b.x, y=b.y,
+                  cell=b.cell, valid=b.valid, qx=qx, qy=qy, q_cell=qc,
+                  n=grid.n, nb_layers=grid.n)
+        assert _equal(K.knn_topk(b.obj_id, **kw),
+                      K.knn_topk_plain(b.obj_id, **kw))
+
+
+@pytest.mark.cuda
+def test_pip_lattice_short_geometries_stay_in_stream_order(card):
+    """Below ORDER_MIN_EDGES padded edges the cell order costs more than it
+    saves: the wrapper folds every pair in stream order (same result)."""
+    grid, b = _batch(card)
+    gb = EdgeGeomBatch.from_objects(
+        [GEOMS["polygon"](), GEOMS["linestring"]()], device=card)
+    assert gb.edges.shape[1] < HK.ORDER_MIN_EDGES
+    orders = HK.cell_order.launches
+    got = HK.pip_lattice(b.x, b.y, gb.edges, gb.edge_mask, gb.is_areal,
+                         cell=b.cell, num_cells=grid.num_cells)
+    assert HK.cell_order.launches == orders
+    want = HK.pip_lattice_plain(b.x, b.y, gb.edges, gb.edge_mask,
+                                gb.is_areal)
+    assert torch.equal(got, want.T)

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: it loads neither JAX nor the JAX package,
-imports neither anywhere in its source or in chip_smoke.py, and never runs
-on the CPU unless the caller asks for it."""
+imports neither anywhere in its source, chip_smoke.py or kernel_ab.py, and
+never runs on the CPU unless the caller asks for it."""
 
 import ast
 import glob
@@ -100,7 +100,8 @@ def _imported_modules(path: str):
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted(glob.glob(os.path.join(REPO, "spatialflink_tpu_torch",
                                           "**", "*.py"), recursive=True))
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, name)
+              for name in ("kernel_ab.py", "chip_smoke.py")]
     assert len(files) > 20
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
