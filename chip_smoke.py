@@ -16,11 +16,17 @@ its wall seconds):
    at the main path's shapes (1,048,576 points over the conf's grid bbox):
    K4 ``pip_dist`` for a 64-edge polygon, a polygon with a hole, the
    conf's linestring, 1,301-, 512- and 513-edge polygons and the empty
-   edge set; K1 ``range_mask_stats`` in point and cell-mask mode, exact
-   and approximate, and with a query axis of 16 (each row also equal to
-   the single-query launch); K4x ``pip_lattice`` for 16 query polygons of
-   64 edges plus one linestring (in cell order, as the main path calls it,
-   and in stream order), its cell order alone, its pruning edge cases
+   edge set, each in the dense fold and, where ``pip_table``'s gate gives
+   it one (16 to 512 edges, a short mean cell list), with its per-cell
+   edge table, as the main path calls them (with the share of the dense
+   fold's pairs the table leaves; the table form's bound counts only
+   those pairs, and the dense pairs' bound stands beside it); K1
+   ``range_mask_stats`` in point mode without distances (the main path's
+   form) and with them, and in cell-mask mode, exact and approximate, and
+   with a query axis of 16
+   (each row also equal to the single-query launch); K4x ``pip_lattice``
+   for 16 query polygons of 64 edges plus one linestring (in cell order,
+   as the main path calls it, and in stream order), its cell order alone, its pruning edge cases
    (points on edges and vertices, at vertex y values, a cell of points
    within a few margins of an edge, outside the grid; a polygon larger
    than the bbox, 1,301- and 513-edge rings), and at the experiment's
@@ -40,8 +46,12 @@ its wall seconds):
    (k = 50), 56 and 61, then with multiQuery options 1 and 51 (16 query
    points), 6 and 56 (16 query polygons) and 11 (4 linestrings). The
    launch counters are zeroed before each run and read after it, and must
-   be non-zero for every kernel of that run's path; each run is repeated
-   with every kernel swapped for its plain version, and the per-window
+   be non-zero for every kernel of that run's path (and every K4 launch of
+   a single-geometry run must take the per-cell table form where the
+   query's table passes the gate, as for 6 and 56, and none where it
+   does not, as for the 2-edge linestring of 11 and 61); each run is
+   repeated with every kernel swapped for its plain version, and the
+   per-window
    results must be equal (selections, and kNN (objID, distance) lists in
    order). Then options 6's and 51's stages (CSV decode, window assembly,
    batch build and copy, device ops, readback and selection) are timed one
@@ -177,6 +187,10 @@ def compare(torch, got, want, what: str) -> float:
     difference over finite float entries (0.0 when equal)."""
     err = 0.0
     for g, w in zip(got, want):
+        if g is None or w is None:  # an output neither side wrote
+            if g is not w:
+                raise AssertionError(f"{what}: one side wrote no output")
+            continue
         if g.dtype.is_floating_point:
             fin = torch.isfinite(g) & torch.isfinite(w)
             if fin.any():
@@ -252,19 +266,42 @@ def kernel_phase(torch, seed: int, timer: Timer):
             e, m = torch.from_numpy(e_np).to(dev), torch.from_numpy(m_np).to(dev)
             areal, n_valid = isinstance(g, Polygon), int(m_np.sum())
         ep = HK.bucket_edges(e.shape[0])
-        case, got = kernel_case(
-            timer, torch, name,
-            lambda e=e, m=m, a=areal: (HK.pip_dist(b.x, b.y, e, m, a),),
-            lambda e=e, m=m, a=areal: (HK.pip_dist_plain(b.x, b.y, e, m, a),),
-            n * n_valid * HK.OPS_PER_PAIR, n * 12 + ep * 17, "K4",
-            edges=n_valid, edges_padded=ep)
-        if got[0].shape != (n,) or bool(torch.isnan(got[0]).any()):
-            raise AssertionError(f"pip_dist {name}: bad output")
-        k4_cases.append(case)
+        # the dense fold, then (up to one staged chunk) the per-cell table
+        # form that the main path runs. Each form's bound counts the pairs
+        # it folds for these points (the table's: its fold share of this
+        # run's cells) and the bytes it reads (the table's: cell ids and
+        # the table too); the dense pairs' bound stays beside it as the
+        # yardstick of earlier runs
+        dense_pairs = n * n_valid
+        t = HK.pip_table(e, m, areal, grid)
+        # the dense form gets the edges padded once, as the operators pass
+        # them (pip_table pads them with or without a table)
+        forms = [("", (t.edges, t.edge_mask), {}, None, 0)]
+        if t.bits is not None:
+            forms.append(("-table", (t.edges, t.edge_mask),
+                          dict(cell=b.cell, table=t),
+                          HK.pip_table_fold_share(b.cell, t),
+                          n * 4 + t.bits.numel() * 8 + t.flags.numel()))
+        for suffix, (fe, fm), kw, share, extra in forms:
+            pairs = dense_pairs * (1.0 if share is None
+                                   else share["pair_share"])
+            case, got = kernel_case(
+                timer, torch, name + suffix,
+                lambda fe=fe, fm=fm, a=areal, kw=kw: (
+                    HK.pip_dist(b.x, b.y, fe, fm, a, **kw),),
+                lambda e=e, m=m, a=areal: (
+                    HK.pip_dist_plain(b.x, b.y, e, m, a),),
+                pairs * HK.OPS_PER_PAIR, n * 12 + ep * 17 + extra,
+                "K4", edges=n_valid, edges_padded=ep, fold_share=share,
+                dense_bound_ms=bound_ms(dense_pairs * HK.OPS_PER_PAIR,
+                                        n * 12 + ep * 17)[0])
+            if got[0].shape != (n,) or bool(torch.isnan(got[0]).any()):
+                raise AssertionError(f"pip_dist {name}{suffix}: bad output")
+            k4_cases.append(case)
         if name == "polygon-64":
             dists64 = got[0]
-    if HK.pip_dist.launches <= 0:
-        raise AssertionError("pip_dist launched no kernel")
+    if HK.pip_dist.launches <= 0 or HK.pip_dist.table_launches <= 0:
+        raise AssertionError("pip_dist launched no kernel (or no table)")
 
     q = (116.5, 40.5)
     qc = int(grid.assign_cell(*q)[0])
@@ -274,18 +311,24 @@ def kernel_phase(torch, seed: int, timer: Timer):
     gn = torch.from_numpy(grid.guaranteed_cells_mask(r, cells)).to(dev)
     cn = torch.from_numpy(grid.candidate_cells_mask(r, cells)).to(dev)
     k1_cases = []
-    for mode in ("point", "masks"):
+    for mode in ("point-nodists", "point", "masks"):
         for approx in (False, True):
-            if mode == "point":
-                def kern(a=approx):
-                    return R.range_filter_point_stats(
-                        b, q[0], q[1], qc, r, gl, cl, n=grid.n, approximate=a)
+            if mode == "point-nodists" and approx:
+                continue
+            if mode.startswith("point"):
+                kw = dict(n=grid.n, return_dists=mode == "point")
 
-                def plain(a=approx):
+                def kern(a=approx, kw=kw):
+                    return R.range_filter_point_stats(
+                        b, q[0], q[1], qc, r, gl, cl, approximate=a, **kw)
+
+                def plain(a=approx, kw=kw):
                     return R.range_filter_point_stats_plain(
-                        b, q[0], q[1], qc, r, gl, cl, n=grid.n, approximate=a)
+                        b, q[0], q[1], qc, r, gl, cl, approximate=a, **kw)
                 ops = n * R.OPS_PER_POINT[R.MODE_POINT]
-                nbytes = n * (4 + 4 + 4 + 1) + n * (1 + 4) + 8
+                # the main path (nodists) writes a mask byte, no distance
+                nbytes = n * (4 + 4 + 4 + 1) + n * (
+                    1 if mode == "point-nodists" else 1 + 4) + 8
             else:
                 def kern(a=approx):
                     return R.range_filter_masks_stats(b, gn, cn, dists64, r,
@@ -301,6 +344,8 @@ def kernel_phase(torch, seed: int, timer: Timer):
                 kern, plain, ops, nbytes, "K1")
             case["selected"] = int(got[0].sum())
             case["counts"] = [int(c) for c in got[-2:]]
+            if mode == "point-nodists" and got[1] is not None:
+                raise AssertionError("K1: distances written unasked")
             k1_cases.append(case)
     if R.range_mask_stats.launches <= 0:
         raise AssertionError("range_mask_stats launched no kernel")
@@ -767,6 +812,22 @@ def base_params():
     return base
 
 
+def _has_table(params, opt: int) -> bool:
+    """Whether single-geometry option ``opt``'s query geometry (the first
+    polygon for 6 and 56, the first linestring for 11 and 61) gets a
+    per-cell table from ``pip_table``."""
+    import torch
+
+    from spatialflink_tpu_torch.models import Polygon, single_query_edges
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+
+    grid = _grid()
+    geom = (params.query_linestring_objects(grid) if opt in (11, 61)
+            else params.query_polygon_objects(grid))[0]
+    e, m = (torch.from_numpy(a) for a in single_query_edges(geom))
+    return HK.pip_table(e, m, isinstance(geom, Polygon), grid).bits is not None
+
+
 def main_path_phase(card: str, seed: int):
     import torch
 
@@ -801,13 +862,23 @@ def main_path_phase(card: str, seed: int):
         label = f"{opt}{'-multi' if multi else ''}"
         for fn in counters.values():
             fn.launches = 0
+        HK.pip_dist.table_launches = 0
         wins, lat, wall = run_pipeline(params, lines)
         got = {name: fn.launches for name, fn in counters.items()}
+        table_launches = HK.pip_dist.table_launches
         for name in KERNELS:
             launches[name] += got[name]
         if any(got[name] <= 0 for name in path):
             raise AssertionError(f"option {label}: kernels of its path not "
                                  f"launched {got}")
+        # one query geometry: every K4 launch takes the per-cell table form
+        # where its table passes pip_table's gate, and none does elsewhere
+        if not multi and "pip_dist" in path:
+            want = got["pip_dist"] if _has_table(params, opt) else 0
+            if table_launches != want:
+                raise AssertionError(f"option {label}: {table_launches} of "
+                                     f"{got['pip_dist']} K4 launches used "
+                                     f"the table, {want} should")
         saved = {key: getattr(*key) for key in plain_ops}
         try:
             for (mod, name), fn in plain_ops.items():
@@ -835,7 +906,8 @@ def main_path_phase(card: str, seed: int):
                "plain_wall_s": pwall,
                "median_window_ms": float(np.median(lat)),
                "launches": {name: got[name] for name in KERNELS
-                            if got[name]}, "card": card}
+                            if got[name]},
+               "k4_table_launches": table_launches, "card": card}
         if opt >= 51:
             row["first_list"] = wins[2][2][0][:3]
         log("main-path", json.dumps(row))
@@ -1057,10 +1129,12 @@ def main(argv=None) -> int:
     kernels = [
         entry("pip_dist", "spatialflink_tpu_torch/csrc/pip_dist.cu",
               "spatialflink_tpu/ops/pallas_kernels.py:195", k4_cases,
-              k4_cases[0], f"{N_KERNEL} points x 64 edges"),
+              k4_cases[1], f"{N_KERNEL} points x 64 edges, per-cell table "
+              "(as the main path calls it)"),
         entry("range_mask_stats", "spatialflink_tpu_torch/csrc/range_mask.cu",
               "spatialflink_tpu/ops/range.py:72", k1_cases + k1q_cases,
-              k1_cases[0], f"{N_KERNEL} points, point query"),
+              k1_cases[0], f"{N_KERNEL} points, point query, no distances "
+              "(as the main path calls it)"),
         entry("knn_topk", "spatialflink_tpu_torch/csrc/knn_topk.cu",
               "spatialflink_tpu/ops/knn.py:385", k2_cases, k2_cases[0],
               f"{N_KERNEL} points, {N_IDS} object ids, k=50, point query"),
@@ -1069,6 +1143,10 @@ def main(argv=None) -> int:
               f"{N_KERNEL} points x {N_QUERIES} polygons of 64 edges + 1 "
               "linestring"),
     ]
+    # K4's bound counts the pairs its table folds; the dense pairs' bound
+    # is the yardstick of the runs before the table
+    kernels[0]["fold_share"] = k4_cases[1]["fold_share"]
+    kernels[0]["dense_bound_ms"] = k4_cases[1]["dense_bound_ms"]
     kernels[2]["library_note"] = (
         "no single PyTorch call computes the per-object dedup and the "
         "top-k; torch.topk without the dedup is a different function")

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Times the port's K4x and K2 kernels against an earlier revision's, on
-one card, in turns (old, new, new, old), at the main path's shapes.
+"""Times the port's K1 and K4 kernels against an earlier revision's, on one
+card, in turns (old, new, new, old), at the main path's shapes.
 
 Run from the root of a checkout on a machine with one NVIDIA card, with
 the earlier revision's ``csrc/`` unpacked into a directory that
@@ -9,24 +9,32 @@ the earlier revision's ``csrc/`` unpacked into a directory that
     git archive <commit> spatialflink_tpu_torch/csrc | tar -x -C _scratch/old
     python3 kernel_ab.py --old _scratch/old/spatialflink_tpu_torch/csrc
 
-The old ``pip_lattice.cu`` (with its ``pip_edges.cuh``) and ``knn_topk.cu``
-are built with the port's own nvcc flags into ``_scratch/ab_build`` and
-called through their own C signatures: ``pip_lattice_launch(px, py, n,
-edges, edge_mask, ne, is_areal, g, dist, stream)`` and
-``knn_topk_launch(..., best, scratch_a, scratch_b, out_oid, out_dist,
-out_valid, counts, stream)``. Every case first checks that old and new
-give the same outputs bit for bit, then times old, new, new, old with
-chip_smoke's timer (CUDA events, L2 evicted before each launch) and prints
-one JSON line per case, the card's name and power limit beside it, and a
-summary line last.
+The old ``range_mask.cu`` and ``pip_dist.cu`` (with its
+``pip_edges.cuh``) are built with the port's own nvcc flags into
+``_scratch/ab_build`` and called through their C signatures, which are
+the same in every revision up to commit 48d27a2:
+``range_mask_stats_launch(mode, approximate, n, Q, ..., mask_out,
+dists_out, counts, stream)`` (it zeroes the counts with its own memset)
+and ``pip_dist_launch(px, py, n, edges, edge_mask, ne, is_areal, dist,
+stream)``. Every case first checks that old and new give the same outputs
+bit for bit, then times 5 rounds of old, new, new, old (10 pairs) with
+chip_smoke's timer (CUDA events, L2 evicted before each launch), counts
+the pairs the new side wins, and prints one JSON line per case
+with a profiler split of the new side's device operations (kernels and
+memsets) and, for K1, of the old side's; the card's name and power limit
+beside it, and a summary line last.
 
-Cases: K4x at 1,048,576 points x (16 polygons of 64 edges + 1 linestring)
-(the multiQuery runs' shape; new in cell order, as the main path calls
-it, and in stream order) and at 65,536 points x 10,240 four-edge
-rectangles (the Pallas experiment's shape); K2 at 1,048,576 points and
-100,000 object ids in the main path's four modes: point k=50 with 1 and
-16 queries, cell mode k=10 with 1 query (over K4 distances) and 16
-queries (over K4x rows).
+Cases, at 1,048,576 points over the conf's bbox: K1 point Q=1 with its
+distances and without (the main path's form), point Q=16, mask mode Q=1
+(over the first polygon's K4x row, as options 6 and 11 call it), Q=8 and
+Q=16 over K4x rows; K4 on the conf's 100 x 100 grid: the main path's
+64-edge polygon with its per-cell table and without, 128-, 256- and
+512-edge polygons (table) and a 1,301-edge one (dense in both), each with
+the table's fold share (``hopper_kernels.pip_table_fold_share``); and K4
+on coarser grids (64 and 512 edges on 10 x 10 against the old kernel;
+then a sweep of grids of 2 to 100 cells a side over the conf's 2-edge
+linestring and 8- to 512-edge polygons, the table form forced against the
+dense fold, both new), which sets ``hopper_kernels.pip_table``'s gate.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ import numpy as np
 import chip_smoke as CS
 
 BUILD = os.path.join(CS.ROOT, "_scratch", "ab_build")
+#: rounds of old, new, new, old per A/B case (two pairs each)
+ROUNDS = 5
 
 
 def build_old(old_csrc: str) -> dict:
@@ -51,7 +61,7 @@ def build_old(old_csrc: str) -> dict:
 
     os.makedirs(BUILD, exist_ok=True)
     procs = {}
-    for name in ("pip_lattice", "knn_topk"):
+    for name in ("range_mask", "pip_dist"):
         out = os.path.join(BUILD, f"libold_{name}.so")
         cmd = [native.nvcc_path(), *native.NVCC_FLAGS, "-o", out,
                os.path.join(old_csrc, f"{name}.cu")]
@@ -66,117 +76,63 @@ def build_old(old_csrc: str) -> dict:
         print("old-build", name, json.dumps(native.ptxas_report(log)),
               flush=True)
         libs[name] = ctypes.CDLL(out)
-    C, I = ctypes.c_void_p, ctypes.c_int
-    libs["pip_lattice"].pip_lattice_launch.argtypes = [C, C, I, C, C, I, C, I,
-                                                       C, C]
-    libs["knn_topk"].knn_topk_launch.argtypes = (
-        [I] * 5 + [C] * 8 + [I, I, C, C, I] + [C] * 9)
-    libs["knn_topk"].knn_topk_tiles.argtypes = [I]
+    C, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs["range_mask"].range_mask_stats_launch.argtypes = (
+        [I, I, I, I, C, C, C, C, F, F, I, C, C, C, I, I, I, C, C, C, I, F, C,
+         C, C, C])
+    libs["pip_dist"].pip_dist_launch.argtypes = [C, C, I, C, C, I, I, C, C]
     return libs
 
 
-def old_lattice(torch, lib, px, py, gb):
-    g, ne = gb.edges.shape[0], gb.edges.shape[1]
-    dist = torch.empty((g, px.shape[0]), dtype=torch.float32, device="cuda")
-    err = lib.pip_lattice_launch(
-        px.data_ptr(), py.data_ptr(), px.shape[0], gb.edges.data_ptr(),
-        gb.edge_mask.data_ptr(), ne, gb.is_areal.data_ptr(), g,
-        dist.data_ptr(), torch.cuda.current_stream().cuda_stream)
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def old_range(torch, lib, b, *, mode, approximate, radius, qx=0.0, qy=0.0,
+              q_cell=-1, qxs=None, qys=None, q_cells=None, n=1, gn_layers=-1,
+              cn_layers=-1, gn_mask=None, cn_mask=None, dists=None,
+              with_dists=False):
+    """The old K1 launch: (mask (Q, N), counts (Q, 2)[, dists (Q, N)])."""
+    N = b.capacity
+    if mode == 0:
+        Q = 1 if qxs is None else qxs.shape[0]
+    else:
+        Q = 1 if gn_mask.dim() == 1 else gn_mask.shape[0]
+    mask = torch.empty((Q, N), dtype=torch.bool, device="cuda")
+    counts = torch.empty((Q, 2), dtype=torch.int32, device="cuda")
+    dout = (torch.empty((Q, N), dtype=torch.float32, device="cuda")
+            if with_dists else None)
+    err = lib.range_mask_stats_launch(
+        mode, int(approximate), N, Q, b.x.data_ptr(), b.y.data_ptr(),
+        b.cell.data_ptr(), b.valid.data_ptr(), qx, qy, q_cell, _ptr(qxs),
+        _ptr(qys), _ptr(q_cells), n, gn_layers, cn_layers, _ptr(gn_mask),
+        _ptr(cn_mask), _ptr(dists), 0 if gn_mask is None
+        else gn_mask.shape[-1], radius, mask.data_ptr(), _ptr(dout),
+        counts.data_ptr(), torch.cuda.current_stream().cuda_stream)
     if err:
-        raise RuntimeError(f"old pip_lattice: CUDA error {err}")
+        raise RuntimeError(f"old range_mask: CUDA error {err}")
+    return (mask, counts) + ((dout,) if with_dists else ())
+
+
+def new_range(R, b, with_dists=False, **kw):
+    """The new K1 launch in the old one's output layout."""
+    N = b.capacity
+    mask, dists, counts = R.range_mask_stats(b, return_dists=with_dists,
+                                             **kw)
+    Q = counts.numel() // 2
+    out = (mask.reshape(Q, N), counts.reshape(Q, 2))
+    return out + ((dists.reshape(Q, N),) if with_dists else ())
+
+
+def old_pip(torch, lib, px, py, edges, edge_mask, is_areal):
+    dist = torch.empty_like(px)
+    err = lib.pip_dist_launch(px.data_ptr(), py.data_ptr(), px.shape[0],
+                              edges.data_ptr(), edge_mask.data_ptr(),
+                              edges.shape[0], int(is_areal), dist.data_ptr(),
+                              torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"old pip_dist: CUDA error {err}")
     return dist
-
-
-def old_knn(torch, lib, obj_id, *, mode, k, num_ids, x=None, y=None,
-            cell=None, valid=None, qx=None, qy=None, q_cell=None, n=1,
-            nb_layers=-1, dists=None, nb_mask=None):
-    Q = qx.shape[0] if qx is not None else dists.shape[0]
-    tiles = lib.knn_topk_tiles(num_ids)
-    best = torch.empty((Q, num_ids), dtype=torch.int32, device="cuda")
-    scratch = torch.empty((2, Q, tiles * k), dtype=torch.int64,
-                          device="cuda")
-    oid = torch.empty((Q, k), dtype=torch.int32, device="cuda")
-    dist = torch.empty((Q, k), dtype=torch.float32, device="cuda")
-    ok = torch.empty((Q, k), dtype=torch.bool, device="cuda")
-    counts = torch.empty(Q, dtype=torch.int32, device="cuda")
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    err = lib.knn_topk_launch(
-        mode, obj_id.shape[0], Q, num_ids, k, ptr(obj_id), ptr(x), ptr(y),
-        ptr(cell), ptr(valid), ptr(qx), ptr(qy), ptr(q_cell), n, nb_layers,
-        ptr(dists), ptr(nb_mask), 0 if nb_mask is None else nb_mask.shape[-1],
-        None, best.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-        oid.data_ptr(), dist.data_ptr(), ok.data_ptr(), counts.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
-    if err:
-        raise RuntimeError(f"old knn_topk: CUDA error {err}")
-    return oid, dist, ok, counts
-
-
-def skip_stats(torch, HK, sx, sy, gb, pts=4, seed_min=16):
-    """The share of (warp, valid edge) pairs whose ray cast and whose
-    distance fold K4x's cell-order variant runs, replayed with tensor ops:
-    warps of 32 lanes x ``pts`` consecutive points of ``sx, sy`` (in cell
-    order), each geometry folded seed edge first, then its valid edges in
-    order, with the kernel's votes (any lane that may straddle the edge,
-    any lane whose squared box bound does not exceed its largest min d2).
-    The kernel's staging chunks are not replayed: it assumes each
-    geometry's edges sit in one chunk, as at the main path's shape."""
-    per_warp = 32 * pts
-    W = sx.shape[0] // per_warp
-    x = sx[:W * per_warp].reshape(W, 32, pts)
-    y = sy[:W * per_warp].reshape(W, 32, pts)
-    xlo, xhi, ylo, yhi = x.amin(2), x.amax(2), y.amin(2), y.amax(2)
-    scale = HK.distance_skip_margin(1.0)
-    m = torch.maximum(torch.maximum(xlo.abs(), xhi.abs()),
-                      torch.maximum(ylo.abs(), yhi.abs())) * scale
-    bylo, byhi = ylo - m, yhi + m
-    ray_n = dist_n = total = 0
-    for g in range(gb.edges.shape[0]):
-        e = gb.edges[g][gb.edge_mask[g]]
-        if e.shape[0] == 0:
-            continue
-        x1, y1, x2, y2 = e.unbind(1)
-        cx, cy = x2 - x1, y2 - y1
-        ls = cx * cx + cy * cy
-        inv = torch.where(ls > 0, 1.0 / torch.where(ls > 0, ls, 1.0), 0.0)
-        me = torch.maximum(torch.maximum(x1.abs(), x2.abs()),
-                           torch.maximum(y1.abs(), y2.abs())) * scale
-        eylo, eyhi = torch.minimum(y1, y2) - me, torch.maximum(y1, y2) + me
-        mind2 = torch.full_like(x, 3.4e38)
-        dmax = torch.full_like(xlo, 3.4e38)
-
-        def gap2(j):
-            return HK.distance_skip_bound(xlo, xhi, ylo, yhi, e[j])
-
-        def fold(j, need, mind2):
-            dot = (x - x1[j]) * cx[j] + (y - y1[j]) * cy[j]
-            t = torch.clamp(dot * inv[j], 0, 1)
-            dx = (x1[j] + t * cx[j]) - x
-            dy = (y1[j] + t * cy[j]) - y
-            return torch.where(need[:, None, None],
-                               torch.minimum(mind2, dx * dx + dy * dy), mind2)
-
-        if e.shape[0] >= seed_min:
-            lane_min, lane_arg = torch.stack(
-                [gap2(j) for j in range(e.shape[0])]).min(0)
-            seed = lane_arg.gather(1, lane_min.argmin(1)[:, None])[:, 0]
-            for j in seed.unique().tolist():
-                mind2 = fold(j, seed == j, mind2)
-            dmax = mind2.amax(2)
-        for j in range(e.shape[0]):
-            ray = (~((byhi < eylo[j]) | (bylo >= eyhi[j]))).any(1)
-            dist = (~(gap2(j) > dmax)).any(1)
-            ray_n += int(ray.sum())
-            dist_n += int(dist.sum())
-            total += W
-            if bool(dist.any()):
-                mind2 = fold(j, dist, mind2)
-                dmax = mind2.amax(2)
-    return {"warps": W, "warp_edges": total, "ray_share": ray_n / total,
-            "dist_share": dist_n / total}
 
 
 def kernel_split(torch, fn, reps: int = 5) -> dict:
@@ -200,20 +156,159 @@ def kernel_split(torch, fn, reps: int = 5) -> dict:
     return out
 
 
-def ab_case(torch, timer, card, name, old, new, **extra):
-    """Old and new equal bit for bit, then timed old, new, new, old."""
+def ab_case(torch, timer, card, name, old, new, split_old=False, **extra):
+    """Old and new equal bit for bit, then timed in ROUNDS rounds of old,
+    new, new, old: 2 x ROUNDS (old, new) pairs, each side first in half."""
     got_old, got_new = old(), new()
     torch.cuda.synchronize()
     CS.compare(torch, got_new, got_old, f"A/B {name}")
-    t = [timer.ms(old), timer.ms(new), timer.ms(new), timer.ms(old)]
-    row = {"case": name, **extra, "old_ms": [t[0], t[3]],
-           "new_ms": [t[1], t[2]], "old_median_ms": float(np.median(t[::3])),
-           "new_median_ms": float(np.median(t[1:3])),
-           "speedup": float(np.median(t[::3]) / np.median(t[1:3])),
+    o, n = [], []
+    for _ in range(ROUNDS):
+        t = [timer.ms(old), timer.ms(new), timer.ms(new), timer.ms(old)]
+        o += [t[0], t[3]]
+        n += [t[1], t[2]]
+    q1, q3 = np.percentile(o, [25, 75])
+    row = {"case": name, **extra, "old_ms": o, "new_ms": n,
+           "old_median_ms": float(np.median(o)),
+           "new_median_ms": float(np.median(n)),
+           "speedup": float(np.median(o) / np.median(n)),
+           "new_wins": sum(b < a for a, b in zip(o, n)), "pairs": len(o),
+           "old_iqr_ms": float(q3 - q1),
            "identical": True, "new_kernels_us": kernel_split(torch, new),
            "card": card}
+    if split_old:
+        row["old_kernels_us"] = kernel_split(torch, old)
     print("ab", json.dumps(row), flush=True)
     return row
+
+
+def k1_cases(torch, timer, card, lib, b, grid, pts, polys, lattice_rows):
+    """K1 old/new at the main path's shapes."""
+    from spatialflink_tpu_torch.ops import range as R
+
+    dev = torch.device("cuda")
+    r = 0.5
+    layers = dict(n=grid.n, gn_layers=grid.guaranteed_layers(r),
+                  cn_layers=grid.candidate_layers(r))
+    q = [torch.tensor([getattr(p, a) for p in pts], dtype=dt, device=dev)
+         for a, dt in (("x", torch.float32), ("y", torch.float32),
+                       ("cell", torch.int32))]
+    one = dict(mode=R.MODE_POINT, approximate=False, radius=r, qx=pts[0].x,
+               qy=pts[0].y, q_cell=pts[0].cell, **layers)
+    many = dict(mode=R.MODE_POINT, approximate=False, radius=r, qxs=q[0],
+                qys=q[1], q_cells=q[2], **layers)
+    gn = torch.from_numpy(np.stack([grid.guaranteed_cells_mask(
+        r, sorted(p.cells)) for p in polys])).to(dev)
+    cn = torch.from_numpy(np.stack([grid.candidate_cells_mask(
+        r, sorted(p.cells)) for p in polys])).to(dev)
+    masks = dict(mode=R.MODE_MASKS, approximate=False, radius=r, gn_mask=gn,
+                 cn_mask=cn, dists=lattice_rows)
+    mask1 = dict(masks, gn_mask=gn[0], cn_mask=cn[0], dists=lattice_rows[0])
+    mask8 = dict(masks, gn_mask=gn[:8].contiguous(),
+                 cn_mask=cn[:8].contiguous(),
+                 dists=lattice_rows[:8].contiguous())
+    rows = []
+    for name, kw, dists in (("point-q1-dists", one, True),
+                            ("point-q1", one, False),
+                            ("point-q16", many, False),
+                            ("masks-q1", mask1, False),
+                            ("masks-q8", mask8, False),
+                            ("masks-q16", masks, False)):
+        rows.append(ab_case(
+            torch, timer, card, f"K1 {name}",
+            lambda kw=kw, d=dists: old_range(torch, lib, b, with_dists=d,
+                                             **kw),
+            lambda kw=kw, d=dists: new_range(R, b, with_dists=d, **kw),
+            split_old=True))
+    return rows
+
+
+def k4_cases(torch, timer, card, lib, b, grid):
+    """K4 old (dense) / new (per-cell table where one applies)."""
+    from spatialflink_tpu_torch.models import Polygon, single_query_edges
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+
+    dev = torch.device("cuda")
+    rows = []
+    for name, rg, table in (("64-edges-table", CS.ring(64, 0.35), True),
+                            ("64-edges-dense", CS.ring(64, 0.35), False),
+                            ("128-edges-table", CS.ring(128, 0.4), True),
+                            ("256-edges-table", CS.ring(256, 0.4), True),
+                            ("512-edges-table", CS.ring(512, 0.4), True),
+                            ("1301-edges", CS.ring(1301, 0.45), True)):
+        e, m = (torch.from_numpy(a).to(dev) for a in single_query_edges(
+            Polygon.create([rg], grid)))
+        t = HK.pip_table(e, m, True, grid if table else None)
+        kw = dict(cell=b.cell, table=t) if t.bits is not None else {}
+        rows.append(ab_case(
+            torch, timer, card, f"K4 {name}",
+            lambda t=t: (old_pip(torch, lib, b.x, b.y, t.edges, t.edge_mask,
+                                 True),),
+            lambda t=t, kw=kw: (HK.pip_dist(b.x, b.y, t.edges, t.edge_mask,
+                                            True, **kw),),
+            table=t.bits is not None,
+            fold=HK.pip_table_fold_share(b.cell, t)))
+    return rows
+
+
+def k4_grid_cases(torch, timer, card, lib, x, y):
+    """K4 on grids coarser than the conf's: old (dense) / new at 10 x 10,
+    then the table form forced against the dense fold (both new) over a
+    sweep of grids and geometries, with the table's mean listed share per
+    cell."""
+    from spatialflink_tpu_torch.index import UniformGrid
+    from spatialflink_tpu_torch.models import (LineString, PointBatch,
+                                                Polygon, single_query_edges)
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+
+    dev = torch.device("cuda")
+    rows = []
+    for cells in (10, 2, 5, 25, 50, 100):
+        grid = UniformGrid(CS.BBOX[0], CS.BBOX[2], CS.BBOX[1], CS.BBOX[3],
+                           num_grid_partitions=cells)
+        b = PointBatch.from_arrays(x, y, device=dev, grid=grid)
+        geoms = {"linestring-2": LineString.create(
+            [(116.2, 40.2), (117.0, 40.2), (117.0, 40.9)], grid)}
+        for k, r in ((8, 0.35), (16, 0.35), (32, 0.35), (64, 0.35),
+                     (512, 0.4)):
+            geoms[f"{k}-edges"] = Polygon.create([CS.ring(k, r)], grid)
+        for name, g in geoms.items():
+            areal = isinstance(g, Polygon)
+            e, m = (torch.from_numpy(a).to(dev)
+                    for a in single_query_edges(g))
+            t = HK.pip_table(e, m, areal, grid)
+            forced = HK.pip_table(e, m, areal, grid, gate=False)
+            share = HK.pip_table_listed_share(forced)
+            fold = HK.pip_table_fold_share(b.cell, forced)
+
+            def table(t=forced, a=areal):
+                return (HK.pip_dist(b.x, b.y, t.edges, t.edge_mask, a,
+                                    cell=b.cell, table=t),)
+
+            def dense(t=forced, a=areal):
+                return (HK.pip_dist(b.x, b.y, t.edges, t.edge_mask, a),)
+
+            if cells == 10 and name in ("64-edges", "512-edges"):
+                kw = dict(cell=b.cell, table=t) if t.bits is not None else {}
+                rows.append(ab_case(
+                    torch, timer, card, f"K4 {name} grid {cells}",
+                    lambda t=t: (old_pip(torch, lib, b.x, b.y, t.edges,
+                                         t.edge_mask, True),),
+                    lambda t=t, kw=kw: (HK.pip_dist(
+                        b.x, b.y, t.edges, t.edge_mask, True, **kw),),
+                    table=t.bits is not None, listed_share=share,
+                    fold=fold))
+            CS.compare(torch, table(), dense(), f"K4 sweep {cells} {name}")
+            ms = [timer.ms(table), timer.ms(dense), timer.ms(dense),
+                  timer.ms(table)]
+            row = {"case": f"K4 sweep {name} grid {cells}",
+                   "listed_share": share, "fold": fold,
+                   "table_ms": float(np.median(ms[::3])),
+                   "dense_ms": float(np.median(ms[1:3])),
+                   "table_kept": t.bits is not None, "card": card}
+            print("ab", json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
 
 
 def main(argv=None) -> int:
@@ -229,131 +324,36 @@ def main(argv=None) -> int:
         print("kernel_ab: no CUDA device available", file=sys.stderr)
         return 2
     from spatialflink_tpu_torch.models import (EdgeGeomBatch, LineString,
-                                                Point, PointBatch, Polygon,
-                                                single_query_edges)
+                                                Point, PointBatch, Polygon)
     from spatialflink_tpu_torch.ops import hopper_kernels as HK
-    from spatialflink_tpu_torch.ops import knn as K
     from spatialflink_tpu_torch.ops import native
 
     card = CS.card_line()
     print(f"card: {card}", flush=True)
-    native.build(("pip_lattice", "cell_order", "knn_topk", "pip_dist"))
+    native.build(("pip_lattice", "cell_order", "pip_dist", "range_mask"))
     libs = build_old(args.old)
     timer = CS.Timer(torch)
     grid = CS._grid()
     dev = torch.device("cuda")
-    rows = []
-
-    # K4x at the multiQuery runs' shape
     rng = np.random.default_rng(args.seed)
-    b = PointBatch.from_arrays(rng.uniform(CS.BBOX[0], CS.BBOX[2], CS.N_KERNEL),
-                               rng.uniform(CS.BBOX[1], CS.BBOX[3], CS.N_KERNEL),
-                               device=dev, grid=grid)
+    x = rng.uniform(CS.BBOX[0], CS.BBOX[2], CS.N_KERNEL)
+    y = rng.uniform(CS.BBOX[1], CS.BBOX[3], CS.N_KERNEL)
+    b = PointBatch.from_arrays(x, y, device=dev, grid=grid)
+    # mask mode's distance rows: K4x over the multiQuery runs' polygons
     polys = [Polygon.create([rg], grid) for rg in CS.query_polygons()]
     main = EdgeGeomBatch.from_objects(
         polys + [LineString.create([(116.2, 40.2), (117.0, 40.2),
                                     (117.0, 40.9)], grid)],
         device=dev, pad=len(polys) + 1)
-    args_m = (b.x, b.y, main.edges, main.edge_mask, main.is_areal)
-    rows.append(ab_case(
-        torch, timer, card, "K4x 1048576x16polygons+1linestring cell order",
-        lambda: (old_lattice(torch, libs["pip_lattice"], b.x, b.y, main),),
-        lambda: (HK.pip_lattice(*args_m, cell=b.cell,
-                                num_cells=grid.num_cells),)))
-    rows.append(ab_case(
-        torch, timer, card, "K4x 1048576x16polygons+1linestring stream order",
-        lambda: (old_lattice(torch, libs["pip_lattice"], b.x, b.y, main),),
-        lambda: (HK.pip_lattice(*args_m),)))
-    order_ms = timer.ms(lambda: HK.cell_order(b.cell, grid.num_cells, b.x,
-                                              b.y))
-    # what the write-back through perm costs: the same launch on the sorted
-    # points with perm = identity writes each row at neighbouring addresses
-    perm, sx, sy = HK.cell_order(b.cell, grid.num_cells, b.x, b.y)
-    ident = torch.arange(b.capacity, dtype=torch.int32, device=dev)
-    launch = native.function("pip_lattice", "pip_lattice_launch",
-                             HK._LATTICE_ARGTYPES)
-    out = torch.empty((main.capacity, b.capacity), device=dev)
-
-    def lattice_on_sorted(p):
-        launch(sx.data_ptr(), sy.data_ptr(), p.data_ptr(), b.capacity,
-               main.edges.data_ptr(), main.edge_mask.data_ptr(),
-               main.edges.shape[1], main.is_areal.data_ptr(),
-               main.capacity, HK.distance_skip_margin(1.0), out.data_ptr(),
-               torch.cuda.current_stream().cuda_stream)
-
-    scatter = [timer.ms(lambda: lattice_on_sorted(perm)),
-               timer.ms(lambda: lattice_on_sorted(ident))]
-    stats = skip_stats(torch, HK, sx, sy, main)
-    print("ab", json.dumps({
-        "case": "cell_order 1048576 points", "new_ms": order_ms,
-        "lattice_sorted_perm_ms": scatter[0],
-        "lattice_sorted_identity_ms": scatter[1],
-        "scatter_cost_ms": scatter[0] - scatter[1], "skip": stats,
-        "cell_order_kernels_us": kernel_split(
-            torch, lambda: HK.cell_order(b.cell, grid.num_cells, b.x, b.y)),
-        "card": card}), flush=True)
-
-    # K4x at the experiment's shape
-    rng = np.random.default_rng(3)
-    rects = []
-    for _ in range(10_240):
-        cx = rng.uniform(CS.BBOX[0] + 0.1, CS.BBOX[2] - 0.1)
-        cy = rng.uniform(CS.BBOX[1] + 0.1, CS.BBOX[3] - 0.1)
-        w, h = rng.uniform(0.01, 0.05, 2)
-        rects.append(Polygon.create(
-            [[(cx - w, cy - h), (cx + w, cy - h), (cx + w, cy + h),
-              (cx - w, cy + h), (cx - w, cy - h)]], grid))
-    gb = EdgeGeomBatch.from_objects(rects, device=dev, pad=len(rects))
-    pb = PointBatch.from_arrays(rng.uniform(CS.BBOX[0], CS.BBOX[2], 65_536),
-                                rng.uniform(CS.BBOX[1], CS.BBOX[3], 65_536),
-                                device=dev, grid=grid)
-    args_x = (pb.x, pb.y, gb.edges, gb.edge_mask, gb.is_areal)
-    rows.append(ab_case(
-        torch, timer, card, "K4x 65536x10240rectangles stream order",
-        lambda: (old_lattice(torch, libs["pip_lattice"], pb.x, pb.y, gb),),
-        lambda: (HK.pip_lattice(*args_x),)))
-    rows.append(ab_case(
-        torch, timer, card, "K4x 65536x10240rectangles cell order",
-        lambda: (old_lattice(torch, libs["pip_lattice"], pb.x, pb.y, gb),),
-        lambda: (HK.pip_lattice(*args_x, cell=pb.cell,
-                                num_cells=grid.num_cells),)))
-    rows_k4x = HK.pip_lattice(*args_m, cell=b.cell, num_cells=grid.num_cells)
-    del gb, pb, args_x
-    torch.cuda.empty_cache()
-
-    # K2 in the main path's four modes
-    rng = np.random.default_rng(args.seed + 5)
-    oid = torch.from_numpy(rng.integers(0, CS.N_IDS, CS.N_KERNEL)
-                           .astype(np.int32)).to(dev)
-    pts = [Point.create(x, y, grid) for x, y in CS.query_points()]
-    q = [torch.tensor([getattr(p, a) for p in pts], dtype=dt, device=dev)
-         for a, dt in (("x", torch.float32), ("y", torch.float32),
-                       ("cell", torch.int32))]
-    nb = torch.from_numpy(np.stack([grid.neighboring_cells_mask(
-        0.5, sorted(p.cells)) for p in polys])).to(dev)
-    d_k4 = HK.pip_dist(b.x, b.y, *(torch.from_numpy(a).to(dev) for a in
-                                   single_query_edges(polys[0])), True)
-    point = dict(mode=K.MODE_POINT, num_ids=CS.N_IDS, x=b.x, y=b.y,
-                 cell=b.cell, valid=b.valid, n=grid.n,
-                 nb_layers=grid.candidate_layers(0.5))
-    specs = [
-        ("point-k50-q1", 50, dict(point, qx=q[0][:1], qy=q[1][:1],
-                                  q_cell=q[2][:1])),
-        ("cells-k10-q1", 10, dict(mode=K.MODE_CELLS, num_ids=CS.N_IDS,
-                                  cell=b.cell, valid=b.valid,
-                                  dists=d_k4[None], nb_mask=nb[:1])),
-        ("point-k50-q16", 50, dict(point, qx=q[0], qy=q[1], q_cell=q[2])),
-        ("cells-k10-q16", 10, dict(mode=K.MODE_CELLS, num_ids=CS.N_IDS,
-                                   cell=b.cell, valid=b.valid,
-                                   dists=rows_k4x[:len(polys)].contiguous(),
-                                   nb_mask=nb)),
-    ]
-    for name, k, kw in specs:
-        rows.append(ab_case(
-            torch, timer, card, f"K2 {name}",
-            lambda kw=kw, k=k: old_knn(torch, libs["knn_topk"], oid, k=k,
-                                       **kw),
-            lambda kw=kw, k=k: K.knn_topk(oid, k=k, **kw)))
+    rows_k4x = HK.pip_lattice(b.x, b.y, main.edges, main.edge_mask,
+                              main.is_areal, cell=b.cell,
+                              num_cells=grid.num_cells)
+    pts = [Point.create(px, py, grid) for px, py in CS.query_points()]
+    rows = []
+    rows += k1_cases(torch, timer, card, libs["range_mask"], b, grid, pts,
+                     polys, rows_k4x[:len(polys)].contiguous())
+    rows += k4_cases(torch, timer, card, libs["pip_dist"], b, grid)
+    rows += k4_grid_cases(torch, timer, card, libs["pip_dist"], x, y)
     print(card, flush=True)
     print(json.dumps({"ab": rows, "card": card}), flush=True)
     return 0

@@ -1,7 +1,7 @@
 // Device code of K4 (pip_dist.cu: points x ONE geometry): one chunk of a
-// geometry's edges staged in shared memory, and the fold of that chunk into
-// per-point accumulators (even-odd crossing count, min squared boundary
-// distance). K4x (pip_lattice.cu) has its own fold, with edge skipping and
+// geometry's edges staged in shared memory, and the fold of that chunk (or
+// of one staged edge, fold_pair) into per-point accumulators (even-odd
+// crossing count, min squared boundary distance). K4x (pip_lattice.cu) has its own fold, with edge skipping and
 // multi-geometry chunks.
 //
 // The operation order follows spatialflink_tpu_torch/ops/distances.py
@@ -62,6 +62,24 @@ __device__ __forceinline__ void stage_chunk(EdgeChunk& s,
   }
 }
 
+// Fold staged edge e into one point's accumulators: the even-odd ray cast
+// (half-open on y) and the squared distance to the segment.
+__device__ __forceinline__ void fold_pair(const EdgeChunk& s, int e, float x,
+                                          float y, float& mind2, int& cross) {
+  const float x1 = s.x1[e], y1 = s.y1[e], y2 = s.y2[e];
+  const float cx = s.cx[e], cy = s.cy[e];
+  const float slope = s.slope[e], inv_len = s.inv_len[e];
+  const bool straddles = (y1 > y) != (y2 > y);
+  const float ry = y - y1;
+  const float x_at_y = x1 + ry * slope;
+  cross += (straddles && (x < x_at_y)) ? 1 : 0;
+  const float dot = (x - x1) * cx + ry * cy;
+  const float t = fminf(fmaxf(dot * inv_len, 0.0f), 1.0f);
+  const float dx = (x1 + t * cx) - x;
+  const float dy = (y1 + t * cy) - y;
+  mind2 = fminf(mind2, dx * dx + dy * dy);
+}
+
 // Fold the `len` staged edges into this thread's points. All threads read
 // the same edge at the same time (a shared-memory broadcast); a masked edge
 // is skipped by the whole block at once.
@@ -72,22 +90,9 @@ __device__ __forceinline__ void fold_chunk(const EdgeChunk& s, int len,
                                            int (&cross)[kPointsPerThread]) {
   for (int e = 0; e < len; ++e) {
     if (!s.valid[e]) continue;
-    const float x1 = s.x1[e], y1 = s.y1[e], y2 = s.y2[e];
-    const float cx = s.cx[e], cy = s.cy[e];
-    const float slope = s.slope[e], inv_len = s.inv_len[e];
 #pragma unroll
     for (int p = 0; p < kPointsPerThread; ++p) {
-      // even-odd ray cast, half-open on y
-      const bool straddles = (y1 > y[p]) != (y2 > y[p]);
-      const float ry = y[p] - y1;
-      const float x_at_y = x1 + ry * slope;
-      cross[p] += (straddles && (x[p] < x_at_y)) ? 1 : 0;
-      // squared distance to the segment
-      const float dot = (x[p] - x1) * cx + ry * cy;
-      const float t = fminf(fmaxf(dot * inv_len, 0.0f), 1.0f);
-      const float dx = (x1 + t * cx) - x[p];
-      const float dy = (y1 + t * cy) - y[p];
-      mind2[p] = fminf(mind2[p], dx * dx + dy * dy);
+      fold_pair(s, e, x[p], y[p], mind2[p], cross[p]);
     }
   }
 }

@@ -313,11 +313,17 @@ class GeomQueryMixin:
         return EdgeGeomBatch.from_objects(queries, device=self.device,
                                           pad=len(queries))
 
-    def _query_edges(self, query):
+    def _query_pip(self, query):
+        """ONE query geometry prepared for K4 once per run: its padded
+        edges and its per-cell edge table over the operator's grid
+        (``hopper_kernels.pip_table``)."""
+        from spatialflink_tpu_torch.ops import hopper_kernels as HK
+
         e, m = single_query_edges(query)
-        areal = isinstance(query, (Polygon, MultiPolygon))
-        return (to_device(e, np.float32, self.device),
-                to_device(m, np.bool_, self.device), areal)
+        return HK.pip_table(to_device(e, np.float32, self.device),
+                            to_device(m, np.bool_, self.device),
+                            isinstance(query, (Polygon, MultiPolygon)),
+                            grid=self.grid)
 
     def _query_bbox(self, query):
         return to_device(np.asarray(query.bbox, np.float32), np.float32,

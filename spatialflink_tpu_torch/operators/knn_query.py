@@ -140,7 +140,8 @@ class PointGeomKNNQuery(_GenericKnn):
 
     def _setup(self, query, radius: float) -> dict:
         return dict(nb=self._query_nb(query, radius),
-                    edges=self._query_edges(query),
+                    pip=(None if self.conf.approximate
+                         else self._query_pip(query)),
                     bbox=self._query_bbox(query))
 
     def _dists(self, batch, setup):
@@ -149,7 +150,9 @@ class PointGeomKNNQuery(_GenericKnn):
         if self.conf.approximate:
             b = setup["bbox"]
             return D.point_bbox_dist(batch.x, batch.y, b[0], b[1], b[2], b[3])
-        return G.points_to_single_geom_dist(batch, *setup["edges"])
+        pip = setup["pip"]
+        return G.points_to_single_geom_dist(batch, pip.edges, pip.edge_mask,
+                                            pip.is_areal, table=pip)
 
     def _multi_local(self, query_geoms, radius: float, k: int):
         """Q polygon/linestring queries: one padded query edge batch

@@ -56,7 +56,8 @@ class PointPointRangeQuery(SpatialOperator):
 
         def mask_stats(b):
             mask, _, gn_c, evals = R.range_filter_point_stats(
-                b, *args, n=self.grid.n, approximate=self.conf.approximate)
+                b, *args, n=self.grid.n, approximate=self.conf.approximate,
+                return_dists=False)
             return mask, gn_c, evals
 
         return mask_stats
@@ -88,7 +89,7 @@ class PointGeomRangeQuery(SpatialOperator, GeomQueryMixin):
 
     def _mask_stats_fn(self, query_geom, radius: float):
         gn, cn = self._query_masks(query_geom, radius)
-        q_edges, q_mask, q_areal = self._query_edges(query_geom)
+        pip = None if self.conf.approximate else self._query_pip(query_geom)
         q_bbox = self._query_bbox(query_geom)
 
         def mask_stats(batch):
@@ -96,8 +97,8 @@ class PointGeomRangeQuery(SpatialOperator, GeomQueryMixin):
                 dists = D.point_bbox_dist(batch.x, batch.y, q_bbox[0],
                                           q_bbox[1], q_bbox[2], q_bbox[3])
             else:
-                dists = G.points_to_single_geom_dist(batch, q_edges, q_mask,
-                                                     q_areal)
+                dists = G.points_to_single_geom_dist(
+                    batch, pip.edges, pip.edge_mask, pip.is_areal, table=pip)
             return R.range_filter_masks_stats(batch, gn, cn, dists, radius)
 
         return mask_stats

@@ -18,12 +18,19 @@ from spatialflink_tpu_torch.ops import distances as D
 _BIG = 3.4e38  # "infinitely far" sentinel that survives f32 math
 
 
-def points_to_single_geom_dist(points, edges, edge_mask, is_areal: bool):
+def points_to_single_geom_dist(points, edges, edge_mask, is_areal: bool,
+                               table=None):
     """(N,) distance from every point of a batch to ONE query geometry,
-    through the K4 kernel wrapper (its plain version on CPU tensors)."""
+    through the K4 kernel wrapper (its plain version on CPU tensors). With
+    the query's ``hopper_kernels.PipTable`` (whose edges, mask and is_areal
+    are the first arguments) the kernel folds only each point's cell's
+    listed edges."""
     from spatialflink_tpu_torch.ops import hopper_kernels as HK
 
-    return HK.pip_dist(points.x, points.y, edges, edge_mask, bool(is_areal))
+    cell = points.cell if table is not None and table.bits is not None \
+        else None
+    return HK.pip_dist(points.x, points.y, edges, edge_mask, bool(is_areal),
+                       cell=cell, table=table)
 
 
 def points_to_single_edges_raw(px, py, edges, edge_mask):

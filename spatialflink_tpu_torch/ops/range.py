@@ -18,9 +18,10 @@ launch): CUDA tensors launch it (or the call raises), CPU tensors run the
 
 The kernel replaces the XLA-fused ``range_filter_point_stats``
 (``spatialflink_tpu/ops/range.py:72-96``) and ``range_filter_masks_stats``
-(``:196-217``). On an H100 it is bound by bytes (13 read + 5 written per
-point in point mode); it reads each input once in a grid-stride pass and
-reduces its two counts per block before one atomicAdd each (see the source).
+(``:196-217``). On an H100 it is bound by bytes (13 read per point, and
+per query 1 written, plus 4 when the single-query point mode is asked for
+its distances); it reads each point once for all queries, with vector
+loads and word stores (see the source).
 """
 
 from __future__ import annotations
@@ -65,15 +66,17 @@ def range_mask_stats(points, *, mode: int, approximate: bool, radius: float,
                      qx: float = 0.0, qy: float = 0.0, q_cell: int = -1,
                      qxs=None, qys=None, q_cells=None, n: int = 1,
                      gn_layers: int = -1, cn_layers: int = -1,
-                     gn_mask=None, cn_mask=None, dists=None):
+                     gn_mask=None, cn_mask=None, dists=None,
+                     return_dists: bool = True):
     """Launch the K1 kernel on a CUDA batch: returns ``(mask, dists or
     None, counts)``. One query — (qx, qy, q_cell) by value, or (C,) cell
     masks and an (N,) distance row — gives mask (N,) bool, dists (N,) f32
     and counts (2,) int32 = [gn_bypassed, dist_evals]; Q queries — qxs,
     qys (Q,) f32 and q_cells (Q,) int32, or (Q, C) masks and (Q, N)
     distances — give (Q, N) masks and (Q, 2) counts. ``dists`` is an
-    output of the single-query point mode (None otherwise) and an input in
-    mask mode."""
+    output of the single-query point mode (None otherwise, or when
+    ``return_dists`` is False: then none are written) and an input in mask
+    mode."""
     dev = points.x.device
     if dev.type != "cuda":
         raise ValueError(f"range_mask_stats: points on {dev}, needs cuda")
@@ -93,7 +96,7 @@ def range_mask_stats(points, *, mode: int, approximate: bool, radius: float,
             _require(q_cells, "q_cells", torch.int32, (Q,), dev)
             q_ptrs = (qxs.data_ptr(), qys.data_ptr(), q_cells.data_ptr())
         # the Q-row form returns no distances: none are written
-        dists_out = (None if multi else
+        dists_out = (None if multi or not return_dists else
                      torch.empty((Q, N), dtype=torch.float32, device=dev))
         ptrs = (null, null, null, 0,
                 null if dists_out is None else dists_out.data_ptr())
@@ -114,6 +117,7 @@ def range_mask_stats(points, *, mode: int, approximate: bool, radius: float,
     counts = torch.empty((Q, 2), dtype=torch.int32, device=dev)
     launch = native.function("range_mask", "range_mask_stats_launch",
                              _ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = launch(mode, int(bool(approximate)), N, Q, points.x.data_ptr(),
                      points.y.data_ptr(), points.cell.data_ptr(),
@@ -121,8 +125,7 @@ def range_mask_stats(points, *, mode: int, approximate: bool, radius: float,
                      int(q_cell), *q_ptrs, int(n), int(gn_layers),
                      int(cn_layers), ptrs[0], ptrs[1], ptrs[2], ptrs[3],
                      float(radius), mask.data_ptr(), ptrs[4],
-                     counts.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     counts.data_ptr(), stream)
     native.check(err, "range_mask_stats")
     range_mask_stats.launches += 1
     if not multi:
@@ -138,10 +141,18 @@ def _count(t) -> torch.Tensor:
     return t.sum(dtype=torch.int32)
 
 
+def _check_return_dists(return_dists) -> None:
+    if not isinstance(return_dists, bool):
+        raise TypeError(f"range_filter_point_stats: return_dists must be a "
+                        f"bool, got {type(return_dists).__name__}")
+
+
 def range_filter_point_stats_plain(points, qx, qy, q_cell, radius,
                                    gn_layers, cn_layers, *, n: int,
-                                   approximate: bool = False):
+                                   approximate: bool = False,
+                                   return_dists: bool = True):
     """Plain version of :func:`range_filter_point_stats`."""
+    _check_return_dists(return_dists)
     layers = cheb_layers(points.cell, q_cell, n)
     in_gn = layers <= gn_layers  # gn_layers == -1 -> all False
     in_cn = (layers <= cn_layers) & ~in_gn
@@ -155,14 +166,17 @@ def range_filter_point_stats_plain(points, qx, qy, q_cell, radius,
         mask = points.valid & (in_gn | (in_cn & (d <= radius)))
         dists = torch.where(in_cn, d, math.inf)
         dist_evals = _count(points.valid & in_cn)
-    return mask, dists, _count(points.valid & in_gn), dist_evals
+    return (mask, dists if return_dists else None,
+            _count(points.valid & in_gn), dist_evals)
 
 
 def range_filter_point_stats(points, qx, qy, q_cell, radius, gn_layers,
-                             cn_layers, *, n: int, approximate: bool = False):
+                             cn_layers, *, n: int, approximate: bool = False,
+                             return_dists: bool = True):
     """Point-query range filter over a window batch with pruning counts:
     ``(mask, dists, gn_bypassed, dist_evals)``. ``dists`` holds the exact
-    distance where it was computed (CN slots) and +inf elsewhere;
+    distance where it was computed (CN slots) and +inf elsewhere, or is
+    None with ``return_dists=False`` (the kernel then writes none);
     ``gn_bypassed`` counts valid slots emitted without a distance and
     ``dist_evals`` valid CN slots whose result consulted one (0 in
     approximate mode). gn_layers / cn_layers are the grid's layer counts
@@ -170,11 +184,12 @@ def range_filter_point_stats(points, qx, qy, q_cell, radius, gn_layers,
     if points.x.device.type == "cpu":
         return range_filter_point_stats_plain(
             points, qx, qy, q_cell, radius, gn_layers, cn_layers, n=n,
-            approximate=approximate)
+            approximate=approximate, return_dists=return_dists)
+    _check_return_dists(return_dists)
     mask, dists, counts = range_mask_stats(
         points, mode=MODE_POINT, approximate=approximate, radius=radius,
         qx=qx, qy=qy, q_cell=q_cell, n=n, gn_layers=gn_layers,
-        cn_layers=cn_layers)
+        cn_layers=cn_layers, return_dists=return_dists)
     return mask, dists, counts[0], counts[1]
 
 

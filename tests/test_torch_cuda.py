@@ -1,7 +1,8 @@
-"""K4, K4x (in stream and in cell order, with its pruning edge cases), the
-cell order, K1 (single and with a query axis) and K2 (with its overflow
-and tie cases) against their plain PyTorch versions on the card, bit for
-bit.
+"""K4 (dense and with its per-cell edge table), K4x (in stream and in cell
+order, with its pruning edge cases), the cell order, K1 (single and with a
+query axis of 1, 3, 16 and 17, vector and scalar loads) and K2 (with its
+overflow and tie cases) against their plain PyTorch versions on the card,
+bit for bit.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -402,3 +403,207 @@ def test_pip_lattice_short_geometries_stay_in_stream_order(card):
     want = HK.pip_lattice_plain(b.x, b.y, gb.edges, gb.edge_mask,
                                 gb.is_areal)
     assert torch.equal(got, want.T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(GEOMS) + ["empty"])
+def test_pip_dist_table_kernel_equals_plain(card, case):
+    """The per-cell table form on K4's cases (no table above one chunk:
+    those fold densely), over points with cells, cell -1 and border
+    points."""
+    grid, b = _table_points(card)
+    if case == "empty":
+        e = torch.zeros((0, 4), device=card)
+        m = torch.zeros(0, dtype=torch.bool, device=card)
+        areal = True
+    else:
+        geom = GEOMS[case]()
+        e, m = (torch.from_numpy(a).to(card) for a in single_query_edges(geom))
+        areal = isinstance(geom, Polygon)
+    # the table form whatever its listed share (the gate is not tested here)
+    t = HK.pip_table(e, m, areal, grid, gate=False)
+    assert (t.bits is None) == (t.edges.shape[0] > HK.EDGE_CHUNK)
+    launches = HK.pip_dist.launches
+    got = HK.pip_dist(b.x, b.y, t.edges, t.edge_mask, t.is_areal, cell=b.cell,
+                      table=t)
+    assert HK.pip_dist.launches == launches + 1
+    want = HK.pip_dist_plain(b.x, b.y, e, m, areal)
+    assert torch.equal(got, want)
+    assert torch.equal(got, HK.pip_dist(b.x, b.y, e, m, areal))
+    if t.bits is not None:
+        assert torch.equal(HK.pip_table_fold_plain(b.x, b.y, b.cell, t), want)
+
+
+def _table_points(card):
+    """Random points over and beyond a 10 x 10 grid, points exactly on cell
+    borders (and one f32 step either side), and 2,048 points of one cell
+    on the border of two cells near the square's corner."""
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    rng = np.random.default_rng(31)
+    xs = [rng.uniform(-1, 11, 6000)]
+    ys = [rng.uniform(-1, 11, 6000)]
+    border = np.arange(0.0, 10.5, 1.0)
+    bx, by = np.meshgrid(border, np.linspace(0.0, 10.0, 97))
+    for sx, sy in ((bx, by), (by, bx)):
+        f = sx.ravel().astype(np.float32)
+        for moved in (np.nextafter(f, np.float32(-np.inf)), f,
+                      np.nextafter(f, np.float32(np.inf))):
+            xs.append(moved.astype(np.float64))
+            ys.append(sy.ravel())
+    xs.append(np.full(2048, 2.0) + rng.choice([0, 1e-7, -1e-7, 3e-7], 2048))
+    ys.append(rng.uniform(2.0, 2.0 + 1e-3, 2048))
+    return grid, PointBatch.from_arrays(np.concatenate(xs), np.concatenate(ys),
+                                        device=card, grid=grid)
+
+
+@pytest.mark.cuda
+def test_pip_dist_table_conf_coordinates(card):
+    """The main path's polygon on the conf's grid, with points on its edges
+    and a few ulps off them (cells from float64, as the ingest assigns)."""
+    grid = UniformGrid(115.5, 117.6, 39.6, 41.1, num_grid_partitions=100)
+    th = np.linspace(0, 2 * np.pi, 64, endpoint=False)
+    rr = 0.35 * (1.0 + 0.1 * np.sin(5.0 * th))
+    ring = [(116.6 + a * float(np.cos(t)), 40.55 + a * float(np.sin(t)))
+            for a, t in zip(rr, th)]
+    poly = Polygon.create([ring + [ring[0]]], grid)
+    e_np, m_np = single_query_edges(poly)
+    e = e_np[:64]
+    rng = np.random.default_rng(12)
+    t = rng.random((64, 64))
+    ex = (e[:, None, 0] + t * (e[:, None, 2] - e[:, None, 0])).ravel()
+    ey = (e[:, None, 1] + t * (e[:, None, 3] - e[:, None, 1])).ravel()
+    shift = rng.integers(-4, 5, ex.shape) * 7.6e-6
+    x = np.concatenate([ex + shift, rng.uniform(115.4, 117.7, 50_000)])
+    y = np.concatenate([ey - shift, rng.uniform(39.5, 41.2, 50_000)])
+    b = PointBatch.from_arrays(x, y, device=card, grid=grid)
+    tab = HK.pip_table(torch.from_numpy(e_np).to(card),
+                       torch.from_numpy(m_np).to(card), True, grid,
+                       gate=False)
+    got = HK.pip_dist(b.x, b.y, tab.edges, tab.edge_mask, True, cell=b.cell,
+                      table=tab)
+    assert torch.equal(got, HK.pip_dist_plain(b.x, b.y, tab.edges,
+                                              tab.edge_mask, True))
+
+
+def _k1_inputs(card, n):
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    rng = np.random.default_rng(n)
+    b = PointBatch.from_arrays(rng.uniform(-1, 11, n), rng.uniform(-1, 11, n),
+                               device=card, grid=grid)
+    return grid, b, rng
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 3, 16, 17])
+@pytest.mark.parametrize("n", [4096, 4099, 1])
+@pytest.mark.parametrize("approximate", [False, True])
+def test_range_mask_query_counts_and_widths(card, q, n, approximate):
+    """Every mode of K1 with Q queries over n points (n % 4 != 0 takes the
+    scalar loads; n = 1 a batch with one valid slot; from 12 queries on
+    the mask mode stages its cell codes), twice in a row (each launch
+    zeroes its own counts): equal to the plain version, and each row to
+    the single-query launch."""
+    grid, b, rng = _k1_inputs(card, n)
+    nn = b.capacity
+    if n == 4099:  # an unpadded batch: n itself not a multiple of 4
+        b = PointBatch(*(t[:n] for t in b))
+        nn = n
+    qx = rng.uniform(0, 10, q).astype(np.float32)
+    qy = rng.uniform(0, 10, q).astype(np.float32)
+    qc = np.array([grid.assign_cell(float(a), float(c))[0]
+                   for a, c in zip(qx, qy)], np.int32)
+    if q > 2:
+        qc[1] = -1
+    t = [torch.from_numpy(a).to(card) for a in (qx, qy, qc)]
+    gl, cl = grid.guaranteed_layers(2.5), grid.candidate_layers(2.5)
+    for _ in range(2):
+        got = R.range_filter_point_multi_masks(
+            b, *t, 2.5, gl, cl, n=grid.n, approximate=approximate)
+        want = R.range_filter_point_multi_masks_plain(
+            b, *t, 2.5, gl, cl, n=grid.n, approximate=approximate)
+        assert _equal(got, want)
+    for row in {0, q - 1}:
+        one = R.range_filter_point_stats(
+            b, float(qx[row]), float(qy[row]), int(qc[row]), 2.5, gl, cl,
+            n=grid.n, approximate=approximate)
+        bare = R.range_filter_point_stats(
+            b, float(qx[row]), float(qy[row]), int(qc[row]), 2.5, gl, cl,
+            n=grid.n, approximate=approximate, return_dists=False)
+        plain = R.range_filter_point_stats_plain(
+            b, float(qx[row]), float(qy[row]), int(qc[row]), 2.5, gl, cl,
+            n=grid.n, approximate=approximate)
+        assert _equal(one, plain) and bare[1] is None
+        assert _equal(bare[::2] + bare[3:], plain[::2] + plain[3:])
+        assert torch.equal(got[0][row], one[0])
+    cells = [sorted(rng.choice(100, 3, replace=False).tolist())
+             for _ in range(q)]
+    gnm = torch.from_numpy(np.stack([grid.guaranteed_cells_mask(2.2, c)
+                                     for c in cells])).to(card)
+    cnm = torch.from_numpy(np.stack([grid.candidate_cells_mask(2.2, c)
+                                     for c in cells])).to(card)
+    d = torch.from_numpy(rng.uniform(0, 3, (q, nn)).astype(np.float32)
+                         ).to(card)
+    for _ in range(2):
+        got = R.range_filter_masks_stats(b, gnm, cnm, d, 1.7,
+                                         approximate=approximate)
+        want = R.range_filter_masks_stats_plain(b, gnm, cnm, d, 1.7,
+                                                approximate=approximate)
+        assert _equal(got, want)
+    one = R.range_filter_masks_stats(b, gnm[q - 1], cnm[q - 1], d[q - 1],
+                                     1.7, approximate=approximate)
+    assert torch.equal(got[0][q - 1], one[0])
+
+
+@pytest.mark.cuda
+def test_range_mask_counts_on_streams_and_graph_replay(card):
+    """K1 zeroes its counts in every launch: launches on two streams and a
+    CUDA graph replayed three times (over counts overwritten in between)
+    each count as the plain version does."""
+    grid, b, rng = _k1_inputs(card, 20_000)
+    gl, cl = grid.guaranteed_layers(2.5), grid.candidate_layers(2.5)
+    args = (b, 4.2, 5.7, int(grid.assign_cell(4.2, 5.7)[0]), 2.5, gl, cl)
+    want = R.range_filter_point_stats_plain(*args, n=grid.n)
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            got = R.range_filter_point_stats(*args, n=grid.n)
+        torch.cuda.synchronize()
+        assert _equal(got, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = R.range_filter_point_stats(*args, n=grid.n,
+                                         return_dists=False)
+    for _ in range(3):
+        got[2].fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _equal((got[0], got[2], got[3]),
+                      (want[0], want[2], want[3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [12, 17])
+def test_range_mask_unstaged_cell_masks(card, q):
+    """Mask mode over a grid whose (cells x query groups) code words do not
+    fit the staged form's shared memory: each query gathers its mask bytes
+    from device memory; the rows equal the plain version."""
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=160)
+    rng = np.random.default_rng(q)
+    b = PointBatch.from_arrays(rng.uniform(-1, 11, 9000),
+                               rng.uniform(-1, 11, 9000), device=card,
+                               grid=grid)
+    assert grid.num_cells * 4 * ((q + 15) // 16) > 96 * 1024
+    cells = [sorted(rng.choice(grid.num_cells, 4, replace=False).tolist())
+             for _ in range(q)]
+    gnm = torch.from_numpy(np.stack([grid.guaranteed_cells_mask(0.9, c)
+                                     for c in cells])).to(card)
+    cnm = torch.from_numpy(np.stack([grid.candidate_cells_mask(0.9, c)
+                                     for c in cells])).to(card)
+    d = torch.from_numpy(rng.uniform(0, 1.5, (q, b.capacity))
+                         .astype(np.float32)).to(card)
+    for approximate in (False, True):
+        got = R.range_filter_masks_stats(b, gnm, cnm, d, 0.6,
+                                         approximate=approximate)
+        want = R.range_filter_masks_stats_plain(b, gnm, cnm, d, 0.6,
+                                                approximate=approximate)
+        assert _equal(got, want)
