@@ -10,8 +10,9 @@ its wall seconds):
 
 1. Device: the card's name and power limit; build the CUDA kernels from
    ``spatialflink_tpu_torch/csrc`` (one nvcc per source, all started
-   together) and print the build time; each kernel's registers, shared
-   memory and spills (``-Xptxas -v``) are printed before the result.
+   together, with the native point ingest ``native/ingest.cpp`` by g++)
+   and print the build times; each kernel's registers, shared memory and
+   spills (``-Xptxas -v``) are printed before the result.
 2. Kernels against their plain PyTorch versions on the card, bit for bit,
    at the main path's shapes (1,048,576 points over the conf's grid bbox):
    K4 ``pip_dist`` for a 64-edge polygon, a polygon with a hole, the
@@ -35,11 +36,17 @@ its wall seconds):
    mode, cell mode over K4 distances, 16 queries in both modes, ties at
    the k-th place (1 and 16 queries), nothing eligible, every object at
    one distance (k = 1,024), 3,000 objects at one distance (k = 50) and
-   30 ids (k = 50). Times are CUDA-event medians of 25 launches
-   queued behind a sleep kernel (so the host's launch cost is not timed),
-   with the 50 MB L2 evicted before each; the bound is max(operations /
-   67 TFLOP/s, bytes / 3.35 TB/s). Small inputs are also held against
-   float64 numpy references (distances, range masks, kNN lists).
+   30 ids (k = 50). Then every kernel of the realtime path at one
+   micro-batch of 512 points (K4 with its table and dense, the
+   linestring; K1 point and mask mode; K2 point and cell mode over the
+   batch's compacted ids, each also equal to the call over the interned
+   ids; K4x in cell order), with its launch-to-completion time on the host
+   clock beside the CUDA-event time. Times are CUDA-event medians of 25
+   launches queued behind a sleep kernel (so the host's launch cost is not
+   timed), with the 50 MB L2 evicted before each; the bound is
+   max(operations / 67 TFLOP/s, bytes / 3.35 TB/s). Small inputs are also
+   held against float64 numpy references (distances, range masks, kNN
+   lists).
 3. Main path: over a seeded 2,097,152-point CSV stream spanning 20 s (the
    conf's 10 s / 5 s sliding windows: full windows of 1,048,576 points),
    through ``driver.run_option`` on device="cuda": options 6, 1, 11, 51
@@ -53,11 +60,23 @@ its wall seconds):
    repeated with every kernel swapped for its plain version, and the
    per-window
    results must be equal (selections, and kNN (objID, distance) lists in
-   order). Then options 6's and 51's stages (CSV decode, window assembly,
-   batch build and copy, device ops, readback and selection) are timed one
-   after another, option 51 runs once more under torch.profiler (device
-   time by kind and the device's busy share), and the CLI runs options 6
-   and 51 on a 65,536-row CSV.
+   order). The realtime runs follow over the same stream (4,096
+   micro-batches of 512): options 2, 7, 12, 52 (k = 50), 57 and 62, the
+   windowed latency variants 8 and 58 and the realtime latency variants 9
+   and 59; over its first 524,288 points (1,024 micro-batches),
+   multiQuery 2 and 52 (16 points), 7 and 57 (16 polygons) and 12 (4
+   linestrings); over its first 1,048,576 points, options 1 and 51 (k = 50) under
+   count windows of 1,048,576 records every 524,288. Each the same way,
+   with points/s, the median and p99 wall time per emitted window or
+   micro-batch, and the records' latency_ms for 8 and 9. Every run must
+   parse its CSV through the native parser, one call per decode chunk.
+   Then the stages of options 6, 51, 2 and 52 (native CSV decode, split
+   into the parser call, id interning, cell assignment and the rest;
+   window assembly or micro-batch cut, batch build and copy, device ops,
+   readback and selection) are timed one after another, options 51 (whole
+   stream) and 52 (first 524,288 points) run once more under
+   torch.profiler (device time by kind and the device's busy share), and
+   the CLI runs options 6 and 51 on a 65,536-row CSV.
 4. Output: the build report, the card line, one JSON ``kernels`` line
    (K4x's entry holds the cell order under ``helpers``), and as the last
    line ``{"ok": true, "device": {...}}``.
@@ -69,6 +88,7 @@ package is not beside the script.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import io
 import json
@@ -84,7 +104,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CONF = os.path.join(ROOT, "conf", "spatialflink-conf.yml")
 BBOX = (115.5, 39.6, 117.6, 41.1)  # the conf's gridBBox
 N_KERNEL = 1 << 20                # points per kernel case (a full window)
+N_MICRO = 512                     # points per realtime micro-batch
 N_STREAM = 1 << 21                # points in the main-path stream
+N_SHORT = 1 << 19                 # points of the shorter realtime runs
+COUNT_SIZE, COUNT_SLIDE = 1 << 20, 1 << 19  # count windows, in records
 N_CLI = 1 << 16                   # rows of the CLI's CSV
 N_IDS = 100_000                   # distinct object ids in every stream
 N_QUERIES = 16                    # query points / polygons under multiQuery
@@ -281,7 +304,7 @@ def kernel_phase(torch, seed: int, timer: Timer):
             forms.append(("-table", (t.edges, t.edge_mask),
                           dict(cell=b.cell, table=t),
                           HK.pip_table_fold_share(b.cell, t),
-                          n * 4 + t.bits.numel() * 8 + t.flags.numel()))
+                          n * 4 + table_read_bytes(b.cell, t)))
         for suffix, (fe, fm), kw, share, extra in forms:
             pairs = dense_pairs * (1.0 if share is None
                                    else share["pair_share"])
@@ -656,6 +679,159 @@ def knn_kernel_phase(torch, seed: int, timer: Timer, lattice_rows):
     return cases
 
 
+def table_read_bytes(cell, t) -> int:
+    """The bytes K4's table form reads of its per-cell table for points in
+    ``cell``: the flags byte of each distinct cell they lie in, and that
+    cell's row of edge bits unless the cell lies wholly inside an areal
+    geometry (the kernel answers those points from the flags alone). At a
+    micro-batch the points reach few of the grid's cells."""
+    c = cell[(cell >= 0) & (cell < t.num_cells)].unique().long()
+    rows = int(((t.flags[c] & 2) == 0).sum()) if t.is_areal else c.numel()
+    return c.numel() + rows * t.bits.shape[1] * 8
+
+
+def launch_ms(torch, fn, reps: int = REPS) -> float:
+    """Host-clock median of one call from the wrapper's entry to the
+    device's completion (allocation, memsets, launch and run: at a
+    micro-batch the launches are the cost)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return float(np.median(ts)) * 1e3
+
+
+def micro_kernel_phase(torch, seed: int, timer: Timer):
+    """Every kernel of the realtime path at one micro-batch of N_MICRO
+    points (the ids compacted as the realtime kNN path compacts them),
+    against its plain version bit for bit, with its CUDA-event time, bound,
+    plain time and launch-to-completion time. Returns {kernel: [cases]}."""
+    from spatialflink_tpu_torch.models import (EdgeGeomBatch, LineString,
+                                                Point, PointBatch, Polygon,
+                                                single_query_edges)
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+    from spatialflink_tpu_torch.ops import knn as K
+    from spatialflink_tpu_torch.ops import range as R
+
+    dev = torch.device("cuda")
+    grid = _grid()
+    rng = np.random.default_rng(seed + 9)
+    x = rng.uniform(BBOX[0], BBOX[2], N_MICRO)
+    y = rng.uniform(BBOX[1], BBOX[3], N_MICRO)
+    oid = rng.integers(0, N_IDS, N_MICRO)
+    ids, local = np.unique(oid, return_inverse=True)
+    b = PointBatch.from_arrays(x, y, device=dev, grid=grid,
+                               obj_id=local.reshape(-1))
+    full = PointBatch.from_arrays(x, y, device=dev, grid=grid, obj_id=oid)
+    n, nid = b.capacity, len(ids)
+    r = 0.5
+    q = Point.create(116.5, 40.5, grid)
+    gl, cl = grid.guaranteed_layers(r), grid.candidate_layers(r)
+    poly = Polygon.create([ring(64, 0.35)], grid)
+    line = LineString.create([(116.2, 40.2), (117.0, 40.2), (117.0, 40.9)],
+                             grid)
+    out = {name: [] for name in KERNELS}
+
+    def case(kernel, name, kern, plain, ops, nbytes, **extra):
+        c, got = kernel_case(timer, torch, name, kern, plain, ops, nbytes,
+                             f"{kernel}-micro", points=n, **extra)
+        c["launch_to_completion_ms"] = launch_ms(torch, kern)
+        log(f"{kernel}-micro {name}: launch to completion "
+            f"{c['launch_to_completion_ms']:.5f} ms")
+        out[kernel].append(c)
+        return got
+
+    # K4: the 64-edge polygon with its table (options 7, 57, 9, 59) and
+    # dense, and the conf's linestring dense (options 12, 62)
+    dists = {}
+    for gname, geom, areal in (("polygon-64", poly, True),
+                               ("linestring", line, False)):
+        e, m = (torch.from_numpy(a).to(dev) for a in single_query_edges(geom))
+        t = HK.pip_table(e, m, areal, grid)
+        n_valid, ep = int(m.sum()), HK.bucket_edges(e.shape[0])
+        forms = [("-dense", {}, 1.0, 0)]
+        if t.bits is not None:
+            share = HK.pip_table_fold_share(b.cell, t)["pair_share"]
+            forms.insert(0, ("-table", dict(cell=b.cell, table=t), share,
+                             n * 4 + table_read_bytes(b.cell, t)))
+        for suffix, kw, share, extra in forms:
+            got = case("pip_dist", f"{gname}{suffix}-{n}",
+                       lambda kw=kw, t=t, a=areal: (
+                           HK.pip_dist(b.x, b.y, t.edges, t.edge_mask, a,
+                                       **kw),),
+                       lambda e=e, m=m, a=areal: (
+                           HK.pip_dist_plain(b.x, b.y, e, m, a),),
+                       n * n_valid * share * HK.OPS_PER_PAIR,
+                       n * 12 + ep * 17 + extra, edges=n_valid)
+            dists.setdefault(gname, got[0])
+    # K1: point mode without distances (option 2), mask mode over the
+    # polygon's distances (option 7)
+    cells = sorted(poly.cells)
+    gn = torch.from_numpy(grid.guaranteed_cells_mask(r, cells)).to(dev)
+    cn = torch.from_numpy(grid.candidate_cells_mask(r, cells)).to(dev)
+    case("range_mask_stats", f"point-nodists-{n}",
+         lambda: R.range_filter_point_stats(b, q.x, q.y, q.cell, r, gl, cl,
+                                            n=grid.n, return_dists=False),
+         lambda: R.range_filter_point_stats_plain(
+             b, q.x, q.y, q.cell, r, gl, cl, n=grid.n, return_dists=False),
+         n * R.OPS_PER_POINT[R.MODE_POINT], n * 14 + 8)
+    case("range_mask_stats", f"masks-{n}",
+         lambda: R.range_filter_masks_stats(b, gn, cn, dists["polygon-64"],
+                                            r),
+         lambda: R.range_filter_masks_stats_plain(
+             b, gn, cn, dists["polygon-64"], r),
+         n * R.OPS_PER_POINT[R.MODE_MASKS],
+         n * (4 + 1 + 4) + 2 * gn.numel() + n + 8)
+    # K2 over the compacted ids: point mode k = 50 (option 52), cell mode
+    # over K4's distances k = 10 (option 57); each equals the call over
+    # the uncompacted ids once its ids are mapped back
+    nb = torch.from_numpy(grid.neighboring_cells_mask(r, cells)).to(dev)
+    qx, qy, qc = (torch.tensor([v], dtype=dt, device=dev) for v, dt in
+                  ((q.x, torch.float32), (q.y, torch.float32),
+                   (q.cell, torch.int32)))
+    k2 = [("point-k50", 50, dict(mode=K.MODE_POINT, x=b.x, y=b.y,
+                                  cell=b.cell, valid=b.valid, qx=qx, qy=qy,
+                                  q_cell=qc, n=grid.n, nb_layers=cl),
+           n * 8 + 12),
+          ("cells-k10", 10, dict(mode=K.MODE_CELLS, cell=b.cell,
+                                 valid=b.valid,
+                                 dists=dists["polygon-64"][None],
+                                 nb_mask=nb[None]), n * 4 + nb.numel())]
+    for name, k, kw, in_bytes in k2:
+        got = case("knn_topk", f"{name}-{n}-compacted",
+                   lambda kw=kw, k=k: K.knn_topk(b.obj_id, k=k, num_ids=nid,
+                                                 **kw),
+                   lambda kw=kw, k=k: K.knn_topk_plain(
+                       b.obj_id, k=k, num_ids=nid, **kw),
+                   n * K.OPS_PER_SLOT[kw["mode"]] + nid,
+                   n * 9 + in_bytes + k * 9 + 4, object_ids=nid)
+        wide = K.knn_topk(full.obj_id, k=k, num_ids=N_IDS, **kw)
+        valid = got[2][0].cpu().numpy()
+        if not (torch.equal(got[1], wide[1]) and torch.equal(got[2], wide[2])
+                and np.array_equal(ids[got[0][0].cpu().numpy()[valid]],
+                                   wide[0][0].cpu().numpy()[valid])):
+            raise AssertionError(f"K2 {name}: compacted ids differ from the "
+                                 "uncompacted call")
+    # K4x: the 16 query polygons and the conf's linestring (multiQuery
+    # 7 and 57), in cell order as the main path calls it
+    gb = EdgeGeomBatch.from_objects(
+        [Polygon.create([rg], grid) for rg in query_polygons()] + [line],
+        device=dev, pad=N_QUERIES + 1)
+    args = (b.x, b.y, gb.edges, gb.edge_mask, gb.is_areal)
+    g, e = gb.edges.shape[0], gb.edges.shape[1]
+    case("pip_lattice", f"{n}x{N_QUERIES}polygons+1linestring",
+         lambda: (HK.pip_lattice(*args, cell=b.cell,
+                                 num_cells=grid.num_cells),),
+         lambda: (HK.pip_lattice_plain(*args).T,),
+         n * int(gb.edge_mask.sum()) * HK.OPS_PER_PAIR,
+         n * 12 + g * e * 17 + g + g * n * 4, geometries=g)
+    return out
+
+
 def reference_phase(torch, seed: int) -> None:
     """Small inputs against independent float64 numpy references:
     distances within 1e-4 degrees, masks equal away from the radius, kNN
@@ -737,6 +913,37 @@ RUNS = [
     (56, True, None, ("pip_lattice", "cell_order", "knn_topk")),
     (11, True, None, ("pip_lattice", "range_mask_stats")),
 ]
+#: the realtime runs over the whole stream (micro-batches of 512), with
+#: the realtime latency variants 9 and 59, and the windowed latency
+#: variants 8 and 58: the same fields as RUNS
+REALTIME_RUNS = [
+    (2, False, None, ("range_mask_stats",)),
+    (7, False, None, ("pip_dist", "range_mask_stats")),
+    (12, False, None, ("pip_dist", "range_mask_stats")),
+    (52, False, 50, ("knn_topk",)),
+    (57, False, None, ("pip_dist", "knn_topk")),
+    (62, False, None, ("pip_dist", "knn_topk")),
+    (8, False, None, ("pip_dist", "range_mask_stats")),
+    (58, False, None, ("pip_dist", "knn_topk")),
+    (9, False, None, ("pip_dist", "range_mask_stats")),
+    (59, False, None, ("pip_dist", "knn_topk")),
+]
+#: the multi-query realtime runs, over the stream's first N_SHORT points
+#: (1,024 micro-batches): the script keeps within its time limit
+SHORT_REALTIME_RUNS = [
+    (2, True, None, ("range_mask_stats",)),
+    (52, True, 50, ("knn_topk",)),
+    (7, True, None, ("pip_lattice", "cell_order", "range_mask_stats")),
+    (57, True, None, ("pip_lattice", "cell_order", "knn_topk")),
+    (12, True, None, ("pip_lattice", "range_mask_stats")),
+]
+#: options 1 and 51 under count windows of COUNT_SIZE records every
+#: COUNT_SLIDE arrivals, over the stream's first COUNT_SIZE points (two
+#: windows, overlapping by COUNT_SIZE - COUNT_SLIDE records)
+COUNT_RUNS = [
+    (1, False, None, ("range_mask_stats",)),
+    (51, False, 50, ("knn_topk",)),
+]
 KERNELS = ("pip_dist", "range_mask_stats", "knn_topk", "pip_lattice",
            "cell_order")
 
@@ -777,7 +984,8 @@ def _selected(payload) -> int:
 
 def run_pipeline(params, lines):
     """One run of run_option on the card: per-window (start, end, [one
-    payload per query]), per-window latencies (ms) and wall seconds."""
+    payload per query]), per-window latencies (ms), the records'
+    ``latency_ms`` (latency variants) and wall seconds."""
     import torch
 
     from spatialflink_tpu_torch.driver import run_option
@@ -785,7 +993,7 @@ def run_pipeline(params, lines):
     torch.cuda.synchronize()
     t_start = time.perf_counter()
     it = iter(run_option(params, lines, device="cuda"))
-    wins, lat = [], []
+    wins, lat, rec_lat = [], [], []
     while True:
         t0 = time.perf_counter()
         try:
@@ -796,7 +1004,8 @@ def run_pipeline(params, lines):
         per_query = w.records if "queries" in w.extras else [w.records]
         wins.append((w.window_start, w.window_end,
                      [_payload(r) for r in per_query]))
-    return wins, lat, time.perf_counter() - t_start
+        rec_lat.extend(w.extras.get("latency_ms", ()))
+    return wins, lat, rec_lat, time.perf_counter() - t_start
 
 
 def base_params():
@@ -814,32 +1023,43 @@ def base_params():
 
 def _has_table(params, opt: int) -> bool:
     """Whether single-geometry option ``opt``'s query geometry (the first
-    polygon for 6 and 56, the first linestring for 11 and 61) gets a
-    per-cell table from ``pip_table``."""
+    polygon or the first linestring) gets a per-cell table from
+    ``pip_table``."""
     import torch
 
+    from spatialflink_tpu_torch.driver import CASES
     from spatialflink_tpu_torch.models import Polygon, single_query_edges
     from spatialflink_tpu_torch.ops import hopper_kernels as HK
 
     grid = _grid()
-    geom = (params.query_linestring_objects(grid) if opt in (11, 61)
+    geom = (params.query_linestring_objects(grid)
+            if CASES[opt].query == "LineString"
             else params.query_polygon_objects(grid))[0]
     e, m = (torch.from_numpy(a) for a in single_query_edges(geom))
     return HK.pip_table(e, m, isinstance(geom, Polygon), grid).bits is not None
 
 
-def main_path_phase(card: str, seed: int):
+def _pct(values, q):
+    return float(np.percentile(values, q)) if len(values) else None
+
+
+def main_path_phase(card: str, lines, runs, window=None):
+    """Each run of ``runs`` through run_option on the card, then again with
+    every kernel swapped for its plain version: equal per-window results,
+    the launch counters non-zero for every kernel of the run's path, and
+    one native parser call per decode chunk in both runs. ``window``
+    replaces the conf's window block (count windows)."""
     import torch
 
+    from spatialflink_tpu_torch.driver import CASES
     from spatialflink_tpu_torch.ops import hopper_kernels as HK
     from spatialflink_tpu_torch.ops import knn as K
     from spatialflink_tpu_torch.ops import range as R
+    from spatialflink_tpu_torch.streams import bulk as B
 
-    t0 = time.perf_counter()
-    lines = stream_lines(seed, N_STREAM)
-    log(f"stream: {len(lines)} CSV rows over {SPAN_MS} ms "
-        f"({time.perf_counter() - t0:.1f} s to generate)")
     base = base_params()
+    if window is not None:
+        base = dataclasses.replace(base, window=window)
     counters = {"pip_dist": HK.pip_dist, "range_mask_stats":
                 R.range_mask_stats, "knn_topk": K.knn_topk,
                 "pip_lattice": HK.pip_lattice, "cell_order": HK.cell_order}
@@ -855,22 +1075,32 @@ def main_path_phase(card: str, seed: int):
     }
     launches = dict.fromkeys(KERNELS, 0)
     report = []
-    for opt, multi, k, path in RUNS:
+    for opt, multi, k, path in runs:
         query = dataclasses.replace(base.query, option=opt, multi_query=multi,
                                     k=k or base.query.k)
         params = dataclasses.replace(base, query=query)
-        label = f"{opt}{'-multi' if multi else ''}"
+        spec = CASES[opt]
+        mode = ("count" if window is not None else spec.mode)
+        label = f"{opt}{'-multi' if multi else ''}{'-count' if window else ''}"
+        chunk = (N_MICRO if mode == "realtime" else
+                 min(4096, COUNT_SLIDE) if mode == "count" else 4096)
+        want_calls = -(-len(lines) // chunk)
         for fn in counters.values():
             fn.launches = 0
         HK.pip_dist.table_launches = 0
-        wins, lat, wall = run_pipeline(params, lines)
+        calls = B.bulk_parse_csv.calls
+        wins, lat, rec_lat, wall = run_pipeline(params, lines)
         got = {name: fn.launches for name, fn in counters.items()}
         table_launches = HK.pip_dist.table_launches
+        native_calls = B.bulk_parse_csv.calls - calls
         for name in KERNELS:
             launches[name] += got[name]
         if any(got[name] <= 0 for name in path):
             raise AssertionError(f"option {label}: kernels of its path not "
                                  f"launched {got}")
+        if native_calls != want_calls:
+            raise AssertionError(f"option {label}: {native_calls} native "
+                                 f"CSV parses, {want_calls} chunks")
         # one query geometry: every K4 launch takes the per-cell table form
         # where its table passes pip_table's gate, and none does elsewhere
         if not multi and "pip_dist" in path:
@@ -880,13 +1110,17 @@ def main_path_phase(card: str, seed: int):
                                      f"{got['pip_dist']} K4 launches used "
                                      f"the table, {want} should")
         saved = {key: getattr(*key) for key in plain_ops}
+        calls = B.bulk_parse_csv.calls
         try:
             for (mod, name), fn in plain_ops.items():
                 setattr(mod, name, fn)
-            pwins, _, pwall = run_pipeline(params, lines)
+            pwins, _, _, pwall = run_pipeline(params, lines)
         finally:
             for (mod, name), fn in saved.items():
                 setattr(mod, name, fn)
+        if B.bulk_parse_csv.calls - calls != want_calls:
+            raise AssertionError(f"option {label}: the plain run parsed "
+                                 "without the native parser")
         if {name: fn.launches for name, fn in counters.items()} != got:
             raise AssertionError("the plain run launched a kernel")
         if len(wins) != len(pwins) or not wins:
@@ -898,60 +1132,129 @@ def main_path_phase(card: str, seed: int):
                                      "result differs from the plain run")
             if sum(_selected(q) for q in a[2]) == 0:
                 raise AssertionError(f"option {label} window {a[:2]} empty")
-        row = {"option": opt, "multi_query": multi,
+        if spec.latency and opt < 51 and len(rec_lat) != sum(
+                _selected(w[2][0]) for w in wins):
+            raise AssertionError(f"option {label}: {len(rec_lat)} record "
+                                 "latencies for the selected records")
+        row = {"option": opt, "mode": mode, "multi_query": multi,
                "queries": len(wins[0][2]), "k": query.k
-               if opt >= 51 else None, "windows": len(wins),
-               "selected": [[_selected(q) for q in w[2]] for w in wins],
-               "points_per_s": N_STREAM / wall, "wall_s": wall,
+               if opt >= 51 else None, "points": len(lines),
+               "windows": len(wins),
+               "points_per_s": len(lines) / wall, "wall_s": wall,
                "plain_wall_s": pwall,
                "median_window_ms": float(np.median(lat)),
+               "p99_window_ms": _pct(lat, 99),
+               "native_csv_parses": native_calls,
                "launches": {name: got[name] for name in KERNELS
                             if got[name]},
                "k4_table_launches": table_launches, "card": card}
+        if mode == "realtime":
+            row["selected_per_window"] = _pct(
+                [sum(_selected(q) for q in w[2]) for w in wins], 50)
+        else:
+            row["selected"] = [[_selected(q) for q in w[2]] for w in wins]
+        if spec.latency:
+            row["record_latency_ms_p50"] = _pct(rec_lat, 50)
+            row["record_latency_ms_p99"] = _pct(rec_lat, 99)
+            row["record_latencies"] = len(rec_lat)
         if opt >= 51:
-            row["first_list"] = wins[2][2][0][:3]
+            row["first_list"] = wins[min(2, len(wins) - 1)][2][0][:3]
         log("main-path", json.dumps(row))
         report.append(row)
         torch.cuda.empty_cache()
-    return launches, report, lines
+    return launches, report
+
+
+@contextlib.contextmanager
+def decode_split():
+    """Split the decode's time, on the host clock, into the native parser
+    call, the interning of its ids (one string per distinct id of a
+    chunk), the cell assignment (``PointChunk.build``), and the rest
+    (joining and encoding the lines), by timing wrappers around the first
+    three while the block runs."""
+    from spatialflink_tpu_torch import native as ingest
+    from spatialflink_tpu_torch.streams import bulk as B
+
+    split = {"native_parse_s": 0.0, "intern_s": 0.0, "cells_s": 0.0}
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                split[key] += time.perf_counter() - t0
+        return run
+    lib = ingest.lib()
+    parse, intern = lib.sf_parse_points_csv, B._intern_hashes
+    build = B.PointChunk.__dict__["build"]
+    lib.sf_parse_points_csv = timed(parse, "native_parse_s")
+    B._intern_hashes = timed(intern, "intern_s")
+    B.PointChunk.build = staticmethod(timed(build.__func__, "cells_s"))
+    try:
+        yield split
+    finally:
+        lib.sf_parse_points_csv = parse
+        B._intern_hashes = intern
+        B.PointChunk.build = build
 
 
 def breakdown_phase(lines) -> dict:
-    """Where options 6's and 51's time goes: the main path's stages run one
+    """Where the time goes, for the windowed options 6 and 51 (k = 50) and
+    the realtime options 2 and 52 (k = 50): the main path's stages run one
     after another over the same stream, each timed on the host clock with
-    the device synchronised at its end (the pipelined run overlaps them)."""
+    the device synchronised at its end (the pipelined run overlaps them):
+    the native CSV decode (4,096-row chunks windowed, 512-row realtime),
+    window assembly or the micro-batch cut, batch build (with the id
+    compaction of realtime kNN) and copy, device ops, readback and
+    selection."""
     import torch
 
-    from spatialflink_tpu_torch.driver import (ChunkedStream, _query_conf,
-                                               decode_chunks)
+    from spatialflink_tpu_torch.driver import (CASES, ChunkedStream,
+                                               _query_conf, decode_chunks)
     from spatialflink_tpu_torch.models import Point, Polygon
     from spatialflink_tpu_torch.operators import (PointGeomRangeQuery,
-                                                  PointPointKNNQuery)
+                                                  PointPointKNNQuery,
+                                                  PointPointRangeQuery)
 
     params = base_params()
     grid = params.grids()[0]
     out = {}
-    t0 = time.perf_counter()
-    chunks = list(decode_chunks(lines, params.input1, grid))
-    decode_s = time.perf_counter() - t0
-    conf = _query_conf(params)
-    for opt in (6, 51):
+    decoded = {}
+    for chunk in (4096, N_MICRO):
+        t0 = time.perf_counter()
+        with decode_split() as split:
+            chunks = list(decode_chunks(lines, params.input1, grid, chunk))
+        decoded[chunk] = (chunks, time.perf_counter() - t0)
+        split["other_s"] = decoded[chunk][1] - sum(split.values())
+        log(f"decode split, chunks of {chunk}: {json.dumps(split)}")
+        out[f"decode-split-{chunk}"] = split
+    q = Point.create(116.5, 40.5, grid)
+    for opt in (6, 51, 2, 52):
+        conf = _query_conf(params, CASES[opt])
+        chunks, decode_s = decoded[N_MICRO if opt in (2, 52) else 4096]
         if opt == 6:
             op = PointGeomRangeQuery(conf, grid, device="cuda")
             mask_stats = op._mask_stats_fn(
                 Polygon.create([ring(64, 0.35)], grid), params.query.radius)
-
-            def device_ops(batch, _recs):
-                mask, gn_c, evals = mask_stats(batch)
-                return op._defer_mask_select(mask, _recs, (gn_c, evals))
+        elif opt == 2:
+            op = PointPointRangeQuery(conf, grid, device="cuda")
+            mask_stats = op._mask_stats_fn(q, params.query.radius)
         else:
             op = PointPointKNNQuery(conf, grid, device="cuda")
-            local = op._knn_result([Point.create(116.5, 40.5, grid)],
-                                   params.query.radius, 50, single=True)
+            local = op._knn_result([q], params.query.radius, 50, single=True)
 
-            def device_ops(batch, recs):
-                res, evals = local(batch, len(recs.interner))
-                return op._defer_knn(res, recs.interner, evals)
+        def build(recs, start):
+            if opt in (51, 52):
+                return op._knn_batch(recs, start)
+            return op._point_batch(recs, start), None
+
+        def device_ops(batch, recs, ids):
+            if opt in (51, 52):
+                res, evals = local(batch, len(ids))
+                return op._defer_knn(res, ids, evals)
+            mask, gn_c, evals = mask_stats(batch)
+            return op._defer_mask_select(mask, recs, (gn_c, evals))
         stages = {"decode_s": decode_s, "assemble_s": 0.0,
                   "batch_h2d_s": 0.0, "device_ops_s": 0.0,
                   "readback_select_s": 0.0}
@@ -960,10 +1263,10 @@ def breakdown_phase(lines) -> dict:
         stages["assemble_s"] = time.perf_counter() - t0
         for start, _end, recs in wins:
             t0 = time.perf_counter()
-            batch = op._point_batch(recs, start)
+            batch, ids = build(recs, start)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            dfd = device_ops(batch, recs)
+            dfd = device_ops(batch, recs, ids)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             dfd.finish()
@@ -971,27 +1274,34 @@ def breakdown_phase(lines) -> dict:
             stages["batch_h2d_s"] += t1 - t0
             stages["device_ops_s"] += t2 - t1
             stages["readback_select_s"] += t3 - t2
-        stages["windows"] = len(wins)
-        stages["total_s"] = sum(v for key, v in stages.items()
-                                if key.endswith("_s"))
+        total = sum(stages.values())
+        stages.update(mode=conf.query_type.value, windows=len(wins),
+                      decode_chunks=len(chunks), total_s=total,
+                      decode_rows_per_s=len(lines) / decode_s,
+                      shares={key: v / total for key, v in stages.items()
+                              if key.endswith("_s")},
+                      per_window_ms={key: v * 1e3 / len(wins)
+                                     for key, v in stages.items()
+                                     if key.endswith("_s")})
         log("breakdown", opt, json.dumps(stages))
         out[str(opt)] = stages
     return out
 
 
-def profile_phase(lines) -> dict:
-    """Option 51 (k = 50) over the stream once more under torch.profiler
-    (CPU and CUDA activities): the device time by kind (kernels, copies,
-    memsets) from the trace's events, and the device's busy share of the
-    run's wall time. A trace without device events reports device_ms 0."""
+def profile_phase(lines, option: int) -> dict:
+    """Option ``option`` (k = 50) over the stream once more under
+    torch.profiler (CPU and CUDA activities): the device time by kind
+    (kernels, copies, memsets) from the trace's events, and the device's
+    busy share of the run's wall time. A trace without device events
+    reports device_ms 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     params = base_params()
-    params.query.option, params.query.k = 51, 50
+    params.query.option, params.query.k = option, 50
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, wall = run_pipeline(params, lines)
+        _, _, _, wall = run_pipeline(params, lines)
         torch.cuda.synchronize()
     by_kind = {"kernel_ms": 0.0, "memcpy_ms": 0.0, "memset_ms": 0.0}
     top = {}
@@ -1006,7 +1316,7 @@ def profile_phase(lines) -> dict:
         by_kind[kind] += ms
         top[ev.name] = top.get(ev.name, 0.0) + ms
     device_ms = sum(by_kind.values())
-    out = {"option": 51, "k": 50, "wall_s": wall, **by_kind,
+    out = {"option": option, "k": 50, "wall_s": wall, **by_kind,
            "device_ms": device_ms,
            "busy_share": device_ms / (wall * 1e3),
            "top": sorted(top.items(), key=lambda kv: -kv[1])[:6]}
@@ -1093,7 +1403,9 @@ def main(argv=None) -> int:
         log(f"phase {name}: {phases[name]:.1f} s wall")
         return out
 
-    compile_s = phase("build", native.build)
+    # the kernels (nvcc) and the ingest (g++), all started together
+    compile_s = phase("build", native.build,
+                      (*native.SOURCES, *native.HOST_SOURCES))
     log(f"build: per source {json.dumps(compile_s)}")
     build_report = {name: native.ptxas_report(native.build_log(name))
                     for name in native.SOURCES}
@@ -1108,23 +1420,55 @@ def main(argv=None) -> int:
                      rows)
     del batch, rows
     torch.cuda.empty_cache()
+    micro = phase("kernels-micro-batch", micro_kernel_phase, torch,
+                  args.seed, timer)
     phase("reference", reference_phase, torch, args.seed)
-    launches, report, lines = phase("main-path", main_path_phase, card,
-                                    args.seed)
+    t0 = time.perf_counter()
+    lines = stream_lines(args.seed, N_STREAM)
+    log(f"stream: {len(lines)} CSV rows over {SPAN_MS} ms "
+        f"({time.perf_counter() - t0:.1f} s to generate)")
+    launches, report = phase("main-path", main_path_phase, card, lines, RUNS)
+    rt_launches, rt_report = phase("realtime", main_path_phase, card, lines,
+                                   REALTIME_RUNS)
+    short_launches, short_report = phase(
+        "realtime-short", main_path_phase, card, lines[:N_SHORT],
+        SHORT_REALTIME_RUNS)
+    from spatialflink_tpu_torch.config import WindowConfig
+    count_launches, count_report = phase(
+        "count-windows", main_path_phase, card, lines[:COUNT_SIZE],
+        COUNT_RUNS, WindowConfig(type="COUNT", interval_s=COUNT_SIZE,
+                                 step_s=COUNT_SLIDE))
+    for more in (rt_launches, short_launches, count_launches):
+        for name in KERNELS:
+            launches[name] += more[name]
+    rt_report += short_report
     breakdown = phase("breakdown", breakdown_phase, lines)
-    prof = phase("profile", profile_phase, lines)
+    # option 52's trace over the shorter stream: the profiler's own event
+    # processing grows with the 4 launches and 10 copies per micro-batch
+    prof = {"51": phase("profile-51", profile_phase, lines, 51),
+            "52": phase("profile-52", profile_phase, lines[:N_SHORT], 52)}
     del lines
     phase("cli", cli_phase, args.seed)
 
     def entry(name, source, replaces, cases, main_case, shape):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": max(c["max_abs_err"] for c in cases),
-                "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-                "bound_ms": main_case["bound_ms"],
-                "bound_by": main_case["bound_by"],
-                "library_ms": None, "library_note": NO_LIB,
-                "shape": shape, "cases": cases}
+        """One kernel's entry: its main-path case at the window shape,
+        and its micro-batch cases (the realtime path's shape) under
+        ``micro_batch``."""
+        cases = cases + micro.get(name, [])
+        out = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": max(c["max_abs_err"] for c in cases),
+               "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+               "bound_ms": main_case["bound_ms"],
+               "bound_by": main_case["bound_by"],
+               "library_ms": None, "library_note": NO_LIB,
+               "shape": shape, "cases": cases}
+        if micro.get(name):
+            out["micro_batch"] = {
+                key: micro[name][0][key] for key in
+                ("case", "ms", "launch_to_completion_ms", "plain_ms",
+                 "bound_ms", "bound_by")}
+        return out
 
     kernels = [
         entry("pip_dist", "spatialflink_tpu_torch/csrc/pip_dist.cu",
@@ -1166,7 +1510,8 @@ def main(argv=None) -> int:
     log("build-report", json.dumps(build_report))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "card": card,
-                      "main_path": report, "breakdown": breakdown,
+                      "main_path": report + rt_report + count_report,
+                      "breakdown": breakdown,
                       "profile": prof, "phases_s": phases}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

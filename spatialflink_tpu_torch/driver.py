@@ -1,13 +1,21 @@
-"""Driver (port of ``spatialflink_tpu.driver`` for the windowed point-stream
-range and kNN queries).
+"""Driver (port of ``spatialflink_tpu.driver`` for the point-stream range
+and kNN queries).
 
 ``CASES`` keeps the JAX package's option numbering for the options this
-port runs, all windowed over a point stream: range 1 (Point query), 6
-(Polygon) and 11 (LineString); kNN 51, 56 and 61 (the same query types).
-``query.multiQuery`` (or ``--multi-query``) answers every configured query
-object of the option's type in one dispatch per window. Every other
-option, and every flag or config feature not ported yet, is refused with
-"not yet ported to spatialflink_tpu_torch" — never silently ignored.
+port runs, all over a point stream: range 1/2 (Point query), 6/7
+(Polygon) and 11/12 (LineString); kNN 51/52, 56/57 and 61/62 (the same
+query types), the first of each pair windowed, the second realtime
+(micro-batches of ``realtime_batch_size`` arrivals, emitted only when the
+selection is not empty); and the latency variants 8/9 (range) and 58/59
+(kNN) over a polygon query, windowed and realtime, whose results carry
+each selected record's ``now - ingestion time`` in ``extras["latency_ms"]``
+(empty for kNN's (objID, distance) records). ``window.type: COUNT`` turns
+the windowed options into sliding count windows (interval and step are
+record counts). ``query.multiQuery`` (or ``--multi-query``) answers every
+configured query object of the option's type in one dispatch per window.
+Every other option, and every flag or config feature not ported yet, is
+refused with "not yet ported to spatialflink_tpu_torch" — never silently
+ignored.
 
     python -m spatialflink_tpu_torch.driver --config conf/spatialflink-conf.yml \\
         --option 51 --input1 points.csv --format CSV [--multi-query] \\
@@ -15,7 +23,8 @@ option, and every flag or config feature not ported yet, is refused with
 
 stdout carries one line per window as the JAX driver prints it:
 ``{'window': [start, end], 'count': n}`` plus the result's extras (``k``
-for kNN; ``per_query_counts`` and ``queries`` under multiQuery).
+for kNN; ``per_query_counts`` and ``queries`` under multiQuery), without
+``latency_ms``.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import sys
+import time
 from dataclasses import dataclass
 from typing import Iterable, Iterator, List, Optional
 
@@ -33,7 +43,8 @@ from spatialflink_tpu_torch.index import UniformGrid
 from spatialflink_tpu_torch.operators import (QueryConfiguration, QueryType,
                                               WindowResult)
 from spatialflink_tpu_torch.operators.base import NOT_PORTED
-from spatialflink_tpu_torch.streams.bulk import PointChunk, parse_points
+from spatialflink_tpu_torch.streams import bulk
+from spatialflink_tpu_torch.streams.bulk import PointChunk
 from spatialflink_tpu_torch.utils import IdInterner
 
 
@@ -42,19 +53,26 @@ class CaseSpec:
     family: str            # range | knn
     stream: str = "Point"  # geometry type of input stream 1
     query: str = "Point"   # geometry type of the query side
-    mode: str = "window"
-    latency: bool = False  # a latency variant (none is ported yet)
+    mode: str = "window"   # window | realtime
+    latency: bool = False  # a latency variant
 
 
-#: the ported options (numbering of ``spatialflink_tpu.driver.CASES``)
-CASES = {
-    1: CaseSpec("range", "Point", "Point"),
-    6: CaseSpec("range", "Point", "Polygon"),
-    11: CaseSpec("range", "Point", "LineString"),
-    51: CaseSpec("knn", "Point", "Point"),
-    56: CaseSpec("knn", "Point", "Polygon"),
-    61: CaseSpec("knn", "Point", "LineString"),
-}
+def _build_cases() -> dict:
+    """The ported options (numbering of ``spatialflink_tpu.driver.CASES``):
+    range 1/2 + 5*i and kNN 51/52 + 5*i over the point stream's three
+    query types, and the latency variants."""
+    c = {}
+    for i, query in enumerate(("Point", "Polygon", "LineString")):
+        for base, fam in ((1, "range"), (51, "knn")):
+            c[base + 5 * i] = CaseSpec(fam, "Point", query, "window")
+            c[base + 1 + 5 * i] = CaseSpec(fam, "Point", query, "realtime")
+    for opt, fam, mode in ((8, "range", "window"), (9, "range", "realtime"),
+                           (58, "knn", "window"), (59, "knn", "realtime")):
+        c[opt] = CaseSpec(fam, "Point", "Polygon", mode, latency=True)
+    return c
+
+
+CASES = _build_cases()
 
 
 class ChunkedStream:
@@ -70,6 +88,36 @@ class ChunkedStream:
         return self._chunks
 
 
+def _decode_chunk(raws: List, cfg: StreamConfig, grid: UniformGrid,
+                  interner: IdInterner) -> PointChunk:
+    """One chunk of raw records -> a :class:`PointChunk`. A chunk of
+    CSV/TSV/GeoJSON lines is one native parser call; it takes the
+    per-record parse instead, as the JAX package's ``parse_raws`` does,
+    when a line holds an interior newline, when the parser refuses a row
+    (a record that is not a point), or when the parse does not give one
+    row per line."""
+    fmt = cfg.format.lower()
+    if fmt in ("csv", "tsv", "geojson") and all(isinstance(r, str)
+                                                for r in raws):
+        lines = [r[:-1] if r.endswith("\n") else r for r in raws]
+        if not any("\n" in r for r in lines):
+            data = "\n".join(lines).encode()
+            try:
+                if fmt == "geojson":
+                    parsed = bulk.bulk_parse_geojson(
+                        data, interner=interner, **cfg.geojson_kwargs())
+                else:
+                    parsed = bulk.bulk_parse_csv(
+                        data, delimiter="\t" if fmt == "tsv"
+                        else cfg.delimiter, schema=cfg.csv_tsv_schema,
+                        date_format=cfg.date_format, interner=interner)
+            except ValueError:
+                parsed = None
+            if parsed is not None and len(parsed) == len(raws):
+                return PointChunk.build(parsed, grid)
+    return PointChunk.build(bulk.parse_points(raws, cfg, interner), grid)
+
+
 def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
                   chunk: int = 4096) -> Iterator:
     """Raw records (CSV/TSV lines, GeoJSON str/dict, or Point objects) ->
@@ -80,27 +128,36 @@ def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
     for rec in records:
         buf.append(rec)
         if len(buf) >= chunk:
-            yield PointChunk.build(parse_points(buf, cfg, interner), grid)
+            yield _decode_chunk(buf, cfg, grid, interner)
             buf = []
     if buf:
-        yield PointChunk.build(parse_points(buf, cfg, interner), grid)
+        yield _decode_chunk(buf, cfg, grid, interner)
 
 
 def _check_ported(params: Params) -> None:
     q = params.query
     for on, what in ((q.panes, "query.panes"),
                      (q.parallelism > 1, "query.parallelism > 1"),
-                     (q.hosts > 1, "query.hosts > 1"),
-                     (params.window.type != "TIME",
-                      f"window.type {params.window.type}")):
+                     (q.hosts > 1, "query.hosts > 1")):
         if on:
             raise NotImplementedError(f"{what}: {NOT_PORTED}")
 
 
-def _query_conf(params: Params) -> QueryConfiguration:
+def _query_conf(params: Params, spec: CaseSpec) -> QueryConfiguration:
+    """Realtime options run micro-batches; ``window.type: COUNT`` takes
+    interval and step as raw record counts (the reference hands the same
+    values to ``countWindow`` unscaled); otherwise time windows."""
     size_ms, step_ms = params.window_ms()
+    if spec.mode == "realtime":
+        qt = QueryType.RealTime
+    elif params.window.type == "COUNT":
+        qt = QueryType.CountBased
+        size_ms = int(params.window.interval_s)
+        step_ms = int(params.window.step_s)
+    else:
+        qt = QueryType.WindowBased
     return QueryConfiguration(
-        query_type=QueryType.WindowBased,
+        query_type=qt,
         window_size_ms=size_ms,
         slide_ms=step_ms,
         allowed_lateness_ms=params.query.allowed_lateness_s * 1000,
@@ -138,6 +195,24 @@ def _run_multi_case(params: Params, spec: CaseSpec, op, s1,
     return op.run_multi(s1, qs, radius, params.query.k)
 
 
+def _with_latency(results: Iterator[WindowResult]
+                  ) -> Iterator[WindowResult]:
+    """Annotate each result with its records' latency in ms, ``now -
+    ingestion time`` (the reference ships the same to a Kafka topic,
+    ``HelperClass.java:455-529``); a record's ingestion time is its decode
+    chunk's stamp. kNN records are (objID, distance) pairs with no
+    ingestion time, so their list is empty."""
+    for r in results:
+        now = int(time.time() * 1000)
+        cols = getattr(r.records, "columns", None)
+        lats = []
+        if cols is not None:
+            ingest = cols()[5]
+            lats = (now - ingest[ingest > 0]).tolist()
+        r.extras["latency_ms"] = lats
+        yield r
+
+
 def run_option(params: Params, stream1: Iterable, *, device="cuda"
                ) -> Iterator[WindowResult]:
     """Wire and run the pipeline of ``params.query.option`` over
@@ -153,15 +228,26 @@ def run_option(params: Params, stream1: Iterable, *, device="cuda"
     u_grid, _ = params.grids()
     fam = {"range": "Range", "knn": "KNN"}[spec.family]
     cls = getattr(ops, f"{spec.stream}{spec.query}{fam}Query")
-    op = cls(_query_conf(params), u_grid, device=device)
-    s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid))
+    conf = _query_conf(params, spec)
+    op = cls(conf, u_grid, device=device)
+    # decode chunks: a realtime chunk is one micro-batch, a count window's
+    # at most one slide, otherwise 4,096 records
+    if conf.query_type is QueryType.RealTime:
+        chunk = conf.realtime_batch_size
+    elif conf.query_type is QueryType.CountBased:
+        chunk = max(1, min(4096, conf.slide_ms))
+    else:
+        chunk = 4096
+    s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid, chunk))
     radius = params.query.radius
     if params.query.multi_query:
         return _run_multi_case(params, spec, op, s1, u_grid, radius)
     q = _query_objects(params, u_grid, spec.query)[0]
     if spec.family == "knn":
-        return op.run(s1, q, radius, params.query.k)
-    return op.run(s1, q, radius)
+        out = op.run(s1, q, radius, params.query.k)
+    else:
+        out = op.run(s1, q, radius)
+    return _with_latency(out) if spec.latency else out
 
 
 def _emit(result: WindowResult, sink) -> None:
@@ -172,7 +258,8 @@ def _emit(result: WindowResult, sink) -> None:
     else:
         counts = {"count": len(result.records)}
     sink.emit({"window": [result.window_start, result.window_end],
-               **counts, **result.extras})
+               **counts, **{k: v for k, v in result.extras.items()
+                            if k != "latency_ms"}})
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -181,9 +268,12 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     ap = argparse.ArgumentParser(
         prog="spatialflink-tpu-torch",
-        description="spatial stream query driver on PyTorch/CUDA "
-                    "(windowed range options 1, 6, 11 and kNN options 51, "
-                    "56, 61)")
+        description="spatial stream query driver on PyTorch/CUDA over a "
+                    "point stream: range options 1, 6, 11 (windowed) and "
+                    "2, 7, 12 (realtime), kNN options 51, 56, 61 "
+                    "(windowed) and 52, 57, 62 (realtime), latency "
+                    "variants 8, 9 (range) and 58, 59 (kNN); window.type "
+                    "TIME or COUNT")
     ap.add_argument("--config", required=True, help="YAML config path")
     ap.add_argument("--input1", help="newline-delimited input file for "
                                      "stream 1")

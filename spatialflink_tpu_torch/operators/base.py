@@ -1,15 +1,22 @@
-"""Operator plumbing (port of the windowed path of
-``spatialflink_tpu.operators.base``): query configuration, deferred device
-results (selection masks and kNN lists, single- and multi-query), the
-pipelined window driver, the shared multi-query range driver, and
-query-side precomputation.
+"""Operator plumbing (port of ``spatialflink_tpu.operators.base`` for the
+point stream): query configuration, deferred device results (selection
+masks and kNN lists, single- and multi-query), the pipelined driver over
+time windows, count windows and realtime micro-batches, the shared
+multi-query range driver, and query-side precomputation.
 
-Not yet ported: realtime and count windows, panes, the device mesh,
-checkpointing, the adaptive grid, the dynamic query registry, and the
-drive loop's telemetry, latency, governor and accounting hooks. The JAX
-package's single-device seams around the mesh (``_multi_filter_stream``,
-``_knn_multi_result``, ``_multi_results``) have no mesh or realtime mode to
-route here, so the port calls the per-batch closures directly.
+Realtime mode: the reference uses tiny tumbling windows with
+fire-per-element triggers; here arrivals are cut into micro-batches of
+``realtime_batch_size`` records (``runtime.MicroBatcher``), each evaluated
+in one dispatch, and a micro-batch whose selection is empty is not
+emitted. Count windows: every ``slide`` arrivals, the last ``size``
+records (``runtime.count_windows``); ``window_size_ms``/``slide_ms`` are
+then counts.
+
+Not yet ported: panes, the device mesh, checkpointing, the adaptive grid,
+the dynamic query registry, and the drive loop's telemetry, latency-plane,
+governor and accounting hooks. The JAX package's single-device seams
+around the mesh (``_multi_filter_stream``, ``_knn_multi_result``) have no
+mesh to route here, so the port calls the per-batch closures directly.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ from spatialflink_tpu_torch.models import (EdgeGeomBatch, MultiPolygon,
                                             Point, PointBatch, Polygon,
                                             single_query_edges)
 from spatialflink_tpu_torch.models.batches import to_device
-from spatialflink_tpu_torch.runtime import WindowAssembler, WindowSpec
+from spatialflink_tpu_torch.runtime import (MicroBatcher, WindowAssembler,
+                                            WindowSpec, count_windows)
 from spatialflink_tpu_torch.streams.bulk import (LazyRecords, PointChunk,
                                                  points_to_parsed)
 from spatialflink_tpu_torch.utils import IdInterner
@@ -46,6 +54,7 @@ class QueryType(enum.Enum):
 @dataclass
 class QueryConfiguration:
     query_type: QueryType = QueryType.WindowBased
+    # record counts, not milliseconds, for CountBased
     window_size_ms: int = 10_000
     slide_ms: int = 5_000
     allowed_lateness_ms: int = 0
@@ -56,6 +65,8 @@ class QueryConfiguration:
     pipeline_depth: int = 2
     # kNN result size when the caller gives none (query.k)
     k: int = 10
+    # records per realtime micro-batch (one dispatch each)
+    realtime_batch_size: int = 512
 
     def window_spec(self) -> WindowSpec:
         return WindowSpec.sliding(self.window_size_ms, self.slide_ms)
@@ -63,9 +74,12 @@ class QueryConfiguration:
 
 @dataclass
 class WindowResult:
-    """One emitted result: the records selected in [start, end) — one list
-    per query when ``extras["queries"]`` is set (run_multi windows), and
-    (objID, distance) pairs for kNN."""
+    """One emitted result: the records selected in [start, end) of a time
+    window, in [start, end] of a count window (its records' min and max
+    event time), or in a realtime micro-batch (start and end are its first
+    and last record's event time) — one list per query when
+    ``extras["queries"]`` is set (run_multi windows), and (objID,
+    distance) pairs for kNN."""
 
     window_start: int
     window_end: int
@@ -136,9 +150,6 @@ class SpatialOperator:
 
     def __init__(self, conf: QueryConfiguration, grid: UniformGrid, *,
                  device="cuda"):
-        if conf.query_type is not QueryType.WindowBased:
-            raise NotImplementedError(
-                f"{conf.query_type.value} queries: {NOT_PORTED}")
         self.conf = dataclasses.replace(conf)
         self.grid = grid
         self.device = resolve_device(device)
@@ -146,13 +157,25 @@ class SpatialOperator:
         self.pruning = {"gn-bypassed": 0, "distance-computations": 0}
 
     def _point_batch(self, records: LazyRecords, ts_base: int) -> PointBatch:
-        return records.point_batch(ts_base, self.device)
+        return records.point_batch(ts_base, self.device)[0]
+
+    @property
+    def realtime(self) -> bool:
+        return self.conf.query_type is QueryType.RealTime
 
     def _windows(self, stream: Iterable
                  ) -> Iterator[Tuple[int, int, LazyRecords]]:
+        """The stream's evaluation units as (start, end, records): realtime
+        micro-batches, count windows, or sealed event-time windows."""
+        chunks = _record_chunks(stream, self.grid)
+        if self.realtime:
+            return MicroBatcher(self.conf.realtime_batch_size).batches(chunks)
+        if self.conf.query_type is QueryType.CountBased:
+            return count_windows(chunks, self.conf.window_size_ms,
+                                 self.conf.slide_ms)
         wa = WindowAssembler(self.conf.window_spec(),
                              self.conf.allowed_lateness_ms)
-        return wa.assemble(_record_chunks(stream, self.grid))
+        return wa.assemble(chunks)
 
     def _filter_stream(self, batch: PointBatch, mask_stats_fn):
         """(mask, gn_bypassed, dist_evals) for one batch on one device."""
@@ -178,25 +201,25 @@ class SpatialOperator:
             return records.take(idx[idx < len(records)])
         return self._defer_with_stats(mask, stats, rows)
 
-    def _defer_knn(self, res, interner: IdInterner, dist_evals) -> Deferred:
+    def _defer_knn(self, res, ids, dist_evals) -> Deferred:
         """Deferred (objID, distance) list from a (k,) KnnResult, ids
-        resolved through ``interner`` (the window's). ``dist_evals`` feeds
+        resolved through ``ids.lookup`` (the window's interner, or a
+        micro-batch's compacted ids). ``dist_evals`` feeds
         the distance-computation counter: kNN has no GN bypass, every
         candidate-cell point costs one distance."""
         def collect(host):
             oid, dist, valid, evals = host
             self.pruning["distance-computations"] += int(evals.sum())
-            return _knn_pairs(oid, dist, valid, interner)
+            return _knn_pairs(oid, dist, valid, ids)
         return Deferred((*res, dist_evals), collect)
 
-    def _defer_knn_multi(self, res, interner: IdInterner,
-                         dist_evals) -> Deferred:
+    def _defer_knn_multi(self, res, ids, dist_evals) -> Deferred:
         """Deferred per-query (objID, distance) lists from a (Q, k)
         KnnResult; ``dist_evals`` (Q,) is summed into the counter."""
         def collect(host):
             oid, dist, valid, evals = host
             self.pruning["distance-computations"] += int(evals.sum())
-            return [_knn_pairs(o, d, v, interner)
+            return [_knn_pairs(o, d, v, ids)
                     for o, d, v in zip(oid, dist, valid)]
         return Deferred((*res, dist_evals), collect)
 
@@ -226,27 +249,45 @@ class SpatialOperator:
                     [idx[idx < n] for idx in (np.nonzero(r)[0] for r in m)])
             return self._defer_with_stats(masks, (gn_c, evals), rows)
 
-        for result in self._drive(stream, eval_batch):
+        for result in self._multi_results(stream, eval_batch):
             result.extras["queries"] = n_queries
             yield result
 
     def _drive(self, stream: Iterable, eval_batch
                ) -> Iterator[WindowResult]:
-        """Windowed driver: ``eval_batch(records, ts_base)`` returns a record
-        list or a :class:`Deferred`; deferred results are pipelined, up to
-        ``conf.pipeline_depth`` windows in flight, and emitted in window
-        order. Every window is reported, selected-or-not."""
-        return self._drive_batched(self._windows(stream), eval_batch)
+        """The drive loop of every mode: ``eval_batch(records, ts_base)``
+        returns a record list or a :class:`Deferred`; deferred results are
+        pipelined, up to ``conf.pipeline_depth`` in flight, and emitted in
+        order. Every window is reported, selected-or-not; a realtime
+        micro-batch only when its selection is not empty."""
+        return self._drive_batched(self._windows(stream), eval_batch,
+                                   realtime=self.realtime)
 
-    def _drive_batched(self, batched: Iterable, eval_batch
+    def _multi_results(self, stream: Iterable, eval_batch
                        ) -> Iterator[WindowResult]:
+        """:meth:`_drive` for multi-query evaluators, whose result (a list
+        of Q per-query lists) is always truthy: in realtime mode a
+        micro-batch is dropped when every query's list is empty."""
+        for result in self._drive(stream, eval_batch):
+            if self.realtime and not any(result.records):
+                continue
+            yield result
+
+    def _drive_batched(self, batched: Iterable, eval_batch, *,
+                       realtime: bool = False) -> Iterator[WindowResult]:
         depth = max(1, self.conf.pipeline_depth)
         pending: deque = deque()  # (start, end, Deferred)
+
+        def emit(start, end, sel) -> Iterator[WindowResult]:
+            # realtime mode fires only on a non-empty selection (the
+            # reference's fire-per-element trigger never emits empties)
+            if sel or not realtime:
+                yield WindowResult(start, end, sel)
 
         def drain(n: int) -> Iterator[WindowResult]:
             while len(pending) > n:
                 start, end, dfd = pending.popleft()
-                yield WindowResult(start, end, dfd.finish())
+                yield from emit(start, end, dfd.finish())
 
         for start, end, payload in batched:
             sel = eval_batch(payload, start)
@@ -255,13 +296,13 @@ class SpatialOperator:
                 yield from drain(depth - 1)
             else:
                 yield from drain(0)  # keep window order
-                yield WindowResult(start, end, sel)
+                yield from emit(start, end, sel)
         yield from drain(0)
 
 
-def _knn_pairs(oid, dist, valid, interner: IdInterner) -> List:
+def _knn_pairs(oid, dist, valid, ids) -> List:
     """The valid slots of one (k,) kNN row as (objID string, distance)."""
-    return [(interner.lookup(int(o)), float(d))
+    return [(ids.lookup(int(o)), float(d))
             for o, d in zip(oid[valid], dist[valid])]
 
 

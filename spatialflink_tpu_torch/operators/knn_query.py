@@ -11,6 +11,14 @@ take it from K4 (one query) or the K4x lattice (Q queries), or from the
 bbox in approximate mode. Records are (objID, distance) pairs resolved
 through the window's interner, whose size is K2's per-object table size.
 
+Realtime mode: a micro-batch of ``realtime_batch_size`` points would still
+size K2's per-object table by the whole stream's id count, so its interned
+ids are compacted on the host first (``np.unique`` of at most a batch of
+ints; the unique ids come out sorted, so ascending local id is ascending
+interned id and distance ties break as in the uncompacted call): K2 runs
+with the batch's distinct count as ``num_ids`` and the result ids map back
+at readback. Windowed and count modes keep the interner's size.
+
 Approximate mode: the JAX package also switches its selection to
 ``lax.approx_min_k`` (``_knn_strategy``, recall < 1); the port keeps its one
 exact selection, so its list is the JAX ``sort`` strategy's and JAX's
@@ -24,6 +32,8 @@ from __future__ import annotations
 
 from typing import Iterable, Iterator, List, Optional
 
+import numpy as np
+
 from spatialflink_tpu_torch.models import Point
 from spatialflink_tpu_torch.operators.base import (GeomQueryMixin,
                                                    SpatialOperator,
@@ -33,19 +43,44 @@ from spatialflink_tpu_torch.ops import geom as G
 from spatialflink_tpu_torch.ops import knn as K
 
 
+class _CompactIds:
+    """The id lookup of a compacted micro-batch: local id ``i`` is
+    interned id ``ids[i]``."""
+
+    __slots__ = ("ids", "interner")
+
+    def __init__(self, ids: np.ndarray, interner):
+        self.ids = ids
+        self.interner = interner
+
+    def __len__(self) -> int:
+        return int(self.ids.shape[0])
+
+    def lookup(self, i: int) -> str:
+        return self.interner.lookup(int(self.ids[i]))
+
+
 class _KnnOperator(SpatialOperator):
     """The kNN drive loops shared by the point and geometry query forms:
     per run, a closure ``local(batch, num_ids) -> (KnnResult, dist_evals)``
     evaluates one window batch."""
+
+    def _knn_batch(self, records, ts_base: int):
+        """``(batch, id lookup)``: the lookup's size is K2's ``num_ids``;
+        in realtime mode the batch carries compacted ids."""
+        if not self.realtime:
+            return self._point_batch(records, ts_base), records.interner
+        batch, ids = records.point_batch(ts_base, self.device, compact=True)
+        return batch, _CompactIds(ids, records.interner)
 
     def _drive_single(self, stream, local, k: int
                       ) -> Iterator[WindowResult]:
         def eval_batch(records, ts_base):
             if not len(records):
                 return []
-            res, evals = local(self._point_batch(records, ts_base),
-                               len(records.interner))
-            return self._defer_knn(res, records.interner, evals)
+            batch, ids = self._knn_batch(records, ts_base)
+            res, evals = local(batch, len(ids))
+            return self._defer_knn(res, ids, evals)
 
         for result in self._drive(stream, eval_batch):
             result.extras["k"] = k
@@ -57,11 +92,11 @@ class _KnnOperator(SpatialOperator):
         def eval_batch(records, ts_base):
             if not len(records):
                 return [[] for _ in range(n_queries)]
-            res, evals = local(self._point_batch(records, ts_base),
-                               len(records.interner))
-            return self._defer_knn_multi(res, records.interner, evals)
+            batch, ids = self._knn_batch(records, ts_base)
+            res, evals = local(batch, len(ids))
+            return self._defer_knn_multi(res, ids, evals)
 
-        for result in self._drive(stream, eval_batch):
+        for result in self._multi_results(stream, eval_batch):
             result.extras["k"] = k
             result.extras["queries"] = n_queries
             yield result

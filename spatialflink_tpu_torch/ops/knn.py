@@ -23,7 +23,9 @@ distances where the JAX package does.
 
 ``num_ids`` is the size of the per-object table: one entry per interned id.
 Operators pass the window interner's size (known on the host without a
-device sync); when it is None it is read from the ids (a device sync).
+device sync), or in realtime mode a micro-batch's distinct id count (its
+ids compacted, ``operators/knn_query.py``); when it is None it is read from
+the ids (a device sync).
 """
 
 from __future__ import annotations

@@ -1,13 +1,20 @@
-"""Build and load the hand-written CUDA kernels of ``csrc/``.
+"""Build and load the port's native libraries: the hand-written CUDA
+kernels of ``csrc/`` and the host point ingest ``native/ingest.cpp``.
 
 Each ``csrc/<name>.cu`` exports plain-C launch functions. It is compiled
 at first use with ``nvcc`` into ``_build/lib<name>-<hash>.so`` (the hash
 covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
-edited source or header rebuilds) and loaded with :mod:`ctypes`. Nothing
+edited source or header rebuilds) and loaded with :mod:`ctypes`. The host
+sources (:data:`HOST_SOURCES`) are built the same way with ``g++``
+(:data:`CXX_FLAGS`; their hash also covers the host's platform). Nothing
 is built or loaded when this module is imported: the CPU tests import every
-module and have no ``nvcc``. Each build keeps ``nvcc``'s output beside the
-library (``.log``): with ``-Xptxas -v`` it states every kernel's registers,
-shared memory and spills, which :func:`ptxas_report` reads.
+module and have no ``nvcc``. Each build keeps the compiler's output beside
+the library (``.log``): with ``-Xptxas -v`` it states every kernel's
+registers, shared memory and spills, which :func:`ptxas_report` reads.
+Concurrent first builds (several test workers) each compile into a file of
+their own and ``os.replace`` it into place, so no process loads a
+half-written library. A missing compiler or a failed compile raises with
+the compiler's output; nothing falls back.
 
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so that no ``a*b+c`` is fused
 into an FMA (each operation rounds once, as the plain PyTorch versions'
@@ -20,9 +27,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import re
 import shutil
 import subprocess
+import sys
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
@@ -34,6 +44,9 @@ SOURCES = ("pip_dist", "range_mask", "knn_topk", "pip_lattice", "cell_order")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+#: host C++ libraries, built with g++: name -> source
+HOST_SOURCES = {"ingest": _PKG / "native" / "ingest.cpp"}
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -56,18 +69,41 @@ def nvcc_path() -> str:
         "kernels of spatialflink_tpu_torch are compiled at first use")
 
 
+def cxx_path() -> str:
+    """``g++`` on PATH; raises when there is none."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(
+            "g++ not found on PATH: the native point ingest of "
+            "spatialflink_tpu_torch (native/ingest.cpp) is compiled at "
+            "first use")
+    return cxx
+
+
 def library_path(name: str) -> Path:
-    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
-                                            *sorted(CSRC.glob("*.cuh"))])
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    if name in HOST_SOURCES:
+        key = HOST_SOURCES[name].read_bytes() + " ".join(
+            (*CXX_FLAGS, sys.platform, platform.machine())).encode()
+    else:
+        key = b"".join(p.read_bytes() for p in [
+            CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]) + \
+            " ".join(NVCC_FLAGS).encode()
+    return BUILD_DIR / f"lib{name}-{hashlib.sha256(key).hexdigest()[:16]}.so"
+
+
+def _command(name: str, out: Path) -> list:
+    if name in HOST_SOURCES:
+        return [cxx_path(), *CXX_FLAGS, "-o", str(out),
+                str(HOST_SOURCES[name])]
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out),
+            str(CSRC / f"{name}.cu")]
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
-    """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together. Returns the wall
-    seconds of each compile that ran (0.0 for a library already built)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    """Compile every library in ``names`` (CUDA sources and
+    :data:`HOST_SOURCES`) that is not built yet, one compiler process per
+    source, all started together. Returns the wall seconds of each compile
+    that ran (0.0 for a library already built)."""
     procs = {}
     seconds = {}
     for name in names:
@@ -75,9 +111,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         if out.exists():
             seconds[name] = 0.0
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = _command(name, tmp)  # raises before anything is written
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -86,12 +122,14 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
         if proc.returncode != 0:
-            failed.append(f"{name}.cu:\n{log}")
+            tmp.unlink(missing_ok=True)
+            tool = "g++" if name in HOST_SOURCES else "nvcc"
+            failed.append(f"{tool} failed for {name}:\n{log}")
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("\n".join(failed))
     return seconds
 
 
@@ -144,18 +182,23 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
-def function(name: str, symbol: str, argtypes: Sequence,
-             restype=ctypes.c_int):
-    """The C function ``symbol`` of ``lib<name>``, built on first use, with
-    its argument types declared (every pointer and the stream as
-    ``c_void_p``, or ctypes would pass them as 32-bit ints)."""
+def load(name: str) -> ctypes.CDLL:
+    """``lib<name>``, built on first use."""
     lib = _LIBS.get(name)
     if lib is None:
         path = library_path(name)
         if not path.exists():
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(path))
-    fn = getattr(lib, symbol)
+    return lib
+
+
+def function(name: str, symbol: str, argtypes: Sequence,
+             restype=ctypes.c_int):
+    """The C function ``symbol`` of ``lib<name>``, built on first use, with
+    its argument types declared (every pointer and the stream as
+    ``c_void_p``, or ctypes would pass them as 32-bit ints)."""
+    fn = getattr(load(name), symbol)
     fn.argtypes = list(argtypes)
     fn.restype = restype
     return fn

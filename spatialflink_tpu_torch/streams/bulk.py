@@ -2,30 +2,33 @@
 ``spatialflink_tpu.streams.bulk``): a chunk of records -> structure of
 arrays, and the lazy per-window record views built on it.
 
-The JAX package parses CSV in native C++; this port splits the lines in
-Python and converts the numeric columns with numpy in one call each (no
-native ingest yet). Records that are not plain numeric rows (date-string
-timestamps) parse per field through :func:`formats.parse_timestamp`.
+:func:`bulk_parse_csv` and :func:`bulk_parse_geojson` parse a block of
+lines in one call of the native ingest (``native/ingest.cpp``, the JAX
+package's point parsers copied), with the JAX package's contract: the
+accepted rows' object ids are interned in ascending FNV-1a 64 hash order,
+and the rows the native parser rejects (date-string timestamps, GeoJSON
+ids that are not plain strings or numbers) are reparsed one by one and
+interned after them, in line order. kNN breaks distance ties by interned
+id, so this order is part of the result.
 
-Object ids are interned in the order the JAX package's ingest gives them,
-because kNN breaks distance ties by interned id: a chunk's ids that its
-native parser accepts (CSV/TSV rows with an all-digit timestamp, GeoJSON
-points) in ascending FNV-1a 64 hash order of the id's bytes, the rows it
-hands back to Python (date-string timestamps) in line order after them,
-and Point objects in order of appearance.
+:func:`bulk_parse_csv_plain` is the line-splitting parser the port used
+before it had the native ingest: its plain version, which the tests hold
+the native parse against; nothing on the main path calls it.
 """
 
 from __future__ import annotations
 
+import ctypes
 import sys
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from spatialflink_tpu_torch.index import UniformGrid
+from spatialflink_tpu_torch import native
 from spatialflink_tpu_torch.models import Point, PointBatch
 from spatialflink_tpu_torch.streams import formats
 from spatialflink_tpu_torch.utils import IdInterner
@@ -84,13 +87,142 @@ def _intern_in_order(ids: Sequence[str], interner: IdInterner) -> np.ndarray:
                        count=len(ids))
 
 
-def bulk_parse_csv(lines: Sequence[str], *, delimiter: str = ",",
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _intern_hashes(data: bytes, oid_hash, oid_start, oid_len,
+                   interner: IdInterner, normalize) -> np.ndarray:
+    """Interned ids of the accepted rows: one string per distinct hash,
+    interned in ascending hash order (``normalize`` applies the id
+    normalization the native hash was taken over)."""
+    uniq, first, inv = np.unique(oid_hash, return_index=True,
+                                 return_inverse=True)
+    ids = np.empty(uniq.shape[0], np.int32)
+    for u, j in enumerate(first.tolist()):
+        s = data[oid_start[j]:oid_start[j] + oid_len[j]].decode("utf-8",
+                                                                "replace")
+        ids[u] = interner.intern(normalize(s))
+    return ids[inv.reshape(-1)]
+
+
+# CSV ids: parse_csv removes every '"' and trims whitespace; GeoJSON ids:
+# the native span is already the decoded value
+def _norm_csv(s: str) -> str:
+    return s.replace('"', "").strip()
+
+
+def _norm_raw(s: str) -> str:
+    return s
+
+
+def _nonblank_lines(data: bytes) -> List[bytes]:
+    """The native parser's blank-line rule (a line is blank iff it holds
+    only spaces, tabs and carriage returns), so reject indices align."""
+    return [ln for ln in data.split(b"\n") if ln.strip(b" \t\r")]
+
+
+def _merge_rejects(accepted: Tuple[np.ndarray, ...],
+                   reparsed: List[Tuple[int, Point]],
+                   interner: IdInterner) -> ParsedPoints:
+    """The accepted rows' columns and the reparsed rows merged back into
+    line order; the reparsed rows' ids are interned after the accepted
+    ones, in line order."""
+    x, y, ts, oid = accepted
+    if not reparsed:
+        return ParsedPoints(x=x.copy(), y=y.copy(), ts=ts.copy(), obj_id=oid,
+                            interner=interner)
+    total = x.shape[0] + len(reparsed)
+    keep = np.ones(total, bool)
+    keep[[line for line, _ in reparsed]] = False
+    cols = [np.empty(total, a.dtype) for a in (x, y, ts, oid)]
+    for out, a in zip(cols, (x, y, ts, oid)):
+        out[keep] = a
+    for line, p in reparsed:
+        cols[0][line], cols[1][line], cols[2][line] = p.x, p.y, p.timestamp
+        cols[3][line] = interner.intern(p.obj_id)
+    return ParsedPoints(*cols, interner=interner)
+
+
+def _native_parse(fn, data: bytes, args, interner: IdInterner, normalize,
+                  reparse) -> ParsedPoints:
+    """One call of a native point parser over ``data``, then the rejected
+    lines through ``reparse(line) -> Point``."""
+    cap = data.count(b"\n") + 1
+    out = [np.empty(cap, t) for t in (np.float64, np.float64, np.int64,
+                                      np.uint64, np.int64, np.int32,
+                                      np.int64)]
+    ctypes_of = (ctypes.c_double, ctypes.c_double, ctypes.c_int64,
+                 ctypes.c_uint64, ctypes.c_int64, ctypes.c_int32,
+                 ctypes.c_int64)
+    nrej = ctypes.c_long(0)
+    n = fn(data + b"\0", len(data), *args,
+           *(_ptr(a, t) for a, t in zip(out, ctypes_of)), ctypes.byref(nrej))
+    xs, ys, ts, oh, ostart, olen, rej = out
+    oid = _intern_hashes(data, oh[:n], ostart[:n], olen[:n], interner,
+                         normalize)
+    reparsed = []
+    if nrej.value:
+        lines = _nonblank_lines(data)
+        for i in rej[:nrej.value].tolist():
+            ln = lines[i].decode("utf-8", "replace")
+            p = reparse(ln)
+            if not isinstance(p, Point):
+                raise ValueError("bulk point ingestion got a non-Point "
+                                 f"record: {ln[:120]!r}")
+            reparsed.append((i, p))
+    return _merge_rejects((xs[:n], ys[:n], ts[:n], oid), reparsed, interner)
+
+
+def bulk_parse_csv(data: bytes, *, delimiter: str = ",",
                    schema: Sequence = (0, 1, 2, 3),
                    date_format: Optional[str] = formats.DEFAULT_DATE_FORMAT,
                    interner: Optional[IdInterner] = None) -> ParsedPoints:
-    """Parse CSV/TSV point rows (``schema`` = column indices of [oID,
-    timestamp, x, y], None = absent), with the per-line semantics of
-    :func:`formats.parse_csv`."""
+    """Parse a newline-separated CSV/TSV block of points in one native
+    call (``schema`` = column indices of [oID, timestamp, x, y], None =
+    absent), with the per-line semantics of :func:`formats.parse_csv`.
+    Blank lines are skipped."""
+    interner = interner if interner is not None else IdInterner()
+    bulk_parse_csv.calls += 1
+    schema = (list(schema) + [None] * 4)[:4]
+    oi, ti, xi, yi = (-1 if c is None else int(c) for c in schema)
+    return _native_parse(
+        native.lib().sf_parse_points_csv, data,
+        (delimiter.encode()[:1] or b",", oi, ti, xi, yi), interner,
+        _norm_csv, lambda ln: formats.parse_csv(
+            ln, delimiter=delimiter, schema=schema, date_format=date_format))
+
+
+def bulk_parse_geojson(data: bytes, *, property_obj_id: str = "oID",
+                       property_timestamp: str = "timestamp",
+                       date_format: Optional[str] = None,
+                       interner: Optional[IdInterner] = None
+                       ) -> ParsedPoints:
+    """Parse a newline-separated block of GeoJSON Point features in one
+    native call; a record of another geometry type raises ValueError."""
+    interner = interner if interner is not None else IdInterner()
+    bulk_parse_geojson.calls += 1
+    kw = dict(property_obj_id=property_obj_id,
+              property_timestamp=property_timestamp, date_format=date_format)
+    return _native_parse(
+        native.lib().sf_parse_points_geojson, data,
+        (property_obj_id.encode(), property_timestamp.encode()), interner,
+        _norm_raw, lambda ln: formats.parse_geojson(ln, **kw))
+
+
+#: native parser calls since the process started (a run's count is the
+#: difference; chip_smoke.py reads it)
+bulk_parse_csv.calls = 0
+bulk_parse_geojson.calls = 0
+
+
+def bulk_parse_csv_plain(lines: Sequence[str], *, delimiter: str = ",",
+                   schema: Sequence = (0, 1, 2, 3),
+                   date_format: Optional[str] = formats.DEFAULT_DATE_FORMAT,
+                   interner: Optional[IdInterner] = None) -> ParsedPoints:
+    """Plain version of :func:`bulk_parse_csv` over a list of lines: the
+    fields split in Python, the numeric columns converted by numpy, ids
+    interned in the native parser's order."""
     interner = interner if interner is not None else IdInterner()
     text = "\n".join(lines)
     if '"' in text or " " in text or "\r" in text or (
@@ -126,17 +258,15 @@ def bulk_parse_csv(lines: Sequence[str], *, delimiter: str = ",",
     return ParsedPoints(x=x, y=y, ts=ts, obj_id=oid, interner=interner)
 
 
-def points_to_parsed(points: Sequence[Point], interner: IdInterner, *,
-                     by_hash: bool = False) -> ParsedPoints:
-    """Point objects as columns; new ids interned in order of appearance,
-    or in :func:`fnv1a64` order (``by_hash``, for records the JAX package
-    ingests natively)."""
-    intern = _intern if by_hash else _intern_in_order
+def points_to_parsed(points: Sequence[Point],
+                     interner: IdInterner) -> ParsedPoints:
+    """Point objects as columns; new ids interned in order of
+    appearance."""
     return ParsedPoints(
         x=np.array([p.x for p in points], np.float64),
         y=np.array([p.y for p in points], np.float64),
         ts=np.array([p.timestamp for p in points], np.int64),
-        obj_id=intern([p.obj_id for p in points], interner),
+        obj_id=_intern_in_order([p.obj_id for p in points], interner),
         interner=interner)
 
 
@@ -185,11 +315,20 @@ class LazyRecords:
             cols[5].append(np.full(idx.size, chunk.ingest_ms, np.int64))
         return tuple(np.concatenate(c) for c in cols)
 
-    def point_batch(self, ts_base: int, device: torch.device) -> PointBatch:
-        """The window's device batch (cells were assigned per chunk)."""
+    def point_batch(self, ts_base: int, device: torch.device,
+                    compact: bool = False
+                    ) -> Tuple[PointBatch, Optional[np.ndarray]]:
+        """The window's device batch (cells were assigned per chunk) and
+        None; with ``compact``, the batch's obj_id is each record's index
+        among the window's distinct interned ids, returned beside it
+        (ascending, so ascending local id is ascending interned id)."""
         x, y, ts, oid, cell, _ = self.columns()
+        ids = None
+        if compact:
+            ids, local = np.unique(oid, return_inverse=True)
+            oid = local.reshape(-1)
         return PointBatch.from_arrays(x, y, device=device, obj_id=oid, ts=ts,
-                                      ts_base=ts_base, cell=cell)
+                                      ts_base=ts_base, cell=cell), ids
 
     def take(self, idx) -> "PointRows":
         """The records at window positions ``idx``."""
@@ -239,19 +378,14 @@ class PointRows:
 
 
 def parse_points(items: Sequence, cfg, interner: IdInterner) -> ParsedPoints:
-    """One decode chunk -> ParsedPoints. CSV/TSV lines take the columnar
-    parse; GeoJSON records (str or dict) and Point objects parse one by
-    one (GeoJSON ids interned as the JAX native GeoJSON parser does). A
-    record of another geometry type is dropped with a warning (an off-type
-    record in a declared point stream)."""
+    """One decode chunk record by record (the path of a chunk the native
+    parsers do not take: GeoJSON dicts, Point objects, lines with interior
+    newlines, a chunk holding a record of another geometry type). A
+    GeoJSON record of another geometry type is dropped with a warning (an
+    off-type record in a declared point stream); ids are interned in order
+    of appearance."""
     fmt = cfg.format.lower()
-    if fmt in ("csv", "tsv") and all(isinstance(r, str) for r in items):
-        return bulk_parse_csv(
-            items, delimiter="\t" if fmt == "tsv" else cfg.delimiter,
-            schema=cfg.csv_tsv_schema, date_format=cfg.date_format,
-            interner=interner)
     pts = []
-    by_hash = fmt == "geojson" and all(isinstance(r, str) for r in items)
     for r in items:
         if isinstance(r, Point):
             pts.append(r)
@@ -269,4 +403,4 @@ def parse_points(items: Sequence, cfg, interner: IdInterner) -> ParsedPoints:
             raise ValueError(f"input format {cfg.format!r}: not yet ported "
                              "to spatialflink_tpu_torch (point streams in "
                              "CSV, TSV or GeoJSON)")
-    return points_to_parsed(pts, interner, by_hash=by_hash)
+    return points_to_parsed(pts, interner)

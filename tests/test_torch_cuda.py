@@ -607,3 +607,88 @@ def test_range_mask_unstaged_cell_masks(card, q):
         want = R.range_filter_masks_stats_plain(b, gnm, cnm, d, 0.6,
                                                 approximate=approximate)
         assert _equal(got, want)
+
+
+def _micro_batch(card, seed=41):
+    """One realtime micro-batch: 512 points over and beyond the conf's bbox
+    with ids from 100,000, compacted as the realtime kNN path does (and the
+    same batch with its interned ids)."""
+    grid = UniformGrid(115.5, 117.6, 39.6, 41.1, num_grid_partitions=100)
+    rng = np.random.default_rng(seed)
+    x, y = rng.uniform(115.4, 117.7, 512), rng.uniform(39.5, 41.2, 512)
+    x[:16], y[:16] = 116.51, 40.5  # 16 objects at one distance: ties
+    oid = rng.integers(0, 100_000, 512)
+    ids, local = np.unique(oid, return_inverse=True)
+    compact = PointBatch.from_arrays(x, y, device=card, grid=grid,
+                                     obj_id=local.reshape(-1))
+    full = PointBatch.from_arrays(x, y, device=card, grid=grid, obj_id=oid)
+    return grid, compact, full, ids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["k1-point", "k1-masks", "k4-table",
+                                  "k4-dense", "k4-linestring", "k2-point",
+                                  "k2-cells", "k4x"])
+def test_micro_batch_kernels_equal_plain(card, case):
+    """Every kernel of the realtime path at one 512-point micro-batch, bit
+    for bit against its plain version; K2 over the compacted ids also
+    equals the call over the interned ids once its ids are mapped back."""
+    grid, b, full, ids = _micro_batch(card)
+    q = (116.5, 40.5, int(grid.assign_cell(116.5, 40.5)[0]))
+    r = 0.5
+    gl, cl = grid.guaranteed_layers(r), grid.candidate_layers(r)
+    poly = Polygon.create([[(116.6 + 0.35 * np.cos(t), 40.55 + 0.35 *
+                             np.sin(t)) for t in np.linspace(
+                                 0, 2 * np.pi, 65)[:-1]]], grid)
+    e, m = (torch.from_numpy(a).to(card) for a in single_query_edges(poly))
+    t = HK.pip_table(e, m, True, grid, gate=False)
+    d = HK.pip_dist_plain(b.x, b.y, e, m, True)
+    cells = sorted(poly.cells)
+    if case == "k1-point":
+        got = R.range_filter_point_stats(b, *q, r, gl, cl, n=grid.n,
+                                         return_dists=False)
+        want = R.range_filter_point_stats_plain(b, *q, r, gl, cl, n=grid.n,
+                                                return_dists=False)
+        assert got[1] is None and want[1] is None
+        got, want = got[::2] + got[3:], want[::2] + want[3:]
+    elif case == "k1-masks":
+        gn = torch.from_numpy(grid.guaranteed_cells_mask(r, cells)).to(card)
+        cn = torch.from_numpy(grid.candidate_cells_mask(r, cells)).to(card)
+        got = R.range_filter_masks_stats(b, gn, cn, d, r)
+        want = R.range_filter_masks_stats_plain(b, gn, cn, d, r)
+    elif case.startswith("k4"):
+        if case == "k4-linestring":
+            line = LineString.create([(116.2, 40.2), (117.0, 40.2),
+                                      (117.0, 40.9)], grid)
+            e, m = (torch.from_numpy(a).to(card)
+                    for a in single_query_edges(line))
+            got = (HK.pip_dist(b.x, b.y, e, m, False),)
+            want = (HK.pip_dist_plain(b.x, b.y, e, m, False),)
+        else:
+            kw = dict(cell=b.cell, table=t) if case == "k4-table" else {}
+            got = (HK.pip_dist(b.x, b.y, t.edges, t.edge_mask, True, **kw),)
+            want = (d,)
+    elif case == "k4x":
+        gb = EdgeGeomBatch.from_objects([poly, GEOMS["hole"]()], device=card)
+        args = (b.x, b.y, gb.edges, gb.edge_mask, gb.is_areal)
+        got = (HK.pip_lattice(*args, cell=b.cell, num_cells=grid.num_cells),)
+        want = (HK.pip_lattice_plain(*args).T,)
+    else:
+        nb = torch.from_numpy(grid.neighboring_cells_mask(r, cells)).to(card)
+        kw = (dict(mode=K.MODE_POINT, x=b.x, y=b.y, cell=b.cell,
+                   valid=b.valid, n=grid.n, nb_layers=cl,
+                   qx=torch.tensor([q[0]], dtype=torch.float32, device=card),
+                   qy=torch.tensor([q[1]], dtype=torch.float32, device=card),
+                   q_cell=torch.tensor([q[2]], dtype=torch.int32,
+                                       device=card))
+              if case == "k2-point" else
+              dict(mode=K.MODE_CELLS, cell=b.cell, valid=b.valid,
+                   dists=d[None], nb_mask=nb[None]))
+        got = K.knn_topk(b.obj_id, k=50, num_ids=len(ids), **kw)
+        want = K.knn_topk_plain(b.obj_id, k=50, num_ids=len(ids), **kw)
+        wide = K.knn_topk(full.obj_id, k=50, num_ids=100_000, **kw)
+        assert torch.equal(got[1], wide[1]) and torch.equal(got[2], wide[2])
+        v = got[2][0].cpu().numpy()
+        assert np.array_equal(ids[got[0][0].cpu().numpy()[v]],
+                              wide[0][0].cpu().numpy()[v])
+    assert _equal(got, want)

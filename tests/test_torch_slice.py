@@ -195,19 +195,21 @@ def test_config_reads_k():
                          "gridBBox": [0, 0, 1, 1], "numGridCells": 4},
         "query": {"option": 51, "k": 50}, "window": {"interval": 10}})
     assert p.query.k == 50
-    assert TD._query_conf(p).k == 50
+    assert TD._query_conf(p, TD.CASES[51]).k == 50
 
 
-@pytest.mark.parametrize("option", [52, 57, 62])
+@pytest.mark.parametrize("option", [67, 72, 77])
 def test_realtime_knn_is_refused(option):
+    """Realtime kNN over a polygon stream (query Point, Polygon,
+    LineString) is not ported yet."""
     with pytest.raises(NotImplementedError,
                        match=f"queryOption {option}: not yet ported"):
         TD.run_option(_params(TParams, option), [], device="cpu")
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--option", "52"], "queryOption 52: not yet ported"),
-    (["--option", "2"], "queryOption 2: not yet ported"),
+    (["--option", "67"], "queryOption 67: not yet ported"),
+    (["--option", "17"], "queryOption 17: not yet ported"),
     (["--option", "6", "--kafka"], "--kafka: not yet ported"),
     (["--option", "6", "--panes"], "--panes: not yet ported"),
     (["--option", "6", "--limit", "5"], "--limit: not yet ported"),
