@@ -47,8 +47,8 @@ its wall seconds):
    max(operations / 67 TFLOP/s, bytes / 3.35 TB/s). Small inputs are also
    held against float64 numpy references (distances, range masks, kNN
    lists).
-3. Main path: over a seeded 2,097,152-point CSV stream spanning 20 s (the
-   conf's 10 s / 5 s sliding windows: full windows of 1,048,576 points),
+3. Main path: over a seeded 524,288-point CSV stream spanning 20 s (the
+   conf's 10 s / 5 s sliding windows: full windows of 262,144 points),
    through ``driver.run_option`` on device="cuda": options 6, 1, 11, 51
    (k = 50), 56 and 61, then with multiQuery options 1 and 51 (16 query
    points), 6 and 56 (16 query polygons) and 11 (4 linestrings). The
@@ -58,28 +58,52 @@ its wall seconds):
    query's table passes the gate, as for 6 and 56, and none where it
    does not, as for the 2-edge linestring of 11 and 61); each run is
    repeated with every kernel swapped for its plain version, and the
-   per-window
-   results must be equal (selections, and kNN (objID, distance) lists in
-   order). The realtime runs follow over the same stream (4,096
-   micro-batches of 512): options 2, 7, 12, 52 (k = 50), 57 and 62, the
-   windowed latency variants 8 and 58 and the realtime latency variants 9
-   and 59; over its first 524,288 points (1,024 micro-batches),
-   multiQuery 2 and 52 (16 points), 7 and 57 (16 polygons) and 12 (4
-   linestrings); over its first 1,048,576 points, options 1 and 51 (k = 50) under
-   count windows of 1,048,576 records every 524,288. Each the same way,
-   with points/s, the median and p99 wall time per emitted window or
-   micro-batch, and the records' latency_ms for 8 and 9. Every run must
-   parse its CSV through the native parser, one call per decode chunk.
-   Then the stages of options 6, 51, 2 and 52 (native CSV decode, split
-   into the parser call, id interning, cell assignment and the rest;
-   window assembly or micro-batch cut, batch build and copy, device ops,
-   readback and selection) are timed one after another, options 51 (whole
-   stream) and 52 (first 524,288 points) run once more under
-   torch.profiler (device time by kind and the device's busy share), and
-   the CLI runs options 6 and 51 on a 65,536-row CSV.
-4. Output: the build report, the card line, one JSON ``kernels`` line
-   (K4x's entry holds the cell order under ``helpers``), and as the last
-   line ``{"ok": true, "device": {...}}``.
+   per-window results must be equal (selections, and kNN (objID,
+   distance) lists in order). The realtime runs follow over the same
+   stream (1,024 micro-batches of 512): options 2, 7, 12, 52 (k = 50), 57
+   and 62, the windowed latency variants 8 and 58 and the realtime
+   latency variants 9 and 59; over its first 262,144 points (512
+   micro-batches), multiQuery 2 and 52 (16 points), 7 and 57 (16
+   polygons) and 12 (4 linestrings); over its first 262,144 points,
+   options 1 and 51 (k = 50) under count windows of 262,144 records every
+   131,072. Each the same way, with points/s, the median and p99 wall
+   time per emitted window or micro-batch, and the records' latency_ms
+   for 8 and 9. Every run must parse its CSV through the native parser,
+   one call per decode chunk. Then the stages of options 6, 51, 2 and 52
+   (native CSV decode, split into the parser call, id interning, cell
+   assignment and the rest; window assembly or micro-batch cut, batch
+   build and copy, device ops, readback and selection) are timed one
+   after another, options 51 (whole stream) and 52 (first 262,144 points)
+   run once more under torch.profiler (device time by kind and the
+   device's busy share), and the CLI runs options 6 and 51 on a
+   65,536-row CSV. (The point stream was cut from 2,097,152 points to
+   make room for the geometry phase within the time limit.)
+4. The polygon and linestring streams: two seeded streams of 262,144
+   GeoJSON geometries over 20 s with 100,000 object ids (polygon rings of
+   4-32 vertices with radii 0.002-0.02 degrees; linestring walks of 2-16
+   segments), each decoded once through ``driver.decode_chunks`` (the
+   per-record parse, timed per record). K5 ``geom_stream_dist`` against
+   its plain version bit for bit at one 10 s window (131,072 polygons)
+   for the conf's point, the conf's polygon, the 16 query polygons and
+   the conf's linestring (over linestrings), in range and kNN mode and
+   once approximate, and at one 512-geometry micro-batch, each with its
+   CUDA-event time, launch-to-completion time and bound. Then options 16,
+   21, 41, 66, 71 and 91, multiQuery 21 and 71 and realtime 22 and 72
+   over the whole parsed stream, and the other 16 geometry options over
+   its first 65,536 geometries, each through ``run_option`` over the
+   parsed objects and again with K5 and K2 swapped for their plain
+   versions (equal results; K5, and K2 for kNN, launched). The parse
+   runs once per stream: at ~150 us per polygon record on the host of an
+   H100 machine, parsing in every run would not fit the time limit;
+   option 21 runs once more from the polygon stream's lines (the whole
+   path) and must give the windows of its run over the parsed objects.
+   Option 71 once more under torch.profiler, and the CLI runs option 21
+   from a 16,384-line GeoJSON file against an in-process run over the
+   same lines.
+5. Output: the build report, the card line, one JSON ``kernels`` line
+   (K4x's entry holds the cell order under ``helpers``; K5's the window
+   cases and its micro-batch cases), and as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result line when CUDA is not available or the
 package is not beside the script.
@@ -105,9 +129,13 @@ CONF = os.path.join(ROOT, "conf", "spatialflink-conf.yml")
 BBOX = (115.5, 39.6, 117.6, 41.1)  # the conf's gridBBox
 N_KERNEL = 1 << 20                # points per kernel case (a full window)
 N_MICRO = 512                     # points per realtime micro-batch
-N_STREAM = 1 << 21                # points in the main-path stream
-N_SHORT = 1 << 19                 # points of the shorter realtime runs
-COUNT_SIZE, COUNT_SLIDE = 1 << 20, 1 << 19  # count windows, in records
+N_STREAM = 1 << 19                # points in the main-path stream
+N_SHORT = 1 << 18                 # points of the shorter realtime runs
+COUNT_SIZE, COUNT_SLIDE = 1 << 18, 1 << 17  # count windows, in records
+N_GEOM = 1 << 18                  # geometries in each geometry stream
+WINDOW_GEOMS = N_GEOM // 2        # geometries of one 10 s window
+N_GEOM_OTHER = 1 << 16            # geometries of the options run once
+N_GEOM_CLI = 1 << 14              # polygons of the CLI's GeoJSON file
 N_CLI = 1 << 16                   # rows of the CLI's CSV
 N_IDS = 100_000                   # distinct object ids in every stream
 N_QUERIES = 16                    # query points / polygons under multiQuery
@@ -945,7 +973,7 @@ COUNT_RUNS = [
     (51, False, 50, ("knn_topk",)),
 ]
 KERNELS = ("pip_dist", "range_mask_stats", "knn_topk", "pip_lattice",
-           "cell_order")
+           "cell_order", "geom_stream_dist")
 
 
 def stream_lines(seed: int, n: int):
@@ -1093,7 +1121,7 @@ def main_path_phase(card: str, lines, runs, window=None):
         got = {name: fn.launches for name, fn in counters.items()}
         table_launches = HK.pip_dist.table_launches
         native_calls = B.bulk_parse_csv.calls - calls
-        for name in KERNELS:
+        for name in counters:
             launches[name] += got[name]
         if any(got[name] <= 0 for name in path):
             raise AssertionError(f"option {label}: kernels of its path not "
@@ -1145,8 +1173,7 @@ def main_path_phase(card: str, lines, runs, window=None):
                "median_window_ms": float(np.median(lat)),
                "p99_window_ms": _pct(lat, 99),
                "native_csv_parses": native_calls,
-               "launches": {name: got[name] for name in KERNELS
-                            if got[name]},
+               "launches": {name: v for name, v in got.items() if v},
                "k4_table_launches": table_launches, "card": card}
         if mode == "realtime":
             row["selected_per_window"] = _pct(
@@ -1373,6 +1400,401 @@ def cli_phase(seed: int) -> None:
                 f"in-process run ({first})")
 
 
+# ------------------------------------------------------------------------ #
+# the polygon / linestring streams (K5)
+
+#: (option, multiQuery, k or None for the conf's, kernels its path runs)
+#: over the whole geometry stream
+GEOM_RUNS = [
+    (16, False, None, ("geom_stream_dist",)),
+    (21, False, None, ("geom_stream_dist",)),
+    (41, False, None, ("geom_stream_dist",)),
+    (66, False, None, ("geom_stream_dist", "knn_topk")),
+    (71, False, None, ("geom_stream_dist", "knn_topk")),
+    (91, False, None, ("geom_stream_dist", "knn_topk")),
+    (21, True, None, ("geom_stream_dist",)),
+    (71, True, None, ("geom_stream_dist", "knn_topk")),
+    (22, False, None, ("geom_stream_dist",)),
+    (72, False, None, ("geom_stream_dist", "knn_topk")),
+]
+#: the other polygon/linestring options, over the first N_GEOM_OTHER
+#: geometries of their stream
+GEOM_OTHER_RUNS = [
+    (opt, False, None, ("geom_stream_dist",) if opt < 51
+     else ("geom_stream_dist", "knn_topk"))
+    for opt in (17, 26, 27, 31, 32, 36, 37, 42, 67, 76, 77, 81, 82, 86, 87,
+                92)]
+
+
+def geom_stream_lines(seed: int, n: int, kind: str):
+    """n GeoJSON Features of one stream over the conf's bbox, timestamps
+    spread evenly over SPAN_MS from T0, N_IDS object ids: Polygon rings of
+    4-32 vertices with radii 0.002-0.02 degrees (building- to block-sized),
+    or LineString walks of 2-16 segments with 0.004-degree steps."""
+    rng = np.random.default_rng(seed)
+    cx = rng.uniform(BBOX[0], BBOX[2], n)
+    cy = rng.uniform(BBOX[1], BBOX[3], n)
+    ts = (T0 + (np.arange(n, dtype=np.int64) * SPAN_MS) // n).tolist()
+    oid = rng.integers(0, N_IDS, n).tolist()
+    out = []
+    if kind == "Polygon":
+        k = rng.integers(4, 33, n)
+        r = rng.uniform(0.002, 0.02, n)
+        for i in range(n):
+            th = np.sort(rng.uniform(0.0, 2.0 * np.pi, k[i]))
+            xs = (cx[i] + r[i] * np.cos(th)).tolist()
+            ys = (cy[i] + r[i] * np.sin(th)).tolist()
+            xs.append(xs[0])
+            ys.append(ys[0])
+            coords = ", ".join(f"[{a!r}, {b!r}]" for a, b in zip(xs, ys))
+            out.append('{"geometry": {"type": "Polygon", "coordinates": '
+                       f'[[{coords}]]}}, "properties": {{"oID": '
+                       f'"o{oid[i]}", "timestamp": {ts[i]}}}, '
+                       '"type": "Feature"}')
+        return out
+    k = rng.integers(2, 17, n)
+    for i in range(n):
+        walk = (rng.normal(0.0, 0.004, (k[i] + 1, 2)).cumsum(axis=0)
+                + (cx[i], cy[i])).tolist()
+        coords = ", ".join(f"[{a!r}, {b!r}]" for a, b in walk)
+        out.append('{"geometry": {"type": "LineString", "coordinates": '
+                   f'[{coords}]}}, "properties": {{"oID": "o{oid[i]}", '
+                   f'"timestamp": {ts[i]}}}, "type": "Feature"}}')
+    return out
+
+
+def geom_params():
+    """The geometry phase's config: GeoJSON input, the point stream's query
+    sets with the conf's own 4-edge polygon first (the 15 64-edge rings
+    after it)."""
+    from spatialflink_tpu_torch.config import Params
+
+    base = base_params()
+    base = dataclasses.replace(
+        base, input1=dataclasses.replace(base.input1, format="GeoJSON"))
+    base.query.query_polygons = (
+        Params.from_yaml(CONF).query.query_polygons[:1]
+        + query_polygons()[1:])
+    return base
+
+
+def decode_geoms(lines, kind: str):
+    """The stream's lines through the driver's decode (per-record parse,
+    4,096-record chunks): (geometry objects, seconds)."""
+    from spatialflink_tpu_torch.driver import decode_chunks
+
+    params = geom_params()
+    t0 = time.perf_counter()
+    chunks = list(decode_chunks(lines, params.input1, params.grids()[0],
+                                4096, geometry=kind))
+    objs = [r for c in chunks for r in c.records]
+    return objs, time.perf_counter() - t0
+
+
+def k5_work(gb, dist, kind, grid_cells, queries=None, approximate=False):
+    """(operations, bytes) K5 needs for this launch's inputs: the rule
+    reads every geometry's cells, validity and kind, the query rows of the
+    two cell masks and the queries; the distance reads the consulted
+    geometries' edge masks and valid edges (each consulted geometry once,
+    whatever the number of queries consulting it) and computes, per
+    consulted (query, geometry), its valid edges against the query's
+    (point: OPS_PER_POINT_EDGE each; geometry: OPS_PER_EDGE_PAIR per edge
+    pair, and the vertex tests against an areal geometry); it writes a flag
+    and a distance per (query, geometry) and two counts per query."""
+    import torch
+
+    from spatialflink_tpu_torch.ops import geom as G
+
+    consulted = torch.isfinite(dist)  # (Q, G): where a distance was needed
+    n_valid = gb.edge_mask.sum(dim=1).double()  # (G,)
+    n_q, n_g = dist.shape
+    per_q = (consulted.double() * n_valid[None]).sum(dim=1)  # (Q,)
+    if approximate:
+        ops = float(consulted.sum()) * 10
+    elif kind == "point":
+        ops = float(per_q.sum()) * G.OPS_PER_POINT_EDGE
+    else:
+        qv = queries.edge_mask.sum(dim=1).double()
+        areal = (consulted.double() * (n_valid * gb.is_areal)[None]) \
+            .sum(dim=1)
+        ops = float((per_q * qv).sum()) * G.OPS_PER_EDGE_PAIR + \
+            float((areal * qv).sum()) * G.OPS_PER_VERTEX_EDGE
+    any_c = consulted.any(dim=0)
+    nbytes = (n_g * (gb.cells.shape[1] * 5 + 2)
+              + float(any_c.sum()) * gb.edge_mask.shape[1]
+              + float((any_c.double() * n_valid).sum()) * 16
+              + n_q * grid_cells * 2 + n_q * n_g * 5 + n_q * 8)
+    if kind == "point":
+        nbytes += n_q * 8
+    else:
+        nbytes += n_q * (queries.edges.shape[1] * 17 + 17)
+    return ops, nbytes
+
+
+def geom_kernel_phase(torch, timer: Timer, polys, lines):
+    """K5 against its plain version, bit for bit, at one window of the
+    polygon stream (its first WINDOW_GEOMS geometries, the size of a 10 s
+    window) and at one realtime micro-batch of N_MICRO, in range and kNN
+    mode: the conf's point (options 16/66), the conf's polygon (21/71) and
+    16 query polygons (multiQuery 21/71) over polygons, the conf's
+    linestring over linestrings (41/91), approximate mode once. Returns
+    the cases."""
+    from spatialflink_tpu_torch.models import EdgeGeomBatch
+    from spatialflink_tpu_torch.ops import geom as G
+    from spatialflink_tpu_torch.utils import IdInterner
+
+    dev = torch.device("cuda")
+    params = geom_params()
+    grid = params.grids()[0]
+    r = params.query.radius
+    qpoint = params.query_point_objects(grid)[:1]
+    qpolys = params.query_polygon_objects(grid)
+    qlines = params.query_linestring_objects(grid)[:1]
+
+    def masks(qs):
+        cells = [[q.cell] if hasattr(q, "x") else sorted(q.cells)
+                 for q in qs]
+        return tuple(torch.from_numpy(np.stack([f(r, c) for c in cells]))
+                     .to(dev) for f in (grid.guaranteed_cells_mask,
+                                        grid.neighboring_cells_mask))
+
+    def batch(objs):
+        t0 = time.perf_counter()
+        b = EdgeGeomBatch.from_objects(objs, device=dev,
+                                       interner=IdInterner())
+        torch.cuda.synchronize()
+        return b, time.perf_counter() - t0
+
+    window, build_poly = batch(polys[:WINDOW_GEOMS])
+    lwin, build_line = batch(lines[:WINDOW_GEOMS])
+    micro, _ = batch(polys[:N_MICRO])
+    log(f"K5 window batches: {WINDOW_GEOMS} polygons in "
+        f"{build_poly:.3f} s ({build_poly / WINDOW_GEOMS * 1e6:.2f} us "
+        f"each), linestrings in {build_line:.3f} s; edges "
+        f"{tuple(window.edges.shape)} / {tuple(lwin.edges.shape)}")
+    cases = []
+    setups = [
+        ("polygons-x-conf-point", window, qpoint, "point", False, 25),
+        ("polygons-x-conf-polygon", window, qpolys[:1], "geometry", False,
+         25),
+        ("polygons-x-16-polygons", window, qpolys, "geometry", False, 2),
+        ("linestrings-x-conf-linestring", lwin, qlines, "geometry", False,
+         25),
+        ("polygons-x-conf-polygon-approx", window, qpolys[:1], "geometry",
+         True, 25),
+        ("micro-polygons-x-conf-polygon", micro, qpolys[:1], "geometry",
+         False, 25),
+        ("micro-polygons-x-conf-point", micro, qpoint, "point", False, 25),
+    ]
+    for name, gb, qs, kind, approx, plain_reps in setups:
+        gn, nb = masks(qs)
+        if kind == "point":
+            kw = dict(qx=torch.tensor([q.x for q in qs], dtype=torch.float32,
+                                      device=dev),
+                      qy=torch.tensor([q.y for q in qs], dtype=torch.float32,
+                                      device=dev))
+        else:
+            kw = dict(queries=EdgeGeomBatch.from_objects(qs, device=dev,
+                                                         pad=len(qs)))
+        for mode, label in ((G.MODE_RANGE, "range"), (G.MODE_KNN, "knn")):
+            if approx and mode == G.MODE_KNN:
+                continue
+            args = dict(mode=mode, nb=nb, gn=gn if mode == G.MODE_RANGE
+                        else None, radius=r, approximate=approx, **kw)
+            got = G.geom_stream_dist(gb, **args)
+            ops, nbytes = k5_work(gb, got[1], kind, nb.shape[1],
+                                  kw.get("queries"), approx)
+            case, got = kernel_case(
+                timer, torch, f"{name}-{label}",
+                lambda a=args, gb=gb: G.geom_stream_dist(gb, **a),
+                lambda a=args, gb=gb: G.geom_stream_dist_plain(gb, **a),
+                ops, nbytes, "K5", plain_reps=plain_reps,
+                geometries=int(gb.valid.sum()), queries=len(qs),
+                edges_padded=int(gb.edges.shape[1]),
+                consulted=int(torch.isfinite(got[1]).sum()),
+                counts=[[int(v) for v in row] for row in got[2].cpu()])
+            case["launch_to_completion_ms"] = launch_ms(
+                torch, lambda a=args, gb=gb: G.geom_stream_dist(gb, **a))
+            cases.append(case)
+    if G.geom_stream_dist.launches <= 0:
+        raise AssertionError("geom_stream_dist launched no kernel")
+    return cases, {"window_build_s_polygons": build_poly,
+                   "window_build_s_linestrings": build_line}
+
+
+def geom_main_phase(card: str, streams, runs, limit=None):
+    """Each run of ``runs`` through run_option on the card over its
+    stream's parsed geometries (the first ``limit``), then again with K5
+    and K2 swapped for their plain versions: equal per-window results and
+    the launch counters non-zero for every kernel of the run's path."""
+    import torch
+
+    from spatialflink_tpu_torch.driver import CASES
+    from spatialflink_tpu_torch.ops import geom as G
+    from spatialflink_tpu_torch.ops import knn as K
+
+    base = geom_params()
+    counters = {"geom_stream_dist": G.geom_stream_dist,
+                "knn_topk": K.knn_topk}
+    plain_ops = {(G, "geom_stream_dist"): G.geom_stream_dist_plain,
+                 (K, "knn_topk"): K.knn_topk_plain}
+    launches = dict.fromkeys(counters, 0)
+    report = []
+    for opt, multi, k, path in runs:
+        spec = CASES[opt]
+        objs = streams[spec.stream][:limit]
+        query = dataclasses.replace(base.query, option=opt, multi_query=multi,
+                                    k=k or base.query.k)
+        params = dataclasses.replace(base, query=query)
+        label = f"{opt}{'-multi' if multi else ''}"
+        for fn in counters.values():
+            fn.launches = 0
+        wins, lat, _, wall = run_pipeline(params, objs)
+        got = {name: fn.launches for name, fn in counters.items()}
+        for name in counters:
+            launches[name] += got[name]
+        if any(got[name] <= 0 for name in path):
+            raise AssertionError(f"option {label}: kernels of its path not "
+                                 f"launched {got}")
+        saved = {key: getattr(*key) for key in plain_ops}
+        try:
+            for (mod, name), fn in plain_ops.items():
+                setattr(mod, name, fn)
+            pwins, _, _, pwall = run_pipeline(params, objs)
+        finally:
+            for (mod, name), fn in saved.items():
+                setattr(mod, name, fn)
+        if {name: fn.launches for name, fn in counters.items()} != got:
+            raise AssertionError("the plain run launched a kernel")
+        if len(wins) != len(pwins) or not wins:
+            raise AssertionError(f"option {label}: {len(wins)} windows vs "
+                                 f"{len(pwins)} with the plain versions")
+        for a, p in zip(wins, pwins):
+            if a[:2] != p[:2] or not _equal(a[2], p[2]):
+                raise AssertionError(f"option {label} window {a[:2]}: "
+                                     "result differs from the plain run")
+        if not sum(_selected(q) for w in wins for q in w[2]):
+            raise AssertionError(f"option {label}: nothing selected")
+        row = {"option": opt, "stream": spec.stream, "query": spec.query,
+               "mode": spec.mode, "multi_query": multi,
+               "queries": len(wins[0][2]),
+               "k": query.k if opt >= 51 else None, "geometries": len(objs),
+               "windows": len(wins), "geometries_per_s": len(objs) / wall,
+               "wall_s": wall, "plain_wall_s": pwall,
+               "median_window_ms": float(np.median(lat)),
+               "p99_window_ms": _pct(lat, 99),
+               "launches": {name: v for name, v in got.items() if v},
+               "card": card}
+        if spec.mode == "realtime":
+            row["selected_per_window"] = _pct(
+                [sum(_selected(q) for q in w[2]) for w in wins], 50)
+        else:
+            row["selected"] = [[_selected(q) for q in w[2]] for w in wins]
+        if opt >= 51:
+            row["first_list"] = wins[min(2, len(wins) - 1)][2][0][:3]
+        log("geom-path", json.dumps(row))
+        report.append(row)
+        torch.cuda.empty_cache()
+    return launches, report
+
+
+def geom_lines_phase(card: str, lines, objs) -> dict:
+    """Option 21 once more from the polygon stream's GeoJSON lines (the
+    whole path, the per-record parse included) against the run over the
+    parsed objects: the same windows."""
+    params = geom_params()
+    params.query.option = 21
+    wins, lat, _, wall = run_pipeline(params, lines)
+    owins, _, _, owall = run_pipeline(params, objs)
+    if len(wins) != len(owins) or not all(
+            a[:2] == b[:2] and len(a[2][0]) == len(b[2][0])
+            and all(x.obj_id == y.obj_id and x.timestamp == y.timestamp
+                    for x, y in zip(a[2][0], b[2][0]))
+            for a, b in zip(wins, owins)):
+        raise AssertionError("option 21 from the lines differs from the run "
+                             "over the parsed objects")
+    row = {"option": 21, "from": "GeoJSON lines", "geometries": len(lines),
+           "windows": len(wins), "geometries_per_s": len(lines) / wall,
+           "wall_s": wall, "objects_wall_s": owall,
+           "median_window_ms": float(np.median(lat)),
+           "p99_window_ms": _pct(lat, 99), "card": card}
+    log("geom-path", json.dumps(row))
+    return row
+
+
+def geom_profile_phase(objs, option: int) -> dict:
+    """Option ``option`` over the parsed polygon stream under
+    torch.profiler: device time by kind and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    params = geom_params()
+    params.query.option = option
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall = run_pipeline(params, objs)
+        torch.cuda.synchronize()
+    by_kind = {"kernel_ms": 0.0, "memcpy_ms": 0.0, "memset_ms": 0.0}
+    top = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.name.lower()
+        kind = ("memcpy_ms" if "memcpy" in name else
+                "memset_ms" if "memset" in name else "kernel_ms")
+        ms = ev.device_time_total / 1e3 if hasattr(ev, "device_time_total") \
+            else ev.cuda_time_total / 1e3
+        by_kind[kind] += ms
+        top[ev.name] = top.get(ev.name, 0.0) + ms
+    device_ms = sum(by_kind.values())
+    out = {"option": option, "geometries": len(objs), "wall_s": wall,
+           **by_kind, "device_ms": device_ms,
+           "busy_share": device_ms / (wall * 1e3),
+           "top": sorted(top.items(), key=lambda kv: -kv[1])[:6]}
+    log("profile", json.dumps(out))
+    return out
+
+
+def geom_cli_phase(lines) -> None:
+    """The CLI on a GeoJSON polygon file (option 21, the conf's queries):
+    stdout must equal an in-process run over the same lines."""
+    from spatialflink_tpu_torch.config import Params
+    from spatialflink_tpu_torch.driver import _emit, run_option
+
+    class Lines:
+        def __init__(self):
+            self.out = io.StringIO()
+
+        def emit(self, record):
+            print(record, file=self.out)
+
+    build = os.path.join(ROOT, "spatialflink_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "polygons.geojson")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        proc = subprocess.run(
+            [sys.executable, "-m", "spatialflink_tpu_torch.driver",
+             "--config", CONF, "--option", "21", "--input1", path,
+             "--format", "GeoJSON", "--device", "cuda"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI exit {proc.returncode}: {proc.stderr}")
+        params = Params.from_yaml(CONF)
+        params.query.option = 21
+        sink = Lines()
+        for w in run_option(params, lines, device="cuda"):
+            _emit(w, sink)
+        want = sink.out.getvalue()
+        if proc.stdout != want or not want:
+            raise AssertionError(f"CLI option 21 stdout {proc.stdout[:200]!r}"
+                                 f" != in-process {want[:200]!r}")
+        log(f"cli: option 21 over {len(lines)} GeoJSON polygons -> "
+            f"{want.count(chr(10))} windows, stdout equals the in-process "
+            f"run ({want.splitlines()[0]})")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1438,9 +1860,6 @@ def main(argv=None) -> int:
         "count-windows", main_path_phase, card, lines[:COUNT_SIZE],
         COUNT_RUNS, WindowConfig(type="COUNT", interval_s=COUNT_SIZE,
                                  step_s=COUNT_SLIDE))
-    for more in (rt_launches, short_launches, count_launches):
-        for name in KERNELS:
-            launches[name] += more[name]
     rt_report += short_report
     breakdown = phase("breakdown", breakdown_phase, lines)
     # option 52's trace over the shorter stream: the profiler's own event
@@ -1449,6 +1868,40 @@ def main(argv=None) -> int:
             "52": phase("profile-52", profile_phase, lines[:N_SHORT], 52)}
     del lines
     phase("cli", cli_phase, args.seed)
+
+    # the polygon and linestring streams
+    t0 = time.perf_counter()
+    glines = {kind: geom_stream_lines(args.seed + 5 + i, N_GEOM, kind)
+              for i, kind in enumerate(("Polygon", "LineString"))}
+    log(f"geometry streams: {N_GEOM} GeoJSON polygons and linestrings each "
+        f"over {SPAN_MS} ms ({time.perf_counter() - t0:.1f} s to generate)")
+    geoms, geom_host = {}, {}
+    for kind, kind_lines in glines.items():
+        geoms[kind], sec = phase(f"decode-{kind}", decode_geoms, kind_lines,
+                                 kind)
+        geom_host[f"decode_s_{kind}"] = sec
+        geom_host[f"decode_us_per_record_{kind}"] = sec / N_GEOM * 1e6
+        log(f"decode {kind}: {len(geoms[kind])} records in {sec:.3f} s "
+            f"({sec / N_GEOM * 1e6:.2f} us per record)")
+    k5_cases, build = phase("kernels-k5", geom_kernel_phase, torch, timer,
+                            geoms["Polygon"], geoms["LineString"])
+    geom_host.update(build)
+    geom_launches, geom_report = phase("geom-path", geom_main_phase, card,
+                                       geoms, GEOM_RUNS)
+    other_launches, other_report = phase(
+        "geom-other", geom_main_phase, card, geoms, GEOM_OTHER_RUNS,
+        N_GEOM_OTHER)
+    geom_report.append(phase("geom-lines", geom_lines_phase, card,
+                             glines["Polygon"], geoms["Polygon"]))
+    prof["71"] = phase("profile-71", geom_profile_phase, geoms["Polygon"], 71)
+    phase("cli-geom", geom_cli_phase, glines["Polygon"][:N_GEOM_CLI])
+    del glines, geoms
+    for more in (rt_launches, short_launches, count_launches, geom_launches,
+                 other_launches):
+        for name in KERNELS:
+            launches[name] += more.get(name, 0)
+    micro["geom_stream_dist"] = [c for c in k5_cases
+                                 if c["case"].startswith("micro-")]
 
     def entry(name, source, replaces, cases, main_case, shape):
         """One kernel's entry: its main-path case at the window shape,
@@ -1506,12 +1959,23 @@ def main(argv=None) -> int:
                              "is a torch.where, torch.argsort(stable=True) "
                              "and two gathers")
     kernels[3]["helpers"] = [order]
+    window_k5 = [c for c in k5_cases if not c["case"].startswith("micro-")]
+    k5 = entry("geom_stream_dist", "spatialflink_tpu_torch/csrc/geom_dist.cu",
+               "spatialflink_tpu/ops/geom.py:126", window_k5,
+               next(c for c in window_k5
+                    if c["case"] == "polygons-x-conf-polygon-range"),
+               f"{WINDOW_GEOMS} polygons of 4-32 edges x the conf's polygon, "
+               "range mode (option 21's window)")
+    k5["library_note"] = ("no single PyTorch call computes the geometry "
+                          "distances with the cell rule")
+    kernels.append(k5)
     phases["total"] = time.perf_counter() - t_all
     log("build-report", json.dumps(build_report))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "card": card,
                       "main_path": report + rt_report + count_report,
-                      "breakdown": breakdown,
+                      "geom_path": geom_report + other_report,
+                      "geom_host": geom_host, "breakdown": breakdown,
                       "profile": prof, "phases_s": phases}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ Reads the same ``conf/spatialflink-conf.yml`` schema as the JAX package —
 the reference's key names, with the leading ``!!`` java type tag tolerated
 — into the same dataclasses. Fields of features this port does not run yet
 (panes, mesh parallelism) are parsed so that the driver can refuse them;
-keys no ported code reads (trajectory, Kafka and output settings) are
+of the output block only the delimiter is read (``--output``'s CSV/TSV/WKT
+fields); keys no ported code reads (trajectory and Kafka settings) are
 ignored.
 """
 
@@ -195,6 +196,18 @@ class WindowConfig:
 
 
 @dataclass
+class OutputStreamConfig:
+    """``outputStream:`` block (the field delimiter of ``--output``)."""
+
+    delimiter: str = ","
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "OutputStreamConfig":
+        return cls(delimiter=_normalize_delimiter(
+            str(_opt(d, "delimiter", ","))))
+
+
+@dataclass
 class Params:
     """Validated full config."""
 
@@ -202,6 +215,7 @@ class Params:
     input2: StreamConfig = field(default_factory=StreamConfig)
     query: QueryConfig = field(default_factory=QueryConfig)
     window: WindowConfig = field(default_factory=WindowConfig)
+    output: OutputStreamConfig = field(default_factory=OutputStreamConfig)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Params":
@@ -215,6 +229,7 @@ class Params:
             input2=in2,
             query=QueryConfig.from_dict(_req(d, "query", "config")),
             window=WindowConfig.from_dict(_req(d, "window", "config")),
+            output=OutputStreamConfig.from_dict(_opt(d, "outputStream", {})),
         )
 
     @classmethod

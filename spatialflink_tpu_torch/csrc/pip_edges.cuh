@@ -21,6 +21,9 @@ constexpr int kPointsPerThread = 4;
 constexpr int kPointsPerBlock = kThreads * kPointsPerThread;
 constexpr int kEdgeChunk = 512;
 constexpr float kBig = 3.4e38f;  // "infinitely far" (pallas_kernels._BIG)
+// the smallest normal f32: a squared edge length below it counts as zero
+// (distances.FLT_MIN; its reciprocal would overflow, and 0 * inf is NaN)
+constexpr float kMinNormal = 1.17549435e-38f;
 
 // 7 x 512 floats + 512 flags = 14,848 bytes
 struct EdgeChunk {
@@ -57,7 +60,7 @@ __device__ __forceinline__ void stage_chunk(EdgeChunk& s,
     s.cx[e] = cx;
     s.cy[e] = cy;
     s.slope[e] = cx / denom;
-    s.inv_len[e] = len_sq > 0.0f ? 1.0f / len_sq : 0.0f;
+    s.inv_len[e] = len_sq >= kMinNormal ? 1.0f / len_sq : 0.0f;
     s.valid[e] = mask[c0 + e];
   }
 }

@@ -74,6 +74,9 @@ constexpr int kSeedMinEdges = 16;  // seed a geometry with at least this many
 constexpr int kGroup = 8;  // edges under one group box (skip variant)
 constexpr int kBlocksPerSm = 64;   // grid size target: geometry ranges
 constexpr float kBig = 3.4e38f;    // "infinitely far" (pallas_kernels._BIG)
+// the smallest normal f32: a squared edge length below it counts as zero
+// (distances.FLT_MIN; its reciprocal would overflow, and 0 * inf is NaN)
+constexpr float kMinNormal = 1.17549435e-38f;
 constexpr unsigned kAll = 0xffffffffu;
 
 struct Chunk {
@@ -142,8 +145,8 @@ __device__ __forceinline__ void stage(Chunk& c, const float* __restrict__ edges,
     c.geom[slot] = r / ne - g_first;
     c.fold_a[slot] = make_float4(x1, y1, cx, cy);
     c.fold_b[slot] = make_float4(cx / denom,
-                                 len_sq > 0.0f ? 1.0f / len_sq : 0.0f, y2,
-                                 0.0f);
+                                 len_sq >= kMinNormal ? 1.0f / len_sq : 0.0f,
+                                 y2, 0.0f);
     c.box[slot] = make_float4(fminf(x1, x2) - m, fmaxf(x1, x2) + m,
                               fminf(y1, y2) - m, fmaxf(y1, y2) + m);
   }

@@ -1,25 +1,31 @@
-"""Driver (port of ``spatialflink_tpu.driver`` for the point-stream range
-and kNN queries).
+"""Driver (port of ``spatialflink_tpu.driver`` for the range and kNN
+queries over point, polygon and linestring streams).
 
 ``CASES`` keeps the JAX package's option numbering for the options this
-port runs, all over a point stream: range 1/2 (Point query), 6/7
-(Polygon) and 11/12 (LineString); kNN 51/52, 56/57 and 61/62 (the same
-query types), the first of each pair windowed, the second realtime
-(micro-batches of ``realtime_batch_size`` arrivals, emitted only when the
-selection is not empty); and the latency variants 8/9 (range) and 58/59
-(kNN) over a polygon query, windowed and realtime, whose results carry
-each selected record's ``now - ingestion time`` in ``extras["latency_ms"]``
-(empty for kNN's (objID, distance) records). ``window.type: COUNT`` turns
-the windowed options into sliding count windows (interval and step are
-record counts). ``query.multiQuery`` (or ``--multi-query``) answers every
-configured query object of the option's type in one dispatch per window.
-Every other option, and every flag or config feature not ported yet, is
-refused with "not yet ported to spatialflink_tpu_torch" — never silently
-ignored.
+port runs: for each (stream, query) pair of ``_PAIRS``, i = 0..8 (Point,
+Polygon and LineString streams, each against Point, Polygon and LineString
+queries), range 1 + 5i (windowed) and 2 + 5i (realtime), and kNN 51 + 5i
+and 52 + 5i; realtime runs micro-batches of ``realtime_batch_size``
+arrivals, emitted only when the selection is not empty. Also the latency
+variants 8/9 (range) and 58/59 (kNN) over a point stream and a polygon
+query, windowed and realtime, whose results carry each selected record's
+``now - ingestion time`` in ``extras["latency_ms"]`` (empty for kNN's
+(objID, distance) records). ``window.type: COUNT`` turns the windowed
+options into sliding count windows (interval and step are record counts).
+``query.multiQuery`` (or ``--multi-query``) answers every configured query
+object of the option's type in one dispatch per window. Every other
+option, and every flag or config feature not ported yet, is refused with
+"not yet ported to spatialflink_tpu_torch" — never silently ignored.
+
+A point stream in CSV/TSV/GeoJSON decodes through the native columnar
+parser; a polygon or linestring stream (GeoJSON, WKT, CSV/TSV) is parsed
+record by record, as the JAX driver parses it, and a record of another
+geometry type is dropped and counted (``decode_chunks.off_type_dropped``).
 
     python -m spatialflink_tpu_torch.driver --config conf/spatialflink-conf.yml \\
         --option 51 --input1 points.csv --format CSV [--multi-query] \\
-        [--output out.geojson] [--device cuda|cpu]
+        [--output out.geojson] [--output-format GeoJSON|WKT|CSV|TSV] \\
+        [--device cuda|cpu]
 
 stdout carries one line per window as the JAX driver prints it:
 ``{'window': [start, end], 'count': n}`` plus the result's extras (``k``
@@ -44,7 +50,10 @@ from spatialflink_tpu_torch.operators import (QueryConfiguration, QueryType,
                                               WindowResult)
 from spatialflink_tpu_torch.operators.base import NOT_PORTED
 from spatialflink_tpu_torch.streams import bulk
-from spatialflink_tpu_torch.streams.bulk import PointChunk
+from spatialflink_tpu_torch.models import SpatialObject
+from spatialflink_tpu_torch.models.objects import _EdgeGeom
+from spatialflink_tpu_torch.streams.bulk import GeomChunk, PointChunk
+from spatialflink_tpu_torch.streams.formats import parse_spatial
 from spatialflink_tpu_torch.utils import IdInterner
 
 
@@ -57,15 +66,23 @@ class CaseSpec:
     latency: bool = False  # a latency variant
 
 
+_PAIRS = [
+    ("Point", "Point"), ("Point", "Polygon"), ("Point", "LineString"),
+    ("Polygon", "Point"), ("Polygon", "Polygon"), ("Polygon", "LineString"),
+    ("LineString", "Point"), ("LineString", "Polygon"),
+    ("LineString", "LineString"),
+]
+
+
 def _build_cases() -> dict:
     """The ported options (numbering of ``spatialflink_tpu.driver.CASES``):
-    range 1/2 + 5*i and kNN 51/52 + 5*i over the point stream's three
-    query types, and the latency variants."""
+    range 1/2 + 5*i and kNN 51/52 + 5*i over the nine (stream, query)
+    pairs, and the latency variants."""
     c = {}
-    for i, query in enumerate(("Point", "Polygon", "LineString")):
+    for i, (stream, query) in enumerate(_PAIRS):
         for base, fam in ((1, "range"), (51, "knn")):
-            c[base + 5 * i] = CaseSpec(fam, "Point", query, "window")
-            c[base + 1 + 5 * i] = CaseSpec(fam, "Point", query, "realtime")
+            c[base + 5 * i] = CaseSpec(fam, stream, query, "window")
+            c[base + 1 + 5 * i] = CaseSpec(fam, stream, query, "realtime")
     for opt, fam, mode in ((8, "range", "window"), (9, "range", "realtime"),
                            (58, "knn", "window"), (59, "knn", "realtime")):
         c[opt] = CaseSpec(fam, "Point", "Polygon", mode, latency=True)
@@ -77,7 +94,8 @@ CASES = _build_cases()
 
 class ChunkedStream:
     """A decoded stream as the window assembler consumes it: :meth:`chunks`
-    yields columnar :class:`PointChunk` s."""
+    yields decoded chunks (columnar :class:`PointChunk` s of a point
+    stream, :class:`GeomChunk` s of a polygon/linestring stream)."""
 
     __slots__ = ("_chunks",)
 
@@ -118,20 +136,75 @@ def _decode_chunk(raws: List, cfg: StreamConfig, grid: UniformGrid,
     return PointChunk.build(bulk.parse_points(raws, cfg, interner), grid)
 
 
+def _off_type_warner(geometry: str):
+    """Warns when :attr:`decode_chunks.off_type_dropped` first moves and
+    again at each decade (1, 10, 100, ...), with the running count, as the
+    JAX driver's ``_off_type_warner`` does."""
+    state = {"next": 1}
+
+    def warn(typename: str) -> None:
+        c = decode_chunks.off_type_dropped
+        if c >= state["next"]:
+            print(f"warning: dropping off-type {typename} record(s) from "
+                  f"declared {geometry} stream (off-type-dropped={c})",
+                  file=sys.stderr)
+            while state["next"] <= c:
+                state["next"] *= 10
+    return warn
+
+
+def _decode_geoms(raws: List, cfg: StreamConfig, grid: UniformGrid,
+                  geometry: str, warn) -> Optional[GeomChunk]:
+    """One chunk of a polygon/linestring stream, parsed record by record
+    (``parse_spatial``; parsed objects pass through); records without edges
+    (points, multi-points, collections) are dropped and counted. None when
+    nothing is left."""
+    kept = []
+    for rec in raws:
+        obj = rec if isinstance(rec, SpatialObject) else parse_spatial(
+            rec, cfg.format, grid, delimiter=cfg.delimiter,
+            schema=cfg.csv_tsv_schema, geometry=geometry,
+            **cfg.geojson_kwargs())
+        if isinstance(obj, _EdgeGeom):
+            kept.append(obj)
+        else:
+            decode_chunks.off_type_dropped += 1
+            warn(type(obj).__name__)
+    return GeomChunk(kept) if kept else None
+
+
 def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
-                  chunk: int = 4096) -> Iterator:
-    """Raw records (CSV/TSV lines, GeoJSON str/dict, or Point objects) ->
-    :class:`PointChunk` s of up to ``chunk`` records, cells assigned on
-    ``grid``, object ids interned in one id space."""
+                  chunk: int = 4096, geometry: str = "Point") -> Iterator:
+    """Raw records (CSV/TSV lines, GeoJSON str/dict, WKT lines, or parsed
+    objects) -> decoded chunks of up to ``chunk`` records, cells assigned
+    on ``grid``: :class:`PointChunk` s of a point stream, object ids
+    interned in one id space; :class:`GeomChunk` s of a ``geometry``
+    ("Polygon" or "LineString") stream, off-type records dropped."""
     interner = IdInterner()
+    warn = _off_type_warner(geometry)
+
+    def decode(buf):
+        if geometry == "Point":
+            return _decode_chunk(buf, cfg, grid, interner)
+        return _decode_geoms(buf, cfg, grid, geometry, warn)
+
     buf: List = []
     for rec in records:
         buf.append(rec)
         if len(buf) >= chunk:
-            yield _decode_chunk(buf, cfg, grid, interner)
+            out = decode(buf)
+            if out is not None:
+                yield out
             buf = []
     if buf:
-        yield _decode_chunk(buf, cfg, grid, interner)
+        out = decode(buf)
+        if out is not None:
+            yield out
+
+
+#: records dropped from polygon/linestring streams as off-type, since the
+#: process started (the JAX package's ``off-type-dropped`` counter)
+decode_chunks.off_type_dropped = 0
 
 
 def _check_ported(params: Params) -> None:
@@ -216,7 +289,7 @@ def _with_latency(results: Iterator[WindowResult]
 def run_option(params: Params, stream1: Iterable, *, device="cuda"
                ) -> Iterator[WindowResult]:
     """Wire and run the pipeline of ``params.query.option`` over
-    ``stream1`` (raw records or Point objects) on ``device``; returns the
+    ``stream1`` (raw records or parsed objects) on ``device``; returns the
     window-result iterator."""
     opt = params.query.option
     spec = CASES.get(opt)
@@ -238,7 +311,8 @@ def run_option(params: Params, stream1: Iterable, *, device="cuda"
         chunk = max(1, min(4096, conf.slide_ms))
     else:
         chunk = 4096
-    s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid, chunk))
+    s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid, chunk,
+                                     geometry=spec.stream))
     radius = params.query.radius
     if params.query.multi_query:
         return _run_multi_case(params, spec, op, s1, u_grid, radius)
@@ -268,10 +342,10 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     ap = argparse.ArgumentParser(
         prog="spatialflink-tpu-torch",
-        description="spatial stream query driver on PyTorch/CUDA over a "
-                    "point stream: range options 1, 6, 11 (windowed) and "
-                    "2, 7, 12 (realtime), kNN options 51, 56, 61 "
-                    "(windowed) and 52, 57, 62 (realtime), latency "
+        description="spatial stream query driver on PyTorch/CUDA over "
+                    "point, polygon and linestring streams: range options "
+                    "1-42 and kNN options 51-92 (1 + 5i / 51 + 5i "
+                    "windowed, 2 + 5i / 52 + 5i realtime), latency "
                     "variants 8, 9 (range) and 58, 59 (kNN); window.type "
                     "TIME or COUNT")
     ap.add_argument("--config", required=True, help="YAML config path")
@@ -287,7 +361,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "query.multiQuery)")
     ap.add_argument("--output", default=None,
                     help="also write every result record to this file, one "
-                         "GeoJSON feature per line")
+                         "per line, serialized in --output-format")
+    ap.add_argument("--output-format", default="GeoJSON",
+                    choices=["GeoJSON", "WKT", "CSV", "TSV"],
+                    help="serialization for --output (spatial records; "
+                         "non-spatial result tuples are written as JSON "
+                         "lines)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "PyTorch versions)")
@@ -320,7 +399,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     sink = StdoutSink()
     out_sink = None
     if args.output:
-        out_sink = FileSink(args.output,
+        out_sink = FileSink(args.output, args.output_format,
+                            delimiter=params.output.delimiter,
                             date_format=params.input1.date_format)
     n = 0
     try:
@@ -337,7 +417,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"# emitted {n} results", file=sys.stderr)
     if out_sink is not None:
         print(f"# wrote {out_sink.records_written} records to {args.output} "
-              "(GeoJSON)", file=sys.stderr)
+              f"({args.output_format})", file=sys.stderr)
     return 0
 
 

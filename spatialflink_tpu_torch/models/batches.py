@@ -12,7 +12,7 @@ Conventions, the same as the JAX package's:
 
 from __future__ import annotations
 
-from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -95,9 +95,10 @@ GEOM_DTYPES = {"edges": np.float32, "edge_mask": np.bool_,
 
 
 class EdgeGeomBatch(NamedTuple):
-    """G polygon/linestring geometries as padded edge arrays on one device
-    (the query side of the multi-query paths). ``is_areal`` is per geometry:
-    polygons count containment (distance 0 inside), linestrings do not."""
+    """G polygon/linestring geometries as padded edge arrays on one device:
+    a window of a polygon/linestring stream, or the query side of the
+    multi-query paths. ``is_areal`` is per geometry: polygons count
+    containment (distance 0 inside), linestrings do not."""
 
     edges: torch.Tensor       # (G, E, 4) f32 [x1, y1, x2, y2] per edge
     edge_mask: torch.Tensor   # (G, E) bool
@@ -119,11 +120,13 @@ class EdgeGeomBatch(NamedTuple):
                      interner: Optional[IdInterner] = None, ts_base: int = 0,
                      pad: Optional[int] = None,
                      edge_pad: Optional[int] = None,
-                     cell_pad: Optional[int] = None) -> "EdgeGeomBatch":
+                     cell_pad: Optional[int] = None,
+                     obj_id=None) -> "EdgeGeomBatch":
         """Pad edges to ``bucket_size(max edges, 8)`` per geometry, cells to
         ``bucket_size(max cells, 8)`` and the geometry axis to
         ``bucket_size(G, 8)`` (or the given pads), as the JAX package does,
-        and move to ``device``."""
+        and move to ``device``. Object ids are interned in order through
+        ``interner`` unless ``obj_id`` (G,) gives them."""
         interner = interner if interner is not None else IdInterner()
         g = len(geoms)
         edge_arrays = [geo.edge_array() for geo in geoms]
@@ -149,7 +152,9 @@ class EdgeGeomBatch(NamedTuple):
             "bbox": pad_to(np.asarray([geo.bbox for geo in geoms],
                                       np.float32).reshape(g, 4), size),
             "obj_id": pad_to(np.array([interner.intern(geo.obj_id)
-                                       for geo in geoms], np.int32), size),
+                                       for geo in geoms], np.int32)
+                             if obj_id is None
+                             else np.asarray(obj_id, np.int32), size),
             "ts": pad_to(ts.astype(np.int32), size),
             "cell": pad_to(np.array([geo.cell for geo in geoms], np.int32),
                            size, fill=-1),
@@ -178,37 +183,45 @@ QUERY_DTYPES = {"edges": np.float32, "edge_mask": np.bool_,
                 "gn_mask": np.bool_, "cn_mask": np.bool_}
 
 
-def from_jax_arrays(batch: Mapping[str, np.ndarray], device,
-                    **query) -> Tuple[PointBatch, dict]:
+def _geom_batch_from(geoms, dev) -> "EdgeGeomBatch":
+    geoms = geoms._asdict() if hasattr(geoms, "_asdict") else geoms
+    missing = set(GEOM_DTYPES) - set(geoms)
+    if missing:
+        raise ValueError(f"EdgeGeomBatch fields missing: {sorted(missing)}")
+    return EdgeGeomBatch(**{
+        k: to_device(np.asarray(geoms[k]), GEOM_DTYPES[k], dev)
+        for k in EdgeGeomBatch._fields})
+
+
+def from_jax_arrays(batch, device, **query) -> Tuple[object, dict]:
     """State carry from the JAX package: ``batch`` holds the fields of a
-    ``spatialflink_tpu`` PointBatch (x, y, obj_id, ts, cell, valid) as host
-    arrays, ``query`` any of its query arrays (edges, edge_mask, gn_mask,
-    cn_mask) and, under ``geoms``, the fields of a
-    ``spatialflink_tpu`` EdgeGeomBatch (a mapping, or the NamedTuple
-    itself). Returns the port's PointBatch and a dict of query tensors (an
+    ``spatialflink_tpu`` PointBatch (x, y, obj_id, ts, cell, valid) or of a
+    stream-side ``spatialflink_tpu`` EdgeGeomBatch (a polygon/linestring
+    window: edges, edge_mask, bbox, obj_id, ts, cell, cells, cells_mask,
+    is_areal, valid), as a mapping of host arrays or the NamedTuple itself;
+    ``query`` any of its query arrays (edges, edge_mask, gn_mask, cn_mask)
+    and, under ``geoms``, the fields of a query-side EdgeGeomBatch. Returns
+    the port's PointBatch or EdgeGeomBatch and a dict of query tensors (an
     :class:`EdgeGeomBatch` under ``geoms``) on ``device``, each in its
     declared dtype whatever dtype the array arrived in."""
     from spatialflink_tpu_torch.device import resolve_device
 
     dev = resolve_device(device)
-    missing = set(POINT_DTYPES) - set(batch)
-    if missing:
-        raise ValueError(f"PointBatch fields missing: {sorted(missing)}")
     unknown = set(query) - set(QUERY_DTYPES) - {"geoms"}
     if unknown:
         raise ValueError(f"unknown query arrays: {sorted(unknown)}")
-    pb = PointBatch(**{k: to_device(np.asarray(batch[k]), POINT_DTYPES[k],
-                                    dev)
-                       for k in PointBatch._fields})
+    fields = batch._asdict() if hasattr(batch, "_asdict") else batch
+    if "edges" in fields:
+        out = _geom_batch_from(fields, dev)
+    else:
+        missing = set(POINT_DTYPES) - set(fields)
+        if missing:
+            raise ValueError(f"PointBatch fields missing: {sorted(missing)}")
+        out = PointBatch(**{k: to_device(np.asarray(fields[k]),
+                                         POINT_DTYPES[k], dev)
+                            for k in PointBatch._fields})
     q = {k: to_device(np.asarray(v), QUERY_DTYPES[k], dev)
          for k, v in query.items() if k != "geoms"}
     if "geoms" in query:
-        geoms = query["geoms"]
-        geoms = geoms._asdict() if hasattr(geoms, "_asdict") else geoms
-        missing = set(GEOM_DTYPES) - set(geoms)
-        if missing:
-            raise ValueError(f"EdgeGeomBatch fields missing: {sorted(missing)}")
-        q["geoms"] = EdgeGeomBatch(**{
-            k: to_device(np.asarray(geoms[k]), GEOM_DTYPES[k], dev)
-            for k in EdgeGeomBatch._fields})
-    return pb, q
+        q["geoms"] = _geom_batch_from(query["geoms"], dev)
+    return out, q

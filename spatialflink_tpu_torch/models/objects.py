@@ -1,5 +1,6 @@
 """Host-side spatial objects (port of ``spatialflink_tpu.models.objects``:
-``Point``, ``Polygon``, ``LineString``, ``MultiPolygon``).
+``Point``, ``Polygon``, ``LineString``, ``MultiPoint``, ``MultiPolygon``,
+``MultiLineString``, ``GeometryCollection``).
 
 Records and query geometries live on the host; device work runs on the
 padded batches of :mod:`spatialflink_tpu_torch.models.batches`.
@@ -9,6 +10,9 @@ padded batches of :mod:`spatialflink_tpu_torch.models.batches`.
 - ``Polygon`` rings are auto-closed; the largest-area ring is the shell.
 - Points get one grid cell; polygons/linestrings the set of cells their
   bounding box overlaps.
+- The edge geometries (``_EdgeGeom``: polygons, linestrings and their
+  multi forms) are what a polygon or linestring stream keeps; a point,
+  multi-point or collection in such a stream is off-type.
 """
 
 from __future__ import annotations
@@ -150,6 +154,25 @@ class LineString(_EdgeGeom):
 
 
 @dataclass
+class MultiPoint(SpatialObject):
+    points: List[Coord] = field(default_factory=list)
+    bbox: Tuple[float, float, float, float] = (0.0, 0.0, 0.0, 0.0)
+    cells: Set[int] = field(default_factory=set)
+    cell: int = -1
+
+    @classmethod
+    def create(cls, coords, grid=None, obj_id="", timestamp=0) -> "MultiPoint":
+        cc = [tuple(map(float, c)) for c in coords]
+        mp = cls(obj_id=obj_id, timestamp=timestamp, points=cc)
+        mp.bbox = _coords_bbox(np.asarray(cc, np.float64))
+        if grid is not None:
+            mp.cells = grid.bbox_cells(*mp.bbox)
+            cell, _ = grid.assign_cell(*cc[0])
+            mp.cell = int(cell)
+        return mp
+
+
+@dataclass
 class MultiPolygon(_EdgeGeom):
     """Multiple polygons under one object id."""
 
@@ -171,3 +194,40 @@ class MultiPolygon(_EdgeGeom):
         edges = np.concatenate([p.edge_array()[0] for p in self.polygons],
                                axis=0)
         return edges, np.ones(len(edges), dtype=bool)
+
+
+@dataclass
+class MultiLineString(_EdgeGeom):
+    """Multiple linestrings under one object id."""
+
+    lines: List[LineString] = field(default_factory=list)
+
+    @classmethod
+    def create(cls, list_of_coords, grid=None, obj_id="",
+               timestamp=0) -> "MultiLineString":
+        lines = [LineString.create(c, None, obj_id, timestamp)
+                 for c in list_of_coords]
+        ml = cls(obj_id=obj_id, timestamp=timestamp, lines=lines)
+        boxes = np.asarray([ln.bbox for ln in lines])
+        ml.bbox = (boxes[:, 0].min(), boxes[:, 1].min(),
+                   boxes[:, 2].max(), boxes[:, 3].max())
+        ml._assign_cells(grid)
+        return ml
+
+    def edge_array(self):
+        edges = np.concatenate([ln.edge_array()[0] for ln in self.lines],
+                               axis=0)
+        return edges, np.ones(len(edges), dtype=bool)
+
+
+@dataclass
+class GeometryCollection(SpatialObject):
+    """Heterogeneous component list under one object id."""
+
+    geometries: List[SpatialObject] = field(default_factory=list)
+
+    @classmethod
+    def create(cls, geometries, obj_id="",
+               timestamp=0) -> "GeometryCollection":
+        return cls(obj_id=obj_id, timestamp=timestamp,
+                   geometries=list(geometries))

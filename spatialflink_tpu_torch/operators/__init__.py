@@ -1,20 +1,33 @@
-"""Continuous query operators (windowed point-stream range and kNN
-queries, single- and multi-query)."""
+"""Continuous query operators (range and kNN over point, polygon and
+linestring streams, single- and multi-query)."""
 
 from spatialflink_tpu_torch.operators.base import (Deferred, GeomQueryMixin,
                                                    QueryConfiguration,
                                                    QueryType, SpatialOperator,
                                                    WindowResult)
 from spatialflink_tpu_torch.operators.knn_query import (
-    PointGeomKNNQuery, PointLineStringKNNQuery, PointPointKNNQuery,
-    PointPolygonKNNQuery)
+    GeomGeomKNNQuery, GeomPointKNNQuery, LineStringLineStringKNNQuery,
+    LineStringPointKNNQuery, LineStringPolygonKNNQuery, PointGeomKNNQuery,
+    PointLineStringKNNQuery, PointPointKNNQuery, PointPolygonKNNQuery,
+    PolygonLineStringKNNQuery, PolygonPointKNNQuery, PolygonPolygonKNNQuery)
 from spatialflink_tpu_torch.operators.range_query import (
+    GeomGeomRangeQuery, GeomPointRangeQuery, LineStringLineStringRangeQuery,
+    LineStringPointRangeQuery, LineStringPolygonRangeQuery,
     PointGeomRangeQuery, PointLineStringRangeQuery, PointPointRangeQuery,
-    PointPolygonRangeQuery)
+    PointPolygonRangeQuery, PolygonLineStringRangeQuery,
+    PolygonPointRangeQuery, PolygonPolygonRangeQuery)
 
 __all__ = ["Deferred", "GeomQueryMixin", "QueryConfiguration", "QueryType",
-           "SpatialOperator", "WindowResult", "PointGeomKNNQuery",
+           "SpatialOperator", "WindowResult",
+           "GeomGeomKNNQuery", "GeomPointKNNQuery",
+           "LineStringLineStringKNNQuery", "LineStringPointKNNQuery",
+           "LineStringPolygonKNNQuery", "PointGeomKNNQuery",
            "PointLineStringKNNQuery", "PointPointKNNQuery",
-           "PointPolygonKNNQuery", "PointGeomRangeQuery",
+           "PointPolygonKNNQuery", "PolygonLineStringKNNQuery",
+           "PolygonPointKNNQuery", "PolygonPolygonKNNQuery",
+           "GeomGeomRangeQuery", "GeomPointRangeQuery",
+           "LineStringLineStringRangeQuery", "LineStringPointRangeQuery",
+           "LineStringPolygonRangeQuery", "PointGeomRangeQuery",
            "PointLineStringRangeQuery", "PointPointRangeQuery",
-           "PointPolygonRangeQuery"]
+           "PointPolygonRangeQuery", "PolygonLineStringRangeQuery",
+           "PolygonPointRangeQuery", "PolygonPolygonRangeQuery"]

@@ -1,8 +1,11 @@
-"""Operator plumbing (port of ``spatialflink_tpu.operators.base`` for the
-point stream): query configuration, deferred device results (selection
-masks and kNN lists, single- and multi-query), the pipelined driver over
-time windows, count windows and realtime micro-batches, the shared
-multi-query range driver, and query-side precomputation.
+"""Operator plumbing (port of ``spatialflink_tpu.operators.base`` for point,
+polygon and linestring streams): query configuration, deferred device
+results (selection masks and kNN lists, single- and multi-query), the
+pipelined driver over time windows, count windows and realtime
+micro-batches, the shared multi-query range driver, the window batches
+(``PointBatch`` of a point stream, ``EdgeGeomBatch`` of a geometry stream,
+whose ids the operator's own interner numbers, as the JAX package's
+``_geom_batch`` does), and query-side precomputation.
 
 Realtime mode: the reference uses tiny tumbling windows with
 fire-per-element triggers; here arrivals are cut into micro-batches of
@@ -38,8 +41,8 @@ from spatialflink_tpu_torch.models import (EdgeGeomBatch, MultiPolygon,
 from spatialflink_tpu_torch.models.batches import to_device
 from spatialflink_tpu_torch.runtime import (MicroBatcher, WindowAssembler,
                                             WindowSpec, count_windows)
-from spatialflink_tpu_torch.streams.bulk import (LazyRecords, PointChunk,
-                                                 points_to_parsed)
+from spatialflink_tpu_torch.streams.bulk import (GeomChunk, LazyRecords,
+                                                 PointChunk, points_to_parsed)
 from spatialflink_tpu_torch.utils import IdInterner
 
 NOT_PORTED = "not yet ported to spatialflink_tpu_torch"
@@ -127,21 +130,29 @@ class Deferred:
 def _record_chunks(stream: Iterable, grid: UniformGrid,
                    chunk: int = 4096) -> Iterator:
     """The stream as decoded chunks: a chunked decode stream passes its
-    ``.chunks()`` through; a plain iterable of Point records is cut into
-    chunks whose cells are assigned on ``grid``."""
+    ``.chunks()`` through; a plain iterable of records is cut into chunks:
+    Point records into columnar chunks whose cells are assigned on
+    ``grid``, polygons and linestrings (their cells assigned at creation)
+    into geometry chunks."""
     chunks_fn = getattr(stream, "chunks", None)
     if chunks_fn is not None:
         yield from chunks_fn()
         return
     interner = IdInterner()
-    buf: List[Point] = []
+
+    def build(buf):
+        if isinstance(buf[0], Point):
+            return PointChunk.build(points_to_parsed(buf, interner), grid)
+        return GeomChunk(buf)
+
+    buf: List = []
     for rec in stream:
         buf.append(rec)
         if len(buf) >= chunk:
-            yield PointChunk.build(points_to_parsed(buf, interner), grid)
+            yield build(buf)
             buf = []
     if buf:
-        yield PointChunk.build(points_to_parsed(buf, interner), grid)
+        yield build(buf)
 
 
 class SpatialOperator:
@@ -155,9 +166,16 @@ class SpatialOperator:
         self.device = resolve_device(device)
         #: pruning counters summed over the run's windows
         self.pruning = {"gn-bypassed": 0, "distance-computations": 0}
+        #: object ids of a geometry stream's batches (kNN ties follow it)
+        self.interner = IdInterner()
 
     def _point_batch(self, records: LazyRecords, ts_base: int) -> PointBatch:
         return records.point_batch(ts_base, self.device)[0]
+
+    def _geom_batch(self, records, ts_base: int) -> EdgeGeomBatch:
+        """A geometry window's batch, ids interned through the operator's
+        interner."""
+        return records.geom_batch(ts_base, self.device, self.interner)[0]
 
     @property
     def realtime(self) -> bool:
@@ -232,15 +250,19 @@ class SpatialOperator:
                 to_device([q.cell for q in query_points], np.int32, device))
 
     def _run_multi_filter(self, stream: Iterable, n_queries: int,
-                          multi_mask_stats) -> Iterator[WindowResult]:
+                          multi_mask_stats, batch_fn=None
+                          ) -> Iterator[WindowResult]:
         """Shared run_multi driver for the range operators:
         ``multi_mask_stats(batch) -> (masks (Q, N), gn (Q,), evals (Q,))``
-        in one dispatch per window; records become Q per-query record
+        in one dispatch per window over ``batch_fn(records, ts_base)``'s
+        batch (a point batch by default); records become Q per-query record
         lists, pruning counters sum over the queries."""
+        batch_fn = batch_fn or self._point_batch
+
         def eval_batch(records, ts_base):
             if not len(records):
                 return [[] for _ in range(n_queries)]
-            batch = self._point_batch(records, ts_base)
+            batch = batch_fn(records, ts_base)
             masks, gn_c, evals = multi_mask_stats(batch)
 
             def rows(m):  # ONE (Q, N) device->host transfer
@@ -329,23 +351,32 @@ class GeomQueryMixin:
         return to_device(self.grid.neighboring_cells_mask(
             radius, self._query_cells(query)), np.bool_, self.device)
 
-    def _stack_query_masks(self, queries, radius: float):
-        """(Q, n*n) GN and CN mask stacks, one row per query (the
-        multi-query form of :meth:`_query_masks`)."""
-        gn, cn = [], []
+    def _stack_query_masks(self, queries, radius: float,
+                           which=("gn", "cn")):
+        """The (Q, n*n) mask stacks named in ``which`` ("gn", "cn", "nb"),
+        one row per query, in that order (the multi-query form of
+        :meth:`_query_masks` and :meth:`_query_nb`; the geometry-stream
+        rule takes gn and nb)."""
+        rows = {k: [] for k in which}
         for q in queries:
             cells = self._query_cells(q)
-            gn.append(self.grid.guaranteed_cells_mask(radius, cells))
-            cn.append(self.grid.candidate_cells_mask(radius, cells, gn[-1]))
-        return tuple(to_device(np.stack(m), np.bool_, self.device)
-                     for m in (gn, cn))
+            gn = (self.grid.guaranteed_cells_mask(radius, cells)
+                  if "gn" in which or "cn" in which else None)
+            if "gn" in which:
+                rows["gn"].append(gn)
+            if "cn" in which:
+                rows["cn"].append(
+                    self.grid.candidate_cells_mask(radius, cells, gn))
+            if "nb" in which:
+                rows["nb"].append(
+                    self.grid.neighboring_cells_mask(radius, cells))
+        return tuple(to_device(np.stack(rows[k]), np.bool_, self.device)
+                     for k in which)
 
     def _stack_query_nb(self, queries, radius: float):
         """(Q, n*n) neighbouring-cells masks, one row per query (the
         multi-query form of :meth:`_query_nb`)."""
-        return to_device(np.stack([self.grid.neighboring_cells_mask(
-            radius, self._query_cells(q)) for q in queries]), np.bool_,
-            self.device)
+        return self._stack_query_masks(queries, radius, which=("nb",))[0]
 
     def _query_geom_batch(self, queries) -> EdgeGeomBatch:
         """The Q query geometries as ONE exact-capacity padded edge batch

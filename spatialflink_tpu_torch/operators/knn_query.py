@@ -1,17 +1,25 @@
-"""Point-stream continuous kNN, windowed (port of ``PointPointKNNQuery``,
-``_GenericKnn`` and ``PointGeomKNNQuery`` of
+"""Continuous kNN, windowed and realtime (port of ``PointPointKNNQuery``,
+``_GenericKnn``, ``PointGeomKNNQuery``, ``_GeomStreamKnn``,
+``GeomPointKNNQuery`` and ``GeomGeomKNNQuery`` of
 ``spatialflink_tpu.operators.knn_query``: ``run`` and ``run_multi``).
 
 The radius prunes candidate *cells* only — windowed kNN does not
-radius-filter exact distances; radius 0 disables pruning. Each window is
-one launch of the K2 kernel (``ops/knn.py``): eligibility, each object's
+radius-filter exact distances; radius 0 disables pruning. Each window ends
+in one launch of the K2 kernel (``ops/knn.py``): eligibility, each object's
 minimum distance, and the exact top-k ordered by (distance, interned id).
-Point queries compute the distance inside K2; polygon/linestring queries
-take it from K4 (one query) or the K4x lattice (Q queries), or from the
-bbox in approximate mode. Records are (objID, distance) pairs resolved
-through the window's interner, whose size is K2's per-object table size.
+Point queries over a point stream compute the distance inside K2;
+polygon/linestring queries take it from K4 (one query) or the K4x lattice
+(Q queries), or from the bbox in approximate mode. Over a polygon or
+linestring stream, K5 (``ops/geom.py``) computes the eligibility (valid,
+with a neighbouring cell) and the distances of the eligible geometries to
+Q query points or geometries in one launch, and K2 takes them in its
+eligible mode. Records are (objID, distance) pairs resolved through the
+id space of the batch: the window's decode interner for a point stream,
+the operator's own interner for a geometry stream (whose batches intern
+through it, as the JAX package's ``_geom_batch`` does); its size is K2's
+per-object table size.
 
-Realtime mode: a micro-batch of ``realtime_batch_size`` points would still
+Realtime mode: a micro-batch of ``realtime_batch_size`` records would still
 size K2's per-object table by the whole stream's id count, so its interned
 ids are compacted on the host first (``np.unique`` of at most a batch of
 ints; the unique ids come out sorted, so ascending local id is ascending
@@ -203,6 +211,79 @@ class PointGeomKNNQuery(_GenericKnn):
         return local
 
 
+class _GeomStreamKnn(_KnnOperator, GeomQueryMixin):
+    """kNN over a polygon/linestring stream: the subclass gives the
+    per-run closure ``local(geoms, num_ids) -> (KnnResult (Q, k),
+    dist_evals (Q,))``, one K5 and one K2 launch per window."""
+
+    def _knn_batch(self, records, ts_base: int):
+        """``(batch, id lookup)``: the operator's interner, or in realtime
+        mode the micro-batch's compacted ids."""
+        batch, ids = records.geom_batch(ts_base, self.device, self.interner,
+                                        compact=self.realtime)
+        if ids is None:
+            return batch, self.interner
+        return batch, _CompactIds(ids, self.interner)
+
+    def run(self, stream: Iterable, query, radius: float,
+            k: Optional[int] = None) -> Iterator[WindowResult]:
+        k = k or self.conf.k
+        multi = self._multi_local([query], radius, k)
+
+        def local(b, num_ids):
+            res, evals = multi(b, num_ids)
+            return K.KnnResult(*(t[0] for t in res)), evals[0]
+
+        return self._drive_single(stream, local, k)
+
+    def run_multi(self, stream: Iterable, queries, radius: float,
+                  k: Optional[int] = None) -> Iterator[WindowResult]:
+        """Q queries in ONE dispatch per window — contract as
+        :meth:`PointPointKNNQuery.run_multi`."""
+        k = k or self.conf.k
+        return self._drive_multi(stream, len(queries),
+                                 self._multi_local(queries, radius, k), k)
+
+
+class GeomPointKNNQuery(_GeomStreamKnn):
+    """Polygon/linestring stream x point query (``PolygonPointKNNQuery``,
+    ``LineStringPointKNNQuery``)."""
+
+    def _multi_local(self, query_points, radius: float, k: int):
+        qx, qy, _qc = self._query_point_arrays(query_points, self.device)
+        nb = self._stack_query_nb(query_points, radius)
+
+        def local(geoms, num_ids):
+            return G.knn_geoms_to_point_queries(
+                geoms, qx, qy, nb, k=k, num_ids=num_ids,
+                approximate=self.conf.approximate)
+
+        return local
+
+
+class GeomGeomKNNQuery(_GeomStreamKnn):
+    """Polygon/linestring stream x polygon/linestring query (the remaining
+    four pairs); the Q queries ride one exact-capacity padded edge
+    batch."""
+
+    def _multi_local(self, query_geoms, radius: float, k: int):
+        qgb = self._query_geom_batch(query_geoms)
+        nb = self._stack_query_nb(query_geoms, radius)
+
+        def local(geoms, num_ids):
+            return G.knn_geoms_to_geom_queries(
+                geoms, qgb, nb, k=k, num_ids=num_ids,
+                approximate=self.conf.approximate)
+
+        return local
+
+
 # Reference-named aliases (stream type x query type)
 PointPolygonKNNQuery = PointGeomKNNQuery
 PointLineStringKNNQuery = PointGeomKNNQuery
+PolygonPointKNNQuery = GeomPointKNNQuery
+LineStringPointKNNQuery = GeomPointKNNQuery
+PolygonPolygonKNNQuery = GeomGeomKNNQuery
+PolygonLineStringKNNQuery = GeomGeomKNNQuery
+LineStringPolygonKNNQuery = GeomGeomKNNQuery
+LineStringLineStringKNNQuery = GeomGeomKNNQuery

@@ -1,22 +1,29 @@
-"""Point-stream continuous range queries, windowed (port of ``run`` and
-``run_multi`` of ``PointPointRangeQuery`` and ``PointGeomRangeQuery`` of
+"""Continuous range queries, windowed and realtime (port of ``run`` and
+``run_multi`` of ``PointPointRangeQuery``, ``PointGeomRangeQuery``,
+``GeomPointRangeQuery`` and ``GeomGeomRangeQuery`` of
 ``spatialflink_tpu.operators.range_query``, without the adaptive-grid leaf
 prefilter, which the port does not have).
 
-Guaranteed-cell points are emitted without a distance computation;
-candidate-cell points pass iff their exact distance is <= r; approximate
-mode emits every candidate point (point query) or filters on the bbox
-distance instead of the exact geometry distance (polygon/linestring query).
+Point streams: guaranteed-cell points are emitted without a distance
+computation; candidate-cell points pass iff their exact distance is <= r;
+approximate mode emits every candidate point (point query) or filters on
+the bbox distance instead of the exact geometry distance
+(polygon/linestring query). ``run_multi`` answers Q queries in one dispatch
+per window: K1 with a query axis for query points, the K4x lattice plus
+K1's mask mode with a query axis for query polygons/linestrings.
 
-``run_multi`` answers Q queries in one dispatch per window: K1 with a query
-axis for query points, the K4x lattice plus K1's mask mode with a query
-axis for query polygons/linestrings; ``records[q]`` holds query q's
-selection and ``extras["queries"] = Q``.
+Polygon and linestring streams (the reference's ``PolygonPointRangeQuery``
+and its siblings): a geometry whose cells are ALL guaranteed passes without
+a distance; one with a neighbouring cell passes iff its exact distance (the
+bbox distance in approximate mode) is <= r. Every window, single- or
+multi-query, is ONE launch of K5 (``ops/geom.py`` range entries) with the
+query axis; ``run`` is its Q = 1 row.
 
-The device ops are looked up on their modules at call time
-(``R.range_filter_point_stats``, ``G.points_to_single_geom_dist``, ...), so
-a caller can run the same pipeline with the plain versions by setting those
-module attributes.
+``records[q]`` holds query q's selection under ``run_multi`` and
+``extras["queries"] = Q``. The device ops are looked up on their modules
+at call time (``R.range_filter_point_stats``,
+``G.points_to_single_geom_dist``, ...), so a caller can run the same
+pipeline with the plain versions by setting those module attributes.
 """
 
 from __future__ import annotations
@@ -131,6 +138,64 @@ class PointGeomRangeQuery(SpatialOperator, GeomQueryMixin):
             self._multi_mask_stats(query_geoms, radius))
 
 
+class _GeomStreamRange(SpatialOperator, GeomQueryMixin):
+    """Polygon/linestring stream x any query: the subclass gives the
+    per-run closure ``batch -> (masks (Q, G), gn (Q,), evals (Q,))``."""
+
+    def run(self, stream: Iterable, query, radius: float
+            ) -> Iterator[WindowResult]:
+        mask_stats = self._multi_mask_stats([query], radius)
+
+        def eval_batch(records, ts_base):
+            if not len(records):
+                return []
+            masks, gn_c, evals = mask_stats(self._geom_batch(records,
+                                                             ts_base))
+            return self._defer_mask_select(masks[0], records, (gn_c, evals))
+
+        return self._drive(stream, eval_batch)
+
+    def run_multi(self, stream: Iterable, queries, radius: float
+                  ) -> Iterator[WindowResult]:
+        """Q queries over ONE polygon/linestring stream in ONE K5 launch
+        per window; all queries share ``radius``."""
+        return self._run_multi_filter(
+            stream, len(queries), self._multi_mask_stats(queries, radius),
+            self._geom_batch)
+
+
+class GeomPointRangeQuery(_GeomStreamRange):
+    """Polygon/linestring stream x point query (``PolygonPointRangeQuery``,
+    ``LineStringPointRangeQuery``)."""
+
+    def _multi_mask_stats(self, query_points, radius: float):
+        qx, qy, _qc = self._query_point_arrays(query_points, self.device)
+        gn, nb = self._stack_query_masks(query_points, radius,
+                                         which=("gn", "nb"))
+        return lambda geoms: G.range_geoms_to_point_queries(
+            geoms, qx, qy, gn, nb, radius,
+            approximate=self.conf.approximate)
+
+
+class GeomGeomRangeQuery(_GeomStreamRange):
+    """Polygon/linestring stream x polygon/linestring query
+    (``PolygonPolygonRangeQuery`` and the three sibling pairs); the Q
+    queries ride one exact-capacity padded edge batch."""
+
+    def _multi_mask_stats(self, query_geoms, radius: float):
+        qgb = self._query_geom_batch(query_geoms)
+        gn, nb = self._stack_query_masks(query_geoms, radius,
+                                         which=("gn", "nb"))
+        return lambda geoms: G.range_geoms_to_geom_queries(
+            geoms, qgb, gn, nb, radius, approximate=self.conf.approximate)
+
+
 # Reference-named aliases (stream type x query type)
 PointPolygonRangeQuery = PointGeomRangeQuery
 PointLineStringRangeQuery = PointGeomRangeQuery
+PolygonPointRangeQuery = GeomPointRangeQuery
+LineStringPointRangeQuery = GeomPointRangeQuery
+PolygonPolygonRangeQuery = GeomGeomRangeQuery
+PolygonLineStringRangeQuery = GeomGeomRangeQuery
+LineStringPolygonRangeQuery = GeomGeomRangeQuery
+LineStringLineStringRangeQuery = GeomGeomRangeQuery

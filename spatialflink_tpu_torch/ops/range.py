@@ -10,11 +10,14 @@ distance is <= r; approximate mode passes CN points without the check.
 GN/CN membership is Chebyshev layer arithmetic for a point query and a
 gather into dense (n*n,) cell masks for polygon/linestring queries.
 
-Every public function is a wrapper of ONE hand-written CUDA kernel,
+Every point-stream function is a wrapper of ONE hand-written CUDA kernel,
 ``csrc/range_mask.cu`` (:func:`range_mask_stats`, with a mode argument and
 a query axis: Q queries in one launch, each row equal to the single-query
 launch): CUDA tensors launch it (or the call raises), CPU tensors run the
-``_plain`` version beside each wrapper. There is no other path.
+``_plain`` version beside each wrapper. There is no other path. The
+geometry-stream rule (:func:`range_filter_geom_stream_stats`) is a plain
+version only: on the card K5 (``ops/geom.py``) fuses it with the
+distances.
 
 The kernel replaces the XLA-fused ``range_filter_point_stats``
 (``spatialflink_tpu/ops/range.py:72-96``) and ``range_filter_masks_stats``
@@ -262,3 +265,29 @@ def range_filter_masks_stats(points, gn_mask, cn_mask, dists, radius, *,
         points, mode=MODE_MASKS, approximate=approximate, radius=radius,
         gn_mask=gn_mask, cn_mask=cn_mask, dists=dists)
     return mask, counts[..., 0], counts[..., 1]
+
+
+def _geom_stream_mask(all_gn, any_nb, dists, radius, valid):
+    return valid & (all_gn | (any_nb & ~all_gn & (dists <= radius)))
+
+
+def range_filter_geom_stream(all_gn, any_nb, dists, radius, valid):
+    """Range filter for polygon/linestring STREAMS against any query (plain
+    version; on the card it is fused into K5, ``ops/geom.py``
+    :func:`geom_stream_dist`): a geometry whose grid cells are ALL
+    guaranteed passes without a distance; otherwise a geometry with a
+    neighbouring cell passes iff ``dists`` (the exact geometry distance,
+    or the bbox distance in approximate mode) is <= r. ``all_gn`` /
+    ``any_nb`` are (G,) cell predicates (``geom.geom_cells_all_within`` /
+    ``geom_cells_any_within``)."""
+    return _geom_stream_mask(all_gn, any_nb, dists, radius, valid)
+
+
+def range_filter_geom_stream_stats(all_gn, any_nb, dists, radius, valid):
+    """:func:`range_filter_geom_stream` with its (gn_bypassed, dist_evals)
+    counts: geometries passing on the all-GN rule consult no distance;
+    every other valid neighbouring-cell geometry consults one (a bbox
+    distance in approximate mode counts too)."""
+    mask = _geom_stream_mask(all_gn, any_nb, dists, radius, valid)
+    return (mask, _count(valid & all_gn),
+            _count(valid & any_nb & ~all_gn))

@@ -1,7 +1,7 @@
-"""Window assembly over decoded point chunks (port of ``WindowSpec``, the
-columnar path of ``WindowAssembler`` and ``MicroBatcher`` in
-``spatialflink_tpu.runtime.windows``, and of the count windows of
-``SpatialOperator._count_windows``).
+"""Window assembly over decoded chunks (port of ``WindowSpec``,
+``WindowAssembler`` and ``MicroBatcher`` in
+``spatialflink_tpu.runtime.windows``, and of the count windows and micro-
+batches of ``SpatialOperator._count_windows`` / ``_micro_batches``).
 
 Event-time windows are Flink-compatible: a sliding window of (size, slide)
 covers [start, start + size) for starts aligned to ``slide``; each record
@@ -10,11 +10,16 @@ when the watermark passes their end; records below the watermark are late
 and dropped. Emission granularity is one decoded chunk, as in the JAX
 package.
 
-Every buffer holds ``(PointChunk, idx)`` slices of decoded chunks (the port
-cuts Point-object streams into chunks too), so a sealed buffer is a
-:class:`LazyRecords` as it stands: the JAX package's ``_ColumnarSeg``
-marker and ``_finalize_buffer``, which tell slices from plain records in a
-buffer, have nothing to tell apart here.
+One chunk protocol serves both stream kinds: a chunk (a columnar
+``PointChunk`` of a point stream, or a ``GeomChunk`` of parsed polygons and
+linestrings) has a length, an int64 ``ts`` column and ``view(segs)``, which
+turns ``(chunk, idx)`` slices into the window's records (``LazyRecords`` /
+``GeomRecords``). Every buffer holds such slices (the port cuts object
+streams into chunks too), so the JAX package's ``_ColumnarSeg`` marker and
+``_finalize_buffer``, which tell slices from plain records in a buffer,
+have nothing to tell apart here; the JAX package's per-record
+``add_chunk`` / ``add_records`` paths of object streams are these same
+slices.
 """
 
 from __future__ import annotations
@@ -26,7 +31,6 @@ from typing import Dict, Iterable, Iterator, List, Tuple
 import numpy as np
 
 from spatialflink_tpu_torch.runtime.watermarks import BoundedOutOfOrderness
-from spatialflink_tpu_torch.streams.bulk import LazyRecords
 
 
 @dataclass(frozen=True)
@@ -54,6 +58,11 @@ class WindowSpec:
         return win_start[order], rec_idx[order]
 
 
+def _view(segs):
+    """A sealed buffer's records: its chunks' own view of the slices."""
+    return segs[0][0].view(segs)
+
+
 def _keep_mask(watermarker: BoundedOutOfOrderness, ts: np.ndarray):
     """Per-record lateness decisions for one chunk against the per-record
     PREFIX watermark — identical to feeding the chunk one record at a
@@ -68,7 +77,7 @@ def _keep_mask(watermarker: BoundedOutOfOrderness, ts: np.ndarray):
 
 class WindowAssembler:
     """Buffers decoded chunks into event-time windows; yields sealed windows
-    as ``(start, end, LazyRecords)`` in start order."""
+    as ``(start, end, records)`` in start order."""
 
     def __init__(self, spec: WindowSpec, allowed_lateness_ms: int = 0):
         self.spec = spec
@@ -76,11 +85,10 @@ class WindowAssembler:
         self._buffers: Dict[int, List] = {}
         self.late_dropped = 0
 
-    def add_parsed_chunk(self, chunk) -> Iterator[Tuple[int, int, LazyRecords]]:
-        """Buffer one :class:`PointChunk` as ``(chunk, idx)`` slices per
-        window (late records dropped), then seal what the watermark
-        passed."""
-        ts = np.asarray(chunk.parsed.ts, np.int64)
+    def add_parsed_chunk(self, chunk) -> Iterator[Tuple]:
+        """Buffer one decoded chunk as ``(chunk, idx)`` slices per window
+        (late records dropped), then seal what the watermark passed."""
+        ts = np.asarray(chunk.ts, np.int64)
         if not ts.size:
             return
         keep = _keep_mask(self.watermarker, ts)
@@ -95,7 +103,7 @@ class WindowAssembler:
         wm = self.watermarker.on_event(int(ts.max()))
         yield from self._seal_until(wm)
 
-    def assemble(self, chunks) -> Iterator[Tuple[int, int, LazyRecords]]:
+    def assemble(self, chunks) -> Iterator[Tuple]:
         """Drive a stream of decoded chunks to its end, then seal every
         remaining window."""
         for ch in chunks:
@@ -107,13 +115,13 @@ class WindowAssembler:
                        if s + self.spec.size_ms <= watermark)
         for start in ready:
             yield (start, start + self.spec.size_ms,
-                   LazyRecords(self._buffers.pop(start)))
+                   _view(self._buffers.pop(start)))
 
     def flush(self):
         """Seal every remaining window (end of a bounded stream)."""
         for start in sorted(self._buffers):
             yield (start, start + self.spec.size_ms,
-                   LazyRecords(self._buffers.pop(start)))
+                   _view(self._buffers.pop(start)))
 
 
 class MicroBatcher:
@@ -133,9 +141,9 @@ class MicroBatcher:
         self._buf: List = []
         self._count = 0
 
-    def add_chunk(self, chunk) -> Iterator[Tuple[int, int, LazyRecords]]:
-        """Buffer one :class:`PointChunk` as slices, yielding every batch
-        it completes."""
+    def add_chunk(self, chunk) -> Iterator[Tuple]:
+        """Buffer one decoded chunk as slices, yielding every batch it
+        completes."""
         n, pos = len(chunk), 0
         while pos < n:
             take = min(self.batch_size - self._count, n - pos)
@@ -145,8 +153,7 @@ class MicroBatcher:
             if self._count >= self.batch_size:
                 yield self._cut()
 
-    def batches(self, chunks: Iterable) -> Iterator[Tuple[int, int,
-                                                          LazyRecords]]:
+    def batches(self, chunks: Iterable) -> Iterator[Tuple]:
         """Drive a stream of decoded chunks to its end, then flush the
         partial batch."""
         for ch in chunks:
@@ -154,15 +161,14 @@ class MicroBatcher:
         if self._buf:
             yield self._cut()
 
-    def _cut(self) -> Tuple[int, int, LazyRecords]:
+    def _cut(self) -> Tuple:
         buf, self._buf, self._count = self._buf, [], 0
         (first, fi), (last, li) = buf[0], buf[-1]
-        return (int(first.parsed.ts[fi[0]]), int(last.parsed.ts[li[-1]]),
-                LazyRecords(buf))
+        return int(first.ts[fi[0]]), int(last.ts[li[-1]]), _view(buf)
 
 
 def count_windows(chunks: Iterable, size: int, slide: int
-                  ) -> Iterator[Tuple[int, int, LazyRecords]]:
+                  ) -> Iterator[Tuple]:
     """Sliding count windows over a stream of decoded chunks (Flink
     ``countWindow(size, slide)`` on an unkeyed stream): every ``slide``
     arrivals, the last ``size`` records. A window's bounds are its
@@ -190,8 +196,7 @@ def count_windows(chunks: Iterable, size: int, slide: int
                     segs[0] = (c, lo + drop, hi)
                 held -= drop
             if arrived % slide == 0:
-                ts = [c.parsed.ts[lo:hi] for c, lo, hi in segs]
+                ts = [c.ts[lo:hi] for c, lo, hi in segs]
                 yield (int(min(t.min() for t in ts)),
                        int(max(t.max() for t in ts)),
-                       LazyRecords([(c, np.arange(lo, hi))
-                                    for c, lo, hi in segs]))
+                       _view([(c, np.arange(lo, hi)) for c, lo, hi in segs]))

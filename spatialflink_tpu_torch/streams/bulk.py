@@ -1,6 +1,9 @@
 """Columnar point ingestion (port of the point parts of
 ``spatialflink_tpu.streams.bulk``): a chunk of records -> structure of
-arrays, and the lazy per-window record views built on it.
+arrays, and the lazy per-window record views built on it; and the chunk
+of a polygon/linestring stream (:class:`GeomChunk`, parsed objects) with
+its window view (:class:`GeomRecords`). Both chunk kinds give the window
+assemblers a ``ts`` column, a length and ``view(segs)``.
 
 :func:`bulk_parse_csv` and :func:`bulk_parse_geojson` parse a block of
 lines in one call of the native ingest (``native/ingest.cpp``, the JAX
@@ -29,7 +32,7 @@ import torch
 
 from spatialflink_tpu_torch.index import UniformGrid
 from spatialflink_tpu_torch import native
-from spatialflink_tpu_torch.models import Point, PointBatch
+from spatialflink_tpu_torch.models import EdgeGeomBatch, Point, PointBatch
 from spatialflink_tpu_torch.streams import formats
 from spatialflink_tpu_torch.utils import IdInterner
 
@@ -282,6 +285,16 @@ class PointChunk:
     def __len__(self) -> int:
         return len(self.parsed)
 
+    @property
+    def ts(self) -> np.ndarray:
+        """(N,) i64 event times (the window assemblers' column)."""
+        return self.parsed.ts
+
+    @staticmethod
+    def view(segs) -> "LazyRecords":
+        """The records of ``(chunk, idx)`` slices of point chunks."""
+        return LazyRecords(segs)
+
     @staticmethod
     def build(parsed: ParsedPoints, grid: UniformGrid) -> "PointChunk":
         cells = np.asarray(grid.assign_cell(parsed.x, parsed.y)[0], np.int32)
@@ -377,6 +390,76 @@ class PointRows:
         return f"PointRows({len(self)} records)"
 
 
+class GeomChunk:
+    """One decoded chunk of a polygon/linestring stream: the parsed
+    geometry objects (cells assigned at parse) and their event times."""
+
+    __slots__ = ("records", "ts", "ingest_ms")
+
+    def __init__(self, records: Sequence):
+        self.records = list(records)
+        self.ts = np.array([r.timestamp for r in self.records], np.int64)
+        self.ingest_ms = int(time.time() * 1000)
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    @staticmethod
+    def view(segs) -> "GeomRecords":
+        """The records of ``(chunk, idx)`` slices of geometry chunks."""
+        return GeomRecords(segs)
+
+
+class GeomRecords:
+    """A window's geometries as ``(GeomChunk, idx)`` slices: the same chunk
+    protocol as :class:`LazyRecords`, over objects. The device batch
+    interns ids through the caller's (the operator's) interner, as the JAX
+    package's ``_geom_batch`` does."""
+
+    __slots__ = ("_segs", "_len")
+
+    def __init__(self, segs):
+        self._segs = list(segs)
+        self._len = sum(int(idx.size) for _, idx in self._segs)
+
+    def __len__(self) -> int:
+        return self._len
+
+    def records(self) -> list:
+        """The window's geometry objects in window order."""
+        return [chunk.records[i] for chunk, idx in self._segs
+                for i in idx.tolist()]
+
+    def take(self, idx) -> list:
+        """The geometries at window positions ``idx``."""
+        return self.take_many([idx])[0]
+
+    def take_many(self, idx_lists) -> List[list]:
+        """The geometries at each of several position lists (one per query
+        of a multi-query window)."""
+        recs = self.records()
+        return [[recs[i] for i in np.asarray(idx, np.int64).tolist()]
+                for idx in idx_lists]
+
+    def geom_batch(self, ts_base: int, device: torch.device,
+                   interner: IdInterner, compact: bool = False
+                   ) -> Tuple[EdgeGeomBatch, Optional[np.ndarray]]:
+        """The window's :class:`EdgeGeomBatch` (ids interned in window order
+        through ``interner``) and None; with ``compact``, its obj_id is each
+        record's index among the window's distinct interned ids, returned
+        beside it (ascending, so ascending local id is ascending interned
+        id)."""
+        recs = self.records()
+        oid = np.fromiter((interner.intern(r.obj_id) for r in recs),
+                          np.int32, count=len(recs))
+        ids = None
+        if compact:
+            ids, local = np.unique(oid, return_inverse=True)
+            oid = local.reshape(-1).astype(np.int32)
+        return EdgeGeomBatch.from_objects(recs, device=device, obj_id=oid,
+                                          ts_base=ts_base), ids
+
+
 def parse_points(items: Sequence, cfg, interner: IdInterner) -> ParsedPoints:
     """One decode chunk record by record (the path of a chunk the native
     parsers do not take: GeoJSON dicts, Point objects, lines with interior
@@ -390,11 +473,12 @@ def parse_points(items: Sequence, cfg, interner: IdInterner) -> ParsedPoints:
         if isinstance(r, Point):
             pts.append(r)
         elif fmt == "geojson":
-            try:
-                pts.append(formats.parse_geojson(r, **cfg.geojson_kwargs()))
-            except formats.OffTypeRecord as e:
-                print(f"warning: dropping off-type {e} record from declared "
-                      "Point stream", file=sys.stderr)
+            obj = formats.parse_geojson(r, **cfg.geojson_kwargs())
+            if isinstance(obj, Point):
+                pts.append(obj)
+            else:
+                print(f"warning: dropping off-type {type(obj).__name__} "
+                      "record from declared Point stream", file=sys.stderr)
         elif fmt in ("csv", "tsv"):
             pts.append(formats.parse_csv(
                 r, delimiter="\t" if fmt == "tsv" else cfg.delimiter,

@@ -7,8 +7,7 @@ import json
 import sys
 from typing import Iterator, Optional
 
-from spatialflink_tpu_torch.models import Point
-from spatialflink_tpu_torch.streams.formats import serialize_geojson
+from spatialflink_tpu_torch.streams.formats import serialize_spatial
 
 
 class StdoutSink:
@@ -22,19 +21,24 @@ class StdoutSink:
 
 
 class FileSink:
-    """Newline-delimited result records: a point as one GeoJSON Feature per
-    line (the JAX driver's default ``--output-format``), any other record
-    (a kNN (objID, distance) pair) as a JSON line, as the JAX sink writes
-    non-spatial records."""
+    """Newline-delimited result records, as the JAX package's ``FileSink``
+    writes them: a spatial record serialized in ``fmt`` (GeoJSON, WKT, CSV
+    or TSV, honouring ``delimiter`` and ``date_format``), any other record
+    (a kNN (objID, distance) pair) as a JSON line."""
 
-    def __init__(self, path: str, *, date_format: Optional[str] = None):
+    def __init__(self, path: str, fmt: str = "GeoJSON", *,
+                 delimiter: str = ",", date_format: Optional[str] = None):
+        self.fmt = fmt
+        self.delimiter = delimiter
         self.date_format = date_format
         self.records_written = 0
         self._f = open(path, "w")
 
     def emit(self, record):
-        if isinstance(record, Point):
-            line = serialize_geojson(record, date_format=self.date_format)
+        if hasattr(record, "obj_id"):
+            line = serialize_spatial(record, self.fmt,
+                                     delimiter=self.delimiter,
+                                     date_format=self.date_format)
         else:
             line = json.dumps(record, default=str)
         self._f.write(line + "\n")

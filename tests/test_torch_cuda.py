@@ -1,8 +1,10 @@
 """K4 (dense and with its per-cell edge table), K4x (in stream and in cell
 order, with its pruning edge cases), the cell order, K1 (single and with a
-query axis of 1, 3, 16 and 17, vector and scalar loads) and K2 (with its
-overflow and tie cases) against their plain PyTorch versions on the card,
-bit for bit.
+query axis of 1, 3, 16 and 17, vector and scalar loads), K2 (with its
+overflow and tie cases) and K5 (the geometry-stream distance: range and kNN
+mode, point and geometry queries, exact and approximate, 1 and 16 queries,
+a query of more edges than it stages) against their plain PyTorch versions
+on the card, bit for bit.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -17,8 +19,10 @@ import torch
 
 from spatialflink_tpu_torch.index import UniformGrid
 from spatialflink_tpu_torch.models import (EdgeGeomBatch, LineString,
-                                            PointBatch, Polygon,
+                                            MultiPolygon, Point, PointBatch,
+                                            Polygon, from_jax_arrays,
                                             single_query_edges)
+from spatialflink_tpu_torch.ops import geom as G
 from spatialflink_tpu_torch.ops import hopper_kernels as HK
 from spatialflink_tpu_torch.ops import knn as K
 from spatialflink_tpu_torch.ops import range as R
@@ -692,3 +696,168 @@ def test_micro_batch_kernels_equal_plain(card, case):
         assert np.array_equal(ids[got[0][0].cpu().numpy()[v]],
                               wide[0][0].cpu().numpy()[v])
     assert _equal(got, want)
+
+
+def _stream_geoms(grid, n=3000, seed=31):
+    """A polygon/linestring window over the 10 x 10 grid: rings of 3-40
+    edges (one above 32, so a lane owns two edges), walks, a polygon with a
+    hole, a multi-polygon with one part far and one inside the query
+    square, repeated vertices (zero-length edges) and a geometry outside
+    the grid (no cell)."""
+    rng = np.random.default_rng(seed)
+    out = [Polygon.create([[(1, 1), (8, 1), (8, 8), (1, 8)],
+                           [(3, 3), (5, 3), (5, 5)]], grid, "hole"),
+           MultiPolygon.create([[[(9.0, 9.0), (9.5, 9.0), (9.5, 9.5)]],
+                                [[(4.0, 4.0), (4.4, 4.0), (4.2, 4.4)]]],
+                               grid, "multi"),
+           Polygon.create([[(7, 7), (7, 7), (8, 7), (8, 8), (8, 8)]], grid,
+                          "zero-length"),
+           Polygon.create([[(11, 11), (12, 11), (12, 12)]], grid, "no-cell"),
+           Polygon.create([_ring(40, 0.6)], grid, "forty")]
+    for i in range(n - len(out)):
+        cx, cy = rng.uniform(0.5, 9.5, 2)
+        if i % 2:
+            k = int(rng.integers(3, 33))
+            th = np.sort(rng.uniform(0, 2 * np.pi, k))
+            r = rng.uniform(0.05, 0.8)
+            ring = [(float(cx + r * np.cos(t)), float(cy + r * np.sin(t)))
+                    for t in th]
+            out.append(Polygon.create([ring], grid, f"p{i % 700}"))
+        else:
+            pts = np.cumsum(rng.normal(0, 0.3, (int(rng.integers(2, 9)), 2)),
+                            axis=0) + (cx, cy)
+            out.append(LineString.create([tuple(map(float, p)) for p in pts],
+                                         grid, f"l{i % 700}"))
+    return out
+
+
+def _geom_queries(grid, q, large=False):
+    """q query geometries: the square [2, 6]^2, a linestring, then rings
+    (one of 1,301 edges, more than K5 stages, with ``large``)."""
+    rng = np.random.default_rng(32)
+    qs = [Polygon.create([[(2, 2), (6, 2), (6, 6), (2, 6)]], grid),
+          LineString.create([(2.0, 8.0), (6.0, 8.5), (6.5, 9.5)], grid)]
+    qs += [Polygon.create([[(float(x + 0.4 * np.cos(t)),
+                             float(y + 0.4 * np.sin(t)))
+                            for t in np.linspace(0, 2 * np.pi, 65)[:-1]]],
+                          grid) for x, y in rng.uniform(1, 9, (q, 2))]
+    if large:
+        qs.insert(0, Polygon.create([_ring(1301, 2.5)], grid))
+    return qs[:q]
+
+
+def _k5_inputs(card, query, q, radius, large=False):
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    geoms = EdgeGeomBatch.from_objects(_stream_geoms(grid), device=card)
+    if query == "point":
+        rng = np.random.default_rng(33)
+        qp = [Point.create(4.0, 4.0, grid)] + [
+            Point.create(float(x), float(y), grid)
+            for x, y in rng.uniform(0, 10, (q - 1, 2))]
+        kw = dict(qx=torch.tensor([p.x for p in qp], dtype=torch.float32,
+                                  device=card),
+                  qy=torch.tensor([p.y for p in qp], dtype=torch.float32,
+                                  device=card))
+        cells = [[p.cell] for p in qp]
+    else:
+        qs = _geom_queries(grid, q, large)
+        kw = dict(queries=EdgeGeomBatch.from_objects(qs, device=card,
+                                                     pad=len(qs)))
+        cells = [sorted(g.cells) for g in qs]
+    gn = torch.from_numpy(np.stack([grid.guaranteed_cells_mask(radius, c)
+                                    for c in cells])).to(card)
+    nb = torch.from_numpy(np.stack([grid.neighboring_cells_mask(radius, c)
+                                    for c in cells])).to(card)
+    return geoms, gn, nb, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 16])
+@pytest.mark.parametrize("approximate", [False, True])
+@pytest.mark.parametrize("mode", ["range", "knn"])
+@pytest.mark.parametrize("query", ["point", "geometry"])
+def test_geom_dist_kernel_equals_plain(card, query, mode, approximate, q):
+    """K5 against its plain version: flags, counts and distances (+inf
+    where the rule consults none) bit for bit; kNN through K2 too."""
+    radius = 0.8
+    geoms, gn, nb, kw = _k5_inputs(card, query, q, radius)
+    m = G.MODE_RANGE if mode == "range" else G.MODE_KNN
+    args = dict(mode=m, nb=nb, gn=gn if mode == "range" else None,
+                radius=radius, approximate=approximate, **kw)
+    launches = G.geom_stream_dist.launches
+    got = G.geom_stream_dist(geoms, **args)
+    assert G.geom_stream_dist.launches == launches + 1
+    want = G.geom_stream_dist_plain(geoms, **args)
+    assert _equal(got, want)
+    assert int(want[2][:, 1].sum()) > 0 and bool(want[0].any())
+    if mode == "knn":
+        fn = (G.knn_geoms_to_point_queries if query == "point"
+              else G.knn_geoms_to_geom_queries)
+        qargs = ((kw["qx"], kw["qy"]) if query == "point"
+                 else (kw["queries"],))
+        res, evals = fn(geoms, *qargs, nb, k=10, approximate=approximate)
+        wres = K.knn_topk_plain(geoms.obj_id, mode=K.MODE_ELIGIBLE, k=10,
+                                num_ids=None, dists=want[1],
+                                eligible=want[0])
+        assert _equal((*res, evals), wres)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["range", "knn"])
+def test_geom_dist_query_above_staging(card, mode):
+    """A 1,301-edge query polygon (above K5's 1,024 staged edges: read
+    from device memory) with 3 other queries."""
+    geoms, gn, nb, kw = _k5_inputs(card, "geometry", 4, 0.8, large=True)
+    assert kw["queries"].edges.shape[1] > G.QUERY_CHUNK
+    m = G.MODE_RANGE if mode == "range" else G.MODE_KNN
+    args = dict(mode=m, nb=nb, gn=gn if mode == "range" else None,
+                radius=0.8, **kw)
+    assert _equal(G.geom_stream_dist(geoms, **args),
+                  G.geom_stream_dist_plain(geoms, **args))
+
+
+@pytest.mark.cuda
+def test_geom_dist_argument_checks(card):
+    geoms, gn, nb, kw = _k5_inputs(card, "point", 2, 0.8)
+    with pytest.raises(ValueError, match="on cpu"):
+        G.geom_stream_dist(geoms, mode=G.MODE_RANGE, gn=gn, nb=nb.cpu(),
+                           **kw)
+    with pytest.raises(ValueError, match="on cpu"):
+        G.geom_stream_dist(geoms, mode=G.MODE_KNN, nb=nb,
+                           qx=kw["qx"].cpu(), qy=kw["qy"])
+    with pytest.raises(TypeError, match="needs torch.float32"):
+        G.geom_stream_dist(geoms, mode=G.MODE_KNN, nb=nb,
+                           qx=kw["qx"].double(), qy=kw["qy"])
+    with pytest.raises(TypeError, match="needs torch.bool"):
+        G.geom_stream_dist(geoms, mode=G.MODE_KNN, nb=nb.to(torch.uint8),
+                           **kw)
+    with pytest.raises(TypeError, match="needs torch.int32"):
+        G.geom_stream_dist(geoms._replace(cells=geoms.cells.long()),
+                           mode=G.MODE_KNN, nb=nb, **kw)
+
+
+@pytest.mark.cuda
+def test_from_jax_arrays_carries_a_stream_geom_batch(card):
+    """A stream-side EdgeGeomBatch as the JAX package holds it (host
+    arrays: float64 coordinates, int64 ids) crosses to the card in the
+    port's dtypes, and K5 over it equals K5 over the port's own batch."""
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    own = EdgeGeomBatch.from_objects(_stream_geoms(grid, n=500),
+                                     device=torch.device("cpu"))
+    fields = {k: v.numpy().astype(np.float64 if v.is_floating_point()
+                                  else np.int64 if v.dtype == torch.int32
+                                  else bool)
+              for k, v in own._asdict().items()}
+    carried, _ = from_jax_arrays(fields, card)
+    assert isinstance(carried, EdgeGeomBatch)
+    for name, t in carried._asdict().items():
+        assert t.device.type == "cuda"
+        assert t.dtype == getattr(own, name).dtype, name
+        assert torch.equal(t.cpu(), getattr(own, name)), name
+    nb = torch.ones((1, grid.num_cells), dtype=torch.bool, device=card)
+    kw = dict(mode=G.MODE_KNN, nb=nb,
+              qx=torch.tensor([4.0], device=card),
+              qy=torch.tensor([4.0], device=card))
+    own_card = EdgeGeomBatch(*(t.to(card) for t in own))
+    assert _equal(G.geom_stream_dist(carried, **kw),
+                  G.geom_stream_dist(own_card, **kw))

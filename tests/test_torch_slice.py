@@ -198,18 +198,19 @@ def test_config_reads_k():
     assert TD._query_conf(p, TD.CASES[51]).k == 50
 
 
-@pytest.mark.parametrize("option", [67, 72, 77])
+@pytest.mark.parametrize("option", [211, 2011, 212])
 def test_realtime_knn_is_refused(option):
-    """Realtime kNN over a polygon stream (query Point, Polygon,
-    LineString) is not ported yet."""
+    """Trajectory kNN (realtime 211, its naive twin 2011, and windowed 212)
+    is not ported yet; the realtime kNN over polygon and linestring
+    streams now is (tests/test_torch_geom_stream.py)."""
     with pytest.raises(NotImplementedError,
                        match=f"queryOption {option}: not yet ported"):
         TD.run_option(_params(TParams, option), [], device="cpu")
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--option", "67"], "queryOption 67: not yet ported"),
-    (["--option", "17"], "queryOption 17: not yet ported"),
+    (["--option", "211"], "queryOption 211: not yet ported"),
+    (["--option", "101"], "queryOption 101: not yet ported"),
     (["--option", "6", "--kafka"], "--kafka: not yet ported"),
     (["--option", "6", "--panes"], "--panes: not yet ported"),
     (["--option", "6", "--limit", "5"], "--limit: not yet ported"),
