@@ -1531,14 +1531,16 @@ def k5_work(gb, dist, kind, grid_cells, queries=None, approximate=False):
     return ops, nbytes
 
 
-def geom_kernel_phase(torch, timer: Timer, polys, lines):
-    """K5 against its plain version, bit for bit, at one window of the
-    polygon stream (its first WINDOW_GEOMS geometries, the size of a 10 s
-    window) and at one realtime micro-batch of N_MICRO, in range and kNN
-    mode: the conf's point (options 16/66), the conf's polygon (21/71) and
-    16 query polygons (multiQuery 21/71) over polygons, the conf's
-    linestring over linestrings (41/91), approximate mode once. Returns
-    the cases."""
+def k5_setups(torch, polys, lines):
+    """K5's cases at the main path's shapes: one 10 s window of the polygon
+    stream (its first WINDOW_GEOMS geometries) and of the linestring
+    stream, and one realtime micro-batch of N_MICRO polygons; the conf's
+    point (options 16/66), the conf's polygon (21/71) and 16 query polygons
+    (multiQuery 21/71) over polygons, the conf's linestring over
+    linestrings (41/91), approximate mode once; range and kNN mode each.
+    Returns ``(cases, window build seconds)``, a case being ``(name, batch,
+    geom_stream_dist's keyword arguments, query kind, plain repetitions,
+    number of queries)``."""
     from spatialflink_tpu_torch.models import EdgeGeomBatch
     from spatialflink_tpu_torch.ops import geom as G
     from spatialflink_tpu_torch.utils import IdInterner
@@ -1572,7 +1574,6 @@ def geom_kernel_phase(torch, timer: Timer, polys, lines):
         f"{build_poly:.3f} s ({build_poly / WINDOW_GEOMS * 1e6:.2f} us "
         f"each), linestrings in {build_line:.3f} s; edges "
         f"{tuple(window.edges.shape)} / {tuple(lwin.edges.shape)}")
-    cases = []
     setups = [
         ("polygons-x-conf-point", window, qpoint, "point", False, 25),
         ("polygons-x-conf-polygon", window, qpolys[:1], "geometry", False,
@@ -1586,6 +1587,7 @@ def geom_kernel_phase(torch, timer: Timer, polys, lines):
          False, 25),
         ("micro-polygons-x-conf-point", micro, qpoint, "point", False, 25),
     ]
+    cases = []
     for name, gb, qs, kind, approx, plain_reps in setups:
         gn, nb = masks(qs)
         if kind == "point":
@@ -1601,25 +1603,39 @@ def geom_kernel_phase(torch, timer: Timer, polys, lines):
                 continue
             args = dict(mode=mode, nb=nb, gn=gn if mode == G.MODE_RANGE
                         else None, radius=r, approximate=approx, **kw)
-            got = G.geom_stream_dist(gb, **args)
-            ops, nbytes = k5_work(gb, got[1], kind, nb.shape[1],
-                                  kw.get("queries"), approx)
-            case, got = kernel_case(
-                timer, torch, f"{name}-{label}",
-                lambda a=args, gb=gb: G.geom_stream_dist(gb, **a),
-                lambda a=args, gb=gb: G.geom_stream_dist_plain(gb, **a),
-                ops, nbytes, "K5", plain_reps=plain_reps,
-                geometries=int(gb.valid.sum()), queries=len(qs),
-                edges_padded=int(gb.edges.shape[1]),
-                consulted=int(torch.isfinite(got[1]).sum()),
-                counts=[[int(v) for v in row] for row in got[2].cpu()])
-            case["launch_to_completion_ms"] = launch_ms(
-                torch, lambda a=args, gb=gb: G.geom_stream_dist(gb, **a))
-            cases.append(case)
-    if G.geom_stream_dist.launches <= 0:
-        raise AssertionError("geom_stream_dist launched no kernel")
+            cases.append((f"{name}-{label}", gb, args, kind, plain_reps,
+                          len(qs)))
     return cases, {"window_build_s_polygons": build_poly,
                    "window_build_s_linestrings": build_line}
+
+
+def geom_kernel_phase(torch, timer: Timer, polys, lines):
+    """K5 against its plain version, bit for bit, in every case of
+    :func:`k5_setups`, with its CUDA-event time, launch-to-completion time
+    and bound. Returns the cases."""
+    from spatialflink_tpu_torch.ops import geom as G
+
+    setups, build = k5_setups(torch, polys, lines)
+    cases = []
+    for name, gb, args, kind, plain_reps, n_queries in setups:
+        got = G.geom_stream_dist(gb, **args)
+        ops, nbytes = k5_work(gb, got[1], kind, args["nb"].shape[1],
+                              args.get("queries"), args["approximate"])
+        case, got = kernel_case(
+            timer, torch, name,
+            lambda a=args, gb=gb: G.geom_stream_dist(gb, **a),
+            lambda a=args, gb=gb: G.geom_stream_dist_plain(gb, **a),
+            ops, nbytes, "K5", plain_reps=plain_reps,
+            geometries=int(gb.valid.sum()), queries=n_queries,
+            edges_padded=int(gb.edges.shape[1]),
+            consulted=int(torch.isfinite(got[1]).sum()),
+            counts=[[int(v) for v in row] for row in got[2].cpu()])
+        case["launch_to_completion_ms"] = launch_ms(
+            torch, lambda a=args, gb=gb: G.geom_stream_dist(gb, **a))
+        cases.append(case)
+    if G.geom_stream_dist.launches <= 0:
+        raise AssertionError("geom_stream_dist launched no kernel")
+    return cases, build
 
 
 def geom_main_phase(card: str, streams, runs, limit=None):

@@ -1,40 +1,50 @@
 #!/usr/bin/env python3
-"""Times the port's K1 and K4 kernels against an earlier revision's, on one
-card, in turns (old, new, new, old), at the main path's shapes.
+"""Times the port's K1, K4 and K5 kernels against an earlier revision's, on
+one card, in turns (old, new, new, old), at the main path's shapes.
 
 Run from the root of a checkout on a machine with one NVIDIA card, with
 the earlier revision's ``csrc/`` unpacked into a directory that
 ``.gitignore`` lists:
 
     git archive <commit> spatialflink_tpu_torch/csrc | tar -x -C _scratch/old
-    python3 kernel_ab.py --old _scratch/old/spatialflink_tpu_torch/csrc
+    python3 kernel_ab.py --old _scratch/old/spatialflink_tpu_torch/csrc \
+        [--kernels k1,k4,k5]
 
-The old ``range_mask.cu`` and ``pip_dist.cu`` (with its
-``pip_edges.cuh``) are built with the port's own nvcc flags into
+The old ``range_mask.cu``, ``pip_dist.cu`` (with its ``pip_edges.cuh``)
+and ``geom_dist.cu`` are built with the port's own nvcc flags into
 ``_scratch/ab_build`` and called through their C signatures, which are
-the same in every revision up to commit 48d27a2:
-``range_mask_stats_launch(mode, approximate, n, Q, ..., mask_out,
-dists_out, counts, stream)`` (it zeroes the counts with its own memset)
-and ``pip_dist_launch(px, py, n, edges, edge_mask, ne, is_areal, dist,
-stream)``. Every case first checks that old and new give the same outputs
-bit for bit, then times 5 rounds of old, new, new, old (10 pairs) with
-chip_smoke's timer (CUDA events, L2 evicted before each launch), counts
-the pairs the new side wins, and prints one JSON line per case
-with a profiler split of the new side's device operations (kernels and
-memsets) and, for K1, of the old side's; the card's name and power limit
-beside it, and a summary line last.
+those of commit 48d27a2 and later for ``range_mask_stats_launch(mode,
+approximate, n, Q, ..., mask_out, dists_out, counts, stream)`` (it zeroes
+the counts with its own memset) and ``pip_dist_launch(px, py, n, edges,
+edge_mask, ne, is_areal, dist, stream)``, and those of commit c481f39
+and later for ``geom_dist_launch``, whose arguments the wrapper
+``ops/geom.geom_stream_dist`` marshals for both sides. Every case
+first checks that old and new give the same outputs bit for bit, then
+times 5 rounds of old, new, new, old (10 pairs) with chip_smoke's timer
+(CUDA events, L2 evicted before each launch), counts the pairs the new
+side wins, and prints one JSON line per case with a profiler split of
+the new side's device operations (kernels and memsets) and, for K1 and
+K5, of the old side's; the card's name and power limit beside it, and a
+summary line last.
 
-Cases, at 1,048,576 points over the conf's bbox: K1 point Q=1 with its
-distances and without (the main path's form), point Q=16, mask mode Q=1
-(over the first polygon's K4x row, as options 6 and 11 call it), Q=8 and
-Q=16 over K4x rows; K4 on the conf's 100 x 100 grid: the main path's
-64-edge polygon with its per-cell table and without, 128-, 256- and
-512-edge polygons (table) and a 1,301-edge one (dense in both), each with
-the table's fold share (``hopper_kernels.pip_table_fold_share``); and K4
-on coarser grids (64 and 512 edges on 10 x 10 against the old kernel;
-then a sweep of grids of 2 to 100 cells a side over the conf's 2-edge
-linestring and 8- to 512-edge polygons, the table form forced against the
-dense fold, both new), which sets ``hopper_kernels.pip_table``'s gate.
+Cases. K1 and K4 at 1,048,576 points over the conf's bbox: K1 point Q=1
+with its distances and without (the main path's form), point Q=16, mask
+mode Q=1 (over the first polygon's K4x row, as options 6 and 11 call it),
+Q=8 and Q=16 over K4x rows; K4 on the conf's 100 x 100 grid: the main
+path's 64-edge polygon with its per-cell table and without, 128-, 256-
+and 512-edge polygons (table) and a 1,301-edge one (dense in both), each
+with the table's fold share (``hopper_kernels.pip_table_fold_share``);
+and K4 on coarser grids (64 and 512 edges on 10 x 10 against the old
+kernel; then a sweep of grids of 2 to 100 cells a side over the conf's
+2-edge linestring and 8- to 512-edge polygons, the table form forced
+against the dense fold, both new), which sets ``hopper_kernels.pip_table``'s
+gate. K5 at ``chip_smoke.k5_setups``' 13 cases: a 131,072-geometry
+window of chip_smoke's polygon and linestring streams (generated and
+parsed here the same way, ~1 min) against the conf's point, the conf's polygon, the 16
+query polygons and the conf's linestring, range and kNN mode, approximate
+once, and a 512-polygon micro-batch against the conf's polygon and point,
+whose launch-to-completion times (host clock) stand beside their card
+times.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 
@@ -55,13 +66,14 @@ BUILD = os.path.join(CS.ROOT, "_scratch", "ab_build")
 ROUNDS = 5
 
 
-def build_old(old_csrc: str) -> dict:
+def build_old(old_csrc: str, names) -> dict:
     """Compile the old sources (one nvcc each, in parallel) and load them."""
+    from spatialflink_tpu_torch.ops import geom as G
     from spatialflink_tpu_torch.ops import native
 
     os.makedirs(BUILD, exist_ok=True)
     procs = {}
-    for name in ("range_mask", "pip_dist"):
+    for name in names:
         out = os.path.join(BUILD, f"libold_{name}.so")
         cmd = [native.nvcc_path(), *native.NVCC_FLAGS, "-o", out,
                os.path.join(old_csrc, f"{name}.cu")]
@@ -77,10 +89,16 @@ def build_old(old_csrc: str) -> dict:
               flush=True)
         libs[name] = ctypes.CDLL(out)
     C, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    libs["range_mask"].range_mask_stats_launch.argtypes = (
-        [I, I, I, I, C, C, C, C, F, F, I, C, C, C, I, I, I, C, C, C, I, F, C,
-         C, C, C])
-    libs["pip_dist"].pip_dist_launch.argtypes = [C, C, I, C, C, I, I, C, C]
+    if "range_mask" in libs:
+        libs["range_mask"].range_mask_stats_launch.argtypes = (
+            [I, I, I, I, C, C, C, C, F, F, I, C, C, C, I, I, I, C, C, C, I, F,
+             C, C, C, C])
+    if "pip_dist" in libs:
+        libs["pip_dist"].pip_dist_launch.argtypes = [C, C, I, C, C, I, I, C,
+                                                     C]
+    if "geom_dist" in libs:
+        fn = libs["geom_dist"].geom_dist_launch
+        fn.argtypes, fn.restype = list(G._ARGTYPES), ctypes.c_int
     return libs
 
 
@@ -133,6 +151,18 @@ def old_pip(torch, lib, px, py, edges, edge_mask, is_areal):
     if err:
         raise RuntimeError(f"old pip_dist: CUDA error {err}")
     return dist
+
+
+def old_geom(G, launch, gb, args):
+    """The old K5 launch: the wrapper's own checks and argument marshalling
+    (``ops/geom.geom_stream_dist``) with the old library's
+    ``geom_dist_launch`` in place of the new one."""
+    real = G.native.function
+    G.native.function = lambda *a, **kw: launch
+    try:
+        return G.geom_stream_dist(gb, **args)
+    finally:
+        G.native.function = real
 
 
 def kernel_split(torch, fn, reps: int = 5) -> dict:
@@ -311,31 +341,88 @@ def k4_grid_cases(torch, timer, card, lib, x, y):
     return rows
 
 
+def k5_cases(torch, timer, card, lib, seed):
+    """K5 old/new at chip_smoke's K5 cases (a window of its polygon and
+    linestring streams, a micro-batch), with launch-to-completion times of
+    both sides at the micro-batch."""
+    from spatialflink_tpu_torch.ops import geom as G
+
+    t0 = time.perf_counter()
+    streams = {}
+    for i, kind in enumerate(("Polygon", "LineString")):
+        lines = CS.geom_stream_lines(seed + 5 + i, CS.N_GEOM, kind)
+        streams[kind], _ = CS.decode_geoms(lines[:CS.WINDOW_GEOMS], kind)
+    print(f"K5 streams parsed in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    setups, _ = CS.k5_setups(torch, streams["Polygon"],
+                             streams["LineString"])
+    rows = []
+    for name, gb, args, _kind, _reps, n_queries in setups:
+        def old(gb=gb, args=args):
+            return old_geom(G, lib.geom_dist_launch, gb, args)
+
+        def new(gb=gb, args=args):
+            return G.geom_stream_dist(gb, **args)
+
+        extra = dict(queries=n_queries, edges_padded=int(gb.edges.shape[1]),
+                     consulted=int(torch.isfinite(new()[1]).sum()))
+        if name.startswith("micro-"):
+            extra["old_launch_to_completion_ms"] = CS.launch_ms(torch, old)
+            extra["new_launch_to_completion_ms"] = CS.launch_ms(torch, new)
+        rows.append(ab_case(torch, timer, card, f"K5 {name}", old, new,
+                            split_old=True, **extra))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", required=True,
                     help="the earlier revision's csrc directory")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", default="k1,k4,k5",
+                    help="comma-separated kernels to compare: k1, k4 (with "
+                    "the table sweep), k5")
     args = ap.parse_args(argv)
+    which = set(args.kernels.split(","))
+    if not which <= {"k1", "k4", "k5"}:
+        ap.error(f"--kernels: unknown {sorted(which - {'k1', 'k4', 'k5'})}")
 
     import torch
 
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device available", file=sys.stderr)
         return 2
-    from spatialflink_tpu_torch.models import (EdgeGeomBatch, LineString,
-                                                Point, PointBatch, Polygon)
-    from spatialflink_tpu_torch.ops import hopper_kernels as HK
     from spatialflink_tpu_torch.ops import native
 
     card = CS.card_line()
     print(f"card: {card}", flush=True)
-    native.build(("pip_lattice", "cell_order", "pip_dist", "range_mask"))
-    libs = build_old(args.old)
+    native.build(("pip_lattice", "cell_order", "pip_dist", "range_mask",
+                  "geom_dist"))
+    libs = build_old(args.old, [name for key, name in (
+        ("k1", "range_mask"), ("k4", "pip_dist"), ("k5", "geom_dist"))
+        if key in which])
+    print("new-build geom_dist", json.dumps(native.ptxas_report(
+        native.build_log("geom_dist"))), flush=True)
     timer = CS.Timer(torch)
+    rows = []
+    if "k5" in which:
+        rows += k5_cases(torch, timer, card, libs["geom_dist"], args.seed)
+    if which & {"k1", "k4"}:
+        rows += point_cases(torch, timer, card, libs, which, args.seed)
+    print(card, flush=True)
+    print(json.dumps({"ab": rows, "card": card}), flush=True)
+    return 0
+
+
+def point_cases(torch, timer, card, libs, which, seed) -> list:
+    """K1 and K4 old/new over one window of 1,048,576 points."""
+    from spatialflink_tpu_torch.models import (EdgeGeomBatch, LineString,
+                                                Point, PointBatch, Polygon)
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+
     grid = CS._grid()
     dev = torch.device("cuda")
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(seed)
     x = rng.uniform(CS.BBOX[0], CS.BBOX[2], CS.N_KERNEL)
     y = rng.uniform(CS.BBOX[1], CS.BBOX[3], CS.N_KERNEL)
     b = PointBatch.from_arrays(x, y, device=dev, grid=grid)
@@ -350,13 +437,13 @@ def main(argv=None) -> int:
                               num_cells=grid.num_cells)
     pts = [Point.create(px, py, grid) for px, py in CS.query_points()]
     rows = []
-    rows += k1_cases(torch, timer, card, libs["range_mask"], b, grid, pts,
-                     polys, rows_k4x[:len(polys)].contiguous())
-    rows += k4_cases(torch, timer, card, libs["pip_dist"], b, grid)
-    rows += k4_grid_cases(torch, timer, card, libs["pip_dist"], x, y)
-    print(card, flush=True)
-    print(json.dumps({"ab": rows, "card": card}), flush=True)
-    return 0
+    if "k1" in which:
+        rows += k1_cases(torch, timer, card, libs["range_mask"], b, grid,
+                         pts, polys, rows_k4x[:len(polys)].contiguous())
+    if "k4" in which:
+        rows += k4_cases(torch, timer, card, libs["pip_dist"], b, grid)
+        rows += k4_grid_cases(torch, timer, card, libs["pip_dist"], x, y)
+    return rows
 
 
 if __name__ == "__main__":

@@ -237,6 +237,50 @@ def geoms_to_single_geom_dist(geoms, q_edges, q_mask, q_areal):
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
+#: K5's orientation certificate: every corner of a geometry's box beyond
+#: ``CERT_SCALE * S + CERT_FLOOR`` on one side of a query edge's line
+CERT_SCALE = 2.0 ** -21
+CERT_FLOOR = 2.0 ** -100
+
+
+def orientation_certified(box, q_edges):
+    """The plain version of K5's orientation certificate, in f32 with the
+    kernel's roundings: True where every point of ``box`` = (xlo, xhi, ylo,
+    yhi) (the box of a geometry's valid endpoints) lies on one side of the
+    line of each query edge ``q_edges (..., 4)`` by more than the rounding
+    of the orientation test (``csrc/geom_dist.cu``'s note, (2)). Then no
+    edge with both endpoints in the box makes a proper crossing with that
+    query edge: ``distances.segments_intersect`` is False for it."""
+    xlo, xhi, ylo, yhi = box
+    x1, y1 = q_edges[..., 0], q_edges[..., 1]
+    cx = q_edges[..., 2] - x1
+    cy = q_edges[..., 3] - y1
+    exl, exh = xlo - x1, xhi - x1
+    eyl, eyh = ylo - y1, yhi - y1
+    t = torch.stack([cx * eyl - cy * exl, cx * eyh - cy * exl,
+                     cx * eyl - cy * exh, cx * eyh - cy * exh])
+    s = cx.abs() * torch.maximum(eyl.abs(), eyh.abs()) \
+        + cy.abs() * torch.maximum(exl.abs(), exh.abs())
+    thr = s * CERT_SCALE + CERT_FLOOR
+    return (t.amin(dim=0) > thr) | (t.amax(dim=0) < -thr)
+
+
+def edge_pair_skip_bound(box, q_edges):
+    """The plain version of K5's lower bound for every pair of a geometry
+    edge inside ``box`` = (xlo, xhi, ylo, yhi) and each query edge
+    ``q_edges (..., 4)``: the squared gap between the box and the query
+    edge's box, each widened by its ``hopper_kernels.distance_skip_margin``
+    (``distance_skip_bound``), where :func:`orientation_certified` holds,
+    else 0 (a proper crossing, whose ``seg_seg_dist2`` is 0, is not ruled
+    out). It never exceeds the plain ``distances.seg_seg_dist2`` of such a
+    pair, so K5 skips a query edge whose bound exceeds the running min."""
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+
+    xlo, xhi, ylo, yhi = box
+    lb = HK.distance_skip_bound(xlo, xhi, ylo, yhi, q_edges)
+    return torch.where(orientation_certified(box, q_edges), lb, 0.0)
+
+
 def _take(geoms, idx):
     """The geometries at positions ``idx`` as a batch of the same type."""
     return type(geoms)(*(t[idx] for t in geoms))

@@ -148,10 +148,29 @@ _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _PTXAS_USED = re.compile(r"Used (\d+) registers(?:[^\n]*?, (\d+) bytes smem)?")
 
 
+# a template's literal arguments: "ILb1ELi8EE" -> (b, 1), (i, 8)
+_TEMPLATE_ARGS = re.compile(r"I((?:L[a-z]n?\d+E)+)E")
+_TEMPLATE_ARG = re.compile(r"L([a-z])(n?)(\d+)E")
+
+
+def _template_args(mangled: str) -> str:
+    """``<true>``, ``<8, 1>``, ...: the literal template arguments at the
+    start of ``mangled`` (bools as true/false, integers in decimal), or
+    "" when there are none."""
+    m = _TEMPLATE_ARGS.match(mangled)
+    if m is None:
+        return ""
+    vals = [("true" if v == "1" else "false") if kind == "b"
+            else ("-" if neg else "") + v
+            for kind, neg, v in _TEMPLATE_ARG.findall(m.group(1))]
+    return "<" + ", ".join(vals) + ">"
+
+
 def _kernel_name(symbol: str) -> str:
     """The ``*_kernel`` name inside an Itanium-mangled symbol (length-
-    prefixed names after ``_Z`` / ``_ZN``), with ``<true>`` / ``<false>``
-    for a bool template argument; the symbol itself when there is none."""
+    prefixed names after ``_Z`` / ``_ZN``), with its literal template
+    arguments (``<true>``, ``<8, 1>``); the symbol itself when there is
+    none."""
     i = 3 if symbol.startswith("_ZN") else 2 if symbol.startswith("_Z") \
         else len(symbol)
     while i < len(symbol) and symbol[i].isdigit():
@@ -160,9 +179,7 @@ def _kernel_name(symbol: str) -> str:
             j += 1
         name, i = symbol[j:j + int(symbol[i:j])], j + int(symbol[i:j])
         if name.endswith("_kernel"):
-            tmpl = {"ILb1E": "<true>", "ILb0E": "<false>"}.get(
-                symbol[i:i + 5], "")
-            return name + tmpl
+            return name + _template_args(symbol[i:])
     return symbol
 
 

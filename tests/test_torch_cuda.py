@@ -3,8 +3,11 @@ order, with its pruning edge cases), the cell order, K1 (single and with a
 query axis of 1, 3, 16 and 17, vector and scalar loads), K2 (with its
 overflow and tie cases) and K5 (the geometry-stream distance: range and kNN
 mode, point and geometry queries, exact and approximate, 1 and 16 queries,
-a query of more edges than it stages) against their plain PyTorch versions
-on the card, bit for bit.
+a query of more edges than it stages, 1, 3, 16 and 17 queries, windows
+padded to 8, 16, 32 and 40 edges, rows of padded edges only, an empty
+window, geometries inside and around an areal query, near-ties and pairs
+at the pair skip's margin, its counts on a side stream and under CUDA-graph
+replay) against their plain PyTorch versions on the card, bit for bit.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -772,7 +775,7 @@ def _k5_inputs(card, query, q, radius, large=False):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("q", [1, 16])
+@pytest.mark.parametrize("q", [1, 3, 16, 17])
 @pytest.mark.parametrize("approximate", [False, True])
 @pytest.mark.parametrize("mode", ["range", "knn"])
 @pytest.mark.parametrize("query", ["point", "geometry"])
@@ -814,6 +817,182 @@ def test_geom_dist_query_above_staging(card, mode):
                 radius=0.8, **kw)
     assert _equal(G.geom_stream_dist(geoms, **args),
                   G.geom_stream_dist_plain(geoms, **args))
+
+
+def _k5_equal(card, geoms, kw, gn, nb, radius=0.8, approximate=False):
+    """K5 against its plain version in range and kNN mode, with the grid's
+    masks and with every geometry consulted (no guaranteed cell, every
+    cell a neighbour)."""
+    everywhere = (torch.zeros_like(gn), torch.ones_like(nb))
+    for g_mask, n_mask in ((gn, nb), everywhere):
+        for mode in (G.MODE_RANGE, G.MODE_KNN):
+            args = dict(mode=mode, nb=n_mask, radius=radius,
+                        gn=g_mask if mode == G.MODE_RANGE else None,
+                        approximate=approximate, **kw)
+            got = G.geom_stream_dist(geoms, **args)
+            want = G.geom_stream_dist_plain(geoms, **args)
+            assert _equal(got, want), (mode, approximate)
+
+
+def _fitted_geoms(grid, e, n=1500, seed=51):
+    """n polygons and linestrings of at most ``e`` edges over the 10 x 10
+    grid, with geometries inside, around and crossing the query square
+    [2, 6]^2 and a multi-polygon with a part inside it."""
+    rng = np.random.default_rng(seed + e)
+    most = min(e, 32)
+    out = [Polygon.create([_sq_ring(3.0, 3.0, 3.5, 3.5)], grid, "inside"),
+           Polygon.create([_sq_ring(1.0, 1.0, 7.0, 7.0)], grid, "around"),
+           Polygon.create([_sq_ring(5.0, 5.0, 7.0, 7.0)], grid, "across"),
+           LineString.create([(2.5, 2.5), (3.0, 4.0)], grid, "line-inside"),
+           MultiPolygon.create([[[(9.0, 9.0), (9.5, 9.0), (9.5, 9.5)]],
+                                [[(4.0, 4.0), (4.4, 4.0), (4.2, 4.4)]]],
+                               grid, "multi")]
+    for i in range(n - len(out)):
+        cx, cy = rng.uniform(0.5, 9.5, 2)
+        if i % 2:
+            k = int(rng.integers(3, most + 1))
+            th = np.sort(rng.uniform(0, 2 * np.pi, k))
+            r = rng.uniform(0.02, 0.8)
+            ring = [(float(cx + r * np.cos(t)), float(cy + r * np.sin(t)))
+                    for t in th]
+            out.append(Polygon.create([ring], grid, f"p{i}"))
+        else:
+            pts = np.cumsum(rng.normal(0, 0.3, (int(rng.integers(
+                2, most + 2)), 2)), axis=0) + (cx, cy)
+            out.append(LineString.create([tuple(map(float, p)) for p in pts],
+                                         grid, f"l{i}"))
+    if e > 32:  # one geometry of more edges than a warp has lanes
+        out.append(Polygon.create([_ring(e, 0.7)], grid, "wide"))
+    return out
+
+
+def _sq_ring(x0, y0, x1, y1):
+    return [(x0, y0), (x1, y0), (x1, y1), (x0, y1), (x0, y0)]
+
+
+def _masks(grid, cells, radius, card):
+    return tuple(torch.from_numpy(np.stack([f(radius, c) for c in cells]))
+                 .to(card) for f in (grid.guaranteed_cells_mask,
+                                     grid.neighboring_cells_mask))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approximate", [False, True])
+@pytest.mark.parametrize("query", ["point", "geometry"])
+@pytest.mark.parametrize("e", [8, 16, 32, 40])
+def test_geom_dist_edge_widths_equal_plain(card, e, query, approximate):
+    """Windows padded to 8, 16, 32 and 40 edges (K5 serves a geometry with
+    8, 16 or 32 lanes; 40 gives a lane two edges), with rows whose edges
+    are all padding, against 3 queries."""
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    geoms = EdgeGeomBatch.from_objects(_fitted_geoms(grid, e), device=card,
+                                       edge_pad=e)
+    assert geoms.edges.shape[1] == e
+    mask = geoms.edge_mask.clone()
+    mask[7::97] = False  # valid geometries without a valid edge
+    geoms = geoms._replace(edge_mask=mask)
+    if query == "point":
+        pts = [Point.create(4.0, 4.0, grid), Point.create(2.0, 6.0, grid),
+               Point.create(8.3, 1.7, grid)]
+        kw = dict(qx=torch.tensor([p.x for p in pts], device=card),
+                  qy=torch.tensor([p.y for p in pts], device=card))
+        cells = [[p.cell] for p in pts]
+    else:
+        qs = _geom_queries(grid, 3)
+        kw = dict(queries=EdgeGeomBatch.from_objects(qs, device=card,
+                                                     pad=len(qs)))
+        cells = [sorted(g.cells) for g in qs]
+    gn, nb = _masks(grid, cells, 0.8, card)
+    _k5_equal(card, geoms, kw, gn, nb, approximate=approximate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("approximate", [False, True])
+@pytest.mark.parametrize("query", ["point", "geometry"])
+def test_geom_dist_large_window_equals_plain(card, query, approximate):
+    """A window of 48,000 geometries (the 3,000 of ``_stream_geoms`` 16
+    times): K5 takes tiles of more geometries than a block has groups,
+    whose groups take the consulted geometries from a list."""
+    geoms, gn, nb, kw = _k5_inputs(card, query, 3, 0.8)
+    geoms = EdgeGeomBatch(*(torch.cat([t] * 16) for t in geoms))
+    _k5_equal(card, geoms, kw, gn, nb, approximate=approximate)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("query", ["point", "geometry"])
+def test_geom_dist_empty_window(card, query):
+    """G = 0: no flags or distances, and counts of 0 for every query."""
+    geoms, gn, nb, kw = _k5_inputs(card, query, 3, 0.8)
+    empty = EdgeGeomBatch(*(t[:0].contiguous() for t in geoms))
+    for mode in (G.MODE_RANGE, G.MODE_KNN):
+        args = dict(mode=mode, nb=nb, gn=gn if mode == G.MODE_RANGE
+                    else None, radius=0.8, **kw)
+        flag, dist, counts = G.geom_stream_dist(empty, **args)
+        assert flag.shape == (3, 0) and dist.shape == (3, 0)
+        assert torch.equal(counts, torch.zeros_like(counts))
+        assert _equal((flag, dist, counts),
+                      G.geom_stream_dist_plain(empty, **args))
+
+
+@pytest.mark.cuda
+def test_geom_dist_near_ties_and_skip_margin(card):
+    """Geometries whose distances to two query edges tie within one ulp
+    (midway between the arms of a U-shaped linestring query, moved by 0-2
+    ulps), and geometries at a few skip margins from a query edge's box
+    (where the box bound and the running min meet), against a linestring
+    and a polygon query, every geometry consulted."""
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    rng = np.random.default_rng(61)
+    margin = HK.distance_skip_margin(10.0)
+    objs = []
+    for i in range(400):
+        y = float(rng.uniform(1.0, 9.0))
+        x = float(np.float32(4.0) + np.float32(i % 5 - 2)
+                  * np.spacing(np.float32(4.0)))
+        h = float(rng.choice([0.0, 1e-6, 0.01]))
+        objs.append(Polygon.create([[(x, y), (x + h, y + h), (x, y + 2 * h)]]
+                                   if h else [[(x, y), (x, y), (x, y)]],
+                                   grid, f"t{i}"))
+    for i in range(800):
+        x0, y0, x1, y1 = (6.0, 0.5, 6.0, 9.5) if i % 2 else (2.0, 9.5,
+                                                             6.0, 9.5)
+        t = rng.uniform(-0.05, 1.05)
+        px, py = x0 + t * (x1 - x0), y0 + t * (y1 - y0)
+        off = rng.uniform(-1, 1, (3, 2)) * margin * rng.choice([1, 4, 16])
+        ring = [(float(px + dx), float(py + dy)) for dx, dy in off]
+        objs.append(Polygon.create([ring], grid, f"m{i}") if i % 3
+                    else LineString.create(ring, grid, f"m{i}"))
+    geoms = EdgeGeomBatch.from_objects(objs, device=card)
+    qs = [LineString.create([(2.0, 0.5), (2.0, 9.5), (6.0, 9.5), (6.0, 0.5)],
+                            grid),
+          Polygon.create([_sq_ring(2.0, 0.5, 6.0, 9.5)], grid)]
+    kw = dict(queries=EdgeGeomBatch.from_objects(qs, device=card, pad=2))
+    gn, nb = _masks(grid, [sorted(g.cells) for g in qs], 0.8, card)
+    _k5_equal(card, geoms, kw, gn, nb)
+
+
+@pytest.mark.cuda
+def test_geom_dist_counts_on_streams_and_graph_replay(card):
+    """K5 zeroes its counts inside the launch: launches on two streams and
+    a CUDA graph replayed three times (over counts overwritten in between)
+    each count as the plain version does."""
+    geoms, gn, nb, kw = _k5_inputs(card, "geometry", 3, 0.8)
+    args = dict(mode=G.MODE_RANGE, gn=gn, nb=nb, radius=0.8, **kw)
+    want = G.geom_stream_dist_plain(geoms, **args)
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            got = G.geom_stream_dist(geoms, **args)
+        torch.cuda.synchronize()
+        assert _equal(got, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        got = G.geom_stream_dist(geoms, **args)
+    for _ in range(3):
+        got[2].fill_(-7)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _equal(got, want)
 
 
 @pytest.mark.cuda

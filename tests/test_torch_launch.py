@@ -239,3 +239,17 @@ def test_ptxas_report_reads_registers_smem_and_spills():
         {"kernel": "order_scan_kernel", "registers": 18,
          "smem_bytes": 132, "spill_stores": 0, "spill_loads": 0}]
     assert native.ptxas_report("") == []
+
+
+def test_kernel_names_carry_integer_template_arguments():
+    """K5's kernels are templates over the lanes per geometry and the kind
+    of launch: the report names each instantiation."""
+    log = "".join(
+        "ptxas info    : Compiling entry function "
+        f"'_ZN12_GLOBAL__N_116geom_dist_kernelILi{w}ELi{k}EEEvNS_4ArgsE'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers, 1584 bytes smem\n"
+        for w, k in ((8, 0), (32, 2)))
+    assert [r["kernel"] for r in native.ptxas_report(log)] == [
+        "geom_dist_kernel<8, 0>", "geom_dist_kernel<32, 2>"]
+    assert native._template_args("ILin3ELb0EE") == "<-3, false>"
