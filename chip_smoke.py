@@ -89,20 +89,45 @@ its wall seconds):
    once approximate, and at one 512-geometry micro-batch, each with its
    CUDA-event time, launch-to-completion time and bound. Then options 16,
    21, 41, 66, 71 and 91, multiQuery 21 and 71 and realtime 22 and 72
-   over the whole parsed stream, and the other 16 geometry options over
-   its first 65,536 geometries, each through ``run_option`` over the
+   over the parsed stream's first 131,072 geometries, and the other 16
+   geometry options over its first 65,536, each through ``run_option`` over the
    parsed objects and again with K5 and K2 swapped for their plain
    versions (equal results; K5, and K2 for kNN, launched). The parse
    runs once per stream: at ~150 us per polygon record on the host of an
    H100 machine, parsing in every run would not fit the time limit;
-   option 21 runs once more from the polygon stream's lines (the whole
-   path) and must give the windows of its run over the parsed objects.
-   Option 71 once more under torch.profiler, and the CLI runs option 21
-   from a 16,384-line GeoJSON file against an in-process run over the
-   same lines.
-5. Output: the build report, the card line, one JSON ``kernels`` line
+   option 21 runs once more from the polygon stream's first 65,536 lines
+   (the whole path) and must give the windows of its run over the parsed
+   objects. Option 71 once more under torch.profiler, and the CLI runs
+   option 21 from a 16,384-line GeoJSON file against an in-process run
+   over the same lines.
+5. The spatial joins at a radius of 0.002 degrees, against four seeded
+   query streams over the same 20 s (16,384 and 256 CSV query points:
+   8,192 and 128 per window; 1,024 GeoJSON polygons and linestrings
+   shaped as the geometry streams: 512 per window). K7 ``join_reduce`` at
+   262,144 x 8,192 points, K6 ``join_lattice`` on the rows K7 finds
+   partners for and at 262,144 x 256 (the sparse stream's capacity, the
+   direct branch), K4x at 262,144 points x 512 query polygons and K5 at
+   65,536 polygons x 512 query polygons in kNN mode over the queries'
+   neighbouring-cells masks (the geometry join's form), each against its
+   plain version bit for bit with its CUDA-event time,
+   launch-to-completion time and bound (operations counted from the
+   kernels, the pairs inside the cell layers from a cell histogram).
+   Then every join option through ``run_option``: 101 over the point
+   stream with the dense query points (K7 then K6: more than 2**26
+   capacity pairs) and with the sparse ones (K6 alone), 106, 108, 111
+   over the point stream, 116, 121, 126, 131, 136 and 141 over the
+   geometry streams' first 65,536, and the realtime 102-142 and 109 over
+   the point stream's first 65,536 points or the geometry streams' first
+   4,096 and the query records of the same span, each again with K6, K7,
+   K4x and K5 swapped for their plain versions (the same pairs in every
+   window, in order; the launch counters non-zero for the run's path),
+   with pairs/s, pairs per window and the median and p99 wall time per
+   window. Then option 101's stages one after another, its trace under
+   torch.profiler, and the CLI for 101 with ``--input2``.
+6. Output: the build report, the card line, one JSON ``kernels`` line
    (K4x's entry holds the cell order under ``helpers``; K5's the window
-   cases and its micro-batch cases), and as the last line
+   cases and its micro-batch cases; K4x's and K5's their join cases,
+   also under ``join``; K7 and K6), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result line when CUDA is not available or the
@@ -134,7 +159,9 @@ N_SHORT = 1 << 18                 # points of the shorter realtime runs
 COUNT_SIZE, COUNT_SLIDE = 1 << 18, 1 << 17  # count windows, in records
 N_GEOM = 1 << 18                  # geometries in each geometry stream
 WINDOW_GEOMS = N_GEOM // 2        # geometries of one 10 s window
+N_GEOM_RUNS = 1 << 17             # geometries of the GEOM_RUNS and 71's profile
 N_GEOM_OTHER = 1 << 16            # geometries of the options run once
+N_GEOM_LINES = 1 << 16            # lines of option 21's run from the lines
 N_GEOM_CLI = 1 << 14              # polygons of the CLI's GeoJSON file
 N_CLI = 1 << 16                   # rows of the CLI's CSV
 N_IDS = 100_000                   # distinct object ids in every stream
@@ -973,7 +1000,7 @@ COUNT_RUNS = [
     (51, False, 50, ("knn_topk",)),
 ]
 KERNELS = ("pip_dist", "range_mask_stats", "knn_topk", "pip_lattice",
-           "cell_order", "geom_stream_dist")
+           "cell_order", "geom_stream_dist", "join_reduce", "join_lattice")
 
 
 def stream_lines(seed: int, n: int):
@@ -1315,20 +1342,17 @@ def breakdown_phase(lines) -> dict:
     return out
 
 
-def profile_phase(lines, option: int) -> dict:
-    """Option ``option`` (k = 50) over the stream once more under
-    torch.profiler (CPU and CUDA activities): the device time by kind
-    (kernels, copies, memsets) from the trace's events, and the device's
-    busy share of the run's wall time. A trace without device events
-    reports device_ms 0."""
+def trace_device(run) -> dict:
+    """``run()`` (which returns its wall seconds) under torch.profiler (CPU
+    and CUDA activities): the device time by kind (kernels, copies,
+    memsets) from the trace's events, and the device's busy share of the
+    run's wall time. A trace without device events reports device_ms 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    params = base_params()
-    params.query.option, params.query.k = option, 50
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, _, wall = run_pipeline(params, lines)
+        wall = run()
         torch.cuda.synchronize()
     by_kind = {"kernel_ms": 0.0, "memcpy_ms": 0.0, "memset_ms": 0.0}
     top = {}
@@ -1343,10 +1367,18 @@ def profile_phase(lines, option: int) -> dict:
         by_kind[kind] += ms
         top[ev.name] = top.get(ev.name, 0.0) + ms
     device_ms = sum(by_kind.values())
-    out = {"option": option, "k": 50, "wall_s": wall, **by_kind,
-           "device_ms": device_ms,
-           "busy_share": device_ms / (wall * 1e3),
-           "top": sorted(top.items(), key=lambda kv: -kv[1])[:6]}
+    return {"wall_s": wall, **by_kind, "device_ms": device_ms,
+            "busy_share": device_ms / (wall * 1e3),
+            "top": sorted(top.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def profile_phase(lines, option: int) -> dict:
+    """Option ``option`` (k = 50) over the stream once more under
+    torch.profiler (:func:`trace_device`)."""
+    params = base_params()
+    params.query.option, params.query.k = option, 50
+    out = {"option": option, "k": 50,
+           **trace_device(lambda: run_pipeline(params, lines)[3])}
     log("profile", json.dumps(out))
     return out
 
@@ -1404,7 +1436,7 @@ def cli_phase(seed: int) -> None:
 # the polygon / linestring streams (K5)
 
 #: (option, multiQuery, k or None for the conf's, kernels its path runs)
-#: over the whole geometry stream
+#: over the geometry stream's first N_GEOM_RUNS
 GEOM_RUNS = [
     (16, False, None, ("geom_stream_dist",)),
     (21, False, None, ("geom_stream_dist",)),
@@ -1740,33 +1772,11 @@ def geom_lines_phase(card: str, lines, objs) -> dict:
 
 def geom_profile_phase(objs, option: int) -> dict:
     """Option ``option`` over the parsed polygon stream under
-    torch.profiler: device time by kind and the device's busy share."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    torch.profiler (:func:`trace_device`)."""
     params = geom_params()
     params.query.option = option
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, _, wall = run_pipeline(params, objs)
-        torch.cuda.synchronize()
-    by_kind = {"kernel_ms": 0.0, "memcpy_ms": 0.0, "memset_ms": 0.0}
-    top = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        name = ev.name.lower()
-        kind = ("memcpy_ms" if "memcpy" in name else
-                "memset_ms" if "memset" in name else "kernel_ms")
-        ms = ev.device_time_total / 1e3 if hasattr(ev, "device_time_total") \
-            else ev.cuda_time_total / 1e3
-        by_kind[kind] += ms
-        top[ev.name] = top.get(ev.name, 0.0) + ms
-    device_ms = sum(by_kind.values())
-    out = {"option": option, "geometries": len(objs), "wall_s": wall,
-           **by_kind, "device_ms": device_ms,
-           "busy_share": device_ms / (wall * 1e3),
-           "top": sorted(top.items(), key=lambda kv: -kv[1])[:6]}
+    out = {"option": option, "geometries": len(objs),
+           **trace_device(lambda: run_pipeline(params, objs)[3])}
     log("profile", json.dumps(out))
     return out
 
@@ -1809,6 +1819,451 @@ def geom_cli_phase(lines) -> None:
         log(f"cli: option 21 over {len(lines)} GeoJSON polygons -> "
             f"{want.count(chr(10))} windows, stdout equals the in-process "
             f"run ({want.splitlines()[0]})")
+
+
+# ------------------------------------------------------------------------ #
+# the spatial joins (K7 and K6; K4x and K5 in their join forms)
+
+JOIN_RADIUS = 0.002       # degrees: ~220 m, about one point-stream partner
+N_QPOINTS = 1 << 14       # query points of the dense join stream
+N_QSPARSE = 256           # query points of the sparse join stream
+N_QGEOMS = 1 << 10        # query polygons, and query linestrings
+N_JOIN_GEOMS = 1 << 16    # geometries of the windowed geometry joins
+N_JOIN_RT = 1 << 16       # points of the realtime point joins
+N_JOIN_RT_GEOMS = 1 << 12  # geometries of the realtime geometry joins
+JOIN_KERNELS = ("join_reduce", "join_lattice", "pip_lattice", "cell_order",
+                "geom_stream_dist")
+#: (option, stream 1, query stream, kernels its path launches); stream 1
+#: is the point stream's lines or the parsed polygons / linestrings
+#: (their first N_JOIN_GEOMS), the query streams are CSV / GeoJSON lines
+JOIN_RUNS = [
+    (101, "points", "qpoints", ("join_reduce", "join_lattice")),
+    (101, "points", "qsparse", ("join_lattice",)),
+    (106, "points", "qPolygon", ("pip_lattice", "cell_order")),
+    (108, "points", "qPolygon", ("pip_lattice", "cell_order")),
+    (111, "points", "qLineString", ("pip_lattice", "cell_order")),
+    (116, "Polygon", "qsparse", ("pip_lattice", "cell_order")),
+    (121, "Polygon", "qPolygon", ("geom_stream_dist",)),
+    (126, "Polygon", "qLineString", ("geom_stream_dist",)),
+    (131, "LineString", "qsparse", ("pip_lattice", "cell_order")),
+    (136, "LineString", "qPolygon", ("geom_stream_dist",)),
+    (141, "LineString", "qLineString", ("geom_stream_dist",)),
+]
+#: the realtime joins over the streams' first N_JOIN_RT points or
+#: N_JOIN_RT_GEOMS geometries and the query records of the same time span
+JOIN_RT_RUNS = [
+    (102, "points", "qpoints", ("join_lattice",)),
+    (107, "points", "qPolygon", ("pip_lattice",)),
+    (109, "points", "qPolygon", ("pip_lattice",)),
+    (112, "points", "qLineString", ("pip_lattice",)),
+    (117, "Polygon", "qpoints", ("pip_lattice",)),
+    (122, "Polygon", "qPolygon", ("geom_stream_dist",)),
+    (127, "Polygon", "qLineString", ("geom_stream_dist",)),
+    (132, "LineString", "qpoints", ("pip_lattice",)),
+    (137, "LineString", "qPolygon", ("geom_stream_dist",)),
+    (142, "LineString", "qLineString", ("geom_stream_dist",)),
+]
+
+
+def join_query_streams(seed: int) -> dict:
+    """The join's query streams over the same 20 s: 16,384 and 256 CSV
+    query points (8,192 and 128 per 10 s window), and 1,024 GeoJSON
+    polygons and linestrings (512 per window) shaped as the geometry
+    streams are."""
+    return {"qpoints": stream_lines(seed + 20, N_QPOINTS),
+            "qsparse": stream_lines(seed + 21, N_QSPARSE),
+            "qPolygon": geom_stream_lines(seed + 22, N_QGEOMS, "Polygon"),
+            "qLineString": geom_stream_lines(seed + 23, N_QGEOMS,
+                                             "LineString")}
+
+
+def join_params(option: int, stream: str, query: str):
+    """The conf with the join radius, CSV points and GeoJSON geometries."""
+    from spatialflink_tpu_torch.config import Params
+
+    p = Params.from_yaml(CONF)
+    p.query.option = option
+    p.query.radius = JOIN_RADIUS
+    fmt = {"points": "CSV", "qpoints": "CSV", "qsparse": "CSV"}
+    return dataclasses.replace(
+        p, input1=dataclasses.replace(p.input1,
+                                      format=fmt.get(stream, "GeoJSON")),
+        input2=dataclasses.replace(p.input2, format=fmt.get(query,
+                                                            "GeoJSON")))
+
+
+def _pair_keys(recs):
+    return [(a.obj_id, a.timestamp, b.obj_id, b.timestamp) for a, b in recs]
+
+
+def run_join(params, s1, s2):
+    """One join run on the card: per-window (start, end, pair keys), the
+    per-window wall times (ms), the pairs' latency_ms and wall seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.driver import run_option
+
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    it = iter(run_option(params, s1, s2, device="cuda"))
+    wins, lat, rec_lat = [], [], []
+    while True:
+        t0 = time.perf_counter()
+        try:
+            w = next(it)
+        except StopIteration:
+            break
+        lat.append((time.perf_counter() - t0) * 1e3)
+        wins.append((w.window_start, w.window_end, w.records))
+        rec_lat.extend(w.extras.get("latency_ms", ()))
+    wall = time.perf_counter() - t_start
+    return ([(s, e, _pair_keys(r)) for s, e, r in wins], lat, rec_lat,
+            wall)
+
+
+def _join_counters():
+    from spatialflink_tpu_torch.ops import geom as G
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+    from spatialflink_tpu_torch.ops import join as J
+
+    return {"join_reduce": J.join_reduce, "join_lattice": J.join_lattice,
+            "pip_lattice": HK.pip_lattice, "cell_order": HK.cell_order,
+            "geom_stream_dist": G.geom_stream_dist}
+
+
+@contextlib.contextmanager
+def join_plain_versions():
+    """Every kernel of the join paths swapped for its plain version."""
+    from spatialflink_tpu_torch.ops import geom as G
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+    from spatialflink_tpu_torch.ops import join as J
+
+    plain = {(J, "join_reduce"): J.join_reduce_plain,
+             (J, "join_lattice"): J.join_lattice_plain,
+             (HK, "pip_lattice"):
+                 lambda *a, **_: HK.pip_lattice_plain(*a).T.contiguous(),
+             (G, "geom_stream_dist"): G.geom_stream_dist_plain}
+    saved = {key: getattr(*key) for key in plain}
+    try:
+        for (mod, name), fn in plain.items():
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def join_main_phase(card: str, streams: dict, runs, realtime=False):
+    """Each join run through run_option on the card, then again with every
+    kernel swapped for its plain version: the same pairs in each window,
+    in order, and the launch counters non-zero for every kernel of the
+    run's path (option 101 over the sparse query stream: K6 without K7)."""
+    import torch
+
+    from spatialflink_tpu_torch.driver import CASES
+
+    counters = _join_counters()
+    launches = dict.fromkeys(counters, 0)
+    report = []
+    for opt, s_key, q_key, path in runs:
+        spec = CASES[opt]
+        s1, s2 = streams[s_key], streams[q_key]
+        if realtime:  # a prefix of both streams over the same time span
+            share = (N_JOIN_RT / N_STREAM if s_key == "points"
+                     else N_JOIN_RT_GEOMS / N_GEOM)
+            s1 = s1[:N_JOIN_RT if s_key == "points" else N_JOIN_RT_GEOMS]
+            s2 = s2[:max(1, int(len(s2) * share))]
+        elif s_key != "points":
+            s1 = s1[:N_JOIN_GEOMS]
+        params = join_params(opt, s_key, q_key)
+        for fn in counters.values():
+            fn.launches = 0
+        wins, lat, rec_lat, wall = run_join(params, s1, s2)
+        got = {name: fn.launches for name, fn in counters.items()}
+        for name in counters:
+            launches[name] += got[name]
+        if any(got[name] <= 0 for name in path):
+            raise AssertionError(f"join {opt} ({q_key}): kernels of its path "
+                                 f"not launched {got}")
+        if opt == 101 and q_key == "qsparse" and got["join_reduce"]:
+            raise AssertionError("join 101 over the sparse query stream "
+                                 "launched K7 below the lattice budget")
+        with join_plain_versions():
+            pwins, _, _, pwall = run_join(params, s1, s2)
+        if {name: fn.launches for name, fn in counters.items()} != got:
+            raise AssertionError("the plain run launched a kernel")
+        if wins != pwins or not wins:
+            raise AssertionError(f"join {opt} ({q_key}): pairs differ from "
+                                 "the plain run")
+        pairs = [len(w[2]) for w in wins]
+        if not sum(pairs):
+            raise AssertionError(f"join {opt} ({q_key}): no pair")
+        if spec.latency and len(rec_lat) != sum(pairs):
+            raise AssertionError(f"join {opt}: {len(rec_lat)} latencies for "
+                                 f"{sum(pairs)} pairs")
+        row = {"option": opt, "stream": s_key, "query": q_key,
+               "mode": spec.mode, "records": len(s1), "query_records":
+               len(s2), "windows": len(wins), "pairs": sum(pairs),
+               "pairs_per_s": sum(pairs) / wall,
+               "records_per_s": len(s1) / wall,
+               "median_pairs_per_window": float(np.median(pairs)),
+               "median_window_ms": float(np.median(lat)),
+               "p99_window_ms": _pct(lat, 99), "wall_s": wall,
+               "plain_wall_s": pwall,
+               "launches": {name: v for name, v in got.items() if v},
+               "card": card}
+        if spec.latency:
+            row["record_latency_ms_p50"] = _pct(rec_lat, 50)
+            row["record_latency_ms_p99"] = _pct(rec_lat, 99)
+        log("join-path", json.dumps(row))
+        report.append(row)
+        torch.cuda.empty_cache()
+    return launches, report
+
+
+def _pairs_in_layers(a, b, layers: int, n: int, rows=None) -> int:
+    """The (a, b) pairs of valid points whose cells lie within ``layers``
+    of each other (the pairs that reach the distance test), from a cell
+    histogram of b and its box sums."""
+    import torch
+
+    bc = b.cell[b.valid & (b.cell >= 0)].long()
+    hist = torch.bincount(bc, minlength=n * n).reshape(n, n).double()
+    s = torch.zeros((n + 1, n + 1), dtype=torch.float64, device=hist.device)
+    s[1:, 1:] = hist.cumsum(0).cumsum(1)
+    ok = a.valid & (a.cell >= 0)
+    ac = a.cell.long()
+    if rows is not None:
+        sel = torch.zeros_like(ok)
+        sel[rows.long()] = True
+        ok &= sel
+    ac = ac[ok]
+    cx, cy = ac // n, ac % n
+    x0, x1 = (cx - layers).clamp(0, n), (cx + layers + 1).clamp(0, n)
+    y0, y1 = (cy - layers).clamp(0, n), (cy + layers + 1).clamp(0, n)
+    return int((s[x1, y1] - s[x0, y1] - s[x1, y0] + s[x0, y0]).sum())
+
+
+def join_kernel_phase(torch, timer: Timer, streams: dict, polys):
+    """K7 at 262,144 x 8,192 (a window of the point stream against one of
+    the dense query stream), K6 on the rows K7 finds partners for and at
+    262,144 x 128 (the sparse query stream, the direct branch), K4x at
+    262,144 points x 512 query polygons, and K5 at 65,536 polygons x 512
+    query polygons in its join form (kNN mode over each query's
+    neighbouring-cells mask), each against its plain version bit for bit
+    with its CUDA-event time, launch-to-completion time and bound."""
+    from spatialflink_tpu_torch.models import EdgeGeomBatch, PointBatch
+    from spatialflink_tpu_torch.ops import geom as G
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+    from spatialflink_tpu_torch.ops import join as J
+
+    dev = torch.device("cuda")
+    grid = _grid()
+    n, r = grid.n, JOIN_RADIUS
+    layers = grid.candidate_layers(r)
+    pre_r = float(np.sqrt(r * r + 1e-5))
+    cx, cy = J.grid_center(grid)
+    rng = np.random.default_rng(31)
+
+    def points(k):
+        return PointBatch.from_arrays(rng.uniform(BBOX[0], BBOX[2], k),
+                                      rng.uniform(BBOX[1], BBOX[3], k),
+                                      device=dev, grid=grid)
+
+    a, b, sparse = points(N_STREAM // 2), points(N_QPOINTS // 2), \
+        points(N_QSPARSE // 2)
+    na, nb = a.capacity, b.capacity
+    cases = {"join_reduce": [], "join_lattice": [], "pip_lattice": [],
+             "geom_stream_dist": []}
+
+    def add(kernel, name, kern, plain, ops, nbytes, plain_reps, **extra):
+        c, got = kernel_case(timer, torch, name, kern, plain, ops, nbytes,
+                             kernel, plain_reps=plain_reps, **extra)
+        c["launch_to_completion_ms"] = launch_ms(torch, kern)
+        cases[kernel].append(c)
+        return got
+
+    in_layers = _pairs_in_layers(a, b, layers, n)
+    cnt, _, _ = add(
+        "join_reduce", f"{na}x{nb}",
+        lambda: J.join_reduce(a, b, pre_r, layers, n=n),
+        lambda: J.join_reduce_plain(a, b, pre_r, layers, n=n),
+        na * nb * J.OPS_CELL_TEST + in_layers * J.OPS_K7_DIST,
+        (na + nb) * 13 + na * 12, 3, pairs=na * nb,
+        pairs_in_layers=in_layers)
+    rows = torch.nonzero(cnt > 0).reshape(-1).to(torch.int32)
+    for name, bb, rw in ((f"rows{rows.numel()}x{nb}", b, rows),
+                         (f"{na}x{sparse.capacity}", sparse, None)):
+        m = na if rw is None else rw.numel()
+        got = J.join_lattice(a, bb, r, layers, cx, cy, n=n, rows=rw)
+        in_l = _pairs_in_layers(a, bb, layers, n, rows=rw)
+        add("join_lattice", name,
+            lambda bb=bb, rw=rw: J.join_lattice(a, bb, r, layers, cx, cy,
+                                                n=n, rows=rw),
+            lambda bb=bb, rw=rw: J.join_lattice_plain(a, bb, r, layers, cx,
+                                                      cy, n=n, rows=rw),
+            m * bb.capacity * J.OPS_CELL_TEST + in_l * J.OPS_K6_DIST,
+            (m + bb.capacity) * 13 + (0 if rw is None else m * 4)
+            + got[0].numel() * 8, 3, rows=m, pairs=int(got[0].numel()),
+            pairs_in_layers=in_l)
+
+    # K4x: the window's points x one window's 512 query polygons
+    qb = EdgeGeomBatch.from_objects(polys[:N_QGEOMS // 2], device=dev)
+    args = (a.x, a.y, qb.edges, qb.edge_mask, qb.is_areal)
+    valid_edges = int(qb.edge_mask.sum())
+    g, e = qb.edges.shape[0], qb.edges.shape[1]
+    add("pip_lattice", f"join-{na}x{g}polygons",
+        lambda: (HK.pip_lattice(*args, cell=a.cell,
+                                num_cells=grid.num_cells),),
+        lambda: (HK.pip_lattice_plain(*args).T,),
+        na * valid_edges * HK.OPS_PER_PAIR,
+        na * 12 + g * e * 17 + g + g * na * 4, 1, points=na, geometries=g,
+        edges_padded=e, valid_edges=valid_edges, order="cell")
+
+    # K5: one window of the geometry join (the polygon stream's first
+    # 65,536 span 5 s: two windows hold all of them) x 512 query
+    # polygons, kNN mode over the queries' neighbouring-cells masks
+    gb = EdgeGeomBatch.from_objects(streams["Polygon"][:N_JOIN_GEOMS],
+                                    device=dev)
+    nbm = J.cell_gate_table(qb.cells, qb.cells_mask, layers, n)
+    kw = dict(mode=G.MODE_KNN, nb=nbm, queries=qb)
+    got = G.geom_stream_dist(gb, **kw)
+    ops, nbytes = k5_work(gb, got[1], "geometry", grid.num_cells, qb)
+    add("geom_stream_dist", f"join-{gb.capacity}x{qb.capacity}polygons-knn",
+        lambda: G.geom_stream_dist(gb, **kw),
+        lambda: G.geom_stream_dist_plain(gb, **kw), ops, nbytes, 1,
+        geometries=int(gb.valid.sum()), queries=int(qb.valid.sum()),
+        consulted=int(torch.isfinite(got[1]).sum()))
+    del a, b, sparse, gb, qb, got
+    torch.cuda.empty_cache()
+    return cases
+
+
+def join_profile_phase(streams: dict) -> dict:
+    """Option 101 over the dense query stream once more under
+    torch.profiler: device time by kind and the device's busy share."""
+    params = join_params(101, "points", "qpoints")
+    out = {"option": 101, "records": len(streams["points"]),
+           "query_records": len(streams["qpoints"]),
+           **trace_device(lambda: run_join(params, streams["points"],
+                                           streams["qpoints"])[3])}
+    log("profile", json.dumps(out))
+    return out
+
+
+def join_breakdown_phase(streams: dict) -> dict:
+    """Where option 101's time goes over the dense query stream: its
+    stages one after another, host clock, device synchronised after each:
+    the two decodes, window assembly of both sides, the batch build and
+    copy of both sides, K7 with the row list, K6 with the pairs' readback,
+    and the pairs as Python tuples of Points."""
+    import torch
+
+    from spatialflink_tpu_torch.driver import CASES, _query_conf, \
+        decode_chunks
+    from spatialflink_tpu_torch.operators import PointPointJoinQuery
+    from spatialflink_tpu_torch.operators.join_query import _keep
+    from spatialflink_tpu_torch.ops import join as J
+    from spatialflink_tpu_torch.runtime import WindowAssembler
+    from spatialflink_tpu_torch.runtime.windows import merge_windows
+
+    params = join_params(101, "points", "qpoints")
+    u_grid, q_grid = params.grids()
+    op = PointPointJoinQuery(_query_conf(params, CASES[101]), u_grid,
+                             q_grid, device="cuda")
+    st = {}
+    t0 = time.perf_counter()
+    c1 = list(decode_chunks(streams["points"], params.input1, u_grid))
+    st["decode_stream_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c2 = list(decode_chunks(streams["qpoints"], params.input2, q_grid))
+    st["decode_query_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spec = op.conf.window_spec()
+    wins = list(merge_windows(
+        *(WindowAssembler(spec, op.conf.allowed_lateness_ms).assemble(c)
+          for c in (iter(c1), iter(c2)))))
+    st["assemble_s"] = time.perf_counter() - t0
+    for key in ("batch_h2d_s", "k7_rows_s", "k6_readback_s", "pairs_s"):
+        st[key] = 0.0
+    r = JOIN_RADIUS
+    layers = u_grid.candidate_layers(r)
+    cx, cy = J.grid_center(u_grid)
+    pairs = 0
+    for start, _end, ra, rb in wins:
+        if ra is None or rb is None:
+            continue
+        t0 = time.perf_counter()
+        ba, bb = op._point_batch(ra, start), op._point_batch(rb, start)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cnt, _, _ = J.join_reduce(ba, bb, float(np.sqrt(r * r + 1e-5)),
+                                  layers, n=u_grid.n)
+        rows = torch.nonzero(cnt > 0).reshape(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ai, bi = J.join_lattice(ba, bb, r, layers, cx, cy, n=u_grid.n,
+                                rows=rows)
+        ai, bi = (t.cpu().numpy().astype(np.int64) for t in (ai, bi))
+        t3 = time.perf_counter()
+        recs = list(_keep(ai, bi, ra, rb, None))
+        t4 = time.perf_counter()
+        pairs += len(recs)
+        st["batch_h2d_s"] += t1 - t0
+        st["k7_rows_s"] += t2 - t1
+        st["k6_readback_s"] += t3 - t2
+        st["pairs_s"] += t4 - t3
+    total = sum(st.values())
+    st.update(windows=len(wins), pairs=pairs, total_s=total,
+              shares={k: v / total for k, v in st.items()
+                      if k.endswith("_s")})
+    log("join-breakdown", 101, json.dumps(st))
+    return st
+
+
+def join_cli_phase(streams: dict) -> None:
+    """The CLI runs option 101 with --input2 on a small CSV pair (16,384
+    points, 512 query points); stdout must equal an in-process run."""
+    from spatialflink_tpu_torch.driver import _emit, run_option
+
+    class Lines:
+        def __init__(self):
+            self.out = io.StringIO()
+
+        def emit(self, record):
+            print(record, file=self.out)
+
+    s1, s2 = streams["points"][:1 << 14], streams["qpoints"][:512]
+    build = os.path.join(ROOT, "spatialflink_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        conf = os.path.join(tmp, "conf.yml")
+        with open(CONF) as f, open(conf, "w") as g:
+            g.write(f.read().replace("radius: 0.5", f"radius: {JOIN_RADIUS}"))
+        paths = []
+        for name, lines in (("points.csv", s1), ("queries.csv", s2)):
+            paths.append(os.path.join(tmp, name))
+            with open(paths[-1], "w") as f:
+                f.write("\n".join(lines) + "\n")
+        proc = subprocess.run(
+            [sys.executable, "-m", "spatialflink_tpu_torch.driver",
+             "--config", conf, "--option", "101", "--input1", paths[0],
+             "--format", "CSV", "--input2", paths[1], "--format2", "CSV",
+             "--device", "cuda"],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI exit {proc.returncode}: {proc.stderr}")
+        sink = Lines()
+        for w in run_option(join_params(101, "points", "qpoints"), s1, s2,
+                            device="cuda"):
+            _emit(w, sink)
+        want = sink.out.getvalue()
+        if proc.stdout != want or not want:
+            raise AssertionError(f"CLI option 101 stdout {proc.stdout[:200]!r}"
+                                 f" != in-process {want[:200]!r}")
+        log(f"cli: option 101 over {len(s1)} points x {len(s2)} query "
+            f"points -> {want.count(chr(10))} windows, stdout equals the "
+            f"in-process run ({want.splitlines()[0]})")
 
 
 def main(argv=None) -> int:
@@ -1882,7 +2337,6 @@ def main(argv=None) -> int:
     # processing grows with the 4 launches and 10 copies per micro-batch
     prof = {"51": phase("profile-51", profile_phase, lines, 51),
             "52": phase("profile-52", profile_phase, lines[:N_SHORT], 52)}
-    del lines
     phase("cli", cli_phase, args.seed)
 
     # the polygon and linestring streams
@@ -1903,17 +2357,40 @@ def main(argv=None) -> int:
                             geoms["Polygon"], geoms["LineString"])
     geom_host.update(build)
     geom_launches, geom_report = phase("geom-path", geom_main_phase, card,
-                                       geoms, GEOM_RUNS)
+                                       geoms, GEOM_RUNS, N_GEOM_RUNS)
     other_launches, other_report = phase(
         "geom-other", geom_main_phase, card, geoms, GEOM_OTHER_RUNS,
         N_GEOM_OTHER)
     geom_report.append(phase("geom-lines", geom_lines_phase, card,
-                             glines["Polygon"], geoms["Polygon"]))
-    prof["71"] = phase("profile-71", geom_profile_phase, geoms["Polygon"], 71)
+                             glines["Polygon"][:N_GEOM_LINES],
+                             geoms["Polygon"][:N_GEOM_LINES]))
+    prof["71"] = phase("profile-71", geom_profile_phase,
+                       geoms["Polygon"][:N_GEOM_RUNS], 71)
     phase("cli-geom", geom_cli_phase, glines["Polygon"][:N_GEOM_CLI])
-    del glines, geoms
+    del glines
+
+    # the spatial joins: the point stream and the parsed geometry streams
+    # against four query streams
+    t0 = time.perf_counter()
+    streams = {"points": lines, **geoms, **join_query_streams(args.seed)}
+    qpolys = decode_geoms(streams["qPolygon"], "Polygon")[0]
+    log(f"join query streams: {N_QPOINTS} and {N_QSPARSE} points, "
+        f"{N_QGEOMS} polygons and linestrings over {SPAN_MS} ms "
+        f"({time.perf_counter() - t0:.1f} s to generate)")
+    join_cases = phase("kernels-join", join_kernel_phase, torch, timer,
+                       streams, qpolys)
+    join_launches, join_report = phase("join-path", join_main_phase, card,
+                                       streams, JOIN_RUNS)
+    jrt_launches, jrt_report = phase("join-realtime", join_main_phase, card,
+                                     streams, JOIN_RT_RUNS, True)
+    join_report += jrt_report
+    breakdown["join-101"] = phase("join-breakdown", join_breakdown_phase,
+                                  streams)
+    prof["101"] = phase("profile-101", join_profile_phase, streams)
+    phase("cli-join", join_cli_phase, streams)
+    del lines, geoms, streams
     for more in (rt_launches, short_launches, count_launches, geom_launches,
-                 other_launches):
+                 other_launches, join_launches, jrt_launches):
         for name in KERNELS:
             launches[name] += more.get(name, 0)
     micro["geom_stream_dist"] = [c for c in k5_cases
@@ -1939,6 +2416,11 @@ def main(argv=None) -> int:
                  "bound_ms", "bound_by")}
         return out
 
+    def join_case(c):
+        return {key: c[key] for key in ("case", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "launch_to_completion_ms")}
+
     kernels = [
         entry("pip_dist", "spatialflink_tpu_torch/csrc/pip_dist.cu",
               "spatialflink_tpu/ops/pallas_kernels.py:195", k4_cases,
@@ -1952,7 +2434,8 @@ def main(argv=None) -> int:
               "spatialflink_tpu/ops/knn.py:385", k2_cases, k2_cases[0],
               f"{N_KERNEL} points, {N_IDS} object ids, k=50, point query"),
         entry("pip_lattice", "spatialflink_tpu_torch/csrc/pip_lattice.cu",
-              "benchmarks/exp_pip_lattice.py:112", k4x_cases, k4x_cases[0],
+              "benchmarks/exp_pip_lattice.py:112",
+              k4x_cases + join_cases["pip_lattice"], k4x_cases[0],
               f"{N_KERNEL} points x {N_QUERIES} polygons of 64 edges + 1 "
               "linestring"),
     ]
@@ -1965,6 +2448,7 @@ def main(argv=None) -> int:
         "top-k; torch.topk without the dedup is a different function")
     kernels[3]["library_note"] = (
         "no single PyTorch call computes the point x geometry lattice")
+    kernels[3]["join"] = join_case(join_cases["pip_lattice"][0])
     # the cell order is part of K4x: pip_lattice launches it on the main
     # path, and K4x's "ms" includes it
     order = entry("cell_order", "spatialflink_tpu_torch/csrc/cell_order.cu",
@@ -1977,20 +2461,40 @@ def main(argv=None) -> int:
     kernels[3]["helpers"] = [order]
     window_k5 = [c for c in k5_cases if not c["case"].startswith("micro-")]
     k5 = entry("geom_stream_dist", "spatialflink_tpu_torch/csrc/geom_dist.cu",
-               "spatialflink_tpu/ops/geom.py:126", window_k5,
+               "spatialflink_tpu/ops/geom.py:126",
+               window_k5 + join_cases["geom_stream_dist"],
                next(c for c in window_k5
                     if c["case"] == "polygons-x-conf-polygon-range"),
                f"{WINDOW_GEOMS} polygons of 4-32 edges x the conf's polygon, "
                "range mode (option 21's window)")
     k5["library_note"] = ("no single PyTorch call computes the geometry "
                           "distances with the cell rule")
+    k5["join"] = join_case(join_cases["geom_stream_dist"][0])
     kernels.append(k5)
+    k7 = entry("join_reduce", "spatialflink_tpu_torch/csrc/join_reduce.cu",
+               "spatialflink_tpu/ops/pallas_kernels.py:299",
+               join_cases["join_reduce"], join_cases["join_reduce"][0],
+               f"{N_STREAM // 2} points x {N_QPOINTS // 2} query points "
+               "(option 101's window)")
+    k7["library_note"] = ("no single PyTorch call computes the per-point "
+                          "partner count, min d2 and argmin under the "
+                          "cell rule")
+    k6 = entry("join_lattice", "spatialflink_tpu_torch/csrc/join_lattice.cu",
+               "spatialflink_tpu/ops/join.py:137",
+               join_cases["join_lattice"], join_cases["join_lattice"][0],
+               "the rows K7 finds partners for x the window's "
+               f"{N_QPOINTS // 2} query points (option 101's window)")
+    k6["library_note"] = ("no single PyTorch call computes the join's "
+                          "pair list; the plain version is a masked "
+                          "lattice and torch.nonzero per tile")
+    kernels += [k7, k6]
     phases["total"] = time.perf_counter() - t_all
     log("build-report", json.dumps(build_report))
     print(card, flush=True)
     print(json.dumps({"kernels": kernels, "card": card,
                       "main_path": report + rt_report + count_report,
                       "geom_path": geom_report + other_report,
+                      "join_path": join_report,
                       "geom_host": geom_host, "breakdown": breakdown,
                       "profile": prof, "phases_s": phases}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,20 @@
-"""Driver (port of ``spatialflink_tpu.driver`` for the range and kNN
+"""Driver (port of ``spatialflink_tpu.driver`` for the range, kNN and join
 queries over point, polygon and linestring streams).
 
 ``CASES`` keeps the JAX package's option numbering for the options this
 port runs: for each (stream, query) pair of ``_PAIRS``, i = 0..8 (Point,
 Polygon and LineString streams, each against Point, Polygon and LineString
-queries), range 1 + 5i (windowed) and 2 + 5i (realtime), and kNN 51 + 5i
-and 52 + 5i; realtime runs micro-batches of ``realtime_batch_size``
-arrivals, emitted only when the selection is not empty. Also the latency
-variants 8/9 (range) and 58/59 (kNN) over a point stream and a polygon
-query, windowed and realtime, whose results carry each selected record's
-``now - ingestion time`` in ``extras["latency_ms"]`` (empty for kNN's
-(objID, distance) records). ``window.type: COUNT`` turns the windowed
+queries), range 1 + 5i (windowed) and 2 + 5i (realtime), kNN 51 + 5i
+and 52 + 5i, and join 101 + 5i and 102 + 5i; realtime runs micro-batches
+of ``realtime_batch_size`` arrivals, emitted only when the selection is
+not empty. Also the latency variants 8/9 (range), 58/59 (kNN) and
+108/109 (join) over a point stream and a polygon query (query stream),
+windowed and realtime, whose results carry each selected record's (each
+pair's first record's) ``now - ingestion time`` in
+``extras["latency_ms"]`` (empty for kNN's (objID, distance) records). A
+join reads its query stream from ``stream2`` (``--input2``), decoded with
+``inputStream2`` on its grid; its records are (record, query record)
+pairs. ``window.type: COUNT`` turns the windowed
 options into sliding count windows (interval and step are record counts).
 ``query.multiQuery`` (or ``--multi-query``) answers every configured query
 object of the option's type in one dispatch per window. Every other
@@ -24,13 +28,15 @@ geometry type is dropped and counted (``decode_chunks.off_type_dropped``).
 
     python -m spatialflink_tpu_torch.driver --config conf/spatialflink-conf.yml \\
         --option 51 --input1 points.csv --format CSV [--multi-query] \\
+        [--input2 queries.csv --format2 CSV] \\
         [--output out.geojson] [--output-format GeoJSON|WKT|CSV|TSV] \\
         [--device cuda|cpu]
 
 stdout carries one line per window as the JAX driver prints it:
 ``{'window': [start, end], 'count': n}`` plus the result's extras (``k``
 for kNN; ``per_query_counts`` and ``queries`` under multiQuery), without
-``latency_ms``.
+``latency_ms``; a join's count is its number of pairs, and ``--output``
+writes each pair as a JSON array of its two serialized records.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ from spatialflink_tpu_torch.utils import IdInterner
 
 @dataclass(frozen=True)
 class CaseSpec:
-    family: str            # range | knn
+    family: str            # range | knn | join
     stream: str = "Point"  # geometry type of input stream 1
     query: str = "Point"   # geometry type of the query side
     mode: str = "window"   # window | realtime
@@ -76,15 +82,17 @@ _PAIRS = [
 
 def _build_cases() -> dict:
     """The ported options (numbering of ``spatialflink_tpu.driver.CASES``):
-    range 1/2 + 5*i and kNN 51/52 + 5*i over the nine (stream, query)
-    pairs, and the latency variants."""
+    range 1/2 + 5*i, kNN 51/52 + 5*i and join 101/102 + 5*i over the nine
+    (stream, query) pairs, and the latency variants."""
     c = {}
     for i, (stream, query) in enumerate(_PAIRS):
-        for base, fam in ((1, "range"), (51, "knn")):
+        for base, fam in ((1, "range"), (51, "knn"), (101, "join")):
             c[base + 5 * i] = CaseSpec(fam, stream, query, "window")
             c[base + 1 + 5 * i] = CaseSpec(fam, stream, query, "realtime")
     for opt, fam, mode in ((8, "range", "window"), (9, "range", "realtime"),
-                           (58, "knn", "window"), (59, "knn", "realtime")):
+                           (58, "knn", "window"), (59, "knn", "realtime"),
+                           (108, "join", "window"),
+                           (109, "join", "realtime")):
         c[opt] = CaseSpec(fam, "Point", "Polygon", mode, latency=True)
     return c
 
@@ -273,24 +281,27 @@ def _with_latency(results: Iterator[WindowResult]
     """Annotate each result with its records' latency in ms, ``now -
     ingestion time`` (the reference ships the same to a Kafka topic,
     ``HelperClass.java:455-529``); a record's ingestion time is its decode
-    chunk's stamp. kNN records are (objID, distance) pairs with no
-    ingestion time, so their list is empty."""
+    chunk's stamp, and a join pair's is its first record's. kNN records
+    are (objID, distance) pairs with no ingestion time, so their list is
+    empty."""
     for r in results:
         now = int(time.time() * 1000)
         cols = getattr(r.records, "columns", None)
-        lats = []
-        if cols is not None:
-            ingest = cols()[5]
-            lats = (now - ingest[ingest > 0]).tolist()
+        first = getattr(r.records, "first_ingest", None)
+        ingest = (cols()[5] if cols is not None else
+                  first() if first is not None else None)
+        lats = [] if ingest is None else (now - ingest[ingest > 0]).tolist()
         r.extras["latency_ms"] = lats
         yield r
 
 
-def run_option(params: Params, stream1: Iterable, *, device="cuda"
+def run_option(params: Params, stream1: Iterable,
+               stream2: Optional[Iterable] = None, *, device="cuda"
                ) -> Iterator[WindowResult]:
     """Wire and run the pipeline of ``params.query.option`` over
-    ``stream1`` (raw records or parsed objects) on ``device``; returns the
-    window-result iterator."""
+    ``stream1`` (and, for a join, the query stream ``stream2``; raw
+    records or parsed objects) on ``device``; returns the window-result
+    iterator."""
     opt = params.query.option
     spec = CASES.get(opt)
     if spec is None:
@@ -298,11 +309,20 @@ def run_option(params: Params, stream1: Iterable, *, device="cuda"
             f"queryOption {opt}: {NOT_PORTED} (ported: "
             f"{', '.join(map(str, sorted(CASES)))})")
     _check_ported(params)
-    u_grid, _ = params.grids()
-    fam = {"range": "Range", "knn": "KNN"}[spec.family]
+    if params.query.multi_query and spec.family == "join":
+        raise ValueError(
+            f"multiQuery is not supported for queryOption {opt} (join); "
+            "supported: all nine range and kNN pairs")
+    u_grid, q_grid = params.grids()
+    fam = {"range": "Range", "knn": "KNN", "join": "Join"}[spec.family]
     cls = getattr(ops, f"{spec.stream}{spec.query}{fam}Query")
     conf = _query_conf(params, spec)
-    op = cls(conf, u_grid, device=device)
+    if spec.family == "join":
+        op = cls(conf, u_grid, q_grid, device=device)
+        if stream2 is None:
+            raise ValueError(f"queryOption {opt} (join) needs stream2")
+    else:
+        op = cls(conf, u_grid, device=device)
     # decode chunks: a realtime chunk is one micro-batch, a count window's
     # at most one slide, otherwise 4,096 records
     if conf.query_type is QueryType.RealTime:
@@ -314,6 +334,11 @@ def run_option(params: Params, stream1: Iterable, *, device="cuda"
     s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid, chunk,
                                      geometry=spec.stream))
     radius = params.query.radius
+    if spec.family == "join":
+        s2 = ChunkedStream(decode_chunks(stream2, params.input2, q_grid,
+                                         chunk, geometry=spec.query))
+        out = op.run(s1, s2, radius)
+        return _with_latency(out) if spec.latency else out
     if params.query.multi_query:
         return _run_multi_case(params, spec, op, s1, u_grid, radius)
     q = _query_objects(params, u_grid, spec.query)[0]
@@ -344,17 +369,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         prog="spatialflink-tpu-torch",
         description="spatial stream query driver on PyTorch/CUDA over "
                     "point, polygon and linestring streams: range options "
-                    "1-42 and kNN options 51-92 (1 + 5i / 51 + 5i "
-                    "windowed, 2 + 5i / 52 + 5i realtime), latency "
-                    "variants 8, 9 (range) and 58, 59 (kNN); window.type "
-                    "TIME or COUNT")
+                    "1-42, kNN options 51-92 and join options 101-142 "
+                    "(1 + 5i / 51 + 5i / 101 + 5i windowed, 2 + 5i / "
+                    "52 + 5i / 102 + 5i realtime), latency variants 8, 9 "
+                    "(range), 58, 59 (kNN) and 108, 109 (join); "
+                    "window.type TIME or COUNT (COUNT not for joins)")
     ap.add_argument("--config", required=True, help="YAML config path")
     ap.add_argument("--input1", help="newline-delimited input file for "
                                      "stream 1")
+    ap.add_argument("--input2", help="newline-delimited input file for "
+                                     "stream 2 (a join's query stream)")
     ap.add_argument("--option", type=int, default=None,
                     help="override query.option")
     ap.add_argument("--format", default=None,
                     help="override inputStream1.format (CSV/TSV/GeoJSON)")
+    ap.add_argument("--format2", default=None,
+                    help="override inputStream2.format")
     ap.add_argument("--multi-query", action="store_true",
                     help="answer every configured query object of the "
                          "option's type in one dispatch per window (same as "
@@ -385,13 +415,23 @@ def main(argv: Optional[List[str]] = None) -> int:
         params = dataclasses.replace(
             params, input1=dataclasses.replace(params.input1,
                                                format=args.format))
+    if args.format2 is not None:
+        params = dataclasses.replace(
+            params, input2=dataclasses.replace(params.input2,
+                                               format=args.format2))
     if not args.input1:
         print("--input1 is required", file=sys.stderr)
+        return 2
+    spec = CASES.get(params.query.option)
+    if spec is not None and spec.family == "join" and not args.input2:
+        print(f"queryOption {params.query.option} (join) needs --input2",
+              file=sys.stderr)
         return 2
     try:
         resolve_device(args.device)
         results = run_option(params, file_lines(args.input1),
-                             device=args.device)
+                             file_lines(args.input2) if args.input2
+                             else None, device=args.device)
     except (NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2

@@ -1,10 +1,17 @@
 """Continuous query operators (range and kNN over point, polygon and
-linestring streams, single- and multi-query)."""
+linestring streams, single- and multi-query; joins of two such
+streams)."""
 
 from spatialflink_tpu_torch.operators.base import (Deferred, GeomQueryMixin,
                                                    QueryConfiguration,
                                                    QueryType, SpatialOperator,
                                                    WindowResult)
+from spatialflink_tpu_torch.operators.join_query import (
+    GeomGeomJoinQuery, GeomPointJoinQuery, LineStringLineStringJoinQuery,
+    LineStringPointJoinQuery, LineStringPolygonJoinQuery, PointGeomJoinQuery,
+    PointLineStringJoinQuery, PointPointJoinQuery, PointPolygonJoinQuery,
+    PolygonLineStringJoinQuery, PolygonPointJoinQuery,
+    PolygonPolygonJoinQuery)
 from spatialflink_tpu_torch.operators.knn_query import (
     GeomGeomKNNQuery, GeomPointKNNQuery, LineStringLineStringKNNQuery,
     LineStringPointKNNQuery, LineStringPolygonKNNQuery, PointGeomKNNQuery,
@@ -30,4 +37,10 @@ __all__ = ["Deferred", "GeomQueryMixin", "QueryConfiguration", "QueryType",
            "LineStringPolygonRangeQuery", "PointGeomRangeQuery",
            "PointLineStringRangeQuery", "PointPointRangeQuery",
            "PointPolygonRangeQuery", "PolygonLineStringRangeQuery",
-           "PolygonPointRangeQuery", "PolygonPolygonRangeQuery"]
+           "PolygonPointRangeQuery", "PolygonPolygonRangeQuery",
+           "GeomGeomJoinQuery", "GeomPointJoinQuery",
+           "LineStringLineStringJoinQuery", "LineStringPointJoinQuery",
+           "LineStringPolygonJoinQuery", "PointGeomJoinQuery",
+           "PointLineStringJoinQuery", "PointPointJoinQuery",
+           "PointPolygonJoinQuery", "PolygonLineStringJoinQuery",
+           "PolygonPointJoinQuery", "PolygonPolygonJoinQuery"]

@@ -1,0 +1,321 @@
+"""Two-stream spatial joins (port of ``spatialflink_tpu.operators.
+join_query``): a point, polygon or linestring stream joined with a point,
+polygon or linestring query stream, windowed or realtime.
+
+Reference: ``spatialOperators/join/*JoinQuery.java`` — the query stream
+replicated to the neighbouring cells of each query object, a cell
+equi-join per window, and the exact-distance filter. Here each window's
+two sides go to the device as batches and one join lattice decides every
+pair (``ops/join.py``): K7 then K6 for point x point
+(``join_pairs_host``), K4x rows for point x geometry and geometry x point,
+K5 in kNN mode for geometry x geometry. Both sides' cells are taken on
+the operator's grid: a point batch assigns them from its coordinates (as
+the JAX package's ``PointBatch.from_points`` on ``self.grid`` does for
+both sides), a geometry keeps the cells its stream's decode gave it.
+
+A window's records are its pairs (``streams.bulk.PairRecords``, iterated
+as ``(record_a, record_b)`` tuples), in the order of the JAX package:
+``np.nonzero`` of the lattice (by b tile, then a, then b for point x
+point).
+
+Windowed mode: two window assemblers, one per stream, and every window of
+either side emitted once, in start order, with 0 pairs when one side is
+empty (``runtime.merge_windows``, which says why that is the JAX
+package's per-record sweep). Realtime mode: the two streams merged in
+event-time order (``runtime.merge_by_time``, ``heapq.merge``'s order),
+cut every ``realtime_batch_size`` arrivals; each cut joins its new
+records against a rolling buffer of the last ``window_size_ms`` of both
+sides (new_a x (buffer_b + new_b), then buffer_a x new_b), keeps pairs
+within ``window_size_ms`` of each other, and so emits a pair across a cut
+exactly once. Count windows are refused, as in the JAX package; panes,
+checkpoints and the device mesh are not ported.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from typing import Iterable, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from spatialflink_tpu_torch.models import PointBatch
+from spatialflink_tpu_torch.operators.base import (Deferred, QueryType,
+                                                   SpatialOperator,
+                                                   WindowResult,
+                                                   _record_chunks)
+from spatialflink_tpu_torch.ops import join as J
+from spatialflink_tpu_torch.runtime import WindowAssembler
+from spatialflink_tpu_torch.runtime.windows import (merge_by_time,
+                                                    merge_windows)
+from spatialflink_tpu_torch.streams.bulk import PairRecords
+
+
+class _Joined(Deferred):
+    """Two window results of one realtime cut read back as one: the first
+    one's pairs, then the second one's."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts):
+        self.parts = parts
+
+    def finish(self) -> PairRecords:
+        out = PairRecords()
+        for p in self.parts:
+            out = out + (p.finish() if isinstance(p, Deferred) else p)
+        return out
+
+
+def _combine_windows(r1: WindowResult, r2: WindowResult) -> WindowResult:
+    """One result whose pairs are r1's followed by r2's; deferred inputs
+    stay deferred."""
+    if not isinstance(r1.records, Deferred) \
+            and not isinstance(r2.records, Deferred):
+        return WindowResult(r1.window_start, r1.window_end,
+                            r1.records + r2.records)
+    return WindowResult(r1.window_start, r1.window_end,
+                        _Joined((r1.records, r2.records)))
+
+
+def _view(segs):
+    """The records of ``(chunk, idx)`` slices, or None without any."""
+    segs = [s for s in segs if s[1].size]
+    return segs[0][0].view(segs) if segs else None
+
+
+def _keep(ai, bi, recs_a, recs_b, max_dt):
+    """The pairs of real records (not padding), and with ``max_dt`` only
+    those whose event times lie within it of each other."""
+    keep = (ai < len(recs_a)) & (bi < len(recs_b))
+    ai, bi = ai[keep], bi[keep]
+    if max_dt is not None and ai.size:
+        near = np.abs(recs_a.ts()[ai] - recs_b.ts()[bi]) <= max_dt
+        ai, bi = ai[near], bi[near]
+    return PairRecords([(recs_a, recs_b, ai, bi)])
+
+
+class PointPointJoinQuery(SpatialOperator):
+    """Point stream x point query stream (``PointPointJoinQuery.java``)."""
+
+    def __init__(self, conf, grid, grid2=None, *, device="cuda"):
+        """``grid2``, the query stream's grid, is taken for the JAX
+        package's signature: its decode assigned the query stream's cells,
+        and the join compares cells on ``grid``."""
+        if conf.query_type is QueryType.CountBased:
+            # a count trigger over two streams is ambiguous (whose
+            # arrivals count?); the JAX package refuses it too
+            raise NotImplementedError(
+                "CountBased queries are not yet supported")
+        super().__init__(conf, grid, device=device)
+
+    def run(self, ordinary: Iterable, query_stream: Iterable,
+            radius: float) -> Iterator[WindowResult]:
+        J.lattice_strategy()  # refuses the unported bf16 lattice up front
+        if self.realtime:
+            results = self._run_realtime(ordinary, query_stream, radius)
+        else:
+            results = self._run_windowed(ordinary, query_stream, radius)
+        return self._pipeline(results)
+
+    def _pipeline(self, results: Iterator[WindowResult]
+                  ) -> Iterator[WindowResult]:
+        """Up to ``conf.pipeline_depth`` deferred windows in flight, read
+        back in window order; eager results pass through once the older
+        deferred ones have drained."""
+        depth = max(1, self.conf.pipeline_depth)
+        pending: deque = deque()
+
+        def force(r: WindowResult) -> WindowResult:
+            if isinstance(r.records, Deferred):
+                r.records = r.records.finish()
+            return r
+
+        for r in results:
+            if isinstance(r.records, Deferred):
+                pending.append(r)
+                while len(pending) > depth - 1:
+                    yield force(pending.popleft())
+            else:
+                while pending:
+                    yield force(pending.popleft())
+                yield r
+        while pending:
+            yield force(pending.popleft())
+
+    def _run_windowed(self, ordinary, query_stream, radius
+                      ) -> Iterator[WindowResult]:
+        spec = self.conf.window_spec()
+        sides = [WindowAssembler(spec, self.conf.allowed_lateness_ms)
+                 .assemble(_record_chunks(s, self.grid))
+                 for s in (ordinary, query_stream)]
+        for start, end, recs_a, recs_b in merge_windows(*sides):
+            yield self._join_window(start, end, recs_a, recs_b, radius)
+
+    def _run_realtime(self, ordinary, query_stream, radius
+                      ) -> Iterator[WindowResult]:
+        """Cuts of ``realtime_batch_size`` merged arrivals over a rolling
+        buffer of the last ``window_size_ms`` (the reference's realtime
+        joins buffer a small window per stream with fire-per-element
+        triggers, ``tJoin/TJoinQuery.java:216-268``)."""
+        win = self.conf.window_size_ms
+        size = max(1, int(self.conf.realtime_batch_size))
+        buf: List[List] = [[], []]  # (chunk, idx) slices per side
+        new: List[List] = [[], []]
+
+        def fire(end_ts: int) -> Optional[WindowResult]:
+            # evict only what cannot pair with ANY new arrival: the earliest
+            # new record sets the horizon; the max_dt filter keeps
+            # |ta - tb| <= win exactly
+            first_new = min(int(ch.ts[idx].min()) for side in new
+                            for ch, idx in side)
+            cutoff = first_new - win
+            for s in (0, 1):
+                buf[s] = [(ch, idx[ch.ts[idx] >= cutoff])
+                          for ch, idx in buf[s]]
+                buf[s] = [seg for seg in buf[s] if seg[1].size]
+            all_b = buf[1] + new[1]
+            # new_a x (old_b + new_b) and old_a x new_b: every pair with a
+            # new member once, never the old x old block again
+            start = end_ts - win
+            r1 = self._join_window(start, end_ts, _view(new[0]), _view(all_b),
+                                   radius, max_dt=win)
+            r2 = self._join_window(start, end_ts, _view(buf[0]),
+                                   _view(new[1]), radius, max_dt=win)
+            res = _combine_windows(r1, r2)
+            buf[0], buf[1] = buf[0] + new[0], all_b
+            new[0], new[1] = [], []
+            if not isinstance(res.records, Deferred) and not res.records:
+                return None  # realtime cuts never emit known-empty results
+            return res
+
+        chunks = (_record_chunks(ordinary, self.grid),
+                  _record_chunks(query_stream, self.grid))
+        seen = last = 0
+        for side, ch, idx in merge_by_time(*chunks):
+            pos = 0
+            while pos < idx.size:
+                take = min(size - seen, idx.size - pos)
+                new[side].append((ch, idx[pos:pos + take]))
+                seen += take
+                pos += take
+                last = int(ch.ts[idx[pos - 1]])
+                if seen >= size:
+                    seen = 0
+                    res = fire(last)
+                    if res is not None:
+                        yield res
+        if new[0] or new[1]:
+            res = fire(last)
+            if res is not None:
+                yield res
+
+    # ---------------------------------------------------------------- #
+
+    def _point_batch(self, records, ts_base: int) -> PointBatch:
+        """A side's point batch with cells assigned on the operator's grid
+        from the coordinates (whatever grid the stream was decoded on)."""
+        x, y, ts, oid, _, _ = records.columns()
+        return PointBatch.from_arrays(x, y, device=self.device,
+                                      grid=self.grid, obj_id=oid, ts=ts,
+                                      ts_base=ts_base)
+
+    def _batch_a(self, records, ts_base: int):
+        return self._point_batch(records, ts_base)
+
+    _batch_b = _batch_a
+
+    def _join_window(self, start, end, recs_a, recs_b, radius, *,
+                     max_dt: Optional[int] = None) -> WindowResult:
+        """One window's pairs (eagerly: K6's pair total is read to size its
+        output). ``max_dt``: the realtime co-residence bound."""
+        if not (recs_a is not None and len(recs_a)
+                and recs_b is not None and len(recs_b)):
+            return WindowResult(start, end, PairRecords())
+        ai, bi = J.join_pairs_host(self._batch_a(recs_a, start),
+                                   self._batch_b(recs_b, start), radius,
+                                   self.grid)
+        return WindowResult(start, end,
+                            _keep(ai, bi, recs_a, recs_b, max_dt))
+
+
+class _GenericStreamJoin(PointPointJoinQuery):
+    """Two-stream join over a geometry lattice: subclasses give the batches
+    and ``_lattice(a, b, radius) -> (Ga, Gb)`` bool on the device. The
+    pairs are compacted on the device and read back deferred."""
+
+    def _nb_layers(self, radius):
+        # radius 0 => every cell is a neighbour (UniformGrid.java:264-266)
+        return self.grid.n if radius == 0 \
+            else self.grid.candidate_layers(radius)
+
+    def _geom_batch(self, records, ts_base: int):
+        return records.geom_batch(ts_base, self.device, self.interner)[0]
+
+    def _join_window(self, start, end, recs_a, recs_b, radius, *,
+                     max_dt: Optional[int] = None) -> WindowResult:
+        if not (recs_a is not None and len(recs_a)
+                and recs_b is not None and len(recs_b)):
+            return WindowResult(start, end, PairRecords())
+        m = self._lattice(self._batch_a(recs_a, start),
+                          self._batch_b(recs_b, start), radius)
+        pairs = torch.nonzero(m.contiguous())
+
+        def collect(host):
+            (p,) = host
+            return _keep(p[:, 0], p[:, 1], recs_a, recs_b, max_dt)
+
+        return WindowResult(start, end, Deferred((pairs,), collect))
+
+
+class PointGeomJoinQuery(_GenericStreamJoin):
+    """Point stream x polygon/linestring query stream
+    (``PointPolygonJoinQuery.java``, ``PointLineStringJoinQuery``)."""
+
+    def _batch_b(self, records, ts_base: int):
+        return self._geom_batch(records, ts_base)
+
+    def _lattice(self, a, b, radius):
+        return J.join_point_geom_rows(a, b, radius, self._nb_layers(radius),
+                                      n=self.grid.n).T
+
+
+class GeomPointJoinQuery(_GenericStreamJoin):
+    """Polygon/linestring stream x point query stream
+    (``PolygonPointJoinQuery.java``, ``LineStringPointJoinQuery``): the
+    point x geometry rows with the sides swapped."""
+
+    def _batch_a(self, records, ts_base: int):
+        return self._geom_batch(records, ts_base)
+
+    def _batch_b(self, records, ts_base: int):
+        return self._point_batch(records, ts_base)
+
+    def _lattice(self, a, b, radius):
+        return J.join_point_geom_rows(b, a, radius, self._nb_layers(radius),
+                                      n=self.grid.n)
+
+
+class GeomGeomJoinQuery(_GenericStreamJoin):
+    """Polygon/linestring stream x polygon/linestring query stream
+    (``PolygonPolygonJoinQuery.java`` and its three siblings)."""
+
+    def _batch_a(self, records, ts_base: int):
+        return self._geom_batch(records, ts_base)
+
+    _batch_b = _batch_a
+
+    def _lattice(self, a, b, radius):
+        return J.join_geom_geom_mask(a, b, radius, self._nb_layers(radius),
+                                     n=self.grid.n)
+
+
+# Reference-named aliases
+PointPolygonJoinQuery = PointGeomJoinQuery
+PointLineStringJoinQuery = PointGeomJoinQuery
+PolygonPointJoinQuery = GeomPointJoinQuery
+LineStringPointJoinQuery = GeomPointJoinQuery
+PolygonPolygonJoinQuery = GeomGeomJoinQuery
+PolygonLineStringJoinQuery = GeomGeomJoinQuery
+LineStringPolygonJoinQuery = GeomGeomJoinQuery
+LineStringLineStringJoinQuery = GeomGeomJoinQuery

@@ -200,3 +200,117 @@ def count_windows(chunks: Iterable, size: int, slide: int
                 yield (int(min(t.min() for t in ts)),
                        int(max(t.max() for t in ts)),
                        _view([(c, np.arange(lo, hi)) for c, lo, hi in segs]))
+
+
+# ------------------------------------------------------------------------ #
+# two streams (the joins)
+
+
+def merge_windows(gen_a: Iterable[Tuple], gen_b: Iterable[Tuple]
+                  ) -> Iterator[Tuple]:
+    """Outer merge of two start-ordered ``(start, end, records)`` window
+    streams into ``(start, end, records_a | None, records_b | None)``.
+
+    The JAX package's windowed join feeds the two streams record by record
+    in time order through two assemblers and, after each record, emits the
+    windows sealed on both sides or wholly below both watermarks. A window
+    sealed on one side holds all of that side's records, and a window once
+    emitted gets no more records on either side (they would be late), so
+    every window of either side is emitted once, in start order: this
+    merge of the two assemblers' own window streams."""
+    gen_a, gen_b = iter(gen_a), iter(gen_b)
+    a, b = next(gen_a, None), next(gen_b, None)
+    while a is not None or b is not None:
+        if b is None or (a is not None and a[0] < b[0]):
+            yield a[0], a[1], a[2], None
+            a = next(gen_a, None)
+        elif a is None or b[0] < a[0]:
+            yield b[0], b[1], None, b[2]
+            b = next(gen_b, None)
+        else:
+            yield a[0], a[1], a[2], b[2]
+            a, b = next(gen_a, None), next(gen_b, None)
+
+
+def merge_by_time(chunks_a: Iterable, chunks_b: Iterable) -> Iterator[Tuple]:
+    """Two streams of decoded chunks as one arrival sequence, in the order
+    of the JAX package's ``heapq.merge`` on event time (side 0 first on
+    equal keys), as ``(side, chunk, idx)`` runs.
+
+    ``heapq.merge`` compares the heads of two streams that need not be in
+    time order; its order equals a stable merge on each side's running
+    maximum of event time, which is nondecreasing, so whole chunks merge
+    with ``searchsorted``. A record's place is known once the other side
+    has a later key, so the merge pulls one chunk at a time from the side
+    that runs out."""
+    its = (iter(chunks_a), iter(chunks_b))
+    pend: Tuple[List, List] = ([], [])  # per side: (chunk, idx, keys)
+    done = [False, False]
+    runmax = [-(2 ** 63), -(2 ** 63)]
+
+    def pull(s: int) -> None:
+        for ch in its[s]:
+            if len(ch):
+                keys = np.maximum.accumulate(
+                    np.maximum(np.asarray(ch.ts, np.int64), runmax[s]))
+                runmax[s] = int(keys[-1])
+                pend[s].append((ch, np.arange(len(ch)), keys))
+                return
+        done[s] = True
+
+    def take(s: int, upto_key: int, strict: bool):
+        """Pop the side's pending records with key < (or <=) upto_key."""
+        out, keys = [], []
+        while pend[s]:
+            ch, idx, k = pend[s][0]
+            cut = int(np.searchsorted(k, upto_key,
+                                      side="left" if strict else "right"))
+            if cut:
+                out.append((ch, idx[:cut]))
+                keys.append(k[:cut])
+            if cut < k.size:
+                pend[s][0] = (ch, idx[cut:], k[cut:])
+                break
+            pend[s].pop(0)
+        return out, (np.concatenate(keys) if keys
+                     else np.zeros(0, np.int64))
+
+    def runs(side_segs, side_pos):
+        """(side, chunk, idx) runs of the merged records, in merge order."""
+        items = []
+        for s in (0, 1):
+            off = 0
+            for ch, idx in side_segs[s]:
+                pos = side_pos[s][off:off + idx.size]
+                off += idx.size
+                # split a segment where the other side's records interleave
+                brk = np.flatnonzero(np.diff(pos) != 1) + 1
+                for lo, hi in zip(np.r_[0, brk], np.r_[brk, idx.size]):
+                    items.append((int(pos[lo]), s, ch, idx[lo:hi]))
+        items.sort(key=lambda it: it[0])
+        for _, s, ch, idx in items:
+            yield s, ch, idx
+
+    while True:
+        for s in (0, 1):
+            if not pend[s] and not done[s]:
+                pull(s)
+        if not pend[0] and not pend[1]:
+            return
+        if not pend[0] or not pend[1]:
+            s = 0 if pend[0] else 1
+            for ch, idx, _ in pend[s]:
+                yield s, ch, idx
+            pend[s].clear()
+            continue
+        last_a, last_b = int(pend[0][-1][2][-1]), int(pend[1][-1][2][-1])
+        if last_a <= last_b:
+            # every pending a is placed; b's with key < last_a go before it
+            segs_a, ka = take(0, last_a, strict=False)
+            segs_b, kb = take(1, last_a, strict=True)
+        else:
+            segs_a, ka = take(0, last_b, strict=False)
+            segs_b, kb = take(1, last_b, strict=False)
+        pos_a = np.arange(ka.size) + np.searchsorted(kb, ka, side="left")
+        pos_b = np.arange(kb.size) + np.searchsorted(ka, kb, side="right")
+        yield from runs((segs_a, segs_b), (pos_a, pos_b))

@@ -328,6 +328,12 @@ class LazyRecords:
             cols[5].append(np.full(idx.size, chunk.ingest_ms, np.int64))
         return tuple(np.concatenate(c) for c in cols)
 
+    def ts(self) -> np.ndarray:
+        """(N,) int64 event times in window order."""
+        if not self._segs:
+            return np.zeros(0, np.int64)
+        return np.concatenate([c.parsed.ts[idx] for c, idx in self._segs])
+
     def point_batch(self, ts_base: int, device: torch.device,
                     compact: bool = False
                     ) -> Tuple[PointBatch, Optional[np.ndarray]]:
@@ -425,6 +431,12 @@ class GeomRecords:
     def __len__(self) -> int:
         return self._len
 
+    def ts(self) -> np.ndarray:
+        """(G,) int64 event times in window order."""
+        if not self._segs:
+            return np.zeros(0, np.int64)
+        return np.concatenate([c.ts[idx] for c, idx in self._segs])
+
     def records(self) -> list:
         """The window's geometry objects in window order."""
         return [chunk.records[i] for chunk, idx in self._segs
@@ -458,6 +470,53 @@ class GeomRecords:
             oid = local.reshape(-1).astype(np.int32)
         return EdgeGeomBatch.from_objects(recs, device=device, obj_id=oid,
                                           ts_base=ts_base), ids
+
+
+class PairRecords:
+    """A join window's pairs as positions into its two sides' records
+    (:class:`LazyRecords` or :class:`GeomRecords`): parts ``(records_a,
+    records_b, a_idx, b_idx)``, read in order. Iterating materializes
+    ``(record_a, record_b)`` tuples (cached), as the JAX package's join
+    emits them; ``len`` and :meth:`first_ingest` need no objects."""
+
+    __slots__ = ("_parts", "_mat")
+
+    def __init__(self, parts=()):
+        self._parts = [p for p in parts if len(p[2])]
+        self._mat = None
+
+    def __len__(self) -> int:
+        return sum(int(p[2].size) for p in self._parts)
+
+    def __add__(self, other: "PairRecords") -> "PairRecords":
+        return PairRecords(self._parts + other._parts)
+
+    def first_ingest(self) -> np.ndarray:
+        """(P,) int64 ingestion wall clock of each pair's first record (its
+        decode chunk's stamp for a point, the object's own for a geometry;
+        0 where there is none)."""
+        out = []
+        for recs_a, _, ai, _ in self._parts:
+            cols = getattr(recs_a, "columns", None)
+            if cols is not None:
+                out.append(cols()[5][ai])
+            else:
+                out.append(np.array([
+                    int(getattr(r, "ingestion_time", 0) or 0)
+                    for r in recs_a.take(ai)], np.int64))
+        return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+    def _materialize(self) -> list:
+        if self._mat is None:
+            self._mat = [pair for recs_a, recs_b, ai, bi in self._parts
+                         for pair in zip(recs_a.take(ai), recs_b.take(bi))]
+        return self._mat
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+    def __repr__(self):
+        return f"PairRecords({len(self)} pairs)"
 
 
 def parse_points(items: Sequence, cfg, interner: IdInterner) -> ParsedPoints:

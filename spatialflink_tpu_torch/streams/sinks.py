@@ -23,8 +23,9 @@ class StdoutSink:
 class FileSink:
     """Newline-delimited result records, as the JAX package's ``FileSink``
     writes them: a spatial record serialized in ``fmt`` (GeoJSON, WKT, CSV
-    or TSV, honouring ``delimiter`` and ``date_format``), any other record
-    (a kNN (objID, distance) pair) as a JSON line."""
+    or TSV, honouring ``delimiter`` and ``date_format``), a join pair as a
+    JSON array of its two records so serialized, any other record (a kNN
+    (objID, distance) pair) as a JSON line."""
 
     def __init__(self, path: str, fmt: str = "GeoJSON", *,
                  delimiter: str = ",", date_format: Optional[str] = None):
@@ -34,11 +35,16 @@ class FileSink:
         self.records_written = 0
         self._f = open(path, "w")
 
+    def _ser(self, obj) -> str:
+        return serialize_spatial(obj, self.fmt, delimiter=self.delimiter,
+                                 date_format=self.date_format)
+
     def emit(self, record):
         if hasattr(record, "obj_id"):
-            line = serialize_spatial(record, self.fmt,
-                                     delimiter=self.delimiter,
-                                     date_format=self.date_format)
+            line = self._ser(record)
+        elif (isinstance(record, (tuple, list)) and record
+                and all(hasattr(r, "obj_id") for r in record)):
+            line = json.dumps([self._ser(r) for r in record])
         else:
             line = json.dumps(record, default=str)
         self._f.write(line + "\n")

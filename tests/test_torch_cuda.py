@@ -1040,3 +1040,155 @@ def test_from_jax_arrays_carries_a_stream_geom_batch(card):
     own_card = EdgeGeomBatch(*(t.to(card) for t in own))
     assert _equal(G.geom_stream_dist(carried, **kw),
                   G.geom_stream_dist(own_card, **kw))
+
+
+# ------------------------------------------------------------------------ #
+# K6 (join lattice) and K7 (join_reduce)
+
+
+def _join_batches(dev, na, nb, seed=3, *, spread=0.6, same=False,
+                  invalid_a=False):
+    """Two point batches on a 10 x 10 grid over [0, 10)^2 with points
+    outside it (cell -1), exact capacities; ``same``: every b point at one
+    spot (every distance equal), ``invalid_a``: no valid a row."""
+    from spatialflink_tpu_torch.ops import join as J  # noqa: F401
+
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    rng = np.random.default_rng(seed)
+
+    def batch(n, at=None):
+        x = rng.uniform(-0.5, 10.5, n) if at is None else np.full(n, at[0])
+        y = rng.uniform(-0.5, 10.5, n) if at is None else np.full(n, at[1])
+        # a share on a coarse lattice: exact ties among distances
+        k = n // 4
+        x[:k] = np.round(x[:k] * 4) / 4
+        y[:k] = np.round(y[:k] * 4) / 4
+        b = PointBatch.from_arrays(x, y, device=dev, grid=grid)
+        keep = rng.random(b.valid.shape[0]) > 0.1
+        return b._replace(valid=b.valid & torch.from_numpy(keep).to(dev))
+
+    a = batch(na)
+    if invalid_a:
+        a = a._replace(valid=torch.zeros_like(a.valid))
+    b = batch(nb, (4.3, 5.1) if same else None)
+    return grid, a, b, spread
+
+
+JOIN_CASES = {
+    "small": dict(na=300, nb=77),
+    "odd": dict(na=1000, nb=5000),      # b not a multiple of the tile
+    "tiles": dict(na=2048, nb=9000),
+    "same": dict(na=600, nb=3000, same=True),
+    "invalid-a": dict(na=500, nb=700, invalid_a=True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(JOIN_CASES))
+@pytest.mark.parametrize("layers", [1, 3, 10, 2 ** 30])
+def test_join_reduce_kernel_equals_plain(card, case, layers):
+    from spatialflink_tpu_torch.ops import join as J
+
+    _, a, b, r = _join_batches(card, **JOIN_CASES[case])
+    got = J.join_reduce(a, b, r, layers, n=10)
+    want = J.join_reduce_plain(a, b, r, layers, n=10)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+    if case == "same":
+        assert (got[0] > 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(JOIN_CASES))
+@pytest.mark.parametrize("layers,tile", [(1, 4096), (3, 4096), (10, 1000),
+                                         (2 ** 30, 4096), (3, 64)])
+@pytest.mark.parametrize("with_rows", [False, True])
+def test_join_lattice_kernel_equals_plain(card, case, layers, tile,
+                                          with_rows):
+    from spatialflink_tpu_torch.ops import join as J
+
+    _, a, b, r = _join_batches(card, **JOIN_CASES[case])
+    rows = None
+    if with_rows:
+        cnt, _, _ = J.join_reduce_plain(a, b, r + 0.01, layers, n=10)
+        rows = torch.nonzero(cnt > 0).reshape(-1).to(torch.int32)
+    got = J.join_lattice(a, b, r, layers, 5.0, 5.0, n=10, tile=tile,
+                         rows=rows)
+    want = J.join_lattice_plain(a, b, r, layers, 5.0, 5.0, n=10, tile=tile,
+                                rows=rows)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+    if case != "invalid-a":
+        assert got[0].numel() > 0
+
+
+@pytest.mark.cuda
+def test_join_pairs_host_branches_agree_on_card(card):
+    """Above the lattice budget (K7, then K6 on the rows with partners) and
+    below it (K6 alone): the pairs of the direct branch, in order."""
+    from spatialflink_tpu_torch.ops import join as J
+
+    grid, a, b, r = _join_batches(card, 4000, 3000)
+    direct = J.join_pairs_host(a, b, r, grid, lattice_budget=1 << 40)
+    launches = J.join_reduce.launches
+    pruned = J.join_pairs_host(a, b, r, grid, lattice_budget=1)
+    assert J.join_reduce.launches == launches + 1
+    assert all(np.array_equal(u, v) for u, v in zip(direct, pruned))
+    assert direct[0].size > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", [101, 121])
+def test_join_option_on_card_equals_cpu(card, option):
+    """One run of option 101 (points x points) and 121 (polygons x
+    polygons) on the card and on the CPU: the same pairs in each window."""
+    import json as _json
+    import os
+
+    from spatialflink_tpu_torch import driver as TD
+    from spatialflink_tpu_torch.config import Params
+
+    conf = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "conf", "spatialflink-conf.yml")
+    rng = np.random.default_rng(option)
+    t0 = 1_700_000_000_000
+
+    def points(n, prefix):
+        x = rng.uniform(115.5, 117.6, n)
+        y = rng.uniform(39.6, 41.1, n)
+        ts = t0 + np.sort(rng.integers(0, 20_000, n))
+        return [f"{prefix}{i % 50},{t},{u!r},{v!r}" for i, (t, u, v) in
+                enumerate(zip(ts.tolist(), x.tolist(), y.tolist()))]
+
+    def polygons(n, prefix):
+        out = []
+        for i, t in enumerate(np.sort(rng.integers(0, 20_000, n)).tolist()):
+            cx, cy = rng.uniform(115.6, 117.5), rng.uniform(39.7, 41.0)
+            th = np.sort(rng.uniform(0, 2 * np.pi, 6))
+            ring = [[cx + 0.01 * np.cos(a), cy + 0.01 * np.sin(a)]
+                    for a in th]
+            out.append(_json.dumps({"geometry": {
+                "type": "Polygon", "coordinates": [ring + [ring[0]]]},
+                "properties": {"oID": f"{prefix}{i}", "timestamp": t0 + t},
+                "type": "Feature"}))
+        return out
+
+    p = Params.from_yaml(conf)
+    p.query.option = option
+    p.query.radius = 0.02
+    fmt = "CSV" if option == 101 else "GeoJSON"
+    import dataclasses
+    p = dataclasses.replace(
+        p, input1=dataclasses.replace(p.input1, format=fmt),
+        input2=dataclasses.replace(p.input2, format=fmt))
+    make = points if option == 101 else polygons
+    s1, s2 = make(20_000 if option == 101 else 3_000, "a"), make(2_000, "b")
+
+    def run(device):
+        return [(w.window_start, w.window_end,
+                 [(x.obj_id, x.timestamp, y.obj_id, y.timestamp)
+                  for x, y in w.records])
+                for w in TD.run_option(p, iter(s1), iter(s2), device=device)]
+
+    got, want = run("cuda"), run("cpu")
+    assert got == want and sum(len(w[2]) for w in want) > 0

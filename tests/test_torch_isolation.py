@@ -18,8 +18,11 @@ from spatialflink_tpu_torch.config import Params
 from spatialflink_tpu_torch.device import resolve_device
 from spatialflink_tpu_torch.index import UniformGrid
 from spatialflink_tpu_torch.models import from_jax_arrays
-from spatialflink_tpu_torch.operators import (PointGeomKNNQuery,
+from spatialflink_tpu_torch.operators import (GeomGeomJoinQuery,
+                                              PointGeomJoinQuery,
+                                              PointGeomKNNQuery,
                                               PointGeomRangeQuery,
+                                              PointPointJoinQuery,
                                               PointPointKNNQuery,
                                               PointPointRangeQuery,
                                               QueryConfiguration)
@@ -40,7 +43,8 @@ def _forbidden(mod: str) -> bool:
 
 def test_port_loads_no_jax():
     """In a fresh interpreter (PYTHONPATH unset: the test process already
-    holds jax), import the port and run one tiny option-6 window."""
+    holds jax), import the port and run one tiny option-6 window and one
+    option-101 join window."""
     code = textwrap.dedent("""
         import dataclasses, sys
         from spatialflink_tpu_torch.config import Params
@@ -52,6 +56,11 @@ def test_port_loads_no_jax():
         lines = [f"o{i},{1700000000000 + 7 * i},{116.2 + i * 1e-3},40.5"
                  for i in range(500)]
         wins = list(run_option(p, lines, device="cpu"))
+        assert wins and any(len(w.records) for w in wins), wins
+        p.query.option = 101
+        p = dataclasses.replace(
+            p, input2=dataclasses.replace(p.input2, format="CSV"))
+        wins = list(run_option(p, lines, lines[::7], device="cpu"))
         assert wins and any(len(w.records) for w in wins), wins
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "spatialflink_tpu")
@@ -120,12 +129,16 @@ def test_default_device_raises_without_cuda(no_cuda, tmp_path, capsys):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     for cls in (PointPointRangeQuery, PointGeomRangeQuery,
-                PointPointKNNQuery, PointGeomKNNQuery):
+                PointPointKNNQuery, PointGeomKNNQuery, PointPointJoinQuery,
+                PointGeomJoinQuery, GeomGeomJoinQuery):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(QueryConfiguration(), grid)
     p = Params.from_yaml(CONF)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TD.run_option(p, [])
+    p.query.option = 101
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TD.run_option(p, [], [])
     fields = {k: np.zeros(4, np.float32) for k in
               ("x", "y", "obj_id", "ts", "cell", "valid")}
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -210,7 +210,8 @@ def test_realtime_knn_is_refused(option):
 
 @pytest.mark.parametrize("argv,message", [
     (["--option", "211"], "queryOption 211: not yet ported"),
-    (["--option", "101"], "queryOption 101: not yet ported"),
+    (["--option", "201"], "queryOption 201: not yet ported"),
+    (["--option", "101"], "queryOption 101 (join) needs --input2"),
     (["--option", "6", "--kafka"], "--kafka: not yet ported"),
     (["--option", "6", "--panes"], "--panes: not yet ported"),
     (["--option", "6", "--limit", "5"], "--limit: not yet ported"),
