@@ -59,12 +59,13 @@ its wall seconds):
    does not, as for the 2-edge linestring of 11 and 61); each run is
    repeated with every kernel swapped for its plain version, and the
    per-window results must be equal (selections, and kNN (objID,
-   distance) lists in order). The realtime runs follow over the same
-   stream (1,024 micro-batches of 512): options 2, 7, 12, 52 (k = 50), 57
-   and 62, the windowed latency variants 8 and 58 and the realtime
-   latency variants 9 and 59; over its first 262,144 points (512
-   micro-batches), multiQuery 2 and 52 (16 points), 7 and 57 (16
-   polygons) and 12 (4 linestrings); over its first 262,144 points,
+   distance) lists in order). The realtime runs follow over the stream's
+   first 262,144 points (512 micro-batches of 512; cut from the whole
+   stream to make room for the join kernel cases): options 2, 7, 12, 52
+   (k = 50), 57 and 62, the windowed latency variants 8 and 58 and the
+   realtime latency variants 9 and 59; over the same points, multiQuery
+   2 and 52 (16 points), 7 and 57 (16 polygons) and 12 (4 linestrings);
+   over its first 262,144 points,
    options 1 and 51 (k = 50) under count windows of 262,144 records every
    131,072. Each the same way, with points/s, the median and p99 wall
    time per emitted window or micro-batch, and the records' latency_ms
@@ -104,14 +105,21 @@ its wall seconds):
    query streams over the same 20 s (16,384 and 256 CSV query points:
    8,192 and 128 per window; 1,024 GeoJSON polygons and linestrings
    shaped as the geometry streams: 512 per window). K7 ``join_reduce`` at
-   262,144 x 8,192 points, K6 ``join_lattice`` on the rows K7 finds
-   partners for and at 262,144 x 256 (the sparse stream's capacity, the
-   direct branch), K4x at 262,144 points x 512 query polygons and K5 at
-   65,536 polygons x 512 query polygons in kNN mode over the queries'
+   262,144 x 8,192 points (its join index built inside the call), K6
+   ``join_lattice`` on the rows K7 finds partners for (over K7's index)
+   and at 262,144 x 256 (the sparse stream's capacity, the direct
+   branch), the same two with both sides clustered (Gaussian, sigma 0.03
+   degrees), K7 at the conf's radius 0.5 and K6 there at 8,192 x 8,192,
+   K6 at realtime 102's per-cut shapes (512 x 2,048 and 65,536 x 256)
+   (``join_setups``), the join index of the dense and the sparse query
+   window (the cell order's sort with its start table) against its plain
+   version, K4x at 262,144 points x 512 query polygons and K5
+   at 65,536 polygons x 512 query polygons in kNN mode over the queries'
    neighbouring-cells masks (the geometry join's form), each against its
    plain version bit for bit with its CUDA-event time,
-   launch-to-completion time and bound (operations counted from the
-   kernels, the pairs inside the cell layers from a cell histogram).
+   launch-to-completion time and bound (K6 and K7: the distance on the
+   pairs inside the cell layers, from a cell histogram, and the join
+   index's bytes).
    Then every join option through ``run_option``: 101 over the point
    stream with the dense query points (K7 then K6: more than 2**26
    capacity pairs) and with the sparse ones (K6 alone), 106, 108, 111
@@ -125,9 +133,10 @@ its wall seconds):
    window. Then option 101's stages one after another, its trace under
    torch.profiler, and the CLI for 101 with ``--input2``.
 6. Output: the build report, the card line, one JSON ``kernels`` line
-   (K4x's entry holds the cell order under ``helpers``; K5's the window
-   cases and its micro-batch cases; K4x's and K5's their join cases,
-   also under ``join``; K7 and K6), and as the last line
+   (K4x's entry holds the cell order under ``helpers``, with the joins'
+   index under its ``join``; K5's the window cases and its micro-batch
+   cases; K4x's and K5's their join cases, also under ``join``; K7 and
+   K6), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result line when CUDA is not available or the
@@ -984,7 +993,8 @@ REALTIME_RUNS = [
     (59, False, None, ("pip_dist", "knn_topk")),
 ]
 #: the multi-query realtime runs, over the stream's first N_SHORT points
-#: (1,024 micro-batches): the script keeps within its time limit
+#: (512 micro-batches), as the REALTIME_RUNS: the script keeps within its
+#: time limit
 SHORT_REALTIME_RUNS = [
     (2, True, None, ("range_mask_stats",)),
     (52, True, 50, ("knn_topk",)),
@@ -1837,8 +1847,8 @@ JOIN_KERNELS = ("join_reduce", "join_lattice", "pip_lattice", "cell_order",
 #: is the point stream's lines or the parsed polygons / linestrings
 #: (their first N_JOIN_GEOMS), the query streams are CSV / GeoJSON lines
 JOIN_RUNS = [
-    (101, "points", "qpoints", ("join_reduce", "join_lattice")),
-    (101, "points", "qsparse", ("join_lattice",)),
+    (101, "points", "qpoints", ("join_reduce", "join_lattice", "cell_order")),
+    (101, "points", "qsparse", ("join_lattice", "cell_order")),
     (106, "points", "qPolygon", ("pip_lattice", "cell_order")),
     (108, "points", "qPolygon", ("pip_lattice", "cell_order")),
     (111, "points", "qLineString", ("pip_lattice", "cell_order")),
@@ -1852,7 +1862,7 @@ JOIN_RUNS = [
 #: the realtime joins over the streams' first N_JOIN_RT points or
 #: N_JOIN_RT_GEOMS geometries and the query records of the same time span
 JOIN_RT_RUNS = [
-    (102, "points", "qpoints", ("join_lattice",)),
+    (102, "points", "qpoints", ("join_lattice", "cell_order")),
     (107, "points", "qPolygon", ("pip_lattice",)),
     (109, "points", "qPolygon", ("pip_lattice",)),
     (112, "points", "qLineString", ("pip_lattice",)),
@@ -1938,8 +1948,12 @@ def join_plain_versions():
     from spatialflink_tpu_torch.ops import hopper_kernels as HK
     from spatialflink_tpu_torch.ops import join as J
 
-    plain = {(J, "join_reduce"): J.join_reduce_plain,
-             (J, "join_lattice"): J.join_lattice_plain,
+    # join_pairs_host hands both kernels the window's join index
+    plain = {(J, "join_index"): J.join_index_plain,
+             (J, "join_reduce"):
+                 lambda *a, index=None, **kw: J.join_reduce_plain(*a, **kw),
+             (J, "join_lattice"):
+                 lambda *a, index=None, **kw: J.join_lattice_plain(*a, **kw),
              (HK, "pip_lattice"):
                  lambda *a, **_: HK.pip_lattice_plain(*a).T.contiguous(),
              (G, "geom_stream_dist"): G.geom_stream_dist_plain}
@@ -2044,37 +2058,135 @@ def _pairs_in_layers(a, b, layers: int, n: int, rows=None) -> int:
     return int((s[x1, y1] - s[x0, y1] - s[x1, y0] + s[x0, y0]).sum())
 
 
+#: bytes of the join index per b point (perm, key, x, y; its start table
+#: adds 4 per entry), and the operations that form one key (three
+#: compares, two selects, a division, a multiply and an add)
+JOIN_INDEX_BYTES = 16
+JOIN_INDEX_OPS = 8
+
+
+def join_setups(torch, grid, dev=None) -> list:
+    """The K7 and K6 cases of the join kernel phase and of kernel_ab.py's
+    K6/K7 comparison, as dicts (kernel, name, a, b, radius, layers, rows,
+    index): option 101's window (262,144 stream points x 8,192 query
+    points, uniform over the bbox, radius 0.002): K7 with the index built
+    inside it, then K6 on the rows K7 keeps over that index (built once,
+    as join_pairs_host shares it); the sparse stream's window (262,144 x
+    256, K6 alone, index included); both sides clustered (Gaussian around
+    (116.40, 39.90), sigma 0.03 degrees, as taxi traces bunch downtown);
+    the conf's radius 0.5 (24 cell layers): K7 at the window and K6 at
+    8,192 x 8,192 (a quarter of the pairs pass); realtime 102's per-cut
+    shapes (512 new stream points x the 2,048-point query buffer; the
+    65,536-point stream buffer x 16 new query points)."""
+    from spatialflink_tpu_torch.models import PointBatch
+    from spatialflink_tpu_torch.ops import join as J
+
+    dev = torch.device("cuda") if dev is None else dev
+    n = grid.n
+    rng = np.random.default_rng(31)
+
+    def uniform(k):
+        return PointBatch.from_arrays(rng.uniform(BBOX[0], BBOX[2], k),
+                                      rng.uniform(BBOX[1], BBOX[3], k),
+                                      device=dev, grid=grid)
+
+    def clustered(k):
+        return PointBatch.from_arrays(rng.normal(116.40, 0.03, k),
+                                      rng.normal(39.90, 0.03, k),
+                                      device=dev, grid=grid)
+
+    def head(p, k):
+        return type(p)(*(t[:k] for t in p))
+
+    out = []
+
+    def k7_k6(tag, a, b, radius, rows_too=True):
+        layers = grid.candidate_layers(radius)
+        pre_r = float(np.sqrt(radius * radius + 1e-5))
+        out.append(dict(kernel="join_reduce",
+                        name=f"{tag}{a.capacity}x{b.capacity}", a=a, b=b,
+                        radius=pre_r, layers=layers, rows=None, index=None))
+        if rows_too:
+            cnt, _, _ = J.join_reduce_plain(a, b, pre_r, layers, n=n)
+            rows = torch.nonzero(cnt > 0).reshape(-1).to(torch.int32)
+            out.append(dict(kernel="join_lattice",
+                            name=f"{tag}rows{rows.numel()}x{b.capacity}",
+                            a=a, b=b, radius=radius, layers=layers,
+                            rows=rows, index=J.join_index(b, n)))
+
+    def k6(tag, a, b, radius):
+        out.append(dict(kernel="join_lattice",
+                        name=f"{tag}{a.capacity}x{b.capacity}", a=a, b=b,
+                        radius=radius, layers=grid.candidate_layers(radius),
+                        rows=None, index=None))
+
+    a, b = uniform(N_STREAM // 2), uniform(N_QPOINTS // 2)
+    k7_k6("", a, b, JOIN_RADIUS)
+    k6("", a, uniform(N_QSPARSE // 2), JOIN_RADIUS)
+    k7_k6("clustered-", clustered(N_STREAM // 2), clustered(N_QPOINTS // 2),
+          JOIN_RADIUS)
+    k7_k6("r0.5-", a, b, 0.5, rows_too=False)
+    k6("r0.5-", head(a, b.capacity), b, 0.5)
+    k6("rt102-", uniform(N_MICRO), uniform(2048), JOIN_RADIUS)
+    k6("rt102-", uniform(N_JOIN_RT), uniform(16), JOIN_RADIUS)
+    return out
+
+
+def join_calls(torch, grid, s):
+    """(kernel call, plain call, operations, bytes, extra) of one
+    join_setups case. The bound counts what the inputs need: the distance
+    on the pairs inside the cell layers (a cell histogram), each point read
+    once, the outputs written once, and the join index's bytes with its
+    start table (and its keys' operations where the call builds it)."""
+    from spatialflink_tpu_torch.ops import join as J
+
+    n = grid.n
+    a, b, radius, layers = s["a"], s["b"], s["radius"], s["layers"]
+    rows, index = s["rows"], s["index"]
+    nb = b.capacity
+    m = a.capacity if rows is None else rows.numel()
+    in_layers = _pairs_in_layers(a, b, layers, n, rows=rows)
+    starts = J.index_layout(nb, n, J.JOIN_TILE)[3]
+    nbytes = (m + nb) * 13 + nb * JOIN_INDEX_BYTES + starts * 4
+    ops = 0 if index is not None else nb * JOIN_INDEX_OPS
+    extra = dict(pairs_in_layers=in_layers, layers=layers, radius=radius,
+                 index="shared" if index is not None else "included")
+    if s["kernel"] == "join_reduce":
+        return (lambda: J.join_reduce(a, b, radius, layers, n=n),
+                lambda: J.join_reduce_plain(a, b, radius, layers, n=n),
+                ops + in_layers * J.OPS_K7_DIST, nbytes + m * 12, extra)
+    cx, cy = J.grid_center(grid)
+    pairs = int(J.join_lattice(a, b, radius, layers, cx, cy, n=n, rows=rows,
+                               index=index)[0].numel())
+    extra.update(rows=m, pairs=pairs)
+    return (lambda: J.join_lattice(a, b, radius, layers, cx, cy, n=n,
+                                   rows=rows, index=index),
+            lambda: J.join_lattice_plain(a, b, radius, layers, cx, cy, n=n,
+                                         rows=rows),
+            ops + in_layers * J.OPS_K6_DIST,
+            nbytes + (0 if rows is None else m * 4) + pairs * 8, extra)
+
+
 def join_kernel_phase(torch, timer: Timer, streams: dict, polys):
-    """K7 at 262,144 x 8,192 (a window of the point stream against one of
-    the dense query stream), K6 on the rows K7 finds partners for and at
-    262,144 x 128 (the sparse query stream, the direct branch), K4x at
-    262,144 points x 512 query polygons, and K5 at 65,536 polygons x 512
-    query polygons in its join form (kNN mode over each query's
-    neighbouring-cells mask), each against its plain version bit for bit
-    with its CUDA-event time, launch-to-completion time and bound."""
-    from spatialflink_tpu_torch.models import EdgeGeomBatch, PointBatch
+    """The join index of option 101's dense and sparse query windows, K7
+    and K6 at join_setups' cases (option 101's window, the sparse
+    stream's, clustered sides, the conf's radius 0.5, realtime 102's
+    per-cut shapes), K4x at 262,144 points x 512 query polygons, and K5 at
+    65,536 polygons x 512 query polygons in its join form (kNN mode over
+    each query's neighbouring-cells mask), each against its plain version
+    bit for bit with its CUDA-event time, launch-to-completion time and
+    bound."""
+    from spatialflink_tpu_torch.models import EdgeGeomBatch
     from spatialflink_tpu_torch.ops import geom as G
     from spatialflink_tpu_torch.ops import hopper_kernels as HK
     from spatialflink_tpu_torch.ops import join as J
 
     dev = torch.device("cuda")
     grid = _grid()
-    n, r = grid.n, JOIN_RADIUS
-    layers = grid.candidate_layers(r)
-    pre_r = float(np.sqrt(r * r + 1e-5))
-    cx, cy = J.grid_center(grid)
-    rng = np.random.default_rng(31)
-
-    def points(k):
-        return PointBatch.from_arrays(rng.uniform(BBOX[0], BBOX[2], k),
-                                      rng.uniform(BBOX[1], BBOX[3], k),
-                                      device=dev, grid=grid)
-
-    a, b, sparse = points(N_STREAM // 2), points(N_QPOINTS // 2), \
-        points(N_QSPARSE // 2)
-    na, nb = a.capacity, b.capacity
+    n = grid.n
+    layers = grid.candidate_layers(JOIN_RADIUS)
     cases = {"join_reduce": [], "join_lattice": [], "pip_lattice": [],
-             "geom_stream_dist": []}
+             "geom_stream_dist": [], "cell_order": []}
 
     def add(kernel, name, kern, plain, ops, nbytes, plain_reps, **extra):
         c, got = kernel_case(timer, torch, name, kern, plain, ops, nbytes,
@@ -2083,29 +2195,25 @@ def join_kernel_phase(torch, timer: Timer, streams: dict, polys):
         cases[kernel].append(c)
         return got
 
-    in_layers = _pairs_in_layers(a, b, layers, n)
-    cnt, _, _ = add(
-        "join_reduce", f"{na}x{nb}",
-        lambda: J.join_reduce(a, b, pre_r, layers, n=n),
-        lambda: J.join_reduce_plain(a, b, pre_r, layers, n=n),
-        na * nb * J.OPS_CELL_TEST + in_layers * J.OPS_K7_DIST,
-        (na + nb) * 13 + na * 12, 3, pairs=na * nb,
-        pairs_in_layers=in_layers)
-    rows = torch.nonzero(cnt > 0).reshape(-1).to(torch.int32)
-    for name, bb, rw in ((f"rows{rows.numel()}x{nb}", b, rows),
-                         (f"{na}x{sparse.capacity}", sparse, None)):
-        m = na if rw is None else rw.numel()
-        got = J.join_lattice(a, bb, r, layers, cx, cy, n=n, rows=rw)
-        in_l = _pairs_in_layers(a, bb, layers, n, rows=rw)
-        add("join_lattice", name,
-            lambda bb=bb, rw=rw: J.join_lattice(a, bb, r, layers, cx, cy,
-                                                n=n, rows=rw),
-            lambda bb=bb, rw=rw: J.join_lattice_plain(a, bb, r, layers, cx,
-                                                      cy, n=n, rows=rw),
-            m * bb.capacity * J.OPS_CELL_TEST + in_l * J.OPS_K6_DIST,
-            (m + bb.capacity) * 13 + (0 if rw is None else m * 4)
-            + got[0].numel() * 8, 3, rows=m, pairs=int(got[0].numel()),
-            pairs_in_layers=in_l)
+    setups = join_setups(torch, grid)
+    a = setups[0]["a"]  # option 101's stream window, for K4x below
+    na = a.capacity
+    for bb in (setups[0]["b"], setups[2]["b"]):
+        # the join index (cell_order.cu's join_index_launch) of option
+        # 101's query window, dense and sparse
+        nb = bb.capacity
+        starts = J.index_layout(nb, n, J.JOIN_TILE)[3]
+        add("cell_order", f"join-index-{nb}",
+            lambda bb=bb: tuple(J.join_index(bb, n)[:5]),
+            lambda bb=bb: tuple(J.join_index_plain(bb, n)[:5]),
+            nb * JOIN_INDEX_OPS, nb * (13 + JOIN_INDEX_BYTES) + starts * 4,
+            REPS, points=nb, starts=starts)
+    for s in setups:
+        kern, plain, ops, nbytes, extra = join_calls(torch, grid, s)
+        add(s["kernel"], s["name"], kern, plain, ops, nbytes, 3, **extra)
+        del kern, plain
+    del setups
+    torch.cuda.empty_cache()
 
     # K4x: the window's points x one window's 512 query polygons
     qb = EdgeGeomBatch.from_objects(polys[:N_QGEOMS // 2], device=dev)
@@ -2134,7 +2242,7 @@ def join_kernel_phase(torch, timer: Timer, streams: dict, polys):
         lambda: G.geom_stream_dist_plain(gb, **kw), ops, nbytes, 1,
         geometries=int(gb.valid.sum()), queries=int(qb.valid.sum()),
         consulted=int(torch.isfinite(got[1]).sum()))
-    del a, b, sparse, gb, qb, got
+    del a, gb, qb, got
     torch.cuda.empty_cache()
     return cases
 
@@ -2155,8 +2263,9 @@ def join_breakdown_phase(streams: dict) -> dict:
     """Where option 101's time goes over the dense query stream: its
     stages one after another, host clock, device synchronised after each:
     the two decodes, window assembly of both sides, the batch build and
-    copy of both sides, K7 with the row list, K6 with the pairs' readback,
-    and the pairs as Python tuples of Points."""
+    copy of both sides, the query side's join index, K7 with the row list,
+    K6 with the pairs' readback, and the pairs as Python tuples of
+    Points."""
     import torch
 
     from spatialflink_tpu_torch.driver import CASES, _query_conf, \
@@ -2184,7 +2293,8 @@ def join_breakdown_phase(streams: dict) -> dict:
         *(WindowAssembler(spec, op.conf.allowed_lateness_ms).assemble(c)
           for c in (iter(c1), iter(c2)))))
     st["assemble_s"] = time.perf_counter() - t0
-    for key in ("batch_h2d_s", "k7_rows_s", "k6_readback_s", "pairs_s"):
+    for key in ("batch_h2d_s", "index_s", "k7_rows_s", "k6_readback_s",
+                "pairs_s"):
         st[key] = 0.0
     r = JOIN_RADIUS
     layers = u_grid.candidate_layers(r)
@@ -2197,22 +2307,26 @@ def join_breakdown_phase(streams: dict) -> dict:
         ba, bb = op._point_batch(ra, start), op._point_batch(rb, start)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        cnt, _, _ = J.join_reduce(ba, bb, float(np.sqrt(r * r + 1e-5)),
-                                  layers, n=u_grid.n)
-        rows = torch.nonzero(cnt > 0).reshape(-1).to(torch.int32)
+        index = J.join_index(bb, u_grid.n)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        ai, bi = J.join_lattice(ba, bb, r, layers, cx, cy, n=u_grid.n,
-                                rows=rows)
-        ai, bi = (t.cpu().numpy().astype(np.int64) for t in (ai, bi))
+        cnt, _, _ = J.join_reduce(ba, bb, float(np.sqrt(r * r + 1e-5)),
+                                  layers, n=u_grid.n, index=index)
+        rows = torch.nonzero(cnt > 0).reshape(-1).to(torch.int32)
+        torch.cuda.synchronize()
         t3 = time.perf_counter()
-        recs = list(_keep(ai, bi, ra, rb, None))
+        ai, bi = J.join_lattice(ba, bb, r, layers, cx, cy, n=u_grid.n,
+                                rows=rows, index=index)
+        ai, bi = (t.cpu().numpy().astype(np.int64) for t in (ai, bi))
         t4 = time.perf_counter()
+        recs = list(_keep(ai, bi, ra, rb, None))
+        t5 = time.perf_counter()
         pairs += len(recs)
         st["batch_h2d_s"] += t1 - t0
-        st["k7_rows_s"] += t2 - t1
-        st["k6_readback_s"] += t3 - t2
-        st["pairs_s"] += t4 - t3
+        st["index_s"] += t2 - t1
+        st["k7_rows_s"] += t3 - t2
+        st["k6_readback_s"] += t4 - t3
+        st["pairs_s"] += t5 - t4
     total = sum(st.values())
     st.update(windows=len(wins), pairs=pairs, total_s=total,
               shares={k: v / total for k, v in st.items()
@@ -2321,8 +2435,8 @@ def main(argv=None) -> int:
     log(f"stream: {len(lines)} CSV rows over {SPAN_MS} ms "
         f"({time.perf_counter() - t0:.1f} s to generate)")
     launches, report = phase("main-path", main_path_phase, card, lines, RUNS)
-    rt_launches, rt_report = phase("realtime", main_path_phase, card, lines,
-                                   REALTIME_RUNS)
+    rt_launches, rt_report = phase("realtime", main_path_phase, card,
+                                   lines[:N_SHORT], REALTIME_RUNS)
     short_launches, short_report = phase(
         "realtime-short", main_path_phase, card, lines[:N_SHORT],
         SHORT_REALTIME_RUNS)
@@ -2452,9 +2566,11 @@ def main(argv=None) -> int:
     # the cell order is part of K4x: pip_lattice launches it on the main
     # path, and K4x's "ms" includes it
     order = entry("cell_order", "spatialflink_tpu_torch/csrc/cell_order.cu",
-                  "benchmarks/exp_pip_lattice.py:112", [order_case],
-                  order_case, f"{N_KERNEL} points, "
-                  f"{_grid().num_cells} cells")
+                  "benchmarks/exp_pip_lattice.py:112",
+                  [order_case] + join_cases["cell_order"], order_case,
+                  f"{N_KERNEL} points, {_grid().num_cells} cells")
+    # the same sort builds the joins' index (ops/join.join_index)
+    order["join"] = join_case(join_cases["cell_order"][0])
     order["library_note"] = ("no single PyTorch call: the plain version "
                              "is a torch.where, torch.argsort(stable=True) "
                              "and two gathers")

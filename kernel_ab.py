@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's K1, K4 and K5 kernels against an earlier revision's, on
-one card, in turns (old, new, new, old), at the main path's shapes.
+"""Times the port's K1, K4, K5, K6 and K7 kernels against an earlier
+revision's, on one card, in turns (old, new, new, old), at the main path's
+shapes.
 
 Run from the root of a checkout on a machine with one NVIDIA card, with
 the earlier revision's ``csrc/`` unpacked into a directory that
@@ -8,7 +9,7 @@ the earlier revision's ``csrc/`` unpacked into a directory that
 
     git archive <commit> spatialflink_tpu_torch/csrc | tar -x -C _scratch/old
     python3 kernel_ab.py --old _scratch/old/spatialflink_tpu_torch/csrc \
-        [--kernels k1,k4,k5]
+        [--kernels k1,k4,k5,k6,k7]
 
 The old ``range_mask.cu``, ``pip_dist.cu`` (with its ``pip_edges.cuh``)
 and ``geom_dist.cu`` are built with the port's own nvcc flags into
@@ -18,11 +19,20 @@ approximate, n, Q, ..., mask_out, dists_out, counts, stream)`` (it zeroes
 the counts with its own memset) and ``pip_dist_launch(px, py, n, edges,
 edge_mask, ne, is_areal, dist, stream)``, and those of commit c481f39
 and later for ``geom_dist_launch``, whose arguments the wrapper
-``ops/geom.geom_stream_dist`` marshals for both sides. Every case
+``ops/geom.geom_stream_dist`` marshals for both sides, and those of commit
+407ef10 for ``join_reduce_launch(ax, ay, acell, avalid, na, bx, by, bcell,
+bvalid, nb, r2, layers, n, cnt, mind2, amin, stream)`` and
+``join_lattice_count`` / ``join_lattice_write(ax, ay, acell, avalid, rows,
+m, bx, by, bcell, bvalid, nb, tile, cx, cy, r2, layers, all_cells, n,
+counts, offsets, out_a, out_b, stream)`` (K7 and K6 as they walked every b
+point, before the join index), which ``old_reduce`` and ``old_lattice``
+call as that revision's wrappers did. Every case
 first checks that old and new give the same outputs bit for bit, then
 times 5 rounds of old, new, new, old (10 pairs) with chip_smoke's timer
 (CUDA events, L2 evicted before each launch), counts the pairs the new
-side wins, and prints one JSON line per case with a profiler split of
+side wins, each side's A/A ratio (the median of its first run in each
+round over that of its second), and prints one JSON line per case with a
+profiler split of
 the new side's device operations (kernels and memsets) and, for K1 and
 K5, of the old side's; the card's name and power limit beside it, and a
 summary line last.
@@ -44,7 +54,13 @@ parsed here the same way, ~1 min) against the conf's point, the conf's polygon, 
 query polygons and the conf's linestring, range and kNN mode, approximate
 once, and a 512-polygon micro-batch against the conf's polygon and point,
 whose launch-to-completion times (host clock) stand beside their card
-times.
+times. K7 and K6 at ``chip_smoke.join_setups``' cases (option 101's
+window, 262,144 x 8,192, uniform and clustered, K6 on the rows K7 keeps;
+the sparse stream's 262,144 x 256; the conf's radius 0.5; realtime 102's
+per-cut shapes 512 x 2,048 and 65,536 x 256): the new side's K7 and its
+direct-branch K6 build the join index inside the call, and its K6 on
+K7's rows takes the index K7's window built (as ``join_pairs_host``
+shares it); each with both sides' launch-to-completion times.
 """
 
 from __future__ import annotations
@@ -99,6 +115,14 @@ def build_old(old_csrc: str, names) -> dict:
     if "geom_dist" in libs:
         fn = libs["geom_dist"].geom_dist_launch
         fn.argtypes, fn.restype = list(G._ARGTYPES), ctypes.c_int
+    if "join_reduce" in libs:
+        libs["join_reduce"].join_reduce_launch.argtypes = [
+            C, C, C, C, I, C, C, C, C, I, F, I, I, C, C, C, C]
+    if "join_lattice" in libs:
+        for fn in (libs["join_lattice"].join_lattice_count,
+                   libs["join_lattice"].join_lattice_write):
+            fn.argtypes = [C, C, C, C, C, I, C, C, C, C, I, I, F, F, F, I, I,
+                           I, C, C, C, C, C]
     return libs
 
 
@@ -165,6 +189,94 @@ def old_geom(G, launch, gb, args):
         G.native.function = real
 
 
+def old_reduce(torch, lib, a, b, radius, layers, n):
+    """The old K7 launch (commit 407ef10's wrapper): every b point staged
+    for every a point."""
+    from spatialflink_tpu_torch.ops import join as J
+
+    na, nb = a.capacity, b.capacity
+    cnt = torch.empty(na, dtype=torch.int32, device="cuda")
+    mind2 = torch.empty(na, dtype=torch.float32, device="cuda")
+    amin = torch.empty(na, dtype=torch.int32, device="cuda")
+    err = lib.join_reduce_launch(
+        a.x.data_ptr(), a.y.data_ptr(), a.cell.data_ptr(),
+        a.valid.data_ptr(), na, b.x.data_ptr(), b.y.data_ptr(),
+        b.cell.data_ptr(), b.valid.data_ptr(), nb, J._r2(radius),
+        J._layers(layers), n, cnt.data_ptr(), mind2.data_ptr(),
+        amin.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"old join_reduce: CUDA error {err}")
+    return cnt, mind2, amin
+
+
+def old_lattice(torch, lib, a, b, radius, layers, cx, cy, n, rows=None):
+    """The old K6 launch (commit 407ef10's wrapper): a count pass and a
+    scan over every b point of each tile, one read of the pair total, and
+    a write pass."""
+    from spatialflink_tpu_torch.ops import join as J
+
+    na, nb = a.capacity, b.capacity
+    m = na if rows is None else rows.numel()
+    tile = max(1, min(J.JOIN_TILE, nb))
+    n_tiles = -(-nb // tile)
+    blocks = -(-m // J.LATTICE_ROWS_PER_BLOCK) * n_tiles
+    counts = torch.empty(max(1, m * n_tiles), dtype=torch.int32,
+                         device="cuda")
+    offsets = torch.empty(blocks + 1, dtype=torch.int32, device="cuda")
+    lay = J._layers(layers)
+    args = (a.x.data_ptr(), a.y.data_ptr(), a.cell.data_ptr(),
+            a.valid.data_ptr(), None if rows is None else rows.data_ptr(), m,
+            b.x.data_ptr(), b.y.data_ptr(), b.cell.data_ptr(),
+            b.valid.data_ptr(), nb, tile, J._f32(cx), J._f32(cy),
+            J._r2(radius), lay, int(lay >= J.NO_LAYER), n,
+            counts.data_ptr(), offsets.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    if lib.join_lattice_count(*args, None, None, stream):
+        raise RuntimeError("old join_lattice count: CUDA error")
+    total = int(offsets[blocks])
+    ai = torch.empty(total, dtype=torch.int32, device="cuda")
+    bi = torch.empty(total, dtype=torch.int32, device="cuda")
+    if total and lib.join_lattice_write(*args, ai.data_ptr(), bi.data_ptr(),
+                                        stream):
+        raise RuntimeError("old join_lattice write: CUDA error")
+    return ai, bi
+
+
+def join_cases(torch, timer, card, libs, which) -> list:
+    """K7 and K6 old/new at chip_smoke's join kernel cases."""
+    from spatialflink_tpu_torch.ops import join as J
+
+    grid = CS._grid()
+    n = grid.n
+    cx, cy = J.grid_center(grid)
+    rows = []
+    for s in CS.join_setups(torch, grid):
+        key = "k7" if s["kernel"] == "join_reduce" else "k6"
+        if key not in which:
+            continue
+        new, _, ops, nbytes, extra = CS.join_calls(torch, grid, s)
+        a, b, r, lay = s["a"], s["b"], s["radius"], s["layers"]
+        if key == "k7":
+            def old(a=a, b=b, r=r, lay=lay):
+                return old_reduce(torch, libs["join_reduce"], a, b, r, lay,
+                                  n)
+        else:
+            def old(a=a, b=b, r=r, lay=lay, rw=s["rows"]):
+                return old_lattice(torch, libs["join_lattice"], a, b, r, lay,
+                                   cx, cy, n, rw)
+        bound, by = CS.bound_ms(ops, nbytes)
+        # ab_case's "pairs" counts its timed pairs
+        extra["join_pairs"] = extra.pop("pairs", None)
+        rows.append(ab_case(
+            torch, timer, card, f"{key.upper()} {s['name']}", old, new,
+            split_old=True, bound_ms=bound, bound_by=by,
+            old_launch_to_completion_ms=CS.launch_ms(torch, old),
+            new_launch_to_completion_ms=CS.launch_ms(torch, new), **extra))
+        del new, old
+        torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_split(torch, fn, reps: int = 5) -> dict:
     """Device microseconds per call of each kernel ``fn`` launches, from a
     torch.profiler trace of ``reps`` calls (memsets included)."""
@@ -204,6 +316,9 @@ def ab_case(torch, timer, card, name, old, new, split_old=False, **extra):
            "speedup": float(np.median(o) / np.median(n)),
            "new_wins": sum(b < a for a, b in zip(o, n)), "pairs": len(o),
            "old_iqr_ms": float(q3 - q1),
+           # A/A: each side's first run of a round against its second
+           "aa_old": float(np.median(o[0::2]) / np.median(o[1::2])),
+           "aa_new": float(np.median(n[0::2]) / np.median(n[1::2])),
            "identical": True, "new_kernels_us": kernel_split(torch, new),
            "card": card}
     if split_old:
@@ -381,11 +496,12 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default="k1,k4,k5",
                     help="comma-separated kernels to compare: k1, k4 (with "
-                    "the table sweep), k5")
+                    "the table sweep), k5, k6, k7")
     args = ap.parse_args(argv)
     which = set(args.kernels.split(","))
-    if not which <= {"k1", "k4", "k5"}:
-        ap.error(f"--kernels: unknown {sorted(which - {'k1', 'k4', 'k5'})}")
+    known = {"k1", "k4", "k5", "k6", "k7"}
+    if not which <= known:
+        ap.error(f"--kernels: unknown {sorted(which - known)}")
 
     import torch
 
@@ -397,14 +513,17 @@ def main(argv=None) -> int:
     card = CS.card_line()
     print(f"card: {card}", flush=True)
     native.build(("pip_lattice", "cell_order", "pip_dist", "range_mask",
-                  "geom_dist"))
+                  "geom_dist", "join_reduce", "join_lattice"))
     libs = build_old(args.old, [name for key, name in (
-        ("k1", "range_mask"), ("k4", "pip_dist"), ("k5", "geom_dist"))
-        if key in which])
-    print("new-build geom_dist", json.dumps(native.ptxas_report(
-        native.build_log("geom_dist"))), flush=True)
+        ("k1", "range_mask"), ("k4", "pip_dist"), ("k5", "geom_dist"),
+        ("k6", "join_lattice"), ("k7", "join_reduce")) if key in which])
+    for name in ("geom_dist", "join_reduce", "join_lattice", "cell_order"):
+        print(f"new-build {name}", json.dumps(native.ptxas_report(
+            native.build_log(name))), flush=True)
     timer = CS.Timer(torch)
     rows = []
+    if which & {"k6", "k7"}:
+        rows += join_cases(torch, timer, card, libs, which)
     if "k5" in which:
         rows += k5_cases(torch, timer, card, libs["geom_dist"], args.seed)
     if which & {"k1", "k4"}:

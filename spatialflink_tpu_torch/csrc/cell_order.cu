@@ -29,6 +29,17 @@
 // What bounds it on an H100: bytes (read and write 16 bytes per point per
 // pass: ~10 us per pass at 1M points) and, at a window's size, latency:
 // every thread loads all of its items before it uses any.
+//
+// The same sort builds the join index of K6 and K7 (join_lattice.cu,
+// join_reduce.cu; join_index_launch below): the b points of a window by
+// (b tile, bucket), with the sorted keys written by the last pass. Its key
+// is tile * stride + bucket, tile = i / tile_size, and the bucket 0 for a
+// cell < 0, cell + 1 for a cell of the grid, cells + 1 for a cell >= cells
+// and cells + 2 for an invalid point (stride = cells + 3; 0 when each
+// tile is sorted on its own). Then, where the caller asks for it, the
+// index's start table: for each key k, the first sorted position whose
+// key is >= k (one binary search per entry). Plain PyTorch version:
+// spatialflink_tpu_torch/ops/join.py join_index_plain.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,12 +59,33 @@ constexpr int kNoDigit = -1;
 constexpr size_t kScatterSmem =
     sizeof(int) * (kWarps * kMaxDigits + kMaxDigits + 4 * kTileItems);
 
+// How the first pass forms an item's key from its cell: the cell order's
+// rule (kJoin false: the rule's fields are not read, and the kernels
+// compile as they did without them) or the join index's.
+struct KeyRule {
+  const uint8_t* valid;  // the join index's valid flags
+  int tile;              // items per b tile
+  int stride;            // keys per tile (0: one tile)
+  int cells;             // the grid's cells
+};
+
+template <bool kJoin>
 __device__ __forceinline__ int sort_key(const int32_t* __restrict__ cell,
                                         const int32_t* __restrict__ key_in,
-                                        int i, int num_cells) {
+                                        int i, int num_cells,
+                                        const KeyRule& rule) {
   if (key_in != nullptr) return key_in[i];
   const int c = cell[i];
-  return (c >= 0 && c < num_cells) ? c : num_cells;
+  if (!kJoin) return (c >= 0 && c < num_cells) ? c : num_cells;
+  int bucket;
+  if (rule.valid[i] == 0) {
+    bucket = rule.cells + 2;
+  } else if (c < 0) {
+    bucket = 0;
+  } else {
+    bucket = c < rule.cells ? c + 1 : rule.cells + 1;
+  }
+  return (i / rule.tile) * rule.stride + bucket;
 }
 
 // Inclusive sum over the block of one int per thread; `warp_sums` is
@@ -98,10 +130,12 @@ __device__ __forceinline__ unsigned digit_peers(int d, int width) {
 
 // counts[d * tiles + tile] = items of `tile` whose digit is d. Every
 // thread loads its kItems keys before it counts them (the loads overlap).
+template <bool kJoin>
 __global__ void __launch_bounds__(kThreads)
 order_hist_kernel(const int32_t* __restrict__ cell,
-                  const int32_t* __restrict__ key_in, int n, int num_cells,
-                  int shift, int digits, int32_t* __restrict__ counts) {
+                  const int32_t* __restrict__ key_in, KeyRule rule, int n,
+                  int num_cells, int shift, int digits,
+                  int32_t* __restrict__ counts) {
   __shared__ int hist[kMaxDigits];
   for (int d = threadIdx.x; d < digits; d += kThreads) hist[d] = 0;
   __syncthreads();
@@ -110,7 +144,7 @@ order_hist_kernel(const int32_t* __restrict__ cell,
 #pragma unroll
   for (int r = 0; r < kItems; ++r) {
     const int i = base + r * kThreads;
-    key[r] = i < n ? sort_key(cell, key_in, i, num_cells) : -1;
+    key[r] = i < n ? sort_key<kJoin>(cell, key_in, i, num_cells, rule) : -1;
   }
 #pragma unroll
   for (int r = 0; r < kItems; ++r) {
@@ -151,10 +185,11 @@ order_scan_kernel(int32_t* __restrict__ counts, int tiles,
 // then writes the tile's runs of each digit at neighbouring addresses,
 // at the digit's start (the totals of the smaller digits) plus the tiles
 // before this one. A non-final pass writes all four arrays; the final one
-// index, x and y.
+// index, x and y, and the keys when it is given somewhere to put them.
+template <bool kJoin>
 __global__ void __launch_bounds__(kThreads, 2)
 order_scatter_kernel(const int32_t* __restrict__ cell,
-                     const int32_t* __restrict__ key_in,
+                     const int32_t* __restrict__ key_in, KeyRule rule,
                      const int32_t* __restrict__ idx_in,
                      const float* __restrict__ x_in,
                      const float* __restrict__ y_in, int n, int num_cells,
@@ -191,7 +226,7 @@ order_scatter_kernel(const int32_t* __restrict__ cell,
     px[r] = 0.0f;
     py[r] = 0.0f;
     if (i < n) {
-      key[r] = sort_key(cell, key_in, i, num_cells);
+      key[r] = sort_key<kJoin>(cell, key_in, i, num_cells, rule);
       d[r] = (key[r] >> shift) & (digits - 1);
       if (idx_in != nullptr) idx[r] = idx_in[i];
       px[r] = x_in[i];
@@ -265,37 +300,44 @@ order_scatter_kernel(const int32_t* __restrict__ cell,
   }
 }
 
-}  // namespace
-
-// Scratch sizes (in int32) the wrapper allocates: counts holds
-// cell_order_counts(n) entries (per-tile digit counts, then the digit
-// totals), then 5 n for keys (2 n) and the index, x and y of the passes
-// before the last.
-extern "C" int cell_order_counts(int n) {
-  const int tiles = (n + kTileItems - 1) / kTileItems;
-  return ((tiles > 0 ? tiles : 1) + 1) * kMaxDigits;
+// starts[k] = the first position of the sorted keys[0..n) whose key is
+// >= k, for k < num.
+__global__ void __launch_bounds__(kScanThreads)
+join_starts_kernel(const int32_t* __restrict__ keys, int n,
+                   int32_t* __restrict__ starts, int num) {
+  const int k = blockIdx.x * kScanThreads + threadIdx.x;
+  if (k >= num) return;
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (keys[mid] < k) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  starts[k] = lo;
 }
 
-// cell: (n,) int32 cell ids; px, py: (n,) f32. Writes perm (n,) int32 and
-// sx, sy (n,) f32 in cell order. Scratch: counts (cell_order_counts(n),)
-// and work (5 n,) int32. Launches on `stream`, does not synchronise,
-// returns a CUDA error code (0 when every launch was accepted).
-extern "C" int cell_order_launch(const int32_t* cell, int n, int num_cells,
-                                 const float* px, const float* py,
-                                 int32_t* perm, float* sx, float* sy,
-                                 int32_t* counts, int32_t* work,
-                                 void* stream) {
+// The passes of one sort: perm, sx, sy (and keys_out, the sorted keys,
+// unless it is nullptr) from the items' keys under the cell order's rule
+// or (kJoin) `rule`, all below num_cells + 1.
+template <bool kJoin>
+int order_passes(const int32_t* cell, const KeyRule& rule, int n,
+                 int num_cells, const float* px, const float* py,
+                 int32_t* perm, float* sx, float* sy, int32_t* keys_out,
+                 int32_t* counts, int32_t* work, cudaStream_t s) {
   if (num_cells < 1 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return static_cast<int>(cudaGetLastError());
   static bool smem_set = false;
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        order_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        order_scatter_kernel<kJoin>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(kScatterSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   int bits = 1;
   while ((num_cells >> bits) != 0) ++bits;  // keys are 0..num_cells
   const int passes = (bits + 7) / 8;
@@ -317,20 +359,74 @@ extern "C" int cell_order_launch(const int32_t* cell, int n, int num_cells,
     // the final pass writes perm, sx and sy, so the pass before it writes
     // the scratch copies
     const bool to_tmp = ((passes - 1 - p) & 1) != 0;
-    int32_t* key_out = last ? nullptr : keys + static_cast<size_t>(p & 1) * n;
+    int32_t* key_out = last ? keys_out : keys + static_cast<size_t>(p & 1) * n;
     int32_t* idx_out = to_tmp ? idx_tmp : perm;
     float* x_out = to_tmp ? x_tmp : sx;
     float* y_out = to_tmp ? y_tmp : sy;
-    order_hist_kernel<<<tiles, kThreads, 0, s>>>(cell, key_in, n, num_cells,
-                                                 shift, digits, counts);
+    order_hist_kernel<kJoin><<<tiles, kThreads, 0, s>>>(
+        cell, key_in, rule, n, num_cells, shift, digits, counts);
     order_scan_kernel<<<digits, kScanThreads, 0, s>>>(counts, tiles, totals);
-    order_scatter_kernel<<<tiles, kThreads, kScatterSmem, s>>>(
-        cell, key_in, idx_in, x_in, y_in, n, num_cells, shift, digits,
+    order_scatter_kernel<kJoin><<<tiles, kThreads, kScatterSmem, s>>>(
+        cell, key_in, rule, idx_in, x_in, y_in, n, num_cells, shift, digits,
         counts, totals, key_out, idx_out, x_out, y_out);
     key_in = key_out;
     idx_in = idx_out;
     x_in = x_out;
     y_in = y_out;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Scratch sizes (in int32) the wrapper allocates: counts holds
+// cell_order_counts(n) entries (per-tile digit counts, then the digit
+// totals), then 5 n for keys (2 n) and the index, x and y of the passes
+// before the last.
+extern "C" int cell_order_counts(int n) {
+  const int tiles = (n + kTileItems - 1) / kTileItems;
+  return ((tiles > 0 ? tiles : 1) + 1) * kMaxDigits;
+}
+
+// cell: (n,) int32 cell ids; px, py: (n,) f32. Writes perm (n,) int32 and
+// sx, sy (n,) f32 in cell order. Scratch: counts (cell_order_counts(n),)
+// and work (5 n,) int32. Launches on `stream`, does not synchronise,
+// returns a CUDA error code (0 when every launch was accepted).
+extern "C" int cell_order_launch(const int32_t* cell, int n, int num_cells,
+                                 const float* px, const float* py,
+                                 int32_t* perm, float* sx, float* sy,
+                                 int32_t* counts, int32_t* work,
+                                 void* stream) {
+  return order_passes<false>(cell, KeyRule{nullptr, 1, 0, 0}, n, num_cells,
+                             px, py, perm, sx, sy, nullptr, counts, work,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The join index of n b points (see the note at the top): cell (n,) int32
+// and valid (n,) bool of the points, cells the grid's cell count, tile the
+// points per b tile, stride the keys per tile (cells + 3, or 0 for a
+// single tile sorted on its own); every key lies below num_keys. Writes
+// perm (n,) int32, sx, sy (n,) f32 and keys (n,) int32 in key order, and
+// unless starts is nullptr the start table starts (num_starts,) int32.
+// Scratch as cell_order_launch's. Launches on `stream`, does not
+// synchronise, returns a CUDA error code.
+extern "C" int join_index_launch(const int32_t* cell, const uint8_t* valid,
+                                 int n, int cells, int tile, int stride,
+                                 int num_keys, const float* px,
+                                 const float* py, int32_t* perm, float* sx,
+                                 float* sy, int32_t* keys, int32_t* starts,
+                                 int num_starts, int32_t* counts,
+                                 int32_t* work, void* stream) {
+  if (valid == nullptr || keys == nullptr || cells < 1 || tile < 1 ||
+      stride < 0 || num_starts < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int err = order_passes<true>(cell, KeyRule{valid, tile, stride, cells},
+                                     n, num_keys, px, py, perm, sx, sy, keys,
+                                     counts, work, s);
+  if (err != 0 || starts == nullptr || num_starts == 0) return err;
+  join_starts_kernel<<<(num_starts + kScanThreads - 1) / kScanThreads,
+                       kScanThreads, 0, s>>>(keys, n, starts, num_starts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -20,6 +20,11 @@ CUDA kernels:
   :func:`join_pairs_host` above :data:`_LATTICE_BUDGET`. Plain version:
   :func:`join_reduce_plain`.
 
+Both kernels walk the window's join index (:func:`join_index`, built once
+per window by :func:`join_pairs_host` with ``csrc/cell_order.cu``): the b
+points sorted by (b tile, bucket), a bucket being a cell, so that a row
+visits only the runs of cells within its layers (``csrc/join_walk.cuh``).
+
 CPU tensors run the plain versions; CUDA tensors launch the kernels or
 raise. Point x geometry joins take K4x's (G, N) distance rows
 (``geom._lattice``) and geometry x geometry joins K5 in kNN mode
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -54,12 +60,11 @@ JOIN_TILE = 4096
 _LATTICE_BUDGET = 1 << 26
 #: (rows x b) elements per step of the plain versions
 _PLAIN_PAIRS = 1 << 24
-#: operations per (a, b) pair of K6 and K7, counted from the kernels: the
-#: cell test (2 sub, 2 abs, 2 compares, an and) on every pair, the distance
-#: (K6: 2 mul, add, add, mul, sub, compare; K7: 2 sub, 2 mul, add,
-#: compare) and K7's running min (compare, 2 selects) on the pairs inside
-#: the cell layers
-OPS_CELL_TEST = 7
+#: operations per (a, b) pair inside the cell layers that the join needs:
+#: the distance (K6: 2 mul, add, add, mul, sub, compare, with b's centring
+#: and b2 counted once per b point; K7: 2 sub, 2 mul, add, compare) and
+#: K7's running min (compare, 2 selects). The kernels touch no pair outside
+#: the runs a row walks (``csrc/join_walk.cuh``)
 OPS_K6_DIST = 7
 OPS_K7_DIST = 9
 
@@ -258,18 +263,197 @@ def point_geom_gate(points, geoms, nb_layers, n: int):
 
 
 # ------------------------------------------------------------------------ #
+# the join index
+
+
+class JoinIndex(NamedTuple):
+    """A window's b points sorted by (b tile, bucket), stably
+    (``csrc/join_walk.cuh``): ``perm`` (int32, the b index of each sorted
+    position), ``key`` (int32, the sorted keys ``tile * stride + bucket``),
+    ``x``, ``y`` (f32, b's coordinates in that order), ``starts`` (int32,
+    for every key k below ``tiles * stride`` the first sorted position
+    whose key is >= k; None above :data:`MAX_STARTS` entries or when the
+    stride is 0), the ``tile`` (b points per tile) it was built for and
+    ``stride`` (keys per tile; 0 when each tile was sorted on its own).
+    Tile t's points fill the sorted positions ``[t * tile, (t + 1) *
+    tile)``."""
+
+    perm: torch.Tensor
+    key: torch.Tensor
+    x: torch.Tensor
+    y: torch.Tensor
+    starts: Optional[torch.Tensor]
+    tile: int
+    stride: int
+
+
+#: the most keys an int32 key can hold
+_KEY_LIMIT = 2 ** 31 - 1
+#: the most entries of a join index's start table (16 MB); the kernels
+#: find a run's ends by binary search over the keys above it
+MAX_STARTS = 1 << 22
+
+
+def _tile_of(tile, nb: int) -> int:
+    """The b points per tile as the kernels take them (at most nb)."""
+    return max(1, min(int(tile), nb))
+
+
+def index_layout(nb: int, n: int, tile: int):
+    """``(tile, tiles, stride, starts)`` of the join index of nb b points on
+    an n x n grid: the stride is ``n * n + 3`` keys per tile, or 0 when
+    ``tiles`` of them would overflow an int32 key (each tile is then sorted
+    on its own, its keys the buckets alone); ``starts`` the start table's
+    entries (``tiles * stride``, or 0 for none: above :data:`MAX_STARTS`
+    or with a stride of 0)."""
+    tile = _tile_of(tile, nb)
+    tiles = -(-nb // tile) if nb else 0
+    stride = n * n + 3
+    if tiles * stride > _KEY_LIMIT:
+        stride = 0
+    starts = tiles * stride
+    return tile, tiles, stride, (starts if starts <= MAX_STARTS else 0)
+
+
+def index_keys(cell, valid, n: int, tile: int, stride: int):
+    """The join index's key of each b point (int32): ``(i // tile) *
+    stride + bucket`` with the bucket 0 for a cell < 0, ``cell + 1`` for a
+    cell of the grid, ``n*n + 1`` for a cell >= n*n and ``n*n + 2`` for an
+    invalid point."""
+    cells = n * n
+    c = cell.long()
+    bucket = torch.where(c < 0, 0, torch.where(c < cells, c + 1, cells + 1))
+    bucket = torch.where(valid, bucket, cells + 2)
+    t = torch.arange(c.shape[0], device=c.device) // tile
+    return (t * stride + bucket).to(torch.int32)
+
+
+def join_index_plain(b, n: int, tile: int = JOIN_TILE) -> JoinIndex:
+    """Plain version of :func:`join_index`: :func:`index_keys` sorted by
+    ``cell_order_plain`` (a stable argsort), per tile when the stride is
+    0."""
+    from spatialflink_tpu_torch.ops.hopper_kernels import cell_order_plain
+
+    nb = b.x.shape[0]
+    tile, tiles, stride, num_starts = index_layout(nb, n, tile)
+    keys = index_keys(b.cell, b.valid, n, tile, stride)
+    if stride:
+        perm, x, y = cell_order_plain(keys, max(1, tiles * stride), b.x, b.y)
+    else:
+        firsts = range(0, nb, tile)
+        parts = [cell_order_plain(keys[s:s + tile], n * n + 3,
+                                  b.x[s:s + tile], b.y[s:s + tile])
+                 for s in firsts]
+        perm = torch.cat([q[0] + s for q, s in zip(parts, firsts)])
+        x = torch.cat([q[1] for q in parts])
+        y = torch.cat([q[2] for q in parts])
+    key = keys[perm.long()]
+    starts = None
+    if num_starts:
+        starts = torch.searchsorted(
+            key.long(), torch.arange(num_starts, device=key.device)
+        ).to(torch.int32)
+    return JoinIndex(perm, key, x, y, starts, tile, stride)
+
+
+_INDEX_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   *(ctypes.c_void_p,) * 7, ctypes.c_int,
+                   *(ctypes.c_void_p,) * 3)
+
+
+def join_index(b, n: int, tile: int = JOIN_TILE) -> JoinIndex:
+    """The join index of a window's b batch (:class:`JoinIndex`), which K7
+    and K6 walk. CPU tensors run :func:`join_index_plain`; CUDA tensors
+    launch ``csrc/cell_order.cu``'s sort (``join_index_launch``: the key
+    formed in its first pass, the sorted keys written by its last, then
+    the start table), each launch counted in
+    ``hopper_kernels.cell_order.launches``."""
+    dev = b.x.device
+    if dev.type == "cpu":
+        return join_index_plain(b, n, tile)
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+
+    _check_points("join_index", b, dev, "b")
+    nb = b.x.shape[0]
+    tile, tiles, stride, num_starts = index_layout(nb, n, tile)
+    perm = torch.empty(nb, dtype=torch.int32, device=dev)
+    key = torch.empty(nb, dtype=torch.int32, device=dev)
+    x, y = torch.empty_like(b.x), torch.empty_like(b.y)
+    starts = (torch.empty(num_starts, dtype=torch.int32, device=dev)
+              if num_starts else None)
+    if nb == 0:
+        return JoinIndex(perm, key, x, y, None, tile, stride)
+    # one sort over every tile, or (stride 0) one per tile
+    spans = [(0, nb)] if stride else [(s, min(nb, s + tile))
+                                      for s in range(0, nb, tile)]
+    width = max(e - s for s, e in spans)
+    counts = native.function("cell_order", "cell_order_counts",
+                             (ctypes.c_int,))(width)
+    scratch = torch.empty(counts + 5 * width, dtype=torch.int32, device=dev)
+    launch = native.function("cell_order", "join_index_launch",
+                             _INDEX_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def at(t, s):  # a pointer s items into a contiguous 1-D tensor
+        return t.data_ptr() + s * t.element_size()
+
+    with torch.cuda.device(dev):
+        for s, e in spans:
+            err = launch(at(b.cell, s), at(b.valid, s), e - s, n * n,
+                         tile if stride else e - s, stride,
+                         tiles * stride if stride else n * n + 3,
+                         at(b.x, s), at(b.y, s), at(perm, s), at(x, s),
+                         at(y, s), at(key, s), _ptr(starts), num_starts,
+                         scratch.data_ptr(), at(scratch, counts),
+                         stream)
+            native.check(err, "join_index")
+            HK.cell_order.launches += 1
+            if s:
+                perm[s:e] += s
+    return JoinIndex(perm, key, x, y, starts, tile, stride)
+
+
+def _check_index(what, index, b, dev, tile=None) -> None:
+    """The join index of ``b`` on ``dev`` (built for ``tile`` when given)."""
+    nb = b.x.shape[0]
+    for field, dtype in (("perm", torch.int32), ("key", torch.int32),
+                         ("x", torch.float32), ("y", torch.float32)):
+        t = getattr(index, field)
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != (nb,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{what}: index.{field} must be a contiguous "
+                             f"({nb},) {dtype} tensor on {dev}")
+    starts = index.starts
+    if starts is not None and (
+            starts.device != dev or starts.dtype != torch.int32
+            or starts.dim() != 1 or not starts.is_contiguous()
+            or starts.shape[0] != -(-nb // index.tile) * index.stride):
+        raise ValueError(f"{what}: index.starts must be a contiguous int32 "
+                         f"tensor on {dev} of one entry per key")
+    if tile is not None and index.tile != tile:
+        raise ValueError(f"{what}: the index was built for tiles of "
+                         f"{index.tile} b points, not {tile}")
+
+
+# ------------------------------------------------------------------------ #
 # the kernels
 
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_REDUCE_ARGTYPES = (_C, _C, _C, _C, _I, _C, _C, _C, _C, _I, _F, _I, _I, _C,
-                    _C, _C, _C)
-_LATTICE_ARGTYPES = (_C, _C, _C, _C, _C, _I, _C, _C, _C, _C, _I, _I, _F, _F,
-                     _F, _I, _I, _I, _C, _C, _C, _C, _C)
+_REDUCE_ARGTYPES = (_C, _C, _C, _C, _I, _C, _I, _C, _C, _C, _C, _C, _I, _I,
+                    _F, _I, _I, _C, _C, _C, _C)
+_LATTICE_ARGTYPES = (_C, _C, _C, _C, _C, _I, _C, _I, _C, _C, _C, _C, _C, _I,
+                     _I, _F, _F, _F, _I, _I, _I, _C, _C, _C, _C, _C)
 #: a rows per block of K6 (csrc/join_lattice.cu kThreads)
 LATTICE_ROWS_PER_BLOCK = 128
+
+
+def _ptr(t):
+    """A tensor's device pointer, or NULL for None."""
+    return None if t is None else t.data_ptr()
 
 
 def _check_points(what, p, dev, name):
@@ -288,18 +472,23 @@ def _check_points(what, p, dev, name):
                              f"({n},) tensor, got {tuple(t.shape)}")
 
 
-def join_reduce(a, b, radius, nb_layers, *, n: int, tile: int = JOIN_TILE):
+def join_reduce(a, b, radius, nb_layers, *, n: int, tile: int = JOIN_TILE,
+                index=None):
     """Per a point against the whole b batch: ``(count (Na,) int32,
     min_d2 (Na,) f32, argmin (Na,) int32)``, as
     :func:`join_reduce_plain` defines them (``tile`` only shapes the plain
-    version's steps: the result does not depend on it). CPU tensors run
-    the plain version; CUDA tensors launch ``csrc/join_reduce.cu`` (K7) or
-    raise."""
+    version's steps and a new index: the result does not depend on it).
+    CPU tensors run the plain version; CUDA tensors launch
+    ``csrc/join_reduce.cu`` (K7) over ``index``, b's :func:`join_index`
+    (built here when None), or raise."""
     dev = a.x.device
     if dev.type == "cpu":
         return join_reduce_plain(a, b, radius, nb_layers, n=n, tile=tile)
     _check_points("join_reduce", a, dev, "a")
     _check_points("join_reduce", b, dev, "b")
+    if index is None:
+        index = join_index(b, n, tile)
+    _check_index("join_reduce", index, b, dev)
     na, nb = a.x.shape[0], b.x.shape[0]
     cnt = torch.empty(na, dtype=torch.int32, device=dev)
     mind2 = torch.empty(na, dtype=torch.float32, device=dev)
@@ -308,10 +497,12 @@ def join_reduce(a, b, radius, nb_layers, *, n: int, tile: int = JOIN_TILE):
                              _REDUCE_ARGTYPES)
     with torch.cuda.device(dev):
         err = launch(a.x.data_ptr(), a.y.data_ptr(), a.cell.data_ptr(),
-                     a.valid.data_ptr(), na, b.x.data_ptr(), b.y.data_ptr(),
-                     b.cell.data_ptr(), b.valid.data_ptr(), nb, _r2(radius),
-                     _layers(nb_layers), int(n), cnt.data_ptr(),
-                     mind2.data_ptr(), amin.data_ptr(),
+                     a.valid.data_ptr(), na, b.cell.data_ptr(), nb,
+                     index.perm.data_ptr(), index.key.data_ptr(),
+                     _ptr(index.starts), index.x.data_ptr(),
+                     index.y.data_ptr(), index.tile, index.stride,
+                     _r2(radius), _layers(nb_layers), int(n),
+                     cnt.data_ptr(), mind2.data_ptr(), amin.data_ptr(),
                      torch.cuda.current_stream(dev).cuda_stream)
     native.check(err, "join_reduce")
     join_reduce.launches += 1
@@ -322,7 +513,7 @@ join_reduce.launches = 0
 
 
 def join_lattice(a, b, radius, nb_layers, center_x, center_y, *, n: int,
-                 tile: int = JOIN_TILE, rows=None):
+                 tile: int = JOIN_TILE, rows=None, index=None):
     """The window's point x point pairs ``(a_index (P,) int32, b_index (P,)
     int32)``: every pair of :func:`join_mask`, ordered by b tile of
     ``tile``, then a, then b (the order of the JAX package's
@@ -330,7 +521,8 @@ def join_lattice(a, b, radius, nb_layers, center_x, center_y, *, n: int,
     a rows, keeping their own indices. CPU tensors run
     :func:`join_lattice_plain`; CUDA tensors launch
     ``csrc/join_lattice.cu`` (K6: a count pass and a scan, one read of the
-    pair total, and a write pass) or raise."""
+    pair total, and a write pass) over ``index``, b's :func:`join_index`
+    for ``tile`` (built here when None), or raise."""
     dev = a.x.device
     if dev.type == "cpu":
         return join_lattice_plain(a, b, radius, nb_layers, center_x,
@@ -344,7 +536,10 @@ def join_lattice(a, b, radius, nb_layers, center_x, center_y, *, n: int,
             raise ValueError("join_lattice: rows must be a contiguous 1-D "
                              f"int32 tensor on {dev}")
     m = na if rows is None else rows.shape[0]
-    tile = max(1, min(int(tile), nb))
+    tile = _tile_of(tile, nb)
+    if index is None:
+        index = join_index(b, n, tile)
+    _check_index("join_lattice", index, b, dev, tile)
     n_tiles = -(-nb // tile) if nb else 0
     blocks = -(-m // LATTICE_ROWS_PER_BLOCK) * n_tiles
     counts = torch.empty(max(1, m * n_tiles), dtype=torch.int32, device=dev)
@@ -352,9 +547,11 @@ def join_lattice(a, b, radius, nb_layers, center_x, center_y, *, n: int,
     layers = _layers(nb_layers)
     args = (a.x.data_ptr(), a.y.data_ptr(), a.cell.data_ptr(),
             a.valid.data_ptr(), None if rows is None else rows.data_ptr(), m,
-            b.x.data_ptr(), b.y.data_ptr(), b.cell.data_ptr(),
-            b.valid.data_ptr(), nb, tile, _f32(center_x), _f32(center_y),
-            _r2(radius), layers, int(layers >= NO_LAYER), int(n),
+            b.cell.data_ptr(), nb, index.perm.data_ptr(),
+            index.key.data_ptr(), _ptr(index.starts), index.x.data_ptr(),
+            index.y.data_ptr(), tile, index.stride, _f32(center_x),
+            _f32(center_y), _r2(radius), layers, int(layers >= NO_LAYER),
+            int(n),
             counts.data_ptr(), offsets.data_ptr())
     stream = torch.cuda.current_stream(dev).cuda_stream
     count = native.function("join_lattice", "join_lattice_count",
@@ -388,7 +585,8 @@ def join_pairs_host(a, b, radius, grid, tile: int = JOIN_TILE,
     at call time), K7 first counts each a row's partners within
     ``sqrt(r^2 + 1e-5)`` (an absolute slack over the expansion's error)
     and K6 runs only over the rows that have one; the pairs are those of
-    the full lattice on those rows, in the same order."""
+    the full lattice on those rows, in the same order. b's
+    :func:`join_index` is built once here and serves both kernels."""
     lattice_strategy()
     if nb_layers is None:
         # radius 0 => every cell is a neighbour (UniformGrid.java:264-266)
@@ -398,15 +596,17 @@ def join_pairs_host(a, b, radius, grid, tile: int = JOIN_TILE,
     if lattice_budget is None:
         lattice_budget = _LATTICE_BUDGET
     rows = None
+    index = join_index(b, grid.n, tile)
     if na * nb > lattice_budget:
         pre_r = float(np.sqrt(radius * radius + 1e-5))
-        cnt, _, _ = join_reduce(a, b, pre_r, nb_layers, n=grid.n)
+        cnt, _, _ = join_reduce(a, b, pre_r, nb_layers, n=grid.n, tile=tile,
+                                index=index)
         rows = torch.nonzero(cnt > 0).reshape(-1).to(torch.int32)
         if rows.numel() == 0:
             empty = np.zeros(0, np.int64)
             return empty, empty.copy()
     ai, bi = join_lattice(a, b, radius, nb_layers, cx, cy, n=grid.n,
-                          tile=tile, rows=rows)
+                          tile=tile, rows=rows, index=index)
     return ai.cpu().numpy().astype(np.int64), bi.cpu().numpy().astype(np.int64)
 
 

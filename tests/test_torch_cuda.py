@@ -7,7 +7,12 @@ a query of more edges than it stages, 1, 3, 16 and 17 queries, windows
 padded to 8, 16, 32 and 40 edges, rows of padded edges only, an empty
 window, geometries inside and around an areal query, near-ties and pairs
 at the pair skip's margin, its counts on a side stream and under CUDA-graph
-replay) against their plain PyTorch versions on the card, bit for bit.
+replay), K7 and K6 (over the join index: every b point at one spot over
+three tiles, so units of 4,096 partners; clustered sides; a 32,767-cell
+grid whose index sorts each tile on its own; K7's -1 corner; equal d^2
+in different cells; layers 0, 1, >= n and 2^30; with and without rows)
+and the join index itself against their plain PyTorch versions on the
+card, bit for bit.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -1120,6 +1125,172 @@ def test_join_lattice_kernel_equals_plain(card, case, layers, tile,
     assert _equal(got, want)
     if case != "invalid-a":
         assert got[0].numel() > 0
+
+
+def _exact(dev, x, y, grid, valid=None):
+    """A point batch of exactly these points (no padded slots)."""
+    b = PointBatch.from_arrays(x, y, device=dev, grid=grid)
+    b = type(b)(*(t[:len(x)] for t in b))
+    if valid is not None:
+        b = b._replace(valid=b.valid & torch.from_numpy(valid).to(dev))
+    return b
+
+
+def _index_case(dev, case):
+    """``(grid, a, b, radius)`` of the join index cases: ``same-wide``
+    (every b point at one spot, all valid, over three tiles: units of 4,096
+    partners), ``clustered`` (both sides Gaussian, sigma 0.3 cells, as taxi
+    traces bunch downtown), ``grid-32767`` (a 32,767-cell grid, points
+    spread over it and bunched in one corner block, b over three tiles
+    and then some: the index sorts each tile on its own), ``corner`` (a
+    and b around cell (0, n - 1), many outside the grid: K7's -1 is
+    (-1, n - 1)), ``ties`` (a on cell corners, b at the four half-cell
+    offsets of each: equal d^2 in four cells, in shuffled b order) and
+    ``grid-2048`` (a 2,048-cell grid over three tiles: a stride of its own
+    but no start table, whose runs come from binary search)."""
+    from spatialflink_tpu_torch.index import UniformGrid as Grid
+
+    grid = Grid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    rng = np.random.default_rng(17)
+    if case == "same-wide":
+        a = _exact(dev, rng.uniform(3.5, 5.0, 600),
+                   rng.uniform(4.5, 5.8, 600), grid)
+        b = _exact(dev, np.full(9000, 4.3), np.full(9000, 5.1), grid)
+        return grid, a, b, 0.6
+    if case == "clustered":
+        def pts(k):
+            return _exact(dev, rng.normal(4.3, 0.3, k),
+                          rng.normal(5.1, 0.3, k), grid, rng.random(k) > 0.1)
+        return grid, pts(3000), pts(5000), 0.1
+    if case == "grid-32767":
+        big = Grid(0.0, 32767.0, 0.0, 32767.0, num_grid_partitions=32767)
+
+        def pts(k):
+            x = rng.uniform(0.0, 32767.0, k)
+            y = rng.uniform(0.0, 32767.0, k)
+            m = 2 * k // 5
+            x[:m] = rng.uniform(20.0, 70.0, m)
+            y[:m] = rng.uniform(32700.0, 32767.5, m)
+            return _exact(dev, x, y, big, rng.random(k) > 0.05)
+        return big, pts(5000), pts(3 * 4096 + 77), 1.5
+    if case == "grid-2048":
+        g = Grid(0.0, 2048.0, 0.0, 2048.0, num_grid_partitions=2048)
+
+        def pts(k):
+            x = rng.uniform(0.0, 2048.0, k)
+            y = rng.uniform(0.0, 2048.0, k)
+            m = k // 2
+            x[:m] = rng.uniform(1000.0, 1040.0, m)
+            y[:m] = rng.uniform(2010.0, 2048.5, m)
+            return _exact(dev, x, y, g, rng.random(k) > 0.05)
+        return g, pts(4000), pts(2 * 4096 + 300), 1.5
+    if case == "corner":
+        def pts(k):
+            return _exact(dev, rng.uniform(-0.7, 0.7, k),
+                          rng.uniform(8.8, 10.2, k), grid,
+                          rng.random(k) > 0.05)
+        return grid, pts(400), pts(700), 0.5
+    assert case == "ties"
+    corners = np.array([(i, j) for i in range(1, 10) for j in range(1, 10)],
+                       dtype=np.float64)
+    offs = np.array([(-0.5, 0.0), (0.5, 0.0), (0.0, -0.5), (0.0, 0.5)])
+    bxy = (corners[:, None, :] + offs[None, :, :]).reshape(-1, 2)
+    bxy = np.concatenate([bxy, [(-0.5, 9.5), (10.25, 1.0)]])
+    bxy = bxy[rng.permutation(bxy.shape[0])]
+    axy = np.concatenate([corners, [(-0.25, 9.75)]])
+    return (grid, _exact(dev, axy[:, 0], axy[:, 1], grid),
+            _exact(dev, bxy[:, 0], bxy[:, 1], grid,
+                   rng.random(bxy.shape[0]) > 0.05), 0.5)
+
+
+INDEX_CASES = ("same-wide", "clustered", "grid-32767", "grid-2048",
+               "corner", "ties")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INDEX_CASES + ("small",))
+@pytest.mark.parametrize("tile", [4096, 64])
+def test_join_index_kernel_equals_plain(card, case, tile):
+    """The join index (cell_order.cu's join_index_launch) against its
+    plain version (the composite key through cell_order_plain)."""
+    from spatialflink_tpu_torch.ops import join as J
+
+    if case == "small":
+        grid, _, b, _ = _join_batches(card, **JOIN_CASES["small"])
+    else:
+        grid, _, b, _ = _index_case(card, case)
+    launches = HK.cell_order.launches
+    got = J.join_index(b, grid.n, tile)
+    want = J.join_index_plain(b, grid.n, tile)
+    torch.cuda.synchronize()
+    assert HK.cell_order.launches > launches
+    assert (got.tile, got.stride) == (want.tile, want.stride)
+    assert _equal(tuple(got[:4]), tuple(want[:4]))
+    assert (got.starts is None) == (want.starts is None)
+    if want.starts is not None:
+        assert torch.equal(got.starts, want.starts)
+    if case == "grid-32767" and tile == 4096:
+        assert got.stride == 0  # four tiles would overflow an int32 key
+    if case.startswith("grid-"):
+        assert got.starts is None  # over the start table's cap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INDEX_CASES)
+@pytest.mark.parametrize("layers", [0, 1, 12, 2 ** 30])
+def test_join_reduce_over_index_equals_plain(card, case, layers):
+    from spatialflink_tpu_torch.ops import join as J
+
+    grid, a, b, r = _index_case(card, case)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    before = torch.cuda.memory_allocated(card)
+    got = J.join_reduce(a, b, r, layers, n=grid.n)
+    torch.cuda.synchronize()
+    # nothing in proportion to n^2 (4 GB of int32 at n = 32,767)
+    assert torch.cuda.max_memory_allocated(card) - before < 64 << 20
+    want = J.join_reduce_plain(a, b, r, layers, n=grid.n)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+    if layers:
+        assert (got[0] > 0).any()
+    if case == "ties" and layers:
+        assert (got[0] >= 4).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", INDEX_CASES)
+@pytest.mark.parametrize("layers", [0, 1, 12, 2 ** 30])
+@pytest.mark.parametrize("with_rows", [False, True])
+def test_join_lattice_over_index_equals_plain(card, case, layers, with_rows):
+    from spatialflink_tpu_torch.ops import join as J
+
+    grid, a, b, r = _index_case(card, case)
+    cx, cy = J.grid_center(grid)
+    rows = None
+    if with_rows:
+        cnt, _, _ = J.join_reduce_plain(a, b, r + 0.01, layers, n=grid.n)
+        rows = torch.nonzero(cnt > 0).reshape(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    before = torch.cuda.memory_allocated(card)
+    got = J.join_lattice(a, b, r, layers, cx, cy, n=grid.n, rows=rows)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card) - before
+    want = J.join_lattice_plain(a, b, r, layers, cx, cy, n=grid.n, rows=rows)
+    torch.cuda.synchronize()
+    assert _equal(got, want)
+    pairs = int(got[0].numel())
+    assert peak < (64 << 20) + pairs * 8
+    if layers:
+        assert pairs > 0
+    if case == "same-wide" and layers:
+        # units of 4,096 partners (tile 0) and of 808 (tile 2)
+        ai, bi = (t.cpu().numpy() for t in got)
+        first = ai[bi < 4096]
+        per_row = np.bincount(first)
+        assert per_row.max() == 4096
+        assert (np.bincount(ai[bi >= 8192]).max()) == 9000 - 8192
 
 
 @pytest.mark.cuda
