@@ -101,7 +101,33 @@ its wall seconds):
    objects. Option 71 once more under torch.profiler, and the CLI runs
    option 21 from a 16,384-line GeoJSON file against an in-process run
    over the same lines.
-5. The spatial joins at a radius of 0.002 degrees, against four seeded
+5. Panes and the standing-query plane. K3 ``knn_merge`` against its
+   plain version bit for bit at (panes, queries, k) = (2, 1, 50) (option
+   51's window under panes), (2, 16, 50), (10, 16, 50), (4, 1, 1,024),
+   (60, 1, 100) and (16, 2, 1,024) (two tiles), and on ties at the k-th
+   place, 64 objects over every pane and all-invalid rows, each with its
+   CUDA-event time, launch-to-completion time and bound. Then options 1
+   and 51 (k = 50) and multiQuery 1 and 51 (16 points) over the point
+   stream with ``query.panes``, multiQuery 51 once more at 10 s / 1 s
+   windows (10 panes a window), and options 21 and 71 over 32,768 parsed
+   polygons spread over the 20 s (every eighth): each under the device
+   merge (K3 launched once per window) and, for kNN, the host merge (no
+   K3 launch), and under the device merge with every kernel swapped for
+   its plain version, all equal window for window, and equal to the
+   panes-off run (the main path's run of the option where there is one;
+   kNN identical, range as sets). Then the dynamic plane (``run_dynamic``
+   through run_option from a live registry): options 1 and 51 over the
+   point stream and 16 and 31 over 32,768 polygons and linestrings spread
+   the same way, with five seed queries (bucket 8), three admitted (8),
+   one more (16), then six retired (4), each change landing at the window
+   it was scripted for; the run equal to its plain-kernel run, and each
+   query's windows equal to its dedicated run (a single-query run over
+   the same decoded chunks; for a geometry stream the row of one static
+   run_multi of the nine queries), with records/s and the median and p99
+   wall time per window. Last, the CLI runs option 51 with
+   ``--queries-file`` (five queries, one on a ``file:`` route) on the
+   65,536-row CSV against an in-process run of the same fleet.
+6. The spatial joins at a radius of 0.002 degrees, against four seeded
    query streams over the same 20 s (16,384 and 256 CSV query points:
    8,192 and 128 per window; 1,024 GeoJSON polygons and linestrings
    shaped as the geometry streams: 512 per window). K7 ``join_reduce`` at
@@ -132,11 +158,11 @@ its wall seconds):
    with pairs/s, pairs per window and the median and p99 wall time per
    window. Then option 101's stages one after another, its trace under
    torch.profiler, and the CLI for 101 with ``--input2``.
-6. Output: the build report, the card line, one JSON ``kernels`` line
+7. Output: the build report, the card line, one JSON ``kernels`` line
    (K4x's entry holds the cell order under ``helpers``, with the joins'
    index under its ``join``; K5's the window cases and its micro-batch
-   cases; K4x's and K5's their join cases, also under ``join``; K7 and
-   K6), and as the last line
+   cases; K4x's and K5's their join cases, also under ``join``; K7, K6
+   and K3), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result line when CUDA is not available or the
@@ -170,6 +196,7 @@ N_GEOM = 1 << 18                  # geometries in each geometry stream
 WINDOW_GEOMS = N_GEOM // 2        # geometries of one 10 s window
 N_GEOM_RUNS = 1 << 17             # geometries of the GEOM_RUNS and 71's profile
 N_GEOM_OTHER = 1 << 16            # geometries of the options run once
+N_GEOM_SPREAD = 1 << 15           # geometries of the pane and dynamic runs
 N_GEOM_LINES = 1 << 16            # lines of option 21's run from the lines
 N_GEOM_CLI = 1 << 14              # polygons of the CLI's GeoJSON file
 N_CLI = 1 << 16                   # rows of the CLI's CSV
@@ -1010,7 +1037,8 @@ COUNT_RUNS = [
     (51, False, 50, ("knn_topk",)),
 ]
 KERNELS = ("pip_dist", "range_mask_stats", "knn_topk", "pip_lattice",
-           "cell_order", "geom_stream_dist", "join_reduce", "join_lattice")
+           "cell_order", "geom_stream_dist", "join_reduce", "join_lattice",
+           "knn_merge")
 
 
 def stream_lines(seed: int, n: int):
@@ -1049,8 +1077,9 @@ def _selected(payload) -> int:
 
 def run_pipeline(params, lines):
     """One run of run_option on the card: per-window (start, end, [one
-    payload per query]), per-window latencies (ms), the records'
-    ``latency_ms`` (latency variants) and wall seconds."""
+    payload per query], the fleet's query ids or None), per-window
+    latencies (ms), the records' ``latency_ms`` (latency variants) and
+    wall seconds."""
     import torch
 
     from spatialflink_tpu_torch.driver import run_option
@@ -1068,7 +1097,8 @@ def run_pipeline(params, lines):
         lat.append((time.perf_counter() - t0) * 1e3)
         per_query = w.records if "queries" in w.extras else [w.records]
         wins.append((w.window_start, w.window_end,
-                     [_payload(r) for r in per_query]))
+                     [_payload(r) for r in per_query],
+                     w.extras.get("query_ids")))
         rec_lat.extend(w.extras.get("latency_ms", ()))
     return wins, lat, rec_lat, time.perf_counter() - t_start
 
@@ -1108,12 +1138,19 @@ def _pct(values, q):
     return float(np.percentile(values, q)) if len(values) else None
 
 
+#: per-window results of the main path's windowed runs over the whole
+#: point stream, by (option, multiQuery, k): the pane phase's panes-off
+#: references
+FULL_WINDOWS: dict = {}
+
+
 def main_path_phase(card: str, lines, runs, window=None):
     """Each run of ``runs`` through run_option on the card, then again with
     every kernel swapped for its plain version: equal per-window results,
     the launch counters non-zero for every kernel of the run's path, and
     one native parser call per decode chunk in both runs. ``window``
-    replaces the conf's window block (count windows)."""
+    replaces the conf's window block (count windows). The windowed runs
+    over the whole stream are kept in :data:`FULL_WINDOWS`."""
     import torch
 
     from spatialflink_tpu_torch.driver import CASES
@@ -1223,6 +1260,8 @@ def main_path_phase(card: str, lines, runs, window=None):
             row["record_latencies"] = len(rec_lat)
         if opt >= 51:
             row["first_list"] = wins[min(2, len(wins) - 1)][2][0][:3]
+        if mode == "window" and len(lines) == N_STREAM:
+            FULL_WINDOWS[(opt, multi, query.k)] = wins
         log("main-path", json.dumps(row))
         report.append(row)
         torch.cuda.empty_cache()
@@ -1829,6 +1868,452 @@ def geom_cli_phase(lines) -> None:
         log(f"cli: option 21 over {len(lines)} GeoJSON polygons -> "
             f"{want.count(chr(10))} windows, stdout equals the in-process "
             f"run ({want.splitlines()[0]})")
+
+
+# ------------------------------------------------------------------------ #
+# panes (K3) and the standing-query plane
+
+#: (option, multiQuery, k or None for the conf's, window (interval s,
+#: step s) or None for the conf's 10 s / 5 s, kernels of its path) of the
+#: pane runs over the point stream
+PANE_RUNS = [
+    (1, False, None, None, ("range_mask_stats",)),
+    (51, False, 50, None, ("knn_topk", "knn_merge")),
+    (1, True, None, None, ("range_mask_stats",)),
+    (51, True, 50, None, ("knn_topk", "knn_merge")),
+    (51, True, 50, (10, 1), ("knn_topk", "knn_merge")),
+]
+#: the pane runs over N_GEOM_SPREAD parsed polygons spread over the 20 s
+GEOM_PANE_RUNS = [
+    (21, False, None, None, ("geom_stream_dist",)),
+    (71, False, None, None, ("geom_stream_dist", "knn_topk", "knn_merge")),
+]
+#: the K3 cases: (name, panes, queries, k, id pool, distances drawn from
+#: (None: uniform), share of valid slots)
+K3_CASES = [
+    ("51-window", 2, 1, 50, N_IDS, None, 1.0),
+    ("51-multi-window", 2, N_QUERIES, 50, N_IDS, None, 1.0),
+    ("51-multi-10-panes", 10, N_QUERIES, 50, N_IDS, None, 1.0),
+    ("k1024", 4, 1, 1024, N_IDS, None, 1.0),
+    ("60-panes", 60, 1, 100, N_IDS, None, 1.0),
+    ("ties", 10, N_QUERIES, 50, N_IDS, (0.25, 0.5), 1.0),
+    ("duplicates", 10, N_QUERIES, 50, 64, None, 1.0),
+    ("all-invalid", 4, N_QUERIES, 50, N_IDS, None, 0.0),
+    ("two-tiles", 16, 2, 1024, N_IDS, None, 0.9),
+]
+#: the dynamic fleet: five seed points, then three admitted (bucket 8),
+#: one more (bucket 16), then six retired (bucket 4)
+DYN_SEEDS = 5
+DYN_ADMIT, DYN_ADMIT_MORE, DYN_RETIRE = 3, 1, 6
+
+
+def k3_phase(torch, seed: int, timer: Timer):
+    """K3 ``knn_merge`` against its plain version bit for bit at the pane
+    merges' shapes (option 51's window: 2 panes x k = 50, 1 and 16
+    queries; 10 panes; k = 1,024; 60 panes of k = 100; rows of two tiles)
+    and on ties at the k-th place, one object in many panes and rows of
+    invalid slots: each with its CUDA-event time, launch-to-completion
+    time and bound (P*Q*k*9 bytes read, Q*k*9 written)."""
+    from spatialflink_tpu_torch.ops import knn as K
+
+    rng = np.random.default_rng(seed + 31)
+    cases = []
+    for name, p, q, k, ids, dists, share in K3_CASES:
+        shape = (p, q, k)
+        oid = rng.integers(0, ids, shape).astype(np.int32)
+        d = (rng.uniform(0.0, 0.5, shape) if dists is None
+             else rng.choice(np.asarray(dists), shape)).astype(np.float32)
+        # a K2 partial lists its valid slots first, by distance
+        d.sort(axis=2)
+        valid = np.arange(k)[None, None, :] < np.round(share * k)
+        valid = np.broadcast_to(valid, shape).copy()
+        oid = np.where(valid, oid, K._OID_SENTINEL).astype(np.int32)
+        d = np.where(valid, d, np.float32(K._BIG)).astype(np.float32)
+        args = [torch.from_numpy(a).cuda() for a in (oid, d, valid)]
+        n = p * q * k
+        case, _ = kernel_case(
+            timer, torch, name, lambda: K.knn_merge(*args, k),
+            lambda: K.merge_topk_stacked_plain(*args, k), 2 * n,
+            9 * n + 9 * q * k, "k3", panes=p, queries=q, k=k)
+        case["launch_to_completion_ms"] = launch_ms(
+            torch, lambda: K.knn_merge(*args, k))
+        cases.append(case)
+    return cases
+
+
+def _plain_kernels():
+    """{(module, name): plain version} of every kernel the pane and
+    dynamic runs can reach."""
+    from spatialflink_tpu_torch.ops import geom as G
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+    from spatialflink_tpu_torch.ops import knn as K
+    from spatialflink_tpu_torch.ops import range as R
+
+    return {
+        (R, "range_filter_point_stats"): R.range_filter_point_stats_plain,
+        (R, "range_filter_point_multi_masks"):
+            R.range_filter_point_multi_masks_plain,
+        (R, "range_filter_masks_stats"): R.range_filter_masks_stats_plain,
+        (HK, "pip_dist"): HK.pip_dist_plain,
+        (K, "knn_topk"): K.knn_topk_plain,
+        (K, "knn_merge"): K.merge_topk_stacked_plain,
+        (G, "geom_stream_dist"): G.geom_stream_dist_plain,
+    }
+
+
+def _counters():
+    from spatialflink_tpu_torch.ops import geom as G
+    from spatialflink_tpu_torch.ops import knn as K
+    from spatialflink_tpu_torch.ops import range as R
+
+    return {"range_mask_stats": R.range_mask_stats, "knn_topk": K.knn_topk,
+            "knn_merge": K.knn_merge, "geom_stream_dist": G.geom_stream_dist}
+
+
+def _counted_run(params, records, plain=False):
+    """run_pipeline with every launch counter zeroed before and read after
+    (and, with ``plain``, every kernel swapped for its plain version):
+    (windows, latencies, wall s, launches)."""
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    saved = {}
+    if plain:
+        saved = {key: getattr(*key) for key in _plain_kernels()}
+        for (mod, name), fn in _plain_kernels().items():
+            setattr(mod, name, fn)
+    try:
+        wins, lat, _, wall = run_pipeline(params, records)
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    return wins, lat, wall, {n: fn.launches for n, fn in counters.items()}
+
+
+def _as_set(payload):
+    """A range window's selection in an order-free form: the (x, y, ts,
+    oid) columns sorted, or the geometry objects' identities sorted."""
+    if payload and isinstance(payload[0], np.ndarray):
+        order = np.lexsort(payload[::-1])
+        return [a[order] for a in payload]
+    return sorted(id(r) for r in payload)
+
+
+def pane_phase(card: str, runs, records, base, full_windows=None):
+    """Each run of ``runs`` with ``query.panes`` through run_option on the
+    card, under the device merge and (kNN) under the host merge, and
+    under the device merge with every kernel swapped for its plain
+    version, against the panes-off run (``full_windows``' run of the same
+    option over ``records`` where there is one): the device-merge run
+    equal to the plain
+    and the host-merge runs window for window, and to the panes-off run
+    (kNN identical, range as sets); K3 launched once per window under the
+    device merge and never under the host merge. A range run has no
+    device merge: its panes concatenate on the host either way."""
+    import torch
+
+    launches = dict.fromkeys(KERNELS, 0)
+    report = []
+    for opt, multi, k, window, path in runs:
+        query = dataclasses.replace(base.query, option=opt, multi_query=multi,
+                                    k=k or base.query.k, panes=True,
+                                    pane_device_merge=True)
+        params = dataclasses.replace(base, query=query)
+        if window is not None:
+            params = dataclasses.replace(params, window=dataclasses.replace(
+                params.window, interval_s=window[0], step_s=window[1]))
+        label = (f"{opt}{'-multi' if multi else ''}-panes"
+                 f"{'-%ds/%ds' % window if window else ''}")
+        wins, lat, wall, got = _counted_run(params, records)
+        for name in got:
+            launches[name] += got[name]
+        if any(got[name] <= 0 for name in path):
+            raise AssertionError(f"{label}: kernels of its path not "
+                                 f"launched {got}")
+        if opt >= 51 and got["knn_merge"] != len(wins):
+            raise AssertionError(f"{label}: {got['knn_merge']} K3 launches "
+                                 f"for {len(wins)} windows")
+        pwins, _, pwall, pgot = _counted_run(params, records, plain=True)
+        if any(pgot.values()):
+            raise AssertionError(f"{label}: the plain run launched {pgot}")
+        checks = [(pwins, "plain")]
+        row = {}
+        if opt >= 51:
+            query.pane_device_merge = False
+            hwins, hlat, hwall, hgot = _counted_run(params, records)
+            if hgot["knn_merge"]:
+                raise AssertionError(f"{label}: the host merge launched K3")
+            checks.append((hwins, "host-merge"))
+            row.update(host_merge_wall_s=hwall,
+                       host_merge_median_window_ms=float(np.median(hlat)),
+                       host_merge_launches={n: v for n, v in hgot.items()
+                                            if v})
+        owins = (full_windows or {}).get((opt, multi, query.k)) \
+            if window is None else None
+        if owins is None:
+            query.panes = False
+            owins, olat, owall, ogot = _counted_run(params, records)
+            row.update(panes_off_wall_s=owall,
+                       panes_off_median_window_ms=float(np.median(olat)),
+                       panes_off_launches={n: v for n, v in ogot.items()
+                                           if v})
+        for other, what in checks:
+            if [w[:2] for w in other] != [w[:2] for w in wins]:
+                raise AssertionError(f"{label}: windows differ from the "
+                                     f"{what} run")
+            for a, b in zip(wins, other):
+                if not _equal(a[2], b[2]):
+                    raise AssertionError(f"{label} window {a[:2]}: result "
+                                         f"differs from the {what} run")
+        if [w[:2] for w in owins] != [w[:2] for w in wins]:
+            raise AssertionError(f"{label}: windows differ with panes off")
+        for a, b in zip(wins, owins):
+            same = (_equal(a[2], b[2]) if opt >= 51 else all(
+                _equal(_as_set(u), _as_set(v)) for u, v in zip(a[2], b[2])))
+            if not same:
+                raise AssertionError(f"{label} window {a[:2]}: result "
+                                     "differs from the panes-off run")
+        if not sum(_selected(q) for w in wins for q in w[2]):
+            raise AssertionError(f"{label}: nothing selected")
+        row = {"option": opt, "multi_query": multi, "label": label,
+               "window_s": list(window or (base.window.interval_s,
+                                           base.window.step_s)),
+               "queries": len(wins[0][2]),
+               "k": query.k if opt >= 51 else None,
+               "records": len(records), "windows": len(wins),
+               "records_per_s": len(records) / wall, "wall_s": wall,
+               "plain_wall_s": pwall,
+               "median_window_ms": float(np.median(lat)),
+               "p99_window_ms": _pct(lat, 99), **row,
+               "panes_off_from_main_path": "panes_off_wall_s" not in row,
+               "launches": {n: v for n, v in got.items() if v},
+               "selected": [[_selected(q) for q in w[2]] for w in wins],
+               "card": card}
+        log("panes", json.dumps(row))
+        report.append(row)
+        torch.cuda.empty_cache()
+    return launches, report
+
+
+def _dyn_points(n):
+    """The dynamic fleet's query points: DYN_SEEDS seeds, then the
+    admissions, spread over the bbox."""
+    rng = np.random.default_rng(103)
+    return [(float(x), float(y)) for x, y in zip(
+        rng.uniform(115.8, 117.3, n), rng.uniform(39.8, 40.9, n))]
+
+
+def _dyn_script(n: int, lateness_s: int):
+    """(record index, change) of the scripted fleet over ``n`` records
+    spread over SPAN_MS: each change one decode chunk after the record
+    that seals the window ending at 5, 10 and 15 s (its end plus the
+    lateness), so it lands on the next window."""
+    def after(end_s):
+        return int((end_s + lateness_s) * 1000 / SPAN_MS * n) + 4096
+
+    seeds = DYN_SEEDS
+    more = seeds + DYN_ADMIT
+    return [(after(5), [("admit", f"q{i}") for i in range(seeds, more)]),
+            (after(10), [("admit", f"q{more}")]),
+            (after(15), [("retire", f"q{i}") for i in range(DYN_RETIRE)])]
+
+
+def _fleet_run(params, records, family, points, script, plain=False):
+    """One dynamic run through run_option with the scripted fleet:
+    (windows, latencies, wall s, launches, the registry)."""
+    from spatialflink_tpu_torch.runtime.queryplane import QueryRegistry
+
+    reg = QueryRegistry(family, radius=params.query.radius,
+                        k=params.query.k)
+    for i in range(DYN_SEEDS):
+        reg.admit({"id": f"q{i}", "x": points[i][0], "y": points[i][1]})
+    reg.apply()
+    params.query_registry = reg
+    todo = {at: changes for at, changes in script}
+
+    def churn():
+        for i, rec in enumerate(records):
+            for op, qid in todo.get(i, ()):
+                if op == "admit":
+                    j = int(qid[1:])
+                    reg.admit({"id": qid, "x": points[j][0],
+                               "y": points[j][1]})
+                else:
+                    reg.retire(qid)
+            yield rec
+
+    try:
+        wins, lat, wall, got = _counted_run(params, churn(), plain=plain)
+    finally:
+        del params.query_registry
+    return wins, lat, wall, got, reg
+
+
+def dynamic_phase(card: str, runs, base):
+    """Options 1 and 51 over the point stream and 16 and 31 over a
+    geometry stream from a live registry (``run_dynamic`` through
+    run_option), the fleet scripted as ``_dyn_script`` says: every
+    window's fleet as scripted, each query's windows equal to its
+    dedicated single-query run (over the same decoded chunks, through the
+    operator API) and the whole run equal to one with every kernel
+    swapped for its plain version; records/s and the median and p99 wall
+    time per window."""
+    import torch
+
+    from spatialflink_tpu_torch import operators as ops
+    from spatialflink_tpu_torch.driver import (CASES, ChunkedStream,
+                                               _query_conf, decode_chunks)
+    from spatialflink_tpu_torch.models import Point
+
+    launches = dict.fromkeys(KERNELS, 0)
+    report = []
+    n_q = DYN_SEEDS + DYN_ADMIT + DYN_ADMIT_MORE
+    points = _dyn_points(n_q)
+    for opt, records, path in runs:
+        spec = CASES[opt]
+        query = dataclasses.replace(base.query, option=opt, k=50)
+        params = dataclasses.replace(base, query=query)
+        script = _dyn_script(len(records), base.query.allowed_lateness_s)
+        wins, lat, wall, got, reg = _fleet_run(params, records, spec.family,
+                                               points, script)
+        for name in got:
+            launches[name] += got[name]
+        if any(got[name] <= 0 for name in path):
+            raise AssertionError(f"dynamic {opt}: kernels of its path not "
+                                 f"launched {got}")
+        pwins, _, pwall, pgot, _ = _fleet_run(params, records, spec.family,
+                                              points, script, plain=True)
+        if any(pgot.values()):
+            raise AssertionError(f"dynamic {opt}: the plain run launched "
+                                 f"{pgot}")
+        fleets = [len(w[3] or ()) for w in wins]
+        want = [DYN_SEEDS, DYN_SEEDS + DYN_ADMIT, n_q, n_q - DYN_RETIRE,
+                n_q - DYN_RETIRE]
+        if fleets != want:
+            raise AssertionError(f"dynamic {opt}: fleets {fleets}, "
+                                 f"scripted {want}")
+        if [(w[:2], w[3]) for w in pwins] != [(w[:2], w[3]) for w in wins] \
+                or not all(_equal(a[2], b[2]) for a, b in zip(wins, pwins)):
+            raise AssertionError(f"dynamic {opt}: differs from the plain "
+                                 "run")
+        # each query's windows against its dedicated run: a single-query
+        # run over the same decoded chunks for a point stream; for a
+        # geometry stream one static run_multi of all the queries (its
+        # rows are the queries' own runs: K5 computes each row alone)
+        t0 = time.perf_counter()
+        grid = params.grids()[0]
+        chunks = list(decode_chunks(records, params.input1, grid, 4096,
+                                    geometry=spec.stream))
+        cls = getattr(ops, f"{spec.stream}{spec.query}"
+                           f"{'KNN' if spec.family == 'knn' else 'Range'}"
+                           "Query")
+        extra = (query.k,) if opt >= 51 else ()
+        qpts = [Point.create(x, y, grid) for x, y in points]
+        if spec.stream == "Point":
+            ded = []
+            for q in qpts:
+                op = cls(_query_conf(params, spec), grid, device="cuda")
+                ded.append({w.window_start: _payload(w.records) for w in
+                            op.run(ChunkedStream(iter(chunks)), q,
+                                   query.radius, *extra)})
+        else:
+            op = cls(_query_conf(params, spec), grid, device="cuda")
+            ded = [{} for _ in qpts]
+            for w in op.run_multi(ChunkedStream(iter(chunks)), qpts,
+                                  query.radius, *extra):
+                for j, recs in enumerate(w.records):
+                    ded[j][w.window_start] = _payload(recs)
+        for j in range(n_q):
+            seen = 0
+            for start, _, per_query, ids in wins:
+                if f"q{j}" in ids:
+                    seen += 1
+                    if not _equal(per_query[ids.index(f"q{j}")],
+                                  ded[j][start]):
+                        raise AssertionError(f"dynamic {opt}: q{j} window "
+                                             f"{start} differs from its "
+                                             "dedicated run")
+            if not seen:
+                raise AssertionError(f"dynamic {opt}: q{j} never served")
+        ded_s = time.perf_counter() - t0
+        row = {"option": opt, "records": len(records), "windows": len(wins),
+               "fleet_per_window": fleets,
+               "fleet_version": reg.fleet_version,
+               "records_per_s": len(records) / wall, "wall_s": wall,
+               "plain_wall_s": pwall, "dedicated_check_s": ded_s,
+               "median_window_ms": float(np.median(lat)),
+               "p99_window_ms": _pct(lat, 99),
+               "launches": {n: v for n, v in got.items() if v},
+               "selected": [[_selected(q) for q in w[2]] for w in wins],
+               "card": card}
+        log("dynamic", json.dumps(row))
+        report.append(row)
+        torch.cuda.empty_cache()
+    return launches, report
+
+
+def queries_cli_phase(seed: int) -> None:
+    """The CLI with ``--queries-file`` (option 51, five queries, one on a
+    ``file:`` route) on the 65,536-row CSV: stdout equal to an in-process
+    run of the same fleet, and the route's JSON lines equal to the
+    in-process router's."""
+    from spatialflink_tpu_torch.driver import (CASES, _emit, _seed_registry,
+                                               run_option)
+    from spatialflink_tpu_torch.runtime.queryplane import QueryRouter
+
+    class Lines:
+        def __init__(self):
+            self.out = io.StringIO()
+
+        def emit(self, record):
+            print(record, file=self.out)
+
+    build = os.path.join(ROOT, "spatialflink_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    lines = stream_lines(seed + 2, N_CLI)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        path = os.path.join(tmp, "points.csv")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        out = {}
+        for side in ("cli", "in-process"):
+            specs = [{"id": f"q{i}", "x": x, "y": y}
+                     for i, (x, y) in enumerate(_dyn_points(5))]
+            specs[1]["route"] = f"file:{os.path.join(tmp, side)}.jsonl"
+            qpath = os.path.join(tmp, f"{side}.json")
+            with open(qpath, "w") as f:
+                json.dump(specs, f)
+            out[side] = qpath
+        proc = subprocess.run(
+            [sys.executable, "-m", "spatialflink_tpu_torch.driver",
+             "--config", CONF, "--option", "51", "--input1", path,
+             "--format", "CSV", "--queries-file", out["cli"], "--device",
+             "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"CLI exit {proc.returncode}: {proc.stderr}")
+        params = base_params()
+        params.query.option = 51
+        params.query_registry = _seed_registry(params, CASES[51],
+                                               out["in-process"])
+        router = QueryRouter(params.query_registry)
+        sink = Lines()
+        for w in run_option(params, lines, device="cuda"):
+            _emit(w, sink)
+            router.route(w)
+        router.close()
+        want = sink.out.getvalue()
+        if proc.stdout != want or "'query_ids': ['q0'" not in want:
+            raise AssertionError(f"CLI --queries-file stdout "
+                                 f"{proc.stdout[:200]!r} != in-process "
+                                 f"{want[:200]!r}")
+        routed = [open(os.path.join(tmp, f"{s}.jsonl")).read()
+                  for s in ("cli", "in-process")]
+        if routed[0] != routed[1] or not routed[0]:
+            raise AssertionError("CLI --queries-file: the file: route's "
+                                 "lines differ from the in-process run's")
+        log(f"cli: option 51 --queries-file over {N_CLI} CSV rows -> "
+            f"{want.count(chr(10))} windows, stdout and the file: route "
+            f"({routed[0].count(chr(10))} lines) equal the in-process run")
 
 
 # ------------------------------------------------------------------------ #
@@ -2483,6 +2968,25 @@ def main(argv=None) -> int:
     phase("cli-geom", geom_cli_phase, glines["Polygon"][:N_GEOM_CLI])
     del glines
 
+    # panes (K3) and the standing-query plane; the geometry runs take
+    # every eighth parsed geometry (N_GEOM_SPREAD spread over the 20 s)
+    k3_cases = phase("kernels-k3", k3_phase, torch, args.seed, timer)
+    spread = {kind: objs[::N_GEOM // N_GEOM_SPREAD]
+              for kind, objs in geoms.items()}
+    pane_launches, pane_report = phase("panes", pane_phase, card, PANE_RUNS,
+                                       lines, base_params(), FULL_WINDOWS)
+    gpane_launches, gpane_report = phase(
+        "panes-geom", pane_phase, card, GEOM_PANE_RUNS, spread["Polygon"],
+        geom_params())
+    dyn_launches, dyn_report = phase(
+        "dynamic", dynamic_phase, card,
+        [(1, lines, ("range_mask_stats",)), (51, lines, ("knn_topk",)),
+         (16, spread["Polygon"], ("geom_stream_dist",)),
+         (31, spread["LineString"], ("geom_stream_dist",))], base_params())
+    phase("cli-queries", queries_cli_phase, args.seed)
+    del spread
+    FULL_WINDOWS.clear()
+
     # the spatial joins: the point stream and the parsed geometry streams
     # against four query streams
     t0 = time.perf_counter()
@@ -2504,7 +3008,8 @@ def main(argv=None) -> int:
     phase("cli-join", join_cli_phase, streams)
     del lines, geoms, streams
     for more in (rt_launches, short_launches, count_launches, geom_launches,
-                 other_launches, join_launches, jrt_launches):
+                 other_launches, pane_launches, gpane_launches, dyn_launches,
+                 join_launches, jrt_launches):
         for name in KERNELS:
             launches[name] += more.get(name, 0)
     micro["geom_stream_dist"] = [c for c in k5_cases
@@ -2604,6 +3109,12 @@ def main(argv=None) -> int:
                           "pair list; the plain version is a masked "
                           "lattice and torch.nonzero per tile")
     kernels += [k7, k6]
+    k3 = entry("knn_merge", "spatialflink_tpu_torch/csrc/knn_merge.cu",
+               "spatialflink_tpu/ops/knn.py:532", k3_cases, k3_cases[0],
+               "2 panes x 1 query x k=50 (option 51's window under panes)")
+    k3["library_note"] = ("no single PyTorch call computes the dedup by id "
+                          "and the top-k of the merged partials")
+    kernels.append(k3)
     phases["total"] = time.perf_counter() - t_all
     log("build-report", json.dumps(build_report))
     print(card, flush=True)
@@ -2611,6 +3122,8 @@ def main(argv=None) -> int:
                       "main_path": report + rt_report + count_report,
                       "geom_path": geom_report + other_report,
                       "join_path": join_report,
+                      "panes": pane_report + gpane_report,
+                      "dynamic": dyn_report,
                       "geom_host": geom_host, "breakdown": breakdown,
                       "profile": prof, "phases_s": phases}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,12 @@ the same answers with PyTorch on the host side and hand-written CUDA C++
 kernels (``csrc/``) for Hopper (``sm_90a``). It imports nothing of JAX and
 nothing of ``spatialflink_tpu``.
 
-Ported so far, windowed over a point stream: range queries, options 1
-(point query), 6 (polygon query) and 11 (linestring query), and kNN
-queries, options 51, 56 and 61, each single-query or multi-query (every
-configured query object in one dispatch per window), through
-:func:`spatialflink_tpu_torch.driver.run_option` and the operator API.
+Ported so far: range and kNN queries over point, polygon and linestring
+streams (options 1-42 and 51-92: windowed, realtime, count windows,
+multi-query, pane-incremental windows, and a dynamic fleet of standing
+point queries), and the spatial joins of two streams (101-142), through
+:func:`spatialflink_tpu_torch.driver.run_option` and the operator API
+(README, "PyTorch / H100 port").
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 ``device="cpu"``, where every kernel's plain PyTorch version runs instead.
 """

@@ -3,7 +3,8 @@
 Reads the same ``conf/spatialflink-conf.yml`` schema as the JAX package —
 the reference's key names, with the leading ``!!`` java type tag tolerated
 — into the same dataclasses. Fields of features this port does not run yet
-(panes, mesh parallelism) are parsed so that the driver can refuse them;
+(mesh parallelism, a join's panes) are parsed so that the driver can refuse
+them;
 of the output block only the delimiter is read (``--output``'s CSV/TSV/WKT
 fields); keys no ported code reads (trajectory and Kafka settings) are
 ignored.
@@ -145,7 +146,12 @@ class QueryConfig:
     multi_query: bool = False  # all query objects in one dispatch
     parallelism: int = 0       # not yet ported: the driver refuses > 1
     hosts: int = 0             # not yet ported: the driver refuses > 1
-    panes: bool = False        # not yet ported: the driver refuses it
+    # pane-incremental sliding windows (--panes; a join refuses it: not
+    # yet ported)
+    panes: bool = False
+    # where kNN pane partials merge (--pane-merge): None = auto (the device
+    # on CUDA, the host on the CPU), True = device, False = host
+    pane_device_merge: Optional[bool] = None
     radius: float = 0.0
     k: int = 10
     query_points: List[Tuple[float, float]] = field(default_factory=list)
@@ -165,6 +171,9 @@ class QueryConfig:
             parallelism=int(_opt(d, "parallelism", 0)),
             hosts=int(_opt(d, "hosts", 0)),
             panes=bool(_opt(d, "panes", False)),
+            pane_device_merge=(None if _opt(d, "paneDeviceMerge", None)
+                               is None
+                               else bool(_opt(d, "paneDeviceMerge", None))),
             radius=float(_opt(d, "radius", 0.0)),
             k=int(_opt(d, "k", 10)),
             query_points=_coord_pairs(_opt(d, "queryPoints", [])),

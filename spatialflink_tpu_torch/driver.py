@@ -17,9 +17,17 @@ join reads its query stream from ``stream2`` (``--input2``), decoded with
 pairs. ``window.type: COUNT`` turns the windowed
 options into sliding count windows (interval and step are record counts).
 ``query.multiQuery`` (or ``--multi-query``) answers every configured query
-object of the option's type in one dispatch per window. Every other
-option, and every flag or config feature not ported yet, is refused with
-"not yet ported to spatialflink_tpu_torch" — never silently ignored.
+object of the option's type in one dispatch per window. ``query.panes``
+(or ``--panes``) runs the sliding windows of the range and kNN options pane
+by pane, each pane evaluated once and each window merged from its panes'
+partials (``--pane-merge``, ``query.paneDeviceMerge``: where kNN partials
+merge); a join refuses it. ``--queries-file`` serves a dynamic fleet of
+point queries (windowed range 1, 16, 31 and kNN 51) from a live
+``runtime.queryplane.QueryRegistry``, seeded from the file or the config's
+``queryPoints``; each window's per-query lists go to the queries' routes.
+Every other option, and every flag or config feature not ported yet, is
+refused with "not yet ported to spatialflink_tpu_torch" — never silently
+ignored.
 
 A point stream in CSV/TSV/GeoJSON decodes through the native columnar
 parser; a polygon or linestring stream (GeoJSON, WKT, CSV/TSV) is parsed
@@ -28,14 +36,15 @@ geometry type is dropped and counted (``decode_chunks.off_type_dropped``).
 
     python -m spatialflink_tpu_torch.driver --config conf/spatialflink-conf.yml \\
         --option 51 --input1 points.csv --format CSV [--multi-query] \\
+        [--panes [--pane-merge auto|device|host]] [--queries-file q.json] \\
         [--input2 queries.csv --format2 CSV] \\
         [--output out.geojson] [--output-format GeoJSON|WKT|CSV|TSV] \\
         [--device cuda|cpu]
 
 stdout carries one line per window as the JAX driver prints it:
 ``{'window': [start, end], 'count': n}`` plus the result's extras (``k``
-for kNN; ``per_query_counts`` and ``queries`` under multiQuery), without
-``latency_ms``; a join's count is its number of pairs, and ``--output``
+for kNN; ``per_query_counts`` and ``queries`` under multiQuery and
+``--queries-file``, which adds ``query_ids``), without ``latency_ms``; a join's count is its number of pairs, and ``--output``
 writes each pair as a JSON array of its two serialized records.
 """
 
@@ -215,9 +224,10 @@ def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
 decode_chunks.off_type_dropped = 0
 
 
-def _check_ported(params: Params) -> None:
+def _check_ported(params: Params, spec: CaseSpec) -> None:
     q = params.query
-    for on, what in ((q.panes, "query.panes"),
+    for on, what in ((q.panes and spec.family == "join",
+                      f"query.panes for a join (queryOption {q.option})"),
                      (q.parallelism > 1, "query.parallelism > 1"),
                      (q.hosts > 1, "query.hosts > 1")):
         if on:
@@ -243,6 +253,8 @@ def _query_conf(params: Params, spec: CaseSpec) -> QueryConfiguration:
         slide_ms=step_ms,
         allowed_lateness_ms=params.query.allowed_lateness_s * 1000,
         approximate=params.query.approximate,
+        panes=params.query.panes,
+        pane_device_merge=params.query.pane_device_merge,
         k=params.query.k,
     )
 
@@ -308,7 +320,7 @@ def run_option(params: Params, stream1: Iterable,
         raise NotImplementedError(
             f"queryOption {opt}: {NOT_PORTED} (ported: "
             f"{', '.join(map(str, sorted(CASES)))})")
-    _check_ported(params)
+    _check_ported(params, spec)
     if params.query.multi_query and spec.family == "join":
         raise ValueError(
             f"multiQuery is not supported for queryOption {opt} (join); "
@@ -339,6 +351,13 @@ def run_option(params: Params, stream1: Iterable,
                                          chunk, geometry=spec.query))
         out = op.run(s1, s2, radius)
         return _with_latency(out) if spec.latency else out
+    registry = getattr(params, "query_registry", None)
+    if registry is not None:
+        # the dynamic plane: the live registry, not the config, says what
+        # runs (changes land at window boundaries)
+        if spec.family == "knn":
+            return op.run_dynamic(s1, registry, radius, params.query.k)
+        return op.run_dynamic(s1, registry, radius)
     if params.query.multi_query:
         return _run_multi_case(params, spec, op, s1, u_grid, radius)
     q = _query_objects(params, u_grid, spec.query)[0]
@@ -347,6 +366,59 @@ def run_option(params: Params, stream1: Iterable,
     else:
         out = op.run(s1, q, radius)
     return _with_latency(out) if spec.latency else out
+
+
+def _dynamic_error(params: Params, spec: CaseSpec) -> Optional[str]:
+    """Why ``--queries-file`` cannot serve this case (the JAX driver's
+    eligibility checks and messages), or None."""
+    if (spec.family not in ("range", "knn") or spec.query != "Point"
+            or (spec.family == "knn" and spec.stream != "Point")):
+        return ("--queries-file/--control-topic (the dynamic "
+                "standing-query plane) serve point-query fleets: "
+                "windowed range over any stream type, and Point/Point "
+                f"kNN — not queryOption {params.query.option} "
+                f"({spec.family}, {spec.stream}x{spec.query})")
+    if spec.mode != "window" or params.window.type == "COUNT":
+        return ("the dynamic standing-query plane runs event-time "
+                "windowed cases only (the fleet changes at window "
+                "boundaries)")
+    if spec.latency:
+        return ("the dynamic standing-query plane does not combine "
+                "with the latency variants (per-record latency "
+                "assumes single-query record lists)")
+    if params.query.multi_query:
+        return ("--multi-query is subsumed by the query registry "
+                "(the live fleet IS the multi-query set); drop the "
+                "flag")
+    return None
+
+
+def _seed_registry(params: Params, spec: CaseSpec, path: str):
+    """The fleet of ``--queries-file``: the file's specs, else the
+    config's ``queryPoints`` (ids q0, q1, ...), admitted and applied
+    before the first window. Raises ValueError (or OSError) with the
+    JAX driver's ``--queries-file:`` messages."""
+    from spatialflink_tpu_torch.runtime.queryplane import (QueryRegistry,
+                                                           QuerySpec,
+                                                           QuerySpecError,
+                                                           load_queries_file)
+
+    registry = QueryRegistry(spec.family, radius=params.query.radius,
+                             k=params.query.k)
+    try:
+        seeds = load_queries_file(path, spec.family)
+    except (OSError, ValueError) as e:
+        raise ValueError(f"--queries-file: {e}") from e
+    if not seeds and params.query.query_points:
+        seeds = [QuerySpec(id=f"q{i}", family=spec.family, x=x, y=y)
+                 for i, (x, y) in enumerate(params.query.query_points)]
+    try:
+        for s in seeds:
+            registry.admit(s)
+    except QuerySpecError as e:
+        raise ValueError(f"--queries-file: {e}") from e
+    registry.apply()  # seeds serve from the first window
+    return registry
 
 
 def _emit(result: WindowResult, sink) -> None:
@@ -397,6 +469,28 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="serialization for --output (spatial records; "
                          "non-spatial result tuples are written as JSON "
                          "lines)")
+    ap.add_argument("--panes", action="store_true",
+                    help="pane-incremental sliding windows (same as "
+                         "query.panes): each slide-aligned pane is "
+                         "evaluated once and a window merges its panes' "
+                         "partials; identical results (range and kNN; "
+                         "tumbling windows bypass it)")
+    ap.add_argument("--pane-merge", choices=["auto", "device", "host"],
+                    default=None,
+                    help="where --panes kNN partials merge: 'device' (one "
+                         "K3 launch per window over the partials on the "
+                         "card), 'host', or 'auto' (default: device on "
+                         "cuda, host on cpu)")
+    ap.add_argument("--queries-file", metavar="PATH", default=None,
+                    help="serve a dynamic fleet of point queries from a "
+                         "JSON file of query specs ([{'id', 'x', 'y', "
+                         "optional 'radius'/'k'/'route'/'slo'}, ...] or "
+                         "{'queries': [...]}; the config's queryPoints "
+                         "when it holds none), padded to power-of-two "
+                         "buckets on the queries' axis, each query's "
+                         "windows to its route (stdout or file:<path>): "
+                         "windowed range over any stream type, and "
+                         "Point/Point kNN")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "PyTorch versions)")
@@ -411,6 +505,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         params.query.option = args.option
     if args.multi_query:
         params.query.multi_query = True
+    if args.panes:
+        params.query.panes = True
+    if args.pane_merge is not None and args.pane_merge != "auto":
+        params.query.pane_device_merge = args.pane_merge == "device"
     if args.format is not None:
         params = dataclasses.replace(
             params, input1=dataclasses.replace(params.input1,
@@ -423,10 +521,36 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("--input1 is required", file=sys.stderr)
         return 2
     spec = CASES.get(params.query.option)
+    if args.panes and spec is not None and spec.family == "join":
+        print(f"--panes: {NOT_PORTED} for a join (queryOption "
+              f"{params.query.option})", file=sys.stderr)
+        return 2
     if spec is not None and spec.family == "join" and not args.input2:
         print(f"queryOption {params.query.option} (join) needs --input2",
               file=sys.stderr)
         return 2
+    router = None
+    if args.queries_file and spec is not None:
+        from spatialflink_tpu_torch.runtime.queryplane import QueryRouter
+
+        why = _dynamic_error(params, spec)
+        if why is not None:
+            print(f"error: {why}", file=sys.stderr)
+            return 2
+        if params.query.panes:
+            print("note: --panes is bypassed on the dynamic standing-query "
+                  "path (pane partials are fleet-shaped; a fleet change "
+                  "would serve stale partials) — full-window evaluation",
+                  file=sys.stderr)
+        try:
+            registry = _seed_registry(params, spec, args.queries_file)
+        except (ValueError, NotImplementedError) as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 2
+        params.query_registry = registry
+        router = QueryRouter(registry)
+        print(f"# query plane: dynamic {spec.family} fleet, "
+              f"{len(registry.active_entries())} live", file=sys.stderr)
     try:
         resolve_device(args.device)
         results = run_option(params, file_lines(args.input1),
@@ -446,6 +570,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     try:
         for result in results:
             _emit(result, sink)
+            if router is not None and "query_ids" in result.extras:
+                # per-query demux: the SLO verdict always, and one JSON
+                # line per (window, query) on a file: route
+                router.route(result)
             if out_sink is not None:
                 for rec in result.flat_records():
                     out_sink.emit(rec)
@@ -454,6 +582,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         sink.close()
         if out_sink is not None:
             out_sink.close()
+        if router is not None:
+            router.close()
     print(f"# emitted {n} results", file=sys.stderr)
     if out_sink is not None:
         print(f"# wrote {out_sink.records_written} records to {args.output} "

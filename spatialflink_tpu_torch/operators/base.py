@@ -15,11 +15,24 @@ emitted. Count windows: every ``slide`` arrivals, the last ``size``
 records (``runtime.count_windows``); ``window_size_ms``/``slide_ms`` are
 then counts.
 
-Not yet ported: panes, the device mesh, checkpointing, the adaptive grid,
-the dynamic query registry, and the drive loop's telemetry, latency-plane,
-governor and accounting hooks. The JAX package's single-device seams
-around the mesh (``_multi_filter_stream``, ``_knn_multi_result``) have no
-mesh to route here, so the port calls the per-batch closures directly.
+Pane-incremental windows (``conf.panes``, sliding time windows whose
+slide divides their size): records are buffered once per slide-aligned
+pane (``runtime.PaneBuffer``), the window evaluator runs once per sealed
+pane, and each window merges its panes' cached partials
+(:meth:`SpatialOperator._pane_eval`): range selections concatenate in pane
+order, kNN lists merge on the host (``ops.knn.merge_topk_host``) or, for
+the device merge, in one K3 launch over the partials still on the device.
+
+The dynamic standing-query plane (:meth:`SpatialOperator._run_dynamic_filter`
+and the kNN ``run_dynamic``): the Q axis comes from a live
+``runtime.queryplane.QueryRegistry``, applied once per window and padded to
+a power-of-two bucket whose padded slots a valid gate forces empty.
+
+Not yet ported: the device mesh, checkpointing, the adaptive grid, and the
+drive loop's telemetry, latency-plane, governor and accounting hooks. The
+JAX package's single-device seams around the mesh
+(``_multi_filter_stream``, ``_knn_multi_result``) have no mesh to route
+here, so the port calls the per-batch closures directly.
 """
 
 from __future__ import annotations
@@ -28,7 +41,7 @@ import dataclasses
 import enum
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Iterable, Iterator, List, Tuple
+from typing import Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,10 +52,12 @@ from spatialflink_tpu_torch.models import (EdgeGeomBatch, MultiPolygon,
                                             Point, PointBatch, Polygon,
                                             single_query_edges)
 from spatialflink_tpu_torch.models.batches import to_device
-from spatialflink_tpu_torch.runtime import (MicroBatcher, WindowAssembler,
-                                            WindowSpec, count_windows)
+from spatialflink_tpu_torch.runtime import (MicroBatcher, PaneBuffer,
+                                            WindowAssembler, WindowSpec,
+                                            count_windows)
 from spatialflink_tpu_torch.streams.bulk import (GeomChunk, LazyRecords,
-                                                 PointChunk, points_to_parsed)
+                                                 PointChunk, PointRows,
+                                                 points_to_parsed)
 from spatialflink_tpu_torch.utils import IdInterner
 
 NOT_PORTED = "not yet ported to spatialflink_tpu_torch"
@@ -70,6 +85,15 @@ class QueryConfiguration:
     k: int = 10
     # records per realtime micro-batch (one dispatch each)
     realtime_batch_size: int = 512
+    # pane-incremental sliding windows (the --panes switch): the window
+    # evaluator runs once per slide-aligned pane and windows merge the
+    # cached partials; identical results. Tumbling windows, specs whose
+    # slide does not divide the size, realtime and count windows bypass it
+    panes: bool = False
+    # where kNN pane partials merge (--pane-merge): True on the device (one
+    # K3 launch per window over the partials still there), False on the
+    # host; None picks the device on CUDA and the host on the CPU
+    pane_device_merge: Optional[bool] = None
 
     def window_spec(self) -> WindowSpec:
         return WindowSpec.sliding(self.window_size_ms, self.slide_ms)
@@ -103,28 +127,86 @@ class Deferred:
     copy into pinned host memory on the current stream, and a CUDA event is
     recorded after it; :meth:`finish` waits on that event — the only place
     the host waits for the device — and hands the host arrays to
-    ``collect``. CPU results pass straight through."""
+    ``collect``. CPU results pass straight through. With ``copy=False``
+    (a pane partial that the device merge reads where it lies) nothing is
+    queued, and :meth:`finish`, if it is ever called, copies then. ``ids``
+    is the id space of a kNN result's device ids."""
 
-    __slots__ = ("device_result", "collect", "_host", "_event")
+    __slots__ = ("device_result", "collect", "ids", "_host", "_event")
 
     def __init__(self, device_result: Tuple[torch.Tensor, ...],
-                 collect: Callable[[Tuple[np.ndarray, ...]], List]):
+                 collect: Callable[[Tuple[np.ndarray, ...]], List], *,
+                 copy: bool = True):
         self.device_result = device_result
         self.collect = collect
-        self._event = None
-        if device_result[0].device.type == "cuda":
+        self.ids = None
+        self._host = self._event = None
+        if copy:
+            self._copy()
+
+    def _copy(self) -> None:
+        if self.device_result and \
+                self.device_result[0].device.type == "cuda":
             self._host = tuple(
                 torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                .copy_(t, non_blocking=True) for t in device_result)
+                .copy_(t, non_blocking=True) for t in self.device_result)
             self._event = torch.cuda.Event()
             self._event.record()
         else:
-            self._host = device_result
+            self._host = self.device_result
 
     def finish(self) -> List:
+        if self._host is None:
+            self._copy()
         if self._event is not None:
             self._event.synchronize()
         return self.collect(tuple(t.numpy() for t in self._host))
+
+
+class PaneCache:
+    """The pane partials of a run, keyed by pane start: get-or-evaluate with
+    hit and miss counts, and eviction in ascending window order (once
+    window ``s`` has looked its panes up, no later window needs a pane
+    below ``s + slide``). The JAX package's ``snapshot``/``restore`` wait
+    for checkpoints."""
+
+    __slots__ = ("slide", "cache", "hits", "misses")
+
+    def __init__(self, slide_ms: int):
+        self.slide = slide_ms
+        self.cache: dict = {}
+        self.hits = self.misses = 0
+
+    def get(self, key, evaluate):
+        if key in self.cache:
+            self.hits += 1
+            return self.cache[key]
+        self.misses += 1
+        value = self.cache[key] = evaluate()
+        return value
+
+    def evict_before(self, window_start: int) -> None:
+        limit = window_start + self.slide
+        for dead in [k for k in self.cache if k < limit]:
+            del self.cache[dead]
+
+
+class PanePartial:
+    """One pane's cached partial: the evaluator's raw output (a
+    :class:`Deferred` or a final host value), read back at most once
+    however many windows share the pane. ``stats_done`` marks a partial
+    whose pruning counts a device merge has already taken."""
+
+    __slots__ = ("value", "stats_done")
+
+    def __init__(self, value):
+        self.value = value
+        self.stats_done = False
+
+    def resolve(self):
+        if isinstance(self.value, Deferred):
+            self.value = self.value.finish()
+        return self.value
 
 
 def _record_chunks(stream: Iterable, grid: UniformGrid,
@@ -168,6 +250,10 @@ class SpatialOperator:
         self.pruning = {"gn-bypassed": 0, "distance-computations": 0}
         #: object ids of a geometry stream's batches (kNN ties follow it)
         self.interner = IdInterner()
+        #: the pane partial cache of the last pane run (hits, misses)
+        self.pane_cache: Optional[PaneCache] = None
+        #: pane partials stay on the device for the device merge
+        self._pane_resident = False
 
     def _point_batch(self, records: LazyRecords, ts_base: int) -> PointBatch:
         return records.point_batch(ts_base, self.device)[0]
@@ -229,17 +315,27 @@ class SpatialOperator:
             oid, dist, valid, evals = host
             self.pruning["distance-computations"] += int(evals.sum())
             return _knn_pairs(oid, dist, valid, ids)
-        return Deferred((*res, dist_evals), collect)
+        return self._knn_deferred((*res, dist_evals), collect, ids)
 
-    def _defer_knn_multi(self, res, ids, dist_evals) -> Deferred:
+    def _defer_knn_multi(self, res, ids, dist_evals,
+                         live: Optional[int] = None) -> Deferred:
         """Deferred per-query (objID, distance) lists from a (Q, k)
-        KnnResult; ``dist_evals`` (Q,) is summed into the counter."""
+        KnnResult, the first ``live`` rows (all by default); ``dist_evals``
+        (Q,) is summed into the counter."""
         def collect(host):
             oid, dist, valid, evals = host
             self.pruning["distance-computations"] += int(evals.sum())
             return [_knn_pairs(o, d, v, ids)
-                    for o, d, v in zip(oid, dist, valid)]
-        return Deferred((*res, dist_evals), collect)
+                    for o, d, v in zip(oid[:live], dist[:live],
+                                       valid[:live])]
+        return self._knn_deferred((*res, dist_evals), collect, ids)
+
+    def _knn_deferred(self, device_result, collect, ids) -> Deferred:
+        """A kNN result's :class:`Deferred`, tagged with its id space; a
+        pane partial for the device merge is not copied to the host."""
+        d = Deferred(device_result, collect, copy=not self._pane_resident)
+        d.ids = ids
+        return d
 
     @staticmethod
     def _query_point_arrays(query_points, device: torch.device):
@@ -271,28 +367,171 @@ class SpatialOperator:
                     [idx[idx < n] for idx in (np.nonzero(r)[0] for r in m)])
             return self._defer_with_stats(masks, (gn_c, evals), rows)
 
-        for result in self._multi_results(stream, eval_batch):
+        for result in self._multi_results(
+                stream, eval_batch,
+                pane_merge=self._pane_concat_multi(n_queries)):
             result.extras["queries"] = n_queries
             yield result
 
-    def _drive(self, stream: Iterable, eval_batch
-               ) -> Iterator[WindowResult]:
+    def _drive(self, stream: Iterable, eval_batch, *, pane_merge=None,
+               pane_device_merge=None) -> Iterator[WindowResult]:
         """The drive loop of every mode: ``eval_batch(records, ts_base)``
         returns a record list or a :class:`Deferred`; deferred results are
         pipelined, up to ``conf.pipeline_depth`` in flight, and emitted in
         order. Every window is reported, selected-or-not; a realtime
-        micro-batch only when its selection is not empty."""
+        micro-batch only when its selection is not empty.
+
+        ``pane_merge(parts) -> records`` opts the family into the pane mode
+        (:meth:`_panes_active`): ``eval_batch`` then runs once per sealed
+        pane and each window merges its panes' partials
+        (:meth:`_pane_eval`, with the family's ``pane_device_merge``)."""
+        if pane_merge is not None and self._panes_active():
+            return self._drive_batched(
+                self._pane_windows(stream),
+                self._pane_eval(eval_batch, pane_merge, pane_device_merge))
+        self._pane_resident = False
         return self._drive_batched(self._windows(stream), eval_batch,
                                    realtime=self.realtime)
 
-    def _multi_results(self, stream: Iterable, eval_batch
+    def _multi_results(self, stream: Iterable, eval_batch, *,
+                       pane_merge=None, pane_device_merge=None
                        ) -> Iterator[WindowResult]:
         """:meth:`_drive` for multi-query evaluators, whose result (a list
         of Q per-query lists) is always truthy: in realtime mode a
         micro-batch is dropped when every query's list is empty."""
-        for result in self._drive(stream, eval_batch):
+        for result in self._drive(stream, eval_batch, pane_merge=pane_merge,
+                                  pane_device_merge=pane_device_merge):
             if self.realtime and not any(result.records):
                 continue
+            yield result
+
+    # ------------------------- pane-incremental ----------------------- #
+
+    def _panes_active(self) -> bool:
+        """The pane mode applies: ``conf.panes`` is on, the query runs time
+        windows, and the spec decomposes into panes (tumbling windows and
+        slides that do not divide the size bypass it)."""
+        return (self.conf.panes
+                and self.conf.query_type is QueryType.WindowBased
+                and self.conf.window_spec().pane_decomposable())
+
+    def _pane_windows(self, stream: Iterable) -> Iterator[Tuple]:
+        """The window set and sealing of :meth:`_windows`, each window's
+        payload its list of ``(pane_start, records)``; every record is
+        buffered once."""
+        pb = PaneBuffer(self.conf.window_spec(),
+                        self.conf.allowed_lateness_ms)
+        return pb.assemble(_record_chunks(stream, self.grid))
+
+    def _pane_eval(self, pane_partial, merge_partials, device_merge=None):
+        """The evaluator of pane-window payloads: ``pane_partial(records,
+        pane_start)`` (the family's window evaluator) runs once per sealed
+        pane, and a window's result is ``merge_partials`` of its panes'
+        partials, read back at collect time. ``device_merge(parts)`` (kNN)
+        merges the partials where they lie on the device and returns a
+        :class:`Deferred` of the merged window, or None where the JAX
+        package falls back to the host merge (a part that is not a device
+        partial, or partials of different id spaces): the results are the
+        same. ``conf.pane_device_merge`` None picks the device merge on
+        CUDA (the JAX package picks it off its CPU backend)."""
+        cache = self.pane_cache = PaneCache(self.conf.slide_ms)
+        want = self.conf.pane_device_merge
+        if want is None:
+            want = self.device.type == "cuda"
+        use_device = device_merge is not None and want
+        self._pane_resident = use_device
+
+        def eval_batch(panes, ts_base):
+            parts = [cache.get(p_start,
+                               lambda: PanePartial(pane_partial(payload,
+                                                                p_start)))
+                     for p_start, payload in panes]
+            cache.evict_before(ts_base)
+            merged = device_merge(parts) if use_device else None
+            if merged is not None:
+                return merged
+            return Deferred((), lambda _: merge_partials(
+                [h.resolve() for h in parts]))
+
+        return eval_batch
+
+    @staticmethod
+    def _pane_concat(parts: List) -> List:
+        """The merge of filter-shaped partials: panes are disjoint, so the
+        window's selection is their concatenation in pane order: one
+        :class:`PointRows` over the panes' selected columns for a point
+        stream (``--output`` and the latency variants read it as they read
+        a full window's), the geometries in one list otherwise."""
+        if parts and all(isinstance(p, PointRows) for p in parts):
+            return PointRows.concat(parts)
+        return [r for part in parts for r in part]
+
+    @staticmethod
+    def _pane_concat_multi(n_queries: int):
+        """Per-query :meth:`_pane_concat` for multi-query partials (each a
+        list of Q per-query selections)."""
+        def merge(parts):
+            return [SpatialOperator._pane_concat([part[q] for part in parts])
+                    for q in range(n_queries)]
+        return merge
+
+    # ------------------------ the dynamic plane ----------------------- #
+
+    def _run_dynamic_filter(self, stream: Iterable, registry, radius: float,
+                            multi_mask_builder, batch_fn=None
+                            ) -> Iterator[WindowResult]:
+        """The standing-query driver of the range families: the Q axis is
+        the live fleet of ``registry`` (``runtime.queryplane``). Per
+        window: ``registry.apply()`` lands the staged admissions, updates
+        and retirements; on a ``fleet_version`` bump the padded query
+        arrays and the gated closure over ``multi_mask_builder(points,
+        radius)`` are rebuilt (a change within a size bucket keeps the
+        launch shape); the (B, N) masks are ANDed with the (B,) valid gate
+        and the pruning counters scaled by it, so padded slots select and
+        count nothing; only the live slots become per-query records, and
+        each window carries ``extras["query_ids"]``, its fleet at
+        dispatch. Panes do not engage: partials are fleet-shaped."""
+        batch_fn = batch_fn or self._point_batch
+        state: dict = {"v": -1, "entries": [], "fn": None}
+
+        def ensure() -> None:
+            if state["v"] == registry.fleet_version:
+                return
+            entries, qpts, valid = registry.padded_fleet(self.grid)
+            fn = None
+            if entries:
+                base = multi_mask_builder(qpts, radius)
+                gate = to_device(valid, np.bool_, self.device)
+
+                def fn(b, _base=base, _g=gate):
+                    masks, gn_c, evals = _base(b)
+                    return masks & _g[:, None], gn_c * _g, evals * _g
+            state.update(v=registry.fleet_version, entries=entries, fn=fn)
+
+        window_ids: dict = {}
+
+        def eval_batch(records, ts_base):
+            registry.apply()
+            ensure()
+            live = len(state["entries"])
+            window_ids[ts_base] = [e.id for e in state["entries"]]
+            if not live:
+                return []
+            if not len(records):
+                return [[] for _ in range(live)]
+            masks, gn_c, evals = state["fn"](batch_fn(records, ts_base))
+
+            def rows(m):  # ONE (B, N) device->host transfer
+                n = len(records)
+                return records.take_many(
+                    [idx[idx < n] for idx in
+                     (np.nonzero(r)[0] for r in m[:live])])
+            return self._defer_with_stats(masks, (gn_c, evals), rows)
+
+        for result in self._drive(stream, eval_batch):
+            ids = window_ids.pop(result.window_start, [])
+            result.extras["query_ids"] = ids
+            result.extras["queries"] = len(ids)
             yield result
 
     def _drive_batched(self, batched: Iterable, eval_batch, *,

@@ -32,8 +32,15 @@ Approximate mode: the JAX package also switches its selection to
 exact selection, so its list is the JAX ``sort`` strategy's and JAX's
 approximate list is a prefix of it.
 
-Not yet ported: panes (``merge_partials``), the device mesh, bulk replay
-and ``run_dynamic``.
+Panes (``conf.panes``): each pane's K2 result is a partial; a window's
+merge is :func:`merge_partials` on the host (ties in interned-id order,
+through the id space the partials were built in) or, for the device merge
+(:func:`_knn_device_merge`), one K3 launch over the partials still on the
+device, whose merged list alone is read back.
+``PointPointKNNQuery.run_dynamic`` serves the live fleet of a
+``runtime.queryplane.QueryRegistry`` (option 51 under ``--queries-file``).
+
+Not yet ported: the device mesh and bulk replay.
 """
 
 from __future__ import annotations
@@ -43,9 +50,10 @@ from typing import Iterable, Iterator, List, Optional
 import numpy as np
 
 from spatialflink_tpu_torch.models import Point
-from spatialflink_tpu_torch.operators.base import (GeomQueryMixin,
+from spatialflink_tpu_torch.models.batches import to_device
+from spatialflink_tpu_torch.operators.base import (Deferred, GeomQueryMixin,
                                                    SpatialOperator,
-                                                   WindowResult)
+                                                   WindowResult, _knn_pairs)
 from spatialflink_tpu_torch.ops import distances as D
 from spatialflink_tpu_torch.ops import geom as G
 from spatialflink_tpu_torch.ops import knn as K
@@ -68,15 +76,82 @@ class _CompactIds:
         return self.interner.lookup(int(self.ids[i]))
 
 
+def merge_partials(parts, k: int, interner):
+    """The host pane merge of every kNN pair: per-pane (objID, distance)
+    lists -> the window's exact top-k (``ops.knn.merge_topk_host``).
+    ``interner`` is the id space the partials were built in: its
+    ``intern`` reproduces the kernels' equal-distance order (ascending
+    interned id), never string order."""
+    return K.merge_topk_host(parts, k, tie_key=interner.intern)
+
+
+def _merge_partials_multi(op, n_queries: int, k: int):
+    """Per-query :func:`merge_partials` for the multi-query paths."""
+    def merge(parts):
+        return [merge_partials([p[q] for p in parts], k, op._id_space)
+                for q in range(n_queries)]
+    return merge
+
+
+def _knn_device_merge(op, k: int, n_queries: Optional[int] = None):
+    """The device pane merge of the kNN families: a window's partials, (k,)
+    or (Q, k) K2 results still on the device, merge in one K3 launch
+    (``ops.knn.merge_knn_device(_multi)``) and only the merged list is read
+    back. Returns None, and the host merge runs with the same result,
+    where the JAX package's does: a part that is not a device partial, or
+    partials of another id space than the run's. A partial's distance
+    count rides the first merged readback that takes it
+    (``PanePartial.stats_done``)."""
+    def merge(parts):
+        devs = []
+        for p in parts:
+            v = p.value
+            if (not isinstance(v, Deferred) or len(v.device_result) != 4
+                    or v.ids is not op._id_space):
+                return None
+            devs.append(v.device_result)
+        results = [K.KnnResult(*d[:3]) for d in devs]
+        merged = (K.merge_knn_device(results, k) if n_queries is None
+                  else K.merge_knn_device_multi(results, k))
+        evals = []
+        for p, d in zip(parts, devs):
+            if not p.stats_done:
+                evals.append(d[3])
+                p.stats_done = True
+        ids = op._id_space
+
+        def collect(host):
+            oid, dist, valid, *ev = host
+            op.pruning["distance-computations"] += sum(int(e.sum())
+                                                       for e in ev)
+            if n_queries is None:
+                return _knn_pairs(oid, dist, valid, ids)
+            return [_knn_pairs(o, d, v, ids)
+                    for o, d, v in zip(oid, dist, valid)]
+
+        return Deferred((*merged, *evals), collect)
+
+    return merge
+
+
 class _KnnOperator(SpatialOperator):
     """The kNN drive loops shared by the point and geometry query forms:
     per run, a closure ``local(batch, num_ids) -> (KnnResult, dist_evals)``
     evaluates one window batch."""
 
+    @property
+    def _id_space(self):
+        """The id space of the run's windowed results: the stream's decode
+        interner for a point stream (set by the first batch), the
+        operator's own for a geometry stream."""
+        seen = getattr(self, "_ids_seen", None)
+        return self.interner if seen is None else seen
+
     def _knn_batch(self, records, ts_base: int):
         """``(batch, id lookup)``: the lookup's size is K2's ``num_ids``;
         in realtime mode the batch carries compacted ids."""
         if not self.realtime:
+            self._ids_seen = records.interner
             return self._point_batch(records, ts_base), records.interner
         batch, ids = records.point_batch(ts_base, self.device, compact=True)
         return batch, _CompactIds(ids, records.interner)
@@ -90,7 +165,11 @@ class _KnnOperator(SpatialOperator):
             res, evals = local(batch, len(ids))
             return self._defer_knn(res, ids, evals)
 
-        for result in self._drive(stream, eval_batch):
+        for result in self._drive(
+                stream, eval_batch,
+                pane_merge=lambda parts: merge_partials(parts, k,
+                                                        self._id_space),
+                pane_device_merge=_knn_device_merge(self, k)):
             result.extras["k"] = k
             yield result
 
@@ -104,7 +183,10 @@ class _KnnOperator(SpatialOperator):
             res, evals = local(batch, len(ids))
             return self._defer_knn_multi(res, ids, evals)
 
-        for result in self._multi_results(stream, eval_batch):
+        for result in self._multi_results(
+                stream, eval_batch,
+                pane_merge=_merge_partials_multi(self, n_queries, k),
+                pane_device_merge=_knn_device_merge(self, k, n_queries)):
             result.extras["k"] = k
             result.extras["queries"] = n_queries
             yield result
@@ -149,6 +231,50 @@ class PointPointKNNQuery(_KnnOperator):
         k = k or self.conf.k
         return self._drive_multi(stream, len(query_points), self._knn_result(
             query_points, radius, k, single=False), k)
+
+    def run_dynamic(self, stream: Iterable, registry, radius: float,
+                    k: Optional[int] = None) -> Iterator[WindowResult]:
+        """The standing kNN queries of ``registry``: per window,
+        ``registry.apply()``, the padded fleet's (B, k) launch rebuilt on a
+        ``fleet_version`` bump, the distance counts gated by the valid
+        slots, and only the live slots read out (``extras["query_ids"]``).
+        Full-window evaluation: pane partials are fleet-shaped."""
+        k = k or self.conf.k
+        state: dict = {"v": -1, "entries": [], "local": None, "gate": None}
+
+        def ensure() -> None:
+            if state["v"] == registry.fleet_version:
+                return
+            entries, qpts, valid = registry.padded_fleet(self.grid)
+            local = gate = None
+            if entries:
+                local = self._knn_result(qpts, radius, k, single=False)
+                gate = to_device(valid, np.bool_, self.device)
+            state.update(v=registry.fleet_version, entries=entries,
+                         local=local, gate=gate)
+
+        window_ids: dict = {}
+
+        def eval_batch(records, ts_base):
+            registry.apply()
+            ensure()
+            live = len(state["entries"])
+            window_ids[ts_base] = [e.id for e in state["entries"]]
+            if not live:
+                return []
+            if not len(records):
+                return [[] for _ in range(live)]
+            batch, ids = self._knn_batch(records, ts_base)
+            res, evals = state["local"](batch, len(ids))
+            return self._defer_knn_multi(res, ids, evals * state["gate"],
+                                         live)
+
+        for result in self._drive(stream, eval_batch):
+            ids = window_ids.pop(result.window_start, [])
+            result.extras["query_ids"] = ids
+            result.extras["queries"] = len(ids)
+            result.extras["k"] = k
+            yield result
 
 
 class _GenericKnn(_KnnOperator, GeomQueryMixin):
@@ -215,6 +341,10 @@ class _GeomStreamKnn(_KnnOperator, GeomQueryMixin):
     """kNN over a polygon/linestring stream: the subclass gives the
     per-run closure ``local(geoms, num_ids) -> (KnnResult (Q, k),
     dist_evals (Q,))``, one K5 and one K2 launch per window."""
+
+    @property
+    def _id_space(self):
+        return self.interner
 
     def _knn_batch(self, records, ts_base: int):
         """``(batch, id lookup)``: the operator's interner, or in realtime

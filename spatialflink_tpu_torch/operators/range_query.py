@@ -20,7 +20,11 @@ multi-query, is ONE launch of K5 (``ops/geom.py`` range entries) with the
 query axis; ``run`` is its Q = 1 row.
 
 ``records[q]`` holds query q's selection under ``run_multi`` and
-``extras["queries"] = Q``. The device ops are looked up on their modules
+``extras["queries"] = Q``. With ``conf.panes`` every ``run`` and
+``run_multi`` evaluates each pane once and concatenates a window's pane
+selections in pane order (``merge_partials``). ``run_dynamic`` (point
+queries, over a point or a polygon/linestring stream) serves the live
+fleet of a ``runtime.queryplane.QueryRegistry``. The device ops are looked up on their modules
 at call time (``R.range_filter_point_stats``,
 ``G.points_to_single_geom_dist``, ...), so a caller can run the same
 pipeline with the plain versions by setting those module attributes.
@@ -42,6 +46,9 @@ from spatialflink_tpu_torch.ops import range as R
 class PointPointRangeQuery(SpatialOperator):
     """Point stream x point query."""
 
+    #: the pane merge of every range pair: disjoint panes concatenate
+    merge_partials = staticmethod(SpatialOperator._pane_concat)
+
     def run(self, stream: Iterable, query_point: Point, radius: float
             ) -> Iterator[WindowResult]:
         mask_stats = self._mask_stats_fn(query_point, radius)
@@ -53,7 +60,8 @@ class PointPointRangeQuery(SpatialOperator):
             mask, gn_c, evals = self._filter_stream(batch, mask_stats)
             return self._defer_mask_select(mask, records, (gn_c, evals))
 
-        return self._drive(stream, eval_batch)
+        return self._drive(stream, eval_batch,
+                           pane_merge=self.merge_partials)
 
     def _mask_stats_fn(self, query_point: Point, radius: float):
         """Per-batch (mask, gn_bypassed, dist_evals) closure."""
@@ -90,9 +98,20 @@ class PointPointRangeQuery(SpatialOperator):
             stream, len(query_points),
             self._multi_mask_stats(query_points, radius))
 
+    def run_dynamic(self, stream: Iterable, registry, radius: float
+                    ) -> Iterator[WindowResult]:
+        """The standing point queries of ``registry``, admitted, updated
+        and retired while the stream runs, each change landing at the next
+        window (``_run_dynamic_filter``); ``records[q]`` is the selection
+        of ``extras["query_ids"][q]``."""
+        return self._run_dynamic_filter(stream, registry, radius,
+                                        self._multi_mask_stats)
+
 
 class PointGeomRangeQuery(SpatialOperator, GeomQueryMixin):
     """Point stream x polygon/linestring query."""
+
+    merge_partials = staticmethod(SpatialOperator._pane_concat)
 
     def _mask_stats_fn(self, query_geom, radius: float):
         gn, cn = self._query_masks(query_geom, radius)
@@ -121,7 +140,8 @@ class PointGeomRangeQuery(SpatialOperator, GeomQueryMixin):
             mask, gn_c, evals = self._filter_stream(batch, mask_stats)
             return self._defer_mask_select(mask, records, (gn_c, evals))
 
-        return self._drive(stream, eval_batch)
+        return self._drive(stream, eval_batch,
+                           pane_merge=self.merge_partials)
 
     def _multi_mask_stats(self, query_geoms, radius: float):
         qgb = self._query_geom_batch(query_geoms)
@@ -142,6 +162,8 @@ class _GeomStreamRange(SpatialOperator, GeomQueryMixin):
     """Polygon/linestring stream x any query: the subclass gives the
     per-run closure ``batch -> (masks (Q, G), gn (Q,), evals (Q,))``."""
 
+    merge_partials = staticmethod(SpatialOperator._pane_concat)
+
     def run(self, stream: Iterable, query, radius: float
             ) -> Iterator[WindowResult]:
         mask_stats = self._multi_mask_stats([query], radius)
@@ -153,7 +175,8 @@ class _GeomStreamRange(SpatialOperator, GeomQueryMixin):
                                                              ts_base))
             return self._defer_mask_select(masks[0], records, (gn_c, evals))
 
-        return self._drive(stream, eval_batch)
+        return self._drive(stream, eval_batch,
+                           pane_merge=self.merge_partials)
 
     def run_multi(self, stream: Iterable, queries, radius: float
                   ) -> Iterator[WindowResult]:
@@ -175,6 +198,15 @@ class GeomPointRangeQuery(_GeomStreamRange):
         return lambda geoms: G.range_geoms_to_point_queries(
             geoms, qx, qy, gn, nb, radius,
             approximate=self.conf.approximate)
+
+    def run_dynamic(self, stream: Iterable, registry, radius: float
+                    ) -> Iterator[WindowResult]:
+        """The standing point queries of ``registry`` over a polygon or
+        linestring stream: the contract of
+        :meth:`PointPointRangeQuery.run_dynamic`."""
+        return self._run_dynamic_filter(stream, registry, radius,
+                                        self._multi_mask_stats,
+                                        self._geom_batch)
 
 
 class GeomGeomRangeQuery(_GeomStreamRange):

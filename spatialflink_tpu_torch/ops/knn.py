@@ -1,7 +1,10 @@
-"""K2: windowed kNN with object-id dedup (port of ``spatialflink_tpu.ops.knn``:
-``knn_point_stats``, ``knn_point_multi_stats``, ``knn_eligible_stats``,
-``point_stream_eligibility`` and the selection of ``topk_by_distance`` /
-``topk_by_distance_multi``).
+"""K2: windowed kNN with object-id dedup, and K3: the merge of pane top-k
+partials (port of ``spatialflink_tpu.ops.knn``: ``knn_point_stats``,
+``knn_point_multi_stats``, ``knn_eligible_stats``,
+``point_stream_eligibility``, the selection of ``topk_by_distance`` /
+``topk_by_distance_multi``, ``merge_topk_host``, ``_merge_topk_stacked``
+/ ``_merge_topk_stacked_multi`` and ``merge_knn_device`` /
+``merge_knn_device_multi``).
 
 Windowed kNN semantics (``ops/knn.py:1-19`` of the JAX package): the radius
 selects candidate cells only — the distance is not radius-filtered; each
@@ -15,6 +18,12 @@ Every entry point is a wrapper of ONE hand-written CUDA kernel,
 axis): CUDA tensors launch it (or the call raises), CPU tensors run
 :func:`knn_topk_plain`. There is no other path, and the CUDA path calls no
 library sort, top-k or scatter.
+
+K3 (:func:`knn_merge`, ``csrc/knn_merge.cu``) merges a window's stacked
+pane partials, (P, k) or (P, Q, k), into its exact top-k: the JAX
+package's full-sort dedup (``_topk_full_sort``) over each query row's P·k
+candidates. Its plain version is :func:`merge_topk_stacked_plain`; the
+wrapper runs it on CPU tensors and launches the kernel on CUDA tensors.
 
 The JAX package picks among several exact selection strategies and, in
 approximate mode, ``lax.approx_min_k`` (recall < 1). The port has one exact
@@ -324,3 +333,165 @@ def knn_eligible_stats(obj_id, dists, eligible, *, k: int,
     if single:
         return KnnResult(*(t[0] for t in out[:3])), out[3][0]
     return KnnResult(*out[:3]), out[3]
+
+
+# ------------------------------------------------------------------------ #
+# K3: the pane top-k merge
+
+#: most candidates of one query row that the kernel sorts in one block's
+#: shared memory (8 bytes of key and one of flag each: 72 KB); a wider row
+#: is cut into tiles of this size whose top-k survivors merge again
+MERGE_TILE = 8192
+
+
+def merge_topk_host(parts, k: int, tie_key=None):
+    """Host merge of per-pane top-k lists of ``(obj_id, dist)``: the
+    minimum distance per object, then the k smallest by (distance,
+    ``tie_key(obj_id)``). Exact by the covering argument of the JAX
+    package's ``merge_topk_host``; ``tie_key`` must reproduce the kernels'
+    tie order, so operators pass their interner's ``intern`` (ascending
+    interned id)."""
+    best: dict = {}
+    for part in parts:
+        for oid, d in part:
+            cur = best.get(oid)
+            if cur is None or d < cur:
+                best[oid] = d
+    tie_key = tie_key if tie_key is not None else str
+    out = sorted(best.items(), key=lambda kv: (kv[1], tie_key(kv[0])))[:k]
+    return [(oid, d) for oid, d in out]
+
+
+def _float_order_key(d: torch.Tensor) -> torch.Tensor:
+    """int64 keys in the total order of f32 values (negatives reversed
+    below the positives, -0 just below +0), as the kernel orders them."""
+    bits = d.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return torch.where(bits >= 0x80000000, 0xFFFFFFFF - bits,
+                       bits + 0x80000000)
+
+
+def merge_topk_stacked_plain(obj_id, dist, valid, k: int) -> KnnResult:
+    """Plain version of :func:`knn_merge`: stacked partials (P, w) give the
+    (k,) merged top-k, (P, Q, w) give (Q, k), each query row over its P·w
+    candidates in pane-major order. Ineligible slots become
+    (``_OID_SENTINEL``, ``_BIG``); a sort on (id, distance) keeps the first
+    slot of each id (its minimum); the kept slots' k smallest distances
+    follow, equal distances in ascending id (``_topk_full_sort``); slots
+    past the kept ones are (``_OID_SENTINEL``, ``_BIG``, False)."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    single = obj_id.dim() == 2
+    if single:
+        obj_id, dist, valid = obj_id[:, None], dist[:, None], valid[:, None]
+    p, q, w = obj_id.shape
+    m = p * w
+    oid = obj_id.permute(1, 0, 2).reshape(q, m).to(torch.int64)
+    d = dist.permute(1, 0, 2).reshape(q, m)
+    v = valid.permute(1, 0, 2).reshape(q, m)
+    oid = torch.where(v, oid, _OID_SENTINEL)
+    d = torch.where(v, d, torch.full_like(d, _BIG))
+    # lexicographic (id, distance): stable sorts, secondary key first
+    o1 = torch.sort(_float_order_key(d), dim=1, stable=True).indices
+    o2 = torch.sort(oid.gather(1, o1), dim=1, stable=True).indices
+    order = o1.gather(1, o2)
+    oid_s, d_s = oid.gather(1, order), d.gather(1, order)
+    prev = torch.cat([oid_s.new_full((q, 1), _OID_SENTINEL),
+                      oid_s[:, :-1]], dim=1)
+    keep = (oid_s != prev) & (oid_s != _OID_SENTINEL)
+    d_masked = torch.where(keep, d_s, torch.full_like(d_s, _BIG))
+    kk = min(k, m)
+    top = torch.sort(_float_order_key(d_masked), dim=1,
+                     stable=True).indices[:, :kk]
+    top_d = d_masked.gather(1, top)
+    ok = top_d < _BIG
+    top_oid = torch.where(ok, oid_s.gather(1, top),
+                          _OID_SENTINEL).to(torch.int32)
+    top_d = torch.where(ok, top_d, torch.full_like(top_d, _BIG))
+    if kk < k:
+        pad = k - kk
+        top_d = torch.cat([top_d, top_d.new_full((q, pad), _BIG)], dim=1)
+        top_oid = torch.cat([top_oid, top_oid.new_full((q, pad),
+                                                       _OID_SENTINEL)], 1)
+        ok = torch.cat([ok, ok.new_zeros((q, pad))], dim=1)
+    res = KnnResult(obj_id=top_oid, dist=top_d, valid=ok)
+    return KnnResult(*(t[0] for t in res)) if single else res
+
+
+def merge_scratch_ints(m: int, q: int, k: int) -> int:
+    """Ints of each of the kernel's two scratch buffers for rows of ``m``
+    candidates: the first tile level's survivors (0 when a row fits one
+    tile)."""
+    if m <= MERGE_TILE:
+        return 0
+    return q * -(-m // MERGE_TILE) * k
+
+
+_MERGE_ARGTYPES = (_I, _I, _I, _C, _C, _C, ctypes.c_longlong, _C, _C, _C,
+                   _C, _C, _C)
+
+
+def knn_merge(obj_id, dist, valid, k: int) -> KnnResult:
+    """Launch the K3 kernel on CUDA tensors: stacked partials ``obj_id``
+    (P, Q, k) int32, ``dist`` f32 and ``valid`` bool, all contiguous, give
+    the (Q, k) merged :class:`KnnResult` (:func:`merge_topk_stacked_plain`
+    bit for bit). Rows wider than :data:`MERGE_TILE` run the tiled path:
+    each tile's top-k survivors, then a merge of the survivors."""
+    dev = obj_id.device
+    if dev.type != "cuda":
+        raise ValueError(f"knn_merge: obj_id on {dev}, needs cuda")
+    _check_k(k)
+    if obj_id.dim() != 3 or obj_id.shape[2] != k:
+        raise ValueError(f"knn_merge: obj_id shape {tuple(obj_id.shape)}, "
+                         f"needs (P, Q, {k})")
+    p, q, _ = obj_id.shape
+    if p < 1 or q < 1:
+        raise ValueError("knn_merge: needs at least one pane and one query")
+    shape = tuple(obj_id.shape)
+    ptrs = [_require(t, name, dt, shape, dev) for t, name, dt in (
+        (obj_id, "obj_id", torch.int32), (dist, "dist", torch.float32),
+        (valid, "valid", torch.bool))]
+    n_scratch = max(merge_scratch_ints(p * k, q, k), 1)
+    s_oid = torch.empty((2, n_scratch), dtype=torch.int32, device=dev)
+    s_dist = torch.empty((2, n_scratch), dtype=torch.float32, device=dev)
+    out_oid = torch.empty((q, k), dtype=torch.int32, device=dev)
+    out_dist = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_valid = torch.empty((q, k), dtype=torch.bool, device=dev)
+    launch = native.function("knn_merge", "knn_merge_launch",
+                             _MERGE_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = launch(p, q, k, *ptrs, n_scratch, s_oid.data_ptr(),
+                     s_dist.data_ptr(),
+                     out_oid.data_ptr(), out_dist.data_ptr(),
+                     out_valid.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    native.check(err, "knn_merge")
+    knn_merge.launches += 1
+    return KnnResult(out_oid, out_dist, out_valid)
+
+
+knn_merge.launches = 0
+
+
+def _merge_stacked(obj_id, dist, valid, k: int) -> KnnResult:
+    """K3 on CUDA tensors, its plain version on CPU tensors; both refuse a
+    k that K2 does not take."""
+    _check_k(k)
+    if obj_id.device.type == "cpu":
+        return merge_topk_stacked_plain(obj_id, dist, valid, k)
+    return knn_merge(obj_id, dist, valid, k)
+
+
+def merge_knn_device_multi(results, k: int) -> KnnResult:
+    """The device pane merge: per-pane (Q, k) :class:`KnnResult` partials,
+    still on the device, stacked and merged into the window's (Q, k) in
+    one K3 launch."""
+    return _merge_stacked(*(torch.stack([getattr(r, f) for r in results])
+                            for f in KnnResult._fields), k)
+
+
+def merge_knn_device(results, k: int) -> KnnResult:
+    """:func:`merge_knn_device_multi` for (k,) partials: the (k,) merged
+    result."""
+    res = merge_knn_device_multi([KnnResult(*(t[None] for t in r))
+                                  for r in results], k)
+    return KnnResult(*(t[0] for t in res))

@@ -1,0 +1,521 @@
+"""Standing-query control plane (the port's own copy of the parts of
+``spatialflink_tpu.runtime.queryplane`` that serve a fleet from a file or
+from in-process calls).
+
+- :class:`QuerySpec` / :class:`QueryEntry`: one standing query's validated
+  spec (id, family, point, route, optional SLO over window record counts)
+  and its lifecycle (``pending -> active -> draining -> retired``).
+- :class:`QueryRegistry`: what runs. Admissions, updates and retirements
+  are staged and land only at :meth:`QueryRegistry.apply`, which the
+  dynamic drive loop calls once per window, so a window is never evaluated
+  against a half-applied fleet. Each applied change bumps
+  ``fleet_version``; the operators rebuild their query arrays on the bump.
+- :func:`bucket_size`: the fleet pads to the next power of two (the
+  kernels' Q axis), padded slots forced empty by a valid gate.
+- :class:`QueryRouter`: per-query demultiplexing of a dynamic window to
+  each query's route (``stdout`` or ``file:<path>``), with the per-query
+  SLO verdict.
+
+Not yet ported: the Kafka control topic and ``kafka:`` routes, the
+checkpoint component, tenant quotas and admission shedding, the
+operations server's surfaces, the lifecycle events and the per-query
+metrics counters. A ``kafka:`` route or a tenant quota is refused with
+"not yet ported", never dropped.
+"""
+
+from __future__ import annotations
+
+import enum
+import json
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+NOT_PORTED = "not yet ported to spatialflink_tpu_torch"
+#: the accounting principal of a spec that names none
+DEFAULT_TENANT = "default"
+
+
+def bucket_size(n: int) -> int:
+    """Fleet padding bucket: the next power of two >= ``n`` (min 1). A
+    fleet change within a bucket keeps the kernels' launch shapes."""
+    if n <= 1:
+        return 1
+    return 1 << (n - 1).bit_length()
+
+
+class QuerySpecError(ValueError):
+    """A query spec failed schema validation (bad or missing field, family
+    mismatch, unservable k or radius)."""
+
+
+class QueryState(enum.Enum):
+    PENDING = "pending"      # admitted, joins the fleet at the next apply()
+    ACTIVE = "active"        # serving: owns a slot on the Q axis
+    DRAINING = "draining"    # retirement requested; serves until apply()
+    RETIRED = "retired"      # left the fleet
+
+
+_FAMILIES = ("range", "knn")
+_ROUTE_PREFIXES = ("stdout", "file:", "kafka:")
+_LATENCY_CLASSES = ("interactive", "batch")
+_SLO_KEYS = ("min_window_records", "max_window_records", "p99_emit_ms")
+
+
+@dataclass
+class QuerySpec:
+    """One standing query. ``x``/``y`` are the query point; ``radius``/``k``
+    default to the run's and must equal them when given (the fleet shares
+    one launch per window); ``route`` names where this query's windows go;
+    ``slo`` is an optional verdict over per-window record counts.
+    ``latency_class`` and ``tenant`` are validated and carried as the JAX
+    package carries them; the port has no governor or accounting that
+    reads them."""
+
+    id: str
+    family: str
+    x: float
+    y: float
+    radius: Optional[float] = None
+    k: Optional[int] = None
+    route: str = "stdout"
+    slo: Optional[Dict[str, float]] = None
+    latency_class: str = "batch"
+    tenant: str = DEFAULT_TENANT
+
+    def to_dict(self) -> dict:
+        d = {"id": self.id, "family": self.family, "x": self.x, "y": self.y,
+             "route": self.route}
+        if self.radius is not None:
+            d["radius"] = self.radius
+        if self.k is not None:
+            d["k"] = self.k
+        if self.slo:
+            d["slo"] = dict(self.slo)
+        if self.latency_class != "batch":
+            d["latency_class"] = self.latency_class
+        if self.tenant != DEFAULT_TENANT:
+            d["tenant"] = self.tenant
+        return d
+
+    @classmethod
+    def from_dict(cls, d: Any, *, default_family: Optional[str] = None,
+                  default_latency_class: str = "batch",
+                  default_tenant: str = DEFAULT_TENANT) -> "QuerySpec":
+        """Schema-validated build: every admission path funnels through
+        here, so a malformed query is refused with the same named-field
+        error everywhere."""
+        if not isinstance(d, dict):
+            raise QuerySpecError(f"query spec must be an object, got "
+                                 f"{type(d).__name__}")
+        unknown = set(d) - {"id", "family", "x", "y", "radius", "k",
+                            "route", "slo", "latency_class", "tenant"}
+        if unknown:
+            raise QuerySpecError(f"unknown query field(s) "
+                                 f"{sorted(unknown)}")
+        qid = d.get("id")
+        if not isinstance(qid, str) or not qid or len(qid) > 128:
+            raise QuerySpecError("'id' must be a non-empty string "
+                                 "(<= 128 chars)")
+        family = d.get("family", default_family)
+        if family not in _FAMILIES:
+            raise QuerySpecError(f"'family' must be one of {_FAMILIES}, "
+                                 f"got {family!r}")
+        try:
+            x, y = float(d["x"]), float(d["y"])
+        except (KeyError, TypeError, ValueError):
+            raise QuerySpecError("'x' and 'y' must be numeric coordinates")
+        radius = d.get("radius")
+        if radius is not None:
+            try:
+                radius = float(radius)
+            except (TypeError, ValueError):
+                raise QuerySpecError("'radius' must be numeric")
+        k = d.get("k")
+        if k is not None:
+            try:
+                k = int(k)
+            except (TypeError, ValueError):
+                raise QuerySpecError("'k' must be an integer")
+        route = d.get("route", "stdout")
+        if (not isinstance(route, str)
+                or not route.startswith(_ROUTE_PREFIXES)
+                or route.startswith(("file:", "kafka:")) and
+                len(route.split(":", 1)[1]) == 0):
+            raise QuerySpecError(
+                "'route' must be 'stdout', 'file:<path>', or "
+                f"'kafka:<topic>', got {route!r}")
+        slo = d.get("slo")
+        if slo is not None:
+            if (not isinstance(slo, dict)
+                    or not slo
+                    or set(slo) - set(_SLO_KEYS)):
+                raise QuerySpecError(
+                    f"'slo' must be a non-empty object over {_SLO_KEYS}")
+            try:
+                slo = {sk: float(sv) for sk, sv in slo.items()}
+            except (TypeError, ValueError):
+                raise QuerySpecError("'slo' thresholds must be numeric")
+        lclass = d.get("latency_class", default_latency_class)
+        if lclass not in _LATENCY_CLASSES:
+            raise QuerySpecError(
+                f"'latency_class' must be one of {_LATENCY_CLASSES}, "
+                f"got {lclass!r}")
+        tenant = d.get("tenant", default_tenant)
+        if not isinstance(tenant, str) or not tenant or len(tenant) > 128:
+            raise QuerySpecError("'tenant' must be a non-empty string "
+                                 "(<= 128 chars)")
+        return cls(id=qid, family=family, x=x, y=y, radius=radius, k=k,
+                   route=route, slo=slo, latency_class=lclass,
+                   tenant=tenant)
+
+
+@dataclass
+class QueryEntry:
+    """One query's lifecycle record inside the registry."""
+
+    spec: QuerySpec
+    state: QueryState = QueryState.PENDING
+    #: spec staged by update(); swapped in at the next apply()
+    pending_spec: Optional[QuerySpec] = field(default=None, repr=False)
+    admitted_ms: int = 0
+    retired_ms: Optional[int] = None
+    #: fleet_version at which the entry last joined or changed
+    since_version: int = 0
+    #: per-query SLO verdict over per-window record counts
+    slo_ok: Optional[bool] = None
+    slo_breaches: int = 0
+
+    @property
+    def id(self) -> str:
+        return self.spec.id
+
+    def to_dict(self) -> dict:
+        d = {"id": self.id, "state": self.state.value,
+             "spec": self.spec.to_dict(),
+             "tenant": self.spec.tenant,
+             "admitted_ms": self.admitted_ms,
+             "since_version": self.since_version}
+        if self.retired_ms is not None:
+            d["retired_ms"] = self.retired_ms
+        if self.spec.slo:
+            d["slo"] = {"ok": self.slo_ok, "breaches": self.slo_breaches}
+        return d
+
+
+class QueryRegistry:
+    """The run's standing-query fleet: lifecycle, the Q-axis padding
+    contract and the apply-at-window-boundary discipline.
+
+    ``family``/``radius``/``k`` are the run's: the fleet shares one launch
+    per window, hence one family, one radius and one k (a spec may omit
+    them or restate them exactly; anything else is refused at
+    admission)."""
+
+    def __init__(self, family: str, *, radius: float = 0.0,
+                 k: Optional[int] = None, retain_retired: int = 64,
+                 default_latency_class: str = "batch",
+                 default_tenant: str = DEFAULT_TENANT,
+                 tenant_quotas: Optional[Dict[str, dict]] = None):
+        if family not in _FAMILIES:
+            raise ValueError(f"family must be one of {_FAMILIES}")
+        if default_latency_class not in _LATENCY_CLASSES:
+            raise ValueError(
+                f"default_latency_class must be one of {_LATENCY_CLASSES}")
+        if tenant_quotas:
+            raise NotImplementedError(f"tenant quotas: {NOT_PORTED}")
+        self.family = family
+        self.radius = float(radius)
+        self.k = k
+        self.default_latency_class = default_latency_class
+        self.default_tenant = str(default_tenant or DEFAULT_TENANT)
+        self._lock = threading.RLock()
+        self._entries: Dict[str, QueryEntry] = {}
+        #: ACTIVE/DRAINING ids in slot (admission) order: the Q axis
+        self._fleet: List[str] = []
+        self._version = 0
+        self._dirty = False
+        self._retired: List[str] = []
+        self._retain_retired = retain_retired
+
+    # ------------------------------ admission ------------------------- #
+
+    def _validate(self, spec: QuerySpec) -> QuerySpec:
+        if spec.family != self.family:
+            raise QuerySpecError(
+                f"query {spec.id!r}: family {spec.family!r} does not match "
+                f"this run's pipeline family {self.family!r} (one pipeline "
+                "serves one family; run a second driver for the other)")
+        if spec.radius is not None and spec.radius != self.radius:
+            raise QuerySpecError(
+                f"query {spec.id!r}: radius {spec.radius} != the fleet "
+                f"radius {self.radius} (the Q-axis shares one candidate-"
+                "layer geometry; omit 'radius' to inherit it)")
+        if self.family == "knn" and spec.k is not None and spec.k != self.k:
+            raise QuerySpecError(
+                f"query {spec.id!r}: k={spec.k} != the fleet k={self.k} "
+                "(the Q-axis shares one top-k width; omit 'k' to inherit)")
+        if spec.route.startswith("kafka:"):
+            raise QuerySpecError(
+                f"query {spec.id!r}: route {spec.route!r}: {NOT_PORTED} "
+                "(routes 'stdout' and 'file:<path>')")
+        return spec
+
+    def admit(self, spec) -> QueryEntry:
+        """Admit a new standing query (PENDING until the next apply), or,
+        when the id names a live query, stage an UPDATE of it."""
+        if not isinstance(spec, QuerySpec):
+            spec = QuerySpec.from_dict(
+                spec, default_family=self.family,
+                default_latency_class=self.default_latency_class,
+                default_tenant=self.default_tenant)
+        self._validate(spec)
+        with self._lock:
+            cur = self._entries.get(spec.id)
+            if cur is not None and cur.state is not QueryState.RETIRED:
+                return self._stage_update(cur, spec)
+            entry = QueryEntry(spec=spec,
+                               admitted_ms=int(time.time() * 1000))
+            self._entries[spec.id] = entry
+            self._dirty = True
+        return entry
+
+    def update(self, qid: str, changes: dict) -> QueryEntry:
+        """Stage an update of a live query (the new spec lands at the next
+        apply)."""
+        with self._lock:
+            entry = self._entries.get(qid)
+            if entry is None or entry.state is QueryState.RETIRED:
+                raise KeyError(qid)
+            merged = entry.spec.to_dict()
+            merged.update(changes or {})
+            merged["id"] = qid
+            spec = self._validate(QuerySpec.from_dict(
+                merged, default_family=self.family,
+                default_latency_class=self.default_latency_class,
+                default_tenant=entry.spec.tenant))
+            return self._stage_update(entry, spec)
+
+    def _stage_update(self, entry: QueryEntry, spec: QuerySpec
+                      ) -> QueryEntry:
+        with self._lock:
+            entry.pending_spec = spec
+            self._dirty = True
+        return entry
+
+    def retire(self, qid: str) -> QueryEntry:
+        """Request retirement: an ACTIVE query turns DRAINING (it serves
+        until the next apply); a still-PENDING query retires at once."""
+        with self._lock:
+            entry = self._entries.get(qid)
+            if entry is None or entry.state is QueryState.RETIRED:
+                raise KeyError(qid)
+            if entry.state is QueryState.PENDING:
+                self._retire_now(entry)
+            elif entry.state is QueryState.ACTIVE:
+                entry.state = QueryState.DRAINING
+                self._dirty = True
+        return entry
+
+    def _retire_now(self, entry: QueryEntry) -> None:
+        entry.state = QueryState.RETIRED
+        entry.retired_ms = int(time.time() * 1000)
+        entry.pending_spec = None
+        self._retired.append(entry.id)
+        # bound the retired ledger (ids stay queryable for a while)
+        while len(self._retired) > self._retain_retired:
+            dead = self._retired.pop(0)
+            self._entries.pop(dead, None)
+
+    # ------------------------------ the fleet ------------------------- #
+
+    @property
+    def fleet_version(self) -> int:
+        """Monotonic stamp of the active fleet's composition."""
+        return self._version
+
+    def apply(self) -> bool:
+        """The one place fleet changes land, called by the dynamic drive
+        loop once per window: pending -> active, draining -> retired, and
+        staged updates swapped in. True when the fleet changed
+        (``fleet_version`` bumped)."""
+        with self._lock:
+            if not self._dirty:
+                return False
+            changed = False
+            for entry in list(self._entries.values()):
+                if entry.state is QueryState.PENDING:
+                    entry.state = QueryState.ACTIVE
+                    entry.since_version = self._version + 1
+                    self._fleet.append(entry.id)
+                    changed = True
+                elif entry.state is QueryState.DRAINING:
+                    self._fleet.remove(entry.id)
+                    self._retire_now(entry)
+                    changed = True
+                elif (entry.state is QueryState.ACTIVE
+                        and entry.pending_spec is not None):
+                    entry.spec = entry.pending_spec
+                    entry.pending_spec = None
+                    entry.since_version = self._version + 1
+                    changed = True
+            self._dirty = False
+            if changed:
+                self._version += 1
+            return changed
+
+    def active_entries(self) -> List[QueryEntry]:
+        """The serving fleet in slot order (ACTIVE and DRAINING)."""
+        with self._lock:
+            return [self._entries[q] for q in self._fleet]
+
+    def staged_count(self) -> int:
+        """Fleet changes staged but not landed yet (PENDING admissions,
+        DRAINING retirements, staged updates)."""
+        with self._lock:
+            return sum(
+                1 for e in self._entries.values()
+                if e.state in (QueryState.PENDING, QueryState.DRAINING)
+                or (e.state is QueryState.ACTIVE
+                    and e.pending_spec is not None))
+
+    def padded_fleet(self, grid) -> Tuple[List[QueryEntry], list,
+                                          np.ndarray]:
+        """``(entries, padded_query_points, valid)`` for the Q axis: the
+        live fleet's query Points padded to :func:`bucket_size` with copies
+        of the last live point; ``valid`` is the (B,) bool gate the
+        evaluators AND into the masks and the pruning counters."""
+        from spatialflink_tpu_torch.models import Point
+
+        entries = self.active_entries()
+        pts = [Point.create(e.spec.x, e.spec.y, grid) for e in entries]
+        b = bucket_size(len(pts))
+        valid = np.zeros(b, bool)
+        valid[:len(pts)] = True
+        while pts and len(pts) < b:
+            pts.append(pts[-1])
+        return entries, pts, valid
+
+    def note_window(self, entry: QueryEntry, n_records: int,
+                    emit_p99_ms: Optional[float] = None) -> None:
+        """The per-query SLO verdict for one demultiplexed window (counted
+        on transitions). ``p99_emit_ms`` needs the telemetry session, which
+        the port does not have: its check counts healthy, as the JAX
+        package's does without one."""
+        slo = entry.spec.slo
+        if not slo:
+            return
+        ok = True
+        if "min_window_records" in slo and \
+                n_records < slo["min_window_records"]:
+            ok = False
+        if "max_window_records" in slo and \
+                n_records > slo["max_window_records"]:
+            ok = False
+        if "p99_emit_ms" in slo and emit_p99_ms is not None \
+                and emit_p99_ms > slo["p99_emit_ms"]:
+            ok = False
+        if ok is not entry.slo_ok:
+            if not ok:
+                entry.slo_breaches += 1
+            entry.slo_ok = ok
+
+    def status(self) -> dict:
+        """The fleet's ledger (live and recently retired), composition,
+        version and padding bucket."""
+        with self._lock:
+            entries = [e.to_dict() for e in self._entries.values()]
+            fleet = list(self._fleet)
+        live = len(fleet)
+        return {"family": self.family, "radius": self.radius, "k": self.k,
+                "fleet_version": self._version,
+                "fleet": fleet, "live": live,
+                "bucket": bucket_size(live),
+                "default_tenant": self.default_tenant,
+                "queries": entries}
+
+
+class QueryRouter:
+    """Demultiplex one dynamic window's per-query record lists to each
+    query's route: ``stdout`` queries ride the driver's own emission (the
+    router only keeps the SLO verdict); ``file:<path>`` appends one JSON
+    line per (window, query). Files open on first use and are shared by
+    the queries that name them."""
+
+    def __init__(self, registry: QueryRegistry):
+        self.registry = registry
+        self._files: Dict[str, Any] = {}
+
+    @staticmethod
+    def _doc(qid: str, result, recs) -> str:
+        from spatialflink_tpu_torch.models import SpatialObject
+        from spatialflink_tpu_torch.streams.formats import serialize_spatial
+
+        out = []
+        for r in recs:
+            if isinstance(r, SpatialObject):
+                out.append(serialize_spatial(r, "GeoJSON"))
+            elif isinstance(r, tuple):  # kNN (objID, distance)
+                out.append([r[0], float(r[1])])
+            else:
+                out.append(str(r))
+        return json.dumps({
+            "query": qid,
+            "window": [result.window_start, result.window_end],
+            "count": len(recs), "records": out}, sort_keys=True)
+
+    def route(self, result) -> None:
+        """Account and fan out one WindowResult carrying
+        ``extras['query_ids']``."""
+        ids = result.extras.get("query_ids") or []
+        entries = {e.id: e for e in self.registry.active_entries()}
+        for qid, recs in zip(ids, result.records):
+            entry = entries.get(qid)
+            if entry is None:
+                continue  # retired between dispatch and readback
+            self.registry.note_window(entry, len(recs))
+            route = entry.spec.route
+            if route == "stdout":
+                continue  # the driver's own sinks carry it
+            path = route[5:]
+            f = self._files.get(path)
+            if f is None:
+                f = self._files[path] = open(path, "a")
+            f.write(self._doc(qid, result, recs) + "\n")
+            f.flush()
+
+    def close(self) -> None:
+        for f in self._files.values():
+            try:
+                f.close()
+            except OSError:
+                pass
+        self._files.clear()
+
+
+def load_queries_file(path: str, family: str,
+                      default_latency_class: str = "batch",
+                      default_tenant: str = DEFAULT_TENANT
+                      ) -> List[QuerySpec]:
+    """Parse a ``--queries-file``: a JSON array of query specs, or an
+    object ``{"queries": [...]}``. Validation errors name the entry."""
+    with open(path) as f:
+        data = json.load(f)
+    if isinstance(data, dict):
+        data = data.get("queries", [])
+    if not isinstance(data, list):
+        raise QuerySpecError(f"{path}: expected a JSON array of query "
+                             "specs (or {'queries': [...]})")
+    out = []
+    for i, d in enumerate(data):
+        try:
+            out.append(QuerySpec.from_dict(
+                d, default_family=family,
+                default_latency_class=default_latency_class,
+                default_tenant=default_tenant))
+        except QuerySpecError as e:
+            raise QuerySpecError(f"{path}: query[{i}]: {e}")
+    return out

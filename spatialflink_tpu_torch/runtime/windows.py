@@ -1,5 +1,5 @@
 """Window assembly over decoded chunks (port of ``WindowSpec``,
-``WindowAssembler`` and ``MicroBatcher`` in
+``WindowAssembler``, ``PaneBuffer`` and ``MicroBatcher`` in
 ``spatialflink_tpu.runtime.windows``, and of the count windows and micro-
 batches of ``SpatialOperator._count_windows`` / ``_micro_batches``).
 
@@ -26,7 +26,7 @@ from __future__ import annotations
 
 from collections import deque
 from dataclasses import dataclass
-from typing import Dict, Iterable, Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -41,6 +41,23 @@ class WindowSpec:
     @staticmethod
     def sliding(size_ms: int, slide_ms: int) -> "WindowSpec":
         return WindowSpec(size_ms, slide_ms)
+
+    def pane_of(self, ts_ms: int) -> int:
+        """Start of the slide-aligned pane [p, p + slide) holding
+        ``ts_ms``."""
+        return ts_ms - (ts_ms % self.slide_ms)
+
+    def pane_decomposable(self) -> bool:
+        """Every window [s, s + size) is exactly a union of slide-aligned
+        panes: slide divides size, and slide < size (a tumbling window has
+        overlap 1 and shares nothing)."""
+        return (self.slide_ms < self.size_ms
+                and self.size_ms % self.slide_ms == 0)
+
+    def pane_starts(self, window_start: int) -> List[int]:
+        """The pane starts covering window ``[window_start, +size)``."""
+        return list(range(window_start, window_start + self.size_ms,
+                          self.slide_ms))
 
     def assign_bulk(self, ts_ms) -> Tuple[np.ndarray, np.ndarray]:
         """Every (window start, record index) membership pair of an array
@@ -122,6 +139,110 @@ class WindowAssembler:
         for start in sorted(self._buffers):
             yield (start, start + self.spec.size_ms,
                    _view(self._buffers.pop(start)))
+
+
+class PaneBuffer:
+    """Pane-sliced window assembly: each record is buffered ONCE, into its
+    slide-aligned pane, and a sealed window is yielded as its list of
+    panes, ``(start, end, [(pane_start, records), ...])`` in pane order,
+    each pane's records a ``LazyRecords`` / ``GeomRecords`` view of its
+    ``(chunk, idx)`` slices in arrival order.
+
+    The window set, the sealing and the late drops are those of
+    :class:`WindowAssembler` (the same watermark and the same per-record
+    prefix-watermark late check, one seal sweep per chunk): a window exists
+    iff one of its panes holds a record, and seals when the watermark
+    passes its end. A pane is evicted once the watermark passes ``pane +
+    size`` (its last window has sealed; a record that could still land in
+    it would be late). Requires ``spec.pane_decomposable()``.
+
+    The JAX package's per-record ``add`` (its geometry streams) is this
+    chunk path: every stream reaches the port cut into chunks. Its
+    ``snapshot``/``restore`` are not ported: the port has no checkpoint
+    coordinator."""
+
+    def __init__(self, spec: WindowSpec, allowed_lateness_ms: int = 0):
+        if not spec.pane_decomposable():
+            raise ValueError(
+                f"PaneBuffer needs slide | size and slide < size, got "
+                f"size={spec.size_ms} slide={spec.slide_ms}")
+        self.spec = spec
+        self.watermarker = BoundedOutOfOrderness(allowed_lateness_ms)
+        self._panes: Dict[int, List] = {}
+        self.late_dropped = 0
+        #: every window start below this is emitted or final-empty
+        self._next: Optional[int] = None
+
+    def add_parsed_chunk(self, chunk) -> Iterator[Tuple]:
+        """Buffer one decoded chunk as ``(chunk, idx)`` slices per pane
+        (late records dropped), then seal what the watermark passed."""
+        ts = np.asarray(chunk.ts, np.int64)
+        if not ts.size:
+            return
+        keep = _keep_mask(self.watermarker, ts)
+        self.late_dropped += int((~keep).sum())
+        kept_idx = np.nonzero(keep)[0]
+        if kept_idx.size:
+            kts = ts[kept_idx]
+            pane = kts - kts % self.spec.slide_ms
+            order = np.argsort(pane, kind="stable")
+            pane_s = pane[order]
+            bounds = np.flatnonzero(
+                np.r_[True, pane_s[1:] != pane_s[:-1], True])
+            for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+                self._panes.setdefault(int(pane_s[lo]), []).append(
+                    (chunk, kept_idx[order[lo:hi]]))
+        wm = self.watermarker.on_event(int(ts.max()))
+        yield from self._seal_until(wm)
+
+    def assemble(self, chunks) -> Iterator[Tuple]:
+        """Drive a stream of decoded chunks to its end, then seal every
+        remaining window."""
+        for ch in chunks:
+            yield from self.add_parsed_chunk(ch)
+        yield from self.flush()
+
+    def _seal_until(self, watermark: int) -> Iterator[Tuple]:
+        if not self._panes:
+            return
+        limit = watermark - self.spec.size_ms  # starts <= limit seal
+        lo = min(self._panes) - self.spec.size_ms + self.spec.slide_ms
+        if self._next is not None:
+            lo = max(lo, self._next)
+        if lo > limit:
+            return
+        yield from self._emit_range(lo, limit)
+        # every start <= limit is now emitted or final-empty (a kept record
+        # has ts >= watermark, so its windows start past `limit`): record
+        # that and drop the dead panes
+        slide = self.spec.slide_ms
+        self._next = limit - (limit % slide) + slide
+        for p in [p for p in self._panes if p < self._next]:
+            del self._panes[p]
+
+    def _emit_range(self, lo: int, limit) -> Iterator[Tuple]:
+        size, slide = self.spec.size_ms, self.spec.slide_ms
+        starts = set()
+        for p in self._panes:
+            s = max(p - size + slide, lo)
+            s1 = p if limit is None else min(p, limit)
+            while s <= s1:
+                starts.add(s)
+                s += slide
+        for s in sorted(starts):
+            panes = [(p, _view(self._panes[p]))
+                     for p in range(s, s + size, slide) if p in self._panes]
+            yield (s, s + size, panes)
+
+    def flush(self) -> Iterator[Tuple]:
+        """Seal every remaining window (end of a bounded stream)."""
+        if not self._panes:
+            return
+        lo = min(self._panes) - self.spec.size_ms + self.spec.slide_ms
+        if self._next is not None:
+            lo = max(lo, self._next)
+        yield from self._emit_range(lo, None)
+        self._panes.clear()
 
 
 class MicroBatcher:

@@ -379,6 +379,12 @@ class PointRows:
         """The (x, y, ts, obj_id, cell, ingest_ms) arrays."""
         return self._cols
 
+    @staticmethod
+    def concat(parts: Sequence["PointRows"]) -> "PointRows":
+        """The rows of ``parts`` in order, as one :class:`PointRows`."""
+        return PointRows(tuple(np.concatenate([p._cols[i] for p in parts])
+                               for i in range(6)), parts[0].interner)
+
     def _materialize(self) -> List[Point]:
         if self._mat is None:
             fx, fy, ft, fo, fc, fi = self._cols

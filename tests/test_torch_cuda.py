@@ -1363,3 +1363,164 @@ def test_join_option_on_card_equals_cpu(card, option):
 
     got, want = run("cuda"), run("cpu")
     assert got == want and sum(len(w[2]) for w in want) > 0
+
+
+def _merge_inputs(dev, P, Q, k, seed, ids, dists=None, p_valid=0.8):
+    rng = np.random.default_rng(seed)
+    oid = rng.integers(0, ids, (P, Q, k)).astype(np.int32)
+    d = (rng.uniform(0.0, 1.0, (P, Q, k)) if dists is None
+         else rng.choice(np.asarray(dists), (P, Q, k))).astype(np.float32)
+    v = rng.random((P, Q, k)) < p_valid
+    oid = np.where(v, oid, K._OID_SENTINEL).astype(np.int32)
+    d = np.where(v, d, np.float32(K._BIG)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (oid, d, v)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,Q,k,ids,dists,p_valid", [
+    (1, 1, 1, 2, None, 0.8), (2, 1, 50, 100, None, 0.8),
+    (3, 5, 7, 9, None, 0.8), (10, 16, 50, 300, None, 0.8),
+    (4, 1, K.MAX_K, 3000, None, 0.8), (60, 1, 100, 2000, None, 0.8),
+    (9, 17, 13, 40, [0.25, 0.5], 0.8),                # ties
+    (7, 4, 50, 30, None, 1.0),                         # duplicates
+    (5, 3, 20, 100, None, 0.0),                        # all invalid
+    (16, 2, K.MAX_K, 20_000, [0.1, 0.2, 0.3], 0.8),    # two tiles
+    (100, 3, 100, 6000, None, 0.9),                    # 10,000 a row
+    (300, 2, 100, 9000, None, 0.9),                    # two levels
+])
+def test_knn_merge_kernel_equals_plain(card, P, Q, k, ids, dists, p_valid):
+    """K3 against its plain version bit for bit, every field: odd shapes,
+    ties at the k-th place, ids in many panes, all-invalid rows, and rows
+    wider than one tile (one and two levels of survivors)."""
+    oid, d, v = _merge_inputs(card, P, Q, k, P * 7 + k, ids, dists, p_valid)
+    launches = K.knn_merge.launches
+    got = K.knn_merge(oid, d, v, k)
+    want = K.merge_topk_stacked_plain(oid, d, v, k)
+    torch.cuda.synchronize()
+    assert K.knn_merge.launches == launches + 1
+    assert got.obj_id.shape == (Q, k)
+    assert _equal(got, want)
+    one = K.knn_merge(*(t[:, :1].contiguous() for t in (oid, d, v)), k)
+    assert _equal(one, K.KnnResult(*(t[:1] for t in want)))
+
+
+def _pane_lines(n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(115.5, 117.6, n)
+    y = rng.uniform(39.6, 41.1, n)
+    ts = 1_700_000_000_000 + np.sort(rng.integers(0, 30_000, n))
+    back = rng.random(n) < 0.03
+    ts[back] -= rng.integers(200, 3_000, int(back.sum()))
+    return [f"o{o},{t},{a!r},{b!r}" for o, t, a, b in
+            zip(rng.integers(0, 400, n).tolist(), ts.tolist(), x.tolist(),
+                y.tolist())]
+
+
+def _pane_polygons(n, seed):
+    import json as _json
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, t in enumerate(np.sort(rng.integers(0, 30_000, n)).tolist()):
+        cx, cy = rng.uniform(115.6, 117.5), rng.uniform(39.7, 41.0)
+        th = np.sort(rng.uniform(0, 2 * np.pi, 6))
+        ring = [[float(cx + 0.01 * np.cos(a)), float(cy + 0.01 * np.sin(a))]
+                for a in th]
+        out.append(_json.dumps({"geometry": {
+            "type": "Polygon", "coordinates": [ring + [ring[0]]]},
+            "properties": {"oID": f"g{i % 300}",
+                           "timestamp": 1_700_000_000_000 + t},
+            "type": "Feature"}))
+    return out
+
+
+def _card_params(option, fmt, **query):
+    import dataclasses
+    import os
+
+    from spatialflink_tpu_torch.config import Params
+
+    conf = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "conf", "spatialflink-conf.yml")
+    p = Params.from_yaml(conf)
+    p.query.option = option
+    for key, val in query.items():
+        setattr(p.query, key, val)
+    return dataclasses.replace(
+        p, input1=dataclasses.replace(p.input1, format=fmt))
+
+
+def _knn_lists_close(got, want):
+    assert [w[:2] for w in got] == [w[:2] for w in want]
+    assert sum(len(q) for w in want for q in w[2]) > 0
+    for g, w in zip(got, want):
+        for a, b in zip(g[2], w[2]):
+            assert [o for o, _ in a] == [o for o, _ in b]
+            np.testing.assert_allclose([x for _, x in a], [x for _, x in b],
+                                       rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option,multi", [(51, False), (51, True),
+                                          (71, False)])
+def test_knn_panes_on_card_equal_cpu(card, option, multi):
+    """Options 51 (and its multiQuery) and 71 with panes under the device
+    merge on the card (K3 launched once per window) against the CPU run,
+    and against the card's full-window run."""
+    from spatialflink_tpu_torch import driver as TD
+
+    fmt = "CSV" if option == 51 else "GeoJSON"
+    lines = (_pane_lines(30_000, 3) if option == 51
+             else _pane_polygons(3_000, 4))
+    p = _card_params(option, fmt, panes=True, pane_device_merge=True,
+                     multi_query=multi, k=20,
+                     query_points=[(116.5, 40.5), (116.9, 40.1),
+                                   (116.0, 40.8)])
+
+    def run(device, params):
+        return [(w.window_start, w.window_end,
+                 w.records if "queries" in w.extras else [w.records])
+                for w in TD.run_option(params, iter(lines), device=device)]
+
+    launches = K.knn_merge.launches
+    got = run("cuda", p)
+    assert K.knn_merge.launches - launches == len(got) >= 5
+    _knn_lists_close(got, run("cpu", p))
+    p.query.panes = False
+    _knn_lists_close(got, run("cuda", p))
+
+
+@pytest.mark.cuda
+def test_dynamic_knn_on_card_equals_cpu(card):
+    """Option 51 from a live registry, with an admission and a retirement
+    mid-run, on the card and on the CPU."""
+    from spatialflink_tpu_torch import driver as TD
+    from spatialflink_tpu_torch.runtime.queryplane import QueryRegistry
+
+    lines = _pane_lines(30_000, 5)
+
+    def run(device):
+        p = _card_params(51, "CSV", k=20)
+        reg = QueryRegistry("knn", radius=p.query.radius, k=20)
+        for i, (x, y) in enumerate([(116.5, 40.5), (116.9, 40.1)]):
+            reg.admit({"id": f"q{i}", "x": x, "y": y})
+        reg.apply()
+        p.query_registry = reg
+
+        def churn():
+            for i, line in enumerate(lines):
+                if i == 12_000:
+                    reg.admit({"id": "late", "x": 116.0, "y": 40.8})
+                if i == 20_000:
+                    reg.retire("q0")
+                yield line
+        return [(w.window_start, w.extras["query_ids"], w.records)
+                for w in TD.run_option(p, churn(), device=device)]
+
+    got, want = run("cuda"), run("cpu")
+    assert [w[:2] for w in got] == [w[:2] for w in want]
+    assert {tuple(w[1]) for w in got} >= {("q0", "q1"),
+                                           ("q0", "q1", "late"),
+                                           ("q1", "late")}
+    _knn_lists_close([(w[0], 0, w[2]) for w in got],
+                     [(w[0], 0, w[2]) for w in want])

@@ -43,8 +43,9 @@ def _forbidden(mod: str) -> bool:
 
 def test_port_loads_no_jax():
     """In a fresh interpreter (PYTHONPATH unset: the test process already
-    holds jax), import the port and run one tiny option-6 window and one
-    option-101 join window."""
+    holds jax), import the port and run one tiny option-6 window, option
+    51 with panes under the device merge, option 1 from a live query
+    registry, and one option-101 join window."""
     code = textwrap.dedent("""
         import dataclasses, sys
         from spatialflink_tpu_torch.config import Params
@@ -57,6 +58,21 @@ def test_port_loads_no_jax():
                  for i in range(500)]
         wins = list(run_option(p, lines, device="cpu"))
         assert wins and any(len(w.records) for w in wins), wins
+        p.query.option = 51
+        p.query.panes, p.query.pane_device_merge = True, True
+        wins = list(run_option(p, lines, device="cpu"))
+        assert wins and any(len(w.records) for w in wins), wins
+        p.query.panes = False
+        from spatialflink_tpu_torch.runtime.queryplane import QueryRegistry
+        p.query.option = 1
+        reg = QueryRegistry("range", radius=p.query.radius)
+        reg.admit({"id": "a", "x": 116.4, "y": 40.5})
+        reg.apply()
+        p.query_registry = reg
+        wins = list(run_option(p, lines, device="cpu"))
+        assert wins and wins[0].extras["query_ids"] == ["a"], wins
+        assert any(len(w.records[0]) for w in wins), wins
+        del p.query_registry
         p.query.option = 101
         p = dataclasses.replace(
             p, input2=dataclasses.replace(p.input2, format="CSV"))

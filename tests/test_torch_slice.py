@@ -213,7 +213,7 @@ def test_realtime_knn_is_refused(option):
     (["--option", "201"], "queryOption 201: not yet ported"),
     (["--option", "101"], "queryOption 101 (join) needs --input2"),
     (["--option", "6", "--kafka"], "--kafka: not yet ported"),
-    (["--option", "6", "--panes"], "--panes: not yet ported"),
+    (["--option", "101", "--panes"], "--panes: not yet ported"),
     (["--option", "6", "--limit", "5"], "--limit: not yet ported"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, message):
@@ -226,10 +226,14 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, message):
 
 
 def test_config_features_not_ported_raise():
-    p = _params(TParams, 6)
+    """A join's panes are not ported yet (range and kNN run them:
+    tests/test_torch_panes.py)."""
+    p = _params(TParams, 101)
     p.query.panes = True
-    with pytest.raises(NotImplementedError, match="query.panes: not yet"):
-        TD.run_option(p, [], device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match=r"query.panes for a join \(queryOption 101\): "
+                             "not yet"):
+        TD.run_option(p, [], [], device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["point", "polygon", "linestring"])
