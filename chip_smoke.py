@@ -35,8 +35,9 @@ its wall seconds):
    K2 ``knn_topk`` with 100,000 object ids at k = 50 and k = 10: point
    mode, cell mode over K4 distances, 16 queries in both modes, ties at
    the k-th place (1 and 16 queries), nothing eligible, every object at
-   one distance (k = 1,024), 3,000 objects at one distance (k = 50) and
-   30 ids (k = 50). Then every kernel of the realtime path at one
+   one distance (k = 1,024), 3,000 objects at one distance (k = 50), 30
+   ids (k = 50) and k = 2,048 (the list sorted as runs that merge across
+   blocks). Then every kernel of the realtime path at one
    micro-batch of 512 points (K4 with its table and dense, the
    linestring; K1 point and mask mode; K2 point and cell mode over the
    batch's compacted ids, each also equal to the call over the interned
@@ -101,15 +102,19 @@ its wall seconds):
    objects. Option 71 once more under torch.profiler, and the CLI runs
    option 21 from a 16,384-line GeoJSON file against an in-process run
    over the same lines.
-5. Panes and the standing-query plane. K3 ``knn_merge`` against its
-   plain version bit for bit at (panes, queries, k) = (2, 1, 50) (option
-   51's window under panes), (2, 16, 50), (10, 16, 50), (4, 1, 1,024),
-   (60, 1, 100) and (16, 2, 1,024) (two tiles), and on ties at the k-th
-   place, 64 objects over every pane and all-invalid rows, each with its
-   CUDA-event time, launch-to-completion time and bound. Then options 1
-   and 51 (k = 50) and multiQuery 1 and 51 (16 points) over the point
-   stream with ``query.panes``, multiQuery 51 once more at 10 s / 1 s
-   windows (10 panes a window), and options 21 and 71 over 32,768 parsed
+5. Panes and the standing-query plane. K3 through its parts entry
+   ``knn_merge_parts`` (the partials where they lie, as the device merge
+   passes them) against its plain version bit for bit at (panes, queries,
+   k) = (2, 1, 50) (option 51's window under panes), (2, 16, 50), (10,
+   16, 50), (4, 1, 1,024), (60, 1, 100), (16, 2, 1,024) and (10, 1,
+   2,048) (rows wider than one block), on ties at the k-th place, 64
+   objects over every pane and all-invalid rows, and over partials of
+   real K2 launches (option 51's 1 s panes of a 10 s window, 16 queries),
+   each with its CUDA-event time, launch-to-completion time and bound.
+   Then options 1 and 51 (k = 50) and multiQuery 1 and 51 (16 points)
+   over the point stream with ``query.panes``, multiQuery 51 once more at
+   10 s / 1 s windows (10 panes a window), 51 at k = 2,048 at 10 s / 1 s
+   (K2's and K3's paths for k > 1,024), and options 21 and 71 over 32,768 parsed
    polygons spread over the 20 s (every eighth): each under the device
    merge (K3 launched once per window) and, for kNN, the host merge (no
    K3 launch), and under the device merge with every kernel swapped for
@@ -636,8 +641,10 @@ def k1_query_axis_phase(torch, timer: Timer, b, lattice_rows):
     return cases
 
 
-def knn_kernel_phase(torch, seed: int, timer: Timer, lattice_rows):
-    """K2 at 1,048,576 points and 100,000 object ids."""
+def k2_specs(torch, seed: int, lattice_rows):
+    """K2's cases at 1,048,576 points and 100,000 object ids: [(name, k,
+    keyword arguments of the kernel call, obj_id included)], and the ids
+    of the window's points (the ties case's check reads them)."""
     from spatialflink_tpu_torch.models import (Point, PointBatch, Polygon,
                                                 single_query_edges)
     from spatialflink_tpu_torch.ops import hopper_kernels as HK
@@ -655,7 +662,6 @@ def knn_kernel_phase(torch, seed: int, timer: Timer, lattice_rows):
     x[:200], y[:200] = tq[0] + 0.001, tq[1]
     oid[:200] = np.arange(200, dtype=np.int32) * 37
     b = PointBatch.from_arrays(x, y, device=dev, grid=grid, obj_id=oid)
-    n = b.capacity
     nb_layers = grid.candidate_layers(0.5)
     pts = [Point.create(px_, py_, grid) for px_, py_ in query_points()]
     polys = [Polygon.create([rg], grid) for rg in query_polygons()]
@@ -705,6 +711,9 @@ def knn_kernel_phase(torch, seed: int, timer: Timer, lattice_rows):
                                   qy=torch.cat([tie[1], q16[1][1:]]),
                                   q_cell=torch.cat([tie[2], q16[2][1:]]),
                                   nb_layers=nb_layers)),
+        # k > 1,024: the list sorted as runs that merge across blocks
+        ("point-k2048", 2048, dict(point_kw, qx=q1[0], qy=q1[1],
+                                   q_cell=q1[2], nb_layers=nb_layers)),
     ]
     # equal minima past one candidate tile: the selection refines on the
     # keys' lower bits. Every object at one point (k = 1,024), and 3,000
@@ -719,7 +728,7 @@ def knn_kernel_phase(torch, seed: int, timer: Timer, lattice_rows):
     near = PointBatch.from_arrays(x3, y3, device=dev, grid=grid, obj_id=oid3)
     few = PointBatch.from_arrays(x, y, device=dev, grid=grid,
                                  obj_id=(oid % 30).astype(np.int32))
-    for name, pb, k, ids in (("same-distance-100000ids-k1024", same, K.MAX_K,
+    for name, pb, k, ids in (("same-distance-100000ids-k1024", same, 1024,
                               N_IDS),
                              ("same-distance-3000ids-k50", near, 50, N_IDS),
                              ("30ids-k50", few, 50, 30)):
@@ -727,10 +736,20 @@ def knn_kernel_phase(torch, seed: int, timer: Timer, lattice_rows):
             mode=K.MODE_POINT, num_ids=ids, x=pb.x, y=pb.y, cell=pb.cell,
             valid=pb.valid, n=grid.n, qx=tie[0], qy=tie[1], q_cell=tie[2],
             nb_layers=grid.n, obj_id=pb.obj_id)))
+    return [(name, k, {"obj_id": b.obj_id, **kw}) for name, k, kw in specs], \
+        oid
+
+
+def knn_kernel_phase(torch, seed: int, timer: Timer, lattice_rows):
+    """K2 at 1,048,576 points and 100,000 object ids (``k2_specs``)."""
+    from spatialflink_tpu_torch.ops import knn as K
+
+    specs, oid = k2_specs(torch, seed, lattice_rows)
+    n = specs[0][2]["x"].shape[0]
     cases = []
     for name, k, kw in specs:
         kw = dict(kw)
-        ids_t = kw.pop("obj_id", b.obj_id)
+        ids_t = kw.pop("obj_id")
         q = kw["qx"].shape[0] if "qx" in kw else kw["dists"].shape[0]
         mode = kw["mode"]
         in_bytes = n * (4 + 4 + 1) + (n * 8 + q * 12 if mode == K.MODE_POINT
@@ -1882,6 +1901,7 @@ PANE_RUNS = [
     (1, True, None, None, ("range_mask_stats",)),
     (51, True, 50, None, ("knn_topk", "knn_merge")),
     (51, True, 50, (10, 1), ("knn_topk", "knn_merge")),
+    (51, False, 2048, (10, 1), ("knn_topk", "knn_merge")),
 ]
 #: the pane runs over N_GEOM_SPREAD parsed polygons spread over the 20 s
 GEOM_PANE_RUNS = [
@@ -1889,7 +1909,8 @@ GEOM_PANE_RUNS = [
     (71, False, None, None, ("geom_stream_dist", "knn_topk", "knn_merge")),
 ]
 #: the K3 cases: (name, panes, queries, k, id pool, distances drawn from
-#: (None: uniform), share of valid slots)
+#: (None: uniform; "K2": partials of K2 launches over option 51's panes),
+#: share of valid slots)
 K3_CASES = [
     ("51-window", 2, 1, 50, N_IDS, None, 1.0),
     ("51-multi-window", 2, N_QUERIES, 50, N_IDS, None, 1.0),
@@ -1900,6 +1921,8 @@ K3_CASES = [
     ("duplicates", 10, N_QUERIES, 50, 64, None, 1.0),
     ("all-invalid", 4, N_QUERIES, 50, N_IDS, None, 0.0),
     ("two-tiles", 16, 2, 1024, N_IDS, None, 0.9),
+    ("k2048", 10, 1, 2048, N_IDS, None, 1.0),
+    ("51-k2-partials-10s-1s", 10, N_QUERIES, 50, N_IDS, "K2", 1.0),
 ]
 #: the dynamic fleet: five seed points, then three admitted (bucket 8),
 #: one more (bucket 16), then six retired (bucket 4)
@@ -1907,19 +1930,47 @@ DYN_SEEDS = 5
 DYN_ADMIT, DYN_ADMIT_MORE, DYN_RETIRE = 3, 1, 6
 
 
-def k3_phase(torch, seed: int, timer: Timer):
-    """K3 ``knn_merge`` against its plain version bit for bit at the pane
-    merges' shapes (option 51's window: 2 panes x k = 50, 1 and 16
-    queries; 10 panes; k = 1,024; 60 panes of k = 100; rows of two tiles)
-    and on ties at the k-th place, one object in many panes and rows of
-    invalid slots: each with its CUDA-event time, launch-to-completion
-    time and bound (P*Q*k*9 bytes read, Q*k*9 written)."""
+def k2_partials(torch, seed: int, panes: int, k: int):
+    """(P, Q, k) partials of K2 launches as option 51's device merge gets
+    them: one launch per 1 s pane of the stream's points (N_STREAM over
+    SPAN_MS), the 16 query points, the conf's radius, N_IDS ids."""
+    from spatialflink_tpu_torch.models import Point, PointBatch
+    from spatialflink_tpu_torch.ops import knn as K
+
+    dev = torch.device("cuda")
+    grid = _grid()
+    nb_layers = grid.candidate_layers(base_params().query.radius)
+    pts = [Point.create(px_, py_, grid) for px_, py_ in query_points()]
+    q = [torch.tensor([getattr(p, a) for p in pts], dtype=dt, device=dev)
+         for a, dt in (("x", torch.float32), ("y", torch.float32),
+                       ("cell", torch.int32))]
+    rng = np.random.default_rng(seed + 37)
+    per = N_STREAM * 1000 // SPAN_MS
+    out = []
+    for _ in range(panes):
+        b = PointBatch.from_arrays(
+            rng.uniform(BBOX[0], BBOX[2], per),
+            rng.uniform(BBOX[1], BBOX[3], per), device=dev, grid=grid,
+            obj_id=rng.integers(0, N_IDS, per).astype(np.int32))
+        out.append(K.knn_topk(b.obj_id, mode=K.MODE_POINT, k=k,
+                              num_ids=N_IDS, x=b.x, y=b.y, cell=b.cell,
+                              valid=b.valid, qx=q[0], qy=q[1], q_cell=q[2],
+                              n=grid.n, nb_layers=nb_layers)[:3])
+    return [torch.stack([o[f] for o in out]) for f in range(3)]
+
+
+def k3_inputs(torch, seed: int, cases=None):
+    """[(name, panes, queries, k, [obj_id, dist, valid] (P, Q, k) on the
+    card)] of ``cases`` (by default K3_CASES)."""
     from spatialflink_tpu_torch.ops import knn as K
 
     rng = np.random.default_rng(seed + 31)
-    cases = []
-    for name, p, q, k, ids, dists, share in K3_CASES:
+    out = []
+    for name, p, q, k, ids, dists, share in cases or K3_CASES:
         shape = (p, q, k)
+        if dists == "K2":
+            out.append((name, p, q, k, k2_partials(torch, seed, p, k)))
+            continue
         oid = rng.integers(0, ids, shape).astype(np.int32)
         d = (rng.uniform(0.0, 0.5, shape) if dists is None
              else rng.choice(np.asarray(dists), shape)).astype(np.float32)
@@ -1929,14 +1980,35 @@ def k3_phase(torch, seed: int, timer: Timer):
         valid = np.broadcast_to(valid, shape).copy()
         oid = np.where(valid, oid, K._OID_SENTINEL).astype(np.int32)
         d = np.where(valid, d, np.float32(K._BIG)).astype(np.float32)
-        args = [torch.from_numpy(a).cuda() for a in (oid, d, valid)]
+        out.append((name, p, q, k, [torch.from_numpy(a).cuda()
+                                    for a in (oid, d, valid)]))
+    return out
+
+
+def k3_phase(torch, seed: int, timer: Timer):
+    """K3 through its parts entry ``knn_merge_parts`` (each pane's
+    partial where it lies) against its plain version over the stack, bit
+    for bit, at the pane merges' shapes (option 51's window: 2 panes x k =
+    50, 1 and 16 queries; 10 panes; k = 1,024; 60 panes of k = 100; rows
+    of 16 blocks; k = 2,048), on ties at the k-th place (distances drawn
+    from two values: the pane lists come unsorted by key), one object in
+    many panes and rows of invalid slots, and over K2's own partials:
+    each with its CUDA-event time, launch-to-completion time and bound
+    (P*Q*k*9 bytes read, Q*k*9 written). The plain version is timed over
+    the stacked partials (the stacks made outside the timed call)."""
+    from spatialflink_tpu_torch.ops import knn as K
+
+    cases = []
+    for name, p, q, k, args in k3_inputs(torch, seed):
+        parts = [K.KnnResult(*(t[i] for t in args)) for i in range(p)]
         n = p * q * k
-        case, _ = kernel_case(
-            timer, torch, name, lambda: K.knn_merge(*args, k),
+        case, got = kernel_case(
+            timer, torch, name, lambda: K.knn_merge_parts(parts, k),
             lambda: K.merge_topk_stacked_plain(*args, k), 2 * n,
             9 * n + 9 * q * k, "k3", panes=p, queries=q, k=k)
         case["launch_to_completion_ms"] = launch_ms(
-            torch, lambda: K.knn_merge(*args, k))
+            torch, lambda: K.knn_merge_parts(parts, k))
+        case["valid_slots"] = int(got.valid.sum())
         cases.append(case)
     return cases
 
@@ -1956,7 +2028,7 @@ def _plain_kernels():
         (R, "range_filter_masks_stats"): R.range_filter_masks_stats_plain,
         (HK, "pip_dist"): HK.pip_dist_plain,
         (K, "knn_topk"): K.knn_topk_plain,
-        (K, "knn_merge"): K.merge_topk_stacked_plain,
+        (K, "knn_merge_parts"): K.merge_topk_parts_plain,
         (G, "geom_stream_dist"): G.geom_stream_dist_plain,
     }
 

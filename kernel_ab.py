@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times the port's K1, K4, K5, K6 and K7 kernels against an earlier
+"""Times the port's K1, K2, K3, K4, K5, K6 and K7 kernels against an earlier
 revision's, on one card, in turns (old, new, new, old), at the main path's
 shapes.
 
@@ -9,7 +9,8 @@ the earlier revision's ``csrc/`` unpacked into a directory that
 
     git archive <commit> spatialflink_tpu_torch/csrc | tar -x -C _scratch/old
     python3 kernel_ab.py --old _scratch/old/spatialflink_tpu_torch/csrc \
-        [--kernels k1,k4,k5,k6,k7]
+        [--kernels k1,k2,k3,k4,k5,k6,k7]
+    python3 kernel_ab.py --kernels k3wide
 
 The old ``range_mask.cu``, ``pip_dist.cu`` (with its ``pip_edges.cuh``)
 and ``geom_dist.cu`` are built with the port's own nvcc flags into
@@ -26,7 +27,13 @@ bvalid, nb, r2, layers, n, cnt, mind2, amin, stream)`` and
 m, bx, by, bcell, bvalid, nb, tile, cx, cy, r2, layers, all_cells, n,
 counts, offsets, out_a, out_b, stream)`` (K7 and K6 as they walked every b
 point, before the join index), which ``old_reduce`` and ``old_lattice``
-call as that revision's wrappers did. Every case
+call as that revision's wrappers did, and those of commit 90102f5 for
+``knn_merge_launch(panes, queries, k, obj_id, dist, valid, scratch_ints,
+s_oid, s_dist, out_oid, out_dist, out_valid, stream)`` (K3 over stacked
+(P, Q, k) partials, sorting each row twice), which ``old_merge`` calls
+after the three ``torch.stack`` copies that revision's device merge
+made, and ``knn_topk_launch`` with a (Q, 2,048) candidate list (K2 as
+commit 90102f5 had it, k <= 1,024), which ``old_topk`` calls. Every case
 first checks that old and new give the same outputs bit for bit, then
 times 5 rounds of old, new, new, old (10 pairs) with chip_smoke's timer
 (CUDA events, L2 evicted before each launch), counts the pairs the new
@@ -60,7 +67,20 @@ the sparse stream's 262,144 x 256; the conf's radius 0.5; realtime 102's
 per-cut shapes 512 x 2,048 and 65,536 x 256): the new side's K7 and its
 direct-branch K6 build the join index inside the call, and its K6 on
 K7's rows takes the index K7's window built (as ``join_pairs_host``
-shares it); each with both sides' launch-to-completion times.
+shares it); each with both sides' launch-to-completion times. K3 at
+``chip_smoke.K3_CASES`` (option 51's window and its multiQuery, 10 and 60
+panes, k = 1,024, rows of 16 blocks, ties, duplicates, all-invalid rows,
+K2's partials over 1 s panes): the old side stacks the partials and
+launches, the new side reads them through ``knn_merge_parts``; each with
+both sides' launch-to-completion times, and the new side's host steps (``k3_host_split``). The old kernel
+refuses k > 1,024, so its k = 2,048 case times the new side alone.
+``k3wide`` needs no earlier revision: it times the checkout's K3 on rows
+wider than one block of k <= 512 (``K3_WIDE_CASES``) through its two
+wide-row paths, each forced by a variant of the source (``K3_VARIANTS``:
+the sort across blocks, and the survivor reduce whatever its levels),
+beside the port's own choice. K2 at
+``chip_smoke.k2_specs``' cases of k <= 1,024 (1,048,576 points, 100,000
+ids), whose path the k > 1,024 work must leave as it was.
 """
 
 from __future__ import annotations
@@ -85,6 +105,7 @@ ROUNDS = 5
 def build_old(old_csrc: str, names) -> dict:
     """Compile the old sources (one nvcc each, in parallel) and load them."""
     from spatialflink_tpu_torch.ops import geom as G
+    from spatialflink_tpu_torch.ops import knn as K
     from spatialflink_tpu_torch.ops import native
 
     os.makedirs(BUILD, exist_ok=True)
@@ -118,6 +139,13 @@ def build_old(old_csrc: str, names) -> dict:
     if "join_reduce" in libs:
         libs["join_reduce"].join_reduce_launch.argtypes = [
             C, C, C, C, I, C, C, C, C, I, F, I, I, C, C, C, C]
+    if "knn_topk" in libs:
+        libs["knn_topk"].knn_topk_launch.argtypes = list(K._ARGTYPES)
+        libs["knn_topk"].knn_topk_zone_ints.argtypes = [I, I]
+        libs["knn_topk"].knn_topk_zone_ints.restype = ctypes.c_longlong
+    if "knn_merge" in libs:
+        libs["knn_merge"].knn_merge_launch.argtypes = [
+            I, I, I, C, C, C, ctypes.c_longlong, C, C, C, C, C, C]
     if "join_lattice" in libs:
         for fn in (libs["join_lattice"].join_lattice_count,
                    libs["join_lattice"].join_lattice_write):
@@ -240,6 +268,279 @@ def old_lattice(torch, lib, a, b, radius, layers, cx, cy, n, rows=None):
                                         stream):
         raise RuntimeError("old join_lattice write: CUDA error")
     return ai, bi
+
+
+def old_topk(torch, lib, obj_id, *, mode, k, num_ids, n=1, nb_layers=-1,
+             **kw):
+    """The old K2 call, as that revision's wrapper made it."""
+    from spatialflink_tpu_torch.ops import knn as K
+    from spatialflink_tpu_torch.ops import native
+
+    dev = obj_id.device
+    N, Q, cells, p = K._launch_args(obj_id, mode=mode, **kw)
+    best = torch.empty((max(num_ids, 1), Q), dtype=torch.int32, device=dev)
+    zone = torch.empty(lib.knn_topk_zone_ints(Q, num_ids), dtype=torch.int32,
+                       device=dev)
+    cand = torch.empty((Q, 2048), dtype=torch.int64, device=dev)
+    over = torch.empty((Q, max(num_ids, 1)), dtype=torch.int64, device=dev)
+    out = (torch.empty((Q, k), dtype=torch.int32, device=dev),
+           torch.empty((Q, k), dtype=torch.float32, device=dev),
+           torch.empty((Q, k), dtype=torch.bool, device=dev))
+    err = lib.knn_topk_launch(
+        mode, N, Q, num_ids, k, p["obj_id"], p["x"], p["y"], p["cell"],
+        p["valid"], p["qx"], p["qy"], p["q_cell"], int(n), int(nb_layers),
+        p["dists"], p["nb_mask"], cells, p["eligible"], best.data_ptr(),
+        zone.data_ptr(), cand.data_ptr(), over.data_ptr(),
+        *(t.data_ptr() for t in out),
+        torch.cuda.current_stream(dev).cuda_stream)
+    native.check(err, "old knn_topk")
+    return (*out, zone[:Q])
+
+
+def k2_cases(torch, timer, card, lib, lattice_rows, seed) -> list:
+    """K2 old/new at chip_smoke's K2 cases of k <= 1,024."""
+    from spatialflink_tpu_torch.ops import knn as K
+
+    specs, _ = CS.k2_specs(torch, seed, lattice_rows)
+    rows = []
+    for name, k, kw in specs:
+        if k > 1024:
+            continue
+        kw = dict(kw)
+        obj_id = kw.pop("obj_id")
+
+        def old(kw=kw, k=k, o=obj_id):
+            return old_topk(torch, lib, o, k=k, **kw)
+
+        def new(kw=kw, k=k, o=obj_id):
+            return K.knn_topk(o, k=k, **kw)
+
+        rows.append(ab_case(torch, timer, card, f"K2 {name}", old, new,
+                            split_old=True, k=k))
+    return rows
+
+
+def old_merge(torch, lib, parts, k):
+    """The old K3 call: the three stacks of its device merge, its
+    outputs and two scratch halves (four allocations), one launch."""
+    from spatialflink_tpu_torch.ops import knn as K
+    from spatialflink_tpu_torch.ops import native
+
+    oid, dist, valid = (torch.stack([getattr(r, f) for r in parts])
+                        for f in K.KnnResult._fields)
+    p, q, _ = oid.shape
+    m = p * k
+    n_scratch = max(q * -(-m // 8192) * k if m > 8192 else 0, 1)
+    dev = oid.device
+    s_oid = torch.empty((2, n_scratch), dtype=torch.int32, device=dev)
+    s_dist = torch.empty((2, n_scratch), dtype=torch.float32, device=dev)
+    out = K.KnnResult(torch.empty((q, k), dtype=torch.int32, device=dev),
+                      torch.empty((q, k), dtype=torch.float32, device=dev),
+                      torch.empty((q, k), dtype=torch.bool, device=dev))
+    err = lib.knn_merge_launch(
+        p, q, k, oid.data_ptr(), dist.data_ptr(), valid.data_ptr(),
+        n_scratch, s_oid.data_ptr(), s_dist.data_ptr(),
+        *(t.data_ptr() for t in out),
+        torch.cuda.current_stream(dev).cuda_stream)
+    native.check(err, "old knn_merge")
+    return out
+
+
+def host_us(torch, fn, reps: int = 400) -> float:
+    """Median host microseconds of one call of ``fn`` (the device
+    synchronised after each call, outside the time)."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    return float(np.median(ts)) * 1e6
+
+
+def k3_host_split(torch, parts, k) -> dict:
+    """Host microseconds of ``knn_merge_parts``' steps: the partials'
+    checks (``_part_ptrs``), the output allocation and its views, the C
+    launch call alone (arguments made beforehand), the whole wrapper; and
+    the three ``torch.stack`` copies that commit 90102f5's device merge
+    made."""
+    from spatialflink_tpu_torch.ops import knn as K
+
+    p = len(parts)
+    single = parts[0].obj_id.dim() == 1
+    ptrs, q, dev = K._part_ptrs(parts, k)
+    out = K._merge_outputs(q, k, dev, single)
+    nbytes = K._merge_scratch_bytes(p, q, k)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
+    launch = K._merge_launch_fn()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def c_call():
+        err = launch(p, q, k, (ctypes.c_longlong * len(ptrs))(*ptrs),
+                     None if scratch is None else scratch.data_ptr(),
+                     *(t.data_ptr() for t in out), stream)
+        assert err == 0, err
+
+    return {"checks": host_us(torch, lambda: K._part_ptrs(parts, k)),
+            "outputs": host_us(
+                torch, lambda: K._merge_outputs(q, k, dev, single)),
+            "c_launch": host_us(torch, c_call),
+            "wrapper": host_us(torch, lambda: K.knn_merge_parts(parts, k)),
+            "old_stacks": host_us(torch, lambda: [
+                torch.stack([getattr(r, f) for r in parts])
+                for f in K.KnnResult._fields])}
+
+
+def k3_cases(torch, timer, card, lib, seed) -> list:
+    """K3 old/new at chip_smoke's K3 cases."""
+    from spatialflink_tpu_torch.ops import knn as K
+
+    rows = []
+    for name, p, q, k, args in CS.k3_inputs(torch, seed):
+        parts = [K.KnnResult(*(t[i] for t in args)) for i in range(p)]
+
+        def old(parts=parts, k=k):
+            return old_merge(torch, lib, parts, k)
+
+        def new(parts=parts, k=k):
+            return K.knn_merge_parts(parts, k)
+
+        extra = dict(panes=p, queries=q, k=k,
+                     new_launch_to_completion_ms=CS.launch_ms(torch, new),
+                     new_host_us=k3_host_split(torch, parts, k))
+        if k > 1024:  # the old kernel refuses it
+            CS.compare(torch, new(), K.merge_topk_stacked_plain(*args, k),
+                       f"K3 {name}")
+            n = [timer.ms(new) for _ in range(2 * ROUNDS)]
+            row = {"case": f"K3 {name}", **extra, "old": "refuses k > 1024",
+                   "new_ms": n, "new_median_ms": float(np.median(n)),
+                   "identical_to_plain": True,
+                   "new_kernels_us": kernel_split(torch, new), "card": card}
+            print("ab", json.dumps(row), flush=True)
+            rows.append(row)
+            continue
+        extra["old_launch_to_completion_ms"] = CS.launch_ms(torch, old)
+        rows.append(ab_case(torch, timer, card, f"K3 {name}", old, new,
+                            split_old=True, **extra))
+    return rows
+
+
+#: rows wider than one block of k <= 512, where K3 may take its survivor
+#: reduce: (name, panes, queries, k, id pool, distances, valid share) as in
+#: chip_smoke.K3_CASES
+K3_WIDE_CASES = [
+    ("21-panes", 21, 2, 50, CS.N_IDS, None, 0.9),
+    ("60-panes", 60, 1, 100, CS.N_IDS, None, 1.0),
+    ("60-panes-16q", 60, CS.N_QUERIES, 100, CS.N_IDS, None, 1.0),
+    ("300-panes", 300, 1, 100, CS.N_IDS, None, 1.0),
+    ("16x512", 16, 1, 512, CS.N_IDS, None, 1.0),
+    ("32x512", 32, 1, 512, CS.N_IDS, None, 1.0),
+    ("300x512", 300, 1, 512, CS.N_IDS, None, 1.0),
+]
+#: the variants of knn_merge.cu's ``reduces``: (name, line replaced, its
+#: replacement)
+K3_VARIANTS = (
+    ("sort", "bool reduces(long long n, int k) {",
+     "bool reduces(long long n, int k) {\n  return false;"),
+    ("reduce", "  return levels <= kReduceLevels;", "  return true;"),
+)
+
+
+def build_k3_variants() -> dict:
+    """The checkout's knn_merge.cu built twice (one nvcc each, in
+    parallel): every row wider than one block through the sort across
+    blocks, and every such row of 2k <= 1,024 through the survivor reduce,
+    whatever its levels."""
+    from spatialflink_tpu_torch.ops import knn as K
+    from spatialflink_tpu_torch.ops import native
+
+    src = os.path.join(CS.ROOT, "spatialflink_tpu_torch", "csrc")
+    with open(os.path.join(src, "knn_merge.cu")) as f:
+        text = f.read()
+    with open(os.path.join(src, "topk_merge.cuh")) as f:
+        header = f.read()
+    procs = {}
+    for name, line, repl in K3_VARIANTS:
+        if line not in text:
+            raise RuntimeError(f"knn_merge.cu: {line!r} not found")
+        out_dir = os.path.join(BUILD, f"k3_{name}")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "knn_merge.cu"), "w") as f:
+            f.write(text.replace(line, repl))
+        with open(os.path.join(out_dir, "topk_merge.cuh"), "w") as f:
+            f.write(header)
+        so = os.path.join(out_dir, f"libk3_{name}.so")
+        procs[name] = (subprocess.Popen(
+            [native.nvcc_path(), *native.NVCC_FLAGS, "-o", so,
+             os.path.join(out_dir, "knn_merge.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} variant:\n{log}")
+        lib = ctypes.CDLL(so)
+        lib.knn_merge_launch.argtypes = list(K._MERGE_ARGTYPES)
+        lib.knn_merge_scratch_bytes.argtypes = [ctypes.c_int] * 3
+        lib.knn_merge_scratch_bytes.restype = ctypes.c_longlong
+        libs[name] = lib
+    return libs
+
+
+def k3_variant_call(torch, lib, parts, k):
+    """``knn_merge_parts``' host steps over a variant's library."""
+    from spatialflink_tpu_torch.ops import knn as K
+    from spatialflink_tpu_torch.ops import native
+
+    p = len(parts)
+    ptrs, q, dev = K._part_ptrs(parts, k)
+    out = K._merge_outputs(q, k, dev, False)
+    scratch = torch.empty(lib.knn_merge_scratch_bytes(p, q, k),
+                          dtype=torch.uint8, device=dev)
+    native.check(lib.knn_merge_launch(
+        p, q, k, (ctypes.c_longlong * len(ptrs))(*ptrs), scratch.data_ptr(),
+        *(t.data_ptr() for t in out),
+        torch.cuda.current_stream(dev).cuda_stream), "knn_merge variant")
+    return out
+
+
+def k3_wide_cases(torch, timer, card, seed) -> list:
+    """K3's two paths for rows wider than one block at K3_WIDE_CASES, the
+    sort across blocks (old side) against the survivor reduce (new side),
+    each forced by a variant of the checkout's source, through the same
+    host steps; beside them the port's own ``knn_merge_parts``, which
+    takes the reduce only within its level cap."""
+    from spatialflink_tpu_torch.ops import knn as K
+
+    libs = build_k3_variants()
+    rows = []
+    for name, p, q, k, args in CS.k3_inputs(torch, seed, K3_WIDE_CASES):
+        parts = [K.KnnResult(*(t[i] for t in args)) for i in range(p)]
+
+        def sort(parts=parts, k=k):
+            return k3_variant_call(torch, libs["sort"], parts, k)
+
+        def reduce(parts=parts, k=k):
+            return k3_variant_call(torch, libs["reduce"], parts, k)
+
+        def port(parts=parts, k=k):
+            return K.knn_merge_parts(parts, k)
+
+        CS.compare(torch, port(), K.merge_topk_stacked_plain(*args, k),
+                   f"K3 wide {name}")
+        CS.compare(torch, reduce(), port(), f"K3 wide {name}")
+        rows.append(ab_case(
+            torch, timer, card, f"K3 wide {name}", sort, reduce,
+            split_old=True, panes=p, queries=q, k=k,
+            old_path="sort across blocks", new_path="survivor reduce",
+            port_ms=[timer.ms(port) for _ in range(2 * ROUNDS)],
+            old_launch_to_completion_ms=CS.launch_ms(torch, sort),
+            new_launch_to_completion_ms=CS.launch_ms(torch, reduce),
+            port_launch_to_completion_ms=CS.launch_ms(torch, port)))
+    return rows
 
 
 def join_cases(torch, timer, card, libs, which) -> list:
@@ -491,17 +792,20 @@ def k5_cases(torch, timer, card, lib, seed):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--old", required=True,
+    ap.add_argument("--old", default=None,
                     help="the earlier revision's csrc directory")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default="k1,k4,k5",
-                    help="comma-separated kernels to compare: k1, k4 (with "
-                    "the table sweep), k5, k6, k7")
+                    help="comma-separated kernels to compare: k1, k2, k3, "
+                    "k3wide (K3's two wide-row paths, both of the checkout; "
+                    "needs no --old), k4 (with the table sweep), k5, k6, k7")
     args = ap.parse_args(argv)
     which = set(args.kernels.split(","))
-    known = {"k1", "k4", "k5", "k6", "k7"}
+    known = {"k1", "k2", "k3", "k3wide", "k4", "k5", "k6", "k7"}
     if not which <= known:
         ap.error(f"--kernels: unknown {sorted(which - known)}")
+    if args.old is None and which - {"k3wide"}:
+        ap.error("--old is needed for every kernel but k3wide")
 
     import torch
 
@@ -513,20 +817,28 @@ def main(argv=None) -> int:
     card = CS.card_line()
     print(f"card: {card}", flush=True)
     native.build(("pip_lattice", "cell_order", "pip_dist", "range_mask",
-                  "geom_dist", "join_reduce", "join_lattice"))
+                  "geom_dist", "join_reduce", "join_lattice", "knn_topk",
+                  "knn_merge"))
     libs = build_old(args.old, [name for key, name in (
-        ("k1", "range_mask"), ("k4", "pip_dist"), ("k5", "geom_dist"),
-        ("k6", "join_lattice"), ("k7", "join_reduce")) if key in which])
-    for name in ("geom_dist", "join_reduce", "join_lattice", "cell_order"):
+        ("k1", "range_mask"), ("k2", "knn_topk"), ("k3", "knn_merge"),
+        ("k4", "pip_dist"),
+        ("k5", "geom_dist"), ("k6", "join_lattice"), ("k7", "join_reduce"))
+        if key in which])
+    for name in ("geom_dist", "join_reduce", "join_lattice", "cell_order",
+                 "knn_merge"):
         print(f"new-build {name}", json.dumps(native.ptxas_report(
             native.build_log(name))), flush=True)
     timer = CS.Timer(torch)
     rows = []
+    if "k3" in which:
+        rows += k3_cases(torch, timer, card, libs["knn_merge"], args.seed)
+    if "k3wide" in which:
+        rows += k3_wide_cases(torch, timer, card, args.seed)
     if which & {"k6", "k7"}:
         rows += join_cases(torch, timer, card, libs, which)
     if "k5" in which:
         rows += k5_cases(torch, timer, card, libs["geom_dist"], args.seed)
-    if which & {"k1", "k4"}:
+    if which & {"k1", "k2", "k4"}:
         rows += point_cases(torch, timer, card, libs, which, args.seed)
     print(card, flush=True)
     print(json.dumps({"ab": rows, "card": card}), flush=True)
@@ -559,6 +871,9 @@ def point_cases(torch, timer, card, libs, which, seed) -> list:
     if "k1" in which:
         rows += k1_cases(torch, timer, card, libs["range_mask"], b, grid,
                          pts, polys, rows_k4x[:len(polys)].contiguous())
+    if "k2" in which:
+        rows += k2_cases(torch, timer, card, libs["knn_topk"],
+                         rows_k4x[:len(polys)].contiguous(), seed)
     if "k4" in which:
         rows += k4_cases(torch, timer, card, libs["pip_dist"], b, grid)
         rows += k4_grid_cases(torch, timer, card, libs["pip_dist"], x, y)

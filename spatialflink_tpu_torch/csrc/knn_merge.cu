@@ -1,9 +1,9 @@
-// K3: the merge of a window's pane top-k partials. Input: P stacked
-// partials of Q query rows, each k slots of (obj_id, dist, valid), laid out
-// (P, Q, k). Output: per query row, the exact top-k of its P*k candidates:
-// each object's minimum distance, then the k smallest minima ordered by
-// (distance, object id) ascending, in k slots whose empty ones hold
-// (2^31-1, 3.4e38, false).
+// K3: the merge of a window's pane top-k partials. Input: P partials of Q
+// query rows, each k slots of (obj_id, dist, valid) per row, read where
+// they lie (one pointer triple per pane). Output: per query row, the
+// exact top-k of its P*k candidates: each object's minimum distance, then
+// the k smallest minima ordered by (distance, object id) ascending, in k
+// slots whose empty ones hold (2^31-1, 3.4e38, false).
 //
 // Replaces _merge_topk_stacked (spatialflink_tpu/ops/knn.py:532) and
 // _merge_topk_stacked_multi (:541), the jitted full-sort dedup + top-k
@@ -11,43 +11,84 @@
 // (:551-573) runs over a window's resident pane partials. Plain PyTorch
 // version: spatialflink_tpu_torch/ops/knn.py merge_topk_stacked_plain.
 //
-// Design: one block per (tile, query row). A block stages its candidates
-// in shared memory as 64-bit keys and sorts them twice (bitonic):
-// 1. key (id, distance): an ineligible slot becomes (2^31-1, 3.4e38), so
-//    the first slot of each id after the sort carries its minimum; the
-//    sentinel id and the padding (all ones) are never kept;
-// 2. key (distance, id) for the kept slots below 3.4e38, all ones for the
-//    rest: the first k keys are the answer, equal distances in ascending
-//    id (the JAX sort keeps ids ascending among kept slots and top_k
-//    breaks ties by position).
-// Ids and distances enter the keys in the total order of int32 and f32
-// (sign bit flipped; negative floats inverted), so the keys sort as the
-// plain version's stable sorts do, whatever the values.
-// A row of at most kTile candidates is one block. A wider row (P*k >
-// kTile, e.g. 16 panes at k = 1,024) is cut into tiles of kTile: each
-// tile's block writes its top-k survivors to scratch, and the survivors
-// merge again (another level when they still pass a tile). This is exact
-// by the argument of the pane merge itself: an object of the row's top-k
-// has its minimum in some tile, and there it is in the tile's top-k, or k
-// objects of that tile alone beat it; ties follow one total order.
+// Design: a merge of the sorted pane lists (csrc/topk_merge.cuh). A slot
+// is a candidate when it is valid, its id is not the sentinel and its
+// distance is below 3.4e38; it becomes the key (distance, id), both in
+// their total order (f32 sign bit flipped, negatives inverted; int32 sign
+// bit flipped), and every other slot the key ~0. The order of the row is
+// that of the keys, ties broken by (pane, slot). Each pane's k keys are a
+// run; K2 writes its k slots sorted by (distance, interned id), valid
+// ones first, so its partials are sorted runs, and merge rounds (a binary
+// search per key into the partner run) sort the row in ceil(log2 P)
+// rounds. Then a key is kept when it is the first of its id in that
+// order, which is the id's minimum distance: the plain version's (id,
+// distance) sort followed by first-of-id. An id table (open addressing,
+// atomicMin of the index) finds each id's first index, a block scan over
+// the kept flags gives each kept key its output slot, and the first k
+// are written. Equal distances come out in ascending id because the id is
+// the key's low half. Rows whose pane lists are not sorted come out right
+// too: one pass checks every pane's piece, and a block that finds one out
+// of order sorts all its keys (bitonic) into a single run first.
+//
+// A row of up to kMaxKeys = 1,024 keys is one block, one key a thread:
+// keys, merge and id table in shared memory (16 bytes per key: the keys
+// and a second buffer, which after the merge holds the id table at load
+// <= 1/2). One key a thread because a binary search is a chain of
+// dependent shared-memory loads: a thread that walks several keys' chains
+// one after another makes the rounds latency-bound (measured on an H100:
+// 4 to 8 keys a thread of 1,024 ran slower than the wide paths below).
+// A wider row spreads over blocks and SMs, chosen over a cluster with the
+// id table in distributed shared memory because a row may hold any P*k
+// keys and a cluster at most 16 blocks' shared memory:
+// - k <= kMaxKeys / 2 and at most kReduceLevels levels: a two-stage
+//   reduce. Each block of kMaxKeys keys keeps its chunk's top-k survivors
+//   (deduped, sorted), and the survivors, runs of k, merge again (one
+//   launch a level) until a row fits one block. This is exact by the pane
+//   merge's own covering argument: an object of the row's top-k has its
+//   minimum in some chunk, and there it is in the chunk's top-k, or k
+//   objects of that chunk alone beat it.
+// - otherwise a sort across blocks. Each block sorts its chunk as above,
+//   global merge rounds (one launch each, a thread per key) merge the
+//   chunks, and three passes over the sorted row (the id table in device
+//   memory, the kept count per block of 1,024 keys, the writes) dedup and
+//   write it.
+// A reduce level costs about one block's latency and a merge round about
+// half that, but the sort pays a fixed chunk sort, memset and three
+// passes. On an H100 (kernel_ab.py --kernels k3wide, PERF.md), with both
+// paths forced, the reduce took 0.025 / 0.027 / 0.041 / 0.043 ms against
+// the sort's 0.034 / 0.048 / 0.062 / 0.050 at (panes, queries, k) = (21,
+// 2, 50) / (60, 1, 100) / (300, 1, 100) / (16, 1, 512), 1 to 3 levels;
+// tied at (32, 1, 512), 4 levels (0.052 against 0.051), and lost at (300,
+// 1, 512), 8 levels (0.098 against 0.084).
+//
+// The partials' pointers travel in the kernel's parameters for up to
+// kParamPanes panes; beyond, the launch copies them to a table at the head
+// of the scratch. knn_merge_scratch_bytes says how much scratch a shape
+// needs (0 for a row of one block and few panes), so these limits live
+// here alone.
 //
 // What bounds it on an H100: a window's merge moves P*Q*k*9 bytes in and
-// Q*k*9 out (a few KB to a few MB), so at the main path's shapes it is
-// bound by the launch and by the sort's shared-memory passes and
-// barriers, log2(L)*(log2(L)+1) of them for a tile of L keys (PERF.md).
+// Q*k*9 out (a few KB at the main path's shapes), so it is bound by the
+// launch and by its barriers: one to load, one for the order check,
+// ceil(log2 P) merge rounds, three for the id table and the scan
+// (PERF.md). NaN distances are outside its contract.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "topk_merge.cuh"
+
 namespace {
 
-typedef unsigned long long u64;
+using topk_merge::kNoKey;
+using topk_merge::Runs;
+using topk_merge::u64;
 
-constexpr int kTile = 8192;       // MERGE_TILE in ops/knn.py
-constexpr int kMaxThreads = 512;
-constexpr int kPerThread = kTile / kMaxThreads;
+constexpr int kMaxKeys = 1024;
+constexpr int kParamPanes = 64;
+constexpr int kReduceLevels = 3;  // most survivor levels (see the header)
+constexpr int kScan = 1024;       // keys per block of the wide row's scan
 constexpr int32_t kSentinel = 0x7fffffff;
 constexpr float kBig = 3.4e38f;
-constexpr u64 kNone = ~0ULL;
 
 __device__ __forceinline__ uint32_t order_dist(float d) {
   const uint32_t b = __float_as_uint(d);
@@ -66,154 +107,362 @@ __device__ __forceinline__ int32_t id_of(uint32_t o) {
   return static_cast<int32_t>(o ^ 0x80000000u);
 }
 
-// Where a level reads its candidates: element j of query row q is slot
-// i = j % width of part p = j / width, at p * pane_stride + q * row_stride
-// + i. valid == nullptr: a slot is eligible iff its id is not the
-// sentinel (the survivors of an earlier level).
-struct Source {
-  const int32_t* oid;
-  const float* dist;
-  const uint8_t* valid;
-  int width;
-  long long pane_stride;
-  long long row_stride;
-  int m;  // candidates per row
+struct Parts {
+  const int32_t* oid[kParamPanes];
+  const float* dist[kParamPanes];
+  const uint8_t* valid[kParamPanes];
 };
 
-// Ascending bitonic sort of s[0, L), L a power of two, by the whole block.
-__device__ void bitonic_sort(u64* s, int L) {
-  for (int size = 2; size <= L; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < (L >> 1); t += blockDim.x) {
-        const int i = 2 * t - (t & (stride - 1));
-        const int j = i + stride;
-        const u64 a = s[i], b = s[j];
-        if ((a > b) == ((i & size) == 0)) {
-          s[i] = b;
-          s[j] = a;
-        }
-      }
-      __syncthreads();
-    }
+// Where the candidates lie: pane p's row q at oid[p] + q * k. table ==
+// nullptr: the pointers are in parts; else 3 * panes pointers in device
+// memory (every pane's oid, then dist, then valid). keys != nullptr: a
+// reduce level's survivors instead, key j of row q at keys[q * key_row +
+// j], runs of k.
+struct Source {
+  Parts parts;
+  const long long* table;
+  const u64* keys;
+  long long key_row;
+  int panes, k;
+};
+
+struct Out {
+  int32_t* oid;
+  float* dist;
+  uint8_t* valid;
+};
+
+// What a block writes: its chunk sorted (the sort across blocks), its
+// chunk's top-k survivors at surv[q * surv_row + c * k] (a reduce level),
+// or the row's top-k to out.
+struct Dst {
+  u64* sorted;
+  u64* surv;
+  long long surv_row;
+  Out out;
+};
+
+// Key j of row q (pane j / k, slot j % k).
+__device__ __forceinline__ u64 load_key(const Source& src, int q, int j) {
+  if (src.keys != nullptr) return src.keys[q * src.key_row + j];
+  const int p = j / src.k;
+  const size_t off = static_cast<size_t>(q) * src.k + (j - p * src.k);
+  const int32_t* o;
+  const float* d;
+  const uint8_t* v;
+  if (src.table != nullptr) {
+    o = reinterpret_cast<const int32_t*>(src.table[p]);
+    d = reinterpret_cast<const float*>(src.table[src.panes + p]);
+    v = reinterpret_cast<const uint8_t*>(src.table[2 * src.panes + p]);
+  } else {
+    o = src.parts.oid[p];
+    d = src.parts.dist[p];
+    v = src.parts.valid[p];
   }
+  const int32_t id = o[off];
+  const float dd = d[off];
+  const bool ok = v[off] != 0 && id != kSentinel && dd < kBig;
+  return ok ? (static_cast<u64>(order_dist(dd)) << 32) | order_id(id)
+            : kNoKey;
 }
 
-// grid (tiles, Q), L keys of shared memory (a power of two >= the tile's
-// candidates). Writes k slots per block at dst[q * dst_row + tile * k];
-// dst_valid == nullptr for a level's survivors (scratch).
-__global__ void knn_merge_kernel(Source src, int tile, int L, int k,
-                                 int32_t* dst_oid, float* dst_dist,
-                                 uint8_t* dst_valid, long long dst_row) {
-  extern __shared__ u64 keys[];
+__device__ __forceinline__ void put(const Out& out, size_t at, u64 key) {
+  out.oid[at] = id_of(static_cast<uint32_t>(key));
+  out.dist[at] = dist_of(static_cast<uint32_t>(key >> 32));
+  out.valid[at] = 1;
+}
+
+__device__ __forceinline__ void put_empty(const Out& out, size_t at) {
+  out.oid[at] = kSentinel;
+  out.dist[at] = kBig;
+  out.valid[at] = 0;
+}
+
+// grid (chunks, Q), max(32, size) threads; `size` keys of dynamic shared
+// memory twice (a power of two >= the chunk's keys). Block c takes keys
+// [c * kMaxKeys, + len) of its row's n: loads them, checks each pane's
+// piece for order (else sorts them all), merges the pane runs, and then
+// writes the sorted chunk, or dedups it and writes its top-k (Dst).
+__global__ void __launch_bounds__(kMaxKeys)
+merge_block_kernel(Source src, int n, int size, Dst dst) {
+  extern __shared__ u64 smem[];
+  __shared__ int warp_sums[32];
+  u64* a = smem;
+  u64* b = smem + size;
   const int q = blockIdx.y;
-  const int lo = blockIdx.x * tile;
-  const int n = min(tile, src.m - lo);
-  for (int j = threadIdx.x; j < L; j += blockDim.x) {
-    u64 key = kNone;
-    if (j < n) {
-      const int g = lo + j;
-      const int p = g / src.width;
-      const long long off = p * src.pane_stride + q * src.row_stride +
-                            (g - p * src.width);
-      int32_t id = src.oid[off];
-      float d = src.dist[off];
-      const bool ok = src.valid != nullptr ? src.valid[off] != 0
-                                           : id != kSentinel;
-      if (!ok) {
-        id = kSentinel;
-        d = kBig;
-      }
-      key = (static_cast<u64>(order_id(id)) << 32) | order_dist(d);
+  const int k = src.k;
+  const int g0 = blockIdx.x * kMaxKeys;
+  const int len = min(kMaxKeys, n - g0);
+  for (int j = threadIdx.x; j < size; j += blockDim.x) {
+    a[j] = j < len ? load_key(src, q, g0 + j) : kNoKey;
+  }
+  __syncthreads();
+  int bad = 0;
+  for (int j = threadIdx.x; j + 1 < len; j += blockDim.x) {
+    if ((g0 + j + 1) % k != 0 && a[j] > a[j + 1]) bad = 1;
+  }
+  Runs runs{len, min(len, k - g0 % k), k};
+  if (__syncthreads_or(bad)) {
+    topk_merge::block_bitonic(a, size);
+    runs = Runs{len, len, len};
+  }
+  const u64* r = topk_merge::block_merge_runs(a, b, runs);
+  if (dst.sorted != nullptr) {
+    u64* row = dst.sorted + static_cast<size_t>(q) * n + g0;
+    for (int j = threadIdx.x; j < len; j += blockDim.x) row[j] = r[j];
+    return;
+  }
+  int* tab = reinterpret_cast<int*>(r == a ? b : a);  // 2 * size slots
+  const uint32_t mask = 2 * size - 1;
+  for (int j = threadIdx.x; j < 2 * size; j += blockDim.x) tab[j] = -1;
+  __syncthreads();
+  for (int j = threadIdx.x; j < len; j += blockDim.x) {
+    if (r[j] != kNoKey) topk_merge::first_insert(tab, mask, r, j);
+  }
+  __syncthreads();
+  const int j = threadIdx.x;  // blockDim.x >= len
+  const bool keep = j < len && r[j] != kNoKey &&
+                    topk_merge::first_of(tab, mask, r,
+                                         static_cast<uint32_t>(r[j])) == j;
+  int total;
+  const int at = topk_merge::block_sum(keep ? 1 : 0, warp_sums, &total) - 1;
+  if (dst.surv != nullptr) {
+    u64* row = dst.surv + q * dst.surv_row +
+               static_cast<long long>(blockIdx.x) * k;
+    if (keep && at < k) row[at] = r[j];
+    for (int s = total + threadIdx.x; s < k; s += blockDim.x) {
+      row[s] = kNoKey;
     }
-    keys[j] = key;
+    return;
   }
-  __syncthreads();
-  bitonic_sort(keys, L);
-  // first of each id, below the distance sentinel -> (distance, id) key
-  u64 next[kPerThread];
-  int c = 0;
-  for (int j = threadIdx.x; j < L; j += blockDim.x, ++c) {
-    const u64 a = keys[j];
-    const uint32_t hi = static_cast<uint32_t>(a >> 32);
-    const uint32_t dl = static_cast<uint32_t>(a);
-    const bool first = j == 0 || static_cast<uint32_t>(keys[j - 1] >> 32) != hi;
-    const bool keep = first && id_of(hi) != kSentinel && dist_of(dl) < kBig;
-    next[c] = keep ? (static_cast<u64>(dl) << 32) | hi : kNone;
-  }
-  __syncthreads();
-  c = 0;
-  for (int j = threadIdx.x; j < L; j += blockDim.x, ++c) keys[j] = next[c];
-  __syncthreads();
-  bitonic_sort(keys, L);
-  const long long base = q * dst_row + static_cast<long long>(blockIdx.x) * k;
-  for (int r = threadIdx.x; r < k; r += blockDim.x) {
-    const u64 key = r < L ? keys[r] : kNone;
-    const bool ok = key != kNone;
-    dst_oid[base + r] = ok ? id_of(static_cast<uint32_t>(key)) : kSentinel;
-    dst_dist[base + r] = ok ? dist_of(static_cast<uint32_t>(key >> 32))
-                            : kBig;
-    if (dst_valid != nullptr) dst_valid[base + r] = ok ? 1 : 0;
+  const Out& out = dst.out;
+  const size_t base = static_cast<size_t>(q) * k;
+  if (keep && at < k) put(out, base + at, r[j]);
+  for (int s = total + threadIdx.x; s < k; s += blockDim.x) {
+    put_empty(out, base + s);
   }
 }
 
-int pow2_at_least(int n) {
-  int L = 2;
-  while (L < n) L <<= 1;
-  return L;
+// A wide row's dedup, over its sorted keys (row q at sorted + q * n) and
+// its id table (row q at tab + q * (mask + 1)).
+struct Wide {
+  const u64* sorted;
+  int n;
+  int* tab;
+  uint32_t mask;
+  int32_t* counts;  // kept keys per block of kScan, row q at q * gridDim.x
+
+  __device__ const u64* row() const {
+    return sorted + static_cast<size_t>(blockIdx.y) * n;
+  }
+  __device__ int* table() const {
+    return tab + static_cast<size_t>(blockIdx.y) * (mask + 1);
+  }
+  __device__ bool kept(int j) const {
+    if (j >= n) return false;
+    const u64* keys = row();
+    const u64 key = keys[j];
+    return key != kNoKey &&
+           topk_merge::first_of(table(), mask, keys,
+                                static_cast<uint32_t>(key)) == j;
+  }
+};
+
+__global__ void wide_insert_kernel(Wide w) {
+  const u64* keys = w.row();
+  int* tab = w.table();
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < w.n;
+       j += gridDim.x * blockDim.x) {
+    if (keys[j] != kNoKey) topk_merge::first_insert(tab, w.mask, keys, j);
+  }
 }
 
-cudaError_t launch(const Source& src, int tiles, int queries, int L, int k,
-                   int32_t* oid, float* dist, uint8_t* valid,
-                   long long dst_row, cudaStream_t s) {
-  const size_t smem = sizeof(u64) * static_cast<size_t>(L);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        knn_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// grid (ceil(n / kScan), Q): the kept keys of each block of kScan.
+__global__ void __launch_bounds__(kScan) wide_count_kernel(Wide w) {
+  const int c = __syncthreads_count(
+      w.kept(blockIdx.x * kScan + static_cast<int>(threadIdx.x)));
+  if (threadIdx.x == 0) {
+    w.counts[static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x] = c;
   }
-  const int threads = min(kMaxThreads, max(32, L / 2));
-  knn_merge_kernel<<<dim3(tiles, queries), threads, smem, s>>>(
-      src, kTile, L, k, oid, dist, valid, dst_row);
+}
+
+// The same grid: each kept key's slot is the kept count before its block
+// plus its rank in the block; slots past the row's kept keys are empty
+// (n >= k, so the blocks cover every slot).
+__global__ void __launch_bounds__(kScan)
+wide_write_kernel(Wide w, int k, Out out) {
+  __shared__ int warp_sums[32];
+  const int32_t* cnt = w.counts + static_cast<size_t>(blockIdx.y) * gridDim.x;
+  int before = 0, all = 0;
+  for (int c = threadIdx.x; c < static_cast<int>(gridDim.x);
+       c += blockDim.x) {
+    all += cnt[c];
+    if (c < static_cast<int>(blockIdx.x)) before += cnt[c];
+  }
+  int kept_before, total, unused;
+  topk_merge::block_sum(before, warp_sums, &kept_before);
+  topk_merge::block_sum(all, warp_sums, &total);
+  const int j = blockIdx.x * kScan + threadIdx.x;
+  const bool keep = w.kept(j);
+  const int at = kept_before +
+                 topk_merge::block_sum(keep ? 1 : 0, warp_sums, &unused) - 1;
+  const size_t base = static_cast<size_t>(blockIdx.y) * k;
+  if (keep && at < k) put(out, base + at, w.row()[j]);
+  if (j >= total && j < k) put_empty(out, base + j);
+}
+
+int pow2_at_least(long long v) {
+  int p = 2;
+  while (p < v) p <<= 1;
+  return p;
+}
+
+long long chunks_of(long long n) { return (n + kMaxKeys - 1) / kMaxKeys; }
+
+// Whether a row of n keys takes the survivor reduce: survivors shrink it
+// (2k <= kMaxKeys) within kReduceLevels levels.
+bool reduces(long long n, int k) {
+  if (2 * k > kMaxKeys) return false;
+  int levels = 0;
+  for (; n > kMaxKeys; n = chunks_of(n) * k) ++levels;
+  return levels <= kReduceLevels;
+}
+
+// The sort across blocks' scratch: the sorted row twice (ping-pong), the
+// id table (a power of two >= 2n slots) and the kept counts, per row.
+struct WideLayout {
+  long long n, slots, blocks;
+  long long bytes(int q) const {
+    return q * (16 * n + 4 * slots + 4 * blocks);
+  }
+};
+
+WideLayout wide_layout(int panes, int k) {
+  const long long n = static_cast<long long>(panes) * k;
+  return WideLayout{n, pow2_at_least(2 * n), (n + kScan - 1) / kScan};
+}
+
+// 16 KB of shared memory at most (kMaxKeys keys twice).
+cudaError_t launch_blocks(const Source& src, long long n, int chunks,
+                          int queries, const Dst& dst, cudaStream_t s) {
+  const int size = chunks > 1 ? kMaxKeys : pow2_at_least(n);
+  merge_block_kernel<<<dim3(chunks, queries), max(32, size),
+                       2 * sizeof(u64) * size, s>>>(
+      src, static_cast<int>(n), size, dst);
   return cudaGetLastError();
+}
+
+// The two-stage reduce: levels of survivors in two halves of `scratch`
+// (each queries * chunks_of(n) * k keys), then the last block.
+cudaError_t reduce(Source src, long long n, int queries, u64* scratch,
+                   const Out& out, cudaStream_t s) {
+  const long long half = queries * chunks_of(n) * src.k;
+  for (int level = 0; n > kMaxKeys; ++level) {
+    const long long chunks = chunks_of(n);
+    u64* surv = scratch + (level & 1) * half;
+    const cudaError_t err = launch_blocks(
+        src, n, static_cast<int>(chunks), queries,
+        Dst{nullptr, surv, chunks * src.k, out}, s);
+    if (err != cudaSuccess) return err;
+    n = chunks * src.k;
+    src.keys = surv;
+    src.key_row = n;
+  }
+  return launch_blocks(src, n, 1, queries, Dst{nullptr, nullptr, 0, out}, s);
+}
+
+long long table_bytes(int panes) {
+  return panes > kParamPanes ? 3LL * panes * sizeof(long long) : 0;
+}
+
+// Bytes of the row work's scratch (0 when a row fits one block).
+long long work_bytes(int panes, int queries, int k) {
+  const long long n = static_cast<long long>(panes) * k;
+  if (n <= kMaxKeys) return 0;
+  if (reduces(n, k)) return 2 * sizeof(u64) * queries * chunks_of(n) * k;
+  return wide_layout(panes, k).bytes(queries);
 }
 
 }  // namespace
 
-// obj_id, dist, valid: (panes, queries, k), contiguous. s_oid, s_dist: two
-// scratch halves of scratch_ints each (merge_scratch_ints in ops/knn.py;
-// unused when panes * k <= kTile). Writes out_oid (queries, k) int32,
-// out_dist f32 and out_valid bool on `stream`; does not synchronise.
-// Returns a CUDA error code (0 when every launch was accepted).
+// Bytes of device scratch the wrapper allocates for a merge of `panes`
+// partials of `queries` rows of k slots: the pointer table beyond
+// kParamPanes panes, then the work of rows wider than one block; 0 when
+// neither is needed.
+extern "C" long long knn_merge_scratch_bytes(int panes, int queries, int k) {
+  return table_bytes(panes) + work_bytes(panes, queries, k);
+}
+
+// ptrs: a host array of 3 * panes device pointers (every pane's obj_id
+// (queries, k) int32, then dist f32, then valid bool, each contiguous).
+// scratch: knn_merge_scratch_bytes bytes of device memory (nullptr when
+// that is 0). Writes out_oid (queries, k) int32, out_dist f32 and
+// out_valid bool on `stream`; does not synchronise. Returns a CUDA error
+// code (0 when every copy, memset and launch was accepted).
 extern "C" int knn_merge_launch(int panes, int queries, int k,
-                                const int32_t* obj_id, const float* dist,
-                                const uint8_t* valid, long long scratch_ints,
-                                int32_t* s_oid, float* s_dist,
+                                const long long* ptrs, void* scratch,
                                 int32_t* out_oid, float* out_dist,
                                 uint8_t* out_valid, void* stream) {
+  const long long n = static_cast<long long>(panes) * k;
   if (panes < 1 || queries < 1 || queries > 65535 || k < 1 ||
-      k > kTile / 8 || static_cast<long long>(panes) * k > (1LL << 30)) {
+      n > (1LL << 30) ||
+      (knn_merge_scratch_bytes(panes, queries, k) > 0 && scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Source src{obj_id, dist, valid, k, static_cast<long long>(queries) * k, k,
-             panes * k};
-  int half = 0;
-  while (src.m > kTile) {
-    const int tiles = (src.m + kTile - 1) / kTile;
-    const long long row = static_cast<long long>(tiles) * k;
-    if (row * queries > scratch_ints) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    int32_t* d_oid = s_oid + half * scratch_ints;
-    float* d_dist = s_dist + half * scratch_ints;
-    const cudaError_t err = launch(src, tiles, queries, kTile, k, d_oid,
-                                   d_dist, nullptr, row, s);
+  Source src;
+  src.table = nullptr;
+  src.keys = nullptr;
+  src.key_row = 0;
+  src.panes = panes;
+  src.k = k;
+  if (panes > kParamPanes) {
+    // pageable host memory: the copy has read ptrs when it returns
+    const cudaError_t err = cudaMemcpyAsync(
+        scratch, ptrs, table_bytes(panes), cudaMemcpyHostToDevice, s);
     if (err != cudaSuccess) return static_cast<int>(err);
-    src = Source{d_oid, d_dist, nullptr, static_cast<int>(row), 0, row,
-                 static_cast<int>(row)};
-    half ^= 1;
+    src.table = static_cast<const long long*>(scratch);
+    scratch = static_cast<char*>(scratch) + table_bytes(panes);
   }
-  return static_cast<int>(launch(src, 1, queries, pow2_at_least(src.m),
-                                 k, out_oid, out_dist, out_valid, k, s));
+  for (int p = 0; p < kParamPanes; ++p) {
+    const bool in = p < panes;
+    src.parts.oid[p] = in ? reinterpret_cast<const int32_t*>(ptrs[p]) : nullptr;
+    src.parts.dist[p] =
+        in ? reinterpret_cast<const float*>(ptrs[panes + p]) : nullptr;
+    src.parts.valid[p] =
+        in ? reinterpret_cast<const uint8_t*>(ptrs[2 * panes + p]) : nullptr;
+  }
+  const Out out{out_oid, out_dist, out_valid};
+  if (n <= kMaxKeys) {
+    return static_cast<int>(launch_blocks(src, n, 1, queries,
+                                          Dst{nullptr, nullptr, 0, out}, s));
+  }
+  if (reduces(n, k)) {
+    return static_cast<int>(
+        reduce(src, n, queries, static_cast<u64*>(scratch), out, s));
+  }
+  const WideLayout lay = wide_layout(panes, k);
+  u64* x = static_cast<u64*>(scratch);
+  u64* y = x + queries * lay.n;
+  int* tab = reinterpret_cast<int*>(y + queries * lay.n);
+  int32_t* counts = tab + queries * lay.slots;
+  cudaError_t err = launch_blocks(src, n, static_cast<int>(chunks_of(n)),
+                                  queries, Dst{x, nullptr, 0, out}, s);
+  u64* sorted = x;
+  if (err == cudaSuccess) {
+    err = topk_merge::merge_rows(
+        x, y, queries, Runs{static_cast<int>(n), kMaxKeys, kMaxKeys}, n, s,
+        &sorted);
+  }
+  if (err == cudaSuccess) {
+    err = cudaMemsetAsync(tab, 0xFF, sizeof(int) * queries * lay.slots, s);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const Wide w{sorted, static_cast<int>(n), tab,
+               static_cast<uint32_t>(lay.slots - 1), counts};
+  const int blocks = static_cast<int>(lay.blocks);
+  wide_insert_kernel<<<dim3(blocks * 4, queries), 256, 0, s>>>(w);
+  wide_count_kernel<<<dim3(blocks, queries), kScan, 0, s>>>(w);
+  wide_write_kernel<<<dim3(blocks, queries), kScan, 0, s>>>(w, k, out);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -55,19 +55,30 @@
 //    are unique per query (one per object), so the k-th key is
 //    exact and equal distances break by ascending interned id, the order
 //    of the JAX package's lexicographic (id, dist) sort + top_k and the
-//    one merge_topk_host depends on. k <= kTile / 2 (checked).
+//    one merge_topk_host depends on.
+// D. k > kTile / 2 (any k): the list per query holds cap = k rounded up
+//    to kTile keys. The pick gathers its keys (all upto of them, or below
+//    plus the refined kk when upto > cap) in that list instead of shared
+//    memory and does not sort; one block per run of kTile keys sorts its
+//    run (bitonic, keys past the query's count padded with ~0), merge
+//    rounds (csrc/topk_merge.cuh, a binary search per key) merge the runs,
+//    and a last launch writes the first k. The keys are unique, so the
+//    merge has nothing to dedup.
 //
 // What bounds it on an H100: bytes for the fold (17 bytes per point in
 // point mode, plus 4 per point and query of distance row in the other
 // modes) against a few operations per (point, query); the table passes
 // read 4 bytes per (query, id) twice. At a window's size what it pays
-// beyond that is launch and atomic latency (PERF.md).
+// beyond that is launch and atomic latency (PERF.md); for k > kTile / 2
+// the runs' sort and ceil(log2(cap / kTile)) merge rounds add launches.
 //
 // Built with --fmad=false: the point-mode distance rounds exactly as the
 // plain version's separate PyTorch ops do.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "topk_merge.cuh"
 
 namespace {
 
@@ -131,6 +142,12 @@ __host__ __device__ inline Zone zone_of(int32_t* base, int q, int num_ids) {
 
 __host__ __device__ inline size_t zone_ints(int q, int num_ids) {
   return static_cast<size_t>(q) * (1 + kBins + 4 + 5 + chunks_of(num_ids));
+}
+
+// The keys of a query's candidate list: kTile, or k rounded up to kTile
+// keys when k > kTile / 2 (the list then sorts as runs of kTile).
+__host__ __device__ inline int cap_of(int k) {
+  return k <= kTile / 2 ? kTile : (k + kTile - 1) / kTile * kTile;
 }
 
 // The histogram bin of a table entry: its distance bits 30..19. Distances
@@ -268,34 +285,6 @@ knn_fold_kernel(int mode, int n, int num_queries, int num_ids,
   }
 }
 
-// Inclusive sum over the block of one int per thread (blockDim.x a
-// multiple of 32, at most 1,024); `warp_sums` is shared, 32 entries.
-__device__ __forceinline__ int block_inclusive_sum(int v, int* warp_sums,
-                                                   int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int u = __shfl_up_sync(kAll, v, off);
-    if (lane >= off) v += u;
-  }
-  __syncthreads();  // warp_sums is free
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < warps ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int u = __shfl_up_sync(kAll, w, off);
-      if (lane >= off) w += u;
-    }
-    warp_sums[lane] = w;
-  }
-  __syncthreads();
-  *total = warp_sums[warps - 1];
-  return v + (warp > 0 ? warp_sums[warp - 1] : 0);
-}
-
 // The bin of h[0..nbins) in which the running count reaches kk (>= 1):
 // res = {bin, count below it, count through it}; when the total is below
 // kk, the last bin. Every thread of the block calls it; res is shared.
@@ -307,7 +296,7 @@ __device__ void block_find(const int* h, int nbins, int kk, int* res,
   int sum = 0;
   for (int b = lo; b < hi; ++b) sum += h[b];
   int total;
-  const int incl = block_inclusive_sum(sum, warp_sums, &total);
+  const int incl = topk_merge::block_sum(sum, warp_sums, &total);
   const int excl = incl - sum;
   if (excl < kk && kk <= incl) {
     int run = excl;
@@ -375,26 +364,6 @@ knn_hist_kernel(const uint32_t* __restrict__ best, int num_ids, int k,
   if (threadIdx.x < 3) z.bound[4 * q + threadIdx.x] = res[threadIdx.x];
 }
 
-// Sort s[0..size) ascending (size a power of two, at most kTile) with the
-// block's threads, one compare-exchange each per step.
-__device__ void bitonic_sort(u64* s, int size) {
-  for (int len = 2; len <= size; len <<= 1) {
-    for (int stride = len >> 1; stride > 0; stride >>= 1) {
-      for (int t = threadIdx.x; t < size / 2; t += blockDim.x) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
-        const bool up = (lo & len) == 0;
-        const u64 a = s[lo], b = s[hi];
-        if ((a > b) == up) {
-          s[lo] = b;
-          s[hi] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
 __device__ __forceinline__ int pow2_at_least(int v) {
   int p = 2;
   while (p < v) p <<= 1;
@@ -444,8 +413,8 @@ __device__ int compact_bin(const uint32_t* __restrict__ table, int stride,
     }
     const unsigned ballot = __ballot_sync(kAll, ok);
     int total;
-    const int incl = block_inclusive_sum(lane == 0 ? __popc(ballot) : 0,
-                                         warp_sums, &total);
+    const int incl = topk_merge::block_sum(
+        lane == 0 ? __popc(ballot) : 0, warp_sums, &total);
     // incl at lane 0 is this warp's inclusive count; share its start
     const int start = __shfl_sync(kAll, incl - __popc(ballot), 0);
     if (ok) out[done + start + __popc(ballot & lt)] = key_of(b, e);
@@ -454,6 +423,27 @@ __device__ int compact_bin(const uint32_t* __restrict__ table, int stride,
   return done;
 }
 
+// Slot o of the outputs from a sorted key (kNoKey: an empty slot).
+__device__ __forceinline__ void write_slot(u64 key, size_t o,
+                                           int32_t* __restrict__ out_oid,
+                                           float* __restrict__ out_dist,
+                                           uint8_t* __restrict__ out_valid) {
+  float d = kBig;
+  int32_t oid = kOidSentinel;
+  uint8_t v = 0;
+  if (key != kNoKey) {
+    d = __uint_as_float(static_cast<uint32_t>(key >> 32));
+    v = d < kBig ? 1 : 0;
+    if (v) oid = static_cast<int32_t>(static_cast<uint32_t>(key));
+  }
+  out_oid[o] = oid;
+  out_dist[o] = d;
+  out_valid[o] = v;
+}
+
+// kGather: k > kTile / 2 (part D); a template parameter so that the k <=
+// kTile / 2 instantiation carries none of part D's branches.
+template <bool kGather>
 __global__ void __launch_bounds__(kPickThreads)
 knn_pick_kernel(const uint32_t* __restrict__ best, int num_ids, int k,
                 int32_t* __restrict__ zone_base, int num_queries,
@@ -471,9 +461,10 @@ knn_pick_kernel(const uint32_t* __restrict__ best, int num_ids, int k,
   const int bin = z.bound[4 * q];
   const int below = z.bound[4 * q + 1];
   const int upto = z.bound[4 * q + 2];
-  const bool overflow = upto > kTile;
+  const int cap = kGather ? cap_of(k) : kTile;
+  const bool overflow = upto > cap;
   const int chunks = gridDim.x;
-  u64* list = cand + static_cast<size_t>(q) * kTile;
+  u64* list = cand + static_cast<size_t>(q) * cap;
   // the boundary bin's entries of chunk c, in id order, at
   // olist[c * kIdsPerBlock ...], z.over_count[q * chunks + c] of them
   u64* olist = over + static_cast<size_t>(q) * num_ids;
@@ -501,7 +492,9 @@ knn_pick_kernel(const uint32_t* __restrict__ best, int num_ids, int k,
                                        blockIdx.x] = cnt;
   }
   if (!last_block(&z.pick_ticket[q], &flag)) return;
+  if (kGather && !overflow) return;  // the list holds all upto keys
 
+  // the k keys gather in s, or in the list under kGather
   int size;
   if (!overflow) {
     size = pow2_at_least(max(upto, k));
@@ -510,8 +503,8 @@ knn_pick_kernel(const uint32_t* __restrict__ best, int num_ids, int k,
     }
   } else {
     // The kk = k - below smallest keys of the boundary bin's entries.
-    size = pow2_at_least(k);
-    for (int j = threadIdx.x; j < size; j += kPickThreads) {
+    size = kGather ? k : pow2_at_least(k);
+    for (int j = threadIdx.x; j < size && !kGather; j += kPickThreads) {
       s[j] = j < below ? __ldcg(&list[j]) : kNoKey;
     }
     const int kk = k - below;
@@ -526,7 +519,12 @@ knn_pick_kernel(const uint32_t* __restrict__ best, int num_ids, int k,
         for (int c = 0; c < chunks && done < kk; ++c) {
           const int take = min(__ldcg(&ocount[c]), kk - done);
           for (int j = threadIdx.x; j < take; j += 32) {
-            s[below + done + j] = __ldcg(&olist[c * kIdsPerBlock + j]);
+            const u64 key = __ldcg(&olist[c * kIdsPerBlock + j]);
+            if (kGather) {
+              list[below + done + j] = key;
+            } else {
+              s[below + done + j] = key;
+            }
           }
           done += take;
         }
@@ -570,28 +568,59 @@ knn_pick_kernel(const uint32_t* __restrict__ best, int num_ids, int k,
         const u64 key = __ldcg(&olist[e]);
         if ((key >> shift) <= (p >> shift)) {
           const int at = atomicAdd(&fill, 1);
-          if (at < size) s[at] = key;  // exactly k arrive (keys are unique)
+          if (at < size) {  // exactly k arrive (keys are unique)
+            if (kGather) {
+              list[at] = key;
+            } else {
+              s[at] = key;
+            }
+          }
         }
       }
     }
   }
+  if (kGather) return;
   __syncthreads();
-  bitonic_sort(s, size);
+  topk_merge::block_bitonic(s, size);
   for (int r = threadIdx.x; r < k; r += kPickThreads) {
-    const u64 key = s[r];
-    float d = kBig;
-    int32_t oid = kOidSentinel;
-    uint8_t v = 0;
-    if (key != kNoKey) {
-      d = __uint_as_float(static_cast<uint32_t>(key >> 32));
-      v = d < kBig ? 1 : 0;
-      if (v) oid = static_cast<int32_t>(static_cast<uint32_t>(key));
-    }
-    const size_t o = static_cast<size_t>(q) * k + r;
-    out_oid[o] = oid;
-    out_dist[o] = d;
-    out_valid[o] = v;
+    write_slot(s[r], static_cast<size_t>(q) * k + r, out_oid, out_dist,
+               out_valid);
   }
+}
+
+// Part D, grid (cap / kTile, Q): block b sorts keys [b * kTile, + kTile)
+// of query q's list in place; keys at or past the query's count (upto,
+// or k when the boundary bin overflowed the list) become kNoKey.
+__global__ void __launch_bounds__(kPickThreads)
+knn_runs_kernel(u64* __restrict__ cand, int k, int32_t* __restrict__ zone_base,
+                int num_queries, int num_ids) {
+  __shared__ u64 s[kTile];
+  const Zone z = zone_of(zone_base, num_queries, num_ids);
+  const int q = blockIdx.y;
+  const int cap = cap_of(k);
+  const int upto = z.bound[4 * q + 2];
+  const int count = upto > cap ? k : upto;
+  u64* run = cand + static_cast<size_t>(q) * cap +
+             static_cast<size_t>(blockIdx.x) * kTile;
+  const int j0 = blockIdx.x * kTile;
+  for (int j = threadIdx.x; j < kTile; j += kPickThreads) {
+    s[j] = j0 + j < count ? run[j] : kNoKey;
+  }
+  __syncthreads();
+  topk_merge::block_bitonic(s, kTile);
+  for (int j = threadIdx.x; j < kTile; j += kPickThreads) run[j] = s[j];
+}
+
+// Part D's last launch, grid (ceil(k / 256), Q): the first k sorted keys.
+__global__ void knn_write_kernel(const u64* __restrict__ sorted, int k,
+                                 int32_t* __restrict__ out_oid,
+                                 float* __restrict__ out_dist,
+                                 uint8_t* __restrict__ out_valid) {
+  const int q = blockIdx.y;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= k) return;
+  write_slot(sorted[static_cast<size_t>(q) * cap_of(k) + r],
+             static_cast<size_t>(q) * k + r, out_oid, out_dist, out_valid);
 }
 
 }  // namespace
@@ -602,15 +631,23 @@ extern "C" long long knn_topk_zone_ints(int num_queries, int num_ids) {
   return static_cast<long long>(zone_ints(num_queries, num_ids));
 }
 
+// The u64 keys of candidate list the wrapper allocates: (Q, kTile) for k
+// <= kTile / 2; two (Q, cap) halves for a larger k (part D's merge
+// rounds ping-pong between them).
+extern "C" long long knn_topk_cand_keys(int num_queries, int k) {
+  return static_cast<long long>(num_queries) * cap_of(k) *
+         (k <= kTile / 2 ? 1 : 2);
+}
+
 
 // mode 0 (point): x, y, cell, valid, obj_id (n,), qx, qy (Q,) f32, q_cell
 // (Q,) int32, grid_n, nb_layers. mode 1 (cells): cell, valid, obj_id, dists
 // (Q, n) f32, nb_mask (Q, num_cells) bool. mode 2 (eligible): obj_id, dists
 // and eligible (Q, n). best: (num_ids, Q) uint32 scratch; zone and cand as
 // sized above. Writes out_oid (Q, k) int32, out_dist (Q, k) f32, out_valid
-// (Q, k) bool and the counts (Q,) int32 at the start of zone. cand: (Q,
-// kTile) u64; over: (Q, num_ids) u64 (the boundary bin's keys when they
-// pass a tile). The table and the zone are initialised here on `stream`. Does not synchronise;
+// (Q, k) bool and the counts (Q,) int32 at the start of zone. cand:
+// knn_topk_cand_keys u64; over: (Q, num_ids) u64 (the boundary bin's keys
+// when they pass the candidate list). The table and the zone are initialised here on `stream`. Does not synchronise;
 // returns a CUDA error code (0 when every memset and launch was accepted).
 extern "C" int knn_topk_launch(
     int mode, int n, int num_queries, int num_ids, int k,
@@ -621,7 +658,7 @@ extern "C" int knn_topk_launch(
     const uint8_t* eligible, uint32_t* best, int32_t* zone, u64* cand,
     u64* over, int32_t* out_oid, float* out_dist, uint8_t* out_valid,
     void* stream) {
-  if (k < 1 || k > kTile / 2 || num_queries < 1 || num_ids < 0) {
+  if (k < 1 || num_queries < 1 || num_ids < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -644,8 +681,24 @@ extern "C" int knn_topk_launch(
   const dim3 grid(chunks_of(num_ids), num_queries);
   knn_hist_kernel<<<grid, kHistThreads, 0, s>>>(best, num_ids, k, zone,
                                                 num_queries);
-  knn_pick_kernel<<<grid, kPickThreads, 0, s>>>(best, num_ids, k, zone,
-                                                num_queries, cand, over,
-                                                out_oid, out_dist, out_valid);
+  if (k <= kTile / 2) {
+    knn_pick_kernel<false><<<grid, kPickThreads, 0, s>>>(
+        best, num_ids, k, zone, num_queries, cand, over, out_oid, out_dist,
+        out_valid);
+  } else {
+    knn_pick_kernel<true><<<grid, kPickThreads, 0, s>>>(
+        best, num_ids, k, zone, num_queries, cand, over, out_oid, out_dist,
+        out_valid);
+    const int cap = cap_of(k);
+    knn_runs_kernel<<<dim3(cap / kTile, num_queries), kPickThreads, 0, s>>>(
+        cand, k, zone, num_queries, num_ids);
+    u64* sorted = cand;
+    err = topk_merge::merge_rows(
+        cand, cand + static_cast<size_t>(num_queries) * cap, num_queries,
+        topk_merge::Runs{cap, kTile, kTile}, cap, s, &sorted);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    knn_write_kernel<<<dim3((k + 255) / 256, num_queries), 256, 0, s>>>(
+        sorted, k, out_oid, out_dist, out_valid);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -96,8 +96,9 @@ def _merge_partials_multi(op, n_queries: int, k: int):
 def _knn_device_merge(op, k: int, n_queries: Optional[int] = None):
     """The device pane merge of the kNN families: a window's partials, (k,)
     or (Q, k) K2 results still on the device, merge in one K3 launch
-    (``ops.knn.merge_knn_device(_multi)``) and only the merged list is read
-    back. Returns None, and the host merge runs with the same result,
+    (``ops.knn.knn_merge_parts``, which reads them where they lie) and
+    only the merged list is read back. Returns None, and the host merge
+    runs with the same result,
     where the JAX package's does: a part that is not a device partial, or
     partials of another id space than the run's. A partial's distance
     count rides the first merged readback that takes it
@@ -111,8 +112,7 @@ def _knn_device_merge(op, k: int, n_queries: Optional[int] = None):
                 return None
             devs.append(v.device_result)
         results = [K.KnnResult(*d[:3]) for d in devs]
-        merged = (K.merge_knn_device(results, k) if n_queries is None
-                  else K.merge_knn_device_multi(results, k))
+        merged = K.knn_merge_parts(results, k)
         evals = []
         for p, d in zip(parts, devs):
             if not p.stats_done:

@@ -4,7 +4,7 @@ partials (port of ``spatialflink_tpu.ops.knn``: ``knn_point_stats``,
 ``point_stream_eligibility``, the selection of ``topk_by_distance`` /
 ``topk_by_distance_multi``, ``merge_topk_host``, ``_merge_topk_stacked``
 / ``_merge_topk_stacked_multi`` and ``merge_knn_device`` /
-``merge_knn_device_multi``).
+``merge_knn_device_multi``, both :func:`knn_merge_parts` here).
 
 Windowed kNN semantics (``ops/knn.py:1-19`` of the JAX package): the radius
 selects candidate cells only — the distance is not radius-filtered; each
@@ -19,11 +19,15 @@ axis): CUDA tensors launch it (or the call raises), CPU tensors run
 :func:`knn_topk_plain`. There is no other path, and the CUDA path calls no
 library sort, top-k or scatter.
 
-K3 (:func:`knn_merge`, ``csrc/knn_merge.cu``) merges a window's stacked
-pane partials, (P, k) or (P, Q, k), into its exact top-k: the JAX
-package's full-sort dedup (``_topk_full_sort``) over each query row's P·k
-candidates. Its plain version is :func:`merge_topk_stacked_plain`; the
-wrapper runs it on CPU tensors and launches the kernel on CUDA tensors.
+K3 (``csrc/knn_merge.cu``) merges a window's pane partials into its exact
+top-k: the JAX package's full-sort dedup (``_topk_full_sort``) over each
+query row's P·k candidates, as a merge of the sorted pane lists. Its
+entries are :func:`knn_merge_parts` (the partials where they lie, as the
+device pane merge passes them) and :func:`knn_merge` (a (P, Q, k) stack);
+its plain version is :func:`merge_topk_stacked_plain`, which the parts
+entry runs on CPU tensors.
+
+Both kernels take any k >= 1, as the JAX package does.
 
 The JAX package picks among several exact selection strategies and, in
 approximate mode, ``lax.approx_min_k`` (recall < 1). The port has one exact
@@ -40,6 +44,7 @@ the ids (a device sync).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -56,10 +61,6 @@ _OID_SENTINEL = 2 ** 31 - 1
 MODE_POINT = 0     # point query: Chebyshev layers + point-point distance
 MODE_CELLS = 1     # (Q, N) distances + (Q, n*n) neighbouring-cell masks
 MODE_ELIGIBLE = 2  # (Q, N) distances + (Q, N) eligibility
-#: most candidate keys the kernel's selection sorts in one block (its
-#: per-query candidate list); k <= TILE // 2
-TILE = 2048
-MAX_K = TILE // 2
 #: operations per (point, query) slot of the kernel's fold: point mode
 #: (layers: 4 div/rem, 2 sub, 2 abs, max, 2 compares; distance: 2 sub,
 #: 2 mul, add, sqrt; fold compare) and the other modes (a gather or a
@@ -234,7 +235,9 @@ def knn_topk(obj_id, *, mode: int, k: int, num_ids: Optional[int],
                                 ctypes.c_longlong)(Q, num_ids)
     best = torch.empty((max(num_ids, 1), Q), dtype=torch.int32, device=dev)
     zone = torch.empty(zone_ints, dtype=torch.int32, device=dev)
-    cand = torch.empty((Q, TILE), dtype=torch.int64, device=dev)
+    cand = torch.empty(native.function(
+        "knn_topk", "knn_topk_cand_keys", (_I, _I), ctypes.c_longlong)(Q, k),
+        dtype=torch.int64, device=dev)
     over = torch.empty((Q, max(num_ids, 1)), dtype=torch.int64, device=dev)
     out_oid = torch.empty((Q, k), dtype=torch.int32, device=dev)
     out_dist = torch.empty((Q, k), dtype=torch.float32, device=dev)
@@ -257,15 +260,12 @@ knn_topk.launches = 0
 
 
 def _check_k(k: int) -> None:
-    if not 1 <= k <= MAX_K:
-        raise NotImplementedError(
-            f"kNN with k={k}: the kernel's selection supports 1 <= k <= "
-            f"{MAX_K} (half of one {TILE}-key tile)")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
 
 
 def _knn(obj_id, **kw):
-    """The kernel on CUDA tensors, its plain version on CPU tensors; both
-    refuse a k the kernel does not support."""
+    """The kernel on CUDA tensors, its plain version on CPU tensors."""
     _check_k(kw["k"])
     if obj_id.device.type == "cpu":
         return knn_topk_plain(obj_id, **kw)
@@ -337,12 +337,6 @@ def knn_eligible_stats(obj_id, dists, eligible, *, k: int,
 
 # ------------------------------------------------------------------------ #
 # K3: the pane top-k merge
-
-#: most candidates of one query row that the kernel sorts in one block's
-#: shared memory (8 bytes of key and one of flag each: 72 KB); a wider row
-#: is cut into tiles of this size whose top-k survivors merge again
-MERGE_TILE = 8192
-
 
 def merge_topk_host(parts, k: int, tie_key=None):
     """Host merge of per-pane top-k lists of ``(obj_id, dist)``: the
@@ -417,25 +411,58 @@ def merge_topk_stacked_plain(obj_id, dist, valid, k: int) -> KnnResult:
     return KnnResult(*(t[0] for t in res)) if single else res
 
 
-def merge_scratch_ints(m: int, q: int, k: int) -> int:
-    """Ints of each of the kernel's two scratch buffers for rows of ``m``
-    candidates: the first tile level's survivors (0 when a row fits one
-    tile)."""
-    if m <= MERGE_TILE:
-        return 0
-    return q * -(-m // MERGE_TILE) * k
+_MERGE_ARGTYPES = (_I, _I, _I, _C, _C, _C, _C, _C, _C)
 
 
-_MERGE_ARGTYPES = (_I, _I, _I, _C, _C, _C, ctypes.c_longlong, _C, _C, _C,
-                   _C, _C, _C)
+@functools.lru_cache(maxsize=None)
+def _merge_launch_fn():
+    return native.function("knn_merge", "knn_merge_launch", _MERGE_ARGTYPES)
+
+
+@functools.lru_cache(maxsize=1024)
+def _merge_scratch_bytes(p: int, q: int, k: int) -> int:
+    """The kernel's scratch for a shape (its pointer table and the work
+    of rows wider than one block; 0 when it needs neither)."""
+    return native.function("knn_merge", "knn_merge_scratch_bytes",
+                           (_I, _I, _I), ctypes.c_longlong)(p, q, k)
+
+
+def _merge_outputs(q: int, k: int, dev, single: bool) -> KnnResult:
+    """The merge's outputs: one allocation of q*k*9 bytes viewed as the
+    three fields, (k,) each when ``single`` (q = 1), else (q, k)."""
+    n = q * k
+    buf = torch.empty(9 * n, dtype=torch.uint8, device=dev)
+    out = KnnResult(buf[:4 * n].view(torch.int32),
+                    buf[4 * n:8 * n].view(torch.float32),
+                    buf[8 * n:].view(torch.bool))
+    return out if single else KnnResult(*(t.view(q, k) for t in out))
+
+
+def _merge_launch(ptrs, p: int, q: int, k: int, dev, single: bool):
+    """One K3 launch over ``p`` panes of ``q`` rows: ``ptrs`` lists every
+    pane's obj_id pointer, then dist, then valid. Scratch is allocated
+    only when the kernel asks for it."""
+    out = _merge_outputs(q, k, dev, single)
+    nbytes = _merge_scratch_bytes(p, q, k)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=dev)
+               if nbytes else None)
+    with torch.cuda.device(dev):
+        err = _merge_launch_fn()(
+            p, q, k, (ctypes.c_longlong * len(ptrs))(*ptrs),
+            None if scratch is None else scratch.data_ptr(),
+            out.obj_id.data_ptr(), out.dist.data_ptr(), out.valid.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    native.check(err, "knn_merge")
+    knn_merge.launches += 1
+    return out
 
 
 def knn_merge(obj_id, dist, valid, k: int) -> KnnResult:
     """Launch the K3 kernel on CUDA tensors: stacked partials ``obj_id``
     (P, Q, k) int32, ``dist`` f32 and ``valid`` bool, all contiguous, give
     the (Q, k) merged :class:`KnnResult` (:func:`merge_topk_stacked_plain`
-    bit for bit). Rows wider than :data:`MERGE_TILE` run the tiled path:
-    each tile's top-k survivors, then a merge of the survivors."""
+    bit for bit): the kernel of :func:`knn_merge_parts` over the P panes of
+    the stack."""
     dev = obj_id.device
     if dev.type != "cuda":
         raise ValueError(f"knn_merge: obj_id on {dev}, needs cuda")
@@ -447,51 +474,64 @@ def knn_merge(obj_id, dist, valid, k: int) -> KnnResult:
     if p < 1 or q < 1:
         raise ValueError("knn_merge: needs at least one pane and one query")
     shape = tuple(obj_id.shape)
-    ptrs = [_require(t, name, dt, shape, dev) for t, name, dt in (
-        (obj_id, "obj_id", torch.int32), (dist, "dist", torch.float32),
-        (valid, "valid", torch.bool))]
-    n_scratch = max(merge_scratch_ints(p * k, q, k), 1)
-    s_oid = torch.empty((2, n_scratch), dtype=torch.int32, device=dev)
-    s_dist = torch.empty((2, n_scratch), dtype=torch.float32, device=dev)
-    out_oid = torch.empty((q, k), dtype=torch.int32, device=dev)
-    out_dist = torch.empty((q, k), dtype=torch.float32, device=dev)
-    out_valid = torch.empty((q, k), dtype=torch.bool, device=dev)
-    launch = native.function("knn_merge", "knn_merge_launch",
-                             _MERGE_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = launch(p, q, k, *ptrs, n_scratch, s_oid.data_ptr(),
-                     s_dist.data_ptr(),
-                     out_oid.data_ptr(), out_dist.data_ptr(),
-                     out_valid.data_ptr(),
-                     torch.cuda.current_stream(dev).cuda_stream)
-    native.check(err, "knn_merge")
-    knn_merge.launches += 1
-    return KnnResult(out_oid, out_dist, out_valid)
+    ptrs = []
+    for t, name, dt in ((obj_id, "obj_id", torch.int32),
+                        (dist, "dist", torch.float32),
+                        (valid, "valid", torch.bool)):
+        base, step = _require(t, name, dt, shape, dev), q * k * t.element_size()
+        ptrs += [base + i * step for i in range(p)]
+    return _merge_launch(ptrs, p, q, k, dev, single=False)
 
 
 knn_merge.launches = 0
 
 
-def _merge_stacked(obj_id, dist, valid, k: int) -> KnnResult:
-    """K3 on CUDA tensors, its plain version on CPU tensors; both refuse a
-    k that K2 does not take."""
+def _part_ptrs(results, k: int):
+    """Check the partials of :func:`knn_merge_parts` (one device, dtypes,
+    one shape (k,) or (Q, k), contiguous) and return (pointers, Q,
+    device)."""
+    first = results[0].obj_id
+    dev, shape = first.device, first.shape
+    if shape[-1:] != (k,) or len(shape) > 2:
+        raise ValueError(f"knn_merge_parts: partial shape {tuple(shape)}, "
+                         f"needs ({k},) or (Q, {k})")
+    ptrs = ([], [], [])
+    for r in results:
+        for t, dt, acc in zip(r, (torch.int32, torch.float32, torch.bool),
+                              ptrs):
+            if (t.dtype is not dt or t.shape != shape or t.device != dev
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"knn_merge_parts: a partial is {t.dtype} {tuple(t.shape)}"
+                    f" on {t.device}, needs contiguous {dt} {tuple(shape)} on "
+                    f"{dev}")
+            acc.append(t.data_ptr())
+    return ptrs[0] + ptrs[1] + ptrs[2], (shape[0] if len(shape) == 2 else 1), \
+        dev
+
+
+def merge_topk_parts_plain(results, k: int) -> KnnResult:
+    """Plain version of :func:`knn_merge_parts`:
+    :func:`merge_topk_stacked_plain` over the partials' stack."""
+    return merge_topk_stacked_plain(
+        *(torch.stack([getattr(r, f) for r in results])
+          for f in KnnResult._fields), k)
+
+
+def knn_merge_parts(results, k: int) -> KnnResult:
+    """K3 over a window's pane partials as they lie (the device pane merge
+    of the kNN operators): ``results``, P
+    :class:`KnnResult` s with (k,) or (Q, k) fields (int32, f32, bool,
+    contiguous, one device), give the merged (k,) or (Q, k) result. On
+    CUDA tensors one launch reads each partial through its pointers (no
+    stack, no copy); on CPU tensors the plain version runs over their
+    stack."""
     _check_k(k)
-    if obj_id.device.type == "cpu":
-        return merge_topk_stacked_plain(obj_id, dist, valid, k)
-    return knn_merge(obj_id, dist, valid, k)
+    if not results:
+        raise ValueError("knn_merge_parts: needs at least one partial")
+    single = results[0].obj_id.dim() == 1
+    if results[0].obj_id.device.type == "cpu":
+        return merge_topk_parts_plain(results, k)
+    ptrs, q, dev = _part_ptrs(results, k)
+    return _merge_launch(ptrs, len(results), q, k, dev, single)
 
-
-def merge_knn_device_multi(results, k: int) -> KnnResult:
-    """The device pane merge: per-pane (Q, k) :class:`KnnResult` partials,
-    still on the device, stacked and merged into the window's (Q, k) in
-    one K3 launch."""
-    return _merge_stacked(*(torch.stack([getattr(r, f) for r in results])
-                            for f in KnnResult._fields), k)
-
-
-def merge_knn_device(results, k: int) -> KnnResult:
-    """:func:`merge_knn_device_multi` for (k,) partials: the (k,) merged
-    result."""
-    res = merge_knn_device_multi([KnnResult(*(t[None] for t in r))
-                                  for r in results], k)
-    return KnnResult(*(t[0] for t in res))

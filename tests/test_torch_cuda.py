@@ -196,7 +196,7 @@ def _equal(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [1, 10, 50, K.MAX_K])
+@pytest.mark.parametrize("k", [1, 10, 50, 1024, 1025, 2048, 4096])
 @pytest.mark.parametrize("num_ids", [3_000, 100_000])
 def test_knn_topk_point_mode_equals_plain(card, k, num_ids):
     grid, b = _knn_inputs(card)
@@ -216,12 +216,10 @@ def test_knn_topk_point_mode_equals_plain(card, k, num_ids):
         want = K.knn_topk_plain(b.obj_id, nb_layers=nb_layers, **kw)
         assert _equal(got, want)
         assert bool(got[2][0, :min(k, 10)].all())
-    with pytest.raises(NotImplementedError, match=str(K.MAX_K)):
-        K.knn_topk(b.obj_id, nb_layers=1, **dict(kw, k=K.MAX_K + 1))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [10, 50])
+@pytest.mark.parametrize("k", [10, 50, 1025, 2048, 4096])
 def test_knn_topk_cell_and_eligible_modes_equal_plain(card, k):
     grid, b = _knn_inputs(card)
     rng = np.random.default_rng(4)
@@ -364,8 +362,10 @@ def _same_point_inputs(card, n, ids):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,ids,k", [(100_000, 100_000, K.MAX_K),
-                                     (6_000, 3_000, 50), (3_000, 30, 50)])
+@pytest.mark.parametrize("n,ids,k", [(100_000, 100_000, 1024),
+                                     (100_000, 100_000, 4096),
+                                     (6_000, 3_000, 50), (3_000, 30, 50),
+                                     (3_000, 1_000, 2048)])
 def test_knn_topk_equal_distances_equal_plain(card, n, ids, k):
     """Every object at one distance: the boundary bin holds them all, so
     the selection refines on the key's lower bits (or, with fewer ids than
@@ -1380,18 +1380,25 @@ def _merge_inputs(dev, P, Q, k, seed, ids, dists=None, p_valid=0.8):
 @pytest.mark.parametrize("P,Q,k,ids,dists,p_valid", [
     (1, 1, 1, 2, None, 0.8), (2, 1, 50, 100, None, 0.8),
     (3, 5, 7, 9, None, 0.8), (10, 16, 50, 300, None, 0.8),
-    (4, 1, K.MAX_K, 3000, None, 0.8), (60, 1, 100, 2000, None, 0.8),
+    (20, 2, 50, 800, None, 0.9), (21, 2, 50, 800, None, 0.9),  # 1,024 +
+    (4, 1, 1024, 3000, None, 0.8), (60, 1, 100, 2000, None, 0.8),
     (9, 17, 13, 40, [0.25, 0.5], 0.8),                # ties
     (7, 4, 50, 30, None, 1.0),                         # duplicates
     (5, 3, 20, 100, None, 0.0),                        # all invalid
-    (16, 2, K.MAX_K, 20_000, [0.1, 0.2, 0.3], 0.8),    # two tiles
+    (16, 2, 1024, 20_000, [0.1, 0.2, 0.3], 0.8),       # 16 blocks a row
     (100, 3, 100, 6000, None, 0.9),                    # 10,000 a row
-    (300, 2, 100, 9000, None, 0.9),                    # two levels
+    (300, 2, 100, 9000, None, 0.9),                    # pointer table
+    (70, 3, 8, 400, None, 0.9),                   # the table, one block
+    (3, 2, 1025, 4000, None, 0.9),                     # k > 1,024
+    (10, 1, 2048, 30_000, [0.1, 0.2, 0.3], 0.9),       # 20,480 a row
+    (2, 3, 2048, 3000, None, 0.8),                     # k > ids
 ])
 def test_knn_merge_kernel_equals_plain(card, P, Q, k, ids, dists, p_valid):
-    """K3 against its plain version bit for bit, every field: odd shapes,
-    ties at the k-th place, ids in many panes, all-invalid rows, and rows
-    wider than one tile (one and two levels of survivors)."""
+    """K3 against its plain version bit for bit, every field, through the
+    stacked entry and the parts entry ((Q, k) and (k,) partials): odd
+    shapes, unsorted pane lists (random ids and distances), ties at the
+    k-th place, ids in many panes, all-invalid rows, rows wider than one
+    block, more panes than the kernel's parameters hold, k > 1,024."""
     oid, d, v = _merge_inputs(card, P, Q, k, P * 7 + k, ids, dists, p_valid)
     launches = K.knn_merge.launches
     got = K.knn_merge(oid, d, v, k)
@@ -1400,8 +1407,55 @@ def test_knn_merge_kernel_equals_plain(card, P, Q, k, ids, dists, p_valid):
     assert K.knn_merge.launches == launches + 1
     assert got.obj_id.shape == (Q, k)
     assert _equal(got, want)
-    one = K.knn_merge(*(t[:, :1].contiguous() for t in (oid, d, v)), k)
-    assert _equal(one, K.KnnResult(*(t[:1] for t in want)))
+    parts = [K.KnnResult(oid[p], d[p], v[p]) for p in range(P)]
+    assert _equal(K.knn_merge_parts(parts, k), want)
+    one = K.knn_merge_parts([K.KnnResult(*(t[0] for t in r))
+                             for r in parts], k)
+    assert one.obj_id.shape == (k,)
+    assert _equal(one, K.KnnResult(*(t[0] for t in want)))
+    assert K.knn_merge.launches == launches + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,k,num_ids", [(2, 50, 100_000), (10, 50, 3_000),
+                                         (4, 1025, 3_000), (2, 2048, 3_000),
+                                         (10, 2048, 100_000)])
+def test_knn_merge_of_k2_partials_equals_plain(card, P, k, num_ids):
+    """K3 over partials of real K2 launches (sorted, unique ids, valid
+    slots first), 16 queries, one pane per seed: the parts entry against
+    the plain version, and against one K2 launch over all panes' points
+    (the pane merge's covering argument)."""
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    rng = np.random.default_rng(P + k)
+    qx = torch.from_numpy(rng.uniform(0, 10, 16).astype(np.float32)).to(card)
+    qy = torch.from_numpy(rng.uniform(0, 10, 16).astype(np.float32)).to(card)
+    qc = torch.tensor([int(grid.assign_cell(float(a), float(c))[0])
+                       for a, c in zip(qx.tolist(), qy.tolist())],
+                      dtype=torch.int32, device=card)
+    xs, ys, ids = (rng.uniform(-1, 11, (P, 20_000)),
+                   rng.uniform(-1, 11, (P, 20_000)),
+                   rng.integers(0, num_ids, (P, 20_000)).astype(np.int32))
+    kw = dict(mode=K.MODE_POINT, k=k, num_ids=num_ids, qx=qx, qy=qy,
+              q_cell=qc, n=grid.n, nb_layers=2)
+    parts = []
+    for p in range(P):
+        b = PointBatch.from_arrays(xs[p], ys[p], device=card, grid=grid,
+                                   obj_id=ids[p])
+        parts.append(K.KnnResult(*K.knn_topk(
+            b.obj_id, x=b.x, y=b.y, cell=b.cell, valid=b.valid, **kw)[:3]))
+    want = K.merge_topk_stacked_plain(
+        *(torch.stack([getattr(r, f) for r in parts])
+          for f in K.KnnResult._fields), k)
+    launches = K.knn_merge.launches
+    got = K.knn_merge_parts(parts, k)
+    torch.cuda.synchronize()
+    assert K.knn_merge.launches == launches + 1
+    assert _equal(got, want)
+    b = PointBatch.from_arrays(xs.reshape(-1), ys.reshape(-1), device=card,
+                               grid=grid, obj_id=ids.reshape(-1))
+    whole = K.knn_topk(b.obj_id, x=b.x, y=b.y, cell=b.cell, valid=b.valid,
+                       **kw)
+    assert _equal(got, whole[:3])
 
 
 def _pane_lines(n, seed):

@@ -163,11 +163,53 @@ def test_topk_by_distance_matches_jax_sort(k):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_k_above_the_kernel_limit_is_refused():
-    _, pb, ids = _batch("radius")
-    with pytest.raises(NotImplementedError, match=str(K.MAX_K)):
-        K.knn_point_stats(pb, Q[0], Q[1], 0, 3, n=GRID.n, k=K.MAX_K + 1,
-                          num_ids=ids)
+def _large_batch(seed=12, n=12_000, ids=4_000):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(115.4, 117.7, n)
+    y = rng.uniform(39.5, 41.2, n)
+    oid = rng.integers(0, ids, n).astype(np.int32)
+    jb = JPointBatch.from_arrays(x, y, grid=GRID, obj_id=oid)
+    pb, _ = from_jax_arrays(jb._asdict(), "cpu")
+    return jb, pb, ids
+
+
+@pytest.mark.parametrize("k", [1025, 2048, 6000])
+@pytest.mark.parametrize("form", ["point", "multi", "eligible"])
+def test_k_above_1024_matches_jax(form, k):
+    """Any k, as in the JAX package: k = 1,025 and 2,048 below the 4,000
+    objects, and 6,000 above them (every object listed, the rest
+    padded), through K2's three entry forms."""
+    jb, pb, ids = _large_batch()
+    nb = GRID.n  # radius 0: every cell
+    if form == "point":
+        qc = int(GRID.assign_cell(*Q)[0])
+        want = JK.knn_point_stats(jb, Q[0], Q[1], jnp.int32(qc), 0.0, nb,
+                                  n=GRID.n, k=k)
+        got = K.knn_point_stats(pb, Q[0], Q[1], qc, nb, n=GRID.n, k=k,
+                                num_ids=ids)
+    elif form == "multi":
+        qx = np.float32([Q[0], 116.9, 117.65])
+        qy = np.float32([Q[1], 40.1, 41.15])
+        qc = np.array([GRID.assign_cell(float(a), float(b))[0]
+                       for a, b in zip(qx, qy)], np.int32)
+        want = JK.knn_point_multi_stats(jb, qx, qy, qc, 0.0, nb, n=GRID.n,
+                                        k=k)
+        got = K.knn_point_multi_stats(
+            pb, torch.from_numpy(qx), torch.from_numpy(qy),
+            torch.from_numpy(qc), nb, n=GRID.n, k=k, num_ids=ids)
+    else:
+        rng = np.random.default_rng(k)
+        oid = np.asarray(jb.obj_id)
+        dists = rng.choice(np.float32([0.0, 0.125, 0.25, 0.5]), oid.size)
+        elig = rng.random(oid.size) < 0.7
+        want = JK.knn_eligible_stats(jnp.asarray(oid), jnp.asarray(dists),
+                                     jnp.asarray(elig), k=k)
+        got = K.knn_eligible_stats(torch.from_numpy(oid),
+                                   torch.from_numpy(dists),
+                                   torch.from_numpy(elig), k=k)
+    _assert_same(got, want)
+    most = int(got[0].valid.reshape(-1, k).sum(dim=1).max())
+    assert most == k if k < ids else 0 < most < k
 
 
 def test_approximate_mode_is_exact_selection_over_bbox_distances():

@@ -4,11 +4,13 @@
 partials, every field equal (ids, distances and validity, padding slots
 included), at P in {1, 2, 7, 60} panes, k in {1, 10, 50, 100} and Q in
 {1, 4} query rows, with duplicate ids, ties at the k-th place, all-invalid
-rows and rows wider than one of the kernel's shared-memory tiles. The
-kernel's tiled path (each tile's top-k, then a merge of the survivors) is
-emulated with the plain version and must give the same lists; a
-hypothesis property holds the plain version to a dict-and-sort reference
-and to that emulation. The kernel itself runs in tests/test_torch_cuda.py.
+rows, rows wider than one of the kernel's blocks and k = 1,025. The pane
+merge's covering argument (each tile's top-k survivors, merged again,
+give the row's top-k, which the host merge relies on) is emulated with the
+plain version; a hypothesis property holds the plain version to a
+dict-and-sort reference and to that emulation. The kernel's own merge is
+emulated in tests/test_torch_k3_rank.py, and the kernel runs in
+tests/test_torch_cuda.py.
 """
 
 import numpy as np
@@ -108,7 +110,7 @@ def test_edge_cases_match_jax(case):
             tied = row_o[row_v][row_d[row_v] == last]
             assert len(tied) > 1 and np.all(np.diff(tied) > 0)
     if case == "wide":
-        assert P * k > K.MERGE_TILE
+        assert P * k > 1024  # kMaxKeys in csrc/knn_merge.cu
 
 
 def test_one_object_in_two_panes_keeps_its_minimum():
@@ -189,16 +191,21 @@ def test_plain_property(P, Q, k, seed, ids, p_valid):
 
 
 def test_k_limits_and_devices():
+    """Any k >= 1 (k = 1,025 against the JAX package), the stacked entry
+    only on a card, the device pane merge on the CPU as the plain
+    version."""
+    big = _partials(3, 2, 1025, 1, ids=2500)
+    _assert_same(_plain(*big, 1025), _jax(*big, 1025))
     oid, d, v = (torch.from_numpy(a) for a in _partials(2, 1, 4, 0))
-    with pytest.raises(NotImplementedError, match="k=1025"):
-        K._merge_stacked(oid, d, v, K.MAX_K + 1)
+    with pytest.raises(ValueError, match="k must be >= 1"):
+        K.knn_merge_parts([K.KnnResult(oid[0], d[0], v[0])], 0)
     with pytest.raises(ValueError, match="needs cuda"):
         K.knn_merge(oid, d, v, 4)
-    res = K.merge_knn_device_multi(
+    res = K.knn_merge_parts(
         [K.KnnResult(oid[p], d[p], v[p]) for p in range(2)], 4)
     _assert_same(tuple(t.numpy() for t in res), _plain(*(t.numpy() for t in
                                                           (oid, d, v)), 4))
-    one = K.merge_knn_device(
+    one = K.knn_merge_parts(
         [K.KnnResult(oid[p, 0], d[p, 0], v[p, 0]) for p in range(2)], 4)
     assert one.obj_id.shape == (4,)
     np.testing.assert_array_equal(one.obj_id.numpy(), res.obj_id[0].numpy())
