@@ -163,11 +163,37 @@ its wall seconds):
    with pairs/s, pairs per window and the median and p99 wall time per
    window. Then option 101's stages one after another, its trace under
    torch.profiler, and the CLI for 101 with ``--input2``.
-7. Output: the build report, the card line, one JSON ``kernels`` line
+7. The trajectory queries over T-Drive's taxi count: the port's
+   ``SyntheticPointSource`` with 10,357 taxis (T-Drive, Microsoft
+   Research's Beijing taxi traces) of 50 points 400 ms apart over the
+   conf's grid (517,850 points over 20 s; 1 % up to 2 s late; the event
+   time compressed from T-Drive's ~3-minute sampling), as CSV lines, and
+   a 320-taxi query stream for tJoin. K8a ``tstats_update`` at the 10 s
+   window (258,924 points, fresh 16,384-slot state) and at a 512-point
+   cut (the state of the 64 cuts before it), K8b
+   ``tstats_window_summary`` at a 5 s pane and a cut, K8c
+   ``taggregate_group_extents`` and K8d ``taggregate_heatmap`` (every
+   aggregate, ``torch.Tensor.scatter_reduce_`` beside SUM, MIN and MAX)
+   at the window and a cut, each against its plain version bit for bit
+   with its CUDA-event time, launch-to-completion time and bound. Then
+   options 201-212, 2030, 2090, 2011, 208 with SUM and ALL, 206 and 208
+   (SUM) with panes, 211/212 under multiQuery (16 points) and 99 through
+   ``run_option`` (windowed over the whole stream, realtime over its
+   first 65,536 points and the query records of that span; tJoin at
+   radius 0.002, tKNN at 0.05), each again with every kernel swapped for
+   its plain version (equal results; the runs of 201, 202 and 207 launch
+   no kernel and run once), the launch counters non-zero for every
+   kernel of the run's path; 206 with panes against 206 (the same
+   objects and temporal lengths, spatial lengths within 4 * 2**-23 of
+   the window's total), 208 SUM with panes against 208 SUM (equal
+   heatmaps); then 206 and 205 under torch.profiler beside their decode
+   alone.
+8. Output: the build report, the card line, one JSON ``kernels`` line
    (K4x's entry holds the cell order under ``helpers``, with the joins'
    index under its ``join``; K5's the window cases and its micro-batch
-   cases; K4x's and K5's their join cases, also under ``join``; K7, K6
-   and K3), and as the last line
+   cases; K4x's and K5's their join cases, also under ``join``; K7, K6,
+   K3, and K8a-K8d with their 512-point cut under ``micro_batch``), and
+   as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result line when CUDA is not available or the
@@ -2937,6 +2963,421 @@ def join_cli_phase(streams: dict) -> None:
             f"in-process run ({want.splitlines()[0]})")
 
 
+# ------------------------------------------------------------------------ #
+# phase 7: the trajectory queries
+
+N_TAXIS = 10_357          # T-Drive's taxis (Microsoft Research, Beijing)
+TRAJ_STEPS = 50           # points per taxi, TRAJ_DT_MS apart: 20 s
+TRAJ_DT_MS = 400
+N_TRAJ = N_TAXIS * TRAJ_STEPS  # 517,850 points
+N_TRAJ_RT = 1 << 16       # realtime runs: the first 128 cuts of 512
+N_TJOIN_TAXIS = 320       # tJoin's query trajectories: 8,000 per window
+TJOIN_RADIUS = 0.002      # degrees: about one partner per query point
+TKNN_RADIUS = 0.05        # degrees: ~130 trajectories per window
+TRAJ_STATE = 16_384       # K8a's state slots at the stream's 10,357 ids
+#: (label, option, query overrides, over the realtime prefix, kernels its
+#: path launches); a run without kernels runs once
+TRAJ_RUNS = [
+    ("201", 201, {}, True, ()),
+    ("202", 202, {}, False, ()),
+    ("203", 203, {}, True, ("pip_lattice",)),
+    ("204", 204, {}, False, ("pip_lattice",)),
+    ("2030", 2030, {}, True, ("pip_lattice",)),
+    ("205", 205, {}, True, ("tstats_update",)),
+    ("206", 206, {}, False, ("tstats_update",)),
+    ("206-panes", 206, {"panes": True}, False, ("tstats_window_summary",)),
+    ("207", 207, {}, True, ()),
+    ("208-SUM", 208, {"aggregate_function": "SUM"}, False,
+     ("taggregate_group_extents", "taggregate_heatmap")),
+    ("208-ALL", 208, {"aggregate_function": "ALL"}, False,
+     ("taggregate_group_extents",)),
+    ("208-SUM-panes", 208, {"aggregate_function": "SUM", "panes": True},
+     False, ("taggregate_group_extents",)),
+    ("209", 209, {"radius": TJOIN_RADIUS}, True, ("join_lattice",)),
+    ("210", 210, {"radius": TJOIN_RADIUS}, False,
+     ("join_reduce", "join_lattice")),
+    ("2090", 2090, {"radius": TJOIN_RADIUS}, True, ("join_lattice",)),
+    ("211", 211, {"radius": TKNN_RADIUS}, True, ("knn_topk",)),
+    ("212", 212, {"radius": TKNN_RADIUS}, False, ("knn_topk",)),
+    ("2011", 2011, {"radius": TKNN_RADIUS}, True, ("knn_topk",)),
+    ("211-multi", 211, {"radius": TKNN_RADIUS, "multi_query": True}, True,
+     ("knn_topk",)),
+    ("212-multi", 212, {"radius": TKNN_RADIUS, "multi_query": True}, False,
+     ("knn_topk",)),
+    ("99", 99, {}, False, ("pip_lattice", "tstats_update",
+                           "taggregate_group_extents", "taggregate_heatmap",
+                           "join_lattice", "knn_topk")),
+]
+K8 = ("tstats_update", "tstats_window_summary", "taggregate_group_extents",
+      "taggregate_heatmap")
+
+
+def traj_stream(seed: int):
+    """(lines, columns) of the trajectory stream: the port's
+    SyntheticPointSource with T-Drive's 10,357 taxis over the conf's grid,
+    50 points each 400 ms apart (20 s), 1 % up to 2 s late; CSV rows
+    'traj-i,ts,x,y'. And tJoin's query stream: 320 such taxis (another
+    seed), as lines."""
+    from spatialflink_tpu_torch.streams.sources import SyntheticPointSource
+
+    grid = _grid()
+    cols = SyntheticPointSource(
+        grid, num_trajectories=N_TAXIS, steps=TRAJ_STEPS, dt_ms=TRAJ_DT_MS,
+        out_of_order_fraction=0.01, out_of_order_max_ms=2_000,
+        seed=seed + 30).columns()
+    q = SyntheticPointSource(
+        grid, num_trajectories=N_TJOIN_TAXIS, steps=TRAJ_STEPS,
+        dt_ms=TRAJ_DT_MS, out_of_order_fraction=0.01,
+        out_of_order_max_ms=2_000, seed=seed + 31).columns()
+
+    def lines(x, y, ts, traj, prefix):
+        return [f"{prefix}{k},{t},{a!r},{b!r}" for a, b, t, k in
+                zip(x.tolist(), y.tolist(), ts.tolist(), traj.tolist())]
+    return lines(*cols, "traj-"), lines(*q, "q-"), cols
+
+
+def _traj_form(r):
+    """A comparable form of one result record: points and sub-trajectories
+    by their fields, selections by their columns, arrays by value."""
+    if hasattr(r, "columns"):
+        return tuple(tuple(a.tolist()) for a in r.columns()[:4])
+    if hasattr(r, "coords_list"):
+        return ("L", r.obj_id, r.timestamp, tuple(r.coords_list))
+    if hasattr(r, "obj_id") and hasattr(r, "x"):
+        return ("P", r.obj_id, r.timestamp, r.x, r.y)
+    if isinstance(r, np.ndarray):
+        return ("A", str(r.dtype), tuple(r.tolist()))
+    if isinstance(r, dict):
+        return tuple(sorted((k, _traj_form(v)) for k, v in r.items()))
+    if isinstance(r, (set, frozenset)):
+        return ("S", tuple(sorted(r)))
+    if isinstance(r, (list, tuple)) or type(r).__name__ == "PairRecords":
+        return tuple(_traj_form(v) for v in r)
+    return r
+
+
+def run_traj(params, s1, s2):
+    """One run of run_option on the card: per-window (start, end, records
+    in comparable form, extras in comparable form), per-window wall times
+    (ms), records per window and wall seconds."""
+    import torch
+
+    from spatialflink_tpu_torch.driver import run_option
+
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    it = iter(run_option(params, s1, s2, device="cuda"))
+    wins, lat, sizes = [], [], []
+    while True:
+        t0 = time.perf_counter()
+        try:
+            w = next(it)
+        except StopIteration:
+            break
+        lat.append((time.perf_counter() - t0) * 1e3)
+        sizes.append(len(w.records))
+        wins.append((w.window_start, w.window_end, w.records, w.extras))
+    wall = time.perf_counter() - t_start
+    return wins, lat, sizes, wall
+
+
+def _traj_counters():
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+    from spatialflink_tpu_torch.ops import join as J
+    from spatialflink_tpu_torch.ops import knn as K
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    return {"tstats_update": T.tstats_update,
+            "tstats_window_summary": T.tstats_window_summary,
+            "taggregate_group_extents": T.taggregate_group_extents,
+            "taggregate_heatmap": T.taggregate_heatmap,
+            "pip_lattice": HK.pip_lattice, "cell_order": HK.cell_order,
+            "knn_topk": K.knn_topk, "join_reduce": J.join_reduce,
+            "join_lattice": J.join_lattice}
+
+
+@contextlib.contextmanager
+def traj_plain_versions():
+    """Every kernel of the trajectory paths swapped for its plain version
+    (the joins' through :func:`join_plain_versions`)."""
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+    from spatialflink_tpu_torch.ops import knn as K
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    def lattice(*a, parity=False, **_):
+        out = HK.pip_lattice_plain(*a, parity=parity)
+        if parity:
+            return out[0].T.contiguous(), out[1].T.contiguous()
+        return out.T.contiguous()
+
+    plain = {(T, "tstats_update"): T.tstats_update_plain,
+             (T, "tstats_window_summary"): T.tstats_window_summary_plain,
+             (T, "taggregate_group_extents"):
+                 T.taggregate_group_extents_plain,
+             (T, "taggregate_heatmap"): T.taggregate_heatmap_plain,
+             (K, "knn_topk"): K.knn_topk_plain}
+    saved = {key: getattr(*key) for key in plain}
+    try:
+        for (mod, name), fn in plain.items():
+            setattr(mod, name, fn)
+        with join_plain_versions():
+            saved_hk = HK.pip_lattice
+            HK.pip_lattice = lattice
+            try:
+                yield
+            finally:
+                HK.pip_lattice = saved_hk
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def traj_params(option: int, overrides: dict):
+    """The conf over CSV streams (the conf's query point and polygon), with
+    the run's query overrides."""
+    from spatialflink_tpu_torch.config import Params
+
+    p = Params.from_yaml(CONF)
+    p.query.option = option
+    for key, value in overrides.items():
+        setattr(p.query, key, value)
+    if p.query.multi_query:
+        p.query.query_points = query_points()
+    fmt = dataclasses.replace(p.input1, format="CSV")
+    return dataclasses.replace(p, input1=fmt, input2=fmt)
+
+
+def _tstats_by_object(wins):
+    return [(s, e, {r[0]: r[1:] for r in recs}) for s, e, recs, _ in wins]
+
+
+def traj_main_phase(card: str, lines, qlines):
+    """Each trajectory run through run_option on the card (the realtime
+    ones over the stream's first N_TRAJ_RT points and the query records of
+    the same span), then, where its path launches kernels, again with
+    every kernel swapped for its plain version: equal per-window results,
+    and the launch counters non-zero for every kernel of the run's path.
+    206 with panes against 206 without (same objects and temporal lengths,
+    spatial within 4 * 2**-23 of the window's total: the pane stitch adds
+    its sums in another order), 208 SUM with panes against 208 SUM
+    (equal heatmaps). Returns (launches summed over the runs, report)."""
+    import torch
+
+    from spatialflink_tpu_torch.driver import CASES
+
+    counters = _traj_counters()
+    launches = dict.fromkeys(counters, 0)
+    report, kept = [], {}
+    for label, opt, overrides, short, path in TRAJ_RUNS:
+        params = traj_params(opt, overrides)
+        s1 = lines[:N_TRAJ_RT] if short else lines
+        s2 = qlines[:len(qlines) * N_TRAJ_RT // N_TRAJ] if short else qlines
+        for fn in counters.values():
+            fn.launches = 0
+        wins, lat, sizes, wall = run_traj(params, s1, s2)
+        got = {name: fn.launches for name, fn in counters.items()}
+        for name in counters:
+            launches[name] += got[name]
+        if any(got[name] <= 0 for name in path):
+            raise AssertionError(f"trajectory {label}: kernels of its path "
+                                 f"not launched {got}")
+        if not path and any(got.values()):
+            raise AssertionError(f"trajectory {label} launched {got}")
+        if not wins or not sum(sizes) and not any(
+                "heatmap" in w[3] for w in wins):
+            raise AssertionError(f"trajectory {label}: no result")
+        form = [(s, e, _traj_form(r), _traj_form(x)) for s, e, r, x in wins]
+        pwall = None
+        if path:
+            with traj_plain_versions():
+                pwins, _, _, pwall = run_traj(params, s1, s2)
+            if {name: fn.launches for name, fn in counters.items()} != got:
+                raise AssertionError("the plain run launched a kernel")
+            pform = [(s, e, _traj_form(r), _traj_form(x))
+                     for s, e, r, x in pwins]
+            if form != pform:
+                raise AssertionError(f"trajectory {label}: results differ "
+                                     "from the plain run")
+        if label in ("206", "206-panes", "208-SUM", "208-SUM-panes"):
+            kept[label] = wins
+        row = {"run": label, "option": opt, "mode": CASES[opt].mode,
+               "records": len(s1) if opt != 99 else None,
+               "query_records": len(s2) if opt in (209, 210, 2090)
+               else None, "windows": len(wins),
+               "records_per_s": len(s1) / wall if opt != 99 else None,
+               "results": int(sum(sizes)), "wall_s": wall,
+               "plain_wall_s": pwall,
+               "median_window_ms": float(np.median(lat)),
+               "p99_window_ms": _pct(lat, 99),
+               "launches": {name: v for name, v in got.items() if v},
+               "card": card}
+        log("traj-path", json.dumps(row))
+        report.append(row)
+        torch.cuda.empty_cache()
+    # panes against the whole windows
+    whole, panes = (_tstats_by_object(kept[k]) for k in ("206", "206-panes"))
+    if [w[:2] for w in whole] != [w[:2] for w in panes]:
+        raise AssertionError("206: pane windows differ")
+    worst = 0.0
+    for (_, _, a), (_, _, b) in zip(whole, panes):
+        if a.keys() != b.keys() or any(a[o][1] != b[o][1] for o in a):
+            raise AssertionError("206: objects or temporal lengths differ "
+                                 "with panes")
+        bound = 4 * 2.0 ** -23 * sum(v[0] for v in a.values())
+        err = max((abs(a[o][0] - b[o][0]) for o in a), default=0.0)
+        worst = max(worst, err / bound if bound else 0.0)
+        if err > bound:
+            raise AssertionError(f"206: spatial {err} beyond {bound} with "
+                                 "panes")
+    hm = [w[3]["heatmap"] for w in kept["208-SUM"]]
+    phm = [w[3]["heatmap"] for w in kept["208-SUM-panes"]]
+    if len(hm) != len(phm) or not all(np.array_equal(a, b)
+                                      for a, b in zip(hm, phm)):
+        raise AssertionError("208 SUM: heatmaps differ with panes")
+    log("traj-panes", json.dumps({"tstats_spatial_err_share_of_bound":
+                                  worst}))
+    return launches, report, worst
+
+
+def traj_profile_phase(lines) -> dict:
+    """Where a trajectory run's time goes: options 206 (the whole stream)
+    and 205 (the realtime prefix) under torch.profiler
+    (:func:`trace_device`), beside the decode alone of the same lines
+    (``driver.decode_chunks`` in the run's chunk size)."""
+    from spatialflink_tpu_torch.driver import decode_chunks
+
+    out = {}
+    for opt, recs, chunk in ((206, lines, 4096),
+                             (205, lines[:N_TRAJ_RT], N_MICRO)):
+        params = traj_params(opt, {})
+        t0 = time.perf_counter()
+        for _ in decode_chunks(recs, params.input1, _grid(), chunk):
+            pass
+        decode_s = time.perf_counter() - t0
+        row = trace_device(lambda: run_traj(params, recs, [])[3])
+        row.update(option=opt, records=len(recs), decode_s=decode_s,
+                   decode_share=decode_s / row["wall_s"])
+        log("traj-profile", json.dumps(row))
+        out[str(opt)] = row
+    return out
+
+
+def traj_kernel_phase(torch, timer: Timer, cols):
+    """K8a-K8d against their plain versions bit for bit at the window shape
+    (the 10 s window [T0, T0 + 10 s) of the stream: 258,925 points of
+    10,357 taxis; K8b at its 5 s pane) and at a 512-point realtime cut
+    (K8a with the state its 64 earlier cuts carried), with CUDA-event
+    time, launch-to-completion time and bound; K8d in every aggregate,
+    with torch.Tensor.scatter_reduce_ (SUM, MIN, MAX) beside it. Returns
+    {kernel: [cases]}."""
+    from spatialflink_tpu_torch.models import PointBatch
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    dev = torch.device("cuda")
+    grid = _grid()
+    x, y, ts, traj = cols
+
+    def batch(sel, ts_base):
+        return PointBatch.from_arrays(x[sel], y[sel], device=dev, grid=grid,
+                                      obj_id=traj[sel], ts=ts[sel],
+                                      ts_base=ts_base)
+
+    window = np.nonzero((ts >= T0) & (ts < T0 + 10_000))[0]
+    pane = np.nonzero((ts >= T0) & (ts < T0 + 5_000))[0]
+    cut = np.arange(64 * N_MICRO, 65 * N_MICRO)
+    shapes = {"window": (batch(window, T0), len(window)),
+              "pane": (batch(pane, T0), len(pane)),
+              "cut": (batch(cut, int(ts[cut[0]])), N_MICRO)}
+    # the state the 64 cuts before the measured one leave behind
+    carried = T.TrajStatsState.zeros(TRAJ_STATE, dev)
+    for c in range(64):
+        idx = np.arange(c * N_MICRO, (c + 1) * N_MICRO)
+        carried, _ = T.tstats_update_plain(carried, batch(idx, int(ts[cut[0]])))
+    cases = {name: [] for name in K8}
+
+    def state_of(src):
+        return T.TrajStatsState(*(t.clone() for t in src))
+
+    def case(name, shape, kern, plain, nbytes, ops, **extra):
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = compare(torch, got, want, f"{name} {shape}")
+        b_ms, b_by = bound_ms(ops, nbytes)
+        row = {"case": shape, **extra, "identical": True, "max_abs_err": err,
+               "ms": timer.ms(kern), "plain_ms": timer.ms(plain, reps=5),
+               "launch_to_completion_ms": launch_ms(torch, kern),
+               "bound_ms": b_ms, "bound_by": b_by}
+        log("kernels-traj", name, json.dumps(row))
+        cases[name].append(row)
+        return got
+
+    for shape in ("window", "cut"):
+        b, n = shapes[shape]
+        base = (T.TrajStatsState.zeros(TRAJ_STATE, dev) if shape == "window"
+                else carried)
+        touched = int(torch.unique(b.obj_id[b.valid]).numel())
+
+        def run(fn):
+            st, out = fn(state_of(base), b)
+            return (*out, *st)
+        got, want = run(T.tstats_update), run(T.tstats_update_plain)
+        torch.cuda.synchronize()
+        err = compare(torch, got, want, f"tstats_update {shape}")
+        # the timed launches update one scratch state in place (the sort
+        # and the walk do the same work whatever the state holds)
+        scratch = state_of(base)
+
+        def kern():
+            return T.tstats_update(scratch, b)
+        b_ms, b_by = bound_ms(20.0 * n, 17.0 * n + 21.0 * n + 40.0 * touched)
+        row = {"case": shape, "points": n, "objects": touched,
+               "state_slots": TRAJ_STATE, "identical": True,
+               "max_abs_err": err, "ms": timer.ms(kern),
+               "plain_ms": timer.ms(lambda: run(T.tstats_update_plain),
+                                    reps=5),
+               "launch_to_completion_ms": launch_ms(torch, kern),
+               "bound_ms": b_ms, "bound_by": b_by}
+        log("kernels-traj", "tstats_update", json.dumps(row))
+        cases["tstats_update"].append(row)
+    for shape in ("pane", "cut"):
+        b, n = shapes[shape]
+        case("tstats_window_summary", shape,
+             lambda: T.tstats_window_summary(b, m=TRAJ_STATE),
+             lambda: T.tstats_window_summary_plain(b, m=TRAJ_STATE),
+             17.0 * n + 32.0 * TRAJ_STATE, 20.0 * n, points=n)
+    for shape in ("window", "cut"):
+        b, n = shapes[shape]
+        ext = case("taggregate_group_extents", shape,
+                   lambda: T.taggregate_group_extents(
+                       b, num_cells=grid.num_cells, num_ids=N_TAXIS),
+                   lambda: T.taggregate_group_extents_plain(
+                       b, num_cells=grid.num_cells),
+                   13.0 * n + 17.0 * n, 4.0 * n, points=n)
+        groups = T.TAggregateGroups(cell=ext[0], obj_id=ext[1],
+                                    length=ext[3] - ext[2], first=ext[4])
+        idx = torch.where(groups.first, groups.cell.long(),
+                          torch.full_like(groups.cell, grid.num_cells).long())
+        vals = torch.where(groups.first, groups.length, 0).float()
+        for agg in ("SUM", "AVG", "MIN", "MAX", "COUNT"):
+            lib = {"SUM": "sum", "MIN": "amin", "MAX": "amax"}.get(agg)
+            extra = {"aggregate": agg, "points": n,
+                     "groups": int(groups.first.sum())}
+            if lib is not None:
+                extra["library_ms"] = timer.ms(
+                    lambda: torch.zeros(grid.num_cells + 1, device=dev)
+                    .scatter_reduce_(0, idx, vals, lib,
+                                     include_self=lib == "sum"))
+                extra["library_call"] = (
+                    f"torch.Tensor.scatter_reduce_(0, cell, length, "
+                    f"'{lib}') into a zero (num_cells + 1,) tensor")
+            case("taggregate_heatmap", shape,
+                 lambda agg=agg: (T.taggregate_heatmap(
+                     groups, num_cells=grid.num_cells, agg=agg),),
+                 lambda agg=agg: (T.taggregate_heatmap_plain(
+                     groups, num_cells=grid.num_cells, agg=agg),),
+                 9.0 * n + 4.0 * grid.num_cells, 2.0 * n, **extra)
+    return cases
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3079,9 +3520,22 @@ def main(argv=None) -> int:
     prof["101"] = phase("profile-101", join_profile_phase, streams)
     phase("cli-join", join_cli_phase, streams)
     del lines, geoms, streams
+    torch.cuda.empty_cache()
+
+    # the trajectory queries over T-Drive's taxi count
+    t0 = time.perf_counter()
+    tlines, tqlines, tcols = traj_stream(args.seed)
+    log(f"trajectory stream: {len(tlines)} CSV rows of {N_TAXIS} taxis over "
+        f"{TRAJ_STEPS * TRAJ_DT_MS} ms, {len(tqlines)} query rows "
+        f"({time.perf_counter() - t0:.1f} s to generate)")
+    k8_cases = phase("kernels-k8", traj_kernel_phase, torch, timer, tcols)
+    traj_launches, traj_report, traj_pane_err = phase(
+        "trajectory", traj_main_phase, card, tlines, tqlines)
+    prof.update(phase("trajectory-profile", traj_profile_phase, tlines))
+    del tlines, tqlines, tcols
     for more in (rt_launches, short_launches, count_launches, geom_launches,
                  other_launches, pane_launches, gpane_launches, dyn_launches,
-                 join_launches, jrt_launches):
+                 join_launches, jrt_launches, traj_launches):
         for name in KERNELS:
             launches[name] += more.get(name, 0)
     micro["geom_stream_dist"] = [c for c in k5_cases
@@ -3187,6 +3641,38 @@ def main(argv=None) -> int:
     k3["library_note"] = ("no single PyTorch call computes the dedup by id "
                           "and the top-k of the merged partials")
     kernels.append(k3)
+    k8_meta = {
+        "tstats_update": ("spatialflink_tpu/ops/trajectory.py:88",
+                          f"the 10 s window: 258,925 points of {N_TAXIS} "
+                          f"taxis, fresh {TRAJ_STATE}-slot state"),
+        "tstats_window_summary": ("spatialflink_tpu/ops/trajectory.py:192",
+                                  "the 5 s pane of option 206 with panes"),
+        "taggregate_group_extents": (
+            "spatialflink_tpu/ops/trajectory.py:378",
+            "the 10 s window over the conf's 10,000 cells"),
+        "taggregate_heatmap": ("spatialflink_tpu/ops/trajectory.py:433",
+                               "the 10 s window's groups, SUM"),
+    }
+    for name in K8:
+        window = k8_cases[name][0]
+        k8 = {"name": name, "route": "cuda",
+              "source": "spatialflink_tpu_torch/csrc/traj.cu",
+              "replaces": k8_meta[name][0],
+              "launches": traj_launches[name],
+              "max_abs_err": max(c["max_abs_err"] for c in k8_cases[name]),
+              "ms": window["ms"], "plain_ms": window["plain_ms"],
+              "bound_ms": window["bound_ms"], "bound_by": window["bound_by"],
+              "library_ms": window.get("library_ms"),
+              "shape": k8_meta[name][1], "cases": k8_cases[name]}
+        if name == "taggregate_heatmap":
+            k8["library_note"] = window["library_call"]
+        else:
+            k8["library_note"] = NO_LIB
+        cut = next(c for c in k8_cases[name] if c["case"] == "cut")
+        k8["micro_batch"] = {key: cut[key] for key in (
+            "case", "ms", "launch_to_completion_ms", "plain_ms", "bound_ms",
+            "bound_by")}
+        kernels.append(k8)
     phases["total"] = time.perf_counter() - t_all
     log("build-report", json.dumps(build_report))
     print(card, flush=True)
@@ -3196,6 +3682,8 @@ def main(argv=None) -> int:
                       "join_path": join_report,
                       "panes": pane_report + gpane_report,
                       "dynamic": dyn_report,
+                      "trajectory": traj_report,
+                      "trajectory_pane_err_share_of_bound": traj_pane_err,
                       "geom_host": geom_host, "breakdown": breakdown,
                       "profile": prof, "phases_s": phases}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -100,6 +100,11 @@ import chip_smoke as CS
 BUILD = os.path.join(CS.ROOT, "_scratch", "ab_build")
 #: rounds of old, new, new, old per A/B case (two pairs each)
 ROUNDS = 5
+_C, _I = ctypes.c_void_p, ctypes.c_int
+#: knn_topk_launch's arguments before the trajectory kNN's radius filter
+#: (the revisions this script compares against)
+K2_OLD_ARGTYPES = (_I, _I, _I, _I, _I, _C, _C, _C, _C, _C, _C, _C, _C, _I,
+                   _I, _C, _C, _I, _C, _C, _C, _C, _C, _C, _C, _C, _C)
 
 
 def build_old(old_csrc: str, names) -> dict:
@@ -140,7 +145,7 @@ def build_old(old_csrc: str, names) -> dict:
         libs["join_reduce"].join_reduce_launch.argtypes = [
             C, C, C, C, I, C, C, C, C, I, F, I, I, C, C, C, C]
     if "knn_topk" in libs:
-        libs["knn_topk"].knn_topk_launch.argtypes = list(K._ARGTYPES)
+        libs["knn_topk"].knn_topk_launch.argtypes = list(K2_OLD_ARGTYPES)
         libs["knn_topk"].knn_topk_zone_ints.argtypes = [I, I]
         libs["knn_topk"].knn_topk_zone_ints.restype = ctypes.c_longlong
     if "knn_merge" in libs:

@@ -6,8 +6,10 @@ the reference's key names, with the leading ``!!`` java type tag tolerated
 (mesh parallelism, a join's panes) are parsed so that the driver can refuse
 them;
 of the output block only the delimiter is read (``--output``'s CSV/TSV/WKT
-fields); keys no ported code reads (trajectory and Kafka settings) are
-ignored.
+fields); the trajectory queries' fields (``trajIDs``,
+``aggregateFunction``, ``thresholds.trajDeletion``, ``omegaDuration``) are
+read as the JAX package reads them; keys no ported code reads (Kafka
+settings) are ignored.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from spatialflink_tpu_torch.index import UniformGrid
 from spatialflink_tpu_torch.models import LineString, Point, Polygon
 
 SUPPORTED_FORMATS = ("GeoJSON", "WKT", "CSV", "TSV")
+SUPPORTED_AGGREGATES = ("ALL", "SUM", "AVG", "MIN", "MAX", "COUNT")
 SUPPORTED_WINDOW_TYPES = ("TIME", "COUNT")
 
 
@@ -153,16 +156,29 @@ class QueryConfig:
     # on CUDA, the host on the CPU), True = device, False = host
     pane_device_merge: Optional[bool] = None
     radius: float = 0.0
+    # the trajectory aggregate query's function (tAggregate)
+    aggregate_function: str = "SUM"
     k: int = 10
+    omega_duration_s: int = 10
+    # the trajectory ids of the trajectory filter and stats queries (empty:
+    # all)
+    traj_ids: List[str] = field(default_factory=list)
     query_points: List[Tuple[float, float]] = field(default_factory=list)
     query_polygons: List[List[Tuple[float, float]]] = field(
         default_factory=list)
     query_linestrings: List[List[Tuple[float, float]]] = field(
         default_factory=list)
+    # realtime tAggregate evicts trajectories unseen for this long (0: never)
+    traj_deletion_threshold_s: int = 0
     allowed_lateness_s: int = 0
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "QueryConfig":
+        agg = str(_opt(d, "aggregateFunction", "SUM")).upper()
+        if agg not in SUPPORTED_AGGREGATES:
+            raise ConfigError(
+                f"query.aggregateFunction: {agg!r} not in "
+                f"{SUPPORTED_AGGREGATES}")
         th = _opt(d, "thresholds", {})
         return cls(
             option=int(_req(d, "option", "query")),
@@ -175,10 +191,14 @@ class QueryConfig:
                                is None
                                else bool(_opt(d, "paneDeviceMerge", None))),
             radius=float(_opt(d, "radius", 0.0)),
+            aggregate_function=agg,
             k=int(_opt(d, "k", 10)),
+            omega_duration_s=int(_opt(d, "omegaDuration", 10)),
+            traj_ids=[str(t) for t in _opt(d, "trajIDs", [])],
             query_points=_coord_pairs(_opt(d, "queryPoints", [])),
             query_polygons=_coord_lists(_opt(d, "queryPolygons", [])),
             query_linestrings=_coord_lists(_opt(d, "queryLineStrings", [])),
+            traj_deletion_threshold_s=int(_opt(th, "trajDeletion", 0)),
             allowed_lateness_s=int(_opt(th, "outOfOrderTuples", 0)),
         )
 

@@ -12,8 +12,12 @@
 //
 // Semantics kept: eligible = valid & in grid & (Chebyshev layer <=
 // nb_layers in point mode, or nb_mask[q, cell] in cell mode, or a given
-// (Q, N) mask); no radius filter on the distance (windowed kNN); k slots
-// always, empty ones (2^31-1, 3.4e38, false); counts[q] = eligible slots.
+// (Q, N) mask); no radius filter on the distance (windowed kNN) unless
+// the caller asks for the trajectory kNN's exact radius (enforce_radius:
+// a slot also needs d <= radius to enter the table, JAX
+// spatialflink_tpu/ops/knn.py _knn_point_parts :345-357); k slots
+// always, empty ones (2^31-1, 3.4e38, false); counts[q] = eligible slots
+// before the radius filter (every one of them cost a distance).
 //
 // Three launches after two memsets, no library selection:
 // A. fold: one grid-stride pass over the points. A thread loads its point
@@ -169,7 +173,8 @@ knn_fold_kernel(int mode, int n, int num_queries, int num_ids,
                 const uint8_t* __restrict__ valid,
                 const float* __restrict__ qx, const float* __restrict__ qy,
                 const int32_t* __restrict__ q_cell, int grid_n,
-                int nb_layers, const float* __restrict__ dists,
+                int nb_layers, int enforce_radius, float radius,
+                const float* __restrict__ dists,
                 const uint8_t* __restrict__ nb_mask, int num_cells,
                 const uint8_t* __restrict__ eligible,
                 uint32_t* __restrict__ best, int32_t* __restrict__ counts) {
@@ -250,7 +255,7 @@ knn_fold_kernel(int mode, int n, int num_queries, int num_ids,
         }
         const unsigned ballot = __ballot_sync(kAll, elig);
         if (lane == 0 && ballot != 0) atomicAdd(&s_count[j], __popc(ballot));
-        go[jj] = elig && in_table;
+        go[jj] = elig && in_table && (enforce_radius == 0 || d <= radius);
         uint32_t b = __float_as_uint(d);
         if (b == 0x80000000u) b = 0u;  // -0 sorts as +0
         bits[jj] = b;
@@ -641,8 +646,9 @@ extern "C" long long knn_topk_cand_keys(int num_queries, int k) {
 
 
 // mode 0 (point): x, y, cell, valid, obj_id (n,), qx, qy (Q,) f32, q_cell
-// (Q,) int32, grid_n, nb_layers. mode 1 (cells): cell, valid, obj_id, dists
-// (Q, n) f32, nb_mask (Q, num_cells) bool. mode 2 (eligible): obj_id, dists
+// (Q,) int32, grid_n, nb_layers; enforce_radius != 0 also drops every
+// slot farther than radius from its query. mode 1 (cells): cell, valid,
+// obj_id, dists (Q, n) f32, nb_mask (Q, num_cells) bool. mode 2 (eligible): obj_id, dists
 // and eligible (Q, n). best: (num_ids, Q) uint32 scratch; zone and cand as
 // sized above. Writes out_oid (Q, k) int32, out_dist (Q, k) f32, out_valid
 // (Q, k) bool and the counts (Q,) int32 at the start of zone. cand:
@@ -654,9 +660,9 @@ extern "C" int knn_topk_launch(
     const int32_t* obj_id, const float* x, const float* y,
     const int32_t* cell, const uint8_t* valid, const float* qx,
     const float* qy, const int32_t* q_cell, int grid_n, int nb_layers,
-    const float* dists, const uint8_t* nb_mask, int num_cells,
-    const uint8_t* eligible, uint32_t* best, int32_t* zone, u64* cand,
-    u64* over, int32_t* out_oid, float* out_dist, uint8_t* out_valid,
+    int enforce_radius, float radius, const float* dists,
+    const uint8_t* nb_mask, int num_cells, const uint8_t* eligible,
+    uint32_t* best, int32_t* zone, u64* cand, u64* over, int32_t* out_oid, float* out_dist, uint8_t* out_valid,
     void* stream) {
   if (k < 1 || num_queries < 1 || num_ids < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -675,8 +681,8 @@ extern "C" int knn_topk_launch(
                     (num_queries + kQChunk - 1) / kQChunk);
     knn_fold_kernel<<<grid, kThreads, 0, s>>>(
         mode, n, num_queries, num_ids, obj_id, x, y, cell, valid, qx, qy,
-        q_cell, grid_n, nb_layers, dists, nb_mask, num_cells, eligible, best,
-        zone);
+        q_cell, grid_n, nb_layers, enforce_radius, radius, dists, nb_mask,
+        num_cells, eligible, best, zone);
   }
   const dim3 grid(chunks_of(num_ids), num_queries);
   knn_hist_kernel<<<grid, kHistThreads, 0, s>>>(best, num_ids, k, zone,

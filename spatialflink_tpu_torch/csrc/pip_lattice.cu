@@ -56,6 +56,14 @@
 //   stream order (no cell ids) each thread stores its 4 points as one
 //   float4.
 //
+// Parity: given a (G, N) byte output, the kernel also writes each point's
+// even-odd crossing parity against each geometry (1 inside by the ray
+// cast, whatever the geometry's is_areal; a point on an edge may read 0
+// where its distance is 0), the containment of the JAX package's
+// points_in_geoms (spatialflink_tpu/ops/geom.py:34), which the
+// trajectory range query (tRange) tests. The fold is the same; only the
+// writes are added.
+//
 // Built with --fmad=false: each operation rounds once, as the plain
 // version's separate PyTorch ops do, and the result equals the plain
 // version bit for bit.
@@ -291,7 +299,8 @@ pip_lattice_kernel(const float* __restrict__ px,
                    const float* __restrict__ edges,
                    const uint8_t* __restrict__ edge_mask, int ne,
                    const uint8_t* __restrict__ is_areal, int g,
-                   float margin_scale, float* __restrict__ dist) {
+                   float margin_scale, float* __restrict__ dist,
+                   uint8_t* __restrict__ parity) {
   __shared__ Chunk c;
   const int base = blockIdx.x * kPointsPerBlock + threadIdx.x * kPts;
   const int per = (g + gridDim.y - 1) / gridDim.y;
@@ -333,6 +342,13 @@ pip_lattice_kernel(const float* __restrict__ px,
       d[p] = (areal && ((l.cross >> p) & 1)) ? 0.0f : sqrtf(l.mind2[p]);
     }
     float* row = dist + static_cast<size_t>(gi) * n;
+    if (parity != nullptr) {
+      uint8_t* prow = parity + static_cast<size_t>(gi) * n;
+#pragma unroll
+      for (int p = 0; p < kPts; ++p) {
+        if (base + p < n) prow[out[p]] = (l.cross >> p) & 1;
+      }
+    }
     if (vec_store) {
       *reinterpret_cast<float4*>(row + base) =
           make_float4(d[0], d[1], d[2], d[3]);
@@ -393,7 +409,8 @@ int num_sms() {
 // edge-skip votes run), else in any order with distances written in place;
 // edges: (g, ne, 4) f32 [x1, y1, x2, y2]; edge_mask: (g, ne) bool;
 // is_areal: (g,) bool; margin_scale: the distance-skip margin per unit of
-// coordinate magnitude; dist: (g, n) f32 output. Launches on `stream`,
+// coordinate magnitude; dist: (g, n) f32 output; parity: nullptr, or a
+// (g, n) bool output of the even-odd parities. Launches on `stream`,
 // does not synchronise, and returns cudaGetLastError() (0 when the launch
 // was accepted).
 extern "C" int pip_lattice_launch(const float* px, const float* py,
@@ -402,7 +419,7 @@ extern "C" int pip_lattice_launch(const float* px, const float* py,
                                   const uint8_t* edge_mask, int ne,
                                   const uint8_t* is_areal, int g,
                                   float margin_scale, float* dist,
-                                  void* stream) {
+                                  uint8_t* parity, void* stream) {
   if (n > 0 && g > 0) {
     const int bx = (n + kPointsPerBlock - 1) / kPointsPerBlock;
     const int want = (num_sms() * kBlocksPerSm + bx - 1) / bx;
@@ -412,11 +429,11 @@ extern "C" int pip_lattice_launch(const float* px, const float* py,
     if (perm != nullptr) {
       pip_lattice_kernel<true><<<grid, kThreads, 0, s>>>(
           px, py, perm, n, edges, edge_mask, ne, is_areal, g, margin_scale,
-          dist);
+          dist, parity);
     } else {
       pip_lattice_kernel<false><<<grid, kThreads, 0, s>>>(
           px, py, perm, n, edges, edge_mask, ne, is_areal, g, margin_scale,
-          dist);
+          dist, parity);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,6 @@
 """Driver (port of ``spatialflink_tpu.driver`` for the range, kNN and join
-queries over point, polygon and linestring streams).
+queries over point, polygon and linestring streams, and the trajectory
+queries over a point stream).
 
 ``CASES`` keeps the JAX package's option numbering for the options this
 port runs: for each (stream, query) pair of ``_PAIRS``, i = 0..8 (Point,
@@ -17,7 +18,17 @@ join reads its query stream from ``stream2`` (``--input2``), decoded with
 pairs. ``window.type: COUNT`` turns the windowed
 options into sliding count windows (interval and step are record counts).
 ``query.multiQuery`` (or ``--multi-query``) answers every configured query
-object of the option's type in one dispatch per window. ``query.panes``
+object of the option's type in one dispatch per window (trajectory kNN
+211/212 included). The trajectory queries (``StreamingJob.java:1163-
+1287``): tFilter 201 (realtime) / 202 (windowed) over ``query.trajIDs``,
+tRange 203 / 204 against every ``queryPolygons`` entry (naive twin 2030),
+tStats 205 / 206, tAggregate 207 / 208 with ``query.aggregateFunction``
+(realtime eviction after ``thresholds.trajDeletion``; ``window.type:
+COUNT`` gives 208 per-cell count windows), tJoin 209 / 210 against stream
+2 (naive twin 2090) and tKNN 211 / 212 from the first query point (naive
+twin 2011); ``query.panes`` runs 204, 206 and 208 pane by pane. Option 99
+runs all six families over a synthetic stream (``SyntheticPointSource``),
+each result tagged with ``extras["family"]``. ``query.panes``
 (or ``--panes``) runs the sliding windows of the range and kNN options pane
 by pane, each pane evaluated once and each window merged from its panes'
 partials (``--pane-merge``, ``query.paneDeviceMerge``: where kNN partials
@@ -74,11 +85,12 @@ from spatialflink_tpu_torch.utils import IdInterner
 
 @dataclass(frozen=True)
 class CaseSpec:
-    family: str            # range | knn | join
+    family: str            # range | knn | join | t* (trajectory) | synthetic
     stream: str = "Point"  # geometry type of input stream 1
     query: str = "Point"   # geometry type of the query side
     mode: str = "window"   # window | realtime
     latency: bool = False  # a latency variant
+    naive: bool = False    # a naive twin (no cell pruning)
 
 
 _PAIRS = [
@@ -92,7 +104,8 @@ _PAIRS = [
 def _build_cases() -> dict:
     """The ported options (numbering of ``spatialflink_tpu.driver.CASES``):
     range 1/2 + 5*i, kNN 51/52 + 5*i and join 101/102 + 5*i over the nine
-    (stream, query) pairs, and the latency variants."""
+    (stream, query) pairs, the latency variants, the trajectory queries
+    201-212 with their naive twins, and the synthetic harness 99."""
     c = {}
     for i, (stream, query) in enumerate(_PAIRS):
         for base, fam in ((1, "range"), (51, "knn"), (101, "join")):
@@ -103,7 +116,18 @@ def _build_cases() -> dict:
                            (108, "join", "window"),
                            (109, "join", "realtime")):
         c[opt] = CaseSpec(fam, "Point", "Polygon", mode, latency=True)
+    # trajectory queries (StreamingJob.java:1163-1287)
+    for base, fam in ((201, "tfilter"), (203, "trange"), (205, "tstats"),
+                      (207, "taggregate"), (209, "tjoin"), (211, "tknn")):
+        c[base] = CaseSpec(fam, mode="realtime")
+        c[base + 1] = CaseSpec(fam, mode="window")
+    for opt, fam in ((2030, "trange"), (2090, "tjoin"), (2011, "tknn")):
+        c[opt] = CaseSpec(fam, mode="realtime", naive=True)
+    c[99] = CaseSpec("synthetic")
     return c
+
+
+_TRAJECTORY = ("tfilter", "trange", "tstats", "taggregate", "tjoin", "tknn")
 
 
 CASES = _build_cases()
@@ -321,11 +345,19 @@ def run_option(params: Params, stream1: Iterable,
             f"queryOption {opt}: {NOT_PORTED} (ported: "
             f"{', '.join(map(str, sorted(CASES)))})")
     _check_ported(params, spec)
-    if params.query.multi_query and spec.family == "join":
+    if params.query.multi_query and spec.family not in ("range", "knn",
+                                                        "tknn"):
         raise ValueError(
-            f"multiQuery is not supported for queryOption {opt} (join); "
-            "supported: all nine range and kNN pairs")
+            f"multiQuery is not supported for queryOption {opt} "
+            f"({spec.family}); supported: all nine range and kNN pairs, "
+            "plus trajectory kNN (211/212)")
     u_grid, q_grid = params.grids()
+    if spec.family in _TRAJECTORY:
+        return _run_trajectory(params, spec, _query_conf(params, spec),
+                               u_grid, q_grid, stream1, stream2, device)
+    if spec.family == "synthetic":
+        return _run_synthetic(params, _query_conf(params, spec), u_grid,
+                              device)
     fam = {"range": "Range", "knn": "KNN", "join": "Join"}[spec.family]
     cls = getattr(ops, f"{spec.stream}{spec.query}{fam}Query")
     conf = _query_conf(params, spec)
@@ -366,6 +398,101 @@ def run_option(params: Params, stream1: Iterable,
     else:
         out = op.run(s1, q, radius)
     return _with_latency(out) if spec.latency else out
+
+
+def _run_trajectory(params: Params, spec: CaseSpec, conf, u_grid, q_grid,
+                    stream1, stream2, device) -> Iterator[WindowResult]:
+    """The trajectory options: stream 1 decoded in chunks of a micro-batch
+    (realtime) or 4,096 records, the operator of the family on ``device``
+    (the JAX driver's ``_run_trajectory``)."""
+    chunk = (conf.realtime_batch_size if spec.mode == "realtime" else 4096)
+    s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid, chunk))
+    q = params.query
+    if spec.family == "tfilter":
+        return ops.PointTFilterQuery(conf, u_grid, device=device).run(
+            s1, set(q.traj_ids))
+    if spec.family == "trange":
+        polys = params.query_polygon_objects(u_grid)
+        op = ops.PointPolygonTRangeQuery(conf, u_grid, device=device)
+        return op.run_naive(s1, polys) if spec.naive else op.run(s1, polys)
+    if spec.family == "tstats":
+        return ops.PointTStatsQuery(conf, u_grid, device=device).run(
+            s1, set(q.traj_ids) or None)
+    if spec.family == "taggregate":
+        return ops.PointTAggregateQuery(conf, u_grid, device=device).run(
+            s1, q.aggregate_function,
+            traj_deletion_threshold_ms=q.traj_deletion_threshold_s * 1000)
+    if spec.family == "tjoin":
+        if stream2 is None:
+            raise ValueError("trajectory join needs stream2")
+        s2 = ChunkedStream(decode_chunks(stream2, params.input2, q_grid,
+                                         chunk))
+        op = ops.PointPointTJoinQuery(conf, u_grid, q_grid, device=device)
+        run = op.run_naive if spec.naive else op.run
+        return run(s1, s2, q.radius)
+    op = ops.PointPointTKNNQuery(conf, u_grid, device=device)
+    if q.multi_query:
+        if spec.naive:
+            raise ValueError(
+                "multiQuery does not combine with the naive-twin tKnn "
+                "(the oracle exists to check the pruned single path)")
+        return op.run_multi(s1, _query_objects(params, u_grid, "Point"),
+                            q.radius, q.k)
+    qp = _query_objects(params, u_grid, "Point")[0]
+    run = op.run_naive if spec.naive else op.run
+    return run(s1, qp, q.radius, q.k)
+
+
+def _run_synthetic(params: Params, conf, grid, device
+                   ) -> Iterator[WindowResult]:
+    """queryOption 99: all six trajectory families over deterministic
+    synthetic trajectories (16 of 8 steps, seed 7), as the reference's
+    harness sketched them against ``env.fromCollection``
+    (``StreamingJob.java:1571-1618``); each result is tagged with its
+    family in ``extras["family"]`` (the JAX driver's ``_run_synthetic``)."""
+    from spatialflink_tpu_torch.models import Polygon
+    from spatialflink_tpu_torch.streams.sources import (
+        SyntheticPointSource, generate_query_polygons)
+
+    def src():
+        return SyntheticPointSource(grid, num_trajectories=16, steps=8,
+                                    seed=7)
+
+    def tagged(family, it):
+        for r in it:
+            r.extras.setdefault("family", family)
+            yield r
+
+    first = list(src())
+    traj_ids = {p.obj_id for p in first[:4]}
+    qp = first[0]
+    # a query polygon over the middle of the grid (it has matches) and
+    # cell-sized tiles (generate_query_polygons): the polygon set tRange
+    # takes
+    cx = (grid.min_x + grid.max_x) / 2
+    cy = (grid.min_y + grid.max_y) / 2
+    dx = (grid.max_x - grid.min_x) / 4
+    dy = (grid.max_y - grid.min_y) / 4
+    qpoly = Polygon.create(
+        [[(cx - dx, cy - dy), (cx + dx, cy - dy), (cx + dx, cy + dy),
+          (cx - dx, cy + dy)]], grid)
+    qpolys = [qpoly] + generate_query_polygons(8, grid)
+    kw = dict(device=device)
+    yield from tagged("tfilter", ops.PointTFilterQuery(conf, grid, **kw).run(
+        src(), traj_ids))
+    yield from tagged("trange", ops.PointPolygonTRangeQuery(
+        conf, grid, **kw).run(src(), qpolys))
+    yield from tagged("tstats", ops.PointTStatsQuery(conf, grid, **kw).run(
+        src()))
+    yield from tagged("taggregate", ops.PointTAggregateQuery(
+        conf, grid, **kw).run(src(), params.query.aggregate_function))
+    # radius 0 means unset in the config; tJoin's and tKnn's radius tests
+    # emit nothing at 0, so the harness takes half a degree instead
+    radius = params.query.radius if params.query.radius > 0 else 0.5
+    yield from tagged("tjoin", ops.PointPointTJoinQuery(
+        conf, grid, grid, **kw).run(src(), src(), radius))
+    yield from tagged("tknn", ops.PointPointTKNNQuery(conf, grid, **kw).run(
+        src(), qp, radius, params.query.k))
 
 
 def _dynamic_error(params: Params, spec: CaseSpec) -> Optional[str]:
@@ -444,8 +571,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                     "1-42, kNN options 51-92 and join options 101-142 "
                     "(1 + 5i / 51 + 5i / 101 + 5i windowed, 2 + 5i / "
                     "52 + 5i / 102 + 5i realtime), latency variants 8, 9 "
-                    "(range), 58, 59 (kNN) and 108, 109 (join); "
-                    "window.type TIME or COUNT (COUNT not for joins)")
+                    "(range), 58, 59 (kNN) and 108, 109 (join); the "
+                    "trajectory queries 201-212 (odd realtime, even "
+                    "windowed: tFilter, tRange, tStats, tAggregate, tJoin, "
+                    "tKNN; naive twins 2030, 2090, 2011) and the synthetic "
+                    "harness 99; window.type TIME or COUNT (COUNT not for "
+                    "joins)")
     ap.add_argument("--config", required=True, help="YAML config path")
     ap.add_argument("--input1", help="newline-delimited input file for "
                                      "stream 1")
@@ -525,9 +656,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"--panes: {NOT_PORTED} for a join (queryOption "
               f"{params.query.option})", file=sys.stderr)
         return 2
-    if spec is not None and spec.family == "join" and not args.input2:
-        print(f"queryOption {params.query.option} (join) needs --input2",
-              file=sys.stderr)
+    if spec is not None and spec.family in ("join", "tjoin") \
+            and not args.input2:
+        print(f"queryOption {params.query.option} ({spec.family}) needs "
+              "--input2", file=sys.stderr)
         return 2
     router = None
     if args.queries_file and spec is not None:

@@ -1,6 +1,6 @@
 """Continuous query operators (range and kNN over point, polygon and
-linestring streams, single- and multi-query; joins of two such
-streams)."""
+linestring streams, single- and multi-query; joins of two such streams;
+the six trajectory query families over a point stream)."""
 
 from spatialflink_tpu_torch.operators.base import (Deferred, GeomQueryMixin,
                                                    QueryConfiguration,
@@ -23,6 +23,10 @@ from spatialflink_tpu_torch.operators.range_query import (
     PointGeomRangeQuery, PointLineStringRangeQuery, PointPointRangeQuery,
     PointPolygonRangeQuery, PolygonLineStringRangeQuery,
     PolygonPointRangeQuery, PolygonPolygonRangeQuery)
+from spatialflink_tpu_torch.operators.trajectory import (
+    PointPointTJoinQuery, PointPointTKNNQuery, PointPolygonTRangeQuery,
+    PointTAggregateQuery, PointTFilterQuery, PointTStatsQuery, TAggregateQuery,
+    TFilterQuery, TJoinQuery, TKNNQuery, TRangeQuery, TStatsQuery)
 
 __all__ = ["Deferred", "GeomQueryMixin", "QueryConfiguration", "QueryType",
            "SpatialOperator", "WindowResult",
@@ -43,4 +47,9 @@ __all__ = ["Deferred", "GeomQueryMixin", "QueryConfiguration", "QueryType",
            "LineStringPolygonJoinQuery", "PointGeomJoinQuery",
            "PointLineStringJoinQuery", "PointPointJoinQuery",
            "PointPolygonJoinQuery", "PolygonLineStringJoinQuery",
-           "PolygonPointJoinQuery", "PolygonPolygonJoinQuery"]
+           "PolygonPointJoinQuery", "PolygonPolygonJoinQuery",
+           "PointPointTJoinQuery", "PointPointTKNNQuery",
+           "PointPolygonTRangeQuery", "PointTAggregateQuery",
+           "PointTFilterQuery", "PointTStatsQuery", "TAggregateQuery",
+           "TFilterQuery", "TJoinQuery", "TKNNQuery", "TRangeQuery",
+           "TStatsQuery"]

@@ -98,6 +98,10 @@ def _keep(ai, bi, recs_a, recs_b, max_dt):
 class PointPointJoinQuery(SpatialOperator):
     """Point stream x point query stream (``PointPointJoinQuery.java``)."""
 
+    #: the naive twins (the trajectory join's 2090) turn the grid pruning
+    #: off: every cell is a neighbour, the exact distance filter stays
+    prune_cells = True
+
     def __init__(self, conf, grid, grid2=None, *, device="cuda"):
         """``grid2``, the query stream's grid, is taken for the JAX
         package's signature: its decode assigned the query stream's cells,
@@ -234,7 +238,8 @@ class PointPointJoinQuery(SpatialOperator):
             return WindowResult(start, end, PairRecords())
         ai, bi = J.join_pairs_host(self._batch_a(recs_a, start),
                                    self._batch_b(recs_b, start), radius,
-                                   self.grid)
+                                   self.grid, nb_layers=None
+                                   if self.prune_cells else self.grid.n)
         return WindowResult(start, end,
                             _keep(ai, bi, recs_a, recs_b, max_dt))
 

@@ -88,7 +88,7 @@ _ARGTYPES = (_C, _C, ctypes.c_int, _C, _C, ctypes.c_int, ctypes.c_int, _C,
 _TABLE_ARGTYPES = (_C, _C, _C, ctypes.c_int, _C, _C, ctypes.c_int,
                    ctypes.c_int, _C, ctypes.c_int, _C, ctypes.c_int, _C, _C)
 _LATTICE_ARGTYPES = (_C, _C, _C, ctypes.c_int, _C, _C, ctypes.c_int, _C,
-                     ctypes.c_int, ctypes.c_float, _C, _C)
+                     ctypes.c_int, ctypes.c_float, _C, _C, _C)
 _ORDER_ARGTYPES = (_C, ctypes.c_int, ctypes.c_int, _C, _C, _C, _C, _C, _C, _C,
                    _C)
 
@@ -523,21 +523,29 @@ def distance_skip_bound(xlo, xhi, ylo, yhi, edges):
     return gx * gx + gy * gy
 
 
-def pip_lattice_plain(px, py, edges, edge_mask, is_areal):
+def pip_lattice_plain(px, py, edges, edge_mask, is_areal,
+                      parity: bool = False):
     """(N, G) distance from each point to each of G geometries (edges (G,
     E, 4), edge_mask (G, E), is_areal (G,)): 0 inside an areal geometry,
-    else sqrt(min squared boundary distance). The JAX package's layout."""
+    else sqrt(min squared boundary distance). The JAX package's layout.
+    With ``parity``, also the (N, G) even-odd parity of each point against
+    each geometry (``points_in_geoms``): ``(dist, inside)``."""
     n, g, e = px.shape[0], edges.shape[0], edges.shape[1]
     step = max(1, _PLAIN_ELEMS // max(1, g * e))
-    parts = []
+    parts, insides = [], []
     for lo in range(0, n, step):
         sx, sy = px[lo:lo + step], py[lo:lo + step]
         inside = G.points_in_geoms(sx, sy, edges, edge_mask)
         bdist = G.points_to_edges_dist(sx, sy, edges, edge_mask)
         parts.append(torch.where(inside & is_areal[None, :], 0.0, bdist))
+        insides.append(inside)
     if not parts:
-        return px.new_empty((0, g))
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+        dist, inside = px.new_empty((0, g)), px.new_zeros((0, g), dtype=bool)
+    elif len(parts) == 1:
+        dist, inside = parts[0], insides[0]
+    else:
+        dist, inside = torch.cat(parts), torch.cat(insides)
+    return (dist, inside) if parity else dist
 
 
 def _check_lattice_args(px, py, edges, edge_mask, is_areal, cell=None,
@@ -617,20 +625,26 @@ cell_order.launches = 0
 
 
 def pip_lattice(px, py, edges, edge_mask, is_areal, cell=None,
-                num_cells: int = 0):
+                num_cells: int = 0, parity: bool = False):
     """(G, N) JTS-style distance from each point to each of G geometries,
     one row per geometry (what the multi-query paths consume as (Q, N)).
     CPU tensors run :func:`pip_lattice_plain` (transposed); CUDA tensors
     launch the K4x kernel. Given the points' ``cell`` ids and the grid's
     ``num_cells``, and geometries of at least :data:`ORDER_MIN_EDGES`
     (padded) edges, the points go through :func:`cell_order` first and the
-    kernel skips the edges no point of a warp needs (the same result)."""
+    kernel skips the edges no point of a warp needs (the same result).
+    With ``parity``, returns ``(dist, inside)``: also the (G, N) even-odd
+    parity the kernel's ray cast computes (the JAX package's
+    ``points_in_geoms``, whatever ``is_areal`` says)."""
     if px.device.type == "cpu":
-        return pip_lattice_plain(px, py, edges, edge_mask, is_areal).T
+        out = pip_lattice_plain(px, py, edges, edge_mask, is_areal, parity)
+        return (out[0].T, out[1].T) if parity else out.T
     _check_lattice_args(px, py, edges, edge_mask, is_areal, cell, num_cells)
     g, ne = edges.shape[0], edges.shape[1]
     n = px.shape[0]
     dist = torch.empty((g, n), dtype=torch.float32, device=px.device)
+    inside = (torch.empty((g, n), dtype=torch.bool, device=px.device)
+              if parity else None)
     perm = None
     if cell is not None and n > 0 and ne >= ORDER_MIN_EDGES:
         perm, px, py = cell_order(cell, num_cells, px, py)
@@ -642,10 +656,11 @@ def pip_lattice(px, py, edges, edge_mask, is_areal, cell=None,
                      edges.data_ptr(), edge_mask.data_ptr(), ne,
                      is_areal.data_ptr(), g, distance_skip_margin(1.0),
                      dist.data_ptr(),
+                     None if inside is None else inside.data_ptr(),
                      torch.cuda.current_stream(px.device).cuda_stream)
     native.check(err, "pip_lattice")
     pip_lattice.launches += 1
-    return dist
+    return (dist, inside) if parity else dist
 
 
 pip_lattice.launches = 0

@@ -11,7 +11,10 @@ selects candidate cells only — the distance is not radius-filtered; each
 object keeps its *minimum* distance; the result is the k smallest minima
 ordered by (distance, interned object id) ascending, in always-k slots with
 empty ones holding (``_OID_SENTINEL``, ``_BIG``, valid=False);
-``dist_evals`` counts the cell-eligible slots.
+``dist_evals`` counts the cell-eligible slots. The trajectory kNN (tKNN)
+also enforces the radius on the distance (``radius=`` of the point-mode
+entries, :func:`knn_point`'s ``enforce_radius``): K2 drops a farther slot
+itself, before its per-object table.
 
 Every entry point is a wrapper of ONE hand-written CUDA kernel,
 ``csrc/knn_topk.cu`` (:func:`knn_topk`, with a mode argument and a query
@@ -129,7 +132,7 @@ def topk_by_distance(obj_id, dist, eligible, k: int,
 def knn_topk_plain(obj_id, *, mode: int, k: int, num_ids: Optional[int],
                    x=None, y=None, cell=None, valid=None, qx=None, qy=None,
                    q_cell=None, n: int = 1, nb_layers: int = -1, dists=None,
-                   nb_mask=None, eligible=None):
+                   nb_mask=None, eligible=None, radius=None):
     """Plain version of :func:`knn_topk`: the same four outputs."""
     if mode == MODE_POINT:
         layers = cheb_layers(cell[None, :], q_cell[:, None], n)
@@ -142,14 +145,15 @@ def knn_topk_plain(obj_id, *, mode: int, k: int, num_ids: Optional[int],
         elig, d = eligible, dists
     else:
         raise ValueError(f"knn_topk: unknown mode {mode}")
-    res = topk_by_distance_multi(obj_id, d, elig, k, num_ids)
+    top = elig if radius is None else elig & (d <= radius)
+    res = topk_by_distance_multi(obj_id, d, top, k, num_ids)
     return (*res, elig.sum(dim=1, dtype=torch.int32))
 
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (_I, _I, _I, _I, _I, _C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _C,
-             _C, _I, _C, _C, _C, _C, _C, _C, _C, _C, _C)
+_ARGTYPES = (_I, _I, _I, _I, _I, _C, _C, _C, _C, _C, _C, _C, _C, _I, _I, _I,
+             ctypes.c_float, _C, _C, _I, _C, _C, _C, _C, _C, _C, _C, _C, _C)
 
 
 def _require(t, name, dtype, shape, dev):
@@ -217,12 +221,14 @@ def _launch_args(obj_id, *, mode: int, x=None, y=None, cell=None,
 def knn_topk(obj_id, *, mode: int, k: int, num_ids: Optional[int],
              x=None, y=None, cell=None, valid=None, qx=None, qy=None,
              q_cell=None, n: int = 1, nb_layers: int = -1, dists=None,
-             nb_mask=None, eligible=None):
+             nb_mask=None, eligible=None, radius=None):
     """Launch the K2 kernel on CUDA tensors: returns ``(obj_id (Q, k)
     int32, dist (Q, k) f32, valid (Q, k) bool, counts (Q,) int32)``.
     Point mode takes x, y, cell, valid (N,) and qx, qy, q_cell (Q,); cell
     mode cell, valid (N,), dists (Q, N) and nb_mask (Q, n*n); eligible mode
-    dists and eligible (Q, N)."""
+    dists and eligible (Q, N). ``radius`` (the trajectory kNN's exact
+    radius) also drops, inside the kernel, every slot farther than it from
+    its query; the counts stay those of the eligible slots."""
     dev = obj_id.device
     if dev.type != "cuda":
         raise ValueError(f"knn_topk: obj_id on {dev}, needs cuda")
@@ -246,7 +252,9 @@ def knn_topk(obj_id, *, mode: int, k: int, num_ids: Optional[int],
     with torch.cuda.device(dev):
         err = launch(mode, N, Q, num_ids, k, p["obj_id"], p["x"], p["y"],
                      p["cell"], p["valid"], p["qx"], p["qy"], p["q_cell"],
-                     int(n), int(nb_layers), p["dists"], p["nb_mask"],
+                     int(n), int(nb_layers), int(radius is not None),
+                     0.0 if radius is None else float(radius),
+                     p["dists"], p["nb_mask"],
                      cells, p["eligible"], best.data_ptr(), zone.data_ptr(),
                      cand.data_ptr(), over.data_ptr(), out_oid.data_ptr(),
                      out_dist.data_ptr(), out_valid.data_ptr(),
@@ -281,28 +289,46 @@ def _query_array(v, np_dtype, device) -> torch.Tensor:
 
 
 def knn_point_multi_stats(points, qx, qy, q_cell, nb_layers, *, n: int,
-                          k: int, num_ids: Optional[int] = None):
+                          k: int, num_ids: Optional[int] = None,
+                          radius: Optional[float] = None):
     """kNN of Q query points over one window batch in one launch: ``(
     KnnResult with (Q, k) fields, dist_evals (Q,))``. ``nb_layers`` is the
     candidate layer count; pass ``n`` (the grid size) for radius 0 (every
-    cell is a neighbour)."""
+    cell is a neighbour). ``radius`` enforces the exact radius of the
+    trajectory kNN (``enforce_radius`` in the JAX package): only points
+    within it of a query enter its list; ``dist_evals`` still counts the
+    cell-eligible slots."""
     dev = points.x.device
     out = _knn(points.obj_id, mode=MODE_POINT, k=k, num_ids=num_ids,
                x=points.x, y=points.y, cell=points.cell, valid=points.valid,
                qx=_query_array(qx, np.float32, dev),
                qy=_query_array(qy, np.float32, dev),
                q_cell=_query_array(q_cell, np.int32, dev), n=n,
-               nb_layers=nb_layers)
+               nb_layers=nb_layers, radius=radius)
     return KnnResult(*out[:3]), out[3]
 
 
 def knn_point_stats(points, qx, qy, q_cell, nb_layers, *, n: int, k: int,
-                    num_ids: Optional[int] = None):
+                    num_ids: Optional[int] = None,
+                    radius: Optional[float] = None):
     """kNN of ONE query point: ``(KnnResult with (k,) fields, dist_evals)``
     (the Q = 1 row of :func:`knn_point_multi_stats`)."""
     res, evals = knn_point_multi_stats(points, qx, qy, q_cell, nb_layers,
-                                       n=n, k=k, num_ids=num_ids)
+                                       n=n, k=k, num_ids=num_ids,
+                                       radius=radius)
     return KnnResult(*(t[0] for t in res)), evals[0]
+
+
+def knn_point(points, qx, qy, q_cell, radius, nb_layers, *, n: int, k: int,
+              enforce_radius: bool = False,
+              num_ids: Optional[int] = None) -> KnnResult:
+    """kNN of a query point over a window batch (the JAX package's
+    ``knn_point``, its argument order): ``nb_layers`` the candidate layer
+    count (``n`` disables the cell pruning); with ``enforce_radius`` only
+    points within ``radius`` of the query count (the trajectory kNN)."""
+    return knn_point_stats(points, qx, qy, q_cell, nb_layers, n=n, k=k,
+                           num_ids=num_ids,
+                           radius=radius if enforce_radius else None)[0]
 
 
 def knn_masked_stats(points, dists, nb_mask, *, k: int,

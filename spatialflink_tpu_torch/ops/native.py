@@ -41,7 +41,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("pip_dist", "range_mask", "knn_topk", "pip_lattice", "cell_order",
-           "geom_dist", "join_reduce", "join_lattice", "knn_merge")
+           "geom_dist", "join_reduce", "join_lattice", "knn_merge", "traj")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -379,6 +379,11 @@ class PointRows:
         """The (x, y, ts, obj_id, cell, ingest_ms) arrays."""
         return self._cols
 
+    def take(self, idx) -> "PointRows":
+        """The rows at positions ``idx`` (an index or a bool mask array)."""
+        idx = np.asarray(idx)
+        return PointRows(tuple(a[idx] for a in self._cols), self.interner)
+
     @staticmethod
     def concat(parts: Sequence["PointRows"]) -> "PointRows":
         """The rows of ``parts`` in order, as one :class:`PointRows`."""

@@ -1578,3 +1578,167 @@ def test_dynamic_knn_on_card_equals_cpu(card):
                                            ("q1", "late")}
     _knn_lists_close([(w[0], 0, w[2]) for w in got],
                      [(w[0], 0, w[2]) for w in want])
+
+
+# ------------------------------------------------------------------------ #
+# K8: the trajectory kernels; K2's exact radius; K4x's parity output
+
+
+def _traj_points(dev, case, seed=3, t0=0):
+    """(PointBatch without padding, M, num_cells) of one named K8 case:
+    "empty"; "one-run" (one object); "all-ties" (every point of an object
+    at one ts); "absent" (only even ids of a 512-slot state, so odd
+    objects are absent); "m-above-n" (100 points, 4,096 slots); "untiled"
+    (9,001 points, not a multiple of the sort's 4,096-point tile, with
+    ties and padded slots); "window" (60,000 points of 2,000 objects)."""
+    from spatialflink_tpu_torch.models.batches import POINT_DTYPES, to_device
+
+    rng = np.random.default_rng(seed)
+    n, ids, m = {"empty": (0, 1, 256), "one-run": (700, 1, 256),
+                 "all-ties": (2_000, 40, 256), "absent": (3_000, 256, 512),
+                 "m-above-n": (100, 30, 4096), "untiled": (9_001, 700, 1024),
+                 "window": (60_000, 2_000, 2048)}[case]
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=20)
+    x = rng.uniform(-0.5, 10.5, n)
+    y = rng.uniform(-0.5, 10.5, n)
+    oid = rng.integers(0, ids, n).astype(np.int32)
+    ts = (t0 + rng.integers(-5_000, 5_000, n)).astype(np.int32)
+    if case == "absent":
+        oid = oid - oid % 2
+    if case == "all-ties":
+        ts = (oid * 7).astype(np.int32)
+    if case in ("untiled", "window"):
+        dup = rng.random(n) < 0.05  # (object, ts) ties, other coordinates
+        ts[1:][dup[1:]] = ts[:-1][dup[1:]]
+        oid[1:][dup[1:]] = oid[:-1][dup[1:]]
+    valid = np.ones(n, bool)
+    if case == "untiled":
+        valid[rng.random(n) < 0.1] = False
+    cell, _ = grid.assign_cell(x, y)
+    host = {"x": x, "y": y, "obj_id": oid, "ts": ts, "cell": cell,
+            "valid": valid}
+    b = PointBatch(**{k: to_device(v, POINT_DTYPES[k], dev)
+                      for k, v in host.items()})
+    return b, m, grid.num_cells
+
+
+TRAJ_CASES = ["empty", "one-run", "all-ties", "absent", "m-above-n",
+              "untiled", "window"]
+
+
+def _state_from(dev, m, seed):
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    rng = np.random.default_rng(seed)
+    s = T.TrajStatsState.zeros(m, dev)
+    init = torch.from_numpy(rng.random(m) < 0.5).to(dev)
+    s.last_ts[init] = torch.from_numpy(
+        rng.integers(-8_000, 2_000, m).astype(np.int32)).to(dev)[init]
+    s.last_x.copy_(torch.from_numpy(rng.uniform(0, 10, m).astype(np.float32)))
+    s.last_y.copy_(torch.from_numpy(rng.uniform(0, 10, m).astype(np.float32)))
+    s.spatial.copy_(torch.from_numpy(rng.uniform(0, 3, m).astype(np.float32)))
+    s.temporal[init] = torch.from_numpy(
+        rng.integers(0, 50_000, m).astype(np.float32)).to(dev)[init]
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAJ_CASES)
+def test_tstats_update_kernel_equals_plain(card, case):
+    """K8a over three batches with carried state (half of it initialised):
+    outputs and the state equal to the plain version's, bit for bit."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    _, m, _ = _traj_points(card, case)
+    got_s, want_s = _state_from(card, m, 1), _state_from(card, m, 1)
+    emitted = 0
+    for step in range(3):
+        b, _, _ = _traj_points(card, case, seed=10 + step, t0=4_000 * step)
+        launches = T.tstats_update.launches
+        got_s, got = T.tstats_update(got_s, b)
+        assert T.tstats_update.launches == launches + 1
+        want_s, want = T.tstats_update_plain(want_s, b)
+        assert _equal(got, want), (case, step)
+        assert _equal(got_s, want_s), (case, step)
+        emitted += int(got.emit.sum())
+    assert emitted > 0 or case == "empty"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAJ_CASES)
+def test_tstats_window_summary_kernel_equals_plain(card, case):
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    b, m, _ = _traj_points(card, case)
+    launches = T.tstats_window_summary.launches
+    got = T.tstats_window_summary(b, m=m)
+    assert T.tstats_window_summary.launches == launches + 1
+    assert _equal(got, T.tstats_window_summary_plain(b, m=m))
+    if case == "absent":
+        assert int(got.count[1::2].sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAJ_CASES)
+def test_taggregate_kernels_equal_plain(card, case):
+    """K8c's groups and K8d's heatmap for every aggregate."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    b, m, cells = _traj_points(card, case)
+    launches = T.taggregate_group_extents.launches
+    got = T.taggregate_group_extents(b, num_cells=cells, num_ids=m)
+    assert T.taggregate_group_extents.launches == launches + 1
+    want = T.taggregate_group_extents_plain(b, num_cells=cells)
+    assert _equal(got, want)
+    if b.x.shape[0]:  # the ids read from the batch give the same groups
+        assert _equal(T.taggregate_group_extents(b, num_cells=cells), want)
+    groups = T.TAggregateGroups(cell=got.cell, obj_id=got.obj_id,
+                                length=got.max_ts - got.min_ts,
+                                first=got.first)
+    for agg in ("SUM", "AVG", "MIN", "MAX", "COUNT"):
+        launches = T.taggregate_heatmap.launches
+        hm = T.taggregate_heatmap(groups, num_cells=cells, agg=agg)
+        assert T.taggregate_heatmap.launches == launches + 1
+        assert torch.equal(hm, T.taggregate_heatmap_plain(
+            groups, num_cells=cells, agg=agg)), agg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q", [1, 5])
+@pytest.mark.parametrize("radius", [0.0, 0.5, 2.0])
+def test_knn_topk_enforce_radius_equals_plain(card, q, radius):
+    """K2's point mode with the trajectory kNN's exact radius: only points
+    within it enter the lists; the counts stay the cell-eligible ones."""
+    grid, b = _knn_inputs(card)
+    qx = torch.tensor([5.25, 1.0, 9.5, 3.3, 7.7][:q], device=card)
+    qy = torch.tensor([4.75, 9.0, 0.5, 3.3, 2.2][:q], device=card)
+    qc = torch.tensor([int(grid.assign_cell(float(a), float(c))[0])
+                       for a, c in zip(qx.tolist(), qy.tolist())],
+                      dtype=torch.int32, device=card)
+    kw = dict(mode=K.MODE_POINT, k=50, num_ids=3_000, x=b.x, y=b.y,
+              cell=b.cell, valid=b.valid, qx=qx, qy=qy, q_cell=qc, n=grid.n,
+              nb_layers=2)
+    got = K.knn_topk(b.obj_id, radius=radius, **kw)
+    assert _equal(got, K.knn_topk_plain(b.obj_id, radius=radius, **kw))
+    free = K.knn_topk(b.obj_id, **kw)
+    assert torch.equal(got[3], free[3])
+    assert bool((got[1][got[2]] <= radius).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ordered", [False, True])
+def test_pip_lattice_parity_equals_plain(card, ordered):
+    """K4x's parity output: the even-odd parity of points_in_geoms for
+    every geometry, areal or not, with points on edges and vertices."""
+    grid, b = _batch(card)
+    _, e = _edge_case_points(card)
+    gb = _lattice_geoms(card)
+    for px, py, cell in ((b.x, b.y, b.cell), (e.x, e.y, e.cell)):
+        kw = dict(cell=cell, num_cells=grid.num_cells) if ordered else {}
+        dist, inside = HK.pip_lattice(px, py, gb.edges, gb.edge_mask,
+                                      gb.is_areal, parity=True, **kw)
+        assert torch.equal(dist, HK.pip_lattice(px, py, gb.edges,
+                                                gb.edge_mask, gb.is_areal,
+                                                **kw))
+        assert torch.equal(inside, G.points_in_geoms(
+            px, py, gb.edges, gb.edge_mask).T)

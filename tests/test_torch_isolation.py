@@ -25,6 +25,12 @@ from spatialflink_tpu_torch.operators import (GeomGeomJoinQuery,
                                               PointPointJoinQuery,
                                               PointPointKNNQuery,
                                               PointPointRangeQuery,
+                                              PointPointTJoinQuery,
+                                              PointPointTKNNQuery,
+                                              PointPolygonTRangeQuery,
+                                              PointTAggregateQuery,
+                                              PointTFilterQuery,
+                                              PointTStatsQuery,
                                               QueryConfiguration)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -45,7 +51,8 @@ def test_port_loads_no_jax():
     """In a fresh interpreter (PYTHONPATH unset: the test process already
     holds jax), import the port and run one tiny option-6 window, option
     51 with panes under the device merge, option 1 from a live query
-    registry, and one option-101 join window."""
+    registry, one option-101 join window, and the trajectory options 206
+    and 99."""
     code = textwrap.dedent("""
         import dataclasses, sys
         from spatialflink_tpu_torch.config import Params
@@ -78,6 +85,12 @@ def test_port_loads_no_jax():
             p, input2=dataclasses.replace(p.input2, format="CSV"))
         wins = list(run_option(p, lines, lines[::7], device="cpu"))
         assert wins and any(len(w.records) for w in wins), wins
+        tlines = [f"t{i % 50},{1700000000000 + 7 * i},{116.2 + i * 1e-3},"
+                  "40.5" for i in range(500)]
+        for option in (206, 99):
+            p.query.option = option
+            wins = list(run_option(p, tlines, device="cpu"))
+            assert wins and any(len(w.records) for w in wins), wins
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "spatialflink_tpu")
                      or m.startswith(("jax.", "spatialflink_tpu.")))
@@ -146,7 +159,10 @@ def test_default_device_raises_without_cuda(no_cuda, tmp_path, capsys):
         resolve_device()
     for cls in (PointPointRangeQuery, PointGeomRangeQuery,
                 PointPointKNNQuery, PointGeomKNNQuery, PointPointJoinQuery,
-                PointGeomJoinQuery, GeomGeomJoinQuery):
+                PointGeomJoinQuery, GeomGeomJoinQuery, PointTFilterQuery,
+                PointPolygonTRangeQuery, PointTStatsQuery,
+                PointTAggregateQuery, PointPointTJoinQuery,
+                PointPointTKNNQuery):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(QueryConfiguration(), grid)
     p = Params.from_yaml(CONF)

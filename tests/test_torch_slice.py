@@ -201,16 +201,16 @@ def test_config_reads_k():
 @pytest.mark.parametrize("option", [211, 2011, 212])
 def test_realtime_knn_is_refused(option):
     """Trajectory kNN (realtime 211, its naive twin 2011, and windowed 212)
-    is not ported yet; the realtime kNN over polygon and linestring
-    streams now is (tests/test_torch_geom_stream.py)."""
-    with pytest.raises(NotImplementedError,
-                       match=f"queryOption {option}: not yet ported"):
-        TD.run_option(_params(TParams, option), [], device="cpu")
+    was refused until the trajectory slice ported it
+    (tests/test_torch_trajectory.py); now it runs, and an empty stream
+    gives no window."""
+    assert list(TD.run_option(_params(TParams, option), [],
+                              device="cpu")) == []
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--option", "211"], "queryOption 211: not yet ported"),
-    (["--option", "201"], "queryOption 201: not yet ported"),
+    (["--option", "1010"], "queryOption 1010: not yet ported"),
+    (["--option", "2000"], "queryOption 2000: not yet ported"),
     (["--option", "101"], "queryOption 101 (join) needs --input2"),
     (["--option", "6", "--kafka"], "--kafka: not yet ported"),
     (["--option", "101", "--panes"], "--panes: not yet ported"),
