@@ -163,19 +163,25 @@ its wall seconds):
    with pairs/s, pairs per window and the median and p99 wall time per
    window. Then option 101's stages one after another, its trace under
    torch.profiler, and the CLI for 101 with ``--input2``.
-7. The trajectory queries over T-Drive's taxi count: the port's
+7. The trajectory queries over T-Drive's taxi count (the stream and
+   K8's kernel cases run right after the micro-batch phase, before the
+   long torch.profiler traces; the runs here): the port's
    ``SyntheticPointSource`` with 10,357 taxis (T-Drive, Microsoft
    Research's Beijing taxi traces) of 50 points 400 ms apart over the
    conf's grid (517,850 points over 20 s; 1 % up to 2 s late; the event
    time compressed from T-Drive's ~3-minute sampling), as CSV lines, and
    a 320-taxi query stream for tJoin. K8a ``tstats_update`` at the 10 s
-   window (258,924 points, fresh 16,384-slot state) and at a 512-point
-   cut (the state of the 64 cuts before it), K8b
-   ``tstats_window_summary`` at a 5 s pane and a cut, K8c
-   ``taggregate_group_extents`` and K8d ``taggregate_heatmap`` (every
-   aggregate, ``torch.Tensor.scatter_reduce_`` beside SUM, MIN and MAX)
-   at the window and a cut, each against its plain version bit for bit
-   with its CUDA-event time, launch-to-completion time and bound. Then
+   window (258,924 points, fresh 16,384-slot state), at a 512-point cut
+   (the state of the 64 cuts before it) and at the one-block limit
+   (4,096 points from the cut on), with the ts range the operators pass,
+   K8b ``tstats_window_summary`` at a 5 s pane and a cut, K8c
+   ``taggregate_group_extents`` at the window, the cut and the limit, and
+   K8d ``taggregate_heatmap`` (every aggregate,
+   ``torch.Tensor.scatter_reduce_`` beside SUM, MIN and MAX) at the
+   window and a cut, each against its plain version bit for bit with its
+   CUDA-event time, launch-to-completion time, bound and the kernels
+   torch.profiler counts in one call (``launches``; K8a's and K8c's must
+   be what their key layout says: one at a cut, six at the window). Then
    options 201-212, 2030, 2090, 2011, 208 with SUM and ALL, 206 and 208
    (SUM) with panes, 211/212 under multiQuery (16 points) and 99 through
    ``run_option`` (windowed over the whole stream, realtime over its
@@ -3262,13 +3268,38 @@ def traj_profile_phase(lines) -> dict:
     return out
 
 
+def profiled_kernels(torch, fn):
+    """The device kernels torch.profiler counts in one call of ``fn``
+    (copies and memsets not counted), or None when the trace holds no
+    device event at all (a short session late in a long process, after
+    the long traces, has been seen to record none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [ev.name.lower() for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        return None
+    return sum(1 for name in names
+               if "memcpy" not in name and "memset" not in name)
+
+
 def traj_kernel_phase(torch, timer: Timer, cols):
     """K8a-K8d against their plain versions bit for bit at the window shape
     (the 10 s window [T0, T0 + 10 s) of the stream: 258,925 points of
-    10,357 taxis; K8b at its 5 s pane) and at a 512-point realtime cut
-    (K8a with the state its 64 earlier cuts carried), with CUDA-event
-    time, launch-to-completion time and bound; K8d in every aggregate,
-    with torch.Tensor.scatter_reduce_ (SUM, MIN, MAX) beside it. Returns
+    10,357 taxis; K8b at its 5 s pane), at a 512-point realtime cut (K8a
+    with the state its 64 earlier cuts carried) and, for K8a and K8c, at
+    the one-block limit (``ops.trajectory.ONE_BLOCK_MAX`` points from the
+    cut on), with CUDA-event time, launch-to-completion time, bound and
+    the kernels torch.profiler counts in one call (K8a and K8c: as many
+    as their key layout says, one at a cut); K8a takes the batch's ts
+    range as the operators pass it; K8d in every aggregate, with
+    torch.Tensor.scatter_reduce_ (SUM, MIN, MAX) beside it. Returns
     {kernel: [cases]}."""
     from spatialflink_tpu_torch.models import PointBatch
     from spatialflink_tpu_torch.ops import trajectory as T
@@ -3285,20 +3316,26 @@ def traj_kernel_phase(torch, timer: Timer, cols):
     window = np.nonzero((ts >= T0) & (ts < T0 + 10_000))[0]
     pane = np.nonzero((ts >= T0) & (ts < T0 + 5_000))[0]
     cut = np.arange(64 * N_MICRO, 65 * N_MICRO)
-    shapes = {"window": (batch(window, T0), len(window)),
-              "pane": (batch(pane, T0), len(pane)),
-              "cut": (batch(cut, int(ts[cut[0]])), N_MICRO)}
+    limit = np.arange(64 * N_MICRO, 64 * N_MICRO + T.ONE_BLOCK_MAX)
+    cut_base = int(ts[cut[0]])
+    shapes = {"window": (batch(window, T0), len(window),
+                         PointBatch.ts_range(ts[window], T0)),
+              "pane": (batch(pane, T0), len(pane), None),
+              "cut": (batch(cut, cut_base), N_MICRO,
+                      PointBatch.ts_range(ts[cut], cut_base)),
+              "one-block-limit": (batch(limit, cut_base), len(limit),
+                                  PointBatch.ts_range(ts[limit], cut_base))}
     # the state the 64 cuts before the measured one leave behind
     carried = T.TrajStatsState.zeros(TRAJ_STATE, dev)
     for c in range(64):
         idx = np.arange(c * N_MICRO, (c + 1) * N_MICRO)
-        carried, _ = T.tstats_update_plain(carried, batch(idx, int(ts[cut[0]])))
+        carried, _ = T.tstats_update_plain(carried, batch(idx, cut_base))
     cases = {name: [] for name in K8}
 
     def state_of(src):
         return T.TrajStatsState(*(t.clone() for t in src))
 
-    def case(name, shape, kern, plain, nbytes, ops, **extra):
+    def case(name, shape, kern, plain, nbytes, ops, layout=None, **extra):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = compare(torch, got, want, f"{name} {shape}")
@@ -3306,21 +3343,29 @@ def traj_kernel_phase(torch, timer: Timer, cols):
         row = {"case": shape, **extra, "identical": True, "max_abs_err": err,
                "ms": timer.ms(kern), "plain_ms": timer.ms(plain, reps=5),
                "launch_to_completion_ms": launch_ms(torch, kern),
+               "launches": profiled_kernels(torch, kern),
                "bound_ms": b_ms, "bound_by": b_by}
+        if layout is not None:
+            row.update(key_bits=layout.bits, passes=layout.passes)
+            if row["launches"] not in (None, layout.launches):
+                raise AssertionError(f"{name} {shape}: {row['launches']} "
+                                     f"kernels, its layout says "
+                                     f"{layout.launches}")
         log("kernels-traj", name, json.dumps(row))
         cases[name].append(row)
         return got
 
-    for shape in ("window", "cut"):
-        b, n = shapes[shape]
+    for shape in ("window", "cut", "one-block-limit"):
+        b, n, rng_ts = shapes[shape]
         base = (T.TrajStatsState.zeros(TRAJ_STATE, dev) if shape == "window"
                 else carried)
         touched = int(torch.unique(b.obj_id[b.valid]).numel())
 
-        def run(fn):
-            st, out = fn(state_of(base), b)
+        def run(fn, **kw):
+            st, out = fn(state_of(base), b, **kw)
             return (*out, *st)
-        got, want = run(T.tstats_update), run(T.tstats_update_plain)
+        got = run(T.tstats_update, ts_range=rng_ts)
+        want = run(T.tstats_update_plain)
         torch.cuda.synchronize()
         err = compare(torch, got, want, f"tstats_update {shape}")
         # the timed launches update one scratch state in place (the sort
@@ -3328,31 +3373,41 @@ def traj_kernel_phase(torch, timer: Timer, cols):
         scratch = state_of(base)
 
         def kern():
-            return T.tstats_update(scratch, b)
+            return T.tstats_update(scratch, b, ts_range=rng_ts)
+        _, lay = T.tstats_layout(b.x.shape[0], TRAJ_STATE, *rng_ts)
         b_ms, b_by = bound_ms(20.0 * n, 17.0 * n + 21.0 * n + 40.0 * touched)
         row = {"case": shape, "points": n, "objects": touched,
-               "state_slots": TRAJ_STATE, "identical": True,
-               "max_abs_err": err, "ms": timer.ms(kern),
+               "state_slots": TRAJ_STATE, "ts_range": list(rng_ts),
+               "key_bits": lay.bits, "passes": lay.passes,
+               "identical": True, "max_abs_err": err, "ms": timer.ms(kern),
                "plain_ms": timer.ms(lambda: run(T.tstats_update_plain),
                                     reps=5),
                "launch_to_completion_ms": launch_ms(torch, kern),
+               "launches": profiled_kernels(torch, kern),
                "bound_ms": b_ms, "bound_by": b_by}
+        if row["launches"] not in (None, lay.launches):
+            raise AssertionError(f"tstats_update {shape}: {row['launches']} "
+                                 f"kernels, its layout says {lay.launches}")
         log("kernels-traj", "tstats_update", json.dumps(row))
         cases["tstats_update"].append(row)
     for shape in ("pane", "cut"):
-        b, n = shapes[shape]
+        b, n, _ = shapes[shape]
         case("tstats_window_summary", shape,
              lambda: T.tstats_window_summary(b, m=TRAJ_STATE),
              lambda: T.tstats_window_summary_plain(b, m=TRAJ_STATE),
              17.0 * n + 32.0 * TRAJ_STATE, 20.0 * n, points=n)
-    for shape in ("window", "cut"):
-        b, n = shapes[shape]
+    for shape in ("window", "cut", "one-block-limit"):
+        b, n, _ = shapes[shape]
         ext = case("taggregate_group_extents", shape,
                    lambda: T.taggregate_group_extents(
                        b, num_cells=grid.num_cells, num_ids=N_TAXIS),
                    lambda: T.taggregate_group_extents_plain(
                        b, num_cells=grid.num_cells),
-                   13.0 * n + 17.0 * n, 4.0 * n, points=n)
+                   13.0 * n + 17.0 * n, 4.0 * n,
+                   layout=T.extents_layout(b.x.shape[0], grid.num_cells,
+                                           T._oid_bits(N_TAXIS)), points=n)
+        if shape == "one-block-limit":
+            continue
         groups = T.TAggregateGroups(cell=ext[0], obj_id=ext[1],
                                     length=ext[3] - ext[2], first=ext[4])
         idx = torch.where(groups.first, groups.cell.long(),
@@ -3428,6 +3483,16 @@ def main(argv=None) -> int:
     micro = phase("kernels-micro-batch", micro_kernel_phase, torch,
                   args.seed, timer)
     phase("reference", reference_phase, torch, args.seed)
+    # the trajectory stream, and K8's kernel cases before the long traces
+    # below (their launch counts come from short torch.profiler sessions)
+    t0 = time.perf_counter()
+    tlines, tqlines, tcols = traj_stream(args.seed)
+    log(f"trajectory stream: {len(tlines)} CSV rows of {N_TAXIS} taxis over "
+        f"{TRAJ_STEPS * TRAJ_DT_MS} ms, {len(tqlines)} query rows "
+        f"({time.perf_counter() - t0:.1f} s to generate)")
+    k8_cases = phase("kernels-k8", traj_kernel_phase, torch, timer, tcols)
+    del tcols
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     lines = stream_lines(args.seed, N_STREAM)
     log(f"stream: {len(lines)} CSV rows over {SPAN_MS} ms "
@@ -3522,17 +3587,12 @@ def main(argv=None) -> int:
     del lines, geoms, streams
     torch.cuda.empty_cache()
 
-    # the trajectory queries over T-Drive's taxi count
-    t0 = time.perf_counter()
-    tlines, tqlines, tcols = traj_stream(args.seed)
-    log(f"trajectory stream: {len(tlines)} CSV rows of {N_TAXIS} taxis over "
-        f"{TRAJ_STEPS * TRAJ_DT_MS} ms, {len(tqlines)} query rows "
-        f"({time.perf_counter() - t0:.1f} s to generate)")
-    k8_cases = phase("kernels-k8", traj_kernel_phase, torch, timer, tcols)
+    # the trajectory queries over T-Drive's taxi count (their stream and
+    # K8's kernel cases came first)
     traj_launches, traj_report, traj_pane_err = phase(
         "trajectory", traj_main_phase, card, tlines, tqlines)
     prof.update(phase("trajectory-profile", traj_profile_phase, tlines))
-    del tlines, tqlines, tcols
+    del tlines, tqlines
     for more in (rt_launches, short_launches, count_launches, geom_launches,
                  other_launches, pane_launches, gpane_launches, dyn_launches,
                  join_launches, jrt_launches, traj_launches):

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's K1, K2, K3, K4, K5, K6 and K7 kernels against an earlier
-revision's, on one card, in turns (old, new, new, old), at the main path's
-shapes.
+"""Times the port's K1, K2, K3, K4, K5, K6, K7, K8a and K8c kernels against
+an earlier revision's, on one card, in turns (old, new, new, old), at the
+main path's shapes.
 
 Run from the root of a checkout on a machine with one NVIDIA card, with
 the earlier revision's ``csrc/`` unpacked into a directory that
@@ -9,7 +9,7 @@ the earlier revision's ``csrc/`` unpacked into a directory that
 
     git archive <commit> spatialflink_tpu_torch/csrc | tar -x -C _scratch/old
     python3 kernel_ab.py --old _scratch/old/spatialflink_tpu_torch/csrc \
-        [--kernels k1,k2,k3,k4,k5,k6,k7]
+        [--kernels k1,k2,k3,k4,k5,k6,k7,k8]
     python3 kernel_ab.py --kernels k3wide
 
 The old ``range_mask.cu``, ``pip_dist.cu`` (with its ``pip_edges.cuh``)
@@ -81,6 +81,26 @@ the sort across blocks, and the survivor reduce whatever its levels),
 beside the port's own choice. K2 at
 ``chip_smoke.k2_specs``' cases of k <= 1,024 (1,048,576 points, 100,000
 ids), whose path the k > 1,024 work must leave as it was.
+
+``k8``: K8a (``tstats_update``) and K8c (``taggregate_group_extents``)
+against the ``traj.cu`` of commit 9f063e8 (one 64-bit key, three launches
+per 8-bit pass), called through that commit's ``tstats_update_launch(x,
+y, oid, ts, valid, n, m, last_x, last_y, last_ts, spatial, temporal,
+out_oid, out_sp, out_tm, out_speed, out_emit, order, scratch, stream)``
+and ``taggregate_extents_launch(cell, oid, ts, valid, n, num_cells,
+oid_bits, out_cell, out_oid, out_min, out_max, out_first, scratch,
+stream)`` by a copy of that commit's wrappers (``old_tstats_update``,
+``old_group_extents``: their host work as it was, six or seven
+allocations and the ctypes lookups per call), over chip_smoke's
+trajectory stream (10,357 taxis): K8a at the 10 s window (fresh
+16,384-slot state) and at a 512-point cut with the state of the 64 cuts
+before it, K8c at the window and at the 5 s pane, and both at the window
+skewed so that one object holds 3/4 of its points. Each case adds
+``torch.sort(keys, stable=True)`` of the same packed keys (the new key
+layout, int64) as a yardstick of the sort stage alone, and both
+wrappers' host microseconds per call. Then the new kernels' two paths
+against each other (``ONE_BLOCK_MAX`` forced to 0 for the tiled one) at
+512-4,096 consecutive points, the one-block path's range.
 """
 
 from __future__ import annotations
@@ -151,6 +171,12 @@ def build_old(old_csrc: str, names) -> dict:
     if "knn_merge" in libs:
         libs["knn_merge"].knn_merge_launch.argtypes = [
             I, I, I, C, C, C, ctypes.c_longlong, C, C, C, C, C, C]
+    if "traj" in libs:
+        lib = libs["traj"]
+        lib.tstats_update_launch.argtypes = [C] * 5 + [I, I] + [C] * 13
+        lib.taggregate_extents_launch.argtypes = [C] * 4 + [I, I, I] + [C] * 7
+        lib.traj_scratch_bytes.argtypes = [I]
+        lib.traj_scratch_bytes.restype = ctypes.c_longlong
     if "join_lattice" in libs:
         for fn in (libs["join_lattice"].join_lattice_count,
                    libs["join_lattice"].join_lattice_write):
@@ -795,6 +821,217 @@ def k5_cases(torch, timer, card, lib, seed):
     return rows
 
 
+def old_tstats_update(torch, lib, state, batch):
+    """Commit 9f063e8's ``tstats_update`` wrapper over its ``traj.cu``:
+    the same checks, six output allocations, the scratch size and the
+    launch looked up on every call."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    dev = T._check_batch("tstats_update", batch)
+    m = state.last_x.shape[0]
+    for name, dt in (("last_x", torch.float32), ("last_y", torch.float32),
+                     ("last_ts", torch.int32), ("spatial", torch.float32),
+                     ("temporal", torch.float32)):
+        t = getattr(state, name)
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != (m,) \
+                or not t.is_contiguous():
+            raise ValueError(f"state.{name}")
+    n = batch.x.shape[0]
+    out_oid = torch.empty(n, dtype=torch.int32, device=dev)
+    out_sp = torch.empty(n, dtype=torch.float32, device=dev)
+    out_tm = torch.empty_like(out_sp)
+    out_speed = torch.empty_like(out_sp)
+    out_emit = torch.empty(n, dtype=torch.bool, device=dev)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    size_fn = lib.traj_scratch_bytes
+    size_fn.argtypes, size_fn.restype = [_I], ctypes.c_longlong
+    scratch = torch.empty(int(size_fn(n)), dtype=torch.uint8, device=dev)
+    launch = lib.tstats_update_launch
+    launch.argtypes, launch.restype = [_C] * 5 + [_I, _I] + [_C] * 13, _I
+    with torch.cuda.device(dev):
+        err = launch(batch.x.data_ptr(), batch.y.data_ptr(),
+                     batch.obj_id.data_ptr(), batch.ts.data_ptr(),
+                     batch.valid.data_ptr(), n, m, state.last_x.data_ptr(),
+                     state.last_y.data_ptr(), state.last_ts.data_ptr(),
+                     state.spatial.data_ptr(), state.temporal.data_ptr(),
+                     out_oid.data_ptr(), out_sp.data_ptr(), out_tm.data_ptr(),
+                     out_speed.data_ptr(), out_emit.data_ptr(),
+                     order.data_ptr(), scratch.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0, err
+    return state, T.TStatsOut(obj_id=out_oid, spatial=out_sp,
+                              temporal=out_tm, speed=out_speed,
+                              emit=out_emit, order=order)
+
+
+def old_group_extents(torch, lib, batch, num_cells, num_ids):
+    """Commit 9f063e8's ``taggregate_group_extents`` wrapper over its
+    ``traj.cu``."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    dev = T._check_batch("taggregate_group_extents", batch)
+    n = batch.x.shape[0]
+    oid_bits = max(1, int(num_ids - 1).bit_length()) if num_ids > 1 else 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = T.TAggregateExtents(cell=torch.empty(n, **i32),
+                              obj_id=torch.empty(n, **i32),
+                              min_ts=torch.empty(n, **i32),
+                              max_ts=torch.empty(n, **i32),
+                              first=torch.empty(n, dtype=torch.bool,
+                                                device=dev))
+    size_fn = lib.traj_scratch_bytes
+    size_fn.argtypes, size_fn.restype = [_I], ctypes.c_longlong
+    scratch = torch.empty(int(size_fn(n)), dtype=torch.uint8, device=dev)
+    launch = lib.taggregate_extents_launch
+    launch.argtypes, launch.restype = [_C] * 4 + [_I, _I, _I] + [_C] * 7, _I
+    with torch.cuda.device(dev):
+        err = launch(batch.cell.data_ptr(), batch.obj_id.data_ptr(),
+                     batch.ts.data_ptr(), batch.valid.data_ptr(), n,
+                     int(num_cells), oid_bits,
+                     *(t.data_ptr() for t in out), scratch.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0, err
+    return out
+
+
+def k8_keys(torch, b, kind, *, m=None, ts_range=None, num_cells=None,
+            num_ids=None):
+    """The new layout's packed sort keys of batch ``b`` as int64 (K8a: the
+    object or m above ts - lo; K8c: the cell or num_cells above the id)."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    if kind == "k8a":
+        ts_bits, _ = T.tstats_layout(b.x.shape[0], m, *ts_range)
+        hi = torch.where(b.valid, b.obj_id.long(), m)
+        return (hi << ts_bits) | (b.ts.long() - ts_range[0])
+    ok = b.valid & (b.cell >= 0)
+    hi = torch.where(ok, b.cell.long().clamp(max=num_cells), num_cells)
+    return (hi << T._oid_bits(num_ids)) | torch.where(ok, b.obj_id.long(), 0)
+
+
+def k8_cases(torch, timer, card, lib, seed) -> list:
+    """K8a and K8c old/new over chip_smoke's trajectory stream, then the
+    new kernels' one-block path against their tiled one."""
+    from spatialflink_tpu_torch.models import PointBatch
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    dev = torch.device("cuda")
+    grid = CS._grid()
+    _, _, (x, y, ts, traj) = CS.traj_stream(seed)
+    m, ids, cells = CS.TRAJ_STATE, CS.N_TAXIS, grid.num_cells
+
+    def batch(sel, ts_base, skew=False):
+        oid = traj[sel].copy()
+        if skew:
+            oid[np.random.default_rng(seed).random(oid.shape[0]) < 0.75] = 0
+        return (PointBatch.from_arrays(x[sel], y[sel], device=dev, grid=grid,
+                                       obj_id=oid, ts=ts[sel],
+                                       ts_base=ts_base),
+                PointBatch.ts_range(ts[sel], ts_base))
+
+    window = np.nonzero((ts >= CS.T0) & (ts < CS.T0 + 10_000))[0]
+    pane = np.nonzero((ts >= CS.T0) & (ts < CS.T0 + 5_000))[0]
+    cut = np.arange(64 * CS.N_MICRO, 65 * CS.N_MICRO)
+    cut_base = int(ts[cut[0]])
+    carried = T.TrajStatsState.zeros(m, dev)
+    for c in range(64):
+        idx = np.arange(c * CS.N_MICRO, (c + 1) * CS.N_MICRO)
+        carried, _ = T.tstats_update_plain(carried, batch(idx, cut_base)[0])
+
+    def clone(st):
+        return T.TrajStatsState(*(t.clone() for t in st))
+
+    rows = []
+
+    def k8a(name, sel, base, state0, skew=False):
+        b, rng_ts = batch(sel, base, skew)
+        # each side updates its own copy in place as it is timed (the sort
+        # and the walk do the same work whatever the state holds)
+        work_old, work_new = clone(state0), clone(state0)
+
+        def old(b=b):
+            return old_tstats_update(torch, lib, work_old, b)[1]
+
+        def new(b=b, rng_ts=rng_ts):
+            return T.tstats_update(work_new, b, ts_range=rng_ts)[1]
+
+        # equality on fresh copies of the state, outputs and state both
+        so, go = old_tstats_update(torch, lib, clone(state0), b)
+        sn, gn = T.tstats_update(clone(state0), b, ts_range=rng_ts)
+        torch.cuda.synchronize()
+        CS.compare(torch, (*gn, *sn), (*go, *so), f"K8a {name} state")
+        keys = k8_keys(torch, b, "k8a", m=m, ts_range=rng_ts)
+        _, lay = T.tstats_layout(b.x.shape[0], m, *rng_ts)
+        rows.append(ab_case(
+            torch, timer, card, f"K8a {name}", old, new, split_old=True,
+            points=int(b.valid.sum()), slots=b.x.shape[0],
+            key_bits=lay.bits, passes=lay.passes, launches=lay.launches,
+            torch_sort_ms=timer.ms(lambda: torch.sort(keys, stable=True)),
+            old_launch_to_completion_ms=CS.launch_ms(torch, old),
+            new_launch_to_completion_ms=CS.launch_ms(torch, new),
+            old_host_us=host_us(torch, old, 100),
+            new_host_us=host_us(torch, new, 100)))
+
+    def k8c(name, sel, base, skew=False):
+        b, _ = batch(sel, base, skew)
+
+        def old(b=b):
+            return old_group_extents(torch, lib, b, cells, ids)
+
+        def new(b=b):
+            return T.taggregate_group_extents(b, num_cells=cells,
+                                              num_ids=ids)
+
+        keys = k8_keys(torch, b, "k8c", num_cells=cells, num_ids=ids)
+        lay = T.extents_layout(b.x.shape[0], cells, T._oid_bits(ids))
+        rows.append(ab_case(
+            torch, timer, card, f"K8c {name}", old, new, split_old=True,
+            points=int(b.valid.sum()), slots=b.x.shape[0],
+            key_bits=lay.bits, passes=lay.passes, launches=lay.launches,
+            torch_sort_ms=timer.ms(lambda: torch.sort(keys, stable=True)),
+            old_launch_to_completion_ms=CS.launch_ms(torch, old),
+            new_launch_to_completion_ms=CS.launch_ms(torch, new),
+            old_host_us=host_us(torch, old, 100),
+            new_host_us=host_us(torch, new, 100)))
+
+    fresh = T.TrajStatsState.zeros(m, dev)
+    k8a("window", window, CS.T0, fresh)
+    k8a("cut", cut, cut_base, carried)
+    k8a("skewed window", window, CS.T0, fresh, skew=True)
+    k8c("window", window, CS.T0)
+    k8c("pane", pane, CS.T0)
+    k8c("cut", cut, cut_base)
+    k8c("skewed window", window, CS.T0, skew=True)
+
+    # the one-block path ("new") against the tiled one ("old"), both new
+    for n in (512, 1024, 2048, 4096):
+        sel = np.arange(64 * CS.N_MICRO, 64 * CS.N_MICRO + n)
+        b, rng_ts = batch(sel, cut_base)
+        works = {0: clone(carried), T.ONE_BLOCK_MAX: clone(carried)}
+
+        def path(limit, fn):
+            def call():
+                saved, T.ONE_BLOCK_MAX = T.ONE_BLOCK_MAX, limit
+                try:
+                    return fn(works[limit])
+                finally:
+                    T.ONE_BLOCK_MAX = saved
+            return call
+
+        for kind, fn in (
+                ("K8a", lambda work, b=b, r=rng_ts: T.tstats_update(
+                    work, b, ts_range=r)[1]),
+                ("K8c", lambda _, b=b: T.taggregate_group_extents(
+                    b, num_cells=cells, num_ids=ids))):
+            tiled, one = path(0, fn), path(T.ONE_BLOCK_MAX, fn)
+            rows.append(ab_case(
+                torch, timer, card, f"{kind} paths n={n}", tiled, one,
+                old_is="tiled", new_is="one block", points=n,
+                old_launch_to_completion_ms=CS.launch_ms(torch, tiled),
+                new_launch_to_completion_ms=CS.launch_ms(torch, one)))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", default=None,
@@ -803,10 +1040,11 @@ def main(argv=None) -> int:
     ap.add_argument("--kernels", default="k1,k4,k5",
                     help="comma-separated kernels to compare: k1, k2, k3, "
                     "k3wide (K3's two wide-row paths, both of the checkout; "
-                    "needs no --old), k4 (with the table sweep), k5, k6, k7")
+                    "needs no --old), k4 (with the table sweep), k5, k6, k7, "
+                    "k8 (K8a and K8c)")
     args = ap.parse_args(argv)
     which = set(args.kernels.split(","))
-    known = {"k1", "k2", "k3", "k3wide", "k4", "k5", "k6", "k7"}
+    known = {"k1", "k2", "k3", "k3wide", "k4", "k5", "k6", "k7", "k8"}
     if not which <= known:
         ap.error(f"--kernels: unknown {sorted(which - known)}")
     if args.old is None and which - {"k3wide"}:
@@ -823,18 +1061,20 @@ def main(argv=None) -> int:
     print(f"card: {card}", flush=True)
     native.build(("pip_lattice", "cell_order", "pip_dist", "range_mask",
                   "geom_dist", "join_reduce", "join_lattice", "knn_topk",
-                  "knn_merge"))
+                  "knn_merge", "traj"))
     libs = build_old(args.old, [name for key, name in (
         ("k1", "range_mask"), ("k2", "knn_topk"), ("k3", "knn_merge"),
         ("k4", "pip_dist"),
-        ("k5", "geom_dist"), ("k6", "join_lattice"), ("k7", "join_reduce"))
-        if key in which])
+        ("k5", "geom_dist"), ("k6", "join_lattice"), ("k7", "join_reduce"),
+        ("k8", "traj")) if key in which])
     for name in ("geom_dist", "join_reduce", "join_lattice", "cell_order",
-                 "knn_merge"):
+                 "knn_merge", "traj"):
         print(f"new-build {name}", json.dumps(native.ptxas_report(
             native.build_log(name))), flush=True)
     timer = CS.Timer(torch)
     rows = []
+    if "k8" in which:
+        rows += k8_cases(torch, timer, card, libs["traj"], args.seed)
     if "k3" in which:
         rows += k3_cases(torch, timer, card, libs["knn_merge"], args.seed)
     if "k3wide" in which:

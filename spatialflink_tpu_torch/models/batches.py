@@ -27,6 +27,12 @@ POINT_DTYPES = {"x": np.float32, "y": np.float32, "obj_id": np.int32,
                 "ts": np.int32, "cell": np.int32, "valid": np.bool_}
 
 
+def _ts_offsets(ts, ts_base: int) -> np.ndarray:
+    """Host int64 epoch millis as the batch's int32 offsets from
+    ``ts_base``."""
+    return (np.asarray(ts, np.int64) - int(ts_base)).astype(np.int32)
+
+
 def to_device(arr, np_dtype, device: torch.device) -> torch.Tensor:
     """A host array as a tensor of ``np_dtype`` on ``device``: converted
     explicitly (``torch.from_numpy`` of a float64 array would stay float64),
@@ -67,7 +73,7 @@ class PointBatch(NamedTuple):
         if ts is None:
             ts32 = np.zeros(n, np.int32)
         else:
-            ts32 = (np.asarray(ts, np.int64) - int(ts_base)).astype(np.int32)
+            ts32 = _ts_offsets(ts, ts_base)
         if cell is not None:
             cell = np.asarray(cell, np.int32)
         elif grid is not None:
@@ -85,6 +91,23 @@ class PointBatch(NamedTuple):
         }
         return PointBatch(**{k: to_device(v, POINT_DTYPES[k], device)
                              for k, v in host.items()})
+
+    @staticmethod
+    def ts_range(ts, ts_base: int = 0) -> Tuple[int, int]:
+        """(lo, hi) of the int32 ts offsets :meth:`from_arrays` writes for
+        the host timestamps ``ts`` (padded slots' 0 included): the ts of
+        every slot of that batch lies in it."""
+        ts = np.asarray(ts, np.int64)
+        n = ts.shape[0]
+        if n == 0:
+            return 0, 0
+        lo, hi = int(ts.min()) - int(ts_base), int(ts.max()) - int(ts_base)
+        if lo < -2 ** 31 or hi >= 2 ** 31:  # the offsets wrap: as written
+            off = _ts_offsets(ts, ts_base)
+            lo, hi = int(off.min()), int(off.max())
+        if bucket_size(n) > n:
+            lo, hi = min(lo, 0), max(hi, 0)
+        return lo, hi
 
 
 #: dtype of each EdgeGeomBatch field

@@ -372,11 +372,13 @@ class PointTStatsQuery(_TrajOperator):
             lo = hi
 
     def _update(self, store: TrajStateStore, rows: PointRows, ts_base: int):
-        """One K8a launch: the emitted points' (operator id, spatial,
+        """One K8a call: the emitted points' (operator id, spatial,
         temporal, speed), in sorted (object, ts) order."""
         batch = self._point_batch(rows, ts_base)
         store.ensure(len(self.interner))
-        store.state, out = T.tstats_update(store.state, batch)
+        store.state, out = T.tstats_update(
+            store.state, batch,
+            ts_range=PointBatch.ts_range(_ts(rows), ts_base))
         emit, oid, sp, tm, speed = _to_host(out.emit, out.obj_id, out.spatial,
                                             out.temporal, out.speed)
         return oid[emit], sp[emit], tm[emit], speed[emit]

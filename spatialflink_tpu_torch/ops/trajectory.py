@@ -11,11 +11,14 @@
 - :func:`taggregate_heatmap` (K8d) — per-cell SUM/AVG/MIN/MAX/COUNT of the
   group lengths.
 
-Each is the wrapper of ONE hand-written CUDA launch (``csrc/traj.cu``):
-CUDA tensors launch it (or the call raises), CPU tensors run its plain
-version (``*_plain``). There is no other path. Outputs are in sorted
-order, with ``order`` mapping back to batch positions, as in the JAX
-package.
+Each is the wrapper of ONE hand-written CUDA entry point
+(``csrc/traj.cu``): CUDA tensors launch it (or the call raises), CPU
+tensors run its plain version (``*_plain``). There is no other path.
+Outputs are in sorted order, with ``order`` mapping back to batch
+positions, as in the JAX package. K8a and K8c sort on a key as wide as
+the batch's own fields (:func:`tstats_layout`, :func:`extents_layout`):
+one launch up to :data:`ONE_BLOCK_MAX` points (every realtime cut), else
+a key launch, one launch per 8-bit pass and a walk.
 
 One deliberate difference from the JAX package: the running lengths of
 K8a are sums over each trajectory's own run, taken one contribution at a
@@ -35,7 +38,8 @@ merges) are numpy on the host, as in the JAX package.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +52,9 @@ INT32_MAX = 2 ** 31 - 1
 _OID_SENTINEL = INT32_MAX
 #: K8d's aggregate codes
 AGGREGATES = {"SUM": 0, "AVG": 1, "MIN": 2, "MAX": 3, "COUNT": 4}
+#: the most points K8a and K8c sort in one block, in one launch:
+#: csrc/traj.cu's kOneBlockMax (PERF.md has the measurement that set it)
+ONE_BLOCK_MAX = 4096
 
 
 class TrajStatsState(NamedTuple):
@@ -115,6 +122,70 @@ class TAggregateGroups(NamedTuple):
     first: torch.Tensor   # (N,) bool marks group representatives
 
 
+class SortLayout(NamedTuple):
+    """How K8a or K8c sorts a batch of ``n`` points: the key's ``bits``
+    (a 32-bit word up to 32, else 64), the 8-bit LSD ``passes``, the path
+    (``one_block``) and the kernel ``launches`` (1 in one block; else the
+    key launch, one per pass and the walk)."""
+
+    bits: int
+    passes: int
+    one_block: bool
+    launches: int
+
+
+def sort_layout(n: int, bits: int) -> SortLayout:
+    """The :class:`SortLayout` of ``n`` points on a ``bits``-bit key (one
+    block up to :data:`ONE_BLOCK_MAX` points, read at call time)."""
+    if not 1 <= bits <= 64:
+        raise ValueError(f"a K8 sort key of {bits} bits")
+    passes = -(-bits // 8)
+    one = n <= ONE_BLOCK_MAX
+    launches = 0 if n == 0 else 1 if one else passes + 2
+    return SortLayout(bits, passes, one, launches)
+
+
+def tstats_layout(n: int, m: int, ts_lo: int, ts_hi: int
+                  ) -> Tuple[int, SortLayout]:
+    """K8a's key: the object (``m`` for a padded slot) in bit_length(m)
+    bits above ts - ts_lo in bit_length(ts_hi - ts_lo) bits, for a batch
+    whose every slot's ts lies in [ts_lo, ts_hi]: (ts bits, layout)."""
+    if m < 1:
+        raise ValueError(f"tstats_update: m must be >= 1, got {m}")
+    if not INT32_MIN <= ts_lo <= ts_hi <= INT32_MAX:
+        raise ValueError(f"tstats_update: ts range ({ts_lo}, {ts_hi}) is "
+                         "not an int32 interval")
+    ts_bits = int(ts_hi - ts_lo).bit_length()
+    return ts_bits, sort_layout(n, int(m).bit_length() + ts_bits)
+
+
+def extents_layout(n: int, num_cells: int, oid_bits: int) -> SortLayout:
+    """K8c's key: the cell (``num_cells`` for a padded or out-of-grid
+    slot) above the object id in ``oid_bits`` bits."""
+    return sort_layout(n, int(oid_bits) + int(num_cells).bit_length())
+
+
+def _oid_bits(num_ids: int) -> int:
+    """Bits of K8c's id field for ids in [0, num_ids)."""
+    bits = max(1, int(num_ids - 1).bit_length()) if num_ids > 1 else 1
+    if bits > 31:
+        raise ValueError(f"taggregate_group_extents: num_ids {num_ids} "
+                         "exceeds the int32 id range")
+    return bits
+
+
+def _check_ts_range(batch, ts_range) -> None:
+    """A stated range must hold the ts of every slot of the batch, padded
+    ones too (the kernel's key field); checked where it costs no device
+    sync, on the CPU."""
+    if ts_range is None or batch.ts.numel() == 0:
+        return
+    lo, hi = (int(v) for v in torch.aminmax(batch.ts))
+    if lo < ts_range[0] or hi > ts_range[1]:
+        raise ValueError(f"tstats_update: ts range {tuple(ts_range)} does "
+                         f"not hold the batch's ts [{lo}, {hi}]")
+
+
 # ------------------------------------------------------------------------ #
 # the plain versions
 
@@ -173,8 +244,10 @@ def _prev_accepted(accepted, oid_s):
     return gp, (prev >= 0) & (oid_s[gp] == oid_s)
 
 
-def tstats_update_plain(state: TrajStatsState, batch):
-    """Plain version of :func:`tstats_update` (state updated in place)."""
+def tstats_update_plain(state: TrajStatsState, batch,
+                        ts_range: Optional[Tuple[int, int]] = None):
+    """Plain version of :func:`tstats_update` (state updated in place;
+    ``ts_range`` is taken for the kernel's signature and not used)."""
     n = batch.x.shape[0]
     m = state.last_x.shape[0]
     dev = batch.x.device
@@ -337,12 +410,41 @@ def taggregate_heatmap_plain(groups: TAggregateGroups, *, num_cells: int,
 
 _C = ctypes.c_void_p
 _I = ctypes.c_int
-_UPDATE_ARGTYPES = (_C, _C, _C, _C, _C, _I, _I, _C, _C, _C, _C, _C, _C, _C,
-                    _C, _C, _C, _C, _C, _C)
+_L = ctypes.c_longlong
+_UPDATE_ARGTYPES = (_C, _C, _C, _C, _C, _I, _I, _L, _I, _I, _C, _C, _C, _C,
+                    _C, _C, _C, _C, _C, _C, _C, _C, _C)
 _SUMMARY_ARGTYPES = (_C, _C, _C, _C, _C, _I, _I, _C, _C, _C, _C, _C, _C, _C,
                      _C, _C, _C)
-_EXTENTS_ARGTYPES = (_C, _C, _C, _C, _I, _I, _I, _C, _C, _C, _C, _C, _C, _C)
+_EXTENTS_ARGTYPES = (_C, _C, _C, _C, _I, _I, _I, _I, _C, _C, _C, _C, _C, _C,
+                     _C)
 _HEATMAP_ARGTYPES = (_C, _C, _C, _I, _I, _I, _C, _C)
+
+
+@functools.lru_cache(maxsize=None)
+def _fn(symbol: str, argtypes: tuple, restype=ctypes.c_int):
+    """``csrc/traj.cu``'s C function, looked up once."""
+    return native.function("traj", symbol, argtypes, restype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sort_scratch_bytes(n: int, bits: int) -> int:
+    """K8a's and K8c's tiled scratch for n points on a bits-bit key."""
+    return int(_fn("traj_sort_scratch_bytes", (_I, _I), _L)(n, bits))
+
+
+def _carve(dev, n: int, words: int, bools: int, scratch_bytes: int = 0):
+    """One device allocation for a wrapper's outputs and scratch: ``words``
+    (n,) rows of 4-byte values (int32; a float32 row is a view of one),
+    ``bools`` (n,) bool rows and ``scratch_bytes`` after them, each part
+    256-byte aligned: ((words, n) int32, [bool rows], the scratch's address
+    or None)."""
+    row, brow = -(-n // 64) * 64, -(-n // 256) * 256
+    head = 4 * row * words + brow * bools
+    buf = torch.empty(head + scratch_bytes, dtype=torch.uint8, device=dev)
+    w = buf[:4 * row * words].view(torch.int32).view(words, row)[:, :n]
+    b = [buf[4 * row * words + i * brow:][:n].view(torch.bool)
+         for i in range(bools)]
+    return w, b, (buf.data_ptr() + head if scratch_bytes else None)
 
 
 def _agg_code(agg: str) -> int:
@@ -373,8 +475,8 @@ def _check_batch(what: str, batch) -> torch.device:
 
 
 def _scratch(n: int, dev) -> torch.Tensor:
-    size = native.function("traj", "traj_scratch_bytes", (_I,),
-                           ctypes.c_longlong)(n)
+    """K8b's scratch for n points."""
+    size = _fn("traj_scratch_bytes", (_I,), _L)(n)
     return torch.empty(int(size), dtype=torch.uint8, device=dev)
 
 
@@ -382,12 +484,17 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def tstats_update(state: TrajStatsState, batch):
+def tstats_update(state: TrajStatsState, batch,
+                  ts_range: Optional[Tuple[int, int]] = None):
     """-> (state, :class:`TStatsOut`): K8a. The batch's obj_id must lie in
     [0, M) for an M-slot state; the state is updated in place (the JAX
-    package donates it). CPU tensors run :func:`tstats_update_plain`; CUDA
-    tensors launch ``csrc/traj.cu``."""
+    package donates it). ``ts_range`` = (lo, hi) must hold the ts of every
+    slot of the batch, padded ones too (the operators take it from the
+    rows they build the batch from); None reads it from the batch, a
+    device sync. CPU tensors run :func:`tstats_update_plain` (and check a
+    stated range); CUDA tensors launch ``csrc/traj.cu``."""
     if batch.x.device.type == "cpu":
+        _check_ts_range(batch, ts_range)
         return tstats_update_plain(state, batch)
     dev = _check_batch("tstats_update", batch)
     m = state.last_x.shape[0]
@@ -400,23 +507,26 @@ def tstats_update(state: TrajStatsState, batch):
             raise ValueError(f"tstats_update: state.{name} must be a "
                              f"contiguous ({m},) {dt} on {dev}")
     n = batch.x.shape[0]
-    out_oid = torch.empty(n, dtype=torch.int32, device=dev)
-    out_sp = torch.empty(n, dtype=torch.float32, device=dev)
-    out_tm = torch.empty_like(out_sp)
-    out_speed = torch.empty_like(out_sp)
-    out_emit = torch.empty(n, dtype=torch.bool, device=dev)
-    order = torch.empty(n, dtype=torch.int32, device=dev)
-    scratch = _scratch(n, dev)
-    launch = native.function("traj", "tstats_update_launch", _UPDATE_ARGTYPES)
+    if ts_range is None:
+        ts_range = (torch.stack(torch.aminmax(batch.ts)).tolist() if n
+                    else (0, 0))
+    lo, hi = int(ts_range[0]), int(ts_range[1])
+    ts_bits, lay = tstats_layout(n, m, lo, hi)
+    scratch = 0 if lay.one_block else _sort_scratch_bytes(n, lay.bits)
+    w, (out_emit,), scratch_ptr = _carve(dev, n, 5, 1, scratch)
+    f = w.view(torch.float32)
+    out_oid, out_sp, out_tm, out_speed, order = w[0], f[1], f[2], f[3], w[4]
+    launch = _fn("tstats_update_launch", _UPDATE_ARGTYPES)
     with torch.cuda.device(dev):
         err = launch(batch.x.data_ptr(), batch.y.data_ptr(),
                      batch.obj_id.data_ptr(), batch.ts.data_ptr(),
-                     batch.valid.data_ptr(), n, m, state.last_x.data_ptr(),
+                     batch.valid.data_ptr(), n, m, lo, ts_bits,
+                     int(lay.one_block), state.last_x.data_ptr(),
                      state.last_y.data_ptr(), state.last_ts.data_ptr(),
                      state.spatial.data_ptr(), state.temporal.data_ptr(),
                      out_oid.data_ptr(), out_sp.data_ptr(), out_tm.data_ptr(),
                      out_speed.data_ptr(), out_emit.data_ptr(),
-                     order.data_ptr(), scratch.data_ptr(), _stream(dev))
+                     order.data_ptr(), scratch_ptr, _stream(dev))
     native.check(err, "tstats_update")
     tstats_update.launches += 1
     return state, TStatsOut(obj_id=out_oid, spatial=out_sp, temporal=out_tm,
@@ -445,8 +555,7 @@ def tstats_window_summary(batch, *, m: int) -> TStatsWindowSummary:
         first_x=torch.empty(m, **f32), first_y=torch.empty(m, **f32),
         last_x=torch.empty(m, **f32), last_y=torch.empty(m, **f32))
     scratch = _scratch(n, dev)
-    launch = native.function("traj", "tstats_summary_launch",
-                             _SUMMARY_ARGTYPES)
+    launch = _fn("tstats_summary_launch", _SUMMARY_ARGTYPES)
     with torch.cuda.device(dev):
         err = launch(batch.x.data_ptr(), batch.y.data_ptr(),
                      batch.obj_id.data_ptr(), batch.ts.data_ptr(),
@@ -479,26 +588,18 @@ def taggregate_group_extents(batch, *, num_cells: int,
     n = batch.x.shape[0]
     if num_ids is None:
         num_ids = int(batch.obj_id.max()) + 1 if n else 1
-    oid_bits = max(1, int(num_ids - 1).bit_length()) if num_ids > 1 else 1
-    if oid_bits > 31:
-        raise ValueError(f"taggregate_group_extents: num_ids {num_ids} "
-                         "exceeds the int32 id range")
-    i32 = dict(dtype=torch.int32, device=dev)
-    out = TAggregateExtents(cell=torch.empty(n, **i32),
-                            obj_id=torch.empty(n, **i32),
-                            min_ts=torch.empty(n, **i32),
-                            max_ts=torch.empty(n, **i32),
-                            first=torch.empty(n, dtype=torch.bool,
-                                              device=dev))
-    scratch = _scratch(n, dev)
-    launch = native.function("traj", "taggregate_extents_launch",
-                             _EXTENTS_ARGTYPES)
+    oid_bits = _oid_bits(num_ids)
+    lay = extents_layout(n, num_cells, oid_bits)
+    scratch = 0 if lay.one_block else _sort_scratch_bytes(n, lay.bits)
+    w, (first,), scratch_ptr = _carve(dev, n, 4, 1, scratch)
+    out = TAggregateExtents(cell=w[0], obj_id=w[1], min_ts=w[2],
+                            max_ts=w[3], first=first)
+    launch = _fn("taggregate_extents_launch", _EXTENTS_ARGTYPES)
     with torch.cuda.device(dev):
         err = launch(batch.cell.data_ptr(), batch.obj_id.data_ptr(),
                      batch.ts.data_ptr(), batch.valid.data_ptr(), n,
-                     int(num_cells), oid_bits,
-                     *(t.data_ptr() for t in out), scratch.data_ptr(),
-                     _stream(dev))
+                     int(num_cells), oid_bits, int(lay.one_block),
+                     *(t.data_ptr() for t in out), scratch_ptr, _stream(dev))
     native.check(err, "taggregate_group_extents")
     taggregate_group_extents.launches += 1
     return out
@@ -539,8 +640,7 @@ def taggregate_heatmap(groups: TAggregateGroups, *, num_cells: int,
         raise ValueError(f"taggregate_heatmap: num_cells must be >= 1, got "
                          f"{num_cells}")
     out = torch.empty(num_cells, dtype=torch.float32, device=dev)
-    launch = native.function("traj", "taggregate_heatmap_launch",
-                             _HEATMAP_ARGTYPES)
+    launch = _fn("taggregate_heatmap_launch", _HEATMAP_ARGTYPES)
     with torch.cuda.device(dev):
         err = launch(groups.cell.data_ptr(), groups.length.data_ptr(),
                      groups.first.data_ptr(), n, int(num_cells), code,

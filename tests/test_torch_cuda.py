@@ -1703,6 +1703,159 @@ def test_taggregate_kernels_equal_plain(card, case):
             groups, num_cells=cells, agg=agg)), agg
 
 
+#: K8a's and K8c's key-layout cases: name -> (points, object ids, state
+#: slots, ts span, ts_lo, share of padded slots); "limit" points are
+#: ops.trajectory.ONE_BLOCK_MAX plus the offset that follows it
+K8_KEY_CASES = {
+    "n=1": (1, 1, 256, 10_000, 0, 0.0),
+    "limit-1": (-1, 700, 1024, 10_000, 0, 0.1),
+    "limit": (0, 700, 1024, 10_000, 0, 0.1),
+    "limit+1": (1, 700, 1024, 10_000, 0, 0.1),
+    "n=9001": (9_001, 700, 1024, 10_000, 0, 0.1),
+    "window-60000": (60_000, 2_000, 2048, 10_000, 0, 0.0),
+    "span-0": (3_000, 200, 256, 0, 0, 0.1),
+    "span-1": (3_000, 200, 256, 1, 0, 0.1),
+    "span-8191": (3_000, 200, 256, 8_191, 0, 0.1),
+    "span-8192": (9_001, 200, 256, 8_192, 0, 0.1),
+    "span-2^30-1": (3_000, 200, 256, 2 ** 30 - 1, -2 ** 29, 0.1),
+    "span-2^30-1-tiled": (9_001, 200, 256, 2 ** 30 - 1, -2 ** 29, 0.1),
+    "negative-offsets": (9_001, 700, 1024, 3_500, -3_000, 0.1),
+    "m=1": (3_000, 1, 1, 10_000, 0, 0.1),
+    "m=1024": (9_001, 1_024, 1024, 10_000, 0, 0.1),
+    "m=1025": (3_000, 1_025, 1025, 10_000, 0, 0.1),
+    "skew-3/4": (60_000, 2_000, 2048, 10_000, 0, 0.0),
+}
+
+
+def _k8_key_batch(dev, case, seed=0, t0=0):
+    """(PointBatch, M, num_cells, the batch's ts range over every slot) of
+    one K8_KEY_CASES case: ids, ts over [ts_lo + t0, ts_lo + t0 + span]
+    (both ends taken), ties, padded slots with ts of their own."""
+    from spatialflink_tpu_torch.models.batches import POINT_DTYPES, to_device
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    n, ids, m, span, lo, pad = K8_KEY_CASES[case]
+    if case.startswith("limit"):
+        n += T.ONE_BLOCK_MAX
+    rng = np.random.default_rng(seed)
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=20)
+    x = rng.uniform(-0.5, 10.5, n)
+    y = rng.uniform(-0.5, 10.5, n)
+    oid = rng.integers(0, ids, n).astype(np.int32)
+    if case == "skew-3/4":
+        oid[rng.random(n) < 0.75] = 0
+    ts = (lo + t0 + rng.integers(0, span + 1, n)).astype(np.int64)
+    if n >= 2:
+        ts[0], ts[-1] = lo + t0, lo + t0 + span
+    dup = rng.random(n) < 0.05  # (object, ts) ties, other coordinates
+    ts[1:][dup[1:]] = ts[:-1][dup[1:]]
+    oid[1:][dup[1:]] = oid[:-1][dup[1:]]
+    valid = rng.random(n) >= pad
+    cell, _ = grid.assign_cell(x, y)
+    host = {"x": x, "y": y, "obj_id": oid, "ts": ts.astype(np.int32),
+            "cell": cell, "valid": valid}
+    b = PointBatch(**{k: to_device(v, POINT_DTYPES[k], dev)
+                      for k, v in host.items()})
+    rng_ts = (int(ts.min()), int(ts.max())) if n else (0, 0)
+    return b, m, grid.num_cells, rng_ts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stated", [True, False], ids=["stated", "read"])
+@pytest.mark.parametrize("case", list(K8_KEY_CASES))
+def test_tstats_update_key_layouts_equal_plain(card, case, stated):
+    """K8a at the key layout's edges (one block and tiled, 32- and 64-bit
+    keys, spans, negative offsets, pad-marker widths, a skewed window),
+    over three batches with carried state, with the batch's ts range
+    stated or read from the batch: bit for bit the plain version's."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    _, m, _, _ = _k8_key_batch(card, case)
+    got_s, want_s = _state_from(card, m, 1), _state_from(card, m, 1)
+    for step in range(3):
+        b, _, _, rng_ts = _k8_key_batch(card, case, seed=10 + step,
+                                        t0=2_000 * step)
+        got_s, got = T.tstats_update(got_s, b,
+                                     ts_range=rng_ts if stated else None)
+        want_s, want = T.tstats_update_plain(want_s, b)
+        assert _equal(got, want), (case, step)
+        assert _equal(got_s, want_s), (case, step)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_ids", [None, 2 ** 31 - 1],
+                         ids=["read", "31-bit-ids"])
+@pytest.mark.parametrize("case", list(K8_KEY_CASES))
+def test_taggregate_key_layouts_equal_plain(card, case, num_ids):
+    """K8c at the same edges, with its ids read from the batch or a 31-bit
+    id field (a 40-bit key: the 64-bit path), bit for bit."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    b, _, cells, _ = _k8_key_batch(card, case)
+    got = T.taggregate_group_extents(b, num_cells=cells, num_ids=num_ids)
+    assert _equal(got, T.taggregate_group_extents_plain(b, num_cells=cells))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiled", [True, False], ids=["tiled", "one-block"])
+@pytest.mark.parametrize("case", ["n=1", "limit", "span-1", "m=1",
+                                  "span-2^30-1", "m=1025"])
+def test_k8_forced_paths_equal_plain(card, case, tiled, monkeypatch):
+    """Both paths at the same n: the tiled path down to one point and the
+    one-block path up to its limit, for K8a and K8c."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    b, m, cells, rng_ts = _k8_key_batch(card, case)
+    limit = 0 if tiled else T.ONE_BLOCK_MAX
+    monkeypatch.setattr(T, "ONE_BLOCK_MAX", limit)
+    n = b.x.shape[0]
+    _, lay = T.tstats_layout(n, m, *rng_ts)
+    assert lay.one_block == (n <= limit)
+    got_s, got = T.tstats_update(_state_from(card, m, 2), b, ts_range=rng_ts)
+    want_s, want = T.tstats_update_plain(_state_from(card, m, 2), b)
+    assert _equal(got, want) and _equal(got_s, want_s)
+    got = T.taggregate_group_extents(b, num_cells=cells)
+    assert _equal(got, T.taggregate_group_extents_plain(b, num_cells=cells))
+
+
+@pytest.mark.cuda
+def test_k8_launch_counts(card):
+    """K8a and K8c launch as many kernels as their layout says: one at a
+    512-point cut, six at a 262,144-point window of a 29- / 28-bit key
+    (torch.profiler's count of device kernels in one call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    def kernels(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        return sum(1 for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA
+                   and "memcpy" not in ev.name.lower()
+                   and "memset" not in ev.name.lower())
+
+    rng = np.random.default_rng(5)
+    for n, want in ((512, 1), (262_144, 6)):
+        b = PointBatch.from_arrays(
+            rng.uniform(0, 10, n), rng.uniform(0, 10, n), device=card,
+            grid=UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=100),
+            obj_id=rng.integers(0, 10_357, n), ts=rng.integers(0, 10_000, n))
+        rng_ts = (0, 9_999)
+        _, lay = T.tstats_layout(n, 16_384, *rng_ts)
+        assert lay.launches == want
+        state = T.TrajStatsState.zeros(16_384, card)
+        assert kernels(lambda: T.tstats_update(state, b,
+                                               ts_range=rng_ts)) == want
+        assert T.extents_layout(n, 10_000, 14).launches == want
+        assert kernels(lambda: T.taggregate_group_extents(
+            b, num_cells=10_000, num_ids=10_357)) == want
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q", [1, 5])
 @pytest.mark.parametrize("radius", [0.0, 0.5, 2.0])
