@@ -174,14 +174,15 @@ its wall seconds):
    window (258,924 points, fresh 16,384-slot state), at a 512-point cut
    (the state of the 64 cuts before it) and at the one-block limit
    (4,096 points from the cut on), with the ts range the operators pass,
-   K8b ``tstats_window_summary`` at a 5 s pane and a cut, K8c
-   ``taggregate_group_extents`` at the window, the cut and the limit, and
-   K8d ``taggregate_heatmap`` (every aggregate,
-   ``torch.Tensor.scatter_reduce_`` beside SUM, MIN and MAX) at the
-   window and a cut, each against its plain version bit for bit with its
-   CUDA-event time, launch-to-completion time, bound and the kernels
-   torch.profiler counts in one call (``launches``; K8a's and K8c's must
-   be what their key layout says: one at a cut, six at the window). Then
+   K8b ``tstats_window_summary`` at a 5 s pane, the cut and the limit
+   (with its range too), K8c ``taggregate_group_extents`` at the window,
+   the cut and the limit, and K8d ``taggregate_heatmap`` (every
+   aggregate, ``torch.Tensor.scatter_reduce_`` beside SUM, MIN and MAX) at
+   the window and a cut, each against its plain version bit for bit with
+   its CUDA-event time, launch-to-completion time, bound and the kernels
+   torch.profiler counts in one call (``launches``; K8a's, K8b's and K8c's
+   must be what their key layout says: one at a cut, six at the window or
+   the pane; K8d's one). Then
    options 201-212, 2030, 2090, 2011, 208 with SUM and ALL, 206 and 208
    (SUM) with panes, 211/212 under multiQuery (16 points) and 99 through
    ``run_option`` (windowed over the whole stream, realtime over its
@@ -3293,12 +3294,12 @@ def traj_kernel_phase(torch, timer: Timer, cols):
     """K8a-K8d against their plain versions bit for bit at the window shape
     (the 10 s window [T0, T0 + 10 s) of the stream: 258,925 points of
     10,357 taxis; K8b at its 5 s pane), at a 512-point realtime cut (K8a
-    with the state its 64 earlier cuts carried) and, for K8a and K8c, at
-    the one-block limit (``ops.trajectory.ONE_BLOCK_MAX`` points from the
-    cut on), with CUDA-event time, launch-to-completion time, bound and
-    the kernels torch.profiler counts in one call (K8a and K8c: as many
-    as their key layout says, one at a cut); K8a takes the batch's ts
-    range as the operators pass it; K8d in every aggregate, with
+    with the state its 64 earlier cuts carried) and, for K8a-K8c, at the
+    one-block limit (``ops.trajectory.ONE_BLOCK_MAX`` points from the cut
+    on), with CUDA-event time, launch-to-completion time, bound and the
+    kernels torch.profiler counts in one call (K8a-K8c: as many as their
+    key layout says, one at a cut; K8d: one); K8a and K8b take the
+    batch's ts range as the operators pass it; K8d in every aggregate, with
     torch.Tensor.scatter_reduce_ (SUM, MIN, MAX) beside it. Returns
     {kernel: [cases]}."""
     from spatialflink_tpu_torch.models import PointBatch
@@ -3320,7 +3321,8 @@ def traj_kernel_phase(torch, timer: Timer, cols):
     cut_base = int(ts[cut[0]])
     shapes = {"window": (batch(window, T0), len(window),
                          PointBatch.ts_range(ts[window], T0)),
-              "pane": (batch(pane, T0), len(pane), None),
+              "pane": (batch(pane, T0), len(pane),
+                       PointBatch.ts_range(ts[pane], T0)),
               "cut": (batch(cut, cut_base), N_MICRO,
                       PointBatch.ts_range(ts[cut], cut_base)),
               "one-block-limit": (batch(limit, cut_base), len(limit),
@@ -3335,7 +3337,8 @@ def traj_kernel_phase(torch, timer: Timer, cols):
     def state_of(src):
         return T.TrajStatsState(*(t.clone() for t in src))
 
-    def case(name, shape, kern, plain, nbytes, ops, layout=None, **extra):
+    def case(name, shape, kern, plain, nbytes, ops, layout=None, kernels=1,
+             **extra):
         got, want = kern(), plain()
         torch.cuda.synchronize()
         err = compare(torch, got, want, f"{name} {shape}")
@@ -3347,10 +3350,10 @@ def traj_kernel_phase(torch, timer: Timer, cols):
                "bound_ms": b_ms, "bound_by": b_by}
         if layout is not None:
             row.update(key_bits=layout.bits, passes=layout.passes)
-            if row["launches"] not in (None, layout.launches):
-                raise AssertionError(f"{name} {shape}: {row['launches']} "
-                                     f"kernels, its layout says "
-                                     f"{layout.launches}")
+            kernels = layout.launches
+        if row["launches"] not in (None, kernels):
+            raise AssertionError(f"{name} {shape}: {row['launches']} "
+                                 f"kernels, its layout says {kernels}")
         log("kernels-traj", name, json.dumps(row))
         cases[name].append(row)
         return got
@@ -3390,12 +3393,15 @@ def traj_kernel_phase(torch, timer: Timer, cols):
                                  f"kernels, its layout says {lay.launches}")
         log("kernels-traj", "tstats_update", json.dumps(row))
         cases["tstats_update"].append(row)
-    for shape in ("pane", "cut"):
-        b, n, _ = shapes[shape]
+    for shape in ("pane", "cut", "one-block-limit"):
+        b, n, rng_ts = shapes[shape]
         case("tstats_window_summary", shape,
-             lambda: T.tstats_window_summary(b, m=TRAJ_STATE),
+             lambda: T.tstats_window_summary(b, m=TRAJ_STATE,
+                                             ts_range=rng_ts),
              lambda: T.tstats_window_summary_plain(b, m=TRAJ_STATE),
-             17.0 * n + 32.0 * TRAJ_STATE, 20.0 * n, points=n)
+             17.0 * n + 32.0 * TRAJ_STATE, 20.0 * n,
+             layout=T.summary_layout(b.x.shape[0], TRAJ_STATE, *rng_ts)[1],
+             points=n, ts_range=list(rng_ts))
     for shape in ("window", "cut", "one-block-limit"):
         b, n, _ = shapes[shape]
         ext = case("taggregate_group_extents", shape,

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Times the port's K1, K2, K3, K4, K5, K6, K7, K8a and K8c kernels against
-an earlier revision's, on one card, in turns (old, new, new, old), at the
-main path's shapes.
+"""Times the port's K1-K7 and K8a-K8d kernels against an earlier
+revision's, on one card, in turns (old, new, new, old), at the main path's
+shapes.
 
 Run from the root of a checkout on a machine with one NVIDIA card, with
 the earlier revision's ``csrc/`` unpacked into a directory that
@@ -9,7 +9,8 @@ the earlier revision's ``csrc/`` unpacked into a directory that
 
     git archive <commit> spatialflink_tpu_torch/csrc | tar -x -C _scratch/old
     python3 kernel_ab.py --old _scratch/old/spatialflink_tpu_torch/csrc \
-        [--kernels k1,k2,k3,k4,k5,k6,k7,k8]
+        [--kernels k1,k2,k3,k4,k5,k6,k7,k8] \
+        [--old-k8bd _scratch/k8bd/spatialflink_tpu_torch/csrc]
     python3 kernel_ab.py --kernels k3wide
 
 The old ``range_mask.cu``, ``pip_dist.cu`` (with its ``pip_edges.cuh``)
@@ -100,7 +101,25 @@ skewed so that one object holds 3/4 of its points. Each case adds
 layout, int64) as a yardstick of the sort stage alone, and both
 wrappers' host microseconds per call. Then the new kernels' two paths
 against each other (``ONE_BLOCK_MAX`` forced to 0 for the tiled one) at
-512-4,096 consecutive points, the one-block path's range.
+512-4,096 consecutive points, the one-block path's range. With
+``--old-k8bd`` (the ``traj.cu`` of commit 044b85d, whose K8b and K8d are
+the first design: a 64-bit key through three launches per pass and a
+thread per run, and a zeroing launch before a thread per cell), ``k8``
+also times K8b (``tstats_window_summary``) at the 5 s pane, a 512-point
+cut and the pane skewed so that one object holds 3/4 of it, and K8d
+(``taggregate_heatmap``) over the 10 s window's groups and a cut's, every
+aggregate, and over a window in which 3/4 of the points lie in one cell,
+called through that commit's ``tstats_summary_launch(x, y, oid, ts,
+valid, n, m, spatial, count, min_ts, max_ts, first_x, first_y, last_x,
+last_y, scratch, stream)`` and ``taggregate_heatmap_launch(cell, length,
+first, n, num_cells, agg, out, stream)`` by a copy of its wrappers
+(``old_window_summary``, ``old_heatmap``: eight output allocations and a
+scratch sized by ``traj_scratch_bytes`` per K8b call); each with both
+sides' launch-to-completion and host times. Then K8b's one-block launch,
+whose extra blocks write the absent objects' rows, against two variants
+of the checkout's source (``K8B_VARIANTS``): the first block writing every
+row itself before it sorts ("one SM"), and a second, grid-wide launch
+writing them first ("two launches"), at a cut and at the one-block limit.
 """
 
 from __future__ import annotations
@@ -127,8 +146,9 @@ K2_OLD_ARGTYPES = (_I, _I, _I, _I, _I, _C, _C, _C, _C, _C, _C, _C, _C, _I,
                    _I, _C, _C, _I, _C, _C, _C, _C, _C, _C, _C, _C, _C)
 
 
-def build_old(old_csrc: str, names) -> dict:
-    """Compile the old sources (one nvcc each, in parallel) and load them."""
+def build_old(old_csrc: str, names, tag: str = "old") -> dict:
+    """Compile the old sources (one nvcc each, in parallel) and load them
+    (as ``lib<tag>_<name>.so``)."""
     from spatialflink_tpu_torch.ops import geom as G
     from spatialflink_tpu_torch.ops import knn as K
     from spatialflink_tpu_torch.ops import native
@@ -136,7 +156,7 @@ def build_old(old_csrc: str, names) -> dict:
     os.makedirs(BUILD, exist_ok=True)
     procs = {}
     for name in names:
-        out = os.path.join(BUILD, f"libold_{name}.so")
+        out = os.path.join(BUILD, f"lib{tag}_{name}.so")
         cmd = [native.nvcc_path(), *native.NVCC_FLAGS, "-o", out,
                os.path.join(old_csrc, f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -177,6 +197,8 @@ def build_old(old_csrc: str, names) -> dict:
         lib.taggregate_extents_launch.argtypes = [C] * 4 + [I, I, I] + [C] * 7
         lib.traj_scratch_bytes.argtypes = [I]
         lib.traj_scratch_bytes.restype = ctypes.c_longlong
+        lib.tstats_summary_launch.argtypes = [C] * 5 + [I, I] + [C] * 10
+        lib.taggregate_heatmap_launch.argtypes = [C, C, C, I, I, I, C, C]
     if "join_lattice" in libs:
         for fn in (libs["join_lattice"].join_lattice_count,
                    libs["join_lattice"].join_lattice_write):
@@ -1032,16 +1054,230 @@ def k8_cases(torch, timer, card, lib, seed) -> list:
     return rows
 
 
+def old_window_summary(torch, lib, batch, m):
+    """Commit 044b85d's ``tstats_window_summary`` wrapper over its
+    ``traj.cu``: the same checks, eight output allocations, the scratch
+    sized by ``traj_scratch_bytes`` and allocated on every call."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    dev = T._check_batch("tstats_window_summary", batch)
+    n = batch.x.shape[0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    out = T.TStatsWindowSummary(
+        spatial=torch.empty(m, **f32), count=torch.empty(m, **i32),
+        min_ts=torch.empty(m, **i32), max_ts=torch.empty(m, **i32),
+        first_x=torch.empty(m, **f32), first_y=torch.empty(m, **f32),
+        last_x=torch.empty(m, **f32), last_y=torch.empty(m, **f32))
+    scratch = torch.empty(int(lib.traj_scratch_bytes(n)), dtype=torch.uint8,
+                          device=dev)
+    with torch.cuda.device(dev):
+        err = lib.tstats_summary_launch(
+            batch.x.data_ptr(), batch.y.data_ptr(), batch.obj_id.data_ptr(),
+            batch.ts.data_ptr(), batch.valid.data_ptr(), n, int(m),
+            *(t.data_ptr() for t in out), scratch.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0, err
+    return out
+
+
+def old_heatmap(torch, lib, groups, num_cells, agg):
+    """Commit 044b85d's ``taggregate_heatmap`` wrapper over its
+    ``traj.cu`` (a zeroing launch, then a thread per position)."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    code = T._agg_code(agg)
+    dev = groups.cell.device
+    n = groups.cell.shape[0]
+    for name, dt in (("cell", torch.int32), ("length", torch.int32),
+                     ("first", torch.bool)):
+        t = getattr(groups, name)
+        if t.device != dev or t.dtype != dt or tuple(t.shape) != (n,) \
+                or not t.is_contiguous():
+            raise ValueError(f"taggregate_heatmap: {name}")
+    out = torch.empty(num_cells, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.taggregate_heatmap_launch(
+            groups.cell.data_ptr(), groups.length.data_ptr(),
+            groups.first.data_ptr(), n, int(num_cells), code, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    assert err == 0, err
+    return (out,)
+
+
+#: K8b's one-block launch, two other ways to write the absent objects'
+#: rows: (name, [(line of traj.cu, replacement)])
+K8B_VARIANTS = (
+    ("one SM", [
+        ("  if (n == 0) return;\n  BlockSmem<K> sm(smem_raw, n);",
+         "  for (int o = threadIdx.x; o < m; o += kThreads) rows.absent(o);\n"
+         "  if (n == 0) return;\n  BlockSmem<K> sm(smem_raw, n);"),
+        ("summary_block_kernel<K><<<1 + init_blocks,",
+         "summary_block_kernel<K><<<1 + 0 * init_blocks,")]),
+    ("two launches", [
+        ("summary_block_kernel<K><<<1 + init_blocks, kThreads, "
+         "block_smem<K>(n),",
+         "summary_block_kernel<K><<<1 + init_blocks, kThreads, "
+         "block_smem<K>(0), s>>>(\n        x, y, oid, ts, valid, 0, m, ts_lo, "
+         "ts_bits, passes, rows);\n    summary_block_kernel<K><<<1, kThreads, "
+         "block_smem<K>(n),")]),
+)
+
+
+def build_k8b_variants() -> dict:
+    """The checkout's traj.cu built once per K8B_VARIANTS entry (one nvcc
+    each, in parallel), with its functions bound as the wrappers bind
+    them."""
+    from spatialflink_tpu_torch.ops import native
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    with open(os.path.join(CS.ROOT, "spatialflink_tpu_torch", "csrc",
+                           "traj.cu")) as f:
+        text = f.read()
+    procs = {}
+    for name, patches in K8B_VARIANTS:
+        src = text
+        for line, repl in patches:
+            if line not in src:
+                raise RuntimeError(f"traj.cu: {line!r} not found")
+            src = src.replace(line, repl)
+        tag = name.replace(" ", "_")
+        out_dir = os.path.join(BUILD, f"k8b_{tag}")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "traj.cu"), "w") as f:
+            f.write(src)
+        so = os.path.join(out_dir, f"libk8b_{tag}.so")
+        procs[name] = (subprocess.Popen(
+            [native.nvcc_path(), *native.NVCC_FLAGS, "-o", so,
+             os.path.join(out_dir, "traj.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), so)
+    fns = {}
+    for name, (proc, so) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the {name} variant:\n{log}")
+        fn = ctypes.CDLL(so).tstats_summary_launch
+        fn.argtypes, fn.restype = list(T._SUMMARY_ARGTYPES), ctypes.c_int
+        fns[name] = fn
+    return fns
+
+
+def k8bd_cases(torch, timer, card, lib, seed) -> list:
+    """K8b and K8d old/new over chip_smoke's trajectory stream, then K8b's
+    one-block launch against its two variants."""
+    from spatialflink_tpu_torch.models import PointBatch
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    dev = torch.device("cuda")
+    grid = CS._grid()
+    _, _, (x, y, ts, traj) = CS.traj_stream(seed)
+    m, ids, cells = CS.TRAJ_STATE, CS.N_TAXIS, grid.num_cells
+    rng = np.random.default_rng(seed)
+
+    def batch(sel, ts_base, skew=None):
+        oid, bx, by = traj[sel].copy(), x[sel].copy(), y[sel].copy()
+        moved = rng.random(oid.shape[0]) < 0.75
+        if skew == "object":
+            oid[moved] = 0
+        if skew == "cell":  # 3/4 of the points at the conf's query point
+            bx[moved], by[moved] = CS.query_points()[0]
+        return (PointBatch.from_arrays(bx, by, device=dev, grid=grid,
+                                       obj_id=oid, ts=ts[sel],
+                                       ts_base=ts_base),
+                PointBatch.ts_range(ts[sel], ts_base))
+
+    window = np.nonzero((ts >= CS.T0) & (ts < CS.T0 + 10_000))[0]
+    pane = np.nonzero((ts >= CS.T0) & (ts < CS.T0 + 5_000))[0]
+    cut = np.arange(64 * CS.N_MICRO, 65 * CS.N_MICRO)
+    cut_base = int(ts[cut[0]])
+    rows = []
+
+    def timings(old, new):
+        return dict(old_launch_to_completion_ms=CS.launch_ms(torch, old),
+                    new_launch_to_completion_ms=CS.launch_ms(torch, new),
+                    old_host_us=host_us(torch, old, 100),
+                    new_host_us=host_us(torch, new, 100))
+
+    for name, sel, base, skew in (("pane", pane, CS.T0, None),
+                                  ("cut", cut, cut_base, None),
+                                  ("skewed pane", pane, CS.T0, "object")):
+        b, rng_ts = batch(sel, base, skew)
+
+        def old(b=b):
+            return old_window_summary(torch, lib, b, m)
+
+        def new(b=b, rng_ts=rng_ts):
+            return T.tstats_window_summary(b, m=m, ts_range=rng_ts)
+
+        _, lay = T.summary_layout(b.x.shape[0], m, *rng_ts)
+        rows.append(ab_case(
+            torch, timer, card, f"K8b {name}", old, new, split_old=True,
+            points=int(b.valid.sum()), slots=b.x.shape[0], state_slots=m,
+            key_bits=lay.bits, passes=lay.passes, launches=lay.launches,
+            **timings(old, new)))
+
+    for name, sel, base, skew in (("window", window, CS.T0, None),
+                                  ("cut", cut, cut_base, None),
+                                  ("skewed window", window, CS.T0, "cell")):
+        b, _ = batch(sel, base, skew)
+        groups = T.taggregate_groups(b, num_cells=cells, num_ids=ids)
+        first = groups.first.long()
+        per_cell = torch.zeros(cells + 1, dtype=torch.long, device=dev)
+        per_cell.index_add_(0, groups.cell.long(), first)
+        for agg in ("SUM", "AVG", "MIN", "MAX", "COUNT"):
+            def old(g=groups, agg=agg):
+                return old_heatmap(torch, lib, g, cells, agg)
+
+            def new(g=groups, agg=agg):
+                return (T.taggregate_heatmap(g, num_cells=cells, agg=agg),)
+
+            rows.append(ab_case(
+                torch, timer, card, f"K8d {name} {agg}", old, new,
+                split_old=True, positions=groups.cell.shape[0],
+                groups=int(first.sum()), cells=cells,
+                most_groups_in_a_cell=int(per_cell[:cells].max()),
+                **timings(old, new)))
+
+    # K8b's one-block launch against its variants (the "old" side)
+    variants = build_k8b_variants()
+    for n in (CS.N_MICRO, T.ONE_BLOCK_MAX):
+        sel = np.arange(64 * CS.N_MICRO, 64 * CS.N_MICRO + n)
+        b, rng_ts = batch(sel, cut_base)
+
+        def port(b=b, rng_ts=rng_ts):
+            return T.tstats_window_summary(b, m=m, ts_range=rng_ts)
+
+        for vname, fn in variants.items():
+            def variant(b=b, rng_ts=rng_ts, fn=fn):
+                saved = T._fn
+                T._fn = lambda symbol, argtypes, restype=ctypes.c_int: fn
+                try:
+                    return T.tstats_window_summary(b, m=m, ts_range=rng_ts)
+                finally:
+                    T._fn = saved
+
+            rows.append(ab_case(
+                torch, timer, card, f"K8b one block n={n} vs {vname}",
+                variant, port, split_old=True, old_is=vname,
+                new_is="extra blocks", points=n, state_slots=m,
+                old_launch_to_completion_ms=CS.launch_ms(torch, variant),
+                new_launch_to_completion_ms=CS.launch_ms(torch, port)))
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", default=None,
                     help="the earlier revision's csrc directory")
+    ap.add_argument("--old-k8bd", default=None,
+                    help="with --kernels k8: the csrc directory of commit "
+                    "044b85d, against which K8b and K8d are timed")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels", default="k1,k4,k5",
                     help="comma-separated kernels to compare: k1, k2, k3, "
                     "k3wide (K3's two wide-row paths, both of the checkout; "
                     "needs no --old), k4 (with the table sweep), k5, k6, k7, "
-                    "k8 (K8a and K8c)")
+                    "k8 (K8a and K8c; K8b and K8d with --old-k8bd)")
     args = ap.parse_args(argv)
     which = set(args.kernels.split(","))
     known = {"k1", "k2", "k3", "k3wide", "k4", "k5", "k6", "k7", "k8"}
@@ -1075,6 +1311,9 @@ def main(argv=None) -> int:
     rows = []
     if "k8" in which:
         rows += k8_cases(torch, timer, card, libs["traj"], args.seed)
+        if args.old_k8bd is not None:
+            lib = build_old(args.old_k8bd, ["traj"], tag="k8bd")["traj"]
+            rows += k8bd_cases(torch, timer, card, lib, args.seed)
     if "k3" in which:
         rows += k3_cases(torch, timer, card, libs["knn_merge"], args.seed)
     if "k3wide" in which:

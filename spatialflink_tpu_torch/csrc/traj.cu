@@ -14,24 +14,14 @@
 // tstats_window_summary_plain, taggregate_group_extents_plain and
 // taggregate_heatmap_plain.
 //
-// The sort. The JAX package sorts the batch with jax.lax.sort, stable,
-// by (object, ts) or by (cell, object). Here each point's sort fields are
-// packed into one unsigned key, and a stable LSD radix sort of 8-bit
-// digits orders (key, payload).
-//
-// K8b (the first design, csrc/cell_order.cu's passes generalised): a key
-// kernel packs a 64-bit key (the object id, or m for a padded slot, above
-// ts with its sign bit flipped), then every pass is three launches, a
-// per-tile digit histogram, an exclusive scan of each digit's row over the
-// tiles, and a stable scatter in which each warp ranks its own part of the
-// tile in order (one ballot per digit bit) and the tile is laid out in
-// digit order in shared memory before its runs are written (sort_keys).
-//
-// K8a and K8c (redesigned for this card): the key is as wide as the
-// batch's own fields. K8a: the object (m for a padded slot) in
+// The sort (K8a, K8b, K8c). The JAX package sorts the batch with
+// jax.lax.sort, stable, by (object, ts) or by (cell, object). Here each
+// point's sort fields are packed into one unsigned key as wide as the
+// batch's own fields, and a stable LSD radix sort of 8-bit digits orders
+// (key, payload). K8a and K8b: the object (m for a padded slot) in
 // bit_length(m) bits above ts - ts_lo in bit_length(ts_hi - ts_lo) bits,
 // where [ts_lo, ts_hi] holds the ts of every slot, padded ones too (the
-// walk adds ts_lo back); K8c: the cell (num_cells for a padded or
+// walks add ts_lo back); K8c: the cell (num_cells for a padded or
 // out-of-grid slot) above the object id (0 there) in oid_bits bits, with
 // ts as the payload instead of the index (K8c's outputs do not depend on
 // the order inside a (cell, object) group). A key of at most 32 bits is a
@@ -39,56 +29,67 @@
 // in a 16,384-slot state, 28 for K8c over 10,000 cells), else 64 bits.
 // Then one of two paths, which the wrapper picks from n:
 //  - one block (n <= kOneBlockMax, every realtime cut): ONE launch forms
-//    the keys, runs every pass in shared memory (the same per-warp ranking,
-//    passes parted by __syncthreads) and walks the runs from there;
+//    the keys, runs every pass in shared memory (each warp ranks its own
+//    part in order, one ballot per digit bit) and walks the runs there;
 //  - tiled: one launch forms the keys and counts every pass's digits per
 //    tile of kTileItems in one read of the inputs, and clears the
 //    look-back state; then one launch per pass, in which each tile
 //    publishes its count of each digit and takes the digit's count over
 //    the earlier tiles by look-back, reading all their published counts
-//    at once rather than a chain of prefixes, and scatters as above; then
-//    the walk. The first pass, its tiles still in input order, reads its
-//    offsets from the key launch's counts instead, and sums every later
-//    pass's digit totals from them (a total over the batch does not
-//    depend on the order). Tiles of the later passes take their numbers
-//    from an atomic counter, so every tile a block waits on was numbered
-//    by a block that started before it and publishes without waiting.
-//    K8a at a 10 s window: 1 + 4 + 1 = 6 launches.
+//    at once rather than a chain of prefixes, ranks its items as above
+//    and writes each digit's run at neighbouring addresses through shared
+//    memory; then the walk. The first pass, its tiles still in input
+//    order, reads its offsets from the key launch's counts instead, and
+//    sums every later pass's digit totals from them (a total over the
+//    batch does not depend on the order). Tiles of the later passes take
+//    their numbers from an atomic counter, so every tile a block waits on
+//    was numbered by a block that started before it and publishes without
+//    waiting. K8a at a 10 s window, K8b at a 5 s pane: 1 + 4 + 1 = 6.
 // Either way the result is stable and deterministic.
 
-// The runs (K8a, K8b). One thread per sorted position; the thread at the
-// first position of an object's run walks the run in (ts) order and
-// applies the JAX package's rules as it goes: a point is accepted when it
-// is the first of its exact (object, ts) group and newer than the carried
-// last_ts; an accepted point links to the previous accepted point of the
-// run, or to the carried state for the run's first one (emitted only when
-// that state was initialised); the running spatial and temporal lengths
-// are sums over the run's contributions taken one by one in sorted order,
-// added to the carried totals. The JAX package takes them as differences
-// of one f32 cumsum over the whole batch, which loses up to tens of ms on
-// a window's temporal lengths (PERF.md); a run's own sum is the function
-// that cumsum approximates. The carried state of each object is read at
-// its run's first point and written once, after its last: the update is
-// in place. A padded slot's position gets (2^31 - 1, 0, 0, 0, false).
-// K8a's tiled walk packs the runs that start in a block onto its first
-// threads, so that the walks share warps, and stages the block's points
-// and outputs in shared memory.
+// The runs (K8a, K8b). The thread at the first position of an object's
+// run walks the run in (ts) order and applies the JAX package's rules as
+// it goes. K8a: a point is accepted when it is the first of its exact
+// (object, ts) group and newer than the carried last_ts; an accepted point
+// links to the previous accepted point of the run, or to the carried state
+// for the run's first one (emitted only when that state was initialised);
+// the running spatial and temporal lengths are sums over the run's
+// contributions taken one by one in sorted order, added to the carried
+// totals. The JAX package takes them as differences of one f32 cumsum over
+// the whole batch, which loses up to tens of ms on a window's temporal
+// lengths (PERF.md); a run's own sum is the function that cumsum
+// approximates. The carried state of each object is read at its run's
+// first point and written once, after its last: the update is in place. A
+// padded slot's position gets (2^31 - 1, 0, 0, 0, false). K8b: the same
+// walk on fresh state, reduced to the object's row (pair sum, count, ts
+// extent, first and last point). The rows of the objects the batch lacks
+// are written by the tiled path's key launch (a grid-stride loop over m,
+// before the walk in stream order), and in the one-block launch by the
+// grid's other blocks, kInitRows rows each, skipping the objects the batch
+// holds (a bit each in shared memory), while the first block sorts and
+// walks. The tiled walks pack the runs that start in a block onto its
+// first threads, so that the walks share warps, and stage the block's
+// points (and K8a's outputs) in shared memory.
 //
 // The groups (K8c). Each position writes its cell, object and first flag;
 // the thread at the first position of each (cell, object) run walks it
 // for the run's min and max ts and writes them over the run; the
-// positions of padded and out-of-grid slots (the sentinel
-// cell num_cells) take the min and max over all such slots, as the JAX
-// package's segment_min / segment_max over its shared segment n - 1 do:
-// reduced in shared memory in the one-block path, per tile by the key
-// launch and over the tiles by the walk in the tiled one (integers: exact
-// in any order).
+// positions of padded and out-of-grid slots (the sentinel cell num_cells)
+// take the min and max over all such slots, as the JAX package's
+// segment_min / segment_max over its shared segment n - 1 do: reduced in
+// shared memory in the one-block path, per tile by the key launch and over
+// the tiles by the walk in the tiled one (integers: exact in any order).
 
-// The heatmap (K8d). The groups arrive in (cell, object) order, K8c's
-// output order, so each cell's groups are contiguous: the thread at a
-// cell's first group walks them and writes the cell's value. Lengths are
-// integer-valued f32, summed one by one in group order (exact below 2^24
-// ms per cell, whatever the order).
+// The heatmap (K8d). One launch, one warp per cell. The groups arrive in
+// K8c's order, cell ascending, so the warp finds its cell's first position
+// by a 32-way search (one load per lane and a ballot per level), then reads
+// the cell's positions 32 at a time, coalesced, until the cell ends: every
+// cell written once, 0 without a group, so nothing else zeroes the output.
+// SUM and AVG add the lengths (integer-valued f32) one by one in group
+// order, so they equal the plain version's sequential f32 sums even above
+// 2^24 ms per cell; COUNT is the group count as that sequential f32 count
+// rounds it (it stops at 2^24); MIN and MAX reduce the integer lengths in
+// any order (the conversion to f32 is monotone).
 //
 // Every float sum has one fixed order (no float atomics), so the kernels
 // and their plain versions agree bit for bit; built with --fmad=false,
@@ -96,10 +97,10 @@
 // do.
 //
 // What bounds them on an H100: at a window's size (262,144 points), the
-// sort's passes (K8a and K8c: each reads and writes 8 bytes per point,
-// which fit in the 50 MB L2) and the launches; at a realtime cut (512
-// points), the one launch and its latency; the walks are a few dependent
-// loads per point (PERF.md has the times beside the bounds).
+// sort's passes (each reads and writes 8 bytes per point, which fit in
+// the 50 MB L2) and the launches; at a realtime cut (512 points), the one
+// launch and its latency; the walks are a few dependent loads per point,
+// K8d a few per cell (PERF.md has the times beside the bounds).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -116,21 +117,11 @@ constexpr int kSegment = kTileItems / kWarps;  // per warp: 256
 constexpr int kRounds = kSegment / 32;         // per warp: 8 of 32 items
 constexpr int kDigitBits = 8;
 constexpr int kDigits = 1 << kDigitBits;
-constexpr int kScanThreads = 256;
 constexpr int kWalkThreads = 256;
 constexpr int kNoDigit = -1;
 constexpr int32_t kIntMax = 2147483647;
 constexpr int32_t kIntMin = -2147483647 - 1;
 constexpr unsigned kAll = 0xffffffffu;
-// the scatter's dynamic shared memory: per-warp digit counters, the tile's
-// digit starts, and the tile's (key, index) in digit order
-constexpr size_t kScatterSmem =
-    sizeof(int) * (kWarps * kDigits + kDigits) +
-    static_cast<size_t>(kTileItems) * (sizeof(u64) + sizeof(int));
-
-__device__ __forceinline__ int digit_of(u64 key, int shift) {
-  return static_cast<int>((key >> shift) & static_cast<u64>(kDigits - 1));
-}
 
 // Inclusive sum over the block of one int per thread; `warp_sums` is
 // shared, 32 entries (cell_order.cu's).
@@ -172,250 +163,17 @@ __device__ __forceinline__ unsigned digit_peers(int d) {
   return peers;
 }
 
-// counts[d * tiles + tile] = items of `tile` whose digit is d.
-__global__ void __launch_bounds__(kThreads)
-sort_hist_kernel(const u64* __restrict__ keys, int n, int shift,
-                 int32_t* __restrict__ counts) {
-  __shared__ int hist[kDigits];
-  for (int d = threadIdx.x; d < kDigits; d += kThreads) hist[d] = 0;
-  __syncthreads();
-  const int base = blockIdx.x * kTileItems + threadIdx.x;
-  int dig[kItems];
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const int i = base + r * kThreads;
-    dig[r] = i < n ? digit_of(keys[i], shift) : kNoDigit;
-  }
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    if (dig[r] != kNoDigit) atomicAdd(&hist[dig[r]], 1);
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < kDigits; d += kThreads) {
-    counts[static_cast<size_t>(d) * gridDim.x + blockIdx.x] = hist[d];
-  }
-}
-
-// Row d of counts (one entry per tile) to its exclusive prefix over the
-// tiles, in place, and its total to totals[d]: one block per digit.
-__global__ void __launch_bounds__(kScanThreads)
-sort_scan_kernel(int32_t* __restrict__ counts, int tiles,
-                 int32_t* __restrict__ totals) {
-  __shared__ int warp_sums[32];
-  int32_t* row = counts + static_cast<size_t>(blockIdx.x) * tiles;
-  const int per = (tiles + kScanThreads - 1) / kScanThreads;
-  const int lo = min(tiles, static_cast<int>(threadIdx.x) * per);
-  const int hi = min(tiles, lo + per);
-  int sum = 0;
-  for (int i = lo; i < hi; ++i) sum += row[i];
-  const int incl = block_inclusive_sum(sum, warp_sums);
-  int run = incl - sum;
-  for (int i = lo; i < hi; ++i) {
-    const int v = row[i];
-    row[i] = run;
-    run += v;
-  }
-  if (threadIdx.x == kScanThreads - 1) totals[blockIdx.x] = incl;
-}
-
-// Stable scatter of one pass over one tile of (key, index): each warp
-// ranks its own kSegment consecutive items in order (equal digits inside
-// the warp with digit_peers, across warps through per-warp counters),
-// places them in digit order in shared memory, and the block writes the
-// tile's runs of each digit at neighbouring addresses. idx_in nullptr: the
-// first pass, whose index is the position itself.
-__global__ void __launch_bounds__(kThreads, 2)
-sort_scatter_kernel(const u64* __restrict__ key_in,
-                    const int32_t* __restrict__ idx_in, int n, int shift,
-                    const int32_t* __restrict__ offsets,
-                    const int32_t* __restrict__ totals,
-                    u64* __restrict__ key_out, int32_t* __restrict__ idx_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  int* wcount = reinterpret_cast<int*>(smem_raw);  // [kWarps][kDigits]
-  int* start = wcount + kWarps * kDigits;          // [kDigits]
-  u64* s_key = reinterpret_cast<u64*>(start + kDigits);
-  int* s_idx = reinterpret_cast<int*>(s_key + kTileItems);
-  __shared__ int base[kDigits];  // the digit's first output position
-  __shared__ int warp_sums[32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned lt = (1u << lane) - 1u;
-  for (int j = threadIdx.x; j < kWarps * kDigits; j += kThreads) {
-    wcount[j] = 0;
-  }
-  const int tile0 = blockIdx.x * kTileItems;
-  const int seg = tile0 + warp * kSegment + lane;
-  u64 key[kRounds];
-  int d[kRounds], idx[kRounds];
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    const int i = seg + r * 32;
-    key[r] = 0ull;
-    d[r] = kNoDigit;
-    idx[r] = i;
-    if (i < n) {
-      key[r] = key_in[i];
-      d[r] = digit_of(key[r], shift);
-      if (idx_in != nullptr) idx[r] = idx_in[i];
-    }
-  }
-  __syncthreads();
-  // 1. this warp's digit counts
-  unsigned peers[kRounds];
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    peers[r] = digit_peers(d[r]);
-    if (d[r] != kNoDigit && (peers[r] & lt) == 0) {
-      wcount[warp * kDigits + d[r]] += __popc(peers[r]);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-  // 2. each digit's first output position, the tile's start of each digit,
-  // then each warp's start in it
-  const int t = threadIdx.x < kDigits ? totals[threadIdx.x] : 0;
-  const int below = block_inclusive_sum(t, warp_sums) - t;
-  if (threadIdx.x < kDigits) {
-    base[threadIdx.x] =
-        below + offsets[static_cast<size_t>(threadIdx.x) * gridDim.x +
-                        blockIdx.x];
-  }
-  int total = 0;
-  if (threadIdx.x < kDigits) {
-    for (int w = 0; w < kWarps; ++w) total += wcount[w * kDigits + threadIdx.x];
-  }
-  const int first = block_inclusive_sum(total, warp_sums) - total;
-  if (threadIdx.x < kDigits) {
-    start[threadIdx.x] = first;
-    int run = first;
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = wcount[w * kDigits + threadIdx.x];
-      wcount[w * kDigits + threadIdx.x] = run;
-      run += c;
-    }
-  }
-  __syncthreads();
-  // 3. the tile in digit order, stable, in shared memory
-#pragma unroll
-  for (int r = 0; r < kRounds; ++r) {
-    if (d[r] != kNoDigit) {
-      const int at = wcount[warp * kDigits + d[r]] + __popc(peers[r] & lt);
-      s_key[at] = key[r];
-      s_idx[at] = idx[r];
-    }
-    __syncwarp();
-    if (d[r] != kNoDigit && (peers[r] & lt) == 0) {
-      wcount[warp * kDigits + d[r]] += __popc(peers[r]);
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-  // 4. each digit's run to its place in the output, neighbours together
-  const int items = min(kTileItems, n - tile0);
-  for (int j = threadIdx.x; j < items; j += kThreads) {
-    const u64 k = s_key[j];
-    const int dj = digit_of(k, shift);
-    const int pos = base[dj] + (j - start[dj]);
-    key_out[pos] = k;
-    idx_out[pos] = s_idx[j];
-  }
-}
-
 int bit_length(long long v) {
   int b = 0;
   while (b < 63 && (v >> b) != 0) ++b;
   return b;
 }
 
-// K8b's scratch for one sort of n keys, carved from one byte buffer: the
-// keys as formed, the sorted keys and their ping-pong copy, the index's
-// ping-pong copy and the sorted order, and the per-tile digit counts with
-// the digit totals.
-struct Scratch {
-  u64* key_in;
-  u64* key_out;
-  u64* key_tmp;
-  int32_t* idx_tmp;
-  int32_t* perm;
-  int32_t* counts;
-};
-
 size_t tiles_of(int n) {
   return static_cast<size_t>((n + kTileItems - 1) / kTileItems);
 }
 
-size_t scratch_bytes(int n) {
-  const size_t nn = static_cast<size_t>(n > 0 ? n : 1);
-  return 3 * nn * sizeof(u64) + 2 * nn * sizeof(int32_t) +
-         (tiles_of(n > 0 ? n : 1) + 1) * kDigits * sizeof(int32_t);
-}
-
-Scratch carve(void* base, int n) {
-  const size_t nn = static_cast<size_t>(n > 0 ? n : 1);
-  Scratch s;
-  s.key_in = static_cast<u64*>(base);
-  s.key_out = s.key_in + nn;
-  s.key_tmp = s.key_out + nn;
-  s.idx_tmp = reinterpret_cast<int32_t*>(s.key_tmp + nn);
-  s.perm = s.idx_tmp + nn;
-  s.counts = s.perm + nn;
-  return s;
-}
-
-// Stable LSD sort of sc.key_in[0..n) on its low `bits` bits: the sorted
-// keys to sc.key_out, the original index of each sorted position to perm.
-cudaError_t sort_keys(const Scratch& sc, int n, int bits, int32_t* perm,
-                      cudaStream_t s) {
-  if (n == 0) return cudaSuccess;
-  static bool smem_set = false;
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sort_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kScatterSmem));
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
-  const int passes = bits < 1 ? 1 : (bits + kDigitBits - 1) / kDigitBits;
-  const int tiles = static_cast<int>(tiles_of(n));
-  int32_t* totals = sc.counts + static_cast<size_t>(tiles) * kDigits;
-  const u64* kin = sc.key_in;
-  const int32_t* iin = nullptr;
-  for (int p = 0; p < passes; ++p) {
-    const int shift = p * kDigitBits;
-    // the final pass writes key_out and perm, so the pass before it writes
-    // the scratch copies
-    const bool to_tmp = ((passes - 1 - p) & 1) != 0;
-    u64* kout = to_tmp ? sc.key_tmp : sc.key_out;
-    int32_t* iout = to_tmp ? sc.idx_tmp : perm;
-    sort_hist_kernel<<<tiles, kThreads, 0, s>>>(kin, n, shift, sc.counts);
-    sort_scan_kernel<<<kDigits, kScanThreads, 0, s>>>(sc.counts, tiles,
-                                                       totals);
-    sort_scatter_kernel<<<tiles, kThreads, kScatterSmem, s>>>(
-        kin, iin, n, shift, sc.counts, totals, kout, iout);
-    kin = kout;
-    iin = iout;
-  }
-  return cudaGetLastError();
-}
-
 int blocks_of(int n, int threads) { return (n + threads - 1) / threads; }
-
-// K8b's key: (object, or m for a padded slot) above ts with its sign bit
-// flipped.
-__global__ void tstats_key_kernel(const int32_t* __restrict__ oid,
-                                  const int32_t* __restrict__ ts,
-                                  const uint8_t* __restrict__ valid, int n,
-                                  int m, u64* __restrict__ keys) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint32_t hi = valid[i] != 0 ? static_cast<uint32_t>(oid[i])
-                                    : static_cast<uint32_t>(m);
-  const uint32_t lo = static_cast<uint32_t>(ts[i]) ^ 0x80000000u;
-  keys[i] = (static_cast<u64>(hi) << 32) | lo;
-}
-
-__device__ __forceinline__ int key_ts(u64 key) {
-  return static_cast<int>(static_cast<uint32_t>(key) ^ 0x80000000u);
-}
 
 __device__ __forceinline__ float pp_dist(float x1, float y1, float x2,
                                          float y2) {
@@ -424,136 +182,151 @@ __device__ __forceinline__ float pp_dist(float x1, float y1, float x2,
   return sqrtf(dx * dx + dy * dy);
 }
 
-// K8b: the summary rows of the objects absent from the batch.
-__global__ void summary_init_kernel(int m, float* __restrict__ spatial,
-                                    int32_t* __restrict__ count,
-                                    int32_t* __restrict__ min_ts,
-                                    int32_t* __restrict__ max_ts,
-                                    float* __restrict__ fx,
-                                    float* __restrict__ fy,
-                                    float* __restrict__ lx,
-                                    float* __restrict__ ly) {
-  const int o = blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= m) return;
-  spatial[o] = 0.0f;
-  count[o] = 0;
-  min_ts[o] = kIntMax;
-  max_ts[o] = kIntMin;
-  fx[o] = 0.0f;
-  fy[o] = 0.0f;
-  lx[o] = 0.0f;
-  ly[o] = 0.0f;
-}
+// K8b's (m,) summary rows.
+struct Summary {
+  float* spatial;
+  int32_t* count;
+  int32_t* min_ts;
+  int32_t* max_ts;
+  float* fx;
+  float* fy;
+  float* lx;
+  float* ly;
 
-// K8b: the first position of each object's run walks it on fresh state.
-__global__ void __launch_bounds__(kWalkThreads)
-summary_walk_kernel(const u64* __restrict__ skey,
-                    const int32_t* __restrict__ perm, int n, int m,
-                    const float* __restrict__ x, const float* __restrict__ y,
-                    float* __restrict__ spatial, int32_t* __restrict__ count,
-                    int32_t* __restrict__ min_ts,
-                    int32_t* __restrict__ max_ts, float* __restrict__ fx,
-                    float* __restrict__ fy, float* __restrict__ lx,
-                    float* __restrict__ ly) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const u64 key = skey[i];
-  const uint32_t o = static_cast<uint32_t>(key >> 32);
-  if (o >= static_cast<uint32_t>(m)) return;  // a padded slot
-  if (i > 0 && static_cast<uint32_t>(skey[i - 1] >> 32) == o) return;
-  float sum = 0.0f;
-  int cnt = 0;
-  float ax = 0.0f, ay = 0.0f, bx = 0.0f, by = 0.0f;
-  int first_ts = 0, ats = 0;
-  int prev_ts = 0;
-  for (int j = i; j < n; ++j) {
-    const u64 kj = skey[j];
-    if (static_cast<uint32_t>(kj >> 32) != o) break;
-    const int ts = key_ts(kj);
-    const bool tie = j > i && ts == prev_ts;
-    prev_ts = ts;
-    if (tie) continue;
-    const int p = perm[j];
-    const float px = x[p], py = y[p];
-    const float cd = cnt > 0 ? pp_dist(ax, ay, px, py) : 0.0f;
-    sum = sum + cd;
-    if (cnt == 0) {
-      bx = px;
-      by = py;
-      first_ts = ts;
+  // an object the batch does not hold
+  __device__ __forceinline__ void absent(int o) const {
+    spatial[o] = 0.0f;
+    count[o] = 0;
+    min_ts[o] = kIntMax;
+    max_ts[o] = kIntMin;
+    fx[o] = 0.0f;
+    fy[o] = 0.0f;
+    lx[o] = 0.0f;
+    ly[o] = 0.0f;
+  }
+};
+
+// K8d: one warp per cell. agg: 0 SUM, 1 AVG, 2 MIN, 3 MAX, 4 COUNT.
+constexpr int kHeatWarps = 8;             // cells per block
+constexpr int kHeatAhead = 4;             // chunks of 32 read at once
+constexpr int kCountStop = 1 << 24;       // a sequential f32 count of ones
+constexpr int kSum = 0, kAvg = 1, kMin = 2, kMax = 3;
+
+__global__ void __launch_bounds__(kHeatWarps * 32)
+heatmap_kernel(const int32_t* __restrict__ cell,
+               const int32_t* __restrict__ length,
+               const uint8_t* __restrict__ first, int n, int num_cells,
+               int agg, float* __restrict__ out) {
+  __shared__ float s_len[kHeatWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * kHeatWarps + warp;
+  if (c >= num_cells) return;  // the whole warp
+  const unsigned lt = (1u << lane) - 1u;
+  // the cell's first position: the first whose cell is >= c; the answer
+  // stays in [lo, hi], which each level cuts to one of 32 steps
+  int lo = 0, hi = n;
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) / 32;
+    const long long q = lo + static_cast<long long>(lane + 1) * step - 1;
+    const bool below = q < hi && __ldg(cell + q) < c;
+    const long long k = __popc(__ballot_sync(kAll, below));
+    hi = static_cast<int>(min(static_cast<long long>(hi),
+                              lo + (k + 1) * step));
+    lo += static_cast<int>(k) * step;
+  }
+  lo += __popc(__ballot_sync(
+      kAll, lo + lane < hi && __ldg(cell + lo + lane) < c));
+  // the cell's positions, 32 at a time; returns whether the cell goes on
+  // past this chunk
+  float total = 0.0f;
+  int groups = 0, mn = kIntMax, mx = kIntMin;
+  const bool ordered = agg == kSum || agg == kAvg;
+  auto take = [&](int j, int cj, uint8_t fj, int lj) {
+    const bool in = j < n && cj == c;
+    const bool f = in && fj != 0;
+    const unsigned flags = __ballot_sync(kAll, f);
+    if (f) {
+      mn = min(mn, lj);
+      mx = max(mx, lj);
     }
-    ++cnt;
-    ax = px;
-    ay = py;
-    ats = ts;
+    if (ordered && flags != 0u) {  // in group order, by lane 0
+      if (f) s_len[warp][__popc(flags & lt)] = static_cast<float>(lj);
+      __syncwarp();
+      if (lane == 0) {
+        const int here = __popc(flags);
+        for (int g = 0; g < here; ++g) total = total + s_len[warp][g];
+      }
+      __syncwarp();
+    }
+    groups += __popc(flags);
+    return __all_sync(kAll, in);
+  };
+  int cj = 0, lj = 0;
+  uint8_t fj = 0;
+  int j = lo + lane;
+  if (j < n) {
+    cj = __ldg(cell + j);
+    fj = __ldg(first + j);
+    lj = __ldg(length + j);
   }
-  spatial[o] = sum;
-  count[o] = cnt;
-  min_ts[o] = first_ts;
-  max_ts[o] = ats;
-  fx[o] = bx;
-  fy[o] = by;
-  lx[o] = ax;
-  ly[o] = ay;
-}
-
-__global__ void zero_kernel(int n, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] = 0.0f;
-}
-
-// K8d: the first group of each cell walks the cell's groups.
-// agg: 0 SUM, 1 AVG, 2 MIN, 3 MAX, 4 COUNT.
-__global__ void __launch_bounds__(kWalkThreads)
-heatmap_walk_kernel(const int32_t* __restrict__ cell,
-                    const int32_t* __restrict__ length,
-                    const uint8_t* __restrict__ first, int n, int num_cells,
-                    int agg, float* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || first[i] == 0) return;
-  const int c = cell[i];
-  if (c < 0 || c >= num_cells) return;
-  if (i > 0 && cell[i - 1] == c) return;  // not the cell's first group
-  float total = 0.0f, cnt = 0.0f;
-  float lo = 0.0f, hi = 0.0f;
-  bool any = false;
-  for (int j = i; j < n && cell[j] == c; ++j) {
-    if (first[j] == 0) continue;
-    const float v = static_cast<float>(length[j]);
-    total = total + v;
-    cnt = cnt + 1.0f;
-    lo = (!any || v < lo) ? v : lo;
-    hi = (!any || v > hi) ? v : hi;
-    any = true;
+  // a cell of one chunk (the common case) reads no further; a longer one
+  // reads kHeatAhead chunks at a time
+  if (take(j, cj, fj, lj)) {
+    for (int base = lo + 32;; base += kHeatAhead * 32) {
+      int c4[kHeatAhead], l4[kHeatAhead];
+      uint8_t f4[kHeatAhead];
+#pragma unroll
+      for (int u = 0; u < kHeatAhead; ++u) {
+        const int ju = base + u * 32 + lane;
+        c4[u] = ju < n ? __ldg(cell + ju) : 0;
+        f4[u] = ju < n ? __ldg(first + ju) : 0;
+        l4[u] = ju < n ? __ldg(length + ju) : 0;
+      }
+      bool more = true;
+#pragma unroll
+      for (int u = 0; u < kHeatAhead; ++u) {
+        if (more) more = take(base + u * 32 + lane, c4[u], f4[u], l4[u]);
+      }
+      if (!more) break;
+    }
   }
-  float r;
-  switch (agg) {
-    case 0: r = total; break;
-    case 1: r = total / cnt; break;
-    case 2: r = lo; break;
-    case 3: r = hi; break;
-    default: r = cnt; break;
+  if (agg == kMin || agg == kMax) {
+    mn = __reduce_min_sync(kAll, mn);
+    mx = __reduce_max_sync(kAll, mx);
+  }
+  if (lane != 0) return;
+  float r = 0.0f;
+  if (groups > 0) {
+    const float cnt = static_cast<float>(min(groups, kCountStop));
+    switch (agg) {
+      case kSum: r = total; break;
+      case kAvg: r = total / cnt; break;
+      case kMin: r = static_cast<float>(mn); break;
+      case kMax: r = static_cast<float>(mx); break;
+      default: r = cnt; break;
+    }
   }
   out[c] = r;
 }
 
-
 // ------------------------------------------------------------------------
-// K8a and K8c: keys as wide as the batch's own fields; one launch when the
-// batch fits one block, else a key launch, one launch per pass and a walk.
+// K8a, K8b and K8c: keys as wide as the batch's own fields; one launch when
+// the batch fits one block, else a key launch, one launch per pass and a
+// walk.
 
 constexpr int kOneBlockMax = 4096;  // points of the one-block path
 constexpr int kMaxPasses = 8;       // 8-bit digits of a key of <= 64 bits
 constexpr size_t kRankSmem = sizeof(int) * kWarps * kDigits;  // wcount
+constexpr int kInitRows = 4096;    // K8b: absent rows per extra block
 
 template <typename K>
 __device__ __forceinline__ int digit_at(K key, int shift) {
   return static_cast<int>((key >> shift) & static_cast<K>(kDigits - 1));
 }
 
-// K8a's key: the object (m for a padded slot) above ts - ts_lo in ts_bits
-// bits. The wrapper's range holds every slot's ts; a ts outside it is
-// clamped into the field, so it can never reach the object's bits.
+// K8a's and K8b's key: the object (m for a padded slot) above ts - ts_lo
+// in ts_bits bits. The wrapper's range holds every slot's ts; a ts outside
+// it is clamped into the field, so it can never reach the object's bits.
 template <typename K>
 __device__ __forceinline__ K tstats_key(int32_t oid, int32_t ts,
                                         uint8_t valid, int m, long long ts_lo,
@@ -697,6 +470,84 @@ __device__ __forceinline__ void tstats_run(
   }
 }
 
+// K8b: the run of object o that starts at sorted position i, on fresh
+// state: every first point of an (object, ts) group is accepted and
+// linked to the previous accepted one; the pair distances summed one by
+// one in order (a tie adds 0, as in the plain version's sum, so a step
+// has no branch and the steps' distances overlap); the object's row written
+// once. Positions [i, b1) take their points from bx / by (at j - b0); the
+// rest of the run (a run that crosses its block's end, or one object's
+// long run) is read kGather positions at a time, their keys, batch
+// positions and points loaded together before they are summed (perm is a
+// permutation, so a position past the run is still a valid gather).
+constexpr int kGather = 8;
+
+template <typename K>
+__device__ __forceinline__ void summary_of_run(
+    const K* skey, const int32_t* perm, int i, int n, uint32_t o,
+    int ts_bits, long long ts_lo, const float* __restrict__ x,
+    const float* __restrict__ y, const float* bx, const float* by, int b0,
+    int b1, const Summary& rows) {
+  const K field = (static_cast<K>(1) << ts_bits) - static_cast<K>(1);
+  float sum = 0.0f, ax = 0.0f, ay = 0.0f, fx = 0.0f, fy = 0.0f;
+  int cnt = 0;
+  K prev = 0, first = 0, last = 0;  // keys: within the run, ts alone differs
+  // position j (of the run when `live`) into the row
+  auto step = [&](bool live, int j, K kj, float px, float py) {
+    const bool acc = live && (j == i || kj != prev);
+    prev = kj;
+    const float d = pp_dist(ax, ay, px, py);
+    sum = sum + (acc && cnt > 0 ? d : 0.0f);
+    fx = acc && cnt == 0 ? px : fx;
+    fy = acc && cnt == 0 ? py : fy;
+    first = acc && cnt == 0 ? kj : first;
+    ax = acc ? px : ax;
+    ay = acc ? py : ay;
+    last = acc ? kj : last;
+    cnt += acc ? 1 : 0;
+  };
+  bool more = true;
+  int j = i;
+  for (; j < b1; ++j) {  // staged points
+    const K kj = skey[j];
+    more = j == i || static_cast<uint32_t>(kj >> ts_bits) == o;
+    if (!more) break;
+    step(true, j, kj, bx[j - b0], by[j - b0]);
+  }
+  for (; more && j < n; j += kGather) {
+    K kk[kGather];
+    int pp[kGather];
+    float px[kGather], py[kGather];
+#pragma unroll
+    for (int u = 0; u < kGather; ++u) {
+      const int q = min(j + u, n - 1);
+      kk[u] = skey[q];
+      pp[u] = perm[q];
+    }
+#pragma unroll
+    for (int u = 0; u < kGather; ++u) {
+      px[u] = x[pp[u]];
+      py[u] = y[pp[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < kGather; ++u) {
+      more = more && j + u < n &&
+             static_cast<uint32_t>(kk[u] >> ts_bits) == o;
+      step(more, j + u, kk[u], px[u], py[u]);
+    }
+  }
+  rows.spatial[o] = sum;
+  rows.count[o] = cnt;
+  rows.min_ts[o] = static_cast<int>(static_cast<long long>(first & field) +
+                                    ts_lo);
+  rows.max_ts[o] = static_cast<int>(static_cast<long long>(last & field) +
+                                    ts_lo);
+  rows.fx[o] = fx;
+  rows.fy[o] = fy;
+  rows.lx[o] = ax;
+  rows.ly[o] = ay;
+}
+
 __device__ __forceinline__ void tstats_padded(
     int j, int32_t* __restrict__ out_oid, float* __restrict__ out_sp,
     float* __restrict__ out_tm, float* __restrict__ out_speed,
@@ -770,7 +621,7 @@ __device__ __forceinline__ void block_min_max(int mn, int mx, int* s) {
 
 // One stable pass of the one-block sort over n items in shared memory,
 // (ka, pa) to (kb, pb): each warp ranks its own consecutive segment in
-// rounds of 32 (digit_peers and per-warp counters, as sort_scatter_kernel
+// rounds of 32 (digit_peers and per-warp counters, as sort_pass_kernel
 // does), the block turns the counts into each warp's start in each digit,
 // and each warp places its items in order.
 template <typename K>
@@ -926,6 +777,79 @@ tstats_block_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
+// K8b's one-block launch, blocks after the first: the rows [r0, r0 +
+// kInitRows) of the objects the batch does not hold (a bit per row in
+// `present`, shared) to their absent form.
+__device__ __forceinline__ void absent_rows(const int32_t* __restrict__ oid,
+                                            const uint8_t* __restrict__ valid,
+                                            int n, int m, int r0,
+                                            const Summary& rows,
+                                            uint32_t* present) {
+  for (int w = threadIdx.x; w < kInitRows / 32; w += kThreads) {
+    present[w] = 0u;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const uint32_t r = static_cast<uint32_t>(oid[i]) -
+                       static_cast<uint32_t>(r0);
+    if (valid[i] != 0 && r < static_cast<uint32_t>(kInitRows)) {
+      atomicOr(&present[r >> 5], 1u << (r & 31));
+    }
+  }
+  __syncthreads();
+  const int r1 = min(m, r0 + kInitRows);
+  for (int o = r0 + threadIdx.x; o < r1; o += kThreads) {
+    const int r = o - r0;
+    if (((present[r >> 5] >> (r & 31)) & 1u) == 0u) rows.absent(o);
+  }
+}
+
+// K8b in one launch (n <= kOneBlockMax): the first block forms the keys,
+// runs every pass and walks the runs in shared memory, writing the present
+// objects' rows; the others write the absent objects' rows.
+template <typename K>
+__global__ void __launch_bounds__(kThreads)
+summary_block_kernel(const float* __restrict__ x,
+                     const float* __restrict__ y,
+                     const int32_t* __restrict__ oid,
+                     const int32_t* __restrict__ ts,
+                     const uint8_t* __restrict__ valid, int n, int m,
+                     long long ts_lo, int ts_bits, int passes, Summary rows) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int warp_sums[32];
+  __shared__ uint32_t present[kInitRows / 32];
+  if (blockIdx.x > 0) {
+    absent_rows(oid, valid, n, m, (blockIdx.x - 1) * kInitRows, rows,
+                present);
+    return;
+  }
+  if (n == 0) return;
+  BlockSmem<K> sm(smem_raw, n);
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    sm.ka[i] = tstats_key<K>(oid[i], ts[i], valid[i], m, ts_lo, ts_bits);
+    sm.pa[i] = i;
+  }
+  sm.sort(n, passes, warp_sums);  // its first barrier follows the keys
+  const K* skey = sm.ka;
+  const int32_t* perm = sm.pa;
+  // the points in sorted order, in the sort's free copies
+  float* sx = reinterpret_cast<float*>(sm.pb);
+  float* sy = reinterpret_cast<float*>(sm.kb);
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    const int p = perm[j];
+    sx[j] = x[p];
+    sy[j] = y[p];
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < n; j += kThreads) {
+    const uint32_t o = static_cast<uint32_t>(skey[j] >> ts_bits);
+    if (o >= static_cast<uint32_t>(m)) continue;  // a padded slot
+    if (j > 0 && static_cast<uint32_t>(skey[j - 1] >> ts_bits) == o) continue;
+    summary_of_run(skey, perm, j, n, o, ts_bits, ts_lo, x, y, sx, sy, 0, n,
+                   rows);
+  }
+}
+
 // K8c in one launch (n <= kOneBlockMax): keys with ts as the payload and
 // the sentinel's min and max, every pass, and the walk.
 template <typename K>
@@ -1027,8 +951,10 @@ __device__ __forceinline__ void store_counts(const int* hist, int passes,
   }
 }
 
-// K8a's key launch: one block per tile forms its keys and counts the
-// digits of every pass.
+// K8a's and K8b's key launch: one block per tile forms its keys and
+// counts the digits of every pass; for K8b (init_rows = m) the grid also
+// writes every summary row absent, before the walk writes the present
+// ones (K8a: init_rows = 0).
 template <typename K>
 __global__ void __launch_bounds__(kThreads)
 tstats_keys_kernel(const int32_t* __restrict__ oid,
@@ -1037,9 +963,13 @@ tstats_keys_kernel(const int32_t* __restrict__ oid,
                    long long ts_lo, int ts_bits, int passes,
                    K* __restrict__ keys, int32_t* __restrict__ counts,
                    uint32_t* __restrict__ status,
-                   int* __restrict__ tickets) {
+                   int* __restrict__ tickets, Summary rows, int init_rows) {
   __shared__ int hist[kMaxPasses * kDigits];
   for (int j = threadIdx.x; j < passes * kDigits; j += kThreads) hist[j] = 0;
+  for (int o = blockIdx.x * kThreads + threadIdx.x; o < init_rows;
+       o += gridDim.x * kThreads) {
+    rows.absent(o);
+  }
   __syncthreads();
   const int tile0 = blockIdx.x * kTileItems + threadIdx.x;
 #pragma unroll
@@ -1176,7 +1106,8 @@ __device__ __forceinline__ int look_back(const uint32_t* status, int col,
 }
 
 // One pass of the tiled sort over one tile of (key, payload): the ranking
-// and the scatter of sort_scatter_kernel. Each digit's first output
+// and the scatter of the one-block pass, the tile laid out in digit order
+// in shared memory first. Each digit's first output
 // position is the digits below it over the batch plus the digit's count
 // over the earlier tiles. The first pass, whose tiles are in input order,
 // reads both from the key launch's counts and sums the later passes'
@@ -1391,6 +1322,39 @@ tstats_walk_kernel(const K* __restrict__ skey,
   out_emit[i] = s_emit[t];
 }
 
+// K8b's walk after the tiled sort: the block stages its positions' points
+// in shared memory, and the runs that start in it are walked by its first
+// threads (one row each).
+template <typename K>
+__global__ void __launch_bounds__(kWalkThreads)
+summary_walk_kernel(const K* __restrict__ skey,
+                    const int32_t* __restrict__ perm, int n, int m,
+                    long long ts_lo, int ts_bits,
+                    const float* __restrict__ x, const float* __restrict__ y,
+                    Summary rows) {
+  __shared__ float sx[kWalkThreads], sy[kWalkThreads];
+  __shared__ int lead_at[kWalkThreads], warp_sums[32], leads;
+  const int b0 = blockIdx.x * kWalkThreads;
+  const int b1 = min(n, b0 + kWalkThreads);
+  const int i = b0 + threadIdx.x;
+  bool lead = false;
+  if (i < n) {
+    const int p = perm[i];
+    sx[threadIdx.x] = x[p];
+    sy[threadIdx.x] = y[p];
+    const uint32_t o = static_cast<uint32_t>(skey[i] >> ts_bits);
+    lead = o < static_cast<uint32_t>(m) &&
+           (i == 0 || static_cast<uint32_t>(skey[i - 1] >> ts_bits) != o);
+  }
+  if (static_cast<int>(threadIdx.x) <
+      pack_leads(lead, i, lead_at, warp_sums, &leads)) {
+    const int j = lead_at[threadIdx.x];
+    summary_of_run(skey, perm, j, n,
+                   static_cast<uint32_t>(skey[j] >> ts_bits), ts_bits, ts_lo,
+                   x, y, sx, sy, b0, b1, rows);
+  }
+}
+
 // K8c's walk after the tiled sort, the sentinel folded in: a block that
 // holds sentinel positions reduces the tiles' sentinel min and max first;
 // each position writes its own fields, and the groups that start in the
@@ -1515,6 +1479,10 @@ cudaError_t allow_smem() {
       tstats_block_kernel<K>, attr,
       static_cast<int>(block_smem<K>(kOneBlockMax)));
   if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(summary_block_kernel<K>, attr,
+                               static_cast<int>(block_smem<K>(kOneBlockMax)));
+  }
+  if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(group_block_kernel<K>, attr,
                                static_cast<int>(block_smem<K>(kOneBlockMax)));
   }
@@ -1570,13 +1538,44 @@ cudaError_t tstats_update_run(
   sort_scratch(n, sizeof(K), passes, scratch, &sc);
   tstats_keys_kernel<K><<<sc.tiles, kThreads, 0, s>>>(
       oid, ts, valid, n, m, ts_lo, ts_bits, passes,
-      static_cast<K*>(sc.key_a), sc.counts, sc.status, sc.tickets);
+      static_cast<K*>(sc.key_a), sc.counts, sc.status, sc.tickets,
+      Summary{}, 0);
   const K* skey;
   const int32_t* perm;
   tiled_passes<K>(sc, n, passes, nullptr, order, s, &skey, &perm);
   tstats_walk_kernel<K><<<blocks_of(n, kWalkThreads), kWalkThreads, 0, s>>>(
       skey, perm, n, m, ts_lo, ts_bits, x, y, last_x, last_y, last_ts,
       spatial, temporal, out_oid, out_sp, out_tm, out_speed, out_emit);
+  return cudaGetLastError();
+}
+
+template <typename K>
+cudaError_t tstats_summary_run(const float* x, const float* y,
+                               const int32_t* oid, const int32_t* ts,
+                               const uint8_t* valid, int n, int m,
+                               long long ts_lo, int ts_bits, int passes,
+                               bool one_block, const Summary& rows,
+                               void* scratch, cudaStream_t s) {
+  const cudaError_t err = allow_smem<K>();
+  if (err != cudaSuccess) return err;
+  if (one_block) {
+    const int init_blocks = static_cast<int>(
+        (static_cast<long long>(m) + kInitRows - 1) / kInitRows);
+    summary_block_kernel<K><<<1 + init_blocks, kThreads, block_smem<K>(n),
+                              s>>>(x, y, oid, ts, valid, n, m, ts_lo, ts_bits,
+                                   passes, rows);
+    return cudaGetLastError();
+  }
+  SortScratch sc;
+  sort_scratch(n, sizeof(K), passes, scratch, &sc);
+  tstats_keys_kernel<K><<<sc.tiles, kThreads, 0, s>>>(
+      oid, ts, valid, n, m, ts_lo, ts_bits, passes,
+      static_cast<K*>(sc.key_a), sc.counts, sc.status, sc.tickets, rows, m);
+  const K* skey;
+  const int32_t* perm;
+  tiled_passes<K>(sc, n, passes, nullptr, nullptr, s, &skey, &perm);
+  summary_walk_kernel<K><<<blocks_of(n, kWalkThreads), kWalkThreads, 0, s>>>(
+      skey, perm, n, m, ts_lo, ts_bits, x, y, rows);
   return cudaGetLastError();
 }
 
@@ -1611,12 +1610,7 @@ cudaError_t group_extents_run(
 
 }  // namespace
 
-// Bytes of K8b's scratch buffer for n points.
-extern "C" long long traj_scratch_bytes(int n) {
-  return static_cast<long long>(scratch_bytes(n));
-}
-
-// Bytes of K8a's and K8c's scratch buffer for n points and a key of
+// Bytes of K8a's, K8b's and K8c's scratch buffer for n points and a key of
 // `bits` bits on the tiled path (the one-block path takes none).
 extern "C" long long traj_sort_scratch_bytes(int n, int bits) {
   if (n < 0 || bits < 1 || bits > 64) return -1;
@@ -1665,28 +1659,36 @@ extern "C" int tstats_update_launch(
   return static_cast<int>(err);
 }
 
-// K8b. Batch as K8a's; writes the (m,) summary: spatial f32, count int32,
-// min_ts, max_ts int32 (INT_MAX / INT_MIN for an absent object), first_x,
-// first_y, last_x, last_y f32 (0 when absent).
+// K8b. Batch as K8a's (every slot's ts in [ts_lo, ts_lo + 2^ts_bits));
+// writes the (m,) summary: spatial f32, count int32, min_ts, max_ts int32
+// (INT_MAX / INT_MIN for an absent object), first_x, first_y, last_x,
+// last_y f32 (0 when absent). one_block and scratch as K8a's (n = 0 takes
+// the one-block launch, which writes every row absent). Launches on
+// `stream`, does not synchronise, returns a CUDA error code.
 extern "C" int tstats_summary_launch(
     const float* x, const float* y, const int32_t* oid, const int32_t* ts,
-    const uint8_t* valid, int n, int m, float* spatial, int32_t* count,
-    int32_t* min_ts, int32_t* max_ts, float* fx, float* fy, float* lx,
-    float* ly, void* scratch, void* stream) {
-  if (n < 0 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+    const uint8_t* valid, int n, int m, long long ts_lo, int ts_bits,
+    int one_block, float* spatial, int32_t* count, int32_t* min_ts,
+    int32_t* max_ts, float* fx, float* fy, float* lx, float* ly,
+    void* scratch, void* stream) {
+  const int bits = bit_length(m) + ts_bits;
+  if (n < 0 || m < 1 || ts_bits < 0 || ts_bits > 32 || bits > 64 ||
+      (one_block != 0 && n > kOneBlockMax) ||
+      (one_block == 0 && n > 0 && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const auto s = static_cast<cudaStream_t>(stream);
-  summary_init_kernel<<<blocks_of(m, 256), 256, 0, s>>>(
-      m, spatial, count, min_ts, max_ts, fx, fy, lx, ly);
-  if (n == 0) return static_cast<int>(cudaGetLastError());
-  const Scratch sc = carve(scratch, n);
-  tstats_key_kernel<<<blocks_of(n, 256), 256, 0, s>>>(oid, ts, valid, n, m,
-                                                       sc.key_in);
-  const cudaError_t err = sort_keys(sc, n, 32 + bit_length(m), sc.perm, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  summary_walk_kernel<<<blocks_of(n, kWalkThreads), kWalkThreads, 0, s>>>(
-      sc.key_out, sc.perm, n, m, x, y, spatial, count, min_ts, max_ts, fx,
-      fy, lx, ly);
-  return static_cast<int>(cudaGetLastError());
+  const int passes = passes_of(bits);
+  const Summary rows{spatial, count, min_ts, max_ts, fx, fy, lx, ly};
+  const bool one = one_block != 0 || n == 0;
+  const cudaError_t err =
+      bits <= 32
+          ? tstats_summary_run<uint32_t>(x, y, oid, ts, valid, n, m, ts_lo,
+                                         ts_bits, passes, one, rows, scratch,
+                                         s)
+          : tstats_summary_run<u64>(x, y, oid, ts, valid, n, m, ts_lo,
+                                    ts_bits, passes, one, rows, scratch, s);
+  return static_cast<int>(err);
 }
 
 // K8c. Batch: cell, oid, ts (n,) int32, valid (n,) bool, every valid oid
@@ -1723,10 +1725,10 @@ extern "C" int taggregate_extents_launch(
   return static_cast<int>(err);
 }
 
-// K8d. Groups as K8c writes them (cell-sorted): cell, length (n,) int32,
-// first (n,) bool. Writes out (num_cells,) f32: agg 0 SUM, 1 AVG, 2 MIN,
-// 3 MAX, 4 COUNT of each cell's group lengths (0 for a cell without a
-// group).
+// K8d. Groups as K8c writes them (cell ascending): cell, length (n,)
+// int32, first (n,) bool. Writes out (num_cells,) f32: agg 0 SUM, 1 AVG,
+// 2 MIN, 3 MAX, 4 COUNT of each cell's group lengths (0 for a cell
+// without a group), in one launch.
 extern "C" int taggregate_heatmap_launch(const int32_t* cell,
                                          const int32_t* length,
                                          const uint8_t* first, int n,
@@ -1736,10 +1738,7 @@ extern "C" int taggregate_heatmap_launch(const int32_t* cell,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  zero_kernel<<<blocks_of(num_cells, 256), 256, 0, s>>>(num_cells, out);
-  if (n > 0) {
-    heatmap_walk_kernel<<<blocks_of(n, kWalkThreads), kWalkThreads, 0, s>>>(
-        cell, length, first, n, num_cells, agg, out);
-  }
+  heatmap_kernel<<<blocks_of(num_cells, kHeatWarps), kHeatWarps * 32, 0, s>>>(
+      cell, length, first, n, num_cells, agg, out);
   return static_cast<int>(cudaGetLastError());
 }

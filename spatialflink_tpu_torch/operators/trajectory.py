@@ -413,8 +413,9 @@ class PointTStatsQuery(_TrajOperator):
             if not len(prows):
                 return None
             batch = self._point_batch(prows, pstart)
-            s = T.tstats_window_summary(batch,
-                                        m=bucket_size(len(self.interner)))
+            s = T.tstats_window_summary(
+                batch, m=bucket_size(len(self.interner)),
+                ts_range=PointBatch.ts_range(_ts(prows), pstart))
             host = dict(zip(s._fields, _to_host(*s)))
             cnt = host["count"].astype(i64)
             present = cnt > 0

@@ -15,10 +15,11 @@ Each is the wrapper of ONE hand-written CUDA entry point
 (``csrc/traj.cu``): CUDA tensors launch it (or the call raises), CPU
 tensors run its plain version (``*_plain``). There is no other path.
 Outputs are in sorted order, with ``order`` mapping back to batch
-positions, as in the JAX package. K8a and K8c sort on a key as wide as
-the batch's own fields (:func:`tstats_layout`, :func:`extents_layout`):
-one launch up to :data:`ONE_BLOCK_MAX` points (every realtime cut), else
-a key launch, one launch per 8-bit pass and a walk.
+positions, as in the JAX package. K8a, K8b and K8c sort on a key as wide
+as the batch's own fields (:func:`tstats_layout`, :func:`summary_layout`,
+:func:`extents_layout`): one launch up to :data:`ONE_BLOCK_MAX` points
+(every realtime cut), else a key launch, one launch per 8-bit pass and a
+walk. K8d is one launch.
 
 One deliberate difference from the JAX package: the running lengths of
 K8a are sums over each trajectory's own run, taken one contribution at a
@@ -52,7 +53,7 @@ INT32_MAX = 2 ** 31 - 1
 _OID_SENTINEL = INT32_MAX
 #: K8d's aggregate codes
 AGGREGATES = {"SUM": 0, "AVG": 1, "MIN": 2, "MAX": 3, "COUNT": 4}
-#: the most points K8a and K8c sort in one block, in one launch:
+#: the most points K8a, K8b and K8c sort in one block, in one launch:
 #: csrc/traj.cu's kOneBlockMax (PERF.md has the measurement that set it)
 ONE_BLOCK_MAX = 4096
 
@@ -123,7 +124,7 @@ class TAggregateGroups(NamedTuple):
 
 
 class SortLayout(NamedTuple):
-    """How K8a or K8c sorts a batch of ``n`` points: the key's ``bits``
+    """How K8a, K8b or K8c sorts a batch of ``n`` points: the key's ``bits``
     (a 32-bit word up to 32, else 64), the 8-bit LSD ``passes``, the path
     (``one_block``) and the kernel ``launches`` (1 in one block; else the
     key launch, one per pass and the walk)."""
@@ -159,6 +160,17 @@ def tstats_layout(n: int, m: int, ts_lo: int, ts_hi: int
     return ts_bits, sort_layout(n, int(m).bit_length() + ts_bits)
 
 
+def summary_layout(n: int, m: int, ts_lo: int, ts_hi: int
+                   ) -> Tuple[int, SortLayout]:
+    """K8b's key and layout: K8a's (:func:`tstats_layout`), except that an
+    empty batch still takes the one-block launch, which writes every row
+    absent."""
+    ts_bits, lay = tstats_layout(n, m, ts_lo, ts_hi)
+    if n == 0:
+        lay = lay._replace(one_block=True, launches=1)
+    return ts_bits, lay
+
+
 def extents_layout(n: int, num_cells: int, oid_bits: int) -> SortLayout:
     """K8c's key: the cell (``num_cells`` for a padded or out-of-grid
     slot) above the object id in ``oid_bits`` bits."""
@@ -174,7 +186,7 @@ def _oid_bits(num_ids: int) -> int:
     return bits
 
 
-def _check_ts_range(batch, ts_range) -> None:
+def _check_ts_range(what: str, batch, ts_range) -> None:
     """A stated range must hold the ts of every slot of the batch, padded
     ones too (the kernel's key field); checked where it costs no device
     sync, on the CPU."""
@@ -182,8 +194,16 @@ def _check_ts_range(batch, ts_range) -> None:
         return
     lo, hi = (int(v) for v in torch.aminmax(batch.ts))
     if lo < ts_range[0] or hi > ts_range[1]:
-        raise ValueError(f"tstats_update: ts range {tuple(ts_range)} does "
+        raise ValueError(f"{what}: ts range {tuple(ts_range)} does "
                          f"not hold the batch's ts [{lo}, {hi}]")
+
+
+def _ts_range(batch, ts_range) -> Tuple[int, int]:
+    """The stated range as ints, or the batch's own (a device sync)."""
+    if ts_range is None:
+        ts_range = (torch.stack(torch.aminmax(batch.ts)).tolist()
+                    if batch.ts.numel() else (0, 0))
+    return int(ts_range[0]), int(ts_range[1])
 
 
 # ------------------------------------------------------------------------ #
@@ -305,8 +325,11 @@ def tstats_update_plain(state: TrajStatsState, batch,
                             order=order.to(torch.int32))
 
 
-def tstats_window_summary_plain(batch, *, m: int) -> TStatsWindowSummary:
-    """Plain version of :func:`tstats_window_summary`."""
+def tstats_window_summary_plain(batch, *, m: int,
+                                ts_range: Optional[Tuple[int, int]] = None
+                                ) -> TStatsWindowSummary:
+    """Plain version of :func:`tstats_window_summary` (``ts_range`` is
+    taken for the kernel's signature and not used)."""
     n = batch.x.shape[0]
     dev = batch.x.device
     order, oid_s, ts_s, x_s, y_s, valid_s = _tstats_sorted(batch, m)
@@ -413,8 +436,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _UPDATE_ARGTYPES = (_C, _C, _C, _C, _C, _I, _I, _L, _I, _I, _C, _C, _C, _C,
                     _C, _C, _C, _C, _C, _C, _C, _C, _C)
-_SUMMARY_ARGTYPES = (_C, _C, _C, _C, _C, _I, _I, _C, _C, _C, _C, _C, _C, _C,
-                     _C, _C, _C)
+_SUMMARY_ARGTYPES = (_C, _C, _C, _C, _C, _I, _I, _L, _I, _I, _C, _C, _C, _C,
+                     _C, _C, _C, _C, _C, _C)
 _EXTENTS_ARGTYPES = (_C, _C, _C, _C, _I, _I, _I, _I, _C, _C, _C, _C, _C, _C,
                      _C)
 _HEATMAP_ARGTYPES = (_C, _C, _C, _I, _I, _I, _C, _C)
@@ -428,7 +451,8 @@ def _fn(symbol: str, argtypes: tuple, restype=ctypes.c_int):
 
 @functools.lru_cache(maxsize=None)
 def _sort_scratch_bytes(n: int, bits: int) -> int:
-    """K8a's and K8c's tiled scratch for n points on a bits-bit key."""
+    """K8a's, K8b's and K8c's tiled scratch for n points on a bits-bit
+    key."""
     return int(_fn("traj_sort_scratch_bytes", (_I, _I), _L)(n, bits))
 
 
@@ -474,12 +498,6 @@ def _check_batch(what: str, batch) -> torch.device:
     return dev
 
 
-def _scratch(n: int, dev) -> torch.Tensor:
-    """K8b's scratch for n points."""
-    size = _fn("traj_scratch_bytes", (_I,), _L)(n)
-    return torch.empty(int(size), dtype=torch.uint8, device=dev)
-
-
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -494,7 +512,7 @@ def tstats_update(state: TrajStatsState, batch,
     device sync. CPU tensors run :func:`tstats_update_plain` (and check a
     stated range); CUDA tensors launch ``csrc/traj.cu``."""
     if batch.x.device.type == "cpu":
-        _check_ts_range(batch, ts_range)
+        _check_ts_range("tstats_update", batch, ts_range)
         return tstats_update_plain(state, batch)
     dev = _check_batch("tstats_update", batch)
     m = state.last_x.shape[0]
@@ -507,10 +525,7 @@ def tstats_update(state: TrajStatsState, batch,
             raise ValueError(f"tstats_update: state.{name} must be a "
                              f"contiguous ({m},) {dt} on {dev}")
     n = batch.x.shape[0]
-    if ts_range is None:
-        ts_range = (torch.stack(torch.aminmax(batch.ts)).tolist() if n
-                    else (0, 0))
-    lo, hi = int(ts_range[0]), int(ts_range[1])
+    lo, hi = _ts_range(batch, ts_range)
     ts_bits, lay = tstats_layout(n, m, lo, hi)
     scratch = 0 if lay.one_block else _sort_scratch_bytes(n, lay.bits)
     w, (out_emit,), scratch_ptr = _carve(dev, n, 5, 1, scratch)
@@ -536,32 +551,36 @@ def tstats_update(state: TrajStatsState, batch,
 tstats_update.launches = 0
 
 
-def tstats_window_summary(batch, *, m: int) -> TStatsWindowSummary:
+def tstats_window_summary(batch, *, m: int,
+                          ts_range: Optional[Tuple[int, int]] = None
+                          ) -> TStatsWindowSummary:
     """Fresh-state (windowed) per-trajectory summary of one batch (a pane):
-    K8b. obj_id in [0, m). CPU tensors run
-    :func:`tstats_window_summary_plain`; CUDA tensors launch
-    ``csrc/traj.cu``."""
+    K8b, on K8a's key and sort. obj_id in [0, m); ``ts_range`` as
+    :func:`tstats_update` takes it (None reads it from the batch, a device
+    sync). CPU tensors run :func:`tstats_window_summary_plain` (and check a
+    stated range); CUDA tensors launch ``csrc/traj.cu``."""
     if batch.x.device.type == "cpu":
+        _check_ts_range("tstats_window_summary", batch, ts_range)
         return tstats_window_summary_plain(batch, m=m)
     dev = _check_batch("tstats_window_summary", batch)
     if m < 1:
         raise ValueError(f"tstats_window_summary: m must be >= 1, got {m}")
     n = batch.x.shape[0]
-    f32 = dict(dtype=torch.float32, device=dev)
-    i32 = dict(dtype=torch.int32, device=dev)
-    out = TStatsWindowSummary(
-        spatial=torch.empty(m, **f32), count=torch.empty(m, **i32),
-        min_ts=torch.empty(m, **i32), max_ts=torch.empty(m, **i32),
-        first_x=torch.empty(m, **f32), first_y=torch.empty(m, **f32),
-        last_x=torch.empty(m, **f32), last_y=torch.empty(m, **f32))
-    scratch = _scratch(n, dev)
+    lo, hi = _ts_range(batch, ts_range)
+    ts_bits, lay = summary_layout(n, m, lo, hi)
+    scratch = 0 if lay.one_block else _sort_scratch_bytes(n, lay.bits)
+    w, _, scratch_ptr = _carve(dev, m, 8, 0, scratch)
+    f = w.view(torch.float32)
+    out = TStatsWindowSummary(spatial=f[0], count=w[1], min_ts=w[2],
+                              max_ts=w[3], first_x=f[4], first_y=f[5],
+                              last_x=f[6], last_y=f[7])
     launch = _fn("tstats_summary_launch", _SUMMARY_ARGTYPES)
     with torch.cuda.device(dev):
         err = launch(batch.x.data_ptr(), batch.y.data_ptr(),
                      batch.obj_id.data_ptr(), batch.ts.data_ptr(),
-                     batch.valid.data_ptr(), n, int(m),
-                     *(t.data_ptr() for t in out), scratch.data_ptr(),
-                     _stream(dev))
+                     batch.valid.data_ptr(), n, int(m), lo, ts_bits,
+                     int(lay.one_block), *(t.data_ptr() for t in out),
+                     scratch_ptr, _stream(dev))
     native.check(err, "tstats_window_summary")
     tstats_window_summary.launches += 1
     return out
@@ -622,8 +641,9 @@ def taggregate_heatmap(groups: TAggregateGroups, *, num_cells: int,
     """Dense (num_cells,) f32 heatmap from (cell, objID) groups in K8c's
     (cell, object) order: agg in {SUM, AVG, MIN, MAX, COUNT}
     (``geoflink-conf.yml:53``; ALL is served by the groups themselves):
-    K8d. CPU tensors run :func:`taggregate_heatmap_plain`; CUDA tensors
-    launch ``csrc/traj.cu``."""
+    K8d, one launch (the kernel takes each cell's groups from K8c's
+    cell-ascending order). CPU tensors run :func:`taggregate_heatmap_plain`;
+    CUDA tensors launch ``csrc/traj.cu``."""
     code = _agg_code(agg)
     if groups.cell.device.type == "cpu":
         return taggregate_heatmap_plain(groups, num_cells=num_cells, agg=agg)

@@ -1818,26 +1818,184 @@ def test_k8_forced_paths_equal_plain(card, case, tiled, monkeypatch):
     assert _equal(got, T.taggregate_group_extents_plain(b, num_cells=cells))
 
 
+def _dirty(dev, nbytes):
+    """Leave a freed block of ``nbytes`` of junk in the caching allocator,
+    so that an output row a kernel fails to write shows as junk rather than
+    as a value a previous call left there."""
+    junk = torch.full((nbytes,), 0x5A, dtype=torch.uint8, device=dev)
+    del junk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiled", [False, True], ids=["own-path", "tiled"])
+@pytest.mark.parametrize("stated", [True, False], ids=["stated", "read"])
+@pytest.mark.parametrize("case", list(K8_KEY_CASES))
+def test_tstats_window_summary_key_layouts_equal_plain(card, case, stated,
+                                                       tiled, monkeypatch):
+    """K8b on K8a's key at the same edges (one block and tiled, 32- and
+    64-bit keys, spans, negative offsets, m = 1 / 1,024 / 1,025, one object
+    holding 3/4 of the points), with the batch's ts range stated or read,
+    on the path its size takes and on the tiled path forced at the same
+    n: bit for bit the plain version's, and the absent objects' rows keep
+    INT_MAX / INT_MIN / 0."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    b, m, _, rng_ts = _k8_key_batch(card, case)
+    if tiled:
+        monkeypatch.setattr(T, "ONE_BLOCK_MAX", 0)
+    _, lay = T.summary_layout(b.x.shape[0], m, *rng_ts)
+    assert lay.one_block == (b.x.shape[0] <= T.ONE_BLOCK_MAX)
+    _dirty(card, 64 * m + (1 << 20))
+    launches = T.tstats_window_summary.launches
+    got = T.tstats_window_summary(b, m=m, ts_range=rng_ts if stated else None)
+    assert T.tstats_window_summary.launches == launches + 1
+    assert _equal(got, T.tstats_window_summary_plain(b, m=m))
+    absent = got.count == 0
+    assert int(absent.sum()) == m - torch.unique(b.obj_id[b.valid]).numel()
+    assert bool((got.min_ts[absent] == T.INT32_MAX).all())
+    assert bool((got.max_ts[absent] == T.INT32_MIN).all())
+    for t in (got.spatial, got.first_x, got.first_y, got.last_x, got.last_y):
+        assert bool((t[absent] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tiled", [False, True], ids=["one-block", "tiled"])
+@pytest.mark.parametrize("m", [1, 4_095, 4_096, 4_097, 16_384, 20_001])
+@pytest.mark.parametrize("n", [0, 512])
+def test_tstats_window_summary_writes_every_row(card, n, m, tiled,
+                                                monkeypatch):
+    """Every one of the m rows is written, present or absent, whatever m
+    (the one-block launch's extra blocks take 4,096 rows each, so m
+    crosses their edges): ids spread over [0, m) with both ends present,
+    or an empty batch, which takes the one-block launch on either path."""
+    from spatialflink_tpu_torch.models.batches import POINT_DTYPES, to_device
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    rng = np.random.default_rng(m)
+    oid = rng.integers(0, m, n)
+    oid[:2] = (0, m - 1)[:n]
+    ts = rng.integers(-1_000, 1_000, n)
+    host = {"x": rng.uniform(0, 10, n), "y": rng.uniform(0, 10, n),
+            "obj_id": oid, "ts": ts, "cell": np.zeros(n),
+            "valid": rng.random(n) >= 0.1}
+    b = PointBatch(**{k: to_device(v, POINT_DTYPES[k], card)
+                      for k, v in host.items()})
+    if tiled:
+        monkeypatch.setattr(T, "ONE_BLOCK_MAX", 0)
+    rng_ts = (int(ts.min()), int(ts.max())) if n else (0, 0)
+    _, lay = T.summary_layout(n, m, *rng_ts)
+    assert lay.one_block == (n == 0 or not tiled)
+    _dirty(card, 64 * m + (1 << 20))
+    got = T.tstats_window_summary(b, m=m, ts_range=rng_ts)
+    assert _equal(got, T.tstats_window_summary_plain(b, m=m))
+
+
+def _heat_groups(dev, case, seed=0):
+    """(TAggregateGroups in K8c's order, num_cells) of one K8d case: groups
+    of 1-5 positions each (only the first flagged; the others' lengths are
+    junk), cell ascending, then positions of the sentinel cell num_cells.
+    "empty"; "skew-3/4" (3/4 of the groups in one cell); "edges-empty" (no
+    group in the first or the last cell); "edges-full" (groups in both);
+    "one-cell" (every group in the last cell); "above-2^24" (lengths up to
+    2^30: each cell's f32 sum rounds at most adds, so only group order
+    gives the plain version's sum); "sentinel-only"."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    rng = np.random.default_rng(seed)
+    cells = 400
+    g = {"empty": 0, "skew-3/4": 6_000, "edges-empty": 3_000,
+         "edges-full": 3_000, "one-cell": 2_000, "above-2^24": 4_000,
+         "sentinel-only": 0}[case]
+    gc = rng.integers(0, cells, g)
+    length = rng.integers(0, 10_000, g)
+    if case == "skew-3/4":
+        gc[rng.random(g) < 0.75] = 7
+    if case == "edges-empty":
+        gc = rng.integers(1, cells - 1, g)
+    if case == "edges-full":
+        gc[:2] = (0, cells - 1)
+    if case == "one-cell":
+        gc[:] = cells - 1
+    if case == "above-2^24":
+        gc[rng.random(g) < 0.5] = 3
+        length = rng.integers(0, 2 ** 30, g)
+    reps = rng.integers(1, 6, g)
+    order = np.argsort(gc, kind="stable")
+    cell = np.repeat(gc[order], reps[order])
+    lens = np.repeat(length[order], reps[order])
+    first = np.zeros(cell.shape[0], bool)
+    first[np.cumsum(reps[order]) - reps[order]] = True
+    lens[~first] = rng.integers(-5, 2 ** 31 - 1, int((~first).sum()))
+    tail = 0 if case == "empty" else int(rng.integers(1, 50))
+    cell = np.r_[cell, np.full(tail, cells)]
+    lens = np.r_[lens, rng.integers(0, 10_000, tail)]
+    first = np.r_[first, np.zeros(tail, bool)]
+    return T.TAggregateGroups(
+        cell=torch.from_numpy(cell.astype(np.int32)).to(dev),
+        obj_id=torch.zeros(cell.shape[0], dtype=torch.int32, device=dev),
+        length=torch.from_numpy(lens.astype(np.int32)).to(dev),
+        first=torch.from_numpy(first).to(dev)), cells
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agg", ["SUM", "AVG", "MIN", "MAX", "COUNT"])
+@pytest.mark.parametrize("case", ["empty", "skew-3/4", "edges-empty",
+                                  "edges-full", "one-cell", "above-2^24",
+                                  "sentinel-only"])
+def test_taggregate_heatmap_cases_equal_plain(card, case, agg):
+    """K8d in its one launch, bit for bit the plain version's: an empty
+    input (an all-zero heatmap), a cell holding 3/4 of the groups, no
+    group in the first or last cell, groups in both, lengths summing far
+    above 2^24 in one cell, non-first positions and the sentinel cell."""
+    from spatialflink_tpu_torch.ops import trajectory as T
+
+    groups, cells = _heat_groups(card, case)
+    _dirty(card, 4 * cells + 4096)
+    launches = T.taggregate_heatmap.launches
+    got = T.taggregate_heatmap(groups, num_cells=cells, agg=agg)
+    assert T.taggregate_heatmap.launches == launches + 1
+    want = T.taggregate_heatmap_plain(groups, num_cells=cells, agg=agg)
+    assert torch.equal(got, want), case
+    held = torch.zeros(cells, dtype=torch.bool, device=card)
+    held[groups.cell[groups.first].long()] = True
+    assert bool((got[~held] == 0).all())
+    if case == "above-2^24" and agg == "SUM":
+        assert float(got[3]) > 2 ** 24
+
+
 @pytest.mark.cuda
 def test_k8_launch_counts(card):
-    """K8a and K8c launch as many kernels as their layout says: one at a
-    512-point cut, six at a 262,144-point window of a 29- / 28-bit key
-    (torch.profiler's count of device kernels in one call)."""
+    """K8a, K8b and K8c launch as many kernels as their layout says: one
+    at a 512-point cut, six (passes + 2) at a 262,144-point window of a 29-
+    / 28-bit key; K8b one for an empty batch; K8d one (torch.profiler's
+    count of device kernels in one call)."""
     from torch.profiler import ProfilerActivity, profile
 
     from spatialflink_tpu_torch.ops import trajectory as T
 
+    marker = torch.empty(1, device=card)
+
     def kernels(fn):
+        # a fill of `marker` runs inside the same profile: a trace without
+        # it lost its device events (seen late in a long process, after
+        # hundreds of tests), so it says nothing and the profile is taken
+        # again
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        return sum(1 for ev in prof.events()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and "memcpy" not in ev.name.lower()
-                   and "memset" not in ev.name.lower())
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                marker.fill_(1.0)
+                fn()
+                torch.cuda.synchronize()
+            names = [ev.name.lower() for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA
+                     and "memcpy" not in ev.name.lower()
+                     and "memset" not in ev.name.lower()]
+            fills = sum(1 for name in names if "fillfunctor" in name)
+            if fills:
+                return len(names) - fills
+        return None
 
     rng = np.random.default_rng(5)
     for n, want in ((512, 1), (262_144, 6)):
@@ -1854,6 +2012,20 @@ def test_k8_launch_counts(card):
         assert T.extents_layout(n, 10_000, 14).launches == want
         assert kernels(lambda: T.taggregate_group_extents(
             b, num_cells=10_000, num_ids=10_357)) == want
+        _, lay = T.summary_layout(n, 16_384, *rng_ts)
+        assert lay.launches == want == (1 if n <= T.ONE_BLOCK_MAX
+                                        else lay.passes + 2)
+        assert kernels(lambda: T.tstats_window_summary(
+            b, m=16_384, ts_range=rng_ts)) == want
+        groups = T.taggregate_groups(b, num_cells=10_000, num_ids=10_357)
+        for agg in ("SUM", "MIN"):
+            assert kernels(lambda: T.taggregate_heatmap(
+                groups, num_cells=10_000, agg=agg)) == 1
+    from spatialflink_tpu_torch.models.batches import POINT_DTYPES, to_device
+    empty = PointBatch(**{k: to_device(np.zeros(0), dt, card)
+                          for k, dt in POINT_DTYPES.items()})
+    assert T.summary_layout(0, 16_384, 0, 0)[1].launches == 1
+    assert kernels(lambda: T.tstats_window_summary(empty, m=16_384)) == 1
 
 
 @pytest.mark.cuda

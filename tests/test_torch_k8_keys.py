@@ -1,9 +1,10 @@
-"""K8a's and K8c's key layout on the CPU: the host helpers that pick the
-key's width, its passes and the path (one block or tiled) at the edges the
-card tests cover, and the ts range the trajectory operators pass to
-``tstats_update``, which must hold the ts of every slot of its batch
-(padded ones too) for the kernel's key to sort as the plain version does.
-The kernels themselves run in tests/test_torch_cuda.py on the card."""
+"""K8a's, K8b's and K8c's key layout on the CPU: the host helpers that
+pick the key's width, its passes and the path (one block or tiled) at the
+edges the card tests cover, and the ts range the trajectory operators pass
+to ``tstats_update`` and ``tstats_window_summary``, which must hold the ts
+of every slot of its batch (padded ones too) for the kernel's key to sort
+as the plain version does. The kernels themselves run in
+tests/test_torch_cuda.py on the card."""
 
 import dataclasses
 import os
@@ -99,6 +100,32 @@ def test_main_path_layouts():
         T._oid_bits(2 ** 31 + 1)
 
 
+@pytest.mark.parametrize("n,m,lo,hi", [
+    (1, 256, 0, 10_000), (4_095, 1024, 0, 10_000), (4_096, 1024, 0, 10_000),
+    (4_097, 1024, 0, 10_000), (134_581, 16_384, 0, 4_999),
+    (262_144, 16_384, 0, 9_999), (9_001, 256, -2 ** 29, 2 ** 29 - 1),
+    (3_000, 1, 0, 10_000), (3_000, 1025, -3_000, 500),
+    (9_001, 2 ** 20, -2 ** 31, 2 ** 31 - 1)])
+def test_summary_layout_is_k8as(n, m, lo, hi, monkeypatch):
+    """K8b sorts on K8a's key, with K8a's passes, path and launches (6 at
+    the 5 s pane of 134,581 points; one at a cut), forced paths included."""
+    assert T.summary_layout(n, m, lo, hi) == T.tstats_layout(n, m, lo, hi)
+    monkeypatch.setattr(T, "ONE_BLOCK_MAX", 0)
+    assert T.summary_layout(n, m, lo, hi) == T.tstats_layout(n, m, lo, hi)
+
+
+def test_summary_layout_of_an_empty_batch(monkeypatch):
+    """An empty batch still takes one launch (it writes every row absent),
+    on the one-block path whatever the limit; K8a's takes none."""
+    assert T.tstats_layout(0, 16_384, 0, 0)[1].launches == 0
+    for limit in (T.ONE_BLOCK_MAX, 0):
+        monkeypatch.setattr(T, "ONE_BLOCK_MAX", limit)
+        ts_bits, lay = T.summary_layout(0, 16_384, 0, 0)
+        assert (ts_bits, lay) == (0, T.SortLayout(15, 2, True, 1))
+    assert T.summary_layout(134_581, 16_384, 0, 4_999)[1] == T.SortLayout(
+        28, 4, False, 6)
+
+
 @pytest.mark.parametrize("lo,hi,m", [(1, 0, 10), (-2 ** 31 - 1, 0, 10),
                                      (0, 2 ** 31, 10), (0, 5, 0)])
 def test_tstats_layout_refuses(lo, hi, m):
@@ -145,11 +172,12 @@ def _lines(trajs=12, steps=40, seed=0):
     (208, {"aggregate_function": "SUM"}, False)])
 def test_operators_pass_ranges_that_hold_their_batches(monkeypatch, option,
                                                        query, k8a):
-    """Every K8a call of options 205 and 206 states the ts range of its
-    batch, and it holds every slot's ts (tightly); 206 with panes (K8b)
-    and 208 (K8c, whose payload is ts itself) sort without one."""
+    """Every K8a call of options 205 and 206, and every K8b call of 206
+    with panes (one per pane), states the ts range of its batch, and it
+    holds every slot's ts (tightly); 208 (K8c, whose payload is ts itself)
+    sorts without one."""
     calls = {"tstats_update": [], "taggregate_group_extents": 0,
-             "tstats_window_summary": 0}
+             "tstats_window_summary": []}
     update, extents = T.tstats_update, T.taggregate_group_extents
     summary = T.tstats_window_summary
 
@@ -162,9 +190,10 @@ def test_operators_pass_ranges_that_hold_their_batches(monkeypatch, option,
         calls["taggregate_group_extents"] += 1
         return extents(*a, **kw)
 
-    def rec_summary(*a, **kw):
-        calls["tstats_window_summary"] += 1
-        return summary(*a, **kw)
+    def rec_summary(batch, *, m, ts_range=None):
+        calls["tstats_window_summary"].append((ts_range, int(batch.ts.min()),
+                                               int(batch.ts.max())))
+        return summary(batch, m=m, ts_range=ts_range)
 
     monkeypatch.setattr(T, "tstats_update", rec_update)
     monkeypatch.setattr(T, "taggregate_group_extents", rec_extents)
@@ -177,20 +206,23 @@ def test_operators_pass_ranges_that_hold_their_batches(monkeypatch, option,
                                                           format="CSV"))
     wins = list(TD.run_option(p, iter(_lines()), iter([]), device="cpu"))
     assert wins
+    for rng_ts, lo, hi in (calls["tstats_update"]
+                           + calls["tstats_window_summary"]):
+        assert rng_ts == (lo, hi)
     if k8a:
         assert calls["tstats_update"]
-        for rng_ts, lo, hi in calls["tstats_update"]:
-            assert rng_ts == (lo, hi)
     else:
         assert not calls["tstats_update"]
-        assert (calls["tstats_window_summary"]
+        assert (len(calls["tstats_window_summary"])
                 + calls["taggregate_group_extents"]) > 0
+    if query.get("panes"):
+        assert len(calls["tstats_window_summary"]) > 1
 
 
 def test_a_stated_range_that_misses_the_batch_is_refused():
     """On the CPU the wrapper checks a stated range against the batch (on
     the card that would cost a sync; the operators take it from the rows
-    the batch is built from)."""
+    the batch is built from): K8a's."""
     b = PointBatch.from_arrays(np.zeros(3), np.zeros(3), device=CPU,
                                obj_id=np.arange(3), ts=[T0, T0 + 5, T0 + 9],
                                ts_base=T0)
@@ -201,3 +233,20 @@ def test_a_stated_range_that_misses_the_batch_is_refused():
                         ts_range=(1, 9))
     assert torch.equal(state.last_ts[:3], torch.tensor([0, 5, 9],
                                                        dtype=torch.int32))
+
+
+@pytest.mark.parametrize("bad", [(1, 9), (0, 8), (10, 20)])
+def test_a_summary_range_that_misses_the_batch_is_refused(bad):
+    """K8b's wrapper checks its stated range on the CPU as K8a's does; a
+    range that holds the batch gives the plain version's summary."""
+    b = PointBatch.from_arrays([1.0, 2.0, 4.0], [0.0, 0.0, 0.0], device=CPU,
+                               obj_id=[0, 0, 2], ts=[T0, T0 + 5, T0 + 9],
+                               ts_base=T0)
+    want = T.tstats_window_summary_plain(b, m=4)
+    for ok in ((0, 9), (-5, 100), None):
+        got = T.tstats_window_summary(b, m=4, ts_range=ok)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert want.count.tolist() == [2, 0, 1, 0]
+    with pytest.raises(ValueError, match="tstats_window_summary: .*does not "
+                                         "hold"):
+        T.tstats_window_summary(b, m=4, ts_range=bad)
