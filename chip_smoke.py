@@ -78,12 +78,15 @@ its wall seconds):
    after another, options 51 (whole stream) and 52 (first 262,144 points)
    run once more under torch.profiler (device time by kind and the
    device's busy share), and the CLI runs options 6 and 51 on a
-   65,536-row CSV. (The point stream was cut from 2,097,152 points to
+   65,536-row CSV (every CLI run of the script is a process of its own,
+   started before its in-process reference, which runs beside it). (The
+   point stream was cut from 2,097,152 points to
    make room for the geometry phase within the time limit.)
 4. The polygon and linestring streams: two seeded streams of 262,144
    GeoJSON geometries over 20 s with 100,000 object ids (polygon rings of
    4-32 vertices with radii 0.002-0.02 degrees; linestring walks of 2-16
-   segments), each decoded once through ``driver.decode_chunks`` (the
+   segments; each generated by a helper process of its own, started after
+   the build, beside the phases before this one), each decoded once through ``driver.decode_chunks`` (the
    per-record parse, timed per record). K5 ``geom_stream_dist`` against
    its plain version bit for bit at one 10 s window (131,072 polygons)
    for the conf's point, the conf's polygon, the 16 query polygons and
@@ -163,6 +166,31 @@ its wall seconds):
    with pairs/s, pairs per window and the median and p99 wall time per
    window. Then option 101's stages one after another, its trace under
    torch.profiler, and the CLI for 101 with ``--input2``.
+   Then the pane join (``query.panes``): the block-coalescing threshold
+   calibrated on K6 (``ops.join.adaptive_block_min_cells``, its launches
+   reported apart), then 101 over the point stream and the dense query
+   points, 106 against the query polygons and 121 over the first 65,536
+   polygons against them, each with the calibrated threshold (records/s,
+   pairs/s, per-window median and p99, blocks evaluated, taken from the
+   cache and coalesced; 101 under torch.profiler, with the card's busy
+   share) and with every kernel swapped for its plain version (each
+   window's pair set equals the join phase's panes-off run's, its pair
+   list the
+   plain run's; the launch counters non-zero for the blocks' path), and
+   101 with the threshold at 0 and at 2**24 (equal pair sets). Then
+   ``--bulk`` (``run_option_bulk``): the point stream's first 262,144
+   points (its first 10 s: one full 10 s window, as the main path's, and
+   two half ones) and the query points of that span written as CSV, the first 32,768 polygons and linestrings as WKT and GeoJSON, each
+   geometry file parsed whole by the native parsers (us per record beside
+   the per-record parse's), then options 1, 6, 51, multiQuery 1 and 51,
+   51 with panes (K3), 21 over the WKT polygons, 71 over the GeoJSON ones
+   and 101, each equal to its plain-kernel run and, its index lists mapped
+   back to the records, to the record path's run. Then the host-only
+   options (no kernel runs on them): 1010 over the trajectory stream,
+   1011 over 8,192 sensor polygons, 1012 over both, 2000 over 100,000
+   check-in events, 401-906 over 1,024 records each and 1001-1003 over a
+   shapefile written with ``struct``, each checked by its own rule and
+   with its records/s.
 7. The trajectory queries over T-Drive's taxi count (the stream and
    K8's kernel cases run right after the micro-batch phase, before the
    long torch.profiler traces; the runs here): the port's
@@ -204,17 +232,20 @@ its wall seconds):
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result line when CUDA is not available or the
-package is not beside the script.
+package is not beside the script. Every process the script starts has
+ended, or is stopped, by the time it exits.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -261,6 +292,80 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+class CliRun:
+    """The port's CLI (``python -m spatialflink_tpu_torch.driver argv``) in
+    a process of its own, started before the caller's in-process reference
+    so that the two run side by side; its stdout and stderr go to files in
+    ``tmp``. :meth:`stdout` waits for it (exit 0 required); leaving the
+    ``with`` block stops a run still going (the caller failed first)."""
+
+    def __init__(self, tmp: str, name: str, argv):
+        self.paths = [os.path.join(tmp, f"cli-{name}.{s}")
+                      for s in ("out", "err")]
+        with open(self.paths[0], "w") as out, open(self.paths[1], "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "spatialflink_tpu_torch.driver",
+                 *argv], cwd=ROOT, stdout=out, stderr=err)
+
+    def __enter__(self) -> "CliRun":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+    def stdout(self) -> str:
+        rc = self.proc.wait(timeout=600)
+        out, err = (open(path).read() for path in self.paths)
+        if rc != 0:
+            raise AssertionError(f"CLI exit {rc}: {err}")
+        return out
+
+
+class GeomStreams:
+    """The polygon and linestring streams (:func:`geom_stream_lines`, the
+    same seeds and lines), each generated by a helper process of its own
+    beside the earlier phases; :meth:`lines` waits for both. Helpers still
+    running when the script exits are stopped."""
+
+    KINDS = ("Polygon", "LineString")
+
+    def __init__(self, seed: int, n: int):
+        build = os.path.join(ROOT, "spatialflink_tpu_torch", "_build")
+        os.makedirs(build, exist_ok=True)
+        self.tmp = tempfile.mkdtemp(dir=build)
+        self.t0 = time.perf_counter()
+        self.procs = {}
+        for i, kind in enumerate(self.KINDS):
+            out = os.path.join(self.tmp, kind)
+            code = (f"import sys; sys.path.insert(0, {ROOT!r}); "
+                    "import chip_smoke as C; "
+                    f"open({out!r}, 'w').write('\\n'.join("
+                    f"C.geom_stream_lines({seed + 5 + i}, {n}, {kind!r})))")
+            self.procs[kind] = subprocess.Popen([sys.executable, "-c", code])
+        atexit.register(self.close)
+
+    def lines(self) -> dict:
+        """{kind: lines}, once both helpers are done."""
+        out = {}
+        for kind, proc in self.procs.items():
+            if proc.wait(timeout=900) != 0:
+                raise AssertionError(f"{kind} stream: its helper exited "
+                                     f"{proc.returncode}")
+            with open(os.path.join(self.tmp, kind)) as f:
+                out[kind] = f.read().split("\n")
+        self.close()
+        return out
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
 
 
 def ring(k: int, r: float, cx: float = 116.6, cy: float = 40.55,
@@ -1056,7 +1161,7 @@ RUNS = [
     (56, True, None, ("pip_lattice", "cell_order", "knn_topk")),
     (11, True, None, ("pip_lattice", "range_mask_stats")),
 ]
-#: the realtime runs over the whole stream (micro-batches of 512), with
+#: the realtime runs over the first N_SHORT points (micro-batches of 512), with
 #: the realtime latency variants 9 and 59, and the windowed latency
 #: variants 8 and 58: the same fields as RUNS
 REALTIME_RUNS = [
@@ -1443,23 +1548,32 @@ def breakdown_phase(lines) -> dict:
     return out
 
 
-def trace_device(run) -> dict:
+def trace_device(run, cpu: bool = True, tries: int = 1) -> dict:
     """``run()`` (which returns its wall seconds) under torch.profiler (CPU
-    and CUDA activities): the device time by kind (kernels, copies,
-    memsets) from the trace's events, and the device's busy share of the
-    run's wall time. A trace without device events reports device_ms 0."""
+    and CUDA activities; CUDA alone with ``cpu=False``, whose trace holds
+    only the device's events and is read in a fraction of the time): the
+    device time by kind (kernels, copies, memsets) from the trace's
+    events, and the device's busy share of the run's wall time. A session
+    can lose its device events; up to ``tries`` sessions run until one
+    holds some. A trace without device events reports device_ms 0 and
+    ``device_events`` 0."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall = run()
-        torch.cuda.synchronize()
+    acts = [ProfilerActivity.CUDA]
+    if cpu:
+        acts.insert(0, ProfilerActivity.CPU)
+    for _ in range(tries):
+        with profile(activities=acts) as prof:
+            wall = run()
+            torch.cuda.synchronize()
+        events = [ev for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            break
     by_kind = {"kernel_ms": 0.0, "memcpy_ms": 0.0, "memset_ms": 0.0}
     top = {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+    for ev in events:
         name = ev.name.lower()
         kind = ("memcpy_ms" if "memcpy" in name else
                 "memset_ms" if "memset" in name else "kernel_ms")
@@ -1470,7 +1584,17 @@ def trace_device(run) -> dict:
     device_ms = sum(by_kind.values())
     return {"wall_s": wall, **by_kind, "device_ms": device_ms,
             "busy_share": device_ms / (wall * 1e3),
+            "device_events": len(events),
             "top": sorted(top.items(), key=lambda kv: -kv[1])[:6]}
+
+
+def _traced(trace) -> dict:
+    """A trace's device figures for a report row; None where its sessions
+    held no device event (not measured)."""
+    keys = ("device_ms", "kernel_ms", "memcpy_ms", "busy_share")
+    if not trace["device_events"]:
+        return dict.fromkeys(keys)
+    return {key: trace[key] for key in keys}
 
 
 def profile_phase(lines, option: int) -> dict:
@@ -1487,7 +1611,7 @@ def profile_phase(lines, option: int) -> dict:
 def cli_phase(seed: int) -> None:
     """The CLI on a CSV file: options 6 and 51 (k from the conf) with the
     conf's own query objects; stdout, extras included, must equal an
-    in-process run's lines."""
+    in-process run's lines (computed while the CLI runs)."""
     from spatialflink_tpu_torch.config import Params
     from spatialflink_tpu_torch.driver import _emit, run_option
 
@@ -1501,19 +1625,15 @@ def cli_phase(seed: int) -> None:
     build = os.path.join(ROOT, "spatialflink_tpu_torch", "_build")
     os.makedirs(build, exist_ok=True)
     lines = stream_lines(seed + 2, N_CLI)
-    with tempfile.TemporaryDirectory(dir=build) as tmp:
+    with tempfile.TemporaryDirectory(dir=build) as tmp, \
+            contextlib.ExitStack() as stack:
         path = os.path.join(tmp, "points.csv")
         with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
-        for opt in (6, 51):
-            proc = subprocess.run(
-                [sys.executable, "-m", "spatialflink_tpu_torch.driver",
-                 "--config", CONF, "--option", str(opt), "--input1", path,
-                 "--format", "CSV", "--device", "cuda"],
-                cwd=ROOT, capture_output=True, text=True, timeout=600)
-            if proc.returncode != 0:
-                raise AssertionError(f"CLI exit {proc.returncode}: "
-                                     f"{proc.stderr}")
+        clis = {opt: stack.enter_context(CliRun(tmp, str(opt), [
+            "--config", CONF, "--option", str(opt), "--input1", path,
+            "--format", "CSV", "--device", "cuda"])) for opt in (6, 51)}
+        for opt, cli in clis.items():
             params = Params.from_yaml(CONF)
             params = dataclasses.replace(
                 params, input1=dataclasses.replace(params.input1,
@@ -1523,9 +1643,10 @@ def cli_phase(seed: int) -> None:
             for w in run_option(params, lines, device="cuda"):
                 _emit(w, sink)
             want = sink.out.getvalue()
-            if proc.stdout != want or not want:
+            got = cli.stdout()
+            if got != want or not want:
                 raise AssertionError(f"CLI option {opt} stdout "
-                                     f"{proc.stdout[:200]!r} != in-process "
+                                     f"{got[:200]!r} != in-process "
                                      f"{want[:200]!r}")
             first = want.splitlines()[0]
             log(f"cli: option {opt} over {N_CLI} CSV rows -> "
@@ -1884,7 +2005,8 @@ def geom_profile_phase(objs, option: int) -> dict:
 
 def geom_cli_phase(lines) -> None:
     """The CLI on a GeoJSON polygon file (option 21, the conf's queries):
-    stdout must equal an in-process run over the same lines."""
+    stdout must equal an in-process run over the same lines (computed
+    while the CLI runs)."""
     from spatialflink_tpu_torch.config import Params
     from spatialflink_tpu_torch.driver import _emit, run_option
 
@@ -1901,21 +2023,18 @@ def geom_cli_phase(lines) -> None:
         path = os.path.join(tmp, "polygons.geojson")
         with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
-        proc = subprocess.run(
-            [sys.executable, "-m", "spatialflink_tpu_torch.driver",
-             "--config", CONF, "--option", "21", "--input1", path,
-             "--format", "GeoJSON", "--device", "cuda"],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"CLI exit {proc.returncode}: {proc.stderr}")
-        params = Params.from_yaml(CONF)
-        params.query.option = 21
-        sink = Lines()
-        for w in run_option(params, lines, device="cuda"):
-            _emit(w, sink)
-        want = sink.out.getvalue()
-        if proc.stdout != want or not want:
-            raise AssertionError(f"CLI option 21 stdout {proc.stdout[:200]!r}"
+        with CliRun(tmp, "21", [
+                "--config", CONF, "--option", "21", "--input1", path,
+                "--format", "GeoJSON", "--device", "cuda"]) as cli:
+            params = Params.from_yaml(CONF)
+            params.query.option = 21
+            sink = Lines()
+            for w in run_option(params, lines, device="cuda"):
+                _emit(w, sink)
+            want = sink.out.getvalue()
+            got = cli.stdout()
+        if got != want or not want:
+            raise AssertionError(f"CLI option 21 stdout {got[:200]!r}"
                                  f" != in-process {want[:200]!r}")
         log(f"cli: option 21 over {len(lines)} GeoJSON polygons -> "
             f"{want.count(chr(10))} windows, stdout equals the in-process "
@@ -2360,8 +2479,8 @@ def dynamic_phase(card: str, runs, base):
 def queries_cli_phase(seed: int) -> None:
     """The CLI with ``--queries-file`` (option 51, five queries, one on a
     ``file:`` route) on the 65,536-row CSV: stdout equal to an in-process
-    run of the same fleet, and the route's JSON lines equal to the
-    in-process router's."""
+    run of the same fleet (computed while the CLI runs), and the route's
+    JSON lines equal to the in-process router's."""
     from spatialflink_tpu_torch.driver import (CASES, _emit, _seed_registry,
                                                run_option)
     from spatialflink_tpu_torch.runtime.queryplane import QueryRouter
@@ -2389,27 +2508,25 @@ def queries_cli_phase(seed: int) -> None:
             with open(qpath, "w") as f:
                 json.dump(specs, f)
             out[side] = qpath
-        proc = subprocess.run(
-            [sys.executable, "-m", "spatialflink_tpu_torch.driver",
-             "--config", CONF, "--option", "51", "--input1", path,
-             "--format", "CSV", "--queries-file", out["cli"], "--device",
-             "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"CLI exit {proc.returncode}: {proc.stderr}")
-        params = base_params()
-        params.query.option = 51
-        params.query_registry = _seed_registry(params, CASES[51],
-                                               out["in-process"])
-        router = QueryRouter(params.query_registry)
-        sink = Lines()
-        for w in run_option(params, lines, device="cuda"):
-            _emit(w, sink)
-            router.route(w)
-        router.close()
-        want = sink.out.getvalue()
-        if proc.stdout != want or "'query_ids': ['q0'" not in want:
+        with CliRun(tmp, "51", [
+                "--config", CONF, "--option", "51", "--input1", path,
+                "--format", "CSV", "--queries-file", out["cli"], "--device",
+                "cuda"]) as cli:
+            params = base_params()
+            params.query.option = 51
+            params.query_registry = _seed_registry(params, CASES[51],
+                                                   out["in-process"])
+            router = QueryRouter(params.query_registry)
+            sink = Lines()
+            for w in run_option(params, lines, device="cuda"):
+                _emit(w, sink)
+                router.route(w)
+            router.close()
+            want = sink.out.getvalue()
+            got = cli.stdout()
+        if got != want or "'query_ids': ['q0'" not in want:
             raise AssertionError(f"CLI --queries-file stdout "
-                                 f"{proc.stdout[:200]!r} != in-process "
+                                 f"{got[:200]!r} != in-process "
                                  f"{want[:200]!r}")
         routed = [open(os.path.join(tmp, f"{s}.jsonl")).read()
                   for s in ("cli", "in-process")]
@@ -2463,6 +2580,11 @@ JOIN_RT_RUNS = [
     (137, "LineString", "qPolygon", ("geom_stream_dist",)),
     (142, "LineString", "qLineString", ("geom_stream_dist",)),
 ]
+
+
+#: per-window pairs of the windowed join runs, by (option, query stream):
+#: the pane join's panes-off references
+JOIN_WINDOWS: dict = {}
 
 
 def join_query_streams(seed: int) -> dict:
@@ -2599,6 +2721,8 @@ def join_main_phase(card: str, streams: dict, runs, realtime=False):
         if wins != pwins or not wins:
             raise AssertionError(f"join {opt} ({q_key}): pairs differ from "
                                  "the plain run")
+        if not realtime:
+            JOIN_WINDOWS[(opt, q_key)] = wins
         pairs = [len(w[2]) for w in wins]
         if not sum(pairs):
             raise AssertionError(f"join {opt} ({q_key}): no pair")
@@ -2927,7 +3051,8 @@ def join_breakdown_phase(streams: dict) -> dict:
 
 def join_cli_phase(streams: dict) -> None:
     """The CLI runs option 101 with --input2 on a small CSV pair (16,384
-    points, 512 query points); stdout must equal an in-process run."""
+    points, 512 query points); stdout must equal an in-process run
+    (computed while the CLI runs)."""
     from spatialflink_tpu_torch.driver import _emit, run_option
 
     class Lines:
@@ -2949,25 +3074,698 @@ def join_cli_phase(streams: dict) -> None:
             paths.append(os.path.join(tmp, name))
             with open(paths[-1], "w") as f:
                 f.write("\n".join(lines) + "\n")
-        proc = subprocess.run(
-            [sys.executable, "-m", "spatialflink_tpu_torch.driver",
-             "--config", conf, "--option", "101", "--input1", paths[0],
-             "--format", "CSV", "--input2", paths[1], "--format2", "CSV",
-             "--device", "cuda"],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"CLI exit {proc.returncode}: {proc.stderr}")
-        sink = Lines()
-        for w in run_option(join_params(101, "points", "qpoints"), s1, s2,
-                            device="cuda"):
-            _emit(w, sink)
-        want = sink.out.getvalue()
-        if proc.stdout != want or not want:
-            raise AssertionError(f"CLI option 101 stdout {proc.stdout[:200]!r}"
+        with CliRun(tmp, "101", [
+                "--config", conf, "--option", "101", "--input1", paths[0],
+                "--format", "CSV", "--input2", paths[1], "--format2", "CSV",
+                "--device", "cuda"]) as cli:
+            sink = Lines()
+            for w in run_option(join_params(101, "points", "qpoints"), s1,
+                                s2, device="cuda"):
+                _emit(w, sink)
+            want = sink.out.getvalue()
+            got = cli.stdout()
+        if got != want or not want:
+            raise AssertionError(f"CLI option 101 stdout {got[:200]!r}"
                                  f" != in-process {want[:200]!r}")
         log(f"cli: option 101 over {len(s1)} points x {len(s2)} query "
             f"points -> {want.count(chr(10))} windows, stdout equals the "
             f"in-process run ({want.splitlines()[0]})")
+
+
+# ------------------------------------------------------------------------ #
+# phase 6b: the join's panes, bulk replay, the apps and ser/de
+
+#: the pane joins: (option, stream 1, query stream, kernels its blocks
+#: launch, whether the threshold's overrides run too)
+JOIN_PANE_RUNS = [
+    (101, "points", "qpoints", ("join_reduce", "join_lattice", "cell_order"),
+     True),
+    (106, "points", "qPolygon", ("pip_lattice", "cell_order"), False),
+    (121, "Polygon", "qPolygon", ("geom_stream_dist",), False),
+]
+
+
+@contextlib.contextmanager
+def block_min_cells(value):
+    """``SPATIALFLINK_JOIN_BLOCK_MIN_CELLS`` set (None: unset, the
+    calibrated threshold) for the runs inside."""
+    key = "SPATIALFLINK_JOIN_BLOCK_MIN_CELLS"
+    old = os.environ.pop(key, None)
+    if value is not None:
+        os.environ[key] = str(value)
+    try:
+        yield
+    finally:
+        os.environ.pop(key, None)
+        if old is not None:
+            os.environ[key] = old
+
+
+@contextlib.contextmanager
+def captured_join_ops():
+    """The join operators constructed inside, in a list (their block
+    counts)."""
+    from spatialflink_tpu_torch import operators as O
+
+    seen, real = [], O.PointPointJoinQuery.__init__
+
+    def init(self, *a, **kw):
+        real(self, *a, **kw)
+        seen.append(self)
+    O.PointPointJoinQuery.__init__ = init
+    try:
+        yield seen
+    finally:
+        O.PointPointJoinQuery.__init__ = real
+
+
+def _pair_sets(wins):
+    return [(s, e, sorted(p)) for s, e, p in wins]
+
+
+def join_pane_phase(card: str, streams: dict):
+    """The pane join (``query.panes``) on the card at the join phase's
+    shapes: 101 (524,288 points x 16,384 query points: the join index, K7
+    and K6 per pane-pair block), 106 (x the 1,024 query polygons: K4x) and
+    121 (65,536 polygons x the 1,024 query polygons: K5). Each runs with
+    the calibrated threshold (101 under torch.profiler, for the card's
+    busy share; its launches counted: every kernel of the blocks' path
+    must launch) and with every kernel swapped for its plain version:
+    each window's pair set equals the panes-off run's (the join phase's
+    run of the option, ``JOIN_WINDOWS``), and its pair list the plain
+    run's; 101 also runs with the threshold at 0 (blocks) and 2**24
+    (coalesced), whose pair sets equal each other's."""
+    import torch
+
+    from spatialflink_tpu_torch.ops import join as J
+
+    counters = _join_counters()
+    launches = dict.fromkeys(counters, 0)
+    report = []
+    for fn in counters.values():
+        fn.launches = 0
+    with block_min_cells(None):
+        t0 = time.perf_counter()
+        threshold = J.adaptive_block_min_cells("cuda")
+        cal_s = time.perf_counter() - t0
+    cal_launches = {n: fn.launches for n, fn in counters.items()}
+    for opt, s_key, q_key, path, overrides in JOIN_PANE_RUNS:
+        s1 = streams[s_key] if s_key == "points" \
+            else streams[s_key][:N_JOIN_GEOMS]
+        s2 = streams[q_key]
+        params = join_params(opt, s_key, q_key)
+        params.query.panes = True
+        timed = []
+
+        def once() -> float:
+            # the counts of exactly one run: a profiler session that lost
+            # its device events runs the join again from counts of 0
+            for fn in counters.values():
+                fn.launches = 0
+            timed[:] = [run_join(params, s1, s2)]
+            return timed[0][3]
+
+        with captured_join_ops() as seen, block_min_cells(None):
+            if opt == 101:  # the card's busy share under the profiler
+                trace = trace_device(once, cpu=False, tries=3)
+            else:
+                once()
+                trace = None
+        wins, lat, _, wall = timed[0]
+        got = {name: fn.launches for name, fn in counters.items()}
+        op = seen[-1]
+        blocks = {"evaluated": op.pane_cache.misses,
+                  "cached": op.pane_cache.hits,
+                  "coalesced": op.blocks_coalesced}
+        for name in counters:
+            launches[name] += got[name]
+        if any(got[name] <= 0 for name in path):
+            raise AssertionError(f"pane join {opt}: kernels of its path not "
+                                 f"launched {got}")
+        off = JOIN_WINDOWS.get((opt, q_key))
+        if off is None:
+            params.query.panes = False
+            off = run_join(params, s1, s2)[0]
+            params.query.panes = True
+        if _pair_sets(wins) != _pair_sets(off) or not wins:
+            raise AssertionError(f"pane join {opt}: pair sets differ from "
+                                 "the panes-off run")
+        with join_plain_versions():
+            pwins = run_join(params, s1, s2)[0]
+        if pwins != wins:
+            raise AssertionError(f"pane join {opt}: pairs differ from the "
+                                 "plain run")
+        forced = {}
+        if overrides:
+            for value in (0, 1 << 24):
+                with block_min_cells(value):
+                    forced[value] = run_join(params, s1, s2)
+            if (_pair_sets(forced[0][0]) != _pair_sets(forced[1 << 24][0])
+                    or _pair_sets(forced[0][0]) != _pair_sets(wins)):
+                raise AssertionError(f"pane join {opt}: the blocks' and the "
+                                     "coalesced windows' pair sets differ")
+        pairs = [len(w[2]) for w in wins]
+        if not sum(pairs):
+            raise AssertionError(f"pane join {opt}: no pair")
+        row = {"option": opt, "stream": s_key, "query": q_key, "panes": True,
+               "records": len(s1), "query_records": len(s2),
+               "windows": len(wins), "pairs": sum(pairs),
+               "records_per_s": len(s1) / wall,
+               "pairs_per_s": sum(pairs) / wall,
+               "median_window_ms": float(np.median(lat)),
+               "p99_window_ms": _pct(lat, 99), "wall_s": wall,
+               "under_profiler": trace is not None,
+               "blocks_evaluated": blocks["evaluated"],
+               "blocks_cached": blocks["cached"],
+               "blocks_coalesced": blocks["coalesced"],
+               "threshold_cells": threshold,
+               "launches": {n: v for n, v in got.items() if v},
+               "card": card}
+        if trace is not None:
+            row.update(_traced(trace))
+        for value, (fw, flat, _, fwall) in forced.items():
+            row[f"min_cells_{value}"] = {
+                "wall_s": fwall, "median_window_ms": float(np.median(flat)),
+                "p99_window_ms": _pct(flat, 99),
+                "records_per_s": len(s1) / fwall}
+        log("join-panes", json.dumps(row))
+        report.append(row)
+        torch.cuda.empty_cache()
+    cal = {"threshold_cells": threshold, "calibration_s": cal_s,
+           "calibration_launches": {n: v for n, v in cal_launches.items()
+                                    if v}}
+    log("join-panes threshold", json.dumps(cal))
+    return launches, report, cal
+
+
+#: the bulk replays: (option, multiQuery, panes, input file, kernels)
+BULK_RUNS = [
+    (1, False, False, "points", ("range_mask_stats",)),
+    (6, False, False, "points", ("pip_dist", "range_mask_stats")),
+    (51, False, False, "points", ("knn_topk",)),
+    (1, True, False, "points", ("range_mask_stats",)),
+    (51, True, False, "points", ("knn_topk",)),
+    (51, False, True, "points", ("knn_topk", "knn_merge")),
+    (21, False, False, "Polygon.wkt", ("geom_stream_dist",)),
+    (71, False, False, "Polygon.geojson", ("geom_stream_dist", "knn_topk")),
+    (101, False, False, "points", ("join_reduce", "join_lattice",
+                                   "cell_order")),
+]
+N_BULK_POINTS = 1 << 18  # points of the bulk point file: the first 10 s
+N_BULK_GEOMS = 1 << 15  # geometries of each bulk geometry file
+
+
+def _bulk_counters():
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+
+    return {**_counters(), **_join_counters(), "pip_dist": HK.pip_dist}
+
+
+@contextlib.contextmanager
+def all_plain_versions():
+    """Every kernel a bulk run can reach swapped for its plain version."""
+    saved = {key: getattr(*key) for key in _plain_kernels()}
+    try:
+        for (mod, name), fn in _plain_kernels().items():
+            setattr(mod, name, fn)
+        with join_plain_versions():
+            yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def _bulk_form(w):
+    """A bulk window's result in comparable form."""
+    return (w.window_start, w.window_end, w.records)
+
+
+def bulk_phase(card: str, streams: dict, glines: dict, geom_host: dict):
+    """``--bulk`` (``driver.run_option_bulk``) on the card: the point
+    stream's first N_BULK_POINTS (its first 10 s: the window [0, 10 s)
+    holds the main path's full window of points, its neighbours half as
+    many) and the query points of that span written as CSV, the first
+    N_BULK_GEOMS polygons and linestrings as WKT (from their parsed
+    objects) and GeoJSON; each file parsed whole
+    by the native parsers (the geometry parse timed per record beside the
+    per-record parse's), then options 1, 6, 51, multiQuery 1 and 51, 51
+    with panes (the device merge, K3), 21 over the WKT polygons, 71 over
+    the GeoJSON polygons and 101 against the query points. Each run's
+    launches counted (every kernel of its path must launch); each window
+    equals the run with every kernel swapped for its plain version and the
+    record path's run of the same records (index lists mapped back to the
+    records; kNN lists as they are)."""
+    import torch
+
+    from spatialflink_tpu_torch.driver import (_bulk_parse_geom_stream,
+                                               _bulk_parse_stream,
+                                               run_option, run_option_bulk)
+    from spatialflink_tpu_torch.streams import bulk as B
+    from spatialflink_tpu_torch.streams.formats import serialize_spatial
+
+    counters = _bulk_counters()
+    launches = dict.fromkeys(counters, 0)
+    report, parse, mapped = [], {}, {}
+    build = os.path.join(ROOT, "spatialflink_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    objs = {kind: streams[kind][:N_BULK_GEOMS]
+            for kind in ("Polygon", "LineString")}
+    points = streams["points"][:N_BULK_POINTS]
+    qpoints = streams["qpoints"][:N_BULK_POINTS * N_QPOINTS // N_STREAM]
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        paths = {}
+
+        def write(name, lines):
+            paths[name] = os.path.join(tmp, name)
+            with open(paths[name], "w") as f:
+                f.write("\n".join(lines) + "\n")
+
+        write("points", points)
+        write("qpoints", qpoints)
+        for kind in objs:
+            write(f"{kind}.geojson", glines[kind][:N_BULK_GEOMS])
+            write(f"{kind}.wkt", [serialize_spatial(o, "WKT")
+                                  for o in objs[kind]])
+        # the native geometry parse, per record, beside the per-record one
+        for kind in objs:
+            for fmt in ("wkt", "geojson"):
+                with open(paths[f"{kind}.{fmt}"], "rb") as f:
+                    data = f.read()
+                fn = B.bulk_parse_wkt if fmt == "wkt" \
+                    else B.bulk_parse_geojson_geoms
+                t0 = time.perf_counter()
+                parsed = fn(data)
+                sec = time.perf_counter() - t0
+                if len(parsed) != len(objs[kind]):
+                    raise AssertionError(f"{kind} {fmt}: {len(parsed)} parsed")
+                parse[f"{kind}_{fmt}_us_per_record"] = \
+                    sec / len(parsed) * 1e6
+            parse[f"{kind}_per_record_parse_us"] = \
+                geom_host[f"decode_us_per_record_{kind}"]
+        log("bulk-parse", json.dumps(parse))
+        for opt, multi, panes, src, path in BULK_RUNS:
+            params = (join_params(opt, "points", "qpoints") if opt == 101
+                      else base_params())
+            params.query.option = opt
+            params.query.multi_query = multi
+            params.query.panes = panes
+            if opt == 51 and not multi:
+                params.query.k = 50
+            geom = src.startswith(("Polygon", "LineString"))
+            if geom:
+                params = dataclasses.replace(params, input1=dataclasses.replace(
+                    params.input1, format="WKT" if src.endswith(".wkt")
+                    else "GeoJSON"))
+            for fn in counters.values():
+                fn.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            wins = [_bulk_form(w) for w in run_option_bulk(
+                params, paths[src], paths["qpoints"], device="cuda")]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {name: fn.launches for name, fn in counters.items()}
+            for name in counters:
+                launches[name] += got[name]
+            if any(got[name] <= 0 for name in path):
+                raise AssertionError(f"bulk {opt}: kernels of its path not "
+                                     f"launched {got}")
+            with all_plain_versions():
+                pwins = [_bulk_form(w) for w in run_option_bulk(
+                    params, paths[src], paths["qpoints"], device="cuda")]
+            if pwins != wins or not wins:
+                raise AssertionError(f"bulk {opt}: windows differ from the "
+                                     "plain run")
+            # the record path over the same records, and the bulk indices
+            # mapped back to them (each file parsed once for the mapping)
+            if src not in mapped:
+                t0 = time.perf_counter()
+                mapped[src] = (_bulk_parse_geom_stream(params, paths[src])
+                               if geom else _bulk_parse_stream(
+                                   params.input1, paths[src],
+                                   params.query.allowed_lateness_s))
+                parse[f"{src}_parse_s"] = time.perf_counter() - t0
+            parsed = mapped[src]
+            rec_in = objs[src.split(".")[0]] if geom else points
+            parsed2 = None
+            if opt == 101:
+                parsed2 = _bulk_parse_stream(params.input2,
+                                             paths["qpoints"],
+                                             params.query.allowed_lateness_s)
+            t0 = time.perf_counter()
+            rec = [(w.window_start, w.window_end, w.records)
+                   for w in run_option(params, rec_in, qpoints,
+                                       device="cuda")]
+            rec_wall = time.perf_counter() - t0
+            _bulk_equals_records(opt, multi, wins, rec, parsed, parsed2)
+            n_sel = sum(len(q) for w in wins for q in
+                        (w[2] if multi else [w[2]]))
+            if not n_sel:
+                raise AssertionError(f"bulk {opt}: nothing selected")
+            row = {"option": opt, "multi_query": multi, "panes": panes,
+                   "input": src, "records": len(parsed),
+                   "windows": len(wins), "selected": n_sel,
+                   "records_per_s": len(parsed) / wall, "wall_s": wall,
+                   "parse_s": parse[f"{src}_parse_s"],
+                   "record_path_wall_s": rec_wall,
+                   "launches": {n: v for n, v in got.items() if v},
+                   "card": card}
+            if opt in (1, 21) and not multi:
+                # once more under torch.profiler: the card's busy share
+                trace = trace_device(lambda: _timed_bulk(
+                    run_option_bulk, params, paths[src], paths["qpoints"]),
+                    tries=3)
+                row.update(traced_wall_s=trace["wall_s"], **_traced(trace))
+            log("bulk", json.dumps(row))
+            report.append(row)
+            torch.cuda.empty_cache()
+    return launches, report, parse
+
+
+def _timed_bulk(run_option_bulk, params, path, path2) -> float:
+    """One bulk replay on the card, read to its end: its wall seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in run_option_bulk(params, path, path2, device="cuda"):
+        pass
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _knn_equal(got, want) -> bool:
+    """Two kNN lists of one window: the same distances in order, and the
+    same objects at every distance below the last (at the last, ties may
+    pick other objects: the bulk parse interns ids in another order than
+    the record path's decode chunks)."""
+    if [d for _, d in got] != [d for _, d in want]:
+        return False
+    last = got[-1][1] if got else None
+    return (sorted(o for o, d in got if d != last)
+            == sorted(o for o, d in want if d != last))
+
+
+def _id_names(interner):
+    """An interner's id strings as an object array indexed by interned id,
+    cached per interner."""
+    names = _ID_NAMES.get(id(interner))
+    if names is None or names[0] is not interner or \
+            len(names[1]) != len(interner):
+        names = (interner, np.array(interner.to_list(), dtype=object))
+        _ID_NAMES[id(interner)] = names
+    return names[1]
+
+
+_ID_NAMES: dict = {}
+
+
+def _bulk_equals_records(opt, multi, wins, rec, parsed, parsed2=None):
+    """A bulk run's windows against the record path's: the same windows;
+    kNN lists equal (:func:`_knn_equal`); range selections and join
+    pairs, their indices mapped to the parsed records' (object id, event
+    time), equal in order (point selections compared as columns)."""
+    from spatialflink_tpu_torch.driver import CASES
+
+    if [w[:2] for w in wins] != [w[:2] for w in rec]:
+        raise AssertionError(f"bulk {opt}: other windows than the record "
+                             "path's")
+    fam = CASES[opt].family
+
+    def keys(p, idx):
+        lk = p.interner.lookup
+        return [(lk(int(p.obj_id[i])), int(p.ts[i])) for i in idx]
+
+    def rec_keys(recs):
+        return [(r.obj_id, r.timestamp) for r in recs]
+
+    def same(idx, recs) -> bool:
+        # selected point rows (``PointRows``): ids and times as arrays
+        if not hasattr(recs, "columns"):
+            return keys(parsed, idx) == rec_keys(recs)
+        idx = np.asarray(idx, np.int64)
+        _, _, ts, oid, _, _ = recs.columns()
+        return (idx.size == ts.size
+                and np.array_equal(parsed.ts[idx], ts)
+                and bool(np.all(_id_names(parsed.interner)[parsed.obj_id[idx]]
+                                == _id_names(recs.interner)[oid])))
+
+    for (_, _, got), (_, _, want) in zip(wins, rec):
+        if fam == "knn":
+            ok = all(_knn_equal(g, w) for g, w in
+                     zip(got if multi else [got], want if multi else [want],
+                         strict=True))
+        elif fam == "join":
+            ok = ([(keys(parsed, [a])[0], keys(parsed2, [b])[0])
+                   for a, b in got]
+                  == [((a.obj_id, a.timestamp), (b.obj_id, b.timestamp))
+                      for a, b in want])
+        elif multi:
+            ok = len(got) == len(want) and all(
+                same(g, w) for g, w in zip(got, want))
+        else:
+            ok = same(got, want)
+        if not ok:
+            raise AssertionError(f"bulk {opt}: a window differs from the "
+                                 "record path's")
+
+
+N_SENSORS = 1 << 13       # sensor polygons of 1011 / 1012
+N_CHECKINS = 100_000      # DEIM check-in events of 2000
+N_ROOMS, N_USERS = 50, 10_000
+N_SERDE = 1 << 10         # records of each ser/de option
+N_SHAPES = 1 << 10        # records of each shape type in the shapefile
+
+
+def checkin_lines(seed: int):
+    """N_CHECKINS DEIM events 'eventID,deviceID,userID,ts,x,y': each user
+    alternates in and out of one of N_ROOMS rooms, 1 % of the events lost
+    (the app inserts them again), over SPAN_MS."""
+    rng = np.random.default_rng(seed)
+    user = rng.integers(0, N_USERS, N_CHECKINS)
+    room = rng.integers(0, N_ROOMS, N_USERS)
+    ts = T0 + np.sort(rng.integers(0, SPAN_MS, N_CHECKINS))
+    n_seen = np.zeros(N_USERS, np.int64)
+    out = []
+    for i, (u, t) in enumerate(zip(user.tolist(), ts.tolist())):
+        sym = "in" if n_seen[u] % 2 == 0 else "out"
+        n_seen[u] += 1
+        if rng.random() < 0.01:
+            continue
+        out.append(f"e{i},room{room[u]}-{sym},u{u},{t},0.5,0.5")
+    return out
+
+
+def _serde_objects(kind: str, n: int, seed: int):
+    """n port objects of ``kind`` over the conf's bbox."""
+    from spatialflink_tpu_torch import models as M
+
+    rng = np.random.default_rng(seed)
+    grid = _grid()
+    out = []
+    for i in range(n):
+        cx = float(rng.uniform(BBOX[0] + 0.1, BBOX[2] - 0.1))
+        cy = float(rng.uniform(BBOX[1] + 0.1, BBOX[3] - 0.1))
+        r = float(rng.uniform(0.002, 0.02))
+        oid, ts = f"o{i}", T0 + int(rng.integers(0, SPAN_MS // 1000)) * 1000
+        pt = M.Point.create(cx, cy, grid, obj_id=oid, timestamp=ts)
+        line = M.LineString.create([(cx, cy), (cx + r, cy + r),
+                                    (cx + 2 * r, cy)], grid, obj_id=oid,
+                                   timestamp=ts)
+        if kind == "Point":
+            out.append(pt)
+        elif kind == "Polygon":
+            out.append(M.Polygon.create(
+                [[(cx - r, cy - r), (cx + r, cy - r), (cx + r, cy + r),
+                  (cx - r, cy + r)]], grid, obj_id=oid, timestamp=ts))
+        elif kind == "LineString":
+            out.append(line)
+        elif kind == "GeometryCollection":
+            out.append(M.GeometryCollection.create([pt, line], obj_id=oid,
+                                                   timestamp=ts))
+        else:
+            out.append(M.MultiPoint.create([(cx, cy), (cx + r, cy - r)],
+                                           grid, obj_id=oid, timestamp=ts))
+    return out
+
+
+def _shapefile_bytes(seed: int) -> bytes:
+    """N_SHAPES points, polygons (every other one with a hole) and
+    two-part polylines in one .shp, written with ``struct`` as the ESRI
+    spec lays it out (big-endian headers, little-endian payloads)."""
+    import struct
+
+    rng = np.random.default_rng(seed)
+
+    def parts_payload(shape_type, parts):
+        out = struct.pack("<i", shape_type) + struct.pack("<4d", 0, 0, 0, 0)
+        out += struct.pack("<ii", len(parts), sum(len(p) for p in parts))
+        start = 0
+        for p in parts:
+            out += struct.pack("<i", start)
+            start += len(p)
+        return out + b"".join(struct.pack("<dd", x, y)
+                              for p in parts for x, y in p)
+
+    payloads = []
+    for i in range(N_SHAPES):
+        cx = float(rng.uniform(BBOX[0] + 0.1, BBOX[2] - 0.1))
+        cy = float(rng.uniform(BBOX[1] + 0.1, BBOX[3] - 0.1))
+        r = float(rng.uniform(0.002, 0.02))
+        payloads.append(struct.pack("<i", 1) + struct.pack("<dd", cx, cy))
+        shell = [(cx - r, cy - r), (cx + r, cy - r), (cx + r, cy + r),
+                 (cx - r, cy + r), (cx - r, cy - r)]
+        h = r / 3
+        hole = [(cx - h, cy - h), (cx + h, cy - h), (cx, cy + h),
+                (cx - h, cy - h)]
+        payloads.append(parts_payload(5, [shell, hole] if i % 2 else [shell]))
+        payloads.append(parts_payload(3, [[(cx, cy), (cx + r, cy + r)],
+                                          [(cx - r, cy), (cx, cy - r),
+                                           (cx + r, cy)]]))
+    records = b"".join(struct.pack(">ii", i, len(p) // 2) + p
+                       for i, p in enumerate(payloads, start=1))
+    header = struct.pack(">i", 9994) + b"\x00" * 20
+    header += struct.pack(">i", (100 + len(records)) // 2)
+    return header + b"\x00" * (100 - len(header)) + records
+
+
+def _stay_reference(lines, grid, size, slide, lateness_ms):
+    """Per window, the total of every object's consecutive time deltas
+    between in-grid points (each pair's delta, which the app splits over
+    the cells it crosses), from the CSV rows with numpy: the check of
+    1010's per-cell sums."""
+    f = [ln.split(",") for ln in lines]
+    oid = np.unique(np.array([r[0] for r in f]), return_inverse=True)[1]
+    ts = np.array([int(r[1]) for r in f], np.int64)
+    x = np.array([float(r[2]) for r in f])
+    y = np.array([float(r[3]) for r in f])
+    keep = np.ones(ts.size, bool)
+    keep[1:] = ts[1:] >= np.maximum.accumulate(ts)[:-1] - lateness_ms
+    oid, ts, x, y = oid[keep], ts[keep], x[keep], y[keep]
+    cell, valid = grid.assign_cell(x, y)
+    out = {}
+    for start in range(int(ts.min()) - int(ts.min()) % slide - size + slide,
+                       int(ts.max()) + 1, slide):
+        m = (ts >= start) & (ts < start + size)
+        if not m.any():
+            continue
+        o, t, v = oid[m], ts[m], valid[m]
+        order = np.lexsort((t, o))
+        o, t, v = o[order], t[order], v[order]
+        same = (o[1:] == o[:-1]) & v[1:] & v[:-1]
+        out[start] = float((t[1:] - t[:-1])[same].sum())
+    return out
+
+
+def apps_serde_phase(card: str, tlines, seed: int, device="cuda"):
+    """The host-only options on the machine with the card (no kernel runs
+    on these paths: the apps, ser/de and shapefile inputs are host code in
+    both packages): 1010 over the trajectory stream (its per-window stay
+    time against a numpy total of the consecutive time deltas), 1011 over
+    N_SENSORS sensor polygons (cut from the stream's size: the app tests
+    each polygon against each of its cells in Python), 1012 over both,
+    2000 over N_CHECKINS check-in events (occupancy never below 0 with the
+    lost events inserted again); each ser/de option 401-906 over N_SERDE
+    records (every output parses back to itself); 1001-1003 over a
+    shapefile written with ``struct``. Records/s per option."""
+    from spatialflink_tpu_torch.config import Params
+    from spatialflink_tpu_torch.driver import CASES, run_option
+    from spatialflink_tpu_torch.streams.formats import (parse_spatial,
+                                                        serialize_spatial)
+
+    report = []
+
+    def timed(option, n, run):
+        t0 = time.perf_counter()
+        out = list(run())
+        wall = time.perf_counter() - t0
+        row = {"option": option, "family": CASES[option].family,
+               "records": n, "results": len(out), "wall_s": wall,
+               "records_per_s": n / wall, "host_only": True, "card": card}
+        log("apps-serde", json.dumps(row))
+        report.append(row)
+        return out
+
+    def params(option, fmt1="CSV", fmt2="GeoJSON"):
+        p = Params.from_yaml(CONF)
+        p.query.option = option
+        return dataclasses.replace(
+            p, input1=dataclasses.replace(p.input1, format=fmt1),
+            input2=dataclasses.replace(p.input2, format=fmt2))
+
+    grid = _grid()
+    sensors = geom_stream_lines(seed + 40, N_SENSORS, "Polygon")
+    stay = timed(1010, len(tlines), lambda: run_option(
+        params(1010), tlines, device=device))
+    p = params(1010)
+    size, slide = p.window_ms()
+    want = _stay_reference(tlines, grid, size, slide,
+                           p.query.allowed_lateness_s * 1000)
+    got = {w.window_start: sum(s for _, s in w.records) for w in stay}
+    if set(got) != set(want) or any(
+            abs(got[k] - want[k]) > 1e-6 * max(1.0, want[k]) for k in want):
+        raise AssertionError("1010: per-window stay time differs from the "
+                             "total of the consecutive deltas")
+    if not all(np.isfinite(s) and s >= 0 for w in stay
+               for _, s in w.records):
+        raise AssertionError("1010: a stay time is not finite")
+    cover = timed(1011, len(sensors), lambda: run_option(
+        params(1011, "GeoJSON"), sensors, device=device))
+    if not any(w.records for w in cover) or any(
+            c <= 0 for w in cover for _, c in w.records):
+        raise AssertionError("1011: no covered cell, or a count below 1")
+    norm = timed(1012, len(tlines) + len(sensors), lambda: run_option(
+        params(1012), tlines, sensors, device=device))
+    if not any(w.records for w in norm) or not all(
+            np.isfinite(v) and v >= 0 for w in norm for *_, v in w.records):
+        raise AssertionError("1012: no normalized cell, or a bad value")
+    events = checkin_lines(seed + 41)
+    occ = timed(2000, len(events), lambda: run_option(
+        params(2000), events, device=device))
+    # the events the app must insert: per user, each two consecutive
+    # events from one device
+    last, inserted = {}, 0
+    for ln in events:
+        _, dev, user = ln.split(",")[:3]
+        inserted += last.get(user) == dev
+        last[user] = dev
+    if not inserted or len(occ) != len(events) + inserted:
+        raise AssertionError(f"2000: {len(occ)} results for {len(events)} "
+                             f"events and {inserted} lost ones")
+    conf_date_format = Params.from_yaml(CONF).input1.date_format
+    for option in sorted(o for o, s in CASES.items() if s.family == "deser"):
+        spec = CASES[option]
+        delim = spec.delim or ("\t" if spec.fmt == "TSV" else ",")
+        date_format = conf_date_format if spec.timestamped else None
+        lines = [serialize_spatial(o, spec.fmt, delimiter=delim,
+                                   date_format=date_format)
+                 for o in _serde_objects(spec.stream, N_SERDE, seed + option)]
+        out = timed(option, len(lines), lambda: run_option(
+            params(option), lines, device=device))
+        again = [serialize_spatial(parse_spatial(
+            ser, spec.fmt, grid, delimiter=delim,
+            date_format=conf_date_format),
+            spec.fmt, delimiter=delim, date_format=date_format)
+            for _, ser in out]
+        if len(out) != N_SERDE or again != [ser for _, ser in out] or any(
+                type(o).__name__ != spec.stream for o, _ in out):
+            raise AssertionError(f"ser/de {option}: an output does not parse "
+                                 "back to itself")
+    build = os.path.join(ROOT, "spatialflink_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        shp = os.path.join(tmp, "in.shp")
+        with open(shp, "wb") as f:
+            f.write(_shapefile_bytes(seed + 42))
+        kinds = {"Point": 0, "Polygon": 0, "MultiLineString": 0}
+        for option in (1001, 1002, 1003):
+            objs = timed(option, 3 * N_SHAPES, lambda: run_option(
+                params(option), shp, device=device))
+            for o in objs:
+                kinds[type(o).__name__] += 1
+        if kinds != dict.fromkeys(kinds, 3 * N_SHAPES):
+            raise AssertionError(f"shapefile: {kinds}")
+    return report
 
 
 # ------------------------------------------------------------------------ #
@@ -3473,6 +4271,8 @@ def main(argv=None) -> int:
     compile_s = phase("build", native.build,
                       (*native.SOURCES, *native.HOST_SOURCES))
     log(f"build: per source {json.dumps(compile_s)}")
+    # the polygon and linestring streams, generated beside the phases below
+    gstreams = GeomStreams(args.seed, N_GEOM)
     build_report = {name: native.ptxas_report(native.build_log(name))
                     for name in native.SOURCES}
     timer = Timer(torch)
@@ -3524,10 +4324,11 @@ def main(argv=None) -> int:
 
     # the polygon and linestring streams
     t0 = time.perf_counter()
-    glines = {kind: geom_stream_lines(args.seed + 5 + i, N_GEOM, kind)
-              for i, kind in enumerate(("Polygon", "LineString"))}
+    glines = gstreams.lines()
     log(f"geometry streams: {N_GEOM} GeoJSON polygons and linestrings each "
-        f"over {SPAN_MS} ms ({time.perf_counter() - t0:.1f} s to generate)")
+        f"over {SPAN_MS} ms (two helper processes from the build on: "
+        f"{time.perf_counter() - gstreams.t0:.1f} s, the last "
+        f"{time.perf_counter() - t0:.1f} s waited for)")
     geoms, geom_host = {}, {}
     for kind, kind_lines in glines.items():
         geoms[kind], sec = phase(f"decode-{kind}", decode_geoms, kind_lines,
@@ -3550,6 +4351,9 @@ def main(argv=None) -> int:
     prof["71"] = phase("profile-71", geom_profile_phase,
                        geoms["Polygon"][:N_GEOM_RUNS], 71)
     phase("cli-geom", geom_cli_phase, glines["Polygon"][:N_GEOM_CLI])
+    # the bulk phase writes the first N_BULK_GEOMS of each as GeoJSON
+    bulk_glines = {kind: kind_lines[:N_BULK_GEOMS]
+                   for kind, kind_lines in glines.items()}
     del glines
 
     # panes (K3) and the standing-query plane; the geometry runs take
@@ -3590,6 +4394,14 @@ def main(argv=None) -> int:
                                   streams)
     prof["101"] = phase("profile-101", join_profile_phase, streams)
     phase("cli-join", join_cli_phase, streams)
+    # the join's panes, bulk replay, the apps and ser/de
+    jp_launches, jp_report, jp_threshold = phase(
+        "join-panes", join_pane_phase, card, streams)
+    bulk_launches, bulk_report, bulk_parse = phase(
+        "bulk", bulk_phase, card, streams, bulk_glines, geom_host)
+    del bulk_glines
+    apps_report = phase("apps-serde", apps_serde_phase, card, tlines,
+                        args.seed)
     del lines, geoms, streams
     torch.cuda.empty_cache()
 
@@ -3601,7 +4413,8 @@ def main(argv=None) -> int:
     del tlines, tqlines
     for more in (rt_launches, short_launches, count_launches, geom_launches,
                  other_launches, pane_launches, gpane_launches, dyn_launches,
-                 join_launches, jrt_launches, traj_launches):
+                 join_launches, jrt_launches, traj_launches, jp_launches,
+                 bulk_launches):
         for name in KERNELS:
             launches[name] += more.get(name, 0)
     micro["geom_stream_dist"] = [c for c in k5_cases
@@ -3746,6 +4559,10 @@ def main(argv=None) -> int:
                       "main_path": report + rt_report + count_report,
                       "geom_path": geom_report + other_report,
                       "join_path": join_report,
+                      "join_panes": jp_report,
+                      "join_pane_threshold": jp_threshold,
+                      "bulk": bulk_report, "bulk_parse": bulk_parse,
+                      "apps_serde": apps_report,
                       "panes": pane_report + gpane_report,
                       "dynamic": dyn_report,
                       "trajectory": traj_report,

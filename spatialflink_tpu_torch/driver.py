@@ -32,7 +32,18 @@ each result tagged with ``extras["family"]``. ``query.panes``
 (or ``--panes``) runs the sliding windows of the range and kNN options pane
 by pane, each pane evaluated once and each window merged from its panes'
 partials (``--pane-merge``, ``query.paneDeviceMerge``: where kNN partials
-merge); a join refuses it. ``--queries-file`` serves a dynamic fleet of
+merge), and a windowed join by pane-pair blocks (a realtime join ignores
+it, as in the JAX package). The host-only options: the ser/de pipelines
+401-406 ... 901-906 (each record parsed in the option's format and written
+again: ``(object, serialized)``), the shapefile inputs 1001-1003
+(``--input1`` the ``.shp`` path), and the apps 1010 (cell stay time),
+1011 (sensor coverage), 1012 (the two normalized; stream 2 the sensor
+polygons) and 2000 (check-in occupancy). ``--bulk``
+(:func:`run_option_bulk`) replays a whole file of a windowed range, kNN
+or point x point join in one native parse, results as original-record
+indices, and falls back to the record path, with a note, where the JAX
+driver does; ``--limit`` reads at most that many records of each
+stream (``--bulk`` ignores it). ``--queries-file`` serves a dynamic fleet of
 point queries (windowed range 1, 16, 31 and kNN 51) from a live
 ``runtime.queryplane.QueryRegistry``, seeded from the file or the config's
 ``queryPoints``; each window's per-query lists go to the queries' routes.
@@ -48,7 +59,7 @@ geometry type is dropped and counted (``decode_chunks.off_type_dropped``).
     python -m spatialflink_tpu_torch.driver --config conf/spatialflink-conf.yml \\
         --option 51 --input1 points.csv --format CSV [--multi-query] \\
         [--panes [--pane-merge auto|device|host]] [--queries-file q.json] \\
-        [--input2 queries.csv --format2 CSV] \\
+        [--input2 queries.csv --format2 CSV] [--bulk] [--limit N] \\
         [--output out.geojson] [--output-format GeoJSON|WKT|CSV|TSV] \\
         [--device cuda|cpu]
 
@@ -56,17 +67,22 @@ stdout carries one line per window as the JAX driver prints it:
 ``{'window': [start, end], 'count': n}`` plus the result's extras (``k``
 for kNN; ``per_query_counts`` and ``queries`` under multiQuery and
 ``--queries-file``, which adds ``query_ids``), without ``latency_ms``; a join's count is its number of pairs, and ``--output``
-writes each pair as a JSON array of its two serialized records.
+writes each pair as a JSON array of its two serialized records. A
+host-only option's results (a ser/de pair, a shapefile object, a
+check-in tuple) print one per line as they are.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import sys
 import time
 from dataclasses import dataclass
 from typing import Iterable, Iterator, List, Optional
+
+import numpy as np
 
 from spatialflink_tpu_torch import operators as ops
 from spatialflink_tpu_torch.config import Params, StreamConfig
@@ -75,22 +91,29 @@ from spatialflink_tpu_torch.index import UniformGrid
 from spatialflink_tpu_torch.operators import (QueryConfiguration, QueryType,
                                               WindowResult)
 from spatialflink_tpu_torch.operators.base import NOT_PORTED
+from spatialflink_tpu_torch.runtime.watermarks import BoundedOutOfOrderness
 from spatialflink_tpu_torch.streams import bulk
 from spatialflink_tpu_torch.models import SpatialObject
 from spatialflink_tpu_torch.models.objects import _EdgeGeom
 from spatialflink_tpu_torch.streams.bulk import GeomChunk, PointChunk
-from spatialflink_tpu_torch.streams.formats import parse_spatial
+from spatialflink_tpu_torch.streams.formats import (parse_spatial,
+                                                    serialize_spatial)
 from spatialflink_tpu_torch.utils import IdInterner
 
 
 @dataclass(frozen=True)
 class CaseSpec:
-    family: str            # range | knn | join | t* (trajectory) | synthetic
+    # range | knn | join | t* (trajectory) | synthetic | deser | shapefile
+    # | staytime | checkin
+    family: str
     stream: str = "Point"  # geometry type of input stream 1
     query: str = "Point"   # geometry type of the query side
     mode: str = "window"   # window | realtime
     latency: bool = False  # a latency variant
     naive: bool = False    # a naive twin (no cell pruning)
+    fmt: Optional[str] = None   # a ser/de case's forced format
+    timestamped: bool = False   # a ser/de case writes its timestamps
+    delim: Optional[str] = None  # a ser/de case's forced delimiter (TSV)
 
 
 _PAIRS = [
@@ -124,6 +147,32 @@ def _build_cases() -> dict:
     for opt, fam in ((2030, "trange"), (2090, "tjoin"), (2011, "tknn")):
         c[opt] = CaseSpec(fam, mode="realtime", naive=True)
     c[99] = CaseSpec("synthetic")
+    # ser/de conformance pipelines (StreamingJob.java:1289-1545): x01-x05
+    # parse and re-serialize Point, Polygon, LineString, GeometryCollection
+    # and MultiPoint records; 600 and 900 are the TAB-separated variants;
+    # x06 plain CSV/TSV point rows
+    types = ("Point", "Polygon", "LineString", "GeometryCollection",
+             "MultiPoint")
+    for base, fmt, ts in ((400, "GeoJSON", False), (500, "WKT", False),
+                          (600, "WKT", False), (700, "GeoJSON", True),
+                          (800, "WKT", True), (900, "WKT", True)):
+        delim = "\t" if base in (600, 900) else None
+        for j, t in enumerate(types, start=1):
+            c[base + j] = CaseSpec("deser", t, fmt=fmt, timestamped=ts,
+                                   delim=delim)
+        c[base + 6] = CaseSpec("deser", "Point", fmt="TSV" if delim else "CSV",
+                               timestamped=ts, delim=delim)
+    # shapefile batch inputs (StreamingJob.java:1546-1569)
+    c[1001] = CaseSpec("shapefile", "Point")
+    c[1002] = CaseSpec("shapefile", "Polygon")
+    c[1003] = CaseSpec("shapefile", "LineString")
+    # the apps (StreamingJob.java:1619-1700): 1010 cell stay time over a
+    # point stream, 1011 sensor-range intersection over a polygon stream,
+    # 1012 the normalized stay time over both; 2000 check-in occupancy
+    c[1010] = CaseSpec("staytime", "Point")
+    c[1011] = CaseSpec("staytime", "Polygon")
+    c[1012] = CaseSpec("staytime", "Point", "Polygon")
+    c[2000] = CaseSpec("checkin")
     return c
 
 
@@ -250,9 +299,7 @@ decode_chunks.off_type_dropped = 0
 
 def _check_ported(params: Params, spec: CaseSpec) -> None:
     q = params.query
-    for on, what in ((q.panes and spec.family == "join",
-                      f"query.panes for a join (queryOption {q.option})"),
-                     (q.parallelism > 1, "query.parallelism > 1"),
+    for on, what in ((q.parallelism > 1, "query.parallelism > 1"),
                      (q.hosts > 1, "query.hosts > 1")):
         if on:
             raise NotImplementedError(f"{what}: {NOT_PORTED}")
@@ -352,6 +399,9 @@ def run_option(params: Params, stream1: Iterable,
             f"({spec.family}); supported: all nine range and kNN pairs, "
             "plus trajectory kNN (211/212)")
     u_grid, q_grid = params.grids()
+    if spec.family in ("deser", "shapefile", "staytime", "checkin"):
+        return _run_host_case(params, spec, _query_conf(params, spec), u_grid,
+                              stream1, stream2, device)
     if spec.family in _TRAJECTORY:
         return _run_trajectory(params, spec, _query_conf(params, spec),
                                u_grid, q_grid, stream1, stream2, device)
@@ -398,6 +448,194 @@ def run_option(params: Params, stream1: Iterable,
     else:
         out = op.run(s1, q, radius)
     return _with_latency(out) if spec.latency else out
+
+
+def _bulk_parse_stream(cfg: StreamConfig, path: str,
+                       allowed_lateness_s: int):
+    """One point stream's whole file in one native parse, late records
+    dropped as the record path drops them (``bulk_keep_mask``); None,
+    with a note, when the file cannot take the bulk path (a record of
+    another geometry type in a declared point stream)."""
+    fmt = cfg.format.lower()
+    if fmt not in ("csv", "tsv", "geojson"):
+        return None
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        if fmt in ("csv", "tsv"):
+            parsed = bulk.bulk_parse_csv(
+                data, delimiter="\t" if fmt == "tsv" else cfg.delimiter,
+                schema=cfg.csv_tsv_schema, date_format=cfg.date_format)
+        else:
+            parsed = bulk.bulk_parse_geojson(data, **cfg.geojson_kwargs())
+    except ValueError as e:
+        print(f"# --bulk: point stream not bulk-ingestible ({e}); "
+              "using the record path", file=sys.stderr)
+        return None
+    keep = BoundedOutOfOrderness.bulk_keep_mask(parsed.ts,
+                                                allowed_lateness_s * 1000)
+    if not keep.all():
+        parsed = dataclasses.replace(
+            parsed, x=parsed.x[keep], y=parsed.y[keep], ts=parsed.ts[keep],
+            obj_id=parsed.obj_id[keep])
+    return parsed
+
+
+def _bulk_parse_geom_stream(params: Params, path: str):
+    """Stream 1's whole WKT or GeoJSON polygon/linestring file in one
+    native parse, late records dropped; None, with a note, when it holds a
+    geometry the bulk path does not take (a point or a collection)."""
+    cfg = params.input1
+    wkt = cfg.format.lower() == "wkt"
+    kw = (dict(delimiter=cfg.delimiter, date_format=cfg.date_format) if wkt
+          else cfg.geojson_kwargs())
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        parsed = (bulk.bulk_parse_wkt(data, **kw) if wkt
+                  else bulk.bulk_parse_geojson_geoms(data, **kw))
+    except ValueError as e:
+        print(f"# --bulk: geometry file not bulk-ingestible ({e}); "
+              "using the record path", file=sys.stderr)
+        return None
+    keep = BoundedOutOfOrderness.bulk_keep_mask(
+        parsed.ts, params.query.allowed_lateness_s * 1000)
+    if not keep.all():
+        parsed = parsed.subset(np.nonzero(keep)[0])
+    return parsed
+
+
+def run_option_bulk(params: Params, input_path: str,
+                    input_path2: Optional[str] = None, *, device="cuda"
+                    ) -> Optional[Iterator[WindowResult]]:
+    """The whole-file replay of ``--bulk`` (the JAX driver's
+    ``run_option_bulk``): windowed range and kNN over a CSV/TSV/GeoJSON
+    point file or a WKT/GeoJSON polygon or linestring file (multiQuery
+    too), and the windowed point x point join over two point files; one
+    native parse per file, the windows assembled at once, the kernels on
+    ``device``. Results are original-record index lists (kNN: (objID,
+    distance) pairs; joins: index pairs). None where the case or format
+    takes the record path (realtime, count windows, the latency variants,
+    other families and formats, a file that is not bulk-ingestible)."""
+    spec = CASES.get(params.query.option)
+    if spec is None or spec.mode != "window" or spec.latency:
+        return None
+    if params.window.type == "COUNT":
+        return None
+    if spec.family not in ("range", "knn", "join"):
+        return None
+    _check_ported(params, spec)
+    fam = {"range": "Range", "knn": "KNN", "join": "Join"}[spec.family]
+    cls = getattr(ops, f"{spec.stream}{spec.query}{fam}Query")
+    radius, k = params.query.radius, params.query.k
+    geom_stream = spec.stream in ("Polygon", "LineString")
+    lateness = params.query.allowed_lateness_s
+    if params.query.multi_query:
+        if spec.family == "join":
+            return None
+        u_grid, _ = params.grids()
+        # checked before the parse, as the record path does
+        qs = _query_objects(params, u_grid, spec.query)
+        if geom_stream:
+            if params.input1.format.lower() not in ("wkt", "geojson"):
+                return None
+            parsed = _bulk_parse_geom_stream(params, input_path)
+        else:
+            parsed = _bulk_parse_stream(params.input1, input_path, lateness)
+        if parsed is None:
+            return None
+        op = cls(_query_conf(params, spec), u_grid, device=device)
+        if spec.family == "range":
+            return op.run_multi_bulk(parsed, qs, radius)
+        return op.run_multi_bulk(parsed, qs, radius, k)
+    if geom_stream:
+        if (spec.family == "join"
+                or params.input1.format.lower() not in ("wkt", "geojson")):
+            return None
+        parsed = _bulk_parse_geom_stream(params, input_path)
+    else:
+        if spec.family == "join":
+            if spec.query != "Point":
+                return None
+            # both sides' formats before any parse
+            if (input_path2 is None or params.input2.format.lower()
+                    not in ("csv", "tsv", "geojson")):
+                return None
+        parsed = _bulk_parse_stream(params.input1, input_path, lateness)
+    if parsed is None:
+        return None
+    u_grid, _ = params.grids()
+    conf = _query_conf(params, spec)
+    if spec.family == "join":
+        parsed2 = _bulk_parse_stream(params.input2, input_path2, lateness)
+        if parsed2 is None:
+            return None
+        return cls(conf, u_grid, u_grid, device=device).run_bulk(
+            parsed, parsed2, radius)
+    q = _query_objects(params, u_grid, spec.query)[0]
+    op = cls(conf, u_grid, device=device)
+    if spec.family == "range":
+        return op.run_bulk(parsed, q, radius)
+    return op.run_bulk(parsed, q, radius, k)
+
+
+def _run_host_case(params: Params, spec: CaseSpec, conf, u_grid, stream1,
+                   stream2, device) -> Iterator:
+    """The host-only options (the JAX driver's ``run_option`` branches):
+    the ser/de pipelines, the shapefile inputs (``stream1`` a ``.shp`` path
+    or paths) and the apps. None of them launches a kernel."""
+    if spec.family == "deser":
+        return _run_deser(params, spec, u_grid, stream1)
+    if spec.family == "shapefile":
+        from spatialflink_tpu_torch.streams.shapefile import read_shapefile
+
+        paths = ([stream1] if isinstance(stream1, (str, bytes))
+                 else list(stream1))
+        return iter([obj for p in paths for obj in read_shapefile(p, u_grid)])
+    if spec.family == "checkin":
+        from spatialflink_tpu_torch.apps import CheckIn
+
+        # raw DEIM CSV lines (eventID,deviceID,userID,ts,x,y) parse in the
+        # app; parsed Points pass through
+        return CheckIn(conf, device=device).run(stream1)
+    from spatialflink_tpu_torch.apps import StayTime
+
+    app = StayTime(conf, u_grid, device=device)
+    traj_ids = set(params.query.traj_ids) or None
+    if spec.query == "Polygon":  # 1012: point stream + polygon stream
+        if stream2 is None:
+            raise ValueError("queryOption 1012 needs a polygon stream2")
+        s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid))
+        # both sides in the app's grid (the reference passes one uGrid,
+        # StreamingJob.java:1667); query.trajIDs names trajectories, so
+        # the sensor side is never filtered by it
+        s2 = ChunkedStream(decode_chunks(stream2, params.input2, u_grid,
+                                         geometry="Polygon"))
+        return app.normalized_cell_stay_time(
+            s1, s2, traj_ids_points=traj_ids, traj_ids_sensors=None)
+    s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid,
+                                     geometry=spec.stream))
+    if spec.stream == "Polygon":  # 1011: sensor-range intersection
+        return app.cell_sensor_range_intersection(s1, traj_ids)
+    return app.cell_stay_time(s1, traj_ids)
+
+
+def _run_deser(params: Params, spec: CaseSpec, grid, stream1) -> Iterator:
+    """Each record parsed in the case's format and written again, as
+    ``(object, serialized)`` (the reference's parse -> print -> produce
+    conformance path, ``StreamingJob.java:1289-1545``)."""
+    fmt = spec.fmt
+    delim = spec.delim or ("\t" if fmt == "TSV"
+                           else params.input1.delimiter or ",")
+    for rec in stream1:
+        obj = rec if isinstance(rec, SpatialObject) else parse_spatial(
+            rec, fmt, grid, delimiter=delim,
+            schema=params.input1.csv_tsv_schema,
+            date_format=params.input1.date_format)
+        yield obj, serialize_spatial(
+            obj, fmt, delimiter=delim,
+            date_format=params.input1.date_format if spec.timestamped
+            else None)
 
 
 def _run_trajectory(params: Params, spec: CaseSpec, conf, u_grid, q_grid,
@@ -548,7 +786,16 @@ def _seed_registry(params: Params, spec: CaseSpec, path: str):
     return registry
 
 
-def _emit(result: WindowResult, sink) -> None:
+def _limited(lines: Iterator[str], limit: Optional[int]) -> Iterator[str]:
+    """The first ``limit`` records of a replay (``--limit``; all of them
+    when None, none at 0)."""
+    return lines if limit is None else itertools.islice(lines, limit)
+
+
+def _emit(result, sink) -> None:
+    if not isinstance(result, WindowResult):  # ser/de, shapefile, check-in
+        sink.emit(result)
+        return
     if "queries" in result.extras:
         # multi-query windows: records is a list of Q per-query lists
         counts = {"count": sum(len(r) for r in result.records),
@@ -575,7 +822,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     "trajectory queries 201-212 (odd realtime, even "
                     "windowed: tFilter, tRange, tStats, tAggregate, tJoin, "
                     "tKNN; naive twins 2030, 2090, 2011) and the synthetic "
-                    "harness 99; window.type TIME or COUNT (COUNT not for "
+                    "harness 99; the ser/de options 401-906, the "
+                    "shapefile inputs 1001-1003 and the apps 1010-1012 "
+                    "and 2000; window.type TIME or COUNT (COUNT not for "
                     "joins)")
     ap.add_argument("--config", required=True, help="YAML config path")
     ap.add_argument("--input1", help="newline-delimited input file for "
@@ -604,8 +853,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="pane-incremental sliding windows (same as "
                          "query.panes): each slide-aligned pane is "
                          "evaluated once and a window merges its panes' "
-                         "partials; identical results (range and kNN; "
-                         "tumbling windows bypass it)")
+                         "partials (a join: its pane-pair blocks); "
+                         "identical results (range, kNN and windowed "
+                         "joins; tumbling windows bypass it)")
     ap.add_argument("--pane-merge", choices=["auto", "device", "host"],
                     default=None,
                     help="where --panes kNN partials merge: 'device' (one "
@@ -622,6 +872,16 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "windows to its route (stdout or file:<path>): "
                          "windowed range over any stream type, and "
                          "Point/Point kNN")
+    ap.add_argument("--limit", type=int, default=None,
+                    help="max records to read per stream")
+    ap.add_argument("--bulk", action="store_true",
+                    help="whole-file replay of a windowed range, kNN or "
+                         "point x point join over CSV/TSV/GeoJSON points "
+                         "(and WKT/GeoJSON polygon or linestring streams "
+                         "for range and kNN): one native parse of the "
+                         "file, the windows assembled at once; results are "
+                         "original-record indices. Other cases and formats "
+                         "take the record path, and --bulk ignores --limit")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "PyTorch versions)")
@@ -640,6 +900,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         params.query.panes = True
     if args.pane_merge is not None and args.pane_merge != "auto":
         params.query.pane_device_merge = args.pane_merge == "device"
+    if args.bulk:
+        print("note: --bulk is deprecated — the batched columnar path is "
+              "now the default for every mode; the flag keeps only its "
+              "whole-replay semantics (see README)", file=sys.stderr)
     if args.format is not None:
         params = dataclasses.replace(
             params, input1=dataclasses.replace(params.input1,
@@ -652,10 +916,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         print("--input1 is required", file=sys.stderr)
         return 2
     spec = CASES.get(params.query.option)
-    if args.panes and spec is not None and spec.family == "join":
-        print(f"--panes: {NOT_PORTED} for a join (queryOption "
-              f"{params.query.option})", file=sys.stderr)
-        return 2
     if spec is not None and spec.family in ("join", "tjoin") \
             and not args.input2:
         print(f"queryOption {params.query.option} ({spec.family}) needs "
@@ -683,11 +943,27 @@ def main(argv: Optional[List[str]] = None) -> int:
         router = QueryRouter(registry)
         print(f"# query plane: dynamic {spec.family} fleet, "
               f"{len(registry.active_entries())} live", file=sys.stderr)
+    if spec is not None and spec.family == "shapefile":
+        stream1 = args.input1  # the reader takes the .shp path
+    else:
+        stream1 = _limited(file_lines(args.input1), args.limit)
+    stream2 = (_limited(file_lines(args.input2), args.limit) if args.input2
+               else None)
     try:
         resolve_device(args.device)
-        results = run_option(params, file_lines(args.input1),
-                             file_lines(args.input2) if args.input2
-                             else None, device=args.device)
+        results = None
+        if args.bulk:
+            results = run_option_bulk(params, args.input1, args.input2,
+                                      device=args.device)
+            if results is None:
+                print("--bulk not applicable to this case/format; "
+                      "using the record path", file=sys.stderr)
+            elif args.limit is not None:
+                print("--bulk ignores --limit (whole-file replay)",
+                      file=sys.stderr)
+        if results is None:
+            results = run_option(params, stream1, stream2,
+                                 device=args.device)
     except (NotImplementedError, RuntimeError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 2
@@ -707,8 +983,15 @@ def main(argv: Optional[List[str]] = None) -> int:
                 # line per (window, query) on a file: route
                 router.route(result)
             if out_sink is not None:
-                for rec in result.flat_records():
-                    out_sink.emit(rec)
+                if isinstance(result, WindowResult):
+                    for rec in result.flat_records():
+                        out_sink.emit(rec)
+                elif (isinstance(result, tuple) and len(result) == 2
+                        and isinstance(result[0], SpatialObject)):
+                    # a ser/de result: the parsed record goes out
+                    out_sink.emit(result[0])
+                else:
+                    out_sink.emit(result)
             n += 1
     finally:
         sink.close()

@@ -100,6 +100,15 @@ class UniformGrid:
                     out.add(self.cell_id(cx, cy))
         return out
 
+    def cell_bounds(self, cell: int) -> Tuple[float, float, float, float]:
+        """(min_x, min_y, max_x, max_y) of a cell
+        (``UniformGrid.getCellMinMaxBoundary``, ``UniformGrid.java:149-158``)."""
+        cx, cy = int(cell) // self.n, int(cell) % self.n
+        return (self.min_x + cx * self.cell_length,
+                self.min_y + cy * self.cell_length,
+                self.min_x + (cx + 1) * self.cell_length,
+                self.min_y + (cy + 1) * self.cell_length)
+
     # ------------------------------------------------------------------ #
     # layer math
 

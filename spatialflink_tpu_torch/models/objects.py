@@ -66,11 +66,16 @@ class Point(SpatialObject):
     x: float = 0.0
     y: float = 0.0
     cell: int = -1  # int cell id; -1 = unassigned / outside grid
+    # the DEIM check-in fields (``Point.java:44-46``; apps.check_in)
+    event_id: str = ""
+    device_id: str = ""
+    user_id: str = ""
 
     @classmethod
     def create(cls, x: float, y: float, grid: Optional[UniformGrid] = None,
-               obj_id: str = "", timestamp: int = 0) -> "Point":
-        p = cls(obj_id=obj_id, timestamp=timestamp, x=float(x), y=float(y))
+               obj_id: str = "", timestamp: int = 0, **kw) -> "Point":
+        p = cls(obj_id=obj_id, timestamp=timestamp, x=float(x), y=float(y),
+                **kw)
         if grid is not None:
             cell, _ = grid.assign_cell(p.x, p.y)
             p.cell = int(cell)

@@ -1,6 +1,6 @@
-// Native point ingest: bulk CSV/TSV + GeoJSON point parsing (a copy of the
-// point parsers of spatialflink_tpu/native/ingest.cpp, same C signatures,
-// FNV-1a 64 id hashes and reject rules).
+// Native ingest: bulk CSV/TSV + GeoJSON point parsing and bulk WKT + GeoJSON
+// polygon/linestring parsing (a copy of spatialflink_tpu/native/ingest.cpp:
+// same C signatures, FNV-1a 64 id hashes and reject rules).
 //
 // The reference parses one tuple at a time in a JVM deserializer
 // (spatialStreams/Deserialization.java:288-330 CSV schema parse, :167-207
@@ -458,3 +458,425 @@ long sf_parse_points_geojson(const char* buf, long len,
 }
 
 }  // extern "C"
+
+// ------------------------------------------------------------------------- //
+// Bulk WKT geometry parsing: POLYGON / LINESTRING lines with optional
+// "oid<delim>ts<delim>" prefix fields -> flattened ring/vertex arrays.
+//
+// The reference parses one tuple at a time (spatialStreams/
+// Deserialization.java:516-628 WKTToSpatialPolygon/LineString and the
+// convertCoordinates family :1367-1565); here one C++ pass over a block
+// emits the structure the EdgeGeomBatch assembler vectorizes over.
+// MULTI*/GEOMETRYCOLLECTION/POINT lines reject to the Python parser (full
+// fidelity), exactly like the point parsers' reject contract.
+
+namespace {
+
+inline bool is_word(char c) {
+    return (c >= 'A' && c <= 'Z') || (c >= 'a' && c <= 'z') || c == '_';
+}
+
+// Find the first boundary-respecting occurrence of kw in [s, e).
+inline const char* find_kw(const char* s, const char* e, const char* kw,
+                           long kwlen) {
+    for (const char* p = s; p + kwlen <= e; p++) {
+        if ((p == s || !is_word(p[-1])) && memcmp(p, kw, kwlen) == 0 &&
+            (p + kwlen == e || !is_word(p[kwlen])))
+            return p;
+    }
+    return nullptr;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns number of accepted records; per-record arrays sized >= line count,
+// ring arrays >= count('('), vertex arrays >= count(',') + count('(') + 2.
+// bbox is (cap, 4) row-major [minx, miny, maxx, maxy].
+long sf_parse_wkt_geoms(const char* buf, long len, char delim,
+                        int64_t* ts, uint64_t* oid_hash, int64_t* oid_start,
+                        int32_t* oid_len, int8_t* is_poly,
+                        int64_t* ring_off, int32_t* ring_cnt, double* bbox,
+                        int64_t* ring_voff, int32_t* ring_size,
+                        double* vx, double* vy,
+                        int64_t* rejects, long* n_rejects) {
+    long count = 0, nrej = 0, line_idx = -1;
+    long n_rings = 0, n_verts = 0;
+    const char* end = buf + len;
+    const char* p = buf;
+
+    while (p < end) {
+        line_idx++;
+        const char* line_end = (const char*)memchr(p, '\n', end - p);
+        if (!line_end) line_end = end;
+        const char* ls = p;
+        p = line_end + 1;
+        {
+            const char* t = skip_ws(ls, line_end);
+            if (t == rskip_ws(t, line_end)) {
+                line_idx--;
+                continue;
+            }
+        }
+
+        const char* kp = find_kw(ls, line_end, "POLYGON", 7);
+        const char* kl = find_kw(ls, line_end, "LINESTRING", 10);
+        const char* kw = kp && (!kl || kp < kl) ? kp : kl;
+        bool poly = (kw == kp && kp != nullptr);
+        long kwlen = poly ? 7 : 10;
+        if (!kw) {  // POINT / MULTI* / GEOMETRYCOLLECTION / junk -> Python
+            rejects[nrej++] = line_idx;
+            continue;
+        }
+        // the keyword must not sit inside an outer structure's parens
+        // (a POLYGON inside a GEOMETRYCOLLECTION body): prefix paren
+        // balance must be zero, like formats.parse_wkt's guard
+        long bal = 0;
+        for (const char* q = ls; q < kw; q++) {
+            if (*q == '(') bal++;
+            else if (*q == ')') bal--;
+        }
+        if (bal != 0) {
+            rejects[nrej++] = line_idx;
+            continue;
+        }
+
+        // prefix fields before the keyword: [oid][delim][ts][delim]
+        uint64_t oh = fnv1a(nullptr, 0);
+        int64_t osp = 0;
+        int32_t oln = 0;
+        int64_t tval = 0;
+        {
+            const char* pe = rskip_ws(ls, kw);
+            // drop one trailing delimiter separating the fields from the
+            // geometry, then split what remains
+            if (pe > ls && pe[-1] == delim) pe--;
+            if (pe > ls) {
+                Span fields[8];
+                int nf = 0;
+                const char* fs = ls;
+                bool overflow = false;
+                for (const char* q = ls; q <= pe; q++) {
+                    if (q == pe || *q == delim) {
+                        if (nf >= 8) { overflow = true; break; }
+                        Span f = trim_field(fs, q);
+                        // drop empty fields ANYWHERE, like the Python WKT
+                        // branch's `if f.strip()` filter — keeping an
+                        // interior empty would shift the timestamp slot
+                        if (f.start != f.end)
+                            fields[nf++] = f;
+                        fs = q + 1;
+                    }
+                }
+                if (overflow) {
+                    rejects[nrej++] = line_idx;
+                    continue;
+                }
+                if (nf >= 1 && fields[0].start != fields[0].end) {
+                    // normalize like the Python WKT branch: strip quotes
+                    char tmp[256];
+                    long m = 0;
+                    bool toolong = false;
+                    for (const char* q2 = fields[0].start;
+                         q2 < fields[0].end; q2++) {
+                        if (*q2 == '"') continue;
+                        if (m >= (long)sizeof(tmp)) { toolong = true; break; }
+                        tmp[m++] = *q2;
+                    }
+                    if (toolong) {
+                        rejects[nrej++] = line_idx;
+                        continue;
+                    }
+                    oh = fnv1a(tmp, m);
+                    osp = fields[0].start - buf;
+                    oln = (int32_t)(fields[0].end - fields[0].start);
+                }
+                if (nf >= 2 && fields[1].start != fields[1].end &&
+                    !parse_int_field(fields[1].start, fields[1].end, &tval)) {
+                    rejects[nrej++] = line_idx;  // date-formatted ts -> Python
+                    continue;
+                }
+            }
+        }
+
+        // geometry body
+        const char* q = skip_ws(kw + kwlen, line_end);
+        if (q >= line_end || *q != '(') {
+            rejects[nrej++] = line_idx;
+            continue;
+        }
+        q++;
+        long rstart = n_rings, vstart_total = n_verts;
+        bool bad = false;
+        double minx = 0, miny = 0, maxx = 0, maxy = 0;
+        bool first_v = true;
+        int rings_here = 0;
+
+        auto parse_ring = [&](const char*& q, const char* term) -> bool {
+            // vertices "x y" separated by ','; stops at the char in `term`
+            long vstart = n_verts;
+            while (true) {
+                q = skip_ws(q, line_end);
+                char* stop = nullptr;
+                double x = strtod(q, &stop);
+                if (stop == q) return false;
+                q = skip_ws(stop, line_end);
+                double y = strtod(q, &stop);
+                if (stop == q) return false;
+                q = skip_ws(stop, line_end);
+                vx[n_verts] = x;
+                vy[n_verts] = y;
+                n_verts++;
+                if (first_v) {
+                    minx = maxx = x;
+                    miny = maxy = y;
+                    first_v = false;
+                } else {
+                    if (x < minx) minx = x;
+                    if (x > maxx) maxx = x;
+                    if (y < miny) miny = y;
+                    if (y > maxy) maxy = y;
+                }
+                if (q < line_end && *q == ',') {
+                    q++;
+                    continue;
+                }
+                if (q < line_end && *q == *term) {
+                    ring_voff[n_rings] = vstart;
+                    ring_size[n_rings] = (int32_t)(n_verts - vstart);
+                    n_rings++;
+                    rings_here++;
+                    return true;
+                }
+                return false;  // z coordinate / junk -> Python
+            }
+        };
+
+        if (poly) {
+            while (true) {
+                q = skip_ws(q, line_end);
+                if (q >= line_end || *q != '(') { bad = true; break; }
+                q++;
+                if (!parse_ring(q, ")")) { bad = true; break; }
+                q++;  // consume ')'
+                q = skip_ws(q, line_end);
+                if (q < line_end && *q == ',') { q++; continue; }
+                if (q < line_end && *q == ')') { q++; break; }
+                bad = true;
+                break;
+            }
+            if (!bad) {
+                // every raw ring needs >= 3 vertices (Polygon.create drops
+                // smaller ones / raises; let Python own that semantics)
+                for (long r = rstart; r < n_rings; r++)
+                    if (ring_size[r] < 3) { bad = true; break; }
+            }
+        } else {
+            if (!parse_ring(q, ")")) bad = true;
+            else {
+                q++;  // consume ')'
+                if (ring_size[n_rings - 1] < 2) bad = true;
+            }
+        }
+        if (!bad) {
+            q = skip_ws(q, line_end);
+            if (q != rskip_ws(ls, line_end)) bad = true;  // trailing junk
+        }
+        if (bad) {
+            n_rings = rstart;  // roll back this line's ring/vertex output
+            n_verts = vstart_total;
+            rejects[nrej++] = line_idx;
+            continue;
+        }
+
+        ts[count] = tval;
+        oid_hash[count] = oh;
+        oid_start[count] = osp;
+        oid_len[count] = oln;
+        is_poly[count] = poly ? 1 : 0;
+        ring_off[count] = rstart;
+        ring_cnt[count] = rings_here;
+        bbox[count * 4 + 0] = minx;
+        bbox[count * 4 + 1] = miny;
+        bbox[count * 4 + 2] = maxx;
+        bbox[count * 4 + 3] = maxy;
+        count++;
+    }
+    *n_rejects = nrej;
+    return count;
+}
+
+}  // extern "C" (wkt geometry parser)
+
+// ------------------------------------------------------------------------- //
+// Bulk GeoJSON geometry parsing: Polygon / LineString features -> the same
+// flattened ring/vertex layout as sf_parse_wkt_geoms.
+//
+// The block form of the reference's per-tuple GeoJSON polygon/
+// linestring deserializers (spatialStreams/Deserialization.java:236-334
+// GeoJSONToSpatialPolygon/LineString; properties[oID]/properties[timestamp]
+// extraction as in :167-207). Point / Multi* / GeometryCollection features,
+// escaped strings and date-formatted timestamps reject to the Python parser
+// (full fidelity), exactly like the point parser's reject contract.
+
+extern "C" {
+
+// Output contract identical to sf_parse_wkt_geoms; ring arrays must be
+// sized >= count('['), vertex arrays >= count('[') + 2.
+long sf_parse_geojson_geoms(const char* buf, long len,
+                            const char* oid_key, const char* ts_key,
+                            int64_t* ts, uint64_t* oid_hash,
+                            int64_t* oid_start, int32_t* oid_len,
+                            int8_t* is_poly,
+                            int64_t* ring_off, int32_t* ring_cnt, double* bbox,
+                            int64_t* ring_voff, int32_t* ring_size,
+                            double* vx, double* vy,
+                            int64_t* rejects, long* n_rejects) {
+    long count = 0, nrej = 0, line_idx = -1;
+    long n_rings = 0, n_verts = 0;
+    long oid_key_len = oid_key ? (long)strlen(oid_key) : 0;
+    long ts_key_len = ts_key ? (long)strlen(ts_key) : 0;
+    const char* end = buf + len;
+    const char* p = buf;
+
+    while (p < end) {
+        line_idx++;
+        const char* line_end = (const char*)memchr(p, '\n', end - p);
+        if (!line_end) line_end = end;
+        const char* ls = p;
+        p = line_end + 1;
+        {
+            const char* t0 = skip_ws(ls, line_end);
+            if (t0 == rskip_ws(t0, line_end)) {
+                line_idx--;
+                continue;
+            }
+        }
+
+        // envelope unwrap + geometry-object narrowing (shared helper with
+        // the point parser)
+        const char* rs;
+        const char* re;
+        const char* cs;
+        const char* ce;
+        if (!narrow_geojson_record(ls, line_end, &rs, &re, &cs, &ce)) {
+            rejects[nrej++] = line_idx;
+            continue;
+        }
+        // geometry type must be exactly Polygon or LineString
+        bool poly;
+        {
+            const char* tv = find_key(cs, ce, "type", 4);
+            if (!tv || *tv != '"') { rejects[nrej++] = line_idx; continue; }
+            const char* tvs = tv + 1;
+            const char* tve = (const char*)memchr(tvs, '"', ce - tvs);
+            if (!tve) { rejects[nrej++] = line_idx; continue; }
+            long tn = tve - tvs;
+            if (tn == 7 && memcmp(tvs, "Polygon", 7) == 0)
+                poly = true;
+            else if (tn == 10 && memcmp(tvs, "LineString", 10) == 0)
+                poly = false;
+            else { rejects[nrej++] = line_idx; continue; }
+        }
+        const char* c = find_key(cs, ce, "coordinates", 11);
+        if (!c || *c != '[') { rejects[nrej++] = line_idx; continue; }
+        const char* cend = match_close(c, ce);
+        if (!cend) { rejects[nrej++] = line_idx; continue; }
+
+        uint64_t oh;
+        int64_t os_v, tval;
+        int32_t ol_v;
+        if (!parse_props_oid_ts(buf, rs, re, oid_key, oid_key_len,
+                                ts_key, ts_key_len,
+                                &oh, &os_v, &ol_v, &tval)) {
+            rejects[nrej++] = line_idx;
+            continue;
+        }
+
+        // walk the coordinate nest: Polygon [[[x,y],..],..] (points at
+        // depth 3, each depth-2 '[' opens a ring); LineString [[x,y],..]
+        // (points at depth 2, the depth-1 '[' IS the single ring). A
+        // trailing z in a point array is skipped; deeper nesting is
+        // malformed for these types and rejects.
+        const int pt_depth = poly ? 3 : 2;
+        const int ring_depth = poly ? 2 : 1;
+        long rec_rings = 0;
+        const long saved_rings = n_rings, saved_verts = n_verts;
+        double minx = 1e308, miny = 1e308, maxx = -1e308, maxy = -1e308;
+        bool bad = false;
+        int depth = 0;
+        const char* q = c;
+        while (q < cend) {
+            char ch = *q;
+            if (ch == '[') {
+                depth++;
+                if (depth > pt_depth) { bad = true; break; }
+                if (depth == ring_depth) {
+                    ring_voff[n_rings] = n_verts;
+                    ring_size[n_rings] = 0;
+                    n_rings++;
+                    rec_rings++;
+                }
+                if (depth == pt_depth) {
+                    const char* s2 = skip_ws(q + 1, cend);
+                    char* stop = nullptr;
+                    double x = strtod(s2, &stop);
+                    if (stop == s2) { bad = true; break; }
+                    s2 = skip_ws(stop, cend);
+                    if (s2 >= cend || *s2 != ',') { bad = true; break; }
+                    double y = strtod(s2 + 1, &stop);
+                    if (stop == s2 + 1) { bad = true; break; }
+                    const char* pc =
+                        (const char*)memchr(stop, ']', cend - stop);
+                    if (!pc) { bad = true; break; }
+                    vx[n_verts] = x;
+                    vy[n_verts] = y;
+                    ring_size[n_rings - 1]++;
+                    n_verts++;
+                    if (x < minx) minx = x;
+                    if (x > maxx) maxx = x;
+                    if (y < miny) miny = y;
+                    if (y > maxy) maxy = y;
+                    depth--;
+                    q = pc + 1;
+                    continue;
+                }
+                q++;
+            } else if (ch == ']') {
+                depth--;
+                q++;
+                if (depth == 0) break;
+            } else {
+                q++;
+            }
+        }
+        // empty / degenerate (sub-2-vertex ring) shapes -> Python, which
+        // owns the full error story
+        bool tiny = (rec_rings == 0 || n_verts == saved_verts);
+        for (long r = saved_rings; !tiny && r < n_rings; r++)
+            if (ring_size[r] < 2) tiny = true;
+        if (bad || tiny) {
+            n_rings = saved_rings;
+            n_verts = saved_verts;
+            rejects[nrej++] = line_idx;
+            continue;
+        }
+        ts[count] = tval;
+        oid_hash[count] = oh;
+        oid_start[count] = os_v;
+        oid_len[count] = ol_v;
+        is_poly[count] = poly ? 1 : 0;
+        ring_off[count] = saved_rings;
+        ring_cnt[count] = (int32_t)rec_rings;
+        bbox[count * 4 + 0] = minx;
+        bbox[count * 4 + 1] = miny;
+        bbox[count * 4 + 2] = maxx;
+        bbox[count * 4 + 3] = maxy;
+        count++;
+    }
+    *n_rejects = nrej;
+    return count;
+}
+
+}  // extern "C" (geojson geometry parser)

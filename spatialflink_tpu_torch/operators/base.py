@@ -55,9 +55,9 @@ from spatialflink_tpu_torch.models.batches import to_device
 from spatialflink_tpu_torch.runtime import (MicroBatcher, PaneBuffer,
                                             WindowAssembler, WindowSpec,
                                             count_windows)
-from spatialflink_tpu_torch.streams.bulk import (GeomChunk, LazyRecords,
-                                                 PointChunk, PointRows,
-                                                 points_to_parsed)
+from spatialflink_tpu_torch.streams.bulk import (BulkStream, GeomChunk,
+                                                 LazyRecords, PointChunk,
+                                                 PointRows, points_to_parsed)
 from spatialflink_tpu_torch.utils import IdInterner
 
 NOT_PORTED = "not yet ported to spatialflink_tpu_torch"
@@ -164,18 +164,22 @@ class Deferred:
 
 
 class PaneCache:
-    """The pane partials of a run, keyed by pane start: get-or-evaluate with
+    """The pane partials of a run, keyed by pane start (or, for the join's
+    pane-pair blocks, by ``(pane_a, pane_b)``, with ``key_floor`` mapping a
+    key to the pane start its eviction hinges on): get-or-evaluate with
     hit and miss counts, and eviction in ascending window order (once
-    window ``s`` has looked its panes up, no later window needs a pane
-    below ``s + slide``). The JAX package's ``snapshot``/``restore`` wait
-    for checkpoints."""
+    window ``s`` has looked its panes up, no later window needs a key
+    whose floor is below ``s + slide``). The JAX package's
+    ``snapshot``/``restore`` wait for checkpoints."""
 
-    __slots__ = ("slide", "cache", "hits", "misses")
+    __slots__ = ("slide", "cache", "hits", "misses", "key_floor")
 
-    def __init__(self, slide_ms: int):
+    def __init__(self, slide_ms: int, key_floor=None):
         self.slide = slide_ms
         self.cache: dict = {}
         self.hits = self.misses = 0
+        self.key_floor = key_floor if key_floor is not None else (
+            lambda k: k)
 
     def get(self, key, evaluate):
         if key in self.cache:
@@ -187,7 +191,7 @@ class PaneCache:
 
     def evict_before(self, window_start: int) -> None:
         limit = window_start + self.slide
-        for dead in [k for k in self.cache if k < limit]:
+        for dead in [k for k in self.cache if self.key_floor(k) < limit]:
             del self.cache[dead]
 
 
@@ -384,7 +388,13 @@ class SpatialOperator:
         ``pane_merge(parts) -> records`` opts the family into the pane mode
         (:meth:`_panes_active`): ``eval_batch`` then runs once per sealed
         pane and each window merges its panes' partials
-        (:meth:`_pane_eval`, with the family's ``pane_device_merge``)."""
+        (:meth:`_pane_eval`, with the family's ``pane_device_merge``).
+
+        A :class:`BulkStream` (bulk replay) gives its windows assembled at
+        once, time windows only, pane by pane where it allows panes."""
+        if isinstance(stream, BulkStream):
+            return self._drive_bulk(stream, eval_batch, pane_merge,
+                                    pane_device_merge)
         if pane_merge is not None and self._panes_active():
             return self._drive_batched(
                 self._pane_windows(stream),
@@ -392,6 +402,22 @@ class SpatialOperator:
         self._pane_resident = False
         return self._drive_batched(self._windows(stream), eval_batch,
                                    realtime=self.realtime)
+
+    def _drive_bulk(self, stream: BulkStream, eval_batch, pane_merge,
+                    pane_device_merge) -> Iterator[WindowResult]:
+        """The drive loop over a bulk-parsed stream's windows (the JAX
+        package's ``_drive_bulk``); results are original-record index
+        lists, or kNN pairs resolved through the parse's interner."""
+        if self.conf.query_type is not QueryType.WindowBased:
+            raise ValueError("bulk replay runs time windows only")
+        spec = self.conf.window_spec()
+        if pane_merge is not None and stream.panes and self._panes_active():
+            return self._drive_batched(
+                stream.pane_windows(spec, self.grid, self.device),
+                self._pane_eval(eval_batch, pane_merge, pane_device_merge))
+        self._pane_resident = False
+        return self._drive_batched(
+            stream.windows(spec, self.grid, self.device), eval_batch)
 
     def _multi_results(self, stream: Iterable, eval_batch, *,
                        pane_merge=None, pane_device_merge=None
@@ -559,6 +585,24 @@ class SpatialOperator:
                 yield from drain(0)  # keep window order
                 yield from emit(start, end, sel)
         yield from drain(0)
+
+
+class BulkReplay:
+    """``run_bulk`` / ``run_multi_bulk`` of the range and kNN operators:
+    their ``run`` / ``run_multi`` over a :class:`BulkStream` of a
+    bulk-parsed stream. Pane mode applies where the JAX package's bulk
+    path takes it (``bulk_panes``: the point-stream range operators and
+    the point x point kNN; never under multiQuery)."""
+
+    bulk_panes = False
+
+    def run_bulk(self, parsed, *args, **kw) -> Iterator[WindowResult]:
+        return self.run(BulkStream(parsed, panes=self.bulk_panes), *args,
+                        **kw)
+
+    def run_multi_bulk(self, parsed, *args, **kw
+                       ) -> Iterator[WindowResult]:
+        return self.run_multi(BulkStream(parsed, panes=False), *args, **kw)
 
 
 def _knn_pairs(oid, dist, valid, ids) -> List:

@@ -27,8 +27,21 @@ cut every ``realtime_batch_size`` arrivals; each cut joins its new
 records against a rolling buffer of the last ``window_size_ms`` of both
 sides (new_a x (buffer_b + new_b), then buffer_a x new_b), keeps pairs
 within ``window_size_ms`` of each other, and so emits a pair across a cut
-exactly once. Count windows are refused, as in the JAX package; panes,
-checkpoints and the device mesh are not ported.
+exactly once. Count windows are refused, as in the JAX package.
+
+Pane mode (``conf.panes``, windowed only: a realtime join ignores it, as
+in the JAX package): both sides buffer into slide-aligned panes
+(``runtime.PaneBuffer``), and a window's pairs are the union of its
+pane-pair blocks ``A_i x B_j``, in pane order, each block evaluated once
+(``PaneCache`` keyed ``(pane_a, pane_b)``) and shared by every window
+holding both panes; each pane's batch (and a point b pane's join index)
+is built once per side. A window whose blocks are dispatch-bound (mean
+padded block below ``ops.join.adaptive_block_min_cells``) is evaluated as
+one coalesced lattice over its panes' records in pane order instead.
+Block pairs stay deferred until the window's readback.
+``run_bulk`` (windowed point x point only) joins the windows of two
+bulk-parsed streams; its pairs are original-record index pairs.
+Checkpoints and the device mesh are not ported.
 """
 
 from __future__ import annotations
@@ -40,15 +53,17 @@ import numpy as np
 import torch
 
 from spatialflink_tpu_torch.models import PointBatch
-from spatialflink_tpu_torch.operators.base import (Deferred, QueryType,
+from spatialflink_tpu_torch.operators.base import (Deferred, PaneCache,
+                                                   PanePartial, QueryType,
                                                    SpatialOperator,
                                                    WindowResult,
                                                    _record_chunks)
 from spatialflink_tpu_torch.ops import join as J
-from spatialflink_tpu_torch.runtime import WindowAssembler
+from spatialflink_tpu_torch.runtime import PaneBuffer, WindowAssembler
 from spatialflink_tpu_torch.runtime.windows import (merge_by_time,
                                                     merge_windows)
 from spatialflink_tpu_torch.streams.bulk import PairRecords
+from spatialflink_tpu_torch.utils import bucket_size
 
 
 class _Joined(Deferred):
@@ -84,6 +99,28 @@ def _view(segs):
     return segs[0][0].view(segs) if segs else None
 
 
+def _concat(panes):
+    """The records of a window's ``(pane_start, records)`` list, in pane
+    order (the coalesced window's order)."""
+    return _view([seg for _, recs in panes for seg in recs._segs])
+
+
+class _Blocks(Deferred):
+    """A pane window's pairs: its blocks' pairs, block by block, each block
+    read back once however many windows share it."""
+
+    __slots__ = ("blocks",)
+
+    def __init__(self, blocks):
+        self.blocks = blocks
+
+    def finish(self) -> PairRecords:
+        out = PairRecords()
+        for h in self.blocks:
+            out = out + h.resolve()
+        return out
+
+
 def _keep(ai, bi, recs_a, recs_b, max_dt):
     """The pairs of real records (not padding), and with ``max_dt`` only
     those whose event times lie within it of each other."""
@@ -112,12 +149,19 @@ class PointPointJoinQuery(SpatialOperator):
             raise NotImplementedError(
                 "CountBased queries are not yet supported")
         super().__init__(conf, grid, device=device)
+        #: pane-pair blocks of the last pane run coalesced into their
+        #: windows' one lattice (``pane_cache`` counts the blocks
+        #: evaluated, its misses, and those taken from it, its hits)
+        self.blocks_coalesced = 0
 
     def run(self, ordinary: Iterable, query_stream: Iterable,
             radius: float) -> Iterator[WindowResult]:
         J.lattice_strategy()  # refuses the unported bf16 lattice up front
         if self.realtime:
             results = self._run_realtime(ordinary, query_stream, radius)
+        elif self._panes_active():
+            results = self._run_windowed_panes(ordinary, query_stream,
+                                               radius)
         else:
             results = self._run_windowed(ordinary, query_stream, radius)
         return self._pipeline(results)
@@ -155,6 +199,119 @@ class PointPointJoinQuery(SpatialOperator):
                  for s in (ordinary, query_stream)]
         for start, end, recs_a, recs_b in merge_windows(*sides):
             yield self._join_window(start, end, recs_a, recs_b, radius)
+
+    def _run_windowed_panes(self, ordinary, query_stream, radius
+                            ) -> Iterator[WindowResult]:
+        """The pane join (``conf.panes``): the window set, sealing and late
+        drops of :meth:`_run_windowed`, each side's windows as pane lists;
+        a window's pairs are its pane-pair blocks' in pane order (the pair
+        SET is the full window's), or one coalesced lattice when its blocks
+        are dispatch-bound (:meth:`_blocks_dispatch_bound`)."""
+        spec = self.conf.window_spec()
+        slide = spec.slide_ms
+        sides = [PaneBuffer(spec, self.conf.allowed_lateness_ms)
+                 .assemble(_record_chunks(s, self.grid))
+                 for s in (ordinary, query_stream)]
+        # a block is needed while both its panes can appear in a later
+        # window: its eviction hinges on the earlier pane
+        cache = self.pane_cache = PaneCache(slide, key_floor=min)
+        # each pane's batch once per side, shared by every block holding it
+        memo = ({}, {})
+        self.blocks_coalesced = 0
+
+        def block(pa, ra, pb, rb) -> PanePartial:
+            def evaluate():
+                if pa not in memo[0]:
+                    memo[0][pa] = self._batch_a(ra, pa)
+                if pb not in memo[1]:
+                    memo[1][pb] = self._pane_batch_b(rb, pb)
+                return PanePartial(self._join_block(
+                    memo[0][pa], ra, memo[1][pb], rb, radius))
+
+            return cache.get((pa, pb), evaluate)
+
+        def evict(start: int) -> None:
+            cache.evict_before(start)
+            for m in memo:
+                for dead in [p for p in m if p < start + slide]:
+                    del m[dead]
+
+        for start, end, panes_a, panes_b in merge_windows(*sides):
+            panes_a, panes_b = panes_a or [], panes_b or []
+            if self._blocks_dispatch_bound(panes_a, panes_b):
+                self.blocks_coalesced += len(panes_a) * len(panes_b)
+                evict(start)
+                yield self._join_window(start, end, _concat(panes_a),
+                                        _concat(panes_b), radius)
+                continue
+            blocks = [block(pa, ra, pb, rb)
+                      for pa, ra in panes_a for pb, rb in panes_b]
+            evict(start)
+            yield WindowResult(start, end,
+                               _Blocks(blocks) if blocks else PairRecords())
+
+    def _blocks_dispatch_bound(self, panes_a, panes_b) -> bool:
+        """The window's mean pane-pair block, in padded cells (the launch
+        shapes), lies below ``ops.join.adaptive_block_min_cells`` on the
+        operator's device."""
+        if not panes_a or not panes_b or len(panes_a) * len(panes_b) <= 1:
+            return False
+        min_cells = J.adaptive_block_min_cells(self.device)
+        if min_cells <= 0:
+            return False
+        mean_a = sum(bucket_size(max(len(rs), 1))
+                     for _, rs in panes_a) / len(panes_a)
+        mean_b = sum(bucket_size(max(len(rs), 1))
+                     for _, rs in panes_b) / len(panes_b)
+        return mean_a * mean_b < min_cells
+
+    def _pane_batch_b(self, records, ts_base: int):
+        """A b pane's batch and its join index, built once for all the
+        blocks that hold the pane."""
+        b = self._batch_b(records, ts_base)
+        return b, J.join_index(b, self.grid.n)
+
+    def _join_block(self, batch_a, recs_a, batch_b, recs_b, radius):
+        """One pane-pair block from the panes' prebuilt batches; the batches'
+        ts bases differ, and the join reads positions and cells only."""
+        b, index = batch_b
+        ai, bi = self._pairs(batch_a, b, radius, index=index)
+        return _keep(ai, bi, recs_a, recs_b, None)
+
+    def _pairs(self, batch_a, batch_b, radius, *, index=None):
+        """Two point batches' pairs as host arrays (``ops.join.
+        join_pairs_host``), every cell a neighbour where ``prune_cells`` is
+        off: the one pair call of the window, block and bulk paths."""
+        return J.join_pairs_host(batch_a, batch_b, radius, self.grid,
+                                 nb_layers=None if self.prune_cells
+                                 else self.grid.n, index=index)
+
+    def run_bulk(self, parsed_a, parsed_b, radius: float
+                 ) -> Iterator[WindowResult]:
+        """Windowed join of two bulk-parsed point streams
+        (``streams.bulk.ParsedPoints``): both sides' windows from
+        ``bulk_window_batches`` on the operator's grid, one-sided windows
+        with no pairs; records are ``(index_a, index_b)`` pairs of original
+        records."""
+        from spatialflink_tpu_torch.streams.bulk import bulk_window_batches
+
+        if self.realtime:
+            raise ValueError("run_bulk supports windowed mode only")
+        J.lattice_strategy()
+        spec = self.conf.window_spec()
+        sides = [((s, e, (idx, batch)) for s, e, idx, batch in
+                  bulk_window_batches(p, spec, self.grid,
+                                      device=self.device))
+                 for p in (parsed_a, parsed_b)]
+        for start, end, a_win, b_win in merge_windows(*sides):
+            pairs = []
+            if a_win is not None and b_win is not None:
+                (idx_a, batch_a), (idx_b, batch_b) = a_win, b_win
+                ai, bi = self._pairs(batch_a, batch_b, radius)
+                keep = (ai < idx_a.size) & (bi < idx_b.size)
+                pairs = list(zip(idx_a[ai[keep]].tolist(),
+                                 idx_b[bi[keep]].tolist()))
+            yield WindowResult(start, end, pairs)
 
     def _run_realtime(self, ordinary, query_stream, radius
                       ) -> Iterator[WindowResult]:
@@ -236,10 +393,8 @@ class PointPointJoinQuery(SpatialOperator):
         if not (recs_a is not None and len(recs_a)
                 and recs_b is not None and len(recs_b)):
             return WindowResult(start, end, PairRecords())
-        ai, bi = J.join_pairs_host(self._batch_a(recs_a, start),
-                                   self._batch_b(recs_b, start), radius,
-                                   self.grid, nb_layers=None
-                                   if self.prune_cells else self.grid.n)
+        ai, bi = self._pairs(self._batch_a(recs_a, start),
+                             self._batch_b(recs_b, start), radius)
         return WindowResult(start, end,
                             _keep(ai, bi, recs_a, recs_b, max_dt))
 
@@ -271,6 +426,22 @@ class _GenericStreamJoin(PointPointJoinQuery):
             return _keep(p[:, 0], p[:, 1], recs_a, recs_b, max_dt)
 
         return WindowResult(start, end, Deferred((pairs,), collect))
+
+    def _pane_batch_b(self, records, ts_base: int):
+        return self._batch_b(records, ts_base)
+
+    def _join_block(self, batch_a, recs_a, batch_b, recs_b, radius):
+        """One pane-pair block from the panes' prebuilt batches: the
+        window's lattice kernel, the pairs compacted on the device and read
+        back deferred."""
+        pairs = torch.nonzero(self._lattice(batch_a, batch_b,
+                                            radius).contiguous())
+
+        def collect(host):
+            (p,) = host
+            return _keep(p[:, 0], p[:, 1], recs_a, recs_b, None)
+
+        return Deferred((pairs,), collect)
 
 
 class PointGeomJoinQuery(_GenericStreamJoin):

@@ -40,7 +40,9 @@ device, whose merged list alone is read back.
 ``PointPointKNNQuery.run_dynamic`` serves the live fleet of a
 ``runtime.queryplane.QueryRegistry`` (option 51 under ``--queries-file``).
 
-Not yet ported: the device mesh and bulk replay.
+``run_bulk`` / ``run_multi_bulk`` (``--bulk``) take a bulk-parsed stream
+(``base.BulkReplay``); ids resolve through the parse's interner. Not yet
+ported: the device mesh.
 """
 
 from __future__ import annotations
@@ -51,7 +53,8 @@ import numpy as np
 
 from spatialflink_tpu_torch.models import Point
 from spatialflink_tpu_torch.models.batches import to_device
-from spatialflink_tpu_torch.operators.base import (Deferred, GeomQueryMixin,
+from spatialflink_tpu_torch.operators.base import (BulkReplay, Deferred,
+                                                   GeomQueryMixin,
                                                    SpatialOperator,
                                                    WindowResult, _knn_pairs)
 from spatialflink_tpu_torch.ops import distances as D
@@ -134,7 +137,7 @@ def _knn_device_merge(op, k: int, n_queries: Optional[int] = None):
     return merge
 
 
-class _KnnOperator(SpatialOperator):
+class _KnnOperator(BulkReplay, SpatialOperator):
     """The kNN drive loops shared by the point and geometry query forms:
     per run, a closure ``local(batch, num_ids) -> (KnnResult, dist_evals)``
     evaluates one window batch."""
@@ -194,6 +197,8 @@ class _KnnOperator(SpatialOperator):
 
 class PointPointKNNQuery(_KnnOperator):
     """Point stream x point query."""
+
+    bulk_panes = True
 
     def run(self, stream: Iterable, query_point: Point, radius: float,
             k: Optional[int] = None) -> Iterator[WindowResult]:
@@ -351,8 +356,8 @@ class _GeomStreamKnn(_KnnOperator, GeomQueryMixin):
         mode the micro-batch's compacted ids."""
         batch, ids = records.geom_batch(ts_base, self.device, self.interner,
                                         compact=self.realtime)
-        if ids is None:
-            return batch, self.interner
+        if ids is None:  # a bulk window's ids are its parse's
+            return batch, getattr(records, "interner", self.interner)
         return batch, _CompactIds(ids, self.interner)
 
     def run(self, stream: Iterable, query, radius: float,

@@ -35,7 +35,8 @@ from __future__ import annotations
 from typing import Iterable, Iterator, List
 
 from spatialflink_tpu_torch.models import Point
-from spatialflink_tpu_torch.operators.base import (GeomQueryMixin,
+from spatialflink_tpu_torch.operators.base import (BulkReplay,
+                                                   GeomQueryMixin,
                                                    SpatialOperator,
                                                    WindowResult)
 from spatialflink_tpu_torch.ops import distances as D
@@ -43,8 +44,10 @@ from spatialflink_tpu_torch.ops import geom as G
 from spatialflink_tpu_torch.ops import range as R
 
 
-class PointPointRangeQuery(SpatialOperator):
+class PointPointRangeQuery(BulkReplay, SpatialOperator):
     """Point stream x point query."""
+
+    bulk_panes = True
 
     #: the pane merge of every range pair: disjoint panes concatenate
     merge_partials = staticmethod(SpatialOperator._pane_concat)
@@ -108,8 +111,10 @@ class PointPointRangeQuery(SpatialOperator):
                                         self._multi_mask_stats)
 
 
-class PointGeomRangeQuery(SpatialOperator, GeomQueryMixin):
+class PointGeomRangeQuery(BulkReplay, SpatialOperator, GeomQueryMixin):
     """Point stream x polygon/linestring query."""
+
+    bulk_panes = True
 
     merge_partials = staticmethod(SpatialOperator._pane_concat)
 
@@ -158,7 +163,7 @@ class PointGeomRangeQuery(SpatialOperator, GeomQueryMixin):
             self._multi_mask_stats(query_geoms, radius))
 
 
-class _GeomStreamRange(SpatialOperator, GeomQueryMixin):
+class _GeomStreamRange(BulkReplay, SpatialOperator, GeomQueryMixin):
     """Polygon/linestring stream x any query: the subclass gives the
     per-run closure ``batch -> (masks (Q, G), gn (Q,), evals (Q,))``."""
 

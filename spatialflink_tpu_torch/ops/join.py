@@ -35,8 +35,10 @@ the JAX package's cell gate (:func:`cell_gate_rows`,
 Coordinates are centred on the grid's middle before the expansion, as the
 JAX package does, so that its f32 cancellation stays ~1e-6 degrees. The
 expansion is elementwise f32 (no matrix product, so TF32 never enters).
-Not ported yet: the bf16 superset (``SPATIALFLINK_JOIN_LATTICE=bf16`` is
-refused), ``join_counts`` and the adaptive pane-block threshold.
+:func:`adaptive_block_min_cells` is the pane join's block-coalescing
+threshold, timed once per process and device on K6 itself. Not ported
+yet: the bf16 superset (``SPATIALFLINK_JOIN_LATTICE=bf16`` is refused)
+and ``join_counts``.
 """
 
 from __future__ import annotations
@@ -578,7 +580,7 @@ join_lattice.launches = 0
 
 
 def join_pairs_host(a, b, radius, grid, tile: int = JOIN_TILE,
-                    nb_layers=None, lattice_budget=None):
+                    nb_layers=None, lattice_budget=None, index=None):
     """A window's point x point pairs as host arrays ``(a_index, b_index)``
     (int64), in the JAX package's order. When the capacities' product
     ``Na * Nb`` exceeds ``lattice_budget`` (:data:`_LATTICE_BUDGET` read
@@ -586,7 +588,9 @@ def join_pairs_host(a, b, radius, grid, tile: int = JOIN_TILE,
     ``sqrt(r^2 + 1e-5)`` (an absolute slack over the expansion's error)
     and K6 runs only over the rows that have one; the pairs are those of
     the full lattice on those rows, in the same order. b's
-    :func:`join_index` is built once here and serves both kernels."""
+    :func:`join_index` (``index``, built here when None: the pane join
+    passes each b pane's own, built once for all its blocks) serves both
+    kernels."""
     lattice_strategy()
     if nb_layers is None:
         # radius 0 => every cell is a neighbour (UniformGrid.java:264-266)
@@ -596,7 +600,8 @@ def join_pairs_host(a, b, radius, grid, tile: int = JOIN_TILE,
     if lattice_budget is None:
         lattice_budget = _LATTICE_BUDGET
     rows = None
-    index = join_index(b, grid.n, tile)
+    if index is None:
+        index = join_index(b, grid.n, tile)
     if na * nb > lattice_budget:
         pre_r = float(np.sqrt(radius * radius + 1e-5))
         cnt, _, _ = join_reduce(a, b, pre_r, nb_layers, n=grid.n, tile=tile,
@@ -639,3 +644,75 @@ def join_geom_geom_mask(a, b, radius, nb_layers, *, n: int):
     nb = cell_gate_table(b.cells, b.cells_mask, nb_layers, n)
     flag, dist, _ = G.geom_stream_dist(a, mode=G.MODE_KNN, nb=nb, queries=b)
     return (flag & (dist <= _f32(radius)) & b.valid[:, None]).T
+
+
+# ------------------------------------------------------------------------ #
+# the pane join's block-coalescing threshold
+
+#: calibrated thresholds, by device (one calibration per process each)
+_BLOCK_MIN_CELLS: dict = {}
+#: the clamp of the threshold (the JAX package's): past ~16M cells a block
+#: is compute-bound whatever the dispatch costs
+BLOCK_MIN_CELLS_MAX = 1 << 24
+
+
+def adaptive_block_min_cells(device="cpu") -> int:
+    """The lattice-cell count (padded Na * Nb) below which one pane-pair
+    block of the pane join is dispatch-bound: its fixed cost (the join
+    index, K6's launches, the read of the pair total and the pairs' copy
+    back) exceeds its work, so the operator evaluates such a window as one
+    coalesced lattice (port of the JAX package's
+    ``adaptive_block_min_cells``).
+
+    ``SPATIALFLINK_JOIN_BLOCK_MIN_CELLS=<int>`` wins, read at each call
+    (0 turns coalescing off). Otherwise it is calibrated once per process
+    and device on the port's own lattice path on ``device``:
+    :func:`join_lattice` (K6 on the card, its plain version on the CPU)
+    with its index and the pairs read back, timed at 256 x 128 (the
+    per-dispatch floor) and 4,096 x 1,024 (the marginal rate per cell),
+    each the mean of 5 calls after one untimed call, the card synchronised
+    around each call; ``floor * rate`` is the break-even block, clamped to
+    [0, :data:`BLOCK_MIN_CELLS_MAX`]."""
+    env = os.environ.get("SPATIALFLINK_JOIN_BLOCK_MIN_CELLS")
+    if env is not None:
+        return max(0, int(env))
+    dev = torch.device(device)
+    key = str(dev)
+    if key in _BLOCK_MIN_CELLS:
+        return _BLOCK_MIN_CELLS[key]
+    import time
+
+    from spatialflink_tpu_torch.models import PointBatch
+
+    def batch(n):
+        x = np.linspace(0.0, 1.0, n)
+        return PointBatch.from_arrays(x, x, device=dev,
+                                      obj_id=np.arange(n, dtype=np.int32),
+                                      cell=np.zeros(n, np.int32))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(a, b):
+        ai, bi = join_lattice(a, b, 0.1, 4, 0.5, 0.5, n=4)
+        ai.cpu(), bi.cpu()
+
+    def mean_s(a, b, reps=5):
+        run(a, b)  # the first call outside the timing
+        total = 0.0
+        for _ in range(reps):
+            sync()
+            t0 = time.perf_counter()
+            run(a, b)
+            sync()
+            total += time.perf_counter() - t0
+        return total / reps
+
+    sa, sb, ba, bb = batch(256), batch(128), batch(4096), batch(1024)
+    t_small, t_big = mean_s(sa, sb), mean_s(ba, bb)
+    cells_small, cells_big = 256 * 128, 4096 * 1024
+    rate = (cells_big - cells_small) / max(t_big - t_small, 1e-9)
+    _BLOCK_MIN_CELLS[key] = int(min(max(t_small * rate, 0.0),
+                                    float(BLOCK_MIN_CELLS_MAX)))
+    return _BLOCK_MIN_CELLS[key]

@@ -1,9 +1,15 @@
-"""Columnar point ingestion (port of the point parts of
-``spatialflink_tpu.streams.bulk``): a chunk of records -> structure of
-arrays, and the lazy per-window record views built on it; and the chunk
-of a polygon/linestring stream (:class:`GeomChunk`, parsed objects) with
-its window view (:class:`GeomRecords`). Both chunk kinds give the window
-assemblers a ``ts`` column, a length and ``view(segs)``.
+"""Columnar ingestion (port of ``spatialflink_tpu.streams.bulk``): a chunk
+of records -> structure of arrays, and the lazy per-window record views
+built on it; the chunk of a polygon/linestring stream (:class:`GeomChunk`,
+parsed objects) with its window view (:class:`GeomRecords`). Both chunk
+kinds give the window assemblers a ``ts`` column, a length and
+``view(segs)``. And bulk replay (``--bulk``): a whole file parsed in one
+native call (:func:`bulk_parse_csv`, :func:`bulk_parse_geojson`,
+:func:`bulk_parse_wkt`, :func:`bulk_parse_geojson_geoms`), its windows
+assembled at once (:func:`bulk_window_batches`,
+:func:`bulk_pane_window_batches`, :func:`bulk_geom_window_batches`, the
+geometry batch built columnar by :func:`geoms_to_edge_batch`), read by the
+operators through :class:`BulkStream` / :class:`BulkWindow`.
 
 :func:`bulk_parse_csv` and :func:`bulk_parse_geojson` parse a block of
 lines in one call of the native ingest (``native/ingest.cpp``, the JAX
@@ -33,8 +39,9 @@ import torch
 from spatialflink_tpu_torch.index import UniformGrid
 from spatialflink_tpu_torch import native
 from spatialflink_tpu_torch.models import EdgeGeomBatch, Point, PointBatch
+from spatialflink_tpu_torch.models.batches import GEOM_DTYPES, to_device
 from spatialflink_tpu_torch.streams import formats
-from spatialflink_tpu_torch.utils import IdInterner
+from spatialflink_tpu_torch.utils import IdInterner, bucket_size, pad_to
 
 
 @dataclass
@@ -558,3 +565,558 @@ def parse_points(items: Sequence, cfg, interner: IdInterner) -> ParsedPoints:
                              "to spatialflink_tpu_torch (point streams in "
                              "CSV, TSV or GeoJSON)")
     return points_to_parsed(pts, interner)
+
+
+# ------------------------------------------------------------------------ #
+# bulk replay: a whole file parsed at once, its windows assembled at once
+
+
+def _cells_of(parsed: ParsedPoints, grid) -> np.ndarray:
+    """Each record's cell on ``grid`` (once per record, not per window)."""
+    if grid is None:
+        return np.full(len(parsed), -1, np.int32)
+    return np.asarray(grid.assign_cell(parsed.x, parsed.y)[0], np.int32)
+
+
+def _point_batch_at(parsed: ParsedPoints, idx, cells, ts_base: int,
+                    device) -> PointBatch:
+    return PointBatch.from_arrays(parsed.x[idx], parsed.y[idx],
+                                  device=device, obj_id=parsed.obj_id[idx],
+                                  ts=parsed.ts[idx], ts_base=ts_base,
+                                  cell=cells[idx])
+
+
+def bulk_window_batches(parsed: ParsedPoints, spec, grid=None, *,
+                        device: torch.device):
+    """The windows of a bulk-parsed point stream, assembled at once
+    (``WindowSpec.assign_bulk``): ``(start, end, idx, PointBatch)`` in
+    window order, ``idx`` the window's original-record indices in record
+    order, the batch built from the parse's columns on ``device``; no
+    per-record object anywhere."""
+    if not len(parsed):
+        return
+    win, rec = spec.assign_bulk(parsed.ts)
+    if not len(win):
+        return
+    cells = _cells_of(parsed, grid)
+    bounds = np.flatnonzero(np.r_[True, win[1:] != win[:-1], True])
+    for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        start = int(win[lo])
+        idx = rec[lo:hi]
+        yield (start, start + spec.size_ms, idx,
+               _point_batch_at(parsed, idx, cells, start, device))
+
+
+def bulk_pane_window_batches(parsed: ParsedPoints, spec, grid=None, *,
+                             device: torch.device):
+    """The pane twin of :func:`bulk_window_batches` (``--panes``): each
+    record lands in one slide-aligned pane, whose batch is built once, when
+    a window first needs it, and dropped once no later window covers it;
+    windows come as ``(start, end, [(pane_start, (idx, batch)), ...])``
+    over the window set ``assign_bulk`` gives. Needs
+    ``spec.pane_decomposable()``."""
+    if not len(parsed):
+        return
+    size, slide = spec.size_ms, spec.slide_ms
+    ts = np.asarray(parsed.ts, np.int64)
+    pane = ts - ts % slide
+    order = np.argsort(pane, kind="stable")  # record order within a pane
+    pane_s = pane[order]
+    cells = _cells_of(parsed, grid)
+    bounds = np.flatnonzero(np.r_[True, pane_s[1:] != pane_s[:-1], True])
+    slices = {int(pane_s[lo]): order[lo:hi]
+              for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist())}
+    built: dict = {}
+    starts = sorted({s for p in slices
+                     for s in range(p - size + slide, p + slide, slide)})
+    for s in starts:
+        panes = []
+        for p in range(s, s + size, slide):
+            idx = slices.get(p)
+            if idx is None:
+                continue
+            if p not in built:
+                built[p] = _point_batch_at(parsed, idx, cells, p, device)
+            panes.append((p, (idx, built[p])))
+        for dead in [p for p in built if p < s + slide]:
+            del built[dead]
+        yield s, s + size, panes
+
+
+def bulk_parse_file(path: str, fmt: str, **kw) -> ParsedPoints:
+    """Bulk-parse a whole replay file of points (CSV, TSV or GeoJSON)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    f = fmt.lower()
+    if f in ("csv", "tsv"):
+        if f == "tsv":
+            kw.setdefault("delimiter", "\t")
+        return bulk_parse_csv(data, **kw)
+    if f == "geojson":
+        return bulk_parse_geojson(data, **kw)
+    raise ValueError(f"bulk ingestion supports csv/tsv/geojson, not {fmt!r}")
+
+
+@dataclass
+class ParsedGeoms:
+    """Structure of arrays of a bulk polygon/linestring parse, ragged and
+    flattened: geometry g owns rings ``ring_off[g] : ring_off[g] +
+    ring_cnt[g]``, ring r owns the raw vertices ``ring_voff[r] :
+    ring_voff[r] + ring_size[r]`` of (``vx``, ``vy``). Lines the native
+    parser rejects (multi-geometries, date-string timestamps, malformed
+    text) are parsed per record and flattened into the same arrays, in
+    line order."""
+
+    ts: np.ndarray         # (N,) i64 epoch millis
+    obj_id: np.ndarray     # (N,) i32 interned
+    is_areal: np.ndarray   # (N,) bool
+    bbox: np.ndarray       # (N, 4) f64
+    ring_off: np.ndarray   # (N,) i64
+    ring_cnt: np.ndarray   # (N,) i32
+    ring_voff: np.ndarray  # (R,) i64
+    ring_size: np.ndarray  # (R,) i32
+    vx: np.ndarray         # (V,) f64
+    vy: np.ndarray         # (V,) f64
+    interner: IdInterner
+    #: (N,) bool: a multi-part geometry of a rejected line, whose rings are
+    #: already in its object's order (None: no such record)
+    multi: Optional[np.ndarray] = None
+
+    def __len__(self) -> int:
+        return self.ts.shape[0]
+
+    def subset(self, idx: np.ndarray) -> "ParsedGeoms":
+        """The geometries at ``idx``, ring and vertex offsets re-based."""
+        idx = np.asarray(idx)
+        rcnt = self.ring_cnt[idx]
+        rrep = np.repeat(np.arange(idx.size), rcnt)
+        cum = np.concatenate([[0], np.cumsum(rcnt)])
+        rpos = np.arange(int(cum[-1])) - np.repeat(cum[:-1], rcnt)
+        rings = self.ring_off[idx][rrep] + rpos
+        sizes = self.ring_size[rings].astype(np.int64)
+        vrep = np.repeat(np.arange(rings.size), sizes)
+        vcum = np.concatenate([[0], np.cumsum(sizes)])
+        vpos = np.arange(int(vcum[-1])) - np.repeat(vcum[:-1], sizes)
+        verts = self.ring_voff[rings][vrep] + vpos
+        return ParsedGeoms(
+            ts=self.ts[idx], obj_id=self.obj_id[idx],
+            is_areal=self.is_areal[idx], bbox=self.bbox[idx],
+            ring_off=cum[:-1].astype(np.int64), ring_cnt=rcnt,
+            ring_voff=vcum[:-1].astype(np.int64),
+            ring_size=sizes.astype(np.int32),
+            vx=self.vx[verts], vy=self.vy[verts], interner=self.interner,
+            multi=None if self.multi is None else self.multi[idx])
+
+
+def _object_rings(obj) -> Tuple[List[np.ndarray], bool]:
+    """A parsed geometry's rings as coordinate arrays, and whether it is
+    areal: how a rejected line's object flattens into :class:`ParsedGeoms`
+    (a multi-geometry gives all its parts' rings, the edges
+    ``EdgeGeomBatch.from_objects`` takes from ``edge_array``)."""
+    from spatialflink_tpu_torch.models import objects as O
+
+    if isinstance(obj, O.MultiPolygon):
+        return [np.asarray(r, np.float64) for p in obj.polygons
+                for r in p.rings], True
+    if isinstance(obj, O.Polygon):
+        return [np.asarray(r, np.float64) for r in obj.rings], True
+    if isinstance(obj, O.MultiLineString):
+        return [np.asarray(ln.coords_list, np.float64)
+                for ln in obj.lines], False
+    if isinstance(obj, O.LineString):
+        return [np.asarray(obj.coords_list, np.float64)], False
+    raise ValueError(
+        f"bulk WKT geometry ingestion got {type(obj).__name__}; use "
+        "streams.formats.parse_spatial for mixed-geometry streams")
+
+
+def bulk_parse_wkt(data: bytes, *, delimiter: str = ",",
+                   date_format: Optional[str] = formats.DEFAULT_DATE_FORMAT,
+                   interner: Optional[IdInterner] = None) -> ParsedGeoms:
+    """Parse a newline-separated block of WKT polygon/linestring records
+    (optional ``oid<delim>ts<delim>`` fields before the geometry) in one
+    native call: the block form of ``parse_spatial(..., "WKT")``
+    (``Deserialization.java:516-628``). Ids are interned as the point
+    parsers intern them; rejected lines parse per record."""
+    interner = interner if interner is not None else IdInterner()
+    bulk_parse_wkt.calls += 1
+
+    def parse_line(ln):
+        return formats.parse_spatial(ln, "WKT", None, delimiter=delimiter,
+                                     date_format=date_format)
+
+    lib = native.lib()
+    return _native_geoms_parse(
+        data, lambda buf, *arrs: lib.sf_parse_wkt_geoms(
+            buf, len(data), delimiter.encode()[:1] or b",", *arrs),
+        parse_line, interner, _norm_csv, max(1, data.count(b"(")),
+        data.count(b",") + max(1, data.count(b"(")) + 2)
+
+
+def bulk_parse_geojson_geoms(data: bytes, *, property_obj_id: str = "oID",
+                             property_timestamp: str = "timestamp",
+                             date_format: Optional[str] = None,
+                             interner: Optional[IdInterner] = None
+                             ) -> ParsedGeoms:
+    """Parse a newline-separated block of GeoJSON Polygon/LineString
+    features in one native call: the block form of ``parse_spatial(...,
+    "GeoJSON")`` (``Deserialization.java:236-334``); points, multi-
+    geometries, collections, escaped strings and date-string timestamps
+    parse per record, so it accepts what the record path accepts."""
+    interner = interner if interner is not None else IdInterner()
+    bulk_parse_geojson_geoms.calls += 1
+    kw = dict(property_obj_id=property_obj_id,
+              property_timestamp=property_timestamp, date_format=date_format)
+
+    def parse_line(ln):
+        return formats.parse_spatial(ln, "GeoJSON", None, **kw)
+
+    lib = native.lib()
+    capr = max(1, data.count(b"["))  # every level opens one '['
+    return _native_geoms_parse(
+        data, lambda buf, *arrs: lib.sf_parse_geojson_geoms(
+            buf, len(data), property_obj_id.encode(),
+            property_timestamp.encode(), *arrs),
+        parse_line, interner, _norm_raw, capr, capr + 2)
+
+
+#: native geometry parser calls since the process started
+bulk_parse_wkt.calls = 0
+bulk_parse_geojson_geoms.calls = 0
+
+
+def _native_geoms_parse(data: bytes, invoke, parse_line, interner, norm,
+                        capr: int, capv: int) -> ParsedGeoms:
+    """The buffers and the assembly shared by the two native geometry
+    parsers (one output contract): ``invoke(buf, *outputs)`` calls the
+    symbol with its leading arguments; rejected lines go through
+    ``parse_line``."""
+    cap = data.count(b"\n") + 1
+    ts = np.empty(cap, np.int64)
+    oh = np.empty(cap, np.uint64)
+    ostart = np.empty(cap, np.int64)
+    olen = np.empty(cap, np.int32)
+    ispoly = np.empty(cap, np.int8)
+    roff = np.empty(cap, np.int64)
+    rcnt = np.empty(cap, np.int32)
+    bbox = np.empty((cap, 4), np.float64)
+    rvoff = np.empty(capr, np.int64)
+    rsize = np.empty(capr, np.int32)
+    vx = np.empty(capv, np.float64)
+    vy = np.empty(capv, np.float64)
+    rej = np.empty(cap, np.int64)
+    nrej = ctypes.c_long(0)
+    n = invoke(
+        data + b"\0",
+        _ptr(ts, ctypes.c_int64), _ptr(oh, ctypes.c_uint64),
+        _ptr(ostart, ctypes.c_int64), _ptr(olen, ctypes.c_int32),
+        _ptr(ispoly, ctypes.c_int8), _ptr(roff, ctypes.c_int64),
+        _ptr(rcnt, ctypes.c_int32), _ptr(bbox, ctypes.c_double),
+        _ptr(rvoff, ctypes.c_int64), _ptr(rsize, ctypes.c_int32),
+        _ptr(vx, ctypes.c_double), _ptr(vy, ctypes.c_double),
+        _ptr(rej, ctypes.c_int64), ctypes.byref(nrej))
+    oid = _intern_hashes(data, oh[:n], ostart[:n], olen[:n], interner, norm)
+    n_rings = int(rcnt[:n].sum())
+    n_verts = int(rsize[:n_rings].sum()) if n_rings else 0
+    accepted = ParsedGeoms(
+        ts=ts[:n].copy(), obj_id=oid, is_areal=ispoly[:n].astype(bool),
+        bbox=bbox[:n].copy(), ring_off=roff[:n].copy(),
+        ring_cnt=rcnt[:n].copy(), ring_voff=rvoff[:n_rings].copy(),
+        ring_size=rsize[:n_rings].copy(), vx=vx[:n_verts].copy(),
+        vy=vy[:n_verts].copy(), interner=interner)
+    if not nrej.value:
+        return accepted
+    lines = _nonblank_lines(data)
+    reparsed = [(i, parse_line(lines[i].decode("utf-8", "replace")))
+                for i in rej[:nrej.value].tolist()]
+    return _merge_geom_rejects(accepted, reparsed, interner)
+
+
+def _merge_geom_rejects(accepted: ParsedGeoms, reparsed, interner
+                        ) -> ParsedGeoms:
+    """The per-record parses of the rejected lines flattened into the
+    layout and put back in line order among the accepted records; their
+    ids are interned after the accepted ones, in line order. Python loops
+    touch only the rejected objects; the line-order permutation is a
+    :meth:`ParsedGeoms.subset`."""
+    from spatialflink_tpu_torch.models import objects as O
+
+    n_acc = len(accepted)
+    m = len(reparsed)
+    rings: List[np.ndarray] = []
+    r_cnt = np.empty(m, np.int32)
+    r_ts = np.empty(m, np.int64)
+    r_oid = np.empty(m, np.int32)
+    r_areal = np.empty(m, bool)
+    r_bbox = np.empty((m, 4), np.float64)
+    r_multi = np.array([isinstance(obj, (O.MultiPolygon, O.MultiLineString))
+                        for _, obj in reparsed], bool)
+    for j, (_line, obj) in enumerate(reparsed):
+        rl, areal = _object_rings(obj)
+        rings.extend(rl)
+        r_cnt[j] = len(rl)
+        r_ts[j] = obj.timestamp
+        r_oid[j] = interner.intern(obj.obj_id)
+        r_areal[j] = areal
+        r_bbox[j] = np.asarray(obj.bbox, np.float64)
+    r_size = np.array([r.shape[0] for r in rings], np.int32)
+    coords = (np.concatenate(rings, axis=0) if rings
+              else np.empty((0, 2)))
+    n_rings, n_verts = accepted.ring_size.shape[0], accepted.vx.shape[0]
+    combined = ParsedGeoms(
+        ts=np.concatenate([accepted.ts, r_ts]),
+        obj_id=np.concatenate([accepted.obj_id, r_oid]),
+        is_areal=np.concatenate([accepted.is_areal, r_areal]),
+        bbox=np.concatenate([accepted.bbox.reshape(n_acc, 4), r_bbox]),
+        ring_off=np.concatenate([accepted.ring_off, n_rings + np.concatenate(
+            [[0], np.cumsum(r_cnt)])[:-1].astype(np.int64)]),
+        ring_cnt=np.concatenate([accepted.ring_cnt, r_cnt]),
+        ring_voff=np.concatenate([accepted.ring_voff, n_verts +
+                                  np.concatenate([[0], np.cumsum(r_size)])
+                                  [:-1].astype(np.int64)]),
+        ring_size=np.concatenate([accepted.ring_size, r_size]),
+        vx=np.concatenate([accepted.vx, coords[:, 0]]),
+        vy=np.concatenate([accepted.vy, coords[:, 1]]),
+        interner=interner, multi=np.concatenate([
+            np.zeros(n_acc, bool) if accepted.multi is None
+            else accepted.multi, r_multi]))
+    # accepted rows take the lines not rejected, in order
+    total = n_acc + m
+    line_of = np.empty(total, np.int64)
+    rej_lines = np.array([line for line, _ in reparsed], np.int64)
+    is_rej = np.zeros(total, bool)
+    is_rej[rej_lines] = True
+    line_of[:n_acc] = np.nonzero(~is_rej)[0]
+    line_of[n_acc:] = rej_lines
+    return combined.subset(np.argsort(line_of, kind="stable"))
+
+
+def _ring_order(parsed: ParsedGeoms) -> np.ndarray:
+    """The rings in the order of the objects the record path builds: a
+    polygon's rings by area, largest first, ties in text order
+    (``Polygon.create``); a multi-part geometry's as they are."""
+    from spatialflink_tpu_torch.models.objects import (_close_ring,
+                                                        _ring_area)
+
+    order = np.arange(parsed.ring_size.shape[0])
+    several = parsed.is_areal & (parsed.ring_cnt > 1)
+    if parsed.multi is not None:
+        several &= ~parsed.multi
+    for g in np.nonzero(several)[0].tolist():
+        lo, cnt = int(parsed.ring_off[g]), int(parsed.ring_cnt[g])
+        areas = []
+        for r in range(lo, lo + cnt):
+            v0 = int(parsed.ring_voff[r])
+            v1 = v0 + int(parsed.ring_size[r])
+            areas.append(_ring_area(_close_ring(zip(
+                parsed.vx[v0:v1].tolist(), parsed.vy[v0:v1].tolist()))))
+        order[lo:lo + cnt] = lo + np.array(
+            sorted(range(cnt), key=areas.__getitem__, reverse=True))
+    return order
+
+
+def geoms_to_edge_batch(parsed: ParsedGeoms, grid=None, *,
+                        device: torch.device, ts_base: int = 0,
+                        pad: Optional[int] = None,
+                        edge_pad: Optional[int] = None,
+                        cell_pad: Optional[int] = None) -> EdgeGeomBatch:
+    """A :class:`ParsedGeoms` as an :class:`EdgeGeomBatch` on ``device``,
+    built with numpy over the flattened arrays, field for field the batch
+    ``EdgeGeomBatch.from_objects`` builds from the parsed objects: a
+    polygon ring closed by one more edge when its first and last raw
+    vertices differ, a linestring an open chain, the edges of each
+    geometry's rings in its object's ring order (:func:`_ring_order`; the
+    JAX package keeps the text's order, which gives the same distances
+    and parities); the cells those the bbox overlaps on
+    ``grid``, ascending, with the bbox centre's cell (else the least) as
+    the representative; the same paddings."""
+    n = len(parsed)
+    if n == 0:
+        return EdgeGeomBatch.from_objects([], device=device, ts_base=ts_base,
+                                          pad=pad)
+    ring = _ring_order(parsed)
+    sizes = parsed.ring_size[ring].astype(np.int64)
+    voff = parsed.ring_voff[ring]
+    n_rings = sizes.shape[0]
+    ring_geom = np.repeat(np.arange(n), parsed.ring_cnt)
+    if n_rings:
+        closure = parsed.is_areal[ring_geom] & (
+            (parsed.vx[voff] != parsed.vx[voff + sizes - 1])
+            | (parsed.vy[voff] != parsed.vy[voff + sizes - 1]))
+        e_r = sizes - 1 + closure
+        eoff = np.concatenate([[0], np.cumsum(e_r)])
+        base_cnt = sizes - 1
+        brep = np.repeat(np.arange(n_rings), base_cnt)
+        bcum = np.concatenate([[0], np.cumsum(base_cnt)])
+        bpos = np.arange(int(bcum[-1])) - np.repeat(bcum[:-1], base_cnt)
+        src = voff[brep] + bpos
+        e_flat = np.empty((int(eoff[-1]), 4), np.float32)
+        dest = eoff[brep] + bpos
+        e_flat[dest, 0] = parsed.vx[src]
+        e_flat[dest, 1] = parsed.vy[src]
+        e_flat[dest, 2] = parsed.vx[src + 1]
+        e_flat[dest, 3] = parsed.vy[src + 1]
+        cr = np.nonzero(closure)[0]
+        cdest = eoff[cr] + sizes[cr] - 1
+        last = voff[cr] + sizes[cr] - 1
+        e_flat[cdest, 0] = parsed.vx[last]
+        e_flat[cdest, 1] = parsed.vy[last]
+        e_flat[cdest, 2] = parsed.vx[voff[cr]]
+        e_flat[cdest, 3] = parsed.vy[voff[cr]]
+        ge = np.bincount(ring_geom, weights=e_r, minlength=n).astype(np.int64)
+    else:
+        e_flat = np.empty((0, 4), np.float32)
+        ge = np.zeros(n, np.int64)
+    E = (bucket_size(max(int(ge.max()), 1), 8) if edge_pad is None
+         else edge_pad)
+    edges = np.zeros((n, E, 4), np.float32)
+    emask = np.zeros((n, E), bool)
+    if n_rings:
+        goff = np.concatenate([[0], np.cumsum(ge)])
+        edge_geom = np.repeat(np.arange(n), ge)
+        pos = np.arange(int(goff[-1])) - np.repeat(goff[:-1], ge)
+        edges[edge_geom, pos] = e_flat
+        emask[edge_geom, pos] = True
+    cell_rep = np.full(n, -1, np.int32)
+    if grid is not None:
+        ix1, iy1 = grid.cell_indices(parsed.bbox[:, 0], parsed.bbox[:, 1])
+        ix2, iy2 = grid.cell_indices(parsed.bbox[:, 2], parsed.bbox[:, 3])
+        inside = (ix2 >= 0) & (iy2 >= 0) & (ix1 < grid.n) & (iy1 < grid.n)
+        ix1c, iy1c = np.clip(ix1, 0, grid.n - 1), np.clip(iy1, 0, grid.n - 1)
+        ix2c, iy2c = np.clip(ix2, 0, grid.n - 1), np.clip(iy2, 0, grid.n - 1)
+        nx = np.where(inside, ix2c - ix1c + 1, 0)
+        ny = np.where(inside, iy2c - iy1c + 1, 0)
+        counts = nx * ny
+        C = (bucket_size(max(int(counts.max()), 1), 8) if cell_pad is None
+             else cell_pad)
+        cells = np.full((n, C), -1, np.int32)
+        cmask = np.zeros((n, C), bool)
+        total = int(counts.sum())
+        if total:
+            grep = np.repeat(np.arange(n), counts)
+            gcum = np.concatenate([[0], np.cumsum(counts)])
+            gpos = np.arange(total) - np.repeat(gcum[:-1], counts)
+            ny_r = np.maximum(np.repeat(ny, counts), 1)
+            cxs = np.repeat(ix1c, counts) + gpos // ny_r
+            cys = np.repeat(iy1c, counts) + gpos % ny_r
+            cells[grep, gpos] = (cxs * grid.n + cys).astype(np.int32)
+            cmask[grep, gpos] = True
+        # the representative: the bbox centre's cell when valid (it lies in
+        # the bbox's range), else the least overlapped cell
+        c, valid = grid.assign_cell((parsed.bbox[:, 0] + parsed.bbox[:, 2]) / 2,
+                                    (parsed.bbox[:, 1] + parsed.bbox[:, 3]) / 2)
+        rep = np.where(np.asarray(valid), np.asarray(c, np.int64),
+                       ix1c * grid.n + iy1c)
+        cell_rep = np.where(counts > 0, rep, -1).astype(np.int32)
+    else:
+        C = cell_pad or 8
+        cells = np.full((n, C), -1, np.int32)
+        cmask = np.zeros((n, C), bool)
+    size = bucket_size(n, 8) if pad is None else pad
+    host = {
+        "edges": pad_to(edges, size), "edge_mask": pad_to(emask, size),
+        "bbox": pad_to(parsed.bbox.astype(np.float32), size),
+        "obj_id": pad_to(parsed.obj_id, size),
+        "ts": pad_to((parsed.ts - int(ts_base)).astype(np.int32), size),
+        "cell": pad_to(cell_rep, size, fill=-1),
+        "cells": pad_to(cells, size, fill=-1),
+        "cells_mask": pad_to(cmask, size),
+        "is_areal": pad_to(parsed.is_areal, size),
+        "valid": pad_to(np.ones(n, bool), size),
+    }
+    return EdgeGeomBatch(**{k: to_device(v, GEOM_DTYPES[k], device)
+                            for k, v in host.items()})
+
+
+def bulk_geom_window_batches(parsed: ParsedGeoms, spec, grid=None, *,
+                             device: torch.device):
+    """The windows of a bulk-parsed polygon/linestring stream, assembled
+    at once: ``(start, end, idx, EdgeGeomBatch)`` in window order (the
+    geometry twin of :func:`bulk_window_batches`)."""
+    if not len(parsed):
+        return
+    win, rec = spec.assign_bulk(parsed.ts)
+    if not len(win):
+        return
+    bounds = np.flatnonzero(np.r_[True, win[1:] != win[:-1], True])
+    for lo, hi in zip(bounds[:-1].tolist(), bounds[1:].tolist()):
+        start = int(win[lo])
+        idx = rec[lo:hi]
+        yield (start, start + spec.size_ms, idx,
+               geoms_to_edge_batch(parsed.subset(idx), grid, device=device,
+                                   ts_base=start,
+                                   pad=bucket_size(idx.size, 8)))
+
+
+def bulk_parse_geom_file(path: str, fmt: str = "WKT", **kw) -> ParsedGeoms:
+    """Bulk-parse a whole replay file of WKT or GeoJSON polygon/linestring
+    records (``delimiter``/``date_format`` for WKT;
+    ``property_obj_id``/``property_timestamp``/``date_format`` for
+    GeoJSON)."""
+    f = fmt.lower()
+    if f not in ("wkt", "geojson"):
+        raise ValueError(
+            f"bulk geometry ingestion supports WKT/GeoJSON, not {fmt!r}")
+    with open(path, "rb") as fh:
+        data = fh.read()
+    if f == "wkt":
+        return bulk_parse_wkt(data, **kw)
+    return bulk_parse_geojson_geoms(data, **kw)
+
+
+class BulkWindow:
+    """A bulk window's (or pane's) records: their original-record indices
+    ``idx`` and the batch built from the parse's columns. The operators
+    read it as they read a decoded window (:class:`LazyRecords`,
+    :class:`GeomRecords`): its batch, and ``take`` of selected positions,
+    which gives original-record index lists; ids resolve through the
+    parse's ``interner``."""
+
+    __slots__ = ("idx", "batch", "interner")
+
+    def __init__(self, idx: np.ndarray, batch, interner: IdInterner):
+        self.idx, self.batch, self.interner = idx, batch, interner
+
+    def __len__(self) -> int:
+        return int(self.idx.size)
+
+    def point_batch(self, ts_base: int, device, compact: bool = False):
+        if compact:
+            raise ValueError("a bulk window has no realtime form")
+        return self.batch, None
+
+    def geom_batch(self, ts_base: int, device, interner, compact=False):
+        return self.point_batch(ts_base, device, compact)
+
+    def take(self, idx) -> List[int]:
+        return self.idx[np.asarray(idx, np.int64)].tolist()
+
+    def take_many(self, idx_lists) -> List[List[int]]:
+        return [self.take(idx) for idx in idx_lists]
+
+
+class BulkStream:
+    """A bulk-parsed stream (:class:`ParsedPoints` or :class:`ParsedGeoms`)
+    as an operator's input: every window assembled at once by
+    :func:`bulk_window_batches` / :func:`bulk_geom_window_batches`, or, with
+    ``panes`` and the operator's pane mode, pane by pane by
+    :func:`bulk_pane_window_batches` (point streams)."""
+
+    __slots__ = ("parsed", "panes")
+
+    def __init__(self, parsed, panes: bool = True):
+        self.parsed, self.panes = parsed, panes
+
+    def windows(self, spec, grid, device):
+        p = self.parsed
+        gen = (bulk_geom_window_batches if isinstance(p, ParsedGeoms)
+               else bulk_window_batches)
+        for start, end, idx, batch in gen(p, spec, grid, device=device):
+            yield start, end, BulkWindow(idx, batch, p.interner)
+
+    def pane_windows(self, spec, grid, device):
+        p = self.parsed
+        for start, end, panes in bulk_pane_window_batches(p, spec, grid,
+                                                          device=device):
+            yield start, end, [(s, BulkWindow(idx, batch, p.interner))
+                               for s, (idx, batch) in panes]

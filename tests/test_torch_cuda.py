@@ -12,7 +12,8 @@ three tiles, so units of 4,096 partners; clustered sides; a 32,767-cell
 grid whose index sorts each tile on its own; K7's -1 corner; equal d^2
 in different cells; layers 0, 1, >= n and 2^30; with and without rows)
 and the join index itself against their plain PyTorch versions on the
-card, bit for bit.
+card, bit for bit; and the pane join and bulk replay (``--bulk``) runs
+against their plain-kernel runs.
 
 The CUDA kernels have no CPU mode, so these tests skip without a card.
 This file imports neither JAX nor the JAX package, so it also runs where
@@ -20,6 +21,8 @@ JAX is not installed: on the card, ``python -m pytest --noconftest
 tests/test_torch_cuda.py`` (``--noconftest`` skips tests/conftest.py, which
 sets up JAX).
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -2067,3 +2070,148 @@ def test_pip_lattice_parity_equals_plain(card, ordered):
                                                 **kw))
         assert torch.equal(inside, G.points_in_geoms(
             px, py, gb.edges, gb.edge_mask).T)
+
+
+# ---------------------------------------------------------------------- #
+# the pane join and bulk replay on the card, against their plain runs
+
+CONF_PATH = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "conf", "spatialflink-conf.yml")
+_T0 = 1_700_000_000_000
+
+
+def _csv_points(seed, n, span=20_000):
+    rng = np.random.default_rng(seed)
+    ts = _T0 + np.sort(rng.integers(0, span, n))
+    late = rng.random(n) < 0.05
+    ts[late] -= 3_000
+    x, y = rng.uniform(115.6, 117.5, n), rng.uniform(39.7, 41.0, n)
+    return [f"p{int(o)},{t},{a!r},{b!r}" for o, t, a, b in zip(
+        rng.integers(0, 400, n), ts.tolist(), x.tolist(), y.tolist())]
+
+
+def _geojson_polygons(seed, n, span=20_000):
+    import json
+
+    rng = np.random.default_rng(seed)
+    ts = _T0 + np.sort(rng.integers(0, span, n))
+    out = []
+    for i, t in enumerate(ts.tolist()):
+        cx, cy = rng.uniform(115.7, 117.4), rng.uniform(39.8, 40.9)
+        r = rng.uniform(0.01, 0.05)
+        th = np.sort(rng.uniform(0, 2 * np.pi, int(rng.integers(4, 12))))
+        ring = [[float(cx + r * np.cos(a)), float(cy + r * np.sin(a))]
+                for a in th]
+        out.append(json.dumps({"type": "Feature", "geometry": {
+            "type": "Polygon", "coordinates": [ring + [ring[0]]]},
+            "properties": {"oID": f"g{i % 90}", "timestamp": t}}))
+    return out
+
+
+def _plain_everywhere(monkeypatch):
+    """Every kernel of the join, range and kNN paths swapped for its plain
+    version."""
+    from spatialflink_tpu_torch.ops import join as J
+
+    for mod, name, fn in (
+            (J, "join_index", J.join_index_plain),
+            (J, "join_reduce",
+             lambda *a, index=None, **kw: J.join_reduce_plain(*a, **kw)),
+            (J, "join_lattice",
+             lambda *a, index=None, **kw: J.join_lattice_plain(*a, **kw)),
+            (HK, "pip_lattice",
+             lambda *a, **_: HK.pip_lattice_plain(*a).T.contiguous()),
+            (HK, "pip_dist", HK.pip_dist_plain),
+            (G, "geom_stream_dist", G.geom_stream_dist_plain),
+            (R, "range_filter_point_stats", R.range_filter_point_stats_plain),
+            (R, "range_filter_point_multi_masks",
+             R.range_filter_point_multi_masks_plain),
+            (R, "range_filter_masks_stats", R.range_filter_masks_stats_plain),
+            (K, "knn_topk", K.knn_topk_plain),
+            (K, "knn_merge_parts", K.merge_topk_parts_plain)):
+        monkeypatch.setattr(mod, name, fn)
+
+
+def _windows(results):
+    def form(recs):
+        if hasattr(recs, "_parts"):  # join pairs
+            return [(a.obj_id, a.timestamp, b.obj_id, b.timestamp)
+                    for a, b in recs]
+        return list(recs)
+    return [(w.window_start, w.window_end, form(w.records))
+            for w in results]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cells", [0, 1 << 24], ids=["blocks", "coalesced"])
+@pytest.mark.parametrize("option", [101, 106, 121])
+def test_pane_join_equals_plain(card, monkeypatch, option, cells):
+    """101 (join index, K7, K6 per block), 106 (K4x) and 121 (K5) with
+    ``query.panes``: the pairs of the kernels' run equal the plain run's,
+    in order; the pair sets equal the panes-off run's."""
+    import dataclasses
+
+    from spatialflink_tpu_torch import driver as TD
+    from spatialflink_tpu_torch.config import Params
+
+    monkeypatch.setenv("SPATIALFLINK_JOIN_BLOCK_MIN_CELLS", str(cells))
+    spec = TD.CASES[option]
+    s1 = (_csv_points(1, 6_000) if spec.stream == "Point"
+          else _geojson_polygons(3, 600))
+    s2 = (_csv_points(2, 3_000) if spec.query == "Point"
+          else _geojson_polygons(4, 300))
+    p = Params.from_yaml(CONF_PATH)
+    p.query.option, p.query.radius, p.query.panes = option, 0.02, True
+    fmt = {"Point": "CSV"}
+    p = dataclasses.replace(
+        p, input1=dataclasses.replace(p.input1, format=fmt.get(
+            spec.stream, "GeoJSON")),
+        input2=dataclasses.replace(p.input2, format=fmt.get(
+            spec.query, "GeoJSON")))
+    got = _windows(TD.run_option(p, s1, s2, device="cuda"))
+    p.query.panes = False
+    off = _windows(TD.run_option(p, s1, s2, device="cuda"))
+    p.query.panes = True
+    _plain_everywhere(monkeypatch)
+    plain = _windows(TD.run_option(p, s1, s2, device="cuda"))
+    assert got == plain and sum(len(w[2]) for w in got) > 0
+    assert [(s, e, sorted(w)) for s, e, w in got] == \
+        [(s, e, sorted(w)) for s, e, w in off]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option,multi,panes", [
+    (1, False, False), (6, False, False), (51, False, False),
+    (16, False, False), (71, False, False), (101, False, False),
+    (1, True, False), (51, True, False), (51, False, True),
+    (1, False, True)])
+def test_bulk_equals_plain(card, monkeypatch, tmp_path, option, multi,
+                           panes):
+    """``run_option_bulk`` on the card (K1, K4, K2, K5, K3 and the join's
+    kernels over the bulk windows and panes) against the same replay with
+    every kernel swapped for its plain version, window for window."""
+    import dataclasses
+
+    from spatialflink_tpu_torch import driver as TD
+    from spatialflink_tpu_torch.config import Params
+
+    spec = TD.CASES[option]
+    points, queries = tmp_path / "p.csv", tmp_path / "q.csv"
+    geoms = tmp_path / "g.geojson"
+    points.write_text("\n".join(_csv_points(5, 8_000)) + "\n")
+    queries.write_text("\n".join(_csv_points(6, 2_000)) + "\n")
+    geoms.write_text("\n".join(_geojson_polygons(7, 800)) + "\n")
+    p = Params.from_yaml(CONF_PATH)
+    p.query.option, p.query.radius = option, 0.1
+    p.query.multi_query, p.query.panes = multi, panes
+    p.query.query_points = [[116.5, 40.5], [116.9, 40.2]]
+    geom = spec.stream != "Point"
+    p = dataclasses.replace(p, input1=dataclasses.replace(
+        p.input1, format="GeoJSON" if geom else "CSV"),
+        input2=dataclasses.replace(p.input2, format="CSV"))
+    src = str(geoms if geom else points)
+    got = _windows(TD.run_option_bulk(p, src, str(queries), device="cuda"))
+    _plain_everywhere(monkeypatch)
+    plain = _windows(TD.run_option_bulk(p, src, str(queries),
+                                        device="cuda"))
+    assert got == plain and got

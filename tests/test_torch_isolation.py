@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from spatialflink_tpu_torch import driver as TD
+from spatialflink_tpu_torch.apps import CheckIn, StayTime
 from spatialflink_tpu_torch.config import Params
 from spatialflink_tpu_torch.device import resolve_device
 from spatialflink_tpu_torch.index import UniformGrid
@@ -51,8 +52,9 @@ def test_port_loads_no_jax():
     """In a fresh interpreter (PYTHONPATH unset: the test process already
     holds jax), import the port and run one tiny option-6 window, option
     51 with panes under the device merge, option 1 from a live query
-    registry, one option-101 join window, and the trajectory options 206
-    and 99."""
+    registry, one option-101 join window, the trajectory options 206
+    and 99, the stay-time app 1010, the ser/de option 406, option 1 by
+    bulk replay with panes and 101 with panes."""
     code = textwrap.dedent("""
         import dataclasses, sys
         from spatialflink_tpu_torch.config import Params
@@ -87,9 +89,22 @@ def test_port_loads_no_jax():
         assert wins and any(len(w.records) for w in wins), wins
         tlines = [f"t{i % 50},{1700000000000 + 7 * i},{116.2 + i * 1e-3},"
                   "40.5" for i in range(500)]
-        for option in (206, 99):
+        for option in (206, 99, 1010):
             p.query.option = option
             wins = list(run_option(p, tlines, device="cpu"))
+            assert wins and any(len(w.records) for w in wins), wins
+        p.query.option = 406
+        assert len(list(run_option(p, lines[:5], device="cpu"))) == 5
+        import os, tempfile
+        from spatialflink_tpu_torch.driver import run_option_bulk
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "in.csv")
+            open(path, "w").write("\\n".join(lines) + "\\n")
+            p.query.option, p.query.panes = 1, True
+            wins = list(run_option_bulk(p, path, device="cpu"))
+            assert wins and any(len(w.records) for w in wins), wins
+            p.query.option, p.query.panes = 101, True
+            wins = list(run_option(p, lines, lines[::7], device="cpu"))
             assert wins and any(len(w.records) for w in wins), wins
         bad = sorted(m for m in sys.modules
                      if m in ("jax", "spatialflink_tpu")
@@ -141,6 +156,11 @@ def test_no_source_imports_jax_or_the_jax_package():
     files += [os.path.join(REPO, name)
               for name in ("kernel_ab.py", "chip_smoke.py")]
     assert len(files) > 20
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for module in ("apps/__init__.py", "apps/stay_time.py",
+                   "apps/check_in.py", "streams/shapefile.py",
+                   "streams/bulk.py", "native/__init__.py"):
+        assert os.path.join("spatialflink_tpu_torch", module) in rel
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
@@ -162,7 +182,7 @@ def test_default_device_raises_without_cuda(no_cuda, tmp_path, capsys):
                 PointGeomJoinQuery, GeomGeomJoinQuery, PointTFilterQuery,
                 PointPolygonTRangeQuery, PointTStatsQuery,
                 PointTAggregateQuery, PointPointTJoinQuery,
-                PointPointTKNNQuery):
+                PointPointTKNNQuery, StayTime, CheckIn):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(QueryConfiguration(), grid)
     p = Params.from_yaml(CONF)

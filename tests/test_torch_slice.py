@@ -209,14 +209,21 @@ def test_realtime_knn_is_refused(option):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--option", "1010"], "queryOption 1010: not yet ported"),
-    (["--option", "2000"], "queryOption 2000: not yet ported"),
+    (["--option", "6", "--adaptive-grid"], "--adaptive-grid: not yet ported"),
+    (["--option", "2000", "--checkpoint-dir", "ck"],
+     "--checkpoint-dir: not yet ported"),
     (["--option", "101"], "queryOption 101 (join) needs --input2"),
     (["--option", "6", "--kafka"], "--kafka: not yet ported"),
-    (["--option", "101", "--panes"], "--panes: not yet ported"),
-    (["--option", "6", "--limit", "5"], "--limit: not yet ported"),
+    (["--option", "101", "--panes", "--devices", "4"],
+     "--devices: not yet ported"),
+    (["--option", "6", "--limit", "5", "--resume"],
+     "--resume: not yet ported"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, message):
+    """Flags and options of later slices are refused, never ignored (the
+    apps 1010 and 2000, --panes on a join and --limit, refused here
+    before, run since their slice: tests/test_torch_apps.py,
+    test_torch_join_panes.py, test_torch_bulk.py)."""
     inp = tmp_path / "in.csv"
     inp.write_text("\n".join(_stream(n=10)[0]) + "\n")
     rc = TD.main(["--config", CONF, "--input1", str(inp), "--format", "CSV",
@@ -226,13 +233,14 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, message):
 
 
 def test_config_features_not_ported_raise():
-    """A join's panes are not ported yet (range and kNN run them:
-    tests/test_torch_panes.py)."""
+    """A sharded join (query.parallelism > 1) is not ported yet; a join's
+    panes, refused here before, run since their slice
+    (tests/test_torch_join_panes.py)."""
     p = _params(TParams, 101)
     p.query.panes = True
+    p.query.parallelism = 4
     with pytest.raises(NotImplementedError,
-                       match=r"query.panes for a join \(queryOption 101\): "
-                             "not yet"):
+                       match=r"query.parallelism > 1: not yet"):
         TD.run_option(p, [], [], device="cpu")
 
 
