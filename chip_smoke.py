@@ -94,17 +94,17 @@ its wall seconds):
    once approximate, and at one 512-geometry micro-batch, each with its
    CUDA-event time, launch-to-completion time and bound. Then options 16,
    21, 41, 66, 71 and 91, multiQuery 21 and 71 and realtime 22 and 72
-   over the parsed stream's first 131,072 geometries, and the other 16
-   geometry options over its first 65,536, each through ``run_option`` over the
+   over the parsed stream's first 131,072 geometries (then option 71
+   once more under torch.profiler), and the other 16 geometry options
+   over its first 65,536, each through ``run_option`` over the
    parsed objects and again with K5 and K2 swapped for their plain
    versions (equal results; K5, and K2 for kNN, launched). The parse
    runs once per stream: at ~150 us per polygon record on the host of an
    H100 machine, parsing in every run would not fit the time limit;
    option 21 runs once more from the polygon stream's first 65,536 lines
    (the whole path) and must give the windows of its run over the parsed
-   objects. Option 71 once more under torch.profiler, and the CLI runs
-   option 21 from a 16,384-line GeoJSON file against an in-process run
-   over the same lines.
+   objects. The CLI runs option 21 from a 16,384-line GeoJSON file
+   against an in-process run over the same lines.
 5. Panes and the standing-query plane. K3 through its parts entry
    ``knn_merge_parts`` (the partials where they lie, as the device merge
    passes them) against its plain version bit for bit at (panes, queries,
@@ -223,12 +223,47 @@ its wall seconds):
    the window's total), 208 SUM with panes against 208 SUM (equal
    heatmaps); then 206 and 205 under torch.profiler beside their decode
    alone.
-8. Output: the build report, the card line, one JSON ``kernels`` line
+8. The Kafka topology and exactly-once recovery, in a process of its own
+   (it loads the parent's build) started after 71's profile, beside the
+   other 16 geometry options, option 21 from its lines and 21's CLI, and
+   waited for before K3's kernel cases; the host-only options of phase 6
+   also run in a process of their own, beside the geometry panes, the
+   dynamic plane and its CLI. The figures of those phases, and the
+   children's own, are taken with the two side by side;
+   ``kafka_recovery_child`` run alone gives the phase's figures with
+   nothing beside it. The point stream (524,288 CSV rows, 262,144-point
+   windows), the join's 16,384 query points, 32,768 GeoJSON polygons and
+   the 517,850-point taxi stream go into in-memory topics, and each run
+   goes through ``driver.main`` at the Kafka path's own decode chunk:
+   options 1, 6, 51 (k = 50), multiQuery 56 (16 polygons: K4x, then K2),
+   101 (radius 0.002) over two topics, 21 over ``--kafka --bulk``, 206 and
+   206 with panes over ``--kafka``, each again with every kernel swapped
+   for its plain version (the same windows; the launch counters non-zero
+   for the run's path, none in the plain run) and over the file path
+   (the same windows, or, where the two decode chunks intern ids in
+   another order, the same windows up to the order of kNN ties, and
+   then the same windows from a ``--kafka`` run at the file path's
+   chunk), its output topic marking each window once and its group
+   committed at the topics' ends, with records/s. Then 51 with panes,
+   101 and 206 crash at their 3rd fresh window under ``--checkpoint-dir``
+   (a checkpoint every 2 windows) and resume: the window table is the
+   uninterrupted run's (each window marked once), the crashed and resumed
+   runs' windows together are its windows, K7/K6 (101) and K8a (206)
+   launch after the resume, and K3 (51) once for every window the
+   resumed run merges, restored pane partials included (none takes the
+   host merge); the replay is bounded; each resume's load time,
+   replay time and records replayed and each commit's time (p50, p99) and
+   manifest bytes are reported, and 51 with panes runs uninterrupted with
+   and without checkpoints (records/s of both). Last, 205's legacy
+   ``--checkpoint`` over the taxi stream's first 65,536 points: a run over
+   half of them, then over all, gives the results of one run over all
+   (K8a launched after the restore).
+9. Output: the build report, the card line, one JSON ``kernels`` line
    (K4x's entry holds the cell order under ``helpers``, with the joins'
    index under its ``join``; K5's the window cases and its micro-batch
    cases; K4x's and K5's their join cases, also under ``join``; K7, K6,
-   K3, and K8a-K8d with their 512-point cut under ``micro_batch``), and
-   as the last line
+   K3, and K8a-K8d with their 512-point cut under ``micro_batch``; the
+   launches of phase 8 counted in), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result line when CUDA is not available or the
@@ -4067,25 +4102,34 @@ def traj_profile_phase(lines) -> dict:
     return out
 
 
-def profiled_kernels(torch, fn):
+def profiled_kernels(torch, fn, expect: int, tries: int = 3):
     """The device kernels torch.profiler counts in one call of ``fn``
     (copies and memsets not counted), or None when the trace holds no
     device event at all (a short session late in a long process, after
-    the long traces, has been seen to record none)."""
+    the long traces, has been seen to record none). A session can also
+    lose some of its device events (one of K8b's six kernels once went
+    missing from a session), so up to ``tries`` sessions run until one
+    counts exactly ``expect``, and the last count is returned. The count
+    is fixed by the launch code, so a real difference shows in every
+    session."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [ev.name.lower() for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA]
-    if not names:
-        return None
-    return sum(1 for name in names
-               if "memcpy" not in name and "memset" not in name)
+    count = None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.name.lower() for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA]
+        count = (None if not names else
+                 sum(1 for name in names
+                     if "memcpy" not in name and "memset" not in name))
+        if count == expect:
+            break
+    return count
 
 
 def traj_kernel_phase(torch, timer: Timer, cols):
@@ -4141,14 +4185,15 @@ def traj_kernel_phase(torch, timer: Timer, cols):
         torch.cuda.synchronize()
         err = compare(torch, got, want, f"{name} {shape}")
         b_ms, b_by = bound_ms(ops, nbytes)
+        if layout is not None:
+            kernels = layout.launches
         row = {"case": shape, **extra, "identical": True, "max_abs_err": err,
                "ms": timer.ms(kern), "plain_ms": timer.ms(plain, reps=5),
                "launch_to_completion_ms": launch_ms(torch, kern),
-               "launches": profiled_kernels(torch, kern),
+               "launches": profiled_kernels(torch, kern, kernels),
                "bound_ms": b_ms, "bound_by": b_by}
         if layout is not None:
             row.update(key_bits=layout.bits, passes=layout.passes)
-            kernels = layout.launches
         if row["launches"] not in (None, kernels):
             raise AssertionError(f"{name} {shape}: {row['launches']} "
                                  f"kernels, its layout says {kernels}")
@@ -4184,7 +4229,7 @@ def traj_kernel_phase(torch, timer: Timer, cols):
                "plain_ms": timer.ms(lambda: run(T.tstats_update_plain),
                                     reps=5),
                "launch_to_completion_ms": launch_ms(torch, kern),
-               "launches": profiled_kernels(torch, kern),
+               "launches": profiled_kernels(torch, kern, lay.launches),
                "bound_ms": b_ms, "bound_by": b_by}
         if row["launches"] not in (None, lay.launches):
             raise AssertionError(f"tstats_update {shape}: {row['launches']} "
@@ -4236,6 +4281,607 @@ def traj_kernel_phase(torch, timer: Timer, cols):
                      groups, num_cells=grid.num_cells, agg=agg),),
                  9.0 * n + 4.0 * grid.num_cells, 2.0 * n, **extra)
     return cases
+
+# ------------------------------------------------------------------------ #
+# the Kafka topology and exactly-once recovery (a process of its own)
+
+KAFKA_URL = "memory://chip"
+N_TRAJ_CKPT = N_TRAJ_RT    # 205's legacy --checkpoint: the realtime prefix
+#: (label, option, extra flags, input topics, query overrides, kernels of
+#: its path): each through --kafka, again with the plain versions, and
+#: through the file path
+KAFKA_RUNS = [
+    ("1", 1, [], ("points",), {}, ("range_mask_stats",)),
+    ("6", 6, [], ("points",), {}, ("pip_dist", "range_mask_stats")),
+    ("51", 51, [], ("points",), {"k": 50}, ("knn_topk",)),
+    # multiQuery 56, not 1: the port's multiQuery 1 runs K1's query axis,
+    # and its 3.9 M output records a run held the sink for ~25 s
+    ("56-multi", 56, ["--multi-query"], ("points",), {},
+     ("pip_lattice", "cell_order", "knn_topk")),
+    ("101", 101, [], ("points", "queries"), {"radius": JOIN_RADIUS},
+     ("join_reduce", "join_lattice", "cell_order")),
+    ("21-bulk", 21, ["--bulk"], ("polygons",), {}, ("geom_stream_dist",)),
+    ("206", 206, [], ("taxis",), {}, ("tstats_update",)),
+    ("206-panes", 206, ["--panes"], ("taxis",), {},
+     ("tstats_window_summary",)),
+]
+#: (label, option, extra flags, query overrides, crash at this fresh
+#: window, kernels that must launch after the resume)
+RECOVERY_RUNS = [
+    ("51-panes", 51, ["--panes"], {"k": 50}, 3, ("knn_topk", "knn_merge")),
+    ("101", 101, [], {"radius": JOIN_RADIUS}, 3,
+     ("join_reduce", "join_lattice")),
+    ("206", 206, [], {}, 3, ("tstats_update",)),
+]
+#: the file path's windowed decode chunk (the Kafka path's is 2,048)
+FILE_DECODE_CHUNK = "4096"
+KAFKA_FMT = {"points": "CSV", "queries": "CSV", "polygons": "GeoJSON",
+             "taxis": "CSV"}
+
+
+class PhaseProcess:
+    """A phase in a process of its own: ``C.<fn>(seed, tmp)``, which
+    writes ``tmp/report.json``, started beside the parent's host work and
+    loading the parent's build; :meth:`result` waits for it and prints its
+    log. A process still running when the script exits is stopped."""
+
+    def __init__(self, fn: str, seed: int):
+        build = os.path.join(ROOT, "spatialflink_tpu_torch", "_build")
+        self.tmp = tempfile.mkdtemp(dir=build)
+        self.fn = fn
+        self.log = os.path.join(self.tmp, "log")
+        code = (f"import sys; sys.path.insert(0, {ROOT!r}); "
+                f"import chip_smoke as C; C.{fn}({seed}, {self.tmp!r})")
+        with open(self.log, "w") as f:
+            self.proc = subprocess.Popen([sys.executable, "-c", code],
+                                         stdout=f, stderr=subprocess.STDOUT)
+        atexit.register(self.close)
+
+    def result(self) -> dict:
+        rc = self.proc.wait(timeout=900)
+        with open(self.log) as f:
+            log(f.read().rstrip("\n"))
+        if rc != 0:
+            raise AssertionError(f"{self.fn}: its process exited {rc}")
+        with open(os.path.join(self.tmp, "report.json")) as f:
+            rep = json.load(f)
+        self.close()
+        return rep
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+def _child_setup():
+    """A phase process's start: two threads for torch (the parent works
+    on the other cores), the kernels and the ingest loaded from the
+    parent's build."""
+    import torch
+
+    from spatialflink_tpu_torch.ops import native
+
+    torch.set_num_threads(2)
+    native.build((*native.SOURCES, *native.HOST_SOURCES))
+
+
+def _child_report(tmp: str, name: str, rep: dict, t0: float) -> None:
+    rep["wall_s"] = time.perf_counter() - t0
+    log(f"phase {name}: {rep['wall_s']:.1f} s wall (in a process of its "
+        "own)")
+    with open(os.path.join(tmp, "report.json"), "w") as f:
+        json.dump(rep, f)
+
+
+def apps_serde_child(seed: int, tmp: str) -> None:
+    """:func:`apps_serde_phase` as a :class:`PhaseProcess` (host-only
+    options: no kernel runs on them)."""
+    _child_setup()
+    t0 = time.perf_counter()
+    rep = {"apps": apps_serde_phase(card_line(), traj_stream(seed)[0],
+                                    seed)}
+    _child_report(tmp, "apps-serde", rep, t0)
+
+
+def kafka_recovery_child(seed: int, tmp: str) -> None:
+    """:func:`kafka_recovery_phase` as a :class:`PhaseProcess`; called
+    alone, it gives the phase's figures with nothing beside it."""
+    _child_setup()
+    t0 = time.perf_counter()
+    rep = kafka_recovery_phase(card_line(), seed, tmp)
+    _child_report(tmp, "kafka-recovery", rep, t0)
+
+
+def _kform(recs):
+    """One result's records in comparable form: point columns with their
+    object ids as strings (two runs may intern them apart), pairs by
+    their records' ids and times, anything else as a list."""
+    cols = getattr(recs, "columns", None)
+    if cols is not None:
+        x, y, ts, oid = cols()[:4]
+        uniq, inv = np.unique(oid, return_inverse=True)
+        names = np.array([recs.interner.lookup(int(u)) for u in uniq] + [""],
+                         dtype=object)[:-1][inv.reshape(-1)]
+        return ("cols", x, y, ts, names)
+    if type(recs).__name__ == "PairRecords":
+        return ("pairs", _pair_keys(recs))
+    return ("list", list(recs))
+
+
+def _kwindow(w):
+    per_query = ([_kform(r) for r in w.records] if "queries" in w.extras
+                 else [_kform(w.records)])
+    extras = {k: (v.tolist() if isinstance(v, np.ndarray) else v)
+              for k, v in w.extras.items() if k != "latency_ms"}
+    return (w.window_start, w.window_end, per_query, extras)
+
+
+def _kequal(a, b) -> bool:
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return (isinstance(a, np.ndarray) and isinstance(b, np.ndarray)
+                and a.shape == b.shape and bool(np.all(a == b)))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(_kequal(u, v) for u, v in zip(a, b)))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_kequal(a[k], b[k]) for k in a))
+    return a == b
+
+
+@contextlib.contextmanager
+def _driver_capture():
+    """The results the driver emits, in comparable form, and its stdout
+    and stderr kept off the log."""
+    from spatialflink_tpu_torch import driver as D
+
+    got, orig = [], D._emit
+
+    def emit(result, sink):
+        if isinstance(result, D.WindowResult):
+            got.append(_kwindow(result))
+        orig(result, sink)
+
+    D._emit = emit
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            yield got, err
+    finally:
+        D._emit = orig
+
+
+@contextlib.contextmanager
+def _coordinators():
+    """Every checkpoint coordinator made inside, and the wall ms and the
+    loaded source positions of each load."""
+    from spatialflink_tpu_torch.runtime.checkpoint import \
+        CheckpointCoordinator as CC
+
+    made, loads = [], []
+    init, load = CC.__init__, CC.load
+
+    def new_init(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    def new_load(self):
+        t0 = time.perf_counter()
+        out = load(self)
+        loads.append(((time.perf_counter() - t0) * 1e3, self.positions()))
+        return out
+
+    CC.__init__, CC.load = new_init, new_load
+    try:
+        yield made, loads
+    finally:
+        CC.__init__, CC.load = init, load
+
+
+@contextlib.contextmanager
+def _crash_at_fresh_window(nth: int):
+    """The window sink raises at its nth window not yet delivered."""
+    from spatialflink_tpu_torch.streams.kafka import KafkaWindowSink
+
+    orig, state = KafkaWindowSink.emit, {"fresh": 0}
+
+    def boom(self, result):
+        if self.window_key(result) not in self.delivered:
+            state["fresh"] += 1
+            if state["fresh"] == nth:
+                raise RuntimeError("injected crash")
+        orig(self, result)
+
+    KafkaWindowSink.emit = boom
+    try:
+        yield
+    finally:
+        KafkaWindowSink.emit = orig
+
+
+def _tie_normal(w):
+    """A window in comparable form up to the order of kNN ties: each
+    (objID, distance) list becomes its distances, each group of equal
+    distances but the last with its ids sorted (the last group may be cut
+    at k, and which of its ids make the cut follows the tie order)."""
+    start, end, per_query, extras = w
+    out = []
+    for form in per_query:
+        pairs = form[1] if form[0] == "list" else None
+        if pairs and all(isinstance(p, tuple) and len(p) == 2
+                         and isinstance(p[1], float) for p in pairs):
+            groups = []
+            for oid, d in pairs:
+                if groups and groups[-1][0] == d:
+                    groups[-1][1].append(oid)
+                else:
+                    groups.append((d, [oid]))
+            form = ("knn", [(d, sorted(ids)) for d, ids in groups[:-1]],
+                    groups[-1][0], len(groups[-1][1]))
+        out.append(form)
+    return (start, end, out, extras)
+
+
+@contextlib.contextmanager
+def _decode_chunk(chunk: str):
+    """``SPATIALFLINK_DECODE_CHUNK`` set to ``chunk`` inside."""
+    before = os.environ.get("SPATIALFLINK_DECODE_CHUNK")
+    os.environ["SPATIALFLINK_DECODE_CHUNK"] = chunk
+    try:
+        yield
+    finally:
+        if before is None:
+            del os.environ["SPATIALFLINK_DECODE_CHUNK"]
+        else:
+            os.environ["SPATIALFLINK_DECODE_CHUNK"] = before
+
+
+@contextlib.contextmanager
+def _pane_merges():
+    """(parts, whether a part is a host value: restored from a checkpoint,
+    or an empty pane's) of every window the kNN device pane merge takes
+    inside."""
+    from spatialflink_tpu_torch.operators import knn_query as KQ
+    from spatialflink_tpu_torch.operators.base import Deferred
+
+    seen, orig = [], KQ._knn_device_merge
+
+    def wrapped(op, k, n_queries=None):
+        merge = orig(op, k, n_queries)
+
+        def counted(parts):
+            seen.append((len(parts), any(not isinstance(p.value, Deferred)
+                                         for p in parts)))
+            return merge(parts)
+        return counted
+
+    KQ._knn_device_merge = wrapped
+    try:
+        yield seen
+    finally:
+        KQ._knn_device_merge = orig
+
+
+def _kafka_counters():
+    return {**_bulk_counters(), **_traj_counters()}
+
+
+def _window_table(broker, topic):
+    """{window key without the job prefix: [marker values]}."""
+    from spatialflink_tpu_torch.streams.kafka import KafkaWindowSink
+
+    out = {}
+    for r in broker.fetch(topic, 0, 1 << 30):
+        if isinstance(r.key, str) and r.key.startswith(
+                KafkaWindowSink.MARKER):
+            key = r.key[len(KafkaWindowSink.MARKER):].split(":", 1)[1]
+            out.setdefault(key, []).append(int(r.value))
+    return out
+
+
+def kafka_recovery_phase(card: str, seed: int, tmp: str) -> dict:
+    """The Kafka topology and exactly-once recovery on the card, through
+    ``driver.main``. The main path's 524,288-point stream, the join's
+    16,384 query points, 32,768 GeoJSON polygons and the 517,850-point
+    taxi stream are produced into in-memory topics (and written as
+    files); both paths decode in chunks of 4,096. Each of
+    :data:`KAFKA_RUNS` runs over ``--kafka`` (records/s,
+    the launch counters zeroed before and read after: the path's kernels
+    launched), again with every kernel swapped for its plain version (the
+    same windows, no launch) and over the file path (the same windows,
+    object ids compared as strings); its output topic marks every window
+    once and its group ends committed at the topics' ends. Then each of
+    :data:`RECOVERY_RUNS` crashes at its Nth fresh window under
+    ``--checkpoint-dir`` (every 2 windows) and resumes: the window table
+    is the uninterrupted run's, every window marked once, the windows of
+    the crashed and the resumed run together are the uninterrupted run's,
+    and the kernels of its path (K3, K8a) launch after the resume; the
+    resume's load time, replay time and records replayed, and each
+    commit's time and manifest bytes are reported. 51 with panes also runs
+    uninterrupted with and without checkpoints (records/s of both). Last,
+    205's legacy ``--checkpoint`` over the taxi stream's first 65,536
+    points: a run over the first half, then the same command over all of
+    them, gives the results of one run over all (K8a launched after the
+    restore)."""
+    import torch
+    import yaml
+
+    from spatialflink_tpu_torch import driver as D
+    from spatialflink_tpu_torch.streams.kafka import (reset_memory_brokers,
+                                                      resolve_broker)
+
+    t_setup = time.perf_counter()
+    data = {"points": stream_lines(seed, N_STREAM),
+            "queries": stream_lines(seed + 20, N_QPOINTS),
+            "polygons": geom_stream_lines(seed + 50, N_BULK_GEOMS,
+                                          "Polygon"),
+            "taxis": traj_stream(seed)[0]}
+    reset_memory_brokers()
+    broker = resolve_broker(KAFKA_URL)
+    files = {}
+    for topic, lines in data.items():
+        broker.produce_many(topic, lines)
+        files[topic] = os.path.join(tmp, topic)
+        with open(files[topic], "w") as f:
+            f.write("\n".join(lines) + "\n")
+    files["taxis-rt"] = os.path.join(tmp, "taxis-rt")
+    with open(files["taxis-rt"], "w") as f:
+        f.write("\n".join(data["taxis"][:N_TRAJ_CKPT]) + "\n")
+    with open(CONF) as f:
+        conf = yaml.safe_load(f)
+    setup_s = time.perf_counter() - t_setup
+    log(f"kafka-recovery: topics points {N_STREAM}, queries {N_QPOINTS}, "
+        f"polygons {N_BULK_GEOMS}, taxis {len(data['taxis'])} records "
+        f"({setup_s:.1f} s to generate, produce and write)")
+    counters = _kafka_counters()
+    launches = dict.fromkeys(counters, 0)
+
+    def config(name, topics, query):
+        d = json.loads(json.dumps(conf))
+        d["kafkaBootStrapServers"] = KAFKA_URL
+        for key, topic in zip(("inputStream1", "inputStream2"),
+                              topics + topics[:1]):
+            d[key]["topicName"] = topic
+            d[key]["format"] = KAFKA_FMT[topic]
+        d["outputStream"]["topicName"] = f"out-{name}"
+        d["query"]["queryPoints"] = [list(p) for p in query_points()]
+        d["query"]["queryPolygons"] = [[list(p) for p in r]
+                                       for r in query_polygons()]
+        d["query"].update(query)
+        path = os.path.join(tmp, f"{name}.yml")
+        with open(path, "w") as f:
+            yaml.safe_dump(d, f)
+        return path
+
+    def run(name, opt, extra, topics, query, *, kafka=True, plain=False,
+            files_in=None, crash_at=None, chunk=None):
+        """One driver.main run: (windows, wall s, launches, stderr); with
+        ``crash_at``, the window sink raises at that fresh window and the
+        windows emitted before it come back; ``chunk`` sets the decode
+        chunk (``SPATIALFLINK_DECODE_CHUNK``) for the run."""
+        argv = ["--config", config(name, topics, query), "--option",
+                str(opt), "--device", "cuda", *extra]
+        if kafka:
+            argv += ["--kafka", "--kafka-group", f"g-{name}"]
+        else:
+            for flag, topic in zip(("--input1", "--input2"),
+                                   files_in or topics):
+                argv += [flag, files[topic]]
+        for fn in counters.values():
+            fn.launches = 0
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(all_plain_versions())
+                stack.enter_context(traj_plain_versions())
+            if crash_at is not None:
+                stack.enter_context(_crash_at_fresh_window(crash_at))
+            if chunk is not None:
+                stack.enter_context(_decode_chunk(chunk))
+            wins, err = stack.enter_context(_driver_capture())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                rc = D.main(argv)
+            except RuntimeError as e:
+                if crash_at is None or "injected crash" not in str(e):
+                    raise
+                rc = "crashed"
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if rc != (0 if crash_at is None else "crashed"):
+            raise AssertionError(f"{name}: driver.main gave {rc}: "
+                                 f"{err.getvalue()[-2000:]}")
+        got = {k: fn.launches for k, fn in counters.items()}
+        return wins, wall, got, err.getvalue()
+
+    def same(label, a, b, what, norm=None):
+        if len(a) != len(b) or not a:
+            raise AssertionError(f"kafka {label}: {len(a)} windows vs "
+                                 f"{len(b)} {what}")
+        for u, v in zip(a, b):
+            if not _kequal(*((norm(u), norm(v)) if norm else (u, v))):
+                raise AssertionError(f"kafka {label} window {u[:2]}: "
+                                     f"differs from {what}")
+
+    def committed_at_end(label, group, topics):
+        for topic in topics:
+            if broker.committed(topic, group) != broker.end_offset(topic):
+                raise AssertionError(f"kafka {label}: {topic} committed at "
+                                     f"{broker.committed(topic, group)} of "
+                                     f"{broker.end_offset(topic)}")
+
+    topology, reference = [], {}
+    for label, opt, extra, topics, query, path in KAFKA_RUNS:
+        wins, wall, got, _ = run(label, opt, extra, topics, query)
+        if any(got[k] <= 0 for k in path):
+            raise AssertionError(f"kafka {label}: kernels of its path not "
+                                 f"launched {got}")
+        for k, v in got.items():
+            launches[k] += v
+        pwins, pwall, pgot, _ = run(f"{label}-plain", opt, extra, topics,
+                                    query, plain=True)
+        if any(pgot.values()):
+            raise AssertionError(f"kafka {label}: the plain run launched "
+                                 f"{pgot}")
+        same(label, wins, pwins, "the plain-kernel run")
+        fwins, fwall, _, _ = run(f"{label}-file", opt, extra, topics, query,
+                                 kafka=False)
+        # the two paths decode in chunks of 2,048 and 4,096 records, and a
+        # chunk interns its new ids in hash order: kNN ties (distance 0
+        # inside a query polygon) may then list in another order
+        tie_windows = sum(not _kequal(u, v) for u, v in zip(wins, fwins))
+        if tie_windows:
+            same(label, wins, fwins, "the file path's run (kNN ties "
+                 "aside)", norm=_tie_normal)
+            cwins, _, _, _ = run(f"{label}-chunk", opt, extra, topics,
+                                 query, chunk=FILE_DECODE_CHUNK)
+            same(label, cwins, fwins, "the file path's run (--kafka at "
+                 "its decode chunk)")
+        else:
+            same(label, wins, fwins, "the file path's run")
+        table = _window_table(broker, f"out-{label}")
+        if len(table) != len(wins) or any(len(v) != 1
+                                          for v in table.values()):
+            raise AssertionError(f"kafka {label}: {len(table)} windows "
+                                 f"marked (once each?) for {len(wins)}")
+        committed_at_end(label, f"g-{label}", topics)
+        reference[label] = (wins, table)
+        n = sum(len(data[t]) for t in topics)
+        row = {"run": label, "option": opt, "flags": extra,
+               "records": n, "windows": len(wins),
+               "records_per_s": n / wall, "wall_s": wall,
+               "plain_wall_s": pwall, "file_wall_s": fwall,
+               "file_records_per_s": n / fwall,
+               "windows_with_another_tie_order": tie_windows,
+               "output_records": broker.end_offset(f"out-{label}"),
+               "launches": {k: v for k, v in got.items() if v},
+               "card": card}
+        log("kafka", json.dumps(row))
+        topology.append(row)
+        torch.cuda.empty_cache()
+
+    recovery = []
+    for label, opt, extra, query, nth, after in RECOVERY_RUNS:
+        topics = next(r[3] for r in KAFKA_RUNS if r[1] == opt)
+        ref_label = "51" if opt == 51 else label
+        ref_wins, ref_table = reference[ref_label]
+        row = {"run": label, "option": opt, "flags": extra,
+               "crash_at_window": nth, "card": card}
+        ckdir = os.path.join(tmp, f"ck-{label}")
+        ckpt = ["--checkpoint-dir", ckdir, "--checkpoint-every", "2"]
+        commit_ms, manifest = [], []
+        if opt == 51:
+            # uninterrupted with and without checkpoints: records/s of both
+            # (the panes runs against the panes-off run: equal lists)
+            with _coordinators() as (made, _):
+                cwins, cwall, _, _ = run(
+                    f"{label}-ck", opt, extra + ["--checkpoint-dir",
+                                                 ckdir + "-ck",
+                                                 "--checkpoint-every", "2"],
+                    topics, query)
+            nowins, nowall, _, _ = run(f"{label}-nock", opt, extra, topics,
+                                       query)
+            same(label, cwins, ref_wins, "the panes-off run")
+            same(label, nowins, ref_wins, "the panes-off run")
+            n = sum(len(data[t]) for t in topics)
+            row.update(records_per_s_checkpointed=n / cwall,
+                       records_per_s_unchecked=n / nowall,
+                       checkpoints_uninterrupted=made[0].written)
+            commit_ms += made[0].commit_ms
+            manifest += made[0].manifest_bytes
+        with _coordinators() as (made, _):
+            crashed, _, _, _ = run(f"{label}-crash", opt, extra + ckpt,
+                                   topics, query, crash_at=nth)
+        commit_ms += made[0].commit_ms
+        manifest += made[0].manifest_bytes
+        with _coordinators() as (made, loads), _pane_merges() as merges:
+            rwins, rwall, got, err = run(f"{label}-crash", opt,
+                                         extra + ckpt + ["--resume"],
+                                         topics, query)
+        coord = made[0]
+        # every commit of the case's checkpointed runs
+        commit_ms += coord.commit_ms
+        manifest += coord.manifest_bytes
+        if not coord.restored:
+            raise AssertionError(f"recovery {label}: nothing restored")
+        if any(got[k] <= 0 for k in after):
+            raise AssertionError(f"recovery {label}: {after} not launched "
+                                 f"after the resume {got}")
+        if "--panes" in extra and opt == 51:
+            # every window the resumed run merged took K3, those reading a
+            # restored partial too
+            restored = sum(r for _, r in merges)
+            multi = sum(n >= 2 for n, _ in merges)
+            if not restored or got["knn_merge"] != len(merges):
+                raise AssertionError(
+                    f"recovery {label}: {got['knn_merge']} K3 launches for "
+                    f"{len(merges)} merged windows ({restored} with a "
+                    "restored partial)")
+            row.update(merged_windows=len(merges),
+                       merged_windows_of_2_panes_or_more=multi,
+                       windows_with_restored_partials=restored)
+        for k, v in got.items():
+            launches[k] += v
+        table = _window_table(broker, f"out-{label}-crash")
+        if any(len(v) != 1 for v in table.values()) or table != ref_table:
+            raise AssertionError(f"recovery {label}: the window table is "
+                                 "not the uninterrupted run's, each window "
+                                 "marked once")
+        merged = {w[:2]: w for w in crashed + rwins}
+        same(label, [merged[w[:2]] for w in ref_wins], ref_wins,
+             "the uninterrupted run (crashed + resumed windows)")
+        committed_at_end(label, f"g-{label}-crash", topics)
+        load_ms, positions = loads[0]
+        replayed = sum(broker.end_offset(t) - positions.get(f"kafka:{t}", 0)
+                       for t in topics)
+        total = sum(len(data[t]) for t in topics)
+        if not 0 < replayed < total:
+            raise AssertionError(f"recovery {label}: {replayed} of {total} "
+                                 "records replayed (not bounded)")
+        row.update(
+            windows=len(ref_wins), crashed_windows=len(crashed),
+            resumed_windows=len(rwins), records_replayed=replayed,
+            records=total, load_ms=load_ms, replay_s=rwall,
+            replay_records_per_s=replayed / rwall,
+            commit_ms_p50=_pct(commit_ms, 50),
+            commit_ms_p99=_pct(commit_ms, 99), commits=len(commit_ms),
+            manifest_bytes=manifest,
+            launches_after_resume={k: v for k, v in got.items() if v})
+        log("recovery", json.dumps(row))
+        recovery.append(row)
+        torch.cuda.empty_cache()
+
+    # 205's legacy --checkpoint: half, then all, against one run over all
+    ck = ["--checkpoint", os.path.join(tmp, "tstats.npz"),
+          "--checkpoint-every", "16"]
+    full, _, _, _ = run("205", 205, [], ("taxis",), {}, kafka=False,
+                        files_in=("taxis-rt",))
+    first, _, _, _ = run("205", 205, ck + ["--limit", str(N_TRAJ_CKPT // 2)],
+                         ("taxis",), {}, kafka=False, files_in=("taxis-rt",))
+    t0 = time.perf_counter()
+    rest, rwall, got, _ = run("205", 205, ck, ("taxis",), {}, kafka=False,
+                              files_in=("taxis-rt",))
+    if got["tstats_update"] <= 0:
+        raise AssertionError("legacy 205: K8a not launched after the "
+                             f"restore {got}")
+    for k, v in got.items():
+        launches[k] += v
+    same("205-legacy", first + rest, full, "one run over all the records")
+    legacy = {"run": "205-legacy-checkpoint", "records": N_TRAJ_CKPT,
+              "results_before": len(first), "results_after": len(rest),
+              "resume_wall_s": rwall,
+              "state_bytes": os.path.getsize(os.path.join(tmp,
+                                                          "tstats.npz")),
+              "k8a_launches_after_restore": got["tstats_update"],
+              "card": card}
+    log("recovery", json.dumps(legacy))
+    recovery.append(legacy)
+    reset_memory_brokers()
+    return {"topology": topology, "recovery": recovery, "setup_s": setup_s,
+            "launches": {k: v for k, v in launches.items() if v}}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -4320,7 +4966,6 @@ def main(argv=None) -> int:
     # processing grows with the 4 launches and 10 copies per micro-batch
     prof = {"51": phase("profile-51", profile_phase, lines, 51),
             "52": phase("profile-52", profile_phase, lines[:N_SHORT], 52)}
-    phase("cli", cli_phase, args.seed)
 
     # the polygon and linestring streams
     t0 = time.perf_counter()
@@ -4342,15 +4987,24 @@ def main(argv=None) -> int:
     geom_host.update(build)
     geom_launches, geom_report = phase("geom-path", geom_main_phase, card,
                                        geoms, GEOM_RUNS, N_GEOM_RUNS)
+    prof["71"] = phase("profile-71", geom_profile_phase,
+                       geoms["Polygon"][:N_GEOM_RUNS], 71)
+    # the Kafka topology and recovery, in a process of its own beside the
+    # other geometry options, option 21 from its lines and the three CLI
+    # comparisons (their figures, and the phase's own, are taken with the
+    # two side by side)
+    kafka_proc = PhaseProcess("kafka_recovery_child", args.seed)
     other_launches, other_report = phase(
         "geom-other", geom_main_phase, card, geoms, GEOM_OTHER_RUNS,
         N_GEOM_OTHER)
     geom_report.append(phase("geom-lines", geom_lines_phase, card,
                              glines["Polygon"][:N_GEOM_LINES],
                              geoms["Polygon"][:N_GEOM_LINES]))
-    prof["71"] = phase("profile-71", geom_profile_phase,
-                       geoms["Polygon"][:N_GEOM_RUNS], 71)
     phase("cli-geom", geom_cli_phase, glines["Polygon"][:N_GEOM_CLI])
+    phase("cli", cli_phase, args.seed)
+    phase("cli-queries", queries_cli_phase, args.seed)
+    kafka_report = phase("kafka-recovery-wait", kafka_proc.result)
+    phases["kafka-recovery"] = kafka_report["wall_s"]
     # the bulk phase writes the first N_BULK_GEOMS of each as GeoJSON
     bulk_glines = {kind: kind_lines[:N_BULK_GEOMS]
                    for kind, kind_lines in glines.items()}
@@ -4363,6 +5017,10 @@ def main(argv=None) -> int:
               for kind, objs in geoms.items()}
     pane_launches, pane_report = phase("panes", pane_phase, card, PANE_RUNS,
                                        lines, base_params(), FULL_WINDOWS)
+    # the host-only options in a process of their own beside the geometry
+    # panes and the dynamic plane (their figures are taken with the two
+    # side by side)
+    apps_proc = PhaseProcess("apps_serde_child", args.seed)
     gpane_launches, gpane_report = phase(
         "panes-geom", pane_phase, card, GEOM_PANE_RUNS, spread["Polygon"],
         geom_params())
@@ -4371,7 +5029,9 @@ def main(argv=None) -> int:
         [(1, lines, ("range_mask_stats",)), (51, lines, ("knn_topk",)),
          (16, spread["Polygon"], ("geom_stream_dist",)),
          (31, spread["LineString"], ("geom_stream_dist",))], base_params())
-    phase("cli-queries", queries_cli_phase, args.seed)
+    apps = phase("apps-serde-wait", apps_proc.result)
+    apps_report = apps["apps"]
+    phases["apps-serde"] = apps["wall_s"]
     del spread
     FULL_WINDOWS.clear()
 
@@ -4400,8 +5060,6 @@ def main(argv=None) -> int:
     bulk_launches, bulk_report, bulk_parse = phase(
         "bulk", bulk_phase, card, streams, bulk_glines, geom_host)
     del bulk_glines
-    apps_report = phase("apps-serde", apps_serde_phase, card, tlines,
-                        args.seed)
     del lines, geoms, streams
     torch.cuda.empty_cache()
 
@@ -4414,9 +5072,11 @@ def main(argv=None) -> int:
     for more in (rt_launches, short_launches, count_launches, geom_launches,
                  other_launches, pane_launches, gpane_launches, dyn_launches,
                  join_launches, jrt_launches, traj_launches, jp_launches,
-                 bulk_launches):
+                 bulk_launches, kafka_report["launches"]):
         for name in KERNELS:
             launches[name] += more.get(name, 0)
+    for name in K8:
+        traj_launches[name] += kafka_report["launches"].get(name, 0)
     micro["geom_stream_dist"] = [c for c in k5_cases
                                  if c["case"].startswith("micro-")]
 
@@ -4566,6 +5226,8 @@ def main(argv=None) -> int:
                       "panes": pane_report + gpane_report,
                       "dynamic": dyn_report,
                       "trajectory": traj_report,
+                      "kafka": kafka_report["topology"],
+                      "recovery": kafka_report["recovery"],
                       "trajectory_pane_err_share_of_bound": traj_pane_err,
                       "geom_host": geom_host, "breakdown": breakdown,
                       "profile": prof, "phases_s": phases}), flush=True)

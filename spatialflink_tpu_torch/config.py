@@ -5,15 +5,21 @@ the reference's key names, with the leading ``!!`` java type tag tolerated
 — into the same dataclasses. Fields of features this port does not run yet
 (mesh parallelism, a join's panes) are parsed so that the driver can refuse
 them;
-of the output block only the delimiter is read (``--output``'s CSV/TSV/WKT
-fields); the trajectory queries' fields (``trajIDs``,
+the output block's ``topicName`` (the ``--kafka`` output topic) and its
+delimiter are read, and so is ``kafkaBootStrapServers`` (``memory://<name>``
+names an in-process broker); the trajectory queries' fields (``trajIDs``,
 ``aggregateFunction``, ``thresholds.trajDeletion``, ``omegaDuration``) are
-read as the JAX package reads them; keys no ported code reads (Kafka
-settings) are ignored.
+read as the JAX package reads them; ``clusterMode`` is ignored.
+:meth:`Params.job_fingerprint` is the JAX package's digest (same payload,
+same SHA-1 prefix), so the output topic's dedup markers and the checkpoints
+of one package mean the same job in the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import hashlib
+import json
 import re
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -226,20 +232,24 @@ class WindowConfig:
 
 @dataclass
 class OutputStreamConfig:
-    """``outputStream:`` block (the field delimiter of ``--output``)."""
+    """``outputStream:`` block: the ``--kafka`` output topic and the field
+    delimiter of ``--output``."""
 
+    topic_name: str = "output"
     delimiter: str = ","
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "OutputStreamConfig":
-        return cls(delimiter=_normalize_delimiter(
-            str(_opt(d, "delimiter", ","))))
+        return cls(topic_name=str(_opt(d, "topicName", "output")),
+                   delimiter=_normalize_delimiter(
+                       str(_opt(d, "delimiter", ","))))
 
 
 @dataclass
 class Params:
     """Validated full config."""
 
+    kafka_bootstrap_servers: str = "localhost:9092"
     input1: StreamConfig = field(default_factory=StreamConfig)
     input2: StreamConfig = field(default_factory=StreamConfig)
     query: QueryConfig = field(default_factory=QueryConfig)
@@ -254,6 +264,8 @@ class Params:
         in2 = (StreamConfig.from_dict(in2_raw, "inputStream2")
                if in2_raw else in1)
         return cls(
+            kafka_bootstrap_servers=str(
+                _opt(d, "kafkaBootStrapServers", "localhost:9092")),
             input1=in1,
             input2=in2,
             query=QueryConfig.from_dict(_req(d, "query", "config")),
@@ -292,3 +304,17 @@ class Params:
     def window_ms(self) -> Tuple[int, int]:
         return (int(self.window.interval_s * 1000),
                 int(self.window.step_s * 1000))
+
+    def job_fingerprint(self, group: str = "") -> str:
+        """8-hex digest of what makes two runs the same job: the consumer
+        group and the query and window blocks, without the execution knobs
+        (mesh shape, panes and where their partials merge). The Kafka
+        window sink folds it into its dedup keys, and checkpoints store it
+        to refuse a resume under another job."""
+        query = dataclasses.asdict(self.query)
+        for knob in ("parallelism", "hosts", "panes", "pane_device_merge"):
+            query.pop(knob, None)
+        payload = {"group": group, "query": query,
+                   "window": dataclasses.asdict(self.window)}
+        return hashlib.sha1(json.dumps(payload, sort_keys=True, default=str)
+                            .encode()).hexdigest()[:8]

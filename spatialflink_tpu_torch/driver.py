@@ -46,10 +46,31 @@ driver does; ``--limit`` reads at most that many records of each
 stream (``--bulk`` ignores it). ``--queries-file`` serves a dynamic fleet of
 point queries (windowed range 1, 16, 31 and kNN 51) from a live
 ``runtime.queryplane.QueryRegistry``, seeded from the file or the config's
-``queryPoints``; each window's per-query lists go to the queries' routes.
-Every other option, and every flag or config feature not ported yet, is
-refused with "not yet ported to spatialflink_tpu_torch" — never silently
-ignored.
+``queryPoints`` (or restored from a checkpoint); each window's per-query
+lists go to the queries' routes (``stdout``, ``file:`` or ``kafka:``), and
+``--control-topic`` admits, updates and retires queries from a Kafka topic.
+
+``--kafka`` (the reference's topology, ``StreamingJob.java:473,512``)
+consumes ``inputStream{1,2}.topicName`` through the broker
+``kafkaBootStrapServers`` names (``memory://<name>``: the in-process
+broker) and produces to ``outputStream.topicName``: a time-windowed
+family through the window-aligned commit tap and the marker-keyed window
+sink, the rest through the plain sink, committed when the topic is
+drained; ``--input1``/``--input2`` files are produced to the input topics
+first (once, across restarts), and ``--kafka --bulk`` drains whole topics
+into :func:`run_option_bulk`. ``--checkpoint-dir`` (with ``--resume``,
+``--checkpoint-every/-interval/-retain``) checkpoints the windowed range,
+kNN, join and trajectory options and realtime range, kNN, tStats and
+tAggregate through ``runtime.checkpoint.CheckpointCoordinator``, in the
+JAX package's manifest format; a resumed file replay skips the records the
+checkpoint reflects and suppresses the windows already printed (the
+checkpoint directory's journal). ``--checkpoint`` is the legacy state file
+of realtime tStats 205 and tAggregate 207. A control tuple in a stream
+stops the run (exit 0); a SIGTERM drains the records read and writes a
+final checkpoint. Every other option, and every flag or config feature
+not ported yet (``--kafka-follow``, ``--chaos``, ``--retry``, ``--dlq``,
+the operations planes), is refused with "not yet ported to
+spatialflink_tpu_torch" — never silently ignored.
 
 A point stream in CSV/TSV/GeoJSON decodes through the native columnar
 parser; a polygon or linestring stream (GeoJSON, WKT, CSV/TSV) is parsed
@@ -61,7 +82,8 @@ geometry type is dropped and counted (``decode_chunks.off_type_dropped``).
         [--panes [--pane-merge auto|device|host]] [--queries-file q.json] \\
         [--input2 queries.csv --format2 CSV] [--bulk] [--limit N] \\
         [--output out.geojson] [--output-format GeoJSON|WKT|CSV|TSV] \\
-        [--device cuda|cpu]
+        [--kafka [--kafka-group G] [--kafka-bootstrap URL]] \\
+        [--checkpoint-dir DIR [--resume]] [--device cuda|cpu]
 
 stdout carries one line per window as the JAX driver prints it:
 ``{'window': [start, end], 'count': n}`` plus the result's extras (``k``
@@ -77,6 +99,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import os
 import sys
 import time
 from dataclasses import dataclass
@@ -98,7 +121,8 @@ from spatialflink_tpu_torch.models.objects import _EdgeGeom
 from spatialflink_tpu_torch.streams.bulk import GeomChunk, PointChunk
 from spatialflink_tpu_torch.streams.formats import (parse_spatial,
                                                     serialize_spatial)
-from spatialflink_tpu_torch.utils import IdInterner
+from spatialflink_tpu_torch.streams.sinks import file_lines
+from spatialflink_tpu_torch.utils import IdInterner, metrics
 
 
 @dataclass(frozen=True)
@@ -196,6 +220,29 @@ class ChunkedStream:
         return self._chunks
 
 
+def _decode_chunk_env(default: int) -> int:
+    """The windowed decode chunk, or ``SPATIALFLINK_DECODE_CHUNK`` when set
+    (the JAX driver's knob: small chunks give record-granular checkpoint
+    positions on small inputs)."""
+    v = os.environ.get("SPATIALFLINK_DECODE_CHUNK")
+    return max(1, int(v)) if v else default
+
+
+def _stream_interner(params: Params, side: int, stream) -> IdInterner:
+    """The decode interner of stream ``side``: the source's own (the Kafka
+    commit tap's) or a new one. Under a checkpoint coordinator it is the
+    component ``decode-interner:<side>``, restored in place, so a resumed
+    run numbers ids as the uninterrupted run did (kNN ties follow them);
+    a manifest without it (the JAX package's) leaves a new interner."""
+    interner = getattr(stream, "interner", None) or IdInterner()
+    coord = getattr(params, "checkpointer", None)
+    if coord is not None:
+        coord.register(f"decode-interner:{side}",
+                       lambda: ({}, {"ids": interner.to_list()}),
+                       lambda _arrays, meta: interner.restore(meta["ids"]))
+    return interner
+
+
 def _decode_chunk(raws: List, cfg: StreamConfig, grid: UniformGrid,
                   interner: IdInterner) -> PointChunk:
     """One chunk of raw records -> a :class:`PointChunk`. A chunk of
@@ -264,13 +311,28 @@ def _decode_geoms(raws: List, cfg: StreamConfig, grid: UniformGrid,
 
 
 def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
-                  chunk: int = 4096, geometry: str = "Point") -> Iterator:
+                  chunk: int = 4096, geometry: str = "Point",
+                  interner: Optional[IdInterner] = None) -> Iterator:
     """Raw records (CSV/TSV lines, GeoJSON str/dict, WKT lines, or parsed
     objects) -> decoded chunks of up to ``chunk`` records, cells assigned
     on ``grid``: :class:`PointChunk` s of a point stream, object ids
-    interned in one id space; :class:`GeomChunk` s of a ``geometry``
-    ("Polygon" or "LineString") stream, off-type records dropped."""
-    interner = IdInterner()
+    interned in one id space (``interner``, or a new one);
+    :class:`GeomChunk` s of a ``geometry`` ("Polygon" or "LineString")
+    stream, off-type records dropped. A source that decodes on its own
+    (``.chunks()``: the Kafka commit tap) passes its chunks through.
+
+    A control tuple (``utils.metrics.check_exit_control_tuple``) stops the
+    stream where it stands: the records before it are decoded and handed
+    on, then :class:`ControlTupleExit` propagates. A shutdown request
+    (SIGTERM) does the same after the record in hand, as
+    :class:`GracefulShutdown`."""
+    src_chunks = getattr(records, "chunks", None)
+    if src_chunks is not None:
+        for ch in src_chunks():
+            if len(ch):
+                yield ch
+        return
+    interner = interner if interner is not None else IdInterner()
     warn = _off_type_warner(geometry)
 
     def decode(buf):
@@ -278,14 +340,28 @@ def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
             return _decode_chunk(buf, cfg, grid, interner)
         return _decode_geoms(buf, cfg, grid, geometry, warn)
 
+    stop_requested = metrics.shutdown_requested
     buf: List = []
     for rec in records:
+        if not isinstance(rec, str) or '"control"' in rec:
+            try:
+                metrics.check_exit_control_tuple(rec)
+            except metrics.ControlTupleExit:
+                if buf:
+                    out = decode(buf)
+                    if out is not None:
+                        yield out
+                raise
         buf.append(rec)
-        if len(buf) >= chunk:
+        if len(buf) >= chunk or stop_requested():
             out = decode(buf)
             if out is not None:
                 yield out
             buf = []
+            if stop_requested():
+                raise metrics.GracefulShutdown(
+                    "shutdown requested (SIGTERM): buffered records "
+                    "drained")
     if buf:
         out = decode(buf)
         if out is not None:
@@ -327,6 +403,7 @@ def _query_conf(params: Params, spec: CaseSpec) -> QueryConfiguration:
         panes=params.query.panes,
         pane_device_merge=params.query.pane_device_merge,
         k=params.query.k,
+        checkpointer=getattr(params, "checkpointer", None),
     )
 
 
@@ -424,13 +501,15 @@ def run_option(params: Params, stream1: Iterable,
     elif conf.query_type is QueryType.CountBased:
         chunk = max(1, min(4096, conf.slide_ms))
     else:
-        chunk = 4096
-    s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid, chunk,
-                                     geometry=spec.stream))
+        chunk = _decode_chunk_env(4096)
+    s1 = ChunkedStream(decode_chunks(
+        stream1, params.input1, u_grid, chunk, geometry=spec.stream,
+        interner=_stream_interner(params, 1, stream1)))
     radius = params.query.radius
     if spec.family == "join":
-        s2 = ChunkedStream(decode_chunks(stream2, params.input2, q_grid,
-                                         chunk, geometry=spec.query))
+        s2 = ChunkedStream(decode_chunks(
+            stream2, params.input2, q_grid, chunk, geometry=spec.query,
+            interner=_stream_interner(params, 2, stream2)))
         out = op.run(s1, s2, radius)
         return _with_latency(out) if spec.latency else out
     registry = getattr(params, "query_registry", None)
@@ -450,7 +529,17 @@ def run_option(params: Params, stream1: Iterable,
     return _with_latency(out) if spec.latency else out
 
 
-def _bulk_parse_stream(cfg: StreamConfig, path: str,
+def _read_src(src) -> Optional[bytes]:
+    """A bulk input as bytes: a file path, or a zero-argument reader (the
+    ``--kafka --bulk`` topic drain, called only once the case and format
+    gates passed); a reader's None means it cannot take the bulk path."""
+    if callable(src):
+        return src()
+    with open(src, "rb") as f:
+        return f.read()
+
+
+def _bulk_parse_stream(cfg: StreamConfig, path,
                        allowed_lateness_s: int):
     """One point stream's whole file in one native parse, late records
     dropped as the record path drops them (``bulk_keep_mask``); None,
@@ -459,8 +548,9 @@ def _bulk_parse_stream(cfg: StreamConfig, path: str,
     fmt = cfg.format.lower()
     if fmt not in ("csv", "tsv", "geojson"):
         return None
-    with open(path, "rb") as f:
-        data = f.read()
+    data = _read_src(path)
+    if data is None:
+        return None
     try:
         if fmt in ("csv", "tsv"):
             parsed = bulk.bulk_parse_csv(
@@ -489,8 +579,9 @@ def _bulk_parse_geom_stream(params: Params, path: str):
     wkt = cfg.format.lower() == "wkt"
     kw = (dict(delimiter=cfg.delimiter, date_format=cfg.date_format) if wkt
           else cfg.geojson_kwargs())
-    with open(path, "rb") as f:
-        data = f.read()
+    data = _read_src(path)
+    if data is None:
+        return None
     try:
         parsed = (bulk.bulk_parse_wkt(data, **kw) if wkt
                   else bulk.bulk_parse_geojson_geoms(data, **kw))
@@ -644,7 +735,9 @@ def _run_trajectory(params: Params, spec: CaseSpec, conf, u_grid, q_grid,
     (realtime) or 4,096 records, the operator of the family on ``device``
     (the JAX driver's ``_run_trajectory``)."""
     chunk = (conf.realtime_batch_size if spec.mode == "realtime" else 4096)
-    s1 = ChunkedStream(decode_chunks(stream1, params.input1, u_grid, chunk))
+    s1 = ChunkedStream(decode_chunks(
+        stream1, params.input1, u_grid, chunk,
+        interner=_stream_interner(params, 1, stream1)))
     q = params.query
     if spec.family == "tfilter":
         return ops.PointTFilterQuery(conf, u_grid, device=device).run(
@@ -653,18 +746,24 @@ def _run_trajectory(params: Params, spec: CaseSpec, conf, u_grid, q_grid,
         polys = params.query_polygon_objects(u_grid)
         op = ops.PointPolygonTRangeQuery(conf, u_grid, device=device)
         return op.run_naive(s1, polys) if spec.naive else op.run(s1, polys)
+    # the legacy single-file --checkpoint of realtime tStats / tAggregate
+    ckpt = dict(checkpoint_path=getattr(params, "checkpoint_path", None),
+                checkpoint_every=getattr(params, "checkpoint_every", 16),
+                checkpoint_job=getattr(params, "checkpoint_job", None))
     if spec.family == "tstats":
         return ops.PointTStatsQuery(conf, u_grid, device=device).run(
-            s1, set(q.traj_ids) or None)
+            s1, set(q.traj_ids) or None, **ckpt)
     if spec.family == "taggregate":
         return ops.PointTAggregateQuery(conf, u_grid, device=device).run(
             s1, q.aggregate_function,
-            traj_deletion_threshold_ms=q.traj_deletion_threshold_s * 1000)
+            traj_deletion_threshold_ms=q.traj_deletion_threshold_s * 1000,
+            **ckpt)
     if spec.family == "tjoin":
         if stream2 is None:
             raise ValueError("trajectory join needs stream2")
-        s2 = ChunkedStream(decode_chunks(stream2, params.input2, q_grid,
-                                         chunk))
+        s2 = ChunkedStream(decode_chunks(
+            stream2, params.input2, q_grid, chunk,
+            interner=_stream_interner(params, 2, stream2)))
         op = ops.PointPointTJoinQuery(conf, u_grid, q_grid, device=device)
         run = op.run_naive if spec.naive else op.run
         return run(s1, s2, q.radius)
@@ -758,20 +857,25 @@ def _dynamic_error(params: Params, spec: CaseSpec) -> Optional[str]:
     return None
 
 
-def _seed_registry(params: Params, spec: CaseSpec, path: str):
-    """The fleet of ``--queries-file``: the file's specs, else the
-    config's ``queryPoints`` (ids q0, q1, ...), admitted and applied
-    before the first window. Raises ValueError (or OSError) with the
-    JAX driver's ``--queries-file:`` messages."""
+def _seed_registry(params: Params, spec: CaseSpec, path: Optional[str],
+                   registry=None):
+    """The fleet of ``--queries-file``: the file's specs (none without a
+    file), else the config's ``queryPoints`` (ids q0, q1, ...), admitted
+    into ``registry`` (or a new one) and applied before the first window.
+    Raises ValueError (or OSError) with the JAX driver's
+    ``--queries-file:`` messages."""
     from spatialflink_tpu_torch.runtime.queryplane import (QueryRegistry,
                                                            QuerySpec,
                                                            QuerySpecError,
                                                            load_queries_file)
 
-    registry = QueryRegistry(spec.family, radius=params.query.radius,
-                             k=params.query.k)
+    if registry is None:
+        registry = QueryRegistry(spec.family, radius=params.query.radius,
+                                 k=params.query.k)
+    seeds = []
     try:
-        seeds = load_queries_file(path, spec.family)
+        if path:
+            seeds = load_queries_file(path, spec.family)
     except (OSError, ValueError) as e:
         raise ValueError(f"--queries-file: {e}") from e
     if not seeds and params.query.query_points:
@@ -807,10 +911,328 @@ def _emit(result, sink) -> None:
                             if k != "latency_ms"}})
 
 
-def main(argv: Optional[List[str]] = None) -> int:
-    from spatialflink_tpu_torch.streams.sinks import (FileSink, StdoutSink,
-                                                      file_lines)
+# ------------------------------------------------------------------------ #
+# checkpoints and the Kafka topology
 
+
+#: the (family, mode) pairs whose drive loops register all their
+#: cross-record state with the checkpoint coordinator and barrier between
+#: processing units (the JAX driver's lists); a checkpoint that missed live
+#: state would lose records on resume, so the others are refused
+_CKPT_WINDOW_FAMILIES = ("range", "knn", "join", "tfilter", "trange",
+                         "tstats", "taggregate")
+_CKPT_REALTIME_FAMILIES = ("range", "knn", "tstats", "taggregate")
+
+
+def _checkpoint_dir_unsupported(params: Params,
+                                spec: CaseSpec) -> Optional[str]:
+    """None when ``--checkpoint-dir`` covers the case; else why not (the
+    driver warns and runs without the coordinator)."""
+    if spec.naive:
+        return "naive-twin oracles keep the plain path"
+    if spec.mode == "window":
+        if params.window.type == "COUNT":
+            return ("count windows buffer by arrival order outside the "
+                    "checkpointable assemblers")
+        if spec.family not in _CKPT_WINDOW_FAMILIES:
+            return (f"windowed {spec.family} has no registered "
+                    "checkpoint state")
+        return None
+    if spec.family not in _CKPT_REALTIME_FAMILIES:
+        return (f"realtime {spec.family} keeps cross-batch state outside "
+                "the checkpointable participants")
+    return None
+
+
+def _kafka_bulk_decode(cfg: StreamConfig, grid: UniformGrid):
+    """The chunked native decode of a broker-fed point stream
+    (CSV/TSV/GeoJSON): raw records -> a :class:`PointChunk` in one parser
+    call, ids interned through ``decode.interner``; None for another
+    format (the commit tap then parses record by record). A rejected row
+    raises ValueError, and the tap takes the per-record parse."""
+    fmt = cfg.format.lower()
+    if fmt not in ("csv", "tsv", "geojson"):
+        return None
+    interner = IdInterner()
+
+    def decode(raws: List[str]) -> PointChunk:
+        data = "\n".join(raws).encode()
+        if fmt == "geojson":
+            parsed = bulk.bulk_parse_geojson(data, interner=interner,
+                                             **cfg.geojson_kwargs())
+        else:
+            parsed = bulk.bulk_parse_csv(
+                data, delimiter="\t" if fmt == "tsv" else cfg.delimiter,
+                schema=cfg.csv_tsv_schema, date_format=cfg.date_format,
+                interner=interner)
+        return PointChunk.build(parsed, grid)
+
+    decode.interner = interner
+    return decode
+
+
+def _parse_fn(cfg: StreamConfig, grid: UniformGrid, geometry: str):
+    """The per-record parse of the decode, as a callable (the commit tap
+    parses before the pipeline, to read event times)."""
+    def parse(rec):
+        if isinstance(rec, SpatialObject):
+            return rec
+        return parse_spatial(rec, cfg.format, grid, delimiter=cfg.delimiter,
+                             schema=cfg.csv_tsv_schema, geometry=geometry,
+                             **cfg.geojson_kwargs())
+    return parse
+
+
+def _preproduce(broker, topic: str, path: str, limit: Optional[int]) -> None:
+    """Produce the file to the topic exactly once across restarts: records
+    already in the topic count as the file's prefix (the topic is fed by
+    this file alone), so the same command run again after a crash, even
+    one inside the produce, resumes at the first missing record."""
+    have = broker.end_offset(topic)
+    lim = None if limit is None else max(0, limit - have)
+    n = 0
+    for line in _limited(itertools.islice(file_lines(path), have, None),
+                         lim):
+        broker.produce(topic, line)
+        n += 1
+    if have and n:
+        print(f"# topic '{topic}' already held {have} records (interrupted "
+              f"produce?); resumed {path} from record {have} (+{n})",
+              file=sys.stderr)
+    elif have:
+        print(f"# topic '{topic}' already holds {have} records; NOT "
+              f"re-producing {path} (restart detected — consumption resumes "
+              "from the group's committed offset)", file=sys.stderr)
+    else:
+        print(f"# produced {n} records from {path} -> topic '{topic}'",
+              file=sys.stderr)
+
+
+#: the families whose time-windowed pipelines run the shared event-time
+#: assemblers: window-aligned offset commits and the marker-keyed sink
+#: (the apps and ser/de commit only when the topic is drained)
+_KAFKA_WINDOWED_FAMILIES = ("range", "knn", "join", "tfilter", "trange",
+                            "tstats", "taggregate", "tjoin", "tknn")
+
+
+@dataclass
+class _KafkaWiring:
+    """The broker-backed I/O of a ``--kafka`` run: the sources (behind
+    their commit taps), the marker-keyed window sink, the plain record
+    sink and the latency topic (``StreamingJob.java:473,512``,
+    ``HelperClass.java:455-529``)."""
+
+    broker: object
+    stream1: Iterable
+    stream2: Optional[Iterable]
+    sources: List
+    taps: List
+    win_sink: Optional[object]
+    plain_sink: object
+    latency_topic: str
+    group: str
+    #: realtime range / kNN: every emitted result commits the position
+    #: minus this lag (a record further behind the read head than
+    #: pipeline_depth + 1 micro-batches is in an emitted batch), bounding
+    #: a restart's replay
+    commit_lag: Optional[int] = None
+    #: the ``--kafka --bulk`` drain's (topic, next offset) pairs, which
+    #: :meth:`finish` commits (the sources were never iterated)
+    bulk_offsets: Optional[List] = None
+
+    def emit(self, result) -> None:
+        """Produce one result, then advance the window-aligned commits
+        (produce before commit: at-least-once)."""
+        suppressed = False
+        if isinstance(result, WindowResult) and self.win_sink is not None:
+            before = self.win_sink.duplicates_suppressed
+            self.win_sink.emit(result)
+            suppressed = self.win_sink.duplicates_suppressed > before
+            for tap in self.taps:
+                tap.on_window_emitted(result.window_end)
+        elif isinstance(result, WindowResult):
+            for rec in result.flat_records():
+                self.plain_sink.emit(rec)
+        elif (isinstance(result, tuple) and len(result) == 2
+                and isinstance(result[0], SpatialObject)):
+            self.plain_sink.emit(result[0])  # a ser/de (object, text) pair
+        else:
+            self.plain_sink.emit(result)
+        lats = (result.extras.get("latency_ms")
+                if isinstance(result, WindowResult) else None)
+        if lats and not suppressed:
+            for v in lats:
+                self.broker.produce(self.latency_topic, v)
+        if self.commit_lag is not None:
+            for src in self.sources:
+                src.commit_to(max(0, src.position - self.commit_lag))
+
+    def finish(self) -> None:
+        """The bounded input drained and flushed: every consumed record is
+        reflected in the output, so the full positions commit (not after
+        a control-tuple stop or a crash: the window-aligned commits
+        stand)."""
+        if self.bulk_offsets is not None:
+            for topic, off in self.bulk_offsets:
+                self.broker.commit(topic, self.group, off)
+            return
+        tapped = {id(t.source) for t in self.taps}
+        for tap in self.taps:
+            tap.commit_all()
+        for src in self.sources:
+            if id(src) not in tapped:
+                src.commit_to(src.position)
+
+    def summary(self) -> str:
+        parts = []
+        if self.win_sink is not None:
+            parts.append(f"{self.win_sink.windows_produced} windows produced"
+                         f" (+{self.win_sink.duplicates_suppressed} "
+                         "re-delivered suppressed)")
+        parts.append("committed " + ", ".join(
+            f"{s.topic}@{s.broker.committed(s.topic, s.group)}"
+            for s in self.sources))
+        return "# kafka: " + "; ".join(parts)
+
+
+def _topic_reader(kafka: _KafkaWiring, topic: str, limit: Optional[int],
+                  offsets_out: List):
+    """A lazy reader of one topic for :func:`run_option_bulk`: the group's
+    committed offset to the end (within ``limit``) as newline-joined
+    bytes, the range noted in ``offsets_out`` for the commit after the
+    run; None (the record path) when a record cannot take the bulk path
+    (not a string, a newline inside, a control tuple)."""
+    from spatialflink_tpu_torch.streams.kafka import resequence_batch
+
+    def drain() -> Optional[bytes]:
+        b = kafka.broker
+        off = b.committed(topic, kafka.group)
+        end = b.end_offset(topic)
+        if limit is not None:
+            end = min(end, off + limit)
+        vals: List[str] = []
+        while off < end:
+            batch = b.fetch(topic, off, min(65536, end - off))
+            if not batch:
+                break
+            for r in resequence_batch(batch, off):
+                v = r.value
+                if not isinstance(v, str) or "\n" in v or '"control"' in v:
+                    print(f"# --kafka --bulk: topic '{topic}' not "
+                          "bulk-drainable (non-string/multiline/control "
+                          "records); using the streaming path",
+                          file=sys.stderr)
+                    return None
+                vals.append(v)
+                off = r.offset + 1
+        offsets_out.append((topic, off))
+        return "\n".join(vals).encode()
+
+    return drain
+
+
+def _wire_kafka(params: Params, spec: CaseSpec, args, skip1: int
+                ) -> _KafkaWiring:
+    """The ``--kafka`` topology: the input files (if given) produced to the
+    input topics, a resumed run's group sought to the checkpointed
+    offsets, one source per input topic behind a commit tap (time-windowed
+    families) or a checkpoint tap (realtime, under a coordinator), the
+    marker-keyed window sink (time-windowed) and the plain sink."""
+    from spatialflink_tpu_torch.runtime.checkpoint import CheckpointTap
+    from spatialflink_tpu_torch.streams.kafka import (KafkaSink, KafkaSource,
+                                                      KafkaWindowSink,
+                                                      WindowCommitTap,
+                                                      resolve_broker)
+
+    bootstrap = args.kafka_bootstrap or params.kafka_bootstrap_servers
+    group = args.kafka_group
+    t1, t2 = params.input1.topic_name, params.input2.topic_name
+    windowed = (spec.mode == "window" and params.window.type != "COUNT"
+                and spec.family in _KAFKA_WINDOWED_FAMILIES)
+    commit_lag = None
+    if spec.mode == "realtime" and spec.family in ("range", "knn"):
+        qc = _query_conf(params, spec)
+        commit_lag = (max(1, qc.pipeline_depth) + 1) * qc.realtime_batch_size
+    broker = resolve_broker(bootstrap)
+    if args.input1:
+        _preproduce(broker, t1, args.input1, args.limit)
+    if args.input2:
+        _preproduce(broker, t2, args.input2, args.limit)
+    # the legacy checkpoint's skip, as an offset commit (monotone: an
+    # older checkpoint never rewinds the group)
+    if skip1:
+        broker.commit(t1, group, skip1)
+    coord = getattr(params, "checkpointer", None)
+    if coord is not None and coord.restored:
+        depth = 0
+        for topic in dict.fromkeys([t1, t2]):
+            pos = coord.position(f"kafka:{topic}", 0)
+            if pos:
+                broker.commit(topic, group, pos)
+                depth += max(0, broker.end_offset(topic) - pos)
+        print(f"# resume: consumer group sought to checkpointed offsets; "
+              f"{depth} records past the checkpoint to (re)process",
+              file=sys.stderr)
+    u_grid, q_grid = params.grids()
+    size_ms, step_ms = params.window_ms()
+    geom1 = spec.stream if spec.family in ("range", "knn", "join") \
+        else "Point"
+    geom2 = spec.query if spec.family == "join" else "Point"
+    two_stream = (spec.family in ("join", "tjoin")
+                  or (spec.family == "staytime" and spec.query == "Polygon"))
+    src1 = KafkaSource(broker, t1, group, auto_commit=False,
+                       limit=args.limit, commit_lag=commit_lag)
+    sources = [src1]
+    src2 = None
+    if two_stream:
+        src2 = KafkaSource(broker, t2, group, auto_commit=False,
+                           limit=args.limit, commit_lag=commit_lag)
+        sources.append(src2)
+    chunk = _decode_chunk_env(2048)
+    taps: List = []
+    stream1: Iterable = src1
+    stream2: Optional[Iterable] = src2
+    if windowed:
+        sides = [(src1, params.input1, u_grid, geom1)]
+        if src2 is not None:
+            sides.append((src2, params.input2, q_grid, geom2))
+        for src, cfg, grid, geom in sides:
+            taps.append(WindowCommitTap(
+                src, size_ms, step_ms, parse=_parse_fn(cfg, grid, geom),
+                geometry=geom,
+                bulk_decode=(_kafka_bulk_decode(cfg, grid)
+                             if geom == "Point" else None),
+                bulk_chunk=chunk, checkpointer=coord))
+        stream1 = taps[0]
+        stream2 = taps[1] if len(taps) > 1 else None
+    elif coord is not None:
+        # realtime: a pass-through tap notes the live source position at
+        # each record hand-off, for the checkpoints
+        stream1 = CheckpointTap(src1, coord, f"kafka:{t1}",
+                                position_fn=lambda: src1.position)
+        if src2 is not None:
+            stream2 = CheckpointTap(src2, coord, f"kafka:{t2}",
+                                    position_fn=lambda: src2.position)
+    sink_kw = dict(fmt=args.output_format,
+                   date_format=params.input1.date_format,
+                   delimiter=params.output.delimiter)
+    out = params.output.topic_name
+    win_sink = (KafkaWindowSink(broker, out,
+                                job_id=params.job_fingerprint(group),
+                                seed_scan_limit=args.seed_scan_limit,
+                                **sink_kw) if windowed else None)
+    return _KafkaWiring(
+        broker=broker, stream1=stream1, stream2=stream2, sources=sources,
+        taps=taps, win_sink=win_sink,
+        plain_sink=KafkaSink(broker, out, **sink_kw),
+        latency_topic=out + "-latency", group=group, commit_lag=commit_lag)
+
+
+# ------------------------------------------------------------------------ #
+# CLI
+
+
+def _make_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="spatialflink-tpu-torch",
         description="spatial stream query driver on PyTorch/CUDA over "
@@ -825,7 +1247,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     "harness 99; the ser/de options 401-906, the "
                     "shapefile inputs 1001-1003 and the apps 1010-1012 "
                     "and 2000; window.type TIME or COUNT (COUNT not for "
-                    "joins)")
+                    "joins); files or Kafka topics in, stdout, a file or "
+                    "a Kafka topic out; coordinated checkpoints")
     ap.add_argument("--config", required=True, help="YAML config path")
     ap.add_argument("--input1", help="newline-delimited input file for "
                                      "stream 1")
@@ -846,9 +1269,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "per line, serialized in --output-format")
     ap.add_argument("--output-format", default="GeoJSON",
                     choices=["GeoJSON", "WKT", "CSV", "TSV"],
-                    help="serialization for --output (spatial records; "
-                         "non-spatial result tuples are written as JSON "
-                         "lines)")
+                    help="serialization for --output and the Kafka output "
+                         "topic (spatial records; non-spatial result tuples "
+                         "are written as JSON lines)")
     ap.add_argument("--panes", action="store_true",
                     help="pane-incremental sliding windows (same as "
                          "query.panes): each slide-aligned pane is "
@@ -869,25 +1292,222 @@ def main(argv: Optional[List[str]] = None) -> int:
                          "{'queries': [...]}; the config's queryPoints "
                          "when it holds none), padded to power-of-two "
                          "buckets on the queries' axis, each query's "
-                         "windows to its route (stdout or file:<path>): "
-                         "windowed range over any stream type, and "
-                         "Point/Point kNN")
+                         "windows to its route (stdout, file:<path> or "
+                         "kafka:<topic>): windowed range over any stream "
+                         "type, and Point/Point kNN")
+    ap.add_argument("--control-topic", metavar="TOPIC", default=None,
+                    help="admit, update and retire standing queries from "
+                         "this Kafka topic ({'action': 'admit'|'update'|"
+                         "'retire', ...} JSON records), drained at window "
+                         "boundaries (needs --kafka)")
     ap.add_argument("--limit", type=int, default=None,
-                    help="max records to read per stream")
+                    help="max records to read per stream (from a Kafka "
+                         "group's resume point; a resumed file replay "
+                         "covers the rest of the original range)")
     ap.add_argument("--bulk", action="store_true",
-                    help="whole-file replay of a windowed range, kNN or "
-                         "point x point join over CSV/TSV/GeoJSON points "
-                         "(and WKT/GeoJSON polygon or linestring streams "
-                         "for range and kNN): one native parse of the "
-                         "file, the windows assembled at once; results are "
-                         "original-record indices. Other cases and formats "
-                         "take the record path, and --bulk ignores --limit")
+                    help="whole-file (or, with --kafka, whole-topic) replay "
+                         "of a windowed range, kNN or point x point join "
+                         "over CSV/TSV/GeoJSON points (and WKT/GeoJSON "
+                         "polygon or linestring streams for range and kNN): "
+                         "one native parse, the windows assembled at once; "
+                         "results are original-record indices. Other cases "
+                         "and formats take the record path, and --bulk "
+                         "ignores --limit on files")
+    ap.add_argument("--kafka", action="store_true",
+                    help="consume inputStream{1,2}.topicName and produce "
+                         "results to outputStream.topicName through the "
+                         "broker kafkaBootStrapServers names "
+                         "('memory://<name>': the in-process broker; "
+                         "anything else a real cluster via kafka-python); "
+                         "--input1/--input2 files, when given, are produced "
+                         "to the input topics first")
+    ap.add_argument("--kafka-group", default="spatialflink",
+                    help="consumer group id (a restart resumes from the "
+                         "group's committed offsets)")
+    ap.add_argument("--kafka-bootstrap", default=None,
+                    help="override kafkaBootStrapServers from the config")
+    ap.add_argument("--seed-scan-limit", type=int, default=None,
+                    metavar="N",
+                    help="bound the output topic's dedup seed scan to its "
+                         "last N records (windows committed before them "
+                         "can be produced again on re-delivery)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="state checkpoint file of realtime tStats (205) "
+                         "and tAggregate (207): saved periodically, "
+                         "restored at start")
+    ap.add_argument("--checkpoint-every", type=int, default=16,
+                    help="micro-batches between --checkpoint saves; with "
+                         "--checkpoint-dir, processing units (windows / "
+                         "micro-batches) between coordinated checkpoints")
+    ap.add_argument("--checkpoint-dir", metavar="DIR", default=None,
+                    help="coordinated checkpoints: source positions, "
+                         "watermarks, open window / pane buffers, pane "
+                         "partials and trajectory state in one atomic "
+                         "checksummed manifest under DIR (the newest "
+                         "--checkpoint-retain kept, a corrupt newest one "
+                         "skipped); --resume seeks the sources to the "
+                         "checkpointed positions and suppresses windows "
+                         "already emitted (the Kafka sink's markers, or a "
+                         "journal in DIR): exactly-once windowed output. "
+                         "Windowed range/kNN/join/trajectory, realtime "
+                         "range/kNN/tStats/tAggregate; not --bulk")
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest valid checkpoint of "
+                         "--checkpoint-dir first (one written by another "
+                         "job or layout is refused)")
+    ap.add_argument("--checkpoint-interval", type=float, default=None,
+                    metavar="SECONDS",
+                    help="also checkpoint when this much wall time passed "
+                         "since the last one")
+    ap.add_argument("--checkpoint-retain", type=int, default=3,
+                    help="checkpoint manifests kept in --checkpoint-dir")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "PyTorch versions)")
+    return ap
+
+
+def _legacy_checkpoint(ap, args, params: Params, spec) -> None:
+    """``--checkpoint``: the realtime tStats / tAggregate state file. The
+    job fingerprint rides it; an existing file of another job, or an
+    unreadable one, is refused before anything runs."""
+    from spatialflink_tpu_torch.runtime.checkpoint import (
+        CheckpointMismatch, check_job_fingerprint)
+    from spatialflink_tpu_torch.runtime.state import (CheckpointCorrupt,
+                                                      checkpoint_meta)
+
+    params.checkpoint_path = args.checkpoint
+    params.checkpoint_every = args.checkpoint_every
+    params.checkpoint_job = params.job_fingerprint(args.kafka_group)
+    if spec and not (spec.family in ("tstats", "taggregate")
+                     and spec.mode == "realtime"):
+        print("--checkpoint only applies to stateful realtime queries "
+              "(tStats 205 / tAggregate 207); ignored for this case",
+              file=sys.stderr)
+        params.checkpoint_path = None
+    elif os.path.exists(args.checkpoint):
+        try:
+            check_job_fingerprint(
+                checkpoint_meta(args.checkpoint).get("job"),
+                params.checkpoint_job, args.checkpoint)
+        except CheckpointCorrupt as e:
+            ap.error(f"--checkpoint: {e} (delete the file, or restore "
+                     "a retained copy, to start over)")
+        except CheckpointMismatch as e:
+            ap.error(str(e))
+
+
+def _coordinator(ap, args, params: Params, spec: CaseSpec,
+                 dynamic: bool) -> None:
+    """``--checkpoint-dir``: the run's coordinator on ``params`` (loaded
+    with ``--resume``), or a note when the case is not covered. Its layout
+    tag binds it to the execution knobs and the exact source its positions
+    index."""
+    from spatialflink_tpu_torch.runtime.checkpoint import (
+        CheckpointCoordinator, CheckpointMismatch)
+
+    if args.checkpoint:
+        ap.error("--checkpoint-dir and --checkpoint are mutually "
+                 "exclusive (the directory coordinator subsumes the "
+                 "single-file tStats/tAggregate checkpoint)")
+    if args.bulk:
+        ap.error("--checkpoint-dir does not compose with --bulk "
+                 "(bulk is a whole-replay; coordinated checkpoints "
+                 "apply to the record path)")
+    reason = _checkpoint_dir_unsupported(params, spec)
+    if reason:
+        print(f"--checkpoint-dir ignored: {reason}", file=sys.stderr)
+        return
+    if args.kafka:
+        src_id = ("kafka:" + (args.kafka_bootstrap
+                              or params.kafka_bootstrap_servers)
+                  + f"/{params.input1.topic_name}"
+                  + f",{params.input2.topic_name}")
+    else:
+        src_id = f"file:{args.input1},{args.input2}"
+    coord = CheckpointCoordinator(
+        args.checkpoint_dir, every_batches=args.checkpoint_every,
+        every_seconds=args.checkpoint_interval,
+        retain=args.checkpoint_retain,
+        job=params.job_fingerprint(args.kafka_group),
+        layout=(f"{spec.family}:{spec.mode}"
+                f":panes={int(bool(params.query.panes))}"
+                f":multi={int(bool(params.query.multi_query))}"
+                f":dyn={int(dynamic)}:{src_id}"),
+        device=args.device)
+    if args.resume:
+        try:
+            restored = coord.load()
+        except CheckpointMismatch as e:
+            ap.error(str(e))
+        if restored:
+            print(f"# resuming from checkpoint seq {coord.seq} "
+                  f"(source positions: {coord.positions() or '{}'})",
+                  file=sys.stderr)
+        else:
+            print("# --resume: no valid checkpoint in "
+                  f"{args.checkpoint_dir}; starting fresh", file=sys.stderr)
+    params.checkpointer = coord
+
+
+def _dynamic_plane(args, params: Params, spec: CaseSpec) -> Optional[str]:
+    """``--queries-file`` / ``--control-topic``: the run's registry on
+    ``params``, restored from the checkpoint's ``queries`` component or
+    seeded from the file (or the config's queryPoints); else why the case
+    cannot have one."""
+    from spatialflink_tpu_torch.runtime.queryplane import QueryRegistry
+
+    why = _dynamic_error(params, spec)
+    if why is None and args.control_topic and not args.kafka:
+        why = ("--control-topic consumes admissions from the broker and "
+               "needs --kafka")
+    if why is None and args.bulk:
+        why = ("the dynamic standing-query plane does not compose "
+               "with --bulk (a whole-replay has no admission "
+               "boundaries)")
+    if why is not None:
+        return why
+    if params.query.panes:
+        print("note: --panes is bypassed on the dynamic standing-query "
+              "path (pane partials are fleet-shaped; a fleet change "
+              "would serve stale partials) — full-window evaluation",
+              file=sys.stderr)
+    coord = getattr(params, "checkpointer", None)
+    registry = QueryRegistry(spec.family, radius=params.query.radius,
+                             k=params.query.k)
+    if coord is not None and registry.register_checkpoint(coord):
+        print(f"# resume: restored standing-query fleet (version "
+              f"{registry.fleet_version}, "
+              f"{len(registry.active_entries())} live)", file=sys.stderr)
+    else:
+        try:
+            registry = _seed_registry(params, spec, args.queries_file,
+                                      registry)
+        except (ValueError, NotImplementedError) as e:
+            return str(e)
+        if not args.kafka:
+            kafka_routes = [e.id for e in registry.active_entries()
+                            if e.spec.route.startswith("kafka:")]
+            if kafka_routes:
+                return (f"queries {kafka_routes} route 'kafka:' topics "
+                        "and need --kafka")
+    params.query_registry = registry
+    surfaces = ([f"control topic '{args.control_topic}'"]
+                if args.control_topic else [])
+    print(f"# query plane: dynamic {spec.family} fleet, "
+          f"{len(registry.active_entries())} live"
+          + (f" (admission via {' + '.join(surfaces)})" if surfaces else ""),
+          file=sys.stderr)
+    return None
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    ap = _make_parser()
     args, rest = ap.parse_known_args(argv)
     flags = [a.split("=", 1)[0] for a in rest if a.startswith("-")]
     if rest:
+        # --kafka-follow, --chaos, --retry, --dlq and every other flag of
+        # the JAX driver that has no port yet
         print(f"{' '.join(flags or rest)}: {NOT_PORTED}", file=sys.stderr)
         return 2
 
@@ -912,47 +1532,121 @@ def main(argv: Optional[List[str]] = None) -> int:
         params = dataclasses.replace(
             params, input2=dataclasses.replace(params.input2,
                                                format=args.format2))
-    if not args.input1:
+    spec = CASES.get(params.query.option)
+    if args.checkpoint:
+        _legacy_checkpoint(ap, args, params, spec)
+    dynamic = bool(args.queries_file or args.control_topic)
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume requires --checkpoint-dir")
+    if args.checkpoint_dir and spec is not None:
+        _coordinator(ap, args, params, spec, dynamic)
+    if not args.kafka and args.seed_scan_limit is not None:
+        ap.error("--seed-scan-limit bounds the output topic's dedup scan "
+                 "and needs --kafka")
+    if args.kafka and spec is not None and spec.family in ("shapefile",
+                                                           "synthetic"):
+        ap.error(f"--kafka does not apply to the {spec.family} cases "
+                 "(no input topic)")
+    if not args.input1 and not args.kafka:
         print("--input1 is required", file=sys.stderr)
         return 2
-    spec = CASES.get(params.query.option)
     if spec is not None and spec.family in ("join", "tjoin") \
-            and not args.input2:
+            and not args.input2 and not args.kafka:
         print(f"queryOption {params.query.option} ({spec.family}) needs "
               "--input2", file=sys.stderr)
         return 2
-    router = None
-    if args.queries_file and spec is not None:
-        from spatialflink_tpu_torch.runtime.queryplane import QueryRouter
-
-        why = _dynamic_error(params, spec)
+    if dynamic and spec is not None:
+        why = _dynamic_plane(args, params, spec)
         if why is not None:
             print(f"error: {why}", file=sys.stderr)
             return 2
-        if params.query.panes:
-            print("note: --panes is bypassed on the dynamic standing-query "
-                  "path (pane partials are fleet-shaped; a fleet change "
-                  "would serve stale partials) — full-window evaluation",
-                  file=sys.stderr)
-        try:
-            registry = _seed_registry(params, spec, args.queries_file)
-        except (ValueError, NotImplementedError) as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 2
-        params.query_registry = registry
-        router = QueryRouter(registry)
-        print(f"# query plane: dynamic {spec.family} fleet, "
-              f"{len(registry.active_entries())} live", file=sys.stderr)
+    # a resumed legacy checkpoint: the file replay skips the records its
+    # state reflects (a Kafka group is sought instead), and --limit keeps
+    # bounding the original record range
+    skip1 = 0
+    if getattr(params, "checkpoint_path", None):
+        from spatialflink_tpu_torch.runtime.state import checkpoint_consumed
+
+        skip1 = checkpoint_consumed(args.checkpoint)
+        if skip1:
+            print(f"# resuming from checkpoint: skipping {skip1} "
+                  "already-consumed records", file=sys.stderr)
+    limit1 = args.limit
+    if skip1 and limit1 is not None:
+        limit1 = max(0, limit1 - skip1)
+    return _run_cli(ap, args, params, spec, skip1, limit1)
+
+
+def _file_streams(args, params: Params, spec, skip1: int,
+                  limit1: Optional[int]):
+    """The streams of a file replay: under a coordinator each behind a
+    checkpoint tap that counts records from the checkpointed position
+    (``file:1`` / ``file:2``, skipped on resume, ``--limit`` bounding the
+    original range)."""
+    from spatialflink_tpu_torch.runtime.checkpoint import CheckpointTap
+
+    coord = getattr(params, "checkpointer", None)
     if spec is not None and spec.family == "shapefile":
-        stream1 = args.input1  # the reader takes the .shp path
-    else:
-        stream1 = _limited(file_lines(args.input1), args.limit)
-    stream2 = (_limited(file_lines(args.input2), args.limit) if args.input2
+        return args.input1, None  # the reader takes the .shp path
+
+    def replay(path: str, key: str, skip: int, limit: Optional[int]):
+        if coord is not None:
+            skip = coord.position(key, 0)
+            limit = None if args.limit is None else max(0, args.limit - skip)
+            if skip:
+                print(f"# resume: skipping {skip} already-reflected records "
+                      f"of --input{key[-1]}", file=sys.stderr)
+        lines = _limited(itertools.islice(file_lines(path), skip, None),
+                         limit)
+        return (lines if coord is None
+                else CheckpointTap(lines, coord, key, base=skip))
+
+    stream1 = replay(args.input1, "file:1", skip1, limit1)
+    stream2 = (replay(args.input2, "file:2", 0, args.limit) if args.input2
                else None)
+    return stream1, stream2
+
+
+def _run_cli(ap, args, params: Params, spec, skip1: int,
+             limit1: Optional[int]) -> int:
+    """The run after validation: wire the transport, run the pipeline,
+    drain its results into the sinks, print the summaries."""
+    import contextlib
+    import signal
+    import threading
+
+    from spatialflink_tpu_torch.runtime.checkpoint import EmittedWindowJournal
+    from spatialflink_tpu_torch.streams.sinks import FileSink, StdoutSink
+
+    coord = getattr(params, "checkpointer", None)
+    kafka = None
     try:
         resolve_device(args.device)
+        if args.kafka:
+            if spec is None:
+                raise NotImplementedError(
+                    f"queryOption {params.query.option}: {NOT_PORTED}")
+            kafka = _wire_kafka(params, spec, args, skip1)
+            stream1, stream2 = kafka.stream1, kafka.stream2
+        else:
+            stream1, stream2 = _file_streams(args, params, spec, skip1,
+                                             limit1)
         results = None
-        if args.bulk:
+        if args.bulk and kafka is not None:
+            offs: List = []
+            results = run_option_bulk(
+                params,
+                _topic_reader(kafka, params.input1.topic_name, args.limit,
+                              offs),
+                _topic_reader(kafka, params.input2.topic_name, args.limit,
+                              offs), device=args.device)
+            if results is None:
+                print("# --kafka --bulk not applicable to this case/format/"
+                      "topic content; using the streaming path",
+                      file=sys.stderr)
+            else:
+                kafka.bulk_offsets = offs
+        elif args.bulk:
             results = run_option_bulk(params, args.input1, args.input2,
                                       device=args.device)
             if results is None:
@@ -968,19 +1662,53 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 2
 
+    registry = getattr(params, "query_registry", None)
+    router = None
+    if registry is not None:
+        from spatialflink_tpu_torch.runtime.queryplane import (
+            ControlTopicConsumer, QueryRouter)
+
+        if args.control_topic and kafka is not None:
+            registry.attach_control(ControlTopicConsumer(
+                kafka.broker, args.control_topic, args.kafka_group))
+        router = QueryRouter(registry, broker=kafka.broker
+                             if kafka is not None else None)
     sink = StdoutSink()
     out_sink = None
     if args.output:
         out_sink = FileSink(args.output, args.output_format,
                             delimiter=params.output.delimiter,
                             date_format=params.input1.date_format)
+    journal = None
+    if coord is not None and kafka is None and spec.mode == "window":
+        # stdout / --output have no log of their own: a journal of the
+        # emitted windows in the checkpoint directory suppresses what a
+        # resumed run would print again (a run that did not resume starts
+        # a new one)
+        journal = EmittedWindowJournal(
+            coord.dir, fresh=not (args.resume and coord.restored))
+    stack = contextlib.ExitStack()
+    if threading.current_thread() is threading.main_thread():
+        # SIGTERM drains: the decode stops at the next record, the records
+        # read reach the pipeline, and a final checkpoint is written
+        metrics.clear_shutdown()
+        prev = signal.signal(signal.SIGTERM,
+                             lambda signum, frame: metrics.request_shutdown())
+        stack.callback(signal.signal, signal.SIGTERM, prev)
     n = 0
+    stopped = graceful = False
     try:
         for result in results:
+            if (journal is not None and isinstance(result, WindowResult)
+                    and journal.seen(result)):
+                continue  # emitted by the run before the crash
             _emit(result, sink)
-            if router is not None and "query_ids" in result.extras:
-                # per-query demux: the SLO verdict always, and one JSON
-                # line per (window, query) on a file: route
+            if kafka is not None:
+                kafka.emit(result)
+            if router is not None and isinstance(result, WindowResult) \
+                    and "query_ids" in result.extras:
+                # per-query demux: the SLO verdict always, one JSON
+                # document per (window, query) on file: / kafka: routes
                 router.route(result)
             if out_sink is not None:
                 if isinstance(result, WindowResult):
@@ -988,18 +1716,42 @@ def main(argv: Optional[List[str]] = None) -> int:
                         out_sink.emit(rec)
                 elif (isinstance(result, tuple) and len(result) == 2
                         and isinstance(result[0], SpatialObject)):
-                    # a ser/de result: the parsed record goes out
-                    out_sink.emit(result[0])
+                    out_sink.emit(result[0])  # a ser/de pair's record
                 else:
                     out_sink.emit(result)
+            if journal is not None and isinstance(result, WindowResult):
+                journal.record(result)
             n += 1
+    except metrics.ControlTupleExit as e:
+        # the remote stop (HelperClass.checkExitControlTuple) ends the run
+        # gracefully, exit code 0
+        stopped = True
+        graceful = isinstance(e, metrics.GracefulShutdown)
     finally:
+        stack.close()
         sink.close()
         if out_sink is not None:
             out_sink.close()
         if router is not None:
             router.close()
-    print(f"# emitted {n} results", file=sys.stderr)
+        if journal is not None:
+            journal.close()
+    if graceful and coord is not None:
+        # the decode drained its buffer into the pipeline before the stop:
+        # the state and positions cover every record read
+        path = coord.commit()
+        print(f"# graceful shutdown: final checkpoint seq {coord.seq} "
+              f"({path})", file=sys.stderr)
+    if kafka is not None:
+        if not stopped:
+            kafka.finish()
+        print(kafka.summary(), file=sys.stderr)
+    print(f"# emitted {n} results"
+          + (" (control-tuple stop)" if stopped else ""), file=sys.stderr)
+    if journal is not None and journal.suppressed:
+        print(f"# resume: suppressed {journal.suppressed} window(s) the "
+              f"crashed run already emitted (journal {journal.path})",
+              file=sys.stderr)
     if out_sink is not None:
         print(f"# wrote {out_sink.records_written} records to {args.output} "
               f"({args.output_format})", file=sys.stderr)

@@ -28,8 +28,20 @@ and the kNN ``run_dynamic``): the Q axis comes from a live
 ``runtime.queryplane.QueryRegistry``, applied once per window and padded to
 a power-of-two bucket whose padded slots a valid gate forces empty.
 
-Not yet ported: the device mesh, checkpointing, the adaptive grid, and the
-drive loop's telemetry, latency-plane, governor and accounting hooks. The
+Checkpoints (``conf.checkpointer``, a ``runtime.checkpoint.
+CheckpointCoordinator``): the window assembler (``windows``), the pane
+buffer (``panes``), the realtime micro-batcher (``realtime-batcher``), the
+pane cache (``pane-cache``, with the operator's ``interner``) register with
+the coordinator under the JAX package's names, and :meth:`_drive_batched`
+is the barrier: when a checkpoint is due it drains every deferred window
+(each drained result is consumed downstream before the next is pulled)
+and commits. Restored pane partials come back on the host; where the
+family merges on the device (kNN), they go onto the device at the first
+window that reads them and take the device merge with the fresh ones.
+
+Not yet ported: the device mesh, the adaptive grid (ROADMAP Queue 1 item
+4), and the drive loop's telemetry, latency-plane, governor and accounting
+hooks (item 5). The
 JAX package's single-device seams around the mesh
 (``_multi_filter_stream``, ``_knn_multi_result``) have no mesh to route
 here, so the port calls the per-batch closures directly.
@@ -41,7 +53,7 @@ import dataclasses
 import enum
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Iterable, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +71,7 @@ from spatialflink_tpu_torch.streams.bulk import (BulkStream, GeomChunk,
                                                  LazyRecords, PointChunk,
                                                  PointRows, points_to_parsed)
 from spatialflink_tpu_torch.utils import IdInterner
+from spatialflink_tpu_torch.utils.metrics import ControlTupleExit
 
 NOT_PORTED = "not yet ported to spatialflink_tpu_torch"
 
@@ -94,6 +107,11 @@ class QueryConfiguration:
     # K3 launch per window over the partials still there), False on the
     # host; None picks the device on CUDA and the host on the CPU
     pane_device_merge: Optional[bool] = None
+    # the run's runtime.checkpoint.CheckpointCoordinator (--checkpoint-dir):
+    # the operator registers its window, pane and state participants with
+    # it and barriers between processing units; None = no checkpoints
+    checkpointer: Optional[Any] = field(default=None, repr=False,
+                                        compare=False)
 
     def window_spec(self) -> WindowSpec:
         return WindowSpec.sliding(self.window_size_ms, self.slide_ms)
@@ -169,8 +187,8 @@ class PaneCache:
     key to the pane start its eviction hinges on): get-or-evaluate with
     hit and miss counts, and eviction in ascending window order (once
     window ``s`` has looked its panes up, no later window needs a key
-    whose floor is below ``s + slide``). The JAX package's
-    ``snapshot``/``restore`` wait for checkpoints."""
+    whose floor is below ``s + slide``). :meth:`snapshot` /
+    :meth:`restore` carry the partials across a checkpoint."""
 
     __slots__ = ("slide", "cache", "hits", "misses", "key_floor")
 
@@ -194,6 +212,38 @@ class PaneCache:
         for dead in [k for k in self.cache if self.key_floor(k) < limit]:
             del self.cache[dead]
 
+    def snapshot(self, encode_value) -> dict:
+        """The cache as JSON for the checkpoint coordinator, in the JAX
+        package's form ``[json key, wrapped, encoded value]``.
+        ``encode_value`` is ``runtime.checkpoint.value_codec``'s encoder; an
+        entry it cannot encode is skipped (it is a miss on resume and
+        recomputes). A :class:`PanePartial` still on the device is read
+        back for the snapshot and stays on the device for the run."""
+        import json as _json
+
+        entries = []
+        for key, value in self.cache.items():
+            wrapped = isinstance(value, PanePartial)
+            try:
+                enc = encode_value(value.peek() if wrapped else value)
+            except TypeError:
+                continue
+            entries.append([_json.dumps(key), wrapped, enc])
+        return {"entries": entries}
+
+    def restore(self, state: dict, decode_value) -> None:
+        """Inverse of :meth:`snapshot` (list keys, the join's pane pairs,
+        become tuples); restored partials are host values (the kNN device
+        merge puts them on the device at their first use)."""
+        import json as _json
+
+        for raw_key, wrapped, enc in state.get("entries", []):
+            key = _json.loads(raw_key)
+            if isinstance(key, list):
+                key = tuple(key)
+            value = decode_value(enc)
+            self.cache[key] = PanePartial(value) if wrapped else value
+
 
 class PanePartial:
     """One pane's cached partial: the evaluator's raw output (a
@@ -210,6 +260,13 @@ class PanePartial:
     def resolve(self):
         if isinstance(self.value, Deferred):
             self.value = self.value.finish()
+        return self.value
+
+    def peek(self):
+        """The host value, read back without replacing a device partial
+        (the device merge keeps reading it where it lies)."""
+        if isinstance(self.value, Deferred):
+            return self.value.finish()
         return self.value
 
 
@@ -277,13 +334,71 @@ class SpatialOperator:
         micro-batches, count windows, or sealed event-time windows."""
         chunks = _record_chunks(stream, self.grid)
         if self.realtime:
-            return MicroBatcher(self.conf.realtime_batch_size).batches(chunks)
+            mb = MicroBatcher(self.conf.realtime_batch_size)
+            self._register_ckpt_windows("realtime-batcher", mb)
+            return mb.batches(chunks)
         if self.conf.query_type is QueryType.CountBased:
             return count_windows(chunks, self.conf.window_size_ms,
                                  self.conf.slide_ms)
         wa = WindowAssembler(self.conf.window_spec(),
                              self.conf.allowed_lateness_ms)
+        self._register_ckpt_windows("windows", wa)
         return wa.assemble(chunks)
+
+    # ------------------------- checkpointing -------------------------- #
+
+    @property
+    def _ckpt(self):
+        """The run's CheckpointCoordinator (None: no checkpoints)."""
+        return self.conf.checkpointer
+
+    def _register_ckpt_windows(self, name: str, wa) -> None:
+        """Register a WindowAssembler, PaneBuffer or MicroBatcher (their
+        ``snapshot(encode)`` / ``restore(state, decode)``) under ``name``;
+        loaded state restores the moment it registers."""
+        coord = self._ckpt
+        if coord is None:
+            return
+        from spatialflink_tpu_torch.runtime.checkpoint import record_codec
+
+        enc, dec = record_codec(self.grid)
+        coord.register(name, lambda: ({}, wa.snapshot(enc)),
+                       lambda _arrays, meta: wa.restore(meta, dec))
+
+    def _register_ckpt_pane_cache(self, name: str, cache: PaneCache
+                                  ) -> None:
+        """Register a pane cache, and the operator's interner beside it
+        (a trajectory family's partials index by its ids)."""
+        coord = self._ckpt
+        if coord is None:
+            return
+        from spatialflink_tpu_torch.runtime.checkpoint import value_codec
+
+        enc, dec = value_codec(self.grid)
+        coord.register(name, lambda: ({}, cache.snapshot(enc)),
+                       lambda _arrays, meta: cache.restore(meta, dec))
+        self._register_ckpt_interner()
+
+    def _register_ckpt_interner(self) -> None:
+        coord = self._ckpt
+        if coord is None:
+            return
+
+        def restore(_arrays, meta):
+            self.interner = IdInterner.from_list(meta["ids"])
+            self._id_maps = {}
+
+        coord.register("interner",
+                       lambda: ({}, {"ids": self.interner.to_list()}),
+                       restore)
+
+    def _checkpoint_barrier(self) -> None:
+        """The barrier of the loops with no deferred window in flight:
+        called after a ``yield``, where the yielded result has been
+        consumed downstream."""
+        coord = self._ckpt
+        if coord is not None:
+            coord.barrier()
 
     def _filter_stream(self, batch: PointBatch, mask_stats_fn):
         """(mask, gn_bypassed, dist_evals) for one batch on one device."""
@@ -447,6 +562,7 @@ class SpatialOperator:
         buffered once."""
         pb = PaneBuffer(self.conf.window_spec(),
                         self.conf.allowed_lateness_ms)
+        self._register_ckpt_windows("panes", pb)
         return pb.assemble(_record_chunks(stream, self.grid))
 
     def _pane_eval(self, pane_partial, merge_partials, device_merge=None):
@@ -456,11 +572,11 @@ class SpatialOperator:
         partials, read back at collect time. ``device_merge(parts)`` (kNN)
         merges the partials where they lie on the device and returns a
         :class:`Deferred` of the merged window, or None where the JAX
-        package falls back to the host merge (a part that is not a device
-        partial, or partials of different id spaces): the results are the
-        same. ``conf.pane_device_merge`` None picks the device merge on
+        package falls back to the host merge (partials of different id
+        spaces): the results are the same. ``conf.pane_device_merge`` None picks the device merge on
         CUDA (the JAX package picks it off its CPU backend)."""
         cache = self.pane_cache = PaneCache(self.conf.slide_ms)
+        self._register_ckpt_pane_cache("pane-cache", cache)
         want = self.conf.pane_device_merge
         if want is None:
             want = self.device.type == "cuda"
@@ -576,7 +692,19 @@ class SpatialOperator:
                 start, end, dfd = pending.popleft()
                 yield from emit(start, end, dfd.finish())
 
-        for start, end, payload in batched:
+        coord = self.conf.checkpointer
+        batched = iter(batched)
+        while True:
+            try:
+                start, end, payload = next(batched)
+            except StopIteration:
+                break
+            except ControlTupleExit:
+                # a stop (control tuple, SIGTERM): the windows in flight
+                # emit before it propagates, so a final checkpoint misses
+                # none of the records read
+                yield from drain(0)
+                raise
             sel = eval_batch(payload, start)
             if isinstance(sel, Deferred):
                 pending.append((start, end, sel))
@@ -584,6 +712,14 @@ class SpatialOperator:
             else:
                 yield from drain(0)  # keep window order
                 yield from emit(start, end, sel)
+            if coord is not None:
+                # the checkpoint barrier: drain the windows in flight first
+                # (their records have left the snapshotted assemblers), so
+                # the manifest never misses a sealed, unsunk window
+                coord.note_batch()
+                if coord.due():
+                    yield from drain(0)
+                    coord.commit()
         yield from drain(0)
 
 

@@ -41,7 +41,16 @@ one coalesced lattice over its panes' records in pane order instead.
 Block pairs stay deferred until the window's readback.
 ``run_bulk`` (windowed point x point only) joins the windows of two
 bulk-parsed streams; its pairs are original-record index pairs.
-Checkpoints and the device mesh are not ported.
+
+Checkpoints (windowed, with or without panes): the component
+``join-windows`` holds both sides' assemblers (or pane buffers) and the
+windows taken from one side but not yet emitted (``sealed_a`` /
+``sealed_b``, the JAX package's sealed-on-one-side maps), side b decoded
+on the query stream's grid; with panes, also the block cache. The barrier
+is :meth:`PointPointJoinQuery._pipeline`, which drains the windows in
+flight before a commit. The realtime join keeps its rolling buffers out of
+the checkpoint, and the driver refuses to checkpoint it, as the JAX
+package's does. The device mesh is not ported.
 """
 
 from __future__ import annotations
@@ -60,10 +69,13 @@ from spatialflink_tpu_torch.operators.base import (Deferred, PaneCache,
                                                    _record_chunks)
 from spatialflink_tpu_torch.ops import join as J
 from spatialflink_tpu_torch.runtime import PaneBuffer, WindowAssembler
-from spatialflink_tpu_torch.runtime.windows import (merge_by_time,
-                                                    merge_windows)
+from spatialflink_tpu_torch.runtime.windows import (encode_view,
+                                                    merge_by_time,
+                                                    merge_windows,
+                                                    restored_view)
 from spatialflink_tpu_torch.streams.bulk import PairRecords
 from spatialflink_tpu_torch.utils import bucket_size
+from spatialflink_tpu_torch.utils.metrics import ControlTupleExit
 
 
 class _Joined(Deferred):
@@ -121,6 +133,33 @@ class _Blocks(Deferred):
         return out
 
 
+def _merge_sealed(gens, sealed, size_ms: int) -> Iterator:
+    """``runtime.merge_windows`` over the two sides' start-ordered window
+    streams, the window taken from a side and not yet emitted held in
+    ``sealed[side]`` (start -> records), where a checkpoint finds it (and
+    a restored one is emitted first)."""
+    its = [iter(g) for g in gens]
+    done = [False, False]
+
+    def head(s: int):
+        if not sealed[s] and not done[s]:
+            w = next(its[s], None)
+            if w is None:
+                done[s] = True
+            else:
+                sealed[s][w[0]] = w[2]
+        return min(sealed[s]) if sealed[s] else None
+
+    while True:
+        heads = (head(0), head(1))
+        if heads == (None, None):
+            return
+        start = min(h for h in heads if h is not None)
+        recs = [sealed[s].pop(start) if heads[s] == start else None
+                for s in (0, 1)]
+        yield start, start + size_ms, recs[0], recs[1]
+
+
 def _keep(ai, bi, recs_a, recs_b, max_dt):
     """The pairs of real records (not padding), and with ``max_dt`` only
     those whose event times lie within it of each other."""
@@ -149,6 +188,7 @@ class PointPointJoinQuery(SpatialOperator):
             raise NotImplementedError(
                 "CountBased queries are not yet supported")
         super().__init__(conf, grid, device=device)
+        self.grid2 = grid2 if grid2 is not None else grid
         #: pane-pair blocks of the last pane run coalesced into their
         #: windows' one lattice (``pane_cache`` counts the blocks
         #: evaluated, its misses, and those taken from it, its hits)
@@ -173,13 +213,23 @@ class PointPointJoinQuery(SpatialOperator):
         deferred ones have drained."""
         depth = max(1, self.conf.pipeline_depth)
         pending: deque = deque()
+        coord = self.conf.checkpointer
 
         def force(r: WindowResult) -> WindowResult:
             if isinstance(r.records, Deferred):
                 r.records = r.records.finish()
             return r
 
-        for r in results:
+        results = iter(results)
+        while True:
+            try:
+                r = next(results)
+            except StopIteration:
+                break
+            except ControlTupleExit:
+                while pending:  # a stop: the windows in flight emit first
+                    yield force(pending.popleft())
+                raise
             if isinstance(r.records, Deferred):
                 pending.append(r)
                 while len(pending) > depth - 1:
@@ -188,16 +238,78 @@ class PointPointJoinQuery(SpatialOperator):
                 while pending:
                     yield force(pending.popleft())
                 yield r
+            if coord is not None:
+                # the checkpoint barrier: the windows in flight have left
+                # the snapshotted assemblers and sealed maps, so they are
+                # emitted before the manifest is written
+                coord.note_batch()
+                if coord.due():
+                    while pending:
+                        yield force(pending.popleft())
+                    coord.commit()
         while pending:
             yield force(pending.popleft())
 
+    def _sides(self, ordinary, query_stream, buffer_cls, panes: bool):
+        """Both sides' assemblers (``buffer_cls``: window assemblers or pane
+        buffers) and their sealed-on-one-side maps, registered with the
+        checkpoint coordinator; returns the merged ``(start, end, a, b)``
+        window stream."""
+        spec = self.conf.window_spec()
+        bufs = [buffer_cls(spec, self.conf.allowed_lateness_ms)
+                for _ in range(2)]
+        sealed = ({}, {})
+        self._register_ckpt_join(bufs, sealed, panes)
+        gens = [b.assemble(_record_chunks(s, self.grid))
+                for b, s in zip(bufs, (ordinary, query_stream))]
+        return _merge_sealed(gens, sealed, spec.size_ms)
+
+    def _register_ckpt_join(self, bufs, sealed, panes: bool) -> None:
+        """The coordinator's ``join-windows`` participant: both sides'
+        buffers and sealed maps (``panes``: a sealed window is a list of
+        ``(pane_start, records)``), side b on the query stream's grid."""
+        coord = self.conf.checkpointer
+        if coord is None:
+            return
+        from spatialflink_tpu_torch.runtime.checkpoint import record_codec
+
+        enc, dec_a = record_codec(self.grid)
+        _, dec_b = record_codec(self.grid2)
+
+        def enc_recs(recs):
+            return encode_view(recs, enc)
+
+        def enc_sealed(m):
+            if panes:
+                return {str(s): [[p, enc_recs(r)] for p, r in pl]
+                        for s, pl in m.items()}
+            return {str(s): enc_recs(r) for s, r in m.items()}
+
+        def dec_sealed(state, m, dec):
+            def view(recs):
+                return restored_view(recs, dec)
+            for s, v in state.items():
+                m[int(s)] = ([(int(p), view(r)) for p, r in v] if panes
+                             else view(v))
+
+        def snap():
+            return ({}, {"a": bufs[0].snapshot(enc),
+                         "b": bufs[1].snapshot(enc),
+                         "sealed_a": enc_sealed(sealed[0]),
+                         "sealed_b": enc_sealed(sealed[1])})
+
+        def restore(_arrays, meta):
+            bufs[0].restore(meta["a"], dec_a)
+            bufs[1].restore(meta["b"], dec_b)
+            dec_sealed(meta["sealed_a"], sealed[0], dec_a)
+            dec_sealed(meta["sealed_b"], sealed[1], dec_b)
+
+        coord.register("join-windows", snap, restore)
+
     def _run_windowed(self, ordinary, query_stream, radius
                       ) -> Iterator[WindowResult]:
-        spec = self.conf.window_spec()
-        sides = [WindowAssembler(spec, self.conf.allowed_lateness_ms)
-                 .assemble(_record_chunks(s, self.grid))
-                 for s in (ordinary, query_stream)]
-        for start, end, recs_a, recs_b in merge_windows(*sides):
+        for start, end, recs_a, recs_b in self._sides(
+                ordinary, query_stream, WindowAssembler, panes=False):
             yield self._join_window(start, end, recs_a, recs_b, radius)
 
     def _run_windowed_panes(self, ordinary, query_stream, radius
@@ -207,14 +319,12 @@ class PointPointJoinQuery(SpatialOperator):
         a window's pairs are its pane-pair blocks' in pane order (the pair
         SET is the full window's), or one coalesced lattice when its blocks
         are dispatch-bound (:meth:`_blocks_dispatch_bound`)."""
-        spec = self.conf.window_spec()
-        slide = spec.slide_ms
-        sides = [PaneBuffer(spec, self.conf.allowed_lateness_ms)
-                 .assemble(_record_chunks(s, self.grid))
-                 for s in (ordinary, query_stream)]
+        slide = self.conf.window_spec().slide_ms
+        windows = self._sides(ordinary, query_stream, PaneBuffer, panes=True)
         # a block is needed while both its panes can appear in a later
         # window: its eviction hinges on the earlier pane
         cache = self.pane_cache = PaneCache(slide, key_floor=min)
+        self._register_ckpt_pane_cache("pane-cache", cache)
         # each pane's batch once per side, shared by every block holding it
         memo = ({}, {})
         self.blocks_coalesced = 0
@@ -236,7 +346,7 @@ class PointPointJoinQuery(SpatialOperator):
                 for dead in [p for p in m if p < start + slide]:
                     del m[dead]
 
-        for start, end, panes_a, panes_b in merge_windows(*sides):
+        for start, end, panes_a, panes_b in windows:
             panes_a, panes_b = panes_a or [], panes_b or []
             if self._blocks_dispatch_bound(panes_a, panes_b):
                 self.blocks_coalesced += len(panes_a) * len(panes_b)

@@ -96,22 +96,57 @@ def _merge_partials_multi(op, n_queries: int, k: int):
     return merge
 
 
+def _upload_partial(op, part, k: int, n_queries: Optional[int]) -> None:
+    """Put a host kNN partial on the device in K2's result form: a pane
+    partial restored from a checkpoint, or an empty pane's ``[]``. Its
+    (objID, distance) pairs become (k,) or (Q, k) id, distance and valid
+    tensors, the ids interned through the run's id space, empty slots
+    holding K2's sentinels; its distance count was taken by the run that
+    computed it (``stats_done``)."""
+    rows = [part.value] if n_queries is None else part.value
+    ids = op._id_space
+    oid = np.full((len(rows), k), K._OID_SENTINEL, np.int32)
+    dist = np.full((len(rows), k), K._BIG, np.float32)
+    valid = np.zeros((len(rows), k), np.bool_)
+    for q, row in enumerate(rows):
+        for j, (obj, d) in enumerate(row):
+            oid[q, j], dist[q, j], valid[q, j] = ids.intern(obj), d, True
+    if n_queries is None:
+        oid, dist, valid = oid[0], dist[0], valid[0]
+    dev = op.device
+    tensors = (to_device(oid, np.int32, dev),
+               to_device(dist, np.float32, dev),
+               to_device(valid, np.bool_, dev),
+               to_device(np.zeros(len(rows), np.int32), np.int32, dev))
+
+    def collect(host):
+        o, d, v, _ = host
+        if n_queries is None:
+            return _knn_pairs(o, d, v, ids)
+        return [_knn_pairs(*row, ids) for row in zip(o, d, v)]
+
+    part.value = Deferred(tensors, collect, copy=False)
+    part.value.ids = ids
+    part.stats_done = True
+
+
 def _knn_device_merge(op, k: int, n_queries: Optional[int] = None):
     """The device pane merge of the kNN families: a window's partials, (k,)
     or (Q, k) K2 results still on the device, merge in one K3 launch
     (``ops.knn.knn_merge_parts``, which reads them where they lie) and
-    only the merged list is read back. Returns None, and the host merge
-    runs with the same result,
-    where the JAX package's does: a part that is not a device partial, or
-    partials of another id space than the run's. A partial's distance
-    count rides the first merged readback that takes it
-    (``PanePartial.stats_done``)."""
+    only the merged list is read back. A host partial (restored from a
+    checkpoint, or an empty pane's) goes onto the device first
+    (:func:`_upload_partial`). Returns None, and the host merge runs with
+    the same result, where the JAX package's does for partials of another
+    id space than the run's. A partial's distance count rides the first
+    merged readback that takes it (``PanePartial.stats_done``)."""
     def merge(parts):
         devs = []
         for p in parts:
+            if not isinstance(p.value, Deferred):
+                _upload_partial(op, p, k, n_queries)
             v = p.value
-            if (not isinstance(v, Deferred) or len(v.device_result) != 4
-                    or v.ids is not op._id_space):
+            if len(v.device_result) != 4 or v.ids is not op._id_space:
                 return None
             devs.append(v.device_result)
         results = [K.KnnResult(*d[:3]) for d in devs]

@@ -35,13 +35,25 @@ ties and emission orders that follow the ids are the JAX operator's.
 Records become :class:`Point` / :class:`LineString` objects only where a
 result holds them (sub-trajectories, selections).
 
-Not ported: the device mesh, checkpoints (the coordinator and the legacy
-``--checkpoint`` of realtime tStats / tAggregate), and the self-join
-``run_single``.
+Checkpoints. Under a ``runtime.checkpoint.CheckpointCoordinator``
+(``conf.checkpointer``) the windowed loops register their window or pane
+buffers and pane caches (with the operator's interner) and barrier after
+each emitted window; realtime tStats registers ``tstats`` (K8a's carried
+state read back to the host, its capacity, ``ts_base``, the records
+consumed and the interner) and realtime tAggregate ``taggregate`` (the
+extent rows), the JAX package's components. The legacy single-file
+``--checkpoint`` of realtime tStats / tAggregate (``checkpoint_path``,
+every ``checkpoint_every`` micro-batches and at the end) writes the JAX
+package's files; a restored tStats state goes back to the operator's
+device in fresh tensors, and K8a carries it on.
+
+Not ported: the device mesh, and the self-join ``run_single`` (ROADMAP
+Queue 1, with item 4).
 """
 
 from __future__ import annotations
 
+import os
 from collections import deque
 from typing import Dict, Iterable, Iterator, List, Optional, Set, Tuple
 
@@ -58,9 +70,10 @@ from spatialflink_tpu_torch.ops import hopper_kernels as HK
 from spatialflink_tpu_torch.ops import knn as K
 from spatialflink_tpu_torch.ops import trajectory as T
 from spatialflink_tpu_torch.runtime import MicroBatcher, PaneBuffer
-from spatialflink_tpu_torch.runtime.state import TrajStateStore
+from spatialflink_tpu_torch.runtime.state import (CheckpointableState,
+                                                  TrajStateStore)
 from spatialflink_tpu_torch.streams.bulk import PairRecords, PointRows
-from spatialflink_tpu_torch.utils import bucket_size
+from spatialflink_tpu_torch.utils import IdInterner, bucket_size
 
 
 # ------------------------------------------------------------------------ #
@@ -168,6 +181,15 @@ class _TrajOperator(SpatialOperator):
             out = table[oid]
         return out
 
+    def _windows(self, stream: Iterable):
+        """The base windows; a windowed run's checkpoint also carries the
+        operator's interner, so a resumed window lists its trajectories in
+        the uninterrupted run's id order (a realtime tStats run carries it
+        in its ``tstats`` component)."""
+        if not self.realtime:
+            self._register_ckpt_interner()
+        return super()._windows(stream)
+
     def _point_batch(self, rows: PointRows, ts_base: int) -> PointBatch:
         x, y, ts, _, cell, _ = rows.columns()
         return PointBatch.from_arrays(x, y, device=self.device,
@@ -184,8 +206,10 @@ class _TrajOperator(SpatialOperator):
     def _pane_stream(self, stream: Iterable) -> Iterator[Tuple]:
         """``(start, end, [(pane_start, rows), ...])`` pane windows."""
         self.pane_cache = PaneCache(self.conf.slide_ms)
+        self._register_ckpt_pane_cache("pane-cache", self.pane_cache)
         pb = PaneBuffer(self.conf.window_spec(),
                         self.conf.allowed_lateness_ms)
+        self._register_ckpt_windows("panes", pb)
         for start, end, panes in pb.assemble(_record_chunks(stream,
                                                             self.grid)):
             yield start, end, [(p, _rows(r)) for p, r in panes]
@@ -207,6 +231,7 @@ class PointTFilterQuery(_TrajOperator):
             else:
                 yield WindowResult(
                     start, end, list(assemble_subtrajectories(sel).values()))
+                self._checkpoint_barrier()
 
 
 class PointPolygonTRangeQuery(_TrajOperator):
@@ -274,6 +299,7 @@ class PointPolygonTRangeQuery(_TrajOperator):
                 yield WindowResult(
                     start, end, list(assemble_subtrajectories(sel).values()),
                     extras={"matched_ids": matched})
+                self._checkpoint_barrier()
 
     def _run_windowed_panes(self, stream, gb, cell_mask
                             ) -> Iterator[WindowResult]:
@@ -293,6 +319,7 @@ class PointPolygonTRangeQuery(_TrajOperator):
             yield WindowResult(
                 start, end, list(assemble_subtrajectories(sel).values()),
                 extras={"matched_ids": matched})
+            self._checkpoint_barrier()
 
     def _pane_partial(self, prows, gb, cell_mask, pstart) -> Set[str]:
         hit = self._matched(prows, gb, cell_mask, pstart)
@@ -323,11 +350,23 @@ class PointTStatsQuery(_TrajOperator):
     #: is split on the host first
     _SPAN_HORIZON_MS = 2 ** 30
 
-    def run(self, stream: Iterable, traj_ids: Optional[Set[str]] = None
+    def run(self, stream: Iterable, traj_ids: Optional[Set[str]] = None,
+            *, checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 16, resume: bool = True,
+            checkpoint_job: Optional[str] = None
             ) -> Iterator[WindowResult]:
+        """``checkpoint_path`` (realtime) makes the run durable: every
+        ``checkpoint_every`` micro-batches with records, and at the end,
+        the carried state, the interner, ``ts_base`` and the records
+        consumed are saved atomically; ``resume`` restores them at start.
+        ``checkpoint_job`` (the driver's job fingerprint) is stored, and a
+        file of another job is refused."""
         allowed = set(traj_ids or ())
         if self.realtime:
-            yield from self._run_realtime(stream, allowed)
+            yield from self._run_realtime(
+                stream, allowed, checkpoint_path=checkpoint_path,
+                checkpoint_every=checkpoint_every, resume=resume,
+                checkpoint_job=checkpoint_job)
         elif self._panes_active():
             yield from self._run_windowed_panes(stream, allowed)
         else:
@@ -337,26 +376,102 @@ class PointTStatsQuery(_TrajOperator):
                     rows = rows.take(_with_ids(rows, allowed))
                 yield WindowResult(start, end,
                                    self._window_tuples(rows, start))
+                self._checkpoint_barrier()
 
-    def _run_realtime(self, stream, allowed) -> Iterator[WindowResult]:
-        store = TrajStateStore(device=self.device)
-        ts_base = None
+    def _run_realtime(self, stream, allowed, *, checkpoint_path=None,
+                      checkpoint_every=16, resume=True, checkpoint_job=None
+                      ) -> Iterator[WindowResult]:
+        # a mutable cell, so the coordinator's closures see the live state
+        st = {"store": TrajStateStore(device=self.device), "ts_base": None,
+              "consumed": 0}
+        if checkpoint_path and resume and os.path.exists(checkpoint_path):
+            (st["store"], st["ts_base"],
+             st["consumed"]) = self._restore_checkpoint(checkpoint_path,
+                                                        job=checkpoint_job)
+        self._register_ckpt_tstats(st)
+        n_batches = 0
         for _, _, records in self._windows(stream):
-            for rows in self._split_by_span(_rows(records)):
+            batch = _rows(records)
+            st["consumed"] += len(batch)
+            for rows in self._split_by_span(batch):
                 if allowed:
                     rows = rows.take(_with_ids(rows, allowed))
                 if not len(rows):
                     continue
                 ts = _ts(rows)
-                if ts_base is None:
-                    ts_base = int(ts[0])
-                elif int(ts[0]) != ts_base:
-                    store.rebase_ts(int(ts[0]) - ts_base)
-                    ts_base = int(ts[0])
-                oid, sp, tm, speed = self._update(store, rows, ts_base)
+                if st["ts_base"] is None:
+                    st["ts_base"] = int(ts[0])
+                elif int(ts[0]) != st["ts_base"]:
+                    st["store"].rebase_ts(int(ts[0]) - st["ts_base"])
+                    st["ts_base"] = int(ts[0])
+                oid, sp, tm, speed = self._update(st["store"], rows,
+                                                  st["ts_base"])
+                n_batches += 1
+                if checkpoint_path and \
+                        n_batches % max(1, checkpoint_every) == 0:
+                    self._save_checkpoint(st, checkpoint_path,
+                                          job=checkpoint_job)
                 tuples = self._tuples(oid, sp, tm, speed)
                 if tuples:
                     yield WindowResult(int(ts[0]), int(ts[-1]), tuples)
+            self._checkpoint_barrier()
+        if checkpoint_path and n_batches:
+            self._save_checkpoint(st, checkpoint_path, job=checkpoint_job)
+
+    def _state_meta(self, st: dict) -> dict:
+        return {"capacity": st["store"].capacity, "ts_base": st["ts_base"],
+                "consumed": st["consumed"],
+                "interner": self.interner.to_list()}
+
+    def _adopt_state(self, cp: CheckpointableState, meta: dict, st: dict
+                     ) -> None:
+        """Apply a saved state: the store in fresh tensors on the
+        operator's device, and the interner its ids index."""
+        cp.meta["capacity"] = int(meta["capacity"])
+        st["store"] = TrajStateStore.restore(cp, self.device)
+        st["ts_base"] = (None if meta.get("ts_base") is None
+                         else int(meta["ts_base"]))
+        st["consumed"] = int(meta.get("consumed", 0))
+        self.interner = IdInterner.from_list(meta["interner"])
+        self._id_maps = {}
+
+    def _register_ckpt_tstats(self, st: dict) -> None:
+        """The coordinator's ``tstats`` participant: the carried state's
+        arrays and its capacity / ts_base / consumed / interner meta (the
+        legacy file's payload)."""
+        coord = self._ckpt
+        if coord is None:
+            return
+
+        def restore(arrays, meta):
+            cp = CheckpointableState()
+            cp.arrays.update(arrays)
+            self._adopt_state(cp, meta, st)
+
+        coord.register("tstats", lambda: (st["store"].snapshot().arrays,
+                                          self._state_meta(st)), restore)
+
+    def _save_checkpoint(self, st: dict, path: str,
+                         job: Optional[str] = None) -> None:
+        """The legacy ``--checkpoint`` file: the state, ``ts_base``, the
+        interner, the records consumed (a file replay skips them on
+        resume) and the job fingerprint."""
+        cp = st["store"].snapshot()
+        cp.meta.update(self._state_meta(st))
+        cp.meta["ts_base"] = int(st["ts_base"])
+        if job:
+            cp.meta["job"] = job
+        cp.save(path)
+
+    def _restore_checkpoint(self, path: str, job: Optional[str] = None):
+        from spatialflink_tpu_torch.runtime.checkpoint import (
+            check_job_fingerprint)
+
+        cp = CheckpointableState.load(path)
+        check_job_fingerprint(cp.meta.get("job"), job, path)
+        st: dict = {}
+        self._adopt_state(cp, cp.meta, st)
+        return st["store"], st["ts_base"], st["consumed"]
 
     def _split_by_span(self, rows: PointRows) -> Iterator[PointRows]:
         """The micro-batch cut where an event time lies more than
@@ -444,6 +559,7 @@ class PointTStatsQuery(_TrajOperator):
                     tuples.append((self.interner.lookup(int(o)), s,
                                    int(round(t)), s / t if t > 0 else 0.0))
             yield WindowResult(start, end, tuples)
+            self._checkpoint_barrier()
 
 
 class PointTAggregateQuery(_TrajOperator):
@@ -456,11 +572,20 @@ class PointTAggregateQuery(_TrajOperator):
     windows (``TAggregateQuery.java:381-494``)."""
 
     def run(self, stream: Iterable, aggregate: str = "SUM",
-            traj_deletion_threshold_ms: int = 0) -> Iterator[WindowResult]:
+            traj_deletion_threshold_ms: int = 0, *,
+            checkpoint_path: Optional[str] = None,
+            checkpoint_every: int = 16, resume: bool = True,
+            checkpoint_job: Optional[str] = None
+            ) -> Iterator[WindowResult]:
+        """``checkpoint_path`` (realtime): the legacy single-file
+        checkpoint of the extent rows, as :meth:`PointTStatsQuery.run`."""
         agg = aggregate.upper()
         if self.realtime:
-            yield from self._run_realtime(stream, agg,
-                                          traj_deletion_threshold_ms)
+            yield from self._run_realtime(
+                stream, agg, traj_deletion_threshold_ms,
+                checkpoint_path=checkpoint_path,
+                checkpoint_every=checkpoint_every, resume=resume,
+                checkpoint_job=checkpoint_job)
             return
         if self.conf.query_type is QueryType.CountBased:
             yield from self._run_count_windows(stream, agg)
@@ -486,6 +611,7 @@ class PointTAggregateQuery(_TrajOperator):
                 hm = T.taggregate_heatmap(groups, num_cells=cells, agg=agg)
                 yield WindowResult(start, end, [],
                                    extras={"heatmap": hm.cpu().numpy()})
+            self._checkpoint_barrier()
 
     def _run_windowed_panes(self, stream, agg: str) -> Iterator[WindowResult]:
         """``--panes``: one K8c launch per sealed pane, read back as (cell,
@@ -519,6 +645,7 @@ class PointTAggregateQuery(_TrajOperator):
             else:
                 yield WindowResult(start, end, [], extras={
                     "heatmap": self._heatmap_from_groups(merged, agg)})
+            self._checkpoint_barrier()
 
     def _heatmap_from_groups(self, merged: Dict, agg: str) -> np.ndarray:
         """(num_cells,) f32 heatmap from merged (cell, objID) -> extent
@@ -624,23 +751,87 @@ class PointTAggregateQuery(_TrajOperator):
             records = [(cell, lengths)]
         return WindowResult(start, end, records, extras)
 
-    def _run_realtime(self, stream, agg, eviction_ms
+    def _run_realtime(self, stream, agg, eviction_ms, *,
+                      checkpoint_path=None, checkpoint_every=16,
+                      resume=True, checkpoint_job=None
                       ) -> Iterator[WindowResult]:
         """Host state (cell, objID) -> [min_ts, max_ts, last_seen] in the
         array-backed :class:`_ExtentStore`, updated per micro-batch, stale
         rows evicted after ``eviction_ms``; each micro-batch emits the
-        heatmap over the live rows (ALL served as per-cell SUM, flagged)."""
-        store = _ExtentStore()
+        heatmap over the live rows (ALL served as per-cell SUM, flagged).
+        ``checkpoint_path`` saves the rows and the records consumed every
+        ``checkpoint_every`` micro-batches and at the end."""
+        st = {"store": _ExtentStore(), "consumed": 0}
+        if checkpoint_path and resume and os.path.exists(checkpoint_path):
+            st["store"], st["consumed"] = self._restore_checkpoint(
+                checkpoint_path, job=checkpoint_job)
+        self._register_ckpt_taggregate(st)
+        n_batches = 0
         for start, end, records in self._windows(stream):
             rows = _rows(records)
-            latest = store.update_batch(rows)
+            st["consumed"] += len(rows)
+            n_batches += 1
+            latest = st["store"].update_batch(rows)
             if eviction_ms > 0:
-                store.evict(latest, eviction_ms)
-            extras = {"heatmap": store.aggregate(agg, self.grid.num_cells),
+                st["store"].evict(latest, eviction_ms)
+            if checkpoint_path and n_batches % max(1, checkpoint_every) == 0:
+                self._save_checkpoint(st, checkpoint_path, checkpoint_job)
+            extras = {"heatmap": st["store"].aggregate(agg,
+                                                       self.grid.num_cells),
                       "aggregate": agg}
             if agg == "ALL":
                 extras["heatmap_semantics"] = "SUM"
             yield WindowResult(start, end, [], extras=extras)
+            self._checkpoint_barrier()
+        if checkpoint_path and n_batches:
+            self._save_checkpoint(st, checkpoint_path, checkpoint_job)
+
+    def _register_ckpt_taggregate(self, st: dict) -> None:
+        """The coordinator's ``taggregate`` participant: the live extent
+        rows (the legacy file's payload)."""
+        coord = self._ckpt
+        if coord is None:
+            return
+
+        def snap():
+            cells, oids, extents = st["store"].rows()
+            return ({"cell": cells, "extent": extents},
+                    {"obj_id": oids, "consumed": st["consumed"]})
+
+        def restore(arrays, meta):
+            st["store"] = _ExtentStore.from_rows(
+                arrays.get("cell", np.empty(0, np.int64)),
+                meta.get("obj_id", []),
+                arrays.get("extent", np.empty((0, 3), np.int64)))
+            st["consumed"] = int(meta.get("consumed", 0))
+
+        coord.register("taggregate", snap, restore)
+
+    @staticmethod
+    def _save_checkpoint(st: dict, path: str,
+                         job: Optional[str] = None) -> None:
+        cells, oids, extents = st["store"].rows()
+        cp = CheckpointableState()
+        cp.arrays["cell"] = cells
+        cp.arrays["extent"] = extents
+        cp.meta["obj_id"] = oids
+        cp.meta["consumed"] = int(st["consumed"])
+        if job:
+            cp.meta["job"] = job
+        cp.save(path)
+
+    @staticmethod
+    def _restore_checkpoint(path: str, job: Optional[str] = None):
+        from spatialflink_tpu_torch.runtime.checkpoint import (
+            check_job_fingerprint)
+
+        cp = CheckpointableState.load(path)
+        check_job_fingerprint(cp.meta.get("job"), job, path)
+        store = _ExtentStore.from_rows(
+            cp.arrays.get("cell", np.empty(0, np.int64)),
+            cp.meta.get("obj_id", []),
+            cp.arrays.get("extent", np.empty((0, 3), np.int64)))
+        return store, int(cp.meta.get("consumed", 0))
 
 
 class _ExtentStore:
@@ -720,6 +911,27 @@ class _ExtentStore:
         self.alive[: keep.size] = True
         self.n = keep.size
         self.index = {k: i for i, k in enumerate(self.keys)}
+
+    def rows(self):
+        """(cells, obj_ids, extents) of the live rows: the checkpoint
+        payload."""
+        live = np.nonzero(self.alive[: self.n])[0]
+        return (self.cells[live].copy(), [self.keys[r][1] for r in live],
+                self.ext[live].copy())
+
+    @classmethod
+    def from_rows(cls, cells, oids, extents) -> "_ExtentStore":
+        store = cls(capacity=max(1024, len(oids)))
+        for c, o, e in zip(cells, oids, extents):
+            key = (int(c), str(o))
+            r = store.n
+            store.index[key] = r
+            store.keys.append(key)
+            store.cells[r] = int(c)
+            store.ext[r] = (int(e[0]), int(e[1]), int(e[2]))
+            store.alive[r] = True
+            store.n += 1
+        return store
 
     def aggregate(self, agg: str, num_cells: int) -> np.ndarray:
         """Per-cell heatmap (f64) over the live rows."""

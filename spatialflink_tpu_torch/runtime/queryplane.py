@@ -13,20 +13,27 @@ from in-process calls).
 - :func:`bucket_size`: the fleet pads to the next power of two (the
   kernels' Q axis), padded slots forced empty by a valid gate.
 - :class:`QueryRouter`: per-query demultiplexing of a dynamic window to
-  each query's route (``stdout`` or ``file:<path>``), with the per-query
-  SLO verdict.
+  each query's route (``stdout``, ``file:<path>`` or ``kafka:<topic>``),
+  with the per-query SLO verdict.
+- :class:`ControlTopicConsumer`: admissions, updates and retirements read
+  from a Kafka control topic (``--control-topic``), drained inside
+  :meth:`QueryRegistry.apply`.
+- The checkpoint component ``queries`` (:meth:`QueryRegistry.snapshot` /
+  :meth:`QueryRegistry.restore`, the JAX package's form): a resumed run
+  restores its fleet, mid-drain entries, staged updates and the control
+  topic's position.
 
-Not yet ported: the Kafka control topic and ``kafka:`` routes, the
-checkpoint component, tenant quotas and admission shedding, the
-operations server's surfaces, the lifecycle events and the per-query
-metrics counters. A ``kafka:`` route or a tenant quota is refused with
-"not yet ported", never dropped.
+Not yet ported: tenant quotas and admission shedding, the operations
+server's surfaces, the lifecycle events and the per-query metrics counters
+(ROADMAP Queue 1 item 5). A tenant quota is refused with "not yet
+ported", never dropped.
 """
 
 from __future__ import annotations
 
 import enum
 import json
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -240,6 +247,10 @@ class QueryRegistry:
         self._dirty = False
         self._retired: List[str] = []
         self._retain_retired = retain_retired
+        self._control: Optional["ControlTopicConsumer"] = None
+        #: a checkpoint-restored control position, applied when the
+        #: consumer attaches
+        self._restored_control_pos: Optional[int] = None
 
     # ------------------------------ admission ------------------------- #
 
@@ -258,10 +269,6 @@ class QueryRegistry:
             raise QuerySpecError(
                 f"query {spec.id!r}: k={spec.k} != the fleet k={self.k} "
                 "(the Q-axis shares one top-k width; omit 'k' to inherit)")
-        if spec.route.startswith("kafka:"):
-            raise QuerySpecError(
-                f"query {spec.id!r}: route {spec.route!r}: {NOT_PORTED} "
-                "(routes 'stdout' and 'file:<path>')")
         return spec
 
     def admit(self, spec) -> QueryEntry:
@@ -341,7 +348,10 @@ class QueryRegistry:
         """The one place fleet changes land, called by the dynamic drive
         loop once per window: pending -> active, draining -> retired, and
         staged updates swapped in. True when the fleet changed
-        (``fleet_version`` bumped)."""
+        (``fleet_version`` bumped). The control topic, when attached, is
+        drained first."""
+        if self._control is not None:
+            self._control.poll(self)
         with self._lock:
             if not self._dirty:
                 return False
@@ -399,6 +409,87 @@ class QueryRegistry:
             pts.append(pts[-1])
         return entries, pts, valid
 
+    def attach_control(self, consumer: "ControlTopicConsumer") -> None:
+        """Wire the control-topic consumer (drained inside :meth:`apply`);
+        a checkpoint-restored position seeks it first, so a resumed run
+        does not apply again what the restored fleet reflects."""
+        with self._lock:
+            if self._restored_control_pos is not None:
+                consumer.seek(self._restored_control_pos)
+                self._restored_control_pos = None
+            self._control = consumer
+
+    # ------------------------------ checkpoint ------------------------ #
+
+    def register_checkpoint(self, coordinator) -> bool:
+        """Register as the checkpoint component ``queries``; True when a
+        loaded manifest restored a fleet (the caller then seeds none)."""
+        return coordinator.register(
+            "queries", lambda: ({}, self.snapshot()),
+            lambda _arrays, meta: self.restore(meta))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "fleet_version": self._version,
+                "shedding": False,
+                "default_tenant": self.default_tenant,
+                "tenant_quotas": {},
+                "fleet": list(self._fleet),
+                "entries": [
+                    {"spec": e.spec.to_dict(), "state": e.state.value,
+                     "pending_spec": (e.pending_spec.to_dict()
+                                      if e.pending_spec else None),
+                     "admitted_ms": e.admitted_ms,
+                     "since_version": e.since_version}
+                    for e in self._entries.values()
+                    if e.state is not QueryState.RETIRED],
+                "control_pos":
+                    None if self._control is None else self._control.position,
+            }
+
+    def restore(self, meta: dict) -> None:
+        """Rebuild the live fleet (mid-drain entries and staged updates
+        too) from the checkpoint component; a manifest with tenant quotas
+        or shedding on is refused (not ported)."""
+        if meta.get("tenant_quotas") or meta.get("shedding"):
+            raise NotImplementedError(
+                f"tenant quotas and admission shedding: {NOT_PORTED}")
+        with self._lock:
+            self._entries = {}
+            self.default_tenant = str(meta.get("default_tenant")
+                                      or self.default_tenant)
+            for row in meta.get("entries", []):
+                spec = QuerySpec.from_dict(
+                    row["spec"], default_family=self.family,
+                    default_latency_class=self.default_latency_class,
+                    default_tenant=self.default_tenant)
+                entry = QueryEntry(
+                    spec=spec, state=QueryState(row["state"]),
+                    admitted_ms=int(row.get("admitted_ms", 0)),
+                    since_version=int(row.get("since_version", 0)))
+                if row.get("pending_spec"):
+                    entry.pending_spec = QuerySpec.from_dict(
+                        row["pending_spec"], default_family=self.family,
+                        default_latency_class=self.default_latency_class,
+                        default_tenant=self.default_tenant)
+                self._entries[entry.id] = entry
+            self._fleet = [q for q in meta.get("fleet", [])
+                           if q in self._entries]
+            self._version = int(meta.get("fleet_version", 0))
+            # admissions and drains staged before the checkpoint still
+            # need an apply
+            self._dirty = any(
+                e.state in (QueryState.PENDING, QueryState.DRAINING)
+                or e.pending_spec is not None
+                for e in self._entries.values())
+            pos = meta.get("control_pos")
+            if pos is not None:
+                if self._control is not None:
+                    self._control.seek(int(pos))
+                else:
+                    self._restored_control_pos = int(pos)
+
     def note_window(self, entry: QueryEntry, n_records: int,
                     emit_p99_ms: Optional[float] = None) -> None:
         """The per-query SLO verdict for one demultiplexed window (counted
@@ -438,15 +529,98 @@ class QueryRegistry:
                 "queries": entries}
 
 
+class ControlTopicConsumer:
+    """Admissions from a Kafka control topic, interleaved with the data
+    plane. Records are JSON objects::
+
+        {"action": "admit",  "query": {"id": "q9", "x": ..., "y": ...}}
+        {"action": "update", "id": "q9", "query": {"route": "kafka:out9"}}
+        {"action": "retire", "id": "q9"}
+
+    :meth:`poll` (inside :meth:`QueryRegistry.apply`, at window
+    boundaries) applies every record past ``position``; a malformed or
+    rejected record is counted in ``rejected`` and warned about, never
+    fatal to the queries already serving. The position commits to the
+    group ``<group>-control`` after each poll that applied something, and
+    rides the ``queries`` checkpoint component."""
+
+    def __init__(self, broker, topic: str, group: str = "spatialflink"):
+        self.broker = broker
+        self.topic = topic
+        self.group = group + "-control"
+        self.position = int(broker.committed(topic, self.group))
+        self.applied = 0
+        self.rejected = 0
+
+    def seek(self, position: int) -> None:
+        self.position = int(position)
+
+    def poll(self, registry: QueryRegistry) -> int:
+        """Apply every control record past ``position``; the number
+        applied. A fetch error leaves the position for the next poll."""
+        n = 0
+        while True:
+            try:
+                batch = self.broker.fetch(self.topic, self.position, 256)
+            except Exception as e:  # the control plane never stalls data
+                print(f"warning: control topic {self.topic!r}: fetch "
+                      f"failed ({str(e)[:200]})", file=sys.stderr)
+                return n
+            if not batch:
+                break
+            for rec in batch:
+                self.position = rec.offset + 1
+                n += self._apply_one(registry, rec.value)
+        if n:
+            self.broker.commit(self.topic, self.group, self.position)
+            self.applied += n
+        return n
+
+    def _apply_one(self, registry: QueryRegistry, value) -> int:
+        try:
+            d = json.loads(value) if isinstance(value, (str, bytes)) else value
+            if not isinstance(d, dict):
+                raise QuerySpecError("control record must be a JSON object")
+            action = d.get("action")
+            if action == "admit":
+                registry.admit(d.get("query"))
+            elif action == "update":
+                qid = d.get("id") or (d.get("query") or {}).get("id")
+                if not qid:
+                    raise QuerySpecError("'update' needs an 'id'")
+                registry.update(qid, d.get("query") or {})
+            elif action == "retire":
+                if not d.get("id"):
+                    raise QuerySpecError("'retire' needs an 'id'")
+                registry.retire(d["id"])
+            else:
+                raise QuerySpecError(
+                    f"'action' must be admit/update/retire, got {action!r}")
+            return 1
+        except KeyError as e:
+            self._reject(f"unknown query id {e}", value)
+        except (QuerySpecError, json.JSONDecodeError,
+                UnicodeDecodeError) as e:
+            self._reject(str(e), value)
+        return 0
+
+    def _reject(self, reason: str, value) -> None:
+        self.rejected += 1
+        print(f"warning: control topic {self.topic!r}: rejected record "
+              f"({reason}): {str(value)[:120]}", file=sys.stderr)
+
+
 class QueryRouter:
     """Demultiplex one dynamic window's per-query record lists to each
     query's route: ``stdout`` queries ride the driver's own emission (the
     router only keeps the SLO verdict); ``file:<path>`` appends one JSON
-    line per (window, query). Files open on first use and are shared by
-    the queries that name them."""
+    line per (window, query), and ``kafka:<topic>`` produces the same
+    document to the topic through ``broker``. Files open on first use and
+    are shared by the queries that name them."""
 
-    def __init__(self, registry: QueryRegistry):
+    def __init__(self, registry: QueryRegistry, broker=None):
         self.registry = registry
+        self.broker = broker
         self._files: Dict[str, Any] = {}
 
     @staticmethod
@@ -480,12 +654,16 @@ class QueryRouter:
             route = entry.spec.route
             if route == "stdout":
                 continue  # the driver's own sinks carry it
-            path = route[5:]
-            f = self._files.get(path)
-            if f is None:
-                f = self._files[path] = open(path, "a")
-            f.write(self._doc(qid, result, recs) + "\n")
-            f.flush()
+            doc = self._doc(qid, result, recs)
+            if route.startswith("file:"):
+                path = route[5:]
+                f = self._files.get(path)
+                if f is None:
+                    f = self._files[path] = open(path, "a")
+                f.write(doc + "\n")
+                f.flush()
+            elif route.startswith("kafka:") and self.broker is not None:
+                self.broker.produce(route[6:], doc)
 
     def close(self) -> None:
         for f in self._files.values():

@@ -20,10 +20,24 @@ streams into chunks too), so the JAX package's ``_ColumnarSeg`` marker and
 have nothing to tell apart here; the JAX package's per-record
 ``add_chunk`` / ``add_records`` paths of object streams are these same
 slices.
+
+Checkpoints: ``snapshot(encode)`` / ``restore(state, decode)`` of
+:class:`WindowAssembler`, :class:`PaneBuffer` and :class:`MicroBatcher` are
+the JAX package's JSON forms (each open buffer's records encoded one by
+one, GeoJSON with raw epoch-ms in the coordinator's codec; point records
+encode from their columns and decode in one native parse), so a buffer
+saved by either package restores in the other. A restored buffer's records
+wait until the next chunk arrives (or the stream ends); they then become
+one chunk per buffer that shares that chunk's id interner, so a window
+mixing restored and fresh records has one id space. Where the decode's
+interner was itself restored from the checkpoint, the restored records
+keep the ids the uninterrupted run gave them, and kNN ties break as they
+would have.
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import Dict, Iterable, Iterator, List, Optional, Tuple
@@ -80,6 +94,116 @@ def _view(segs):
     return segs[0][0].view(segs)
 
 
+def view_objects(view) -> list:
+    """A window's records (``LazyRecords`` / ``GeomRecords``) as objects
+    (``Point`` or geometry), in order: the record shape of a snapshot."""
+    if hasattr(view, "records"):  # GeomRecords
+        return view.records()
+    return list(view.take(np.arange(len(view))))
+
+
+def encode_view(view, encode) -> list:
+    """A window's records encoded one by one; point records straight from
+    their columns where ``encode`` is the GeoJSON record codec (the same
+    text, without a Point object per record)."""
+    fmt = getattr(encode, "fmt", None)
+    if fmt and hasattr(view, "take"):
+        out = view.take(np.arange(len(view))).serialize_batch(fmt)
+        if out is not None:
+            return out
+    return [encode(o) for o in view_objects(view)]
+
+
+def decode_records(recs, decode):
+    """Restored records: one columnar chunk (with an interner of its own)
+    where the codec's point decode takes them all, else decoded
+    objects."""
+    fast = getattr(decode, "points", None)
+    if fast is not None and recs:
+        chunk = fast(recs)
+        if chunk is not None:
+            return chunk
+    return [decode(r) for r in recs]
+
+
+def restored_view(recs, decode):
+    """Encoded records restored as a window's records, over one chunk."""
+    return _view([_rebuild(decode_records(recs, decode))])
+
+
+def _reintern(chunk, interner):
+    """A point chunk with its ids interned through ``interner``, new ones
+    in order of first appearance."""
+    from spatialflink_tpu_torch.streams.bulk import ParsedPoints, PointChunk
+
+    p = chunk.parsed
+    uniq, first, inv = np.unique(p.obj_id, return_index=True,
+                                 return_inverse=True)
+    ids = np.empty(uniq.shape[0], np.int32)
+    for j in np.argsort(first, kind="stable").tolist():
+        ids[j] = interner.intern(p.interner.lookup(int(uniq[j])))
+    parsed = ParsedPoints(x=p.x, y=p.y, ts=p.ts,
+                          obj_id=ids[inv.reshape(-1)], interner=interner)
+    return PointChunk(parsed=parsed, cells=chunk.cells,
+                      ingest_ms=chunk.ingest_ms)
+
+
+def _rebuild(restored, like=None):
+    """``(chunk, idx)`` over one chunk of restored records (a columnar
+    chunk of :func:`decode_records`, or objects). Points share ``like``'s
+    interner (the chunk they will share windows with) when it has one;
+    geometries go into a geometry chunk."""
+    from spatialflink_tpu_torch.models import Point
+    from spatialflink_tpu_torch.streams.bulk import (GeomChunk, PointChunk,
+                                                     points_to_parsed)
+    from spatialflink_tpu_torch.utils import IdInterner
+
+    if isinstance(restored, PointChunk):
+        chunk = (_reintern(restored, like.parsed.interner)
+                 if isinstance(like, PointChunk) else restored)
+    elif isinstance(restored[0], Point):
+        interner = (like.parsed.interner if isinstance(like, PointChunk)
+                    else IdInterner())
+        chunk = PointChunk(parsed=points_to_parsed(restored, interner),
+                           cells=np.array([p.cell for p in restored],
+                                          np.int32),
+                           ingest_ms=int(time.time() * 1000))
+    else:
+        chunk = GeomChunk(restored)
+    return chunk, np.arange(len(chunk))
+
+
+class _Restorable:
+    """The restored-buffer plumbing the three assemblers share:
+    ``_restored`` maps a buffer key to its restored records
+    (:func:`decode_records`) until :meth:`_adopt` turns them into a chunk
+    at the front of their buffer."""
+
+    _restored: Dict
+
+    def _adopt(self, like=None) -> None:
+        if not self._restored:
+            return
+        restored, self._restored = self._restored, {}
+        for key, recs in restored.items():
+            if len(recs):
+                self._buffer(key).insert(0, _rebuild(recs, like))
+
+    def _decode_buffers(self, state: Dict, decode) -> Dict:
+        return {int(k): decode_records(recs, decode)
+                for k, recs in state.items()}
+
+    def _encode_buffers(self, buffers: Dict, encode) -> Dict[str, list]:
+        out = {str(k): encode_view(_view(segs), encode) if segs else []
+               for k, segs in buffers.items()}
+        for k, recs in self._restored.items():
+            head = (encode_view(_view([(recs, np.arange(len(recs)))]),
+                                encode) if not isinstance(recs, list)
+                    else [encode(r) for r in recs])
+            out.setdefault(str(k), [])[:0] = head
+        return out
+
+
 def _keep_mask(watermarker: BoundedOutOfOrderness, ts: np.ndarray):
     """Per-record lateness decisions for one chunk against the per-record
     PREFIX watermark — identical to feeding the chunk one record at a
@@ -92,7 +216,7 @@ def _keep_mask(watermarker: BoundedOutOfOrderness, ts: np.ndarray):
     return ts >= wm_before - watermarker.allowed_lateness_ms
 
 
-class WindowAssembler:
+class WindowAssembler(_Restorable):
     """Buffers decoded chunks into event-time windows; yields sealed windows
     as ``(start, end, records)`` in start order."""
 
@@ -100,11 +224,16 @@ class WindowAssembler:
         self.spec = spec
         self.watermarker = BoundedOutOfOrderness(allowed_lateness_ms)
         self._buffers: Dict[int, List] = {}
+        self._restored: Dict[int, list] = {}
         self.late_dropped = 0
+
+    def _buffer(self, start: int) -> List:
+        return self._buffers.setdefault(start, [])
 
     def add_parsed_chunk(self, chunk) -> Iterator[Tuple]:
         """Buffer one decoded chunk as ``(chunk, idx)`` slices per window
         (late records dropped), then seal what the watermark passed."""
+        self._adopt(chunk)
         ts = np.asarray(chunk.ts, np.int64)
         if not ts.size:
             return
@@ -136,12 +265,30 @@ class WindowAssembler:
 
     def flush(self):
         """Seal every remaining window (end of a bounded stream)."""
+        self._adopt()
         for start in sorted(self._buffers):
             yield (start, start + self.spec.size_ms,
                    _view(self._buffers.pop(start)))
 
+    def snapshot(self, encode) -> dict:
+        """The open windows for the checkpoint coordinator: the watermark,
+        the late-drop count and every open window's records
+        (``encode(record) -> str``). At a barrier every sealed window has
+        been emitted, so this is what a resumed run needs beside the
+        source position."""
+        return {"watermark_max_ts": self.watermarker._max_ts,
+                "late_dropped": self.late_dropped,
+                "buffers": self._encode_buffers(self._buffers, encode)}
 
-class PaneBuffer:
+    def restore(self, state: dict, decode) -> None:
+        """Inverse of :meth:`snapshot` (``decode(str) -> record``)."""
+        self.watermarker._max_ts = int(state["watermark_max_ts"])
+        self.late_dropped = int(state.get("late_dropped", 0))
+        self._buffers = {}
+        self._restored = self._decode_buffers(state["buffers"], decode)
+
+
+class PaneBuffer(_Restorable):
     """Pane-sliced window assembly: each record is buffered ONCE, into its
     slide-aligned pane, and a sealed window is yielded as its list of
     panes, ``(start, end, [(pane_start, records), ...])`` in pane order,
@@ -157,9 +304,7 @@ class PaneBuffer:
     it would be late). Requires ``spec.pane_decomposable()``.
 
     The JAX package's per-record ``add`` (its geometry streams) is this
-    chunk path: every stream reaches the port cut into chunks. Its
-    ``snapshot``/``restore`` are not ported: the port has no checkpoint
-    coordinator."""
+    chunk path: every stream reaches the port cut into chunks."""
 
     def __init__(self, spec: WindowSpec, allowed_lateness_ms: int = 0):
         if not spec.pane_decomposable():
@@ -169,13 +314,18 @@ class PaneBuffer:
         self.spec = spec
         self.watermarker = BoundedOutOfOrderness(allowed_lateness_ms)
         self._panes: Dict[int, List] = {}
+        self._restored: Dict[int, list] = {}
         self.late_dropped = 0
         #: every window start below this is emitted or final-empty
         self._next: Optional[int] = None
 
+    def _buffer(self, pane: int) -> List:
+        return self._panes.setdefault(pane, [])
+
     def add_parsed_chunk(self, chunk) -> Iterator[Tuple]:
         """Buffer one decoded chunk as ``(chunk, idx)`` slices per pane
         (late records dropped), then seal what the watermark passed."""
+        self._adopt(chunk)
         ts = np.asarray(chunk.ts, np.int64)
         if not ts.size:
             return
@@ -236,6 +386,7 @@ class PaneBuffer:
 
     def flush(self) -> Iterator[Tuple]:
         """Seal every remaining window (end of a bounded stream)."""
+        self._adopt()
         if not self._panes:
             return
         lo = min(self._panes) - self.spec.size_ms + self.spec.slide_ms
@@ -244,27 +395,50 @@ class PaneBuffer:
         yield from self._emit_range(lo, None)
         self._panes.clear()
 
+    def snapshot(self, encode) -> dict:
+        """The pane state for the checkpoint coordinator: the watermark,
+        the late-drop count, the emitted frontier ``next`` and every live
+        pane's records. A snapshot taken inside a seal sweep may emit an
+        already delivered window again on resume; the window sink
+        suppresses it, and nothing is lost."""
+        return {"watermark_max_ts": self.watermarker._max_ts,
+                "late_dropped": self.late_dropped,
+                "next": self._next,
+                "panes": self._encode_buffers(self._panes, encode)}
 
-class MicroBatcher:
+    def restore(self, state: dict, decode) -> None:
+        """Inverse of :meth:`snapshot`."""
+        self.watermarker._max_ts = int(state["watermark_max_ts"])
+        self.late_dropped = int(state.get("late_dropped", 0))
+        nxt = state.get("next")
+        self._next = None if nxt is None else int(nxt)
+        self._panes = {}
+        self._restored = self._decode_buffers(state["panes"], decode)
+
+
+class MicroBatcher(_Restorable):
     """Tumbling count micro-batches of the realtime mode: the reference's
     trigger fires per element; this batches ``batch_size`` arrivals per
     device dispatch. A batch is cut strictly every ``batch_size`` records
     in arrival order, whatever the decode chunk size (a chunk larger than
     the batch is cut inside, smaller ones accumulate); its bounds are its
     first and last record's event time, and the trailing partial batch
-    flushes at the end of the stream.
-
-    The JAX package's ``snapshot``/``restore`` are not ported: the port
-    has no checkpoint coordinator."""
+    flushes at the end of the stream. The open batch checkpoints like a
+    window buffer."""
 
     def __init__(self, batch_size: int):
         self.batch_size = max(1, int(batch_size))
         self._buf: List = []
         self._count = 0
+        self._restored: Dict[int, list] = {}
+
+    def _buffer(self, _key) -> List:
+        return self._buf
 
     def add_chunk(self, chunk) -> Iterator[Tuple]:
         """Buffer one decoded chunk as slices, yielding every batch it
         completes."""
+        self._adopt(chunk)
         n, pos = len(chunk), 0
         while pos < n:
             take = min(self.batch_size - self._count, n - pos)
@@ -279,8 +453,22 @@ class MicroBatcher:
         partial batch."""
         for ch in chunks:
             yield from self.add_chunk(ch)
+        self._adopt()
         if self._buf:
             yield self._cut()
+
+    def snapshot(self, encode) -> dict:
+        """The open micro-batch for the checkpoint coordinator."""
+        return {"batch_size": self.batch_size,
+                "records": self._encode_buffers({0: self._buf},
+                                                encode).get("0", [])}
+
+    def restore(self, state: dict, decode) -> None:
+        """Inverse of :meth:`snapshot`: the restored records open the next
+        batch."""
+        recs = decode_records(state.get("records", []), decode)
+        self._buf, self._restored = [], {0: recs} if len(recs) else {}
+        self._count = len(recs)
 
     def _cut(self) -> Tuple:
         buf, self._buf, self._count = self._buf, [], 0

@@ -413,6 +413,52 @@ class PointRows:
     def __repr__(self):
         return f"PointRows({len(self)} records)"
 
+    def serialize_batch(self, fmt, *, delimiter: str = ",",
+                        date_format=None) -> Optional[List[str]]:
+        """The rows serialized straight from the columns, byte for byte
+        what ``formats.serialize_geojson`` writes for each Point (ids
+        quoted once per distinct object, timestamps formatted once per
+        second); None for another format (the caller serializes the
+        materialized records)."""
+        if not fmt or fmt.lower() != "geojson":
+            return None
+        import json
+
+        fx, fy, ft, fo, _, _ = self._cols
+        lk = self.interner.lookup
+        tmpl = ('{"geometry": {"type": "Point", "coordinates": [%r, %r]}, '
+                '"properties": {"oID": %s, "timestamp": %s}, '
+                '"type": "Feature"}')
+        safe = formats._JSON_SAFE_RE.match
+
+        def quote(s):
+            return '"%s"' % s if safe(s) else json.dumps(s)
+
+        def per_unique(keys, text):
+            """``text(first row of a key)`` once per distinct key, spread
+            over the rows as a list."""
+            uniq, first, inv = np.unique(keys, return_index=True,
+                                         return_inverse=True)
+            vals = np.array([text(int(i)) for i in first] + [""],
+                            dtype=object)[:-1]
+            return vals[inv.reshape(-1)].tolist()
+
+        if not len(fo):
+            return []
+        qid = per_unique(fo, lambda i: quote(lk(int(fo[i]))))
+        if date_format and "%f" not in date_format:
+            # formatted once per second (the format has no sub-second
+            # token)
+            tsj = per_unique(ft // 1000, lambda i: quote(
+                formats.format_timestamp(int(ft[i]), date_format)))
+        elif date_format:
+            tsj = [quote(formats.format_timestamp(t, date_format))
+                   for t in ft.tolist()]
+        else:
+            tsj = ft.tolist()
+        return [tmpl % row for row in zip(fx.tolist(), fy.tolist(), qid,
+                                          tsj)]
+
 
 class GeomChunk:
     """One decoded chunk of a polygon/linestring stream: the parsed

@@ -1,5 +1,5 @@
-"""Synthetic sources (port of ``SyntheticPointSource`` and
-``generate_query_polygons`` of ``spatialflink_tpu.streams.sources``).
+"""Sources (port of ``SyntheticPointSource``, ``generate_query_polygons``
+and ``kafka_source`` of ``spatialflink_tpu.streams.sources``).
 
 - :class:`SyntheticPointSource` — deterministic random-walk trajectories,
   the rebuild of the reference's queryOption 99 dummy-data generator, in
@@ -7,12 +7,12 @@
 - :func:`generate_query_polygons` — cell-sized square query polygons
   tiling the grid (``HelperClass.generateQueryPolygons``).
 
-``kafka_source`` is not ported yet.
+- :func:`kafka_source` — a consumer group's record values from a topic.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, List, Tuple
+from typing import Iterable, Iterator, List, Tuple
 
 import numpy as np
 
@@ -107,3 +107,20 @@ def generate_query_polygons(num: int, grid: UniformGrid) -> List[Polygon]:
                 [[(x, y), (x + side, y), (x + side, y + side),
                   (x, y + side), (x, y)]], grid))
     return out
+
+
+def kafka_source(topic: str, bootstrap_servers: str = "", *, broker=None,
+                 group: str = "spatialflink", **consumer_kwargs
+                 ) -> Iterable[str]:
+    """A consumer group's record values from ``topic``, from its committed
+    offset to the topic's end: through ``broker`` (an ``InMemoryBroker``
+    or any object of the broker interface) when given, else through the
+    broker ``bootstrap_servers`` names (``streams.kafka.resolve_broker``:
+    ``memory://<name>``, or a real cluster, which needs kafka-python).
+    ``consumer_kwargs`` go to ``streams.kafka.KafkaSource``."""
+    from spatialflink_tpu_torch.streams.kafka import (KafkaSource,
+                                                      resolve_broker)
+
+    if broker is None:
+        broker = resolve_broker(bootstrap_servers)
+    yield from KafkaSource(broker, topic, group, **consumer_kwargs)

@@ -37,3 +37,9 @@ class IdInterner:
         for s in ids:
             out.intern(str(s))
         return out
+
+    def restore(self, ids: List[str]) -> None:
+        """Make this interner (in place: its holders keep it) the one
+        :meth:`to_list` gave ``ids``."""
+        fresh = self.from_list(ids)
+        self._to_int, self._to_str = fresh._to_int, fresh._to_str

@@ -103,12 +103,15 @@ def test_cli_matches_jax(files, tmp_path, capsys, option, extra):
     assert notes(got.err) == notes(want.err)
 
 
-@pytest.mark.parametrize("flags", [["--bulk", "--kafka"],
-                                   ["--limit", "5", "--resume"],
-                                   ["--checkpoint", "ck.json"]])
+@pytest.mark.parametrize("flags", [["--bulk", "--kafka-follow"],
+                                   ["--limit", "5", "--dlq"],
+                                   ["--chaos", "plan.json"]])
 def test_unported_combinations_are_refused(files, tmp_path, capsys, flags):
-    """Kafka, checkpoints and resumes stay with a later slice: refused
-    as not yet ported, never accepted and ignored."""
+    """The live Kafka mode, the dead-letter queue and the chaos broker stay
+    with a later slice: refused as not yet ported, never accepted and
+    ignored (--kafka, --resume and --checkpoint, refused here before, run
+    since their slice: tests/test_torch_kafka.py,
+    test_torch_recovery.py)."""
     assert TD.main(_cli(files, tmp_path, 1, flags)
                    + ["--device", "cpu"]) == 2
     err = capsys.readouterr().err

@@ -96,13 +96,17 @@ def test_fleet_validation_matches_jax():
 
 
 def test_kafka_routes_and_quotas_are_refused():
+    """``kafka:`` routes, refused until the Kafka slice, are admitted and
+    updated to now (tests/test_torch_kafka.py routes them); tenant quotas
+    stay refused."""
     reg = TQ.QueryRegistry("range", radius=0.5)
-    with pytest.raises(TQ.QuerySpecError,
-                       match="'kafka:out': not yet ported"):
-        reg.admit({"id": "a", "x": 1, "y": 2, "route": "kafka:out"})
-    reg.admit({"id": "a", "x": 1, "y": 2})
-    with pytest.raises(TQ.QuerySpecError, match="not yet ported"):
-        reg.update("a", {"route": "kafka:out"})
+    reg.admit({"id": "a", "x": 1, "y": 2, "route": "kafka:out"})
+    reg.admit({"id": "b", "x": 1, "y": 2})
+    reg.apply()
+    reg.update("b", {"route": "kafka:out2"})
+    reg.apply()
+    assert [e.spec.route for e in reg.active_entries()] == [
+        "kafka:out", "kafka:out2"]
     with pytest.raises(NotImplementedError, match="tenant quotas: not yet"):
         TQ.QueryRegistry("range", tenant_quotas={"t": {"max_active": 1}})
 
@@ -421,7 +425,7 @@ def _count_conf(tmp_path):
     (["--option", "66", "--format", "GeoJSON"],
      "not queryOption 66 (knn, PolygonxPoint)"),
     (["--option", "6"], "not queryOption 6 (range, PointxPolygon)"),
-    (["--option", "1", "KAFKA"], "route 'kafka:out': not yet ported"),
+    (["--option", "1", "KAFKA"], "route 'kafka:' topics and need --kafka"),
 ])
 def test_cli_refusals(tmp_path, capsys, case, message):
     inp = tmp_path / "in.csv"

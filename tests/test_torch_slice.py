@@ -210,20 +210,21 @@ def test_realtime_knn_is_refused(option):
 
 @pytest.mark.parametrize("argv,message", [
     (["--option", "6", "--adaptive-grid"], "--adaptive-grid: not yet ported"),
-    (["--option", "2000", "--checkpoint-dir", "ck"],
-     "--checkpoint-dir: not yet ported"),
+    (["--option", "2000", "--chaos", "seed=1"], "--chaos: not yet ported"),
     (["--option", "101"], "queryOption 101 (join) needs --input2"),
-    (["--option", "6", "--kafka"], "--kafka: not yet ported"),
+    (["--option", "6", "--kafka", "--kafka-follow"],
+     "--kafka-follow: not yet ported"),
     (["--option", "101", "--panes", "--devices", "4"],
      "--devices: not yet ported"),
-    (["--option", "6", "--limit", "5", "--resume"],
-     "--resume: not yet ported"),
+    (["--option", "6", "--limit", "5", "--dlq"], "--dlq: not yet ported"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, message):
     """Flags and options of later slices are refused, never ignored (the
     apps 1010 and 2000, --panes on a join and --limit, refused here
     before, run since their slice: tests/test_torch_apps.py,
-    test_torch_join_panes.py, test_torch_bulk.py)."""
+    test_torch_join_panes.py, test_torch_bulk.py; so do --kafka,
+    --checkpoint-dir and --resume: tests/test_torch_kafka.py,
+    test_torch_recovery.py)."""
     inp = tmp_path / "in.csv"
     inp.write_text("\n".join(_stream(n=10)[0]) + "\n")
     rc = TD.main(["--config", CONF, "--input1", str(inp), "--format", "CSV",

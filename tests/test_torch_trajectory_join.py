@@ -112,7 +112,9 @@ def test_multi_query_refused_outside_range_knn_and_tknn():
 
 def test_cli_matches_jax(tmp_path, capsys):
     """The CLI for 206 and 210 (--input2): stdout as the JAX driver prints
-    it; without --input2 tJoin is refused; --checkpoint is not ported."""
+    it; without --input2 tJoin is refused; --chaos is not ported
+    (--checkpoint, refused here before, runs since its slice:
+    test_torch_recovery.py)."""
     inp, inp2 = tmp_path / "a.csv", tmp_path / "b.csv"
     inp.write_text("\n".join(LINES) + "\n")
     inp2.write_text("\n".join(LINES2) + "\n")
@@ -131,7 +133,7 @@ def test_cli_matches_jax(tmp_path, capsys):
                   "--input1", str(inp), "--device", "cpu"])
     assert rc == 2 and "(tjoin) needs --input2" in capsys.readouterr().err
     rc = TD.main(["--config", CONF, "--option", "205", "--format", "CSV",
-                  "--input1", str(inp), "--checkpoint", "x", "--device",
+                  "--input1", str(inp), "--chaos", "seed=1", "--device",
                   "cpu"])
-    assert rc == 2 and "--checkpoint: not yet ported" in \
+    assert rc == 2 and "--chaos: not yet ported" in \
         capsys.readouterr().err
