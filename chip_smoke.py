@@ -257,13 +257,38 @@ its wall seconds):
    and without checkpoints (records/s of both). Last, 205's legacy
    ``--checkpoint`` over the taxi stream's first 65,536 points: a run over
    half of them, then over all, gives the results of one run over all
-   (K8a launched after the restore).
-9. Output: the build report, the card line, one JSON ``kernels`` line
+   (K8a launched after the restore). Then the adaptive grid's straddling
+   resume (:func:`adaptive_straddle_phase`): ``--kafka --option 1
+   --adaptive-grid 8 --repartition-interval 25000 --checkpoint-dir``
+   over the high-skew stream of phase 9 crashes at its 10th fresh window,
+   after a checkpoint that holds the split layout (the manifest's
+   ``grid`` component: version >= 1, split cells), and resumes: the
+   restored version is never lower, K1 launches after the resume, and the
+   window table is the uninterrupted uniform run's, each window marked
+   once.
+9. The skew-adaptive grid (``adaptive``, in the parent beside the Kafka
+   child, after the CLI runs; its figures are taken side by side with
+   it): bench_skew's two streams (the port's
+   ``streams.synthetic.clustered_lines``: 262,144 CSV rows 1 ms apart,
+   80 % and none of them in a two-cell box by the bbox middle) over the
+   conf's grid with 40 s / 5 s windows and radius 0.002, through
+   ``driver.main``: options 1 (K1) and 6 (K4, a 64-edge hotspot ring)
+   and multiQuery 1 (K1's query axis, 128 points, 8 of them hotspot
+   monitors inside the cluster box) and 6 (K4x, 16 polygons), each
+   uniform and with ``--adaptive-grid 8 --repartition-interval 25000``:
+   the adaptive windows equal the uniform ones record for record, both
+   runs launch the path's kernels (the launch counters zeroed before each
+   run and read after it), and each row reports records/s of both, the
+   kept share and the windows skipped (the prefilter's counters), the
+   epochs, splits and final grid version, the median padded batch of
+   both and the launches of both.
+10. Output: the build report, the card line, one JSON ``kernels`` line
    (K4x's entry holds the cell order under ``helpers``, with the joins'
    index under its ``join``; K5's the window cases and its micro-batch
    cases; K4x's and K5's their join cases, also under ``join``; K7, K6,
    K3, and K8a-K8d with their 512-point cut under ``micro_batch``; the
-   launches of phase 8 counted in), and as the last line
+   launches of phases 8 and 9 counted in; the ``adaptive`` rows and
+   their launches beside it), and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero without a result line when CUDA is not available or the
@@ -4285,6 +4310,386 @@ def traj_kernel_phase(torch, timer: Timer, cols):
 # ------------------------------------------------------------------------ #
 # the Kafka topology and exactly-once recovery (a process of its own)
 
+N_ADAPTIVE = N_SHORT        # records of each skewed stream
+ADAPTIVE_HOT = (0.8, 0.0)   # bench_skew's high-skew and no-skew rows
+ADAPTIVE_K = 8              # hot cells split 8 x 8 (bench_skew's refine)
+ADAPTIVE_INTERVAL = 25_000  # records per repartition epoch
+ADAPTIVE_RADIUS = 0.002     # degrees (bench_skew's radius)
+ADAPTIVE_QUERIES = 128      # query points under multiQuery
+ADAPTIVE_MONITORS = 8       # of them inside the cluster box
+ADAPTIVE_FLAGS = ["--adaptive-grid", str(ADAPTIVE_K),
+                  "--repartition-interval", str(ADAPTIVE_INTERVAL)]
+#: (label, option, multiQuery, kernels of its path): each over the two
+#: skewed streams through driver.main, uniform and adaptive
+ADAPTIVE_RUNS = [
+    ("1", 1, False, ("range_mask_stats",)),
+    ("6", 6, False, ("pip_dist", "range_mask_stats")),
+    ("1-multi", 1, True, ("range_mask_stats",)),
+    ("6-multi", 6, True, ("pip_lattice", "cell_order", "range_mask_stats")),
+]
+ADAPTIVE_KERNELS = ("range_mask_stats", "pip_dist", "pip_lattice",
+                    "cell_order")
+
+
+def skew_lines(hot: float, n: int = N_ADAPTIVE):
+    """bench_skew's stream: ``hot`` of the records in a two-cell box by
+    the bbox middle, the rest uniform, 1 ms apart, as CSV rows (the port's
+    ``streams.synthetic.clustered_lines``, seed 7)."""
+    from spatialflink_tpu_torch.streams.synthetic import clustered_lines
+
+    return clustered_lines(_grid(), n, hot, seed=7, fmt="csv", dt_ms=1)
+
+
+def skew_hotspot():
+    """The cluster's centre (``clustered_xy``'s default)."""
+    g = _grid()
+    return ((g.min_x + g.max_x) / 2 + g.cell_length / 3,
+            (g.min_y + g.max_y) / 2 + g.cell_length / 3)
+
+
+def skew_queries():
+    """bench_skew's standing fleet: 128 query points over the bbox, the
+    first 8 hotspot monitors inside the cluster box."""
+    g = _grid()
+    rng = np.random.default_rng(1)
+    xs = rng.uniform(g.min_x, g.max_x, ADAPTIVE_QUERIES)
+    ys = rng.uniform(g.min_y, g.max_y, ADAPTIVE_QUERIES)
+    hx, hy = skew_hotspot()
+    span = 2.0 * g.cell_length
+    m = ADAPTIVE_MONITORS
+    xs[:m] = hx + rng.uniform(-span / 2, span / 2, m)
+    ys[:m] = hy + rng.uniform(-span / 2, span / 2, m)
+    return [(float(x), float(y)) for x, y in zip(xs, ys)]
+
+
+def skew_polygons():
+    """16 query polygons of 64 edges: a hotspot ring inside the cluster
+    box, then the main path's other 15."""
+    hx, hy = skew_hotspot()
+    return [ring(64, _grid().cell_length / 2, hx, hy)] + query_polygons()[1:]
+
+
+def _empty_as_one(w):
+    """A window in comparable form with every empty selection in one form:
+    a window whose records the prefilter drops all returns an empty list
+    (as in the JAX package), where the uniform run selects empty
+    columns."""
+    start, end, per_query, extras = w
+    return (start, end, [("empty",) if len(f[1]) == 0 else f
+                         for f in per_query], extras)
+
+
+def adaptive_config(tmp: str) -> str:
+    """The conf with bench_skew's query shape: CSV, radius 0.002, the
+    skewed fleet and polygons, 40 s windows sliding 5 s."""
+    import yaml
+
+    with open(CONF) as f:
+        d = yaml.safe_load(f)
+    d["inputStream1"]["format"] = "CSV"
+    d["query"]["radius"] = ADAPTIVE_RADIUS
+    d["query"]["queryPoints"] = [list(p) for p in skew_queries()]
+    d["query"]["queryPolygons"] = [[list(p) for p in r]
+                                   for r in skew_polygons()]
+    d["window"].update(interval=40, step=5)
+    path = os.path.join(tmp, "adaptive.yml")
+    with open(path, "w") as f:
+        yaml.safe_dump(d, f)
+    return path
+
+
+@contextlib.contextmanager
+def _batch_capacities():
+    """The padded capacity of every point batch built inside."""
+    from spatialflink_tpu_torch.models import PointBatch
+
+    caps, orig = [], PointBatch.from_arrays
+
+    def build(*a, **kw):
+        b = orig(*a, **kw)
+        caps.append(b.capacity)
+        return b
+
+    PointBatch.from_arrays = build
+    try:
+        yield caps
+    finally:
+        PointBatch.from_arrays = orig
+
+
+@contextlib.contextmanager
+def _controllers_made():
+    """Every repartition controller made inside."""
+    from spatialflink_tpu_torch.runtime.repartition import \
+        RepartitionController as RC
+
+    made, init = [], RC.__init__
+
+    def new_init(self, *a, **kw):
+        init(self, *a, **kw)
+        made.append(self)
+
+    RC.__init__ = new_init
+    try:
+        yield made
+    finally:
+        RC.__init__ = init
+
+
+@contextlib.contextmanager
+def _host_seconds(targets):
+    """{name: host seconds spent inside ``getattr(owner, attr)``} for each
+    ``name: (owner, attr)`` of ``targets``, over the calls made inside."""
+    spent = dict.fromkeys(targets, 0.0)
+    saved = {}
+    for name, (owner, attr) in targets.items():
+        fn = saved[name] = getattr(owner, attr)
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                spent[_name] += time.perf_counter() - t0
+        setattr(owner, attr, timed)
+    try:
+        yield spent
+    finally:
+        for name, (owner, attr) in targets.items():
+            setattr(owner, attr, saved[name])
+
+
+def adaptive_phase(card: str, device: str = "cuda"):
+    """The skew-adaptive grid on the card, through ``driver.main``: for
+    each of bench_skew's two streams (262,144 records 1 ms apart, 80 % and
+    none of them in the cluster box), each of :data:`ADAPTIVE_RUNS` runs
+    uniform and with ``--adaptive-grid 8 --repartition-interval 25000``
+    (the launch counters zeroed before each run and read after it): the
+    adaptive run's windows must equal the uniform run's, record for
+    record, and both must launch the kernels of the path. Reports
+    records/s of both, the kept share and the windows skipped (the
+    prefilter's counters), epochs, splits and the final grid version, the
+    median padded batch of both, the launches of both, and the adaptive
+    run's host seconds in the repartition epochs (layout rebuilds
+    included) and in the prefilter (mask rebuilds, leaf assignment and
+    the kept batch)."""
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+    from spatialflink_tpu_torch.ops import range as R
+
+    counters = {"range_mask_stats": R.range_mask_stats,
+                "pip_dist": HK.pip_dist, "pip_lattice": HK.pip_lattice,
+                "cell_order": HK.cell_order}
+    launches = dict.fromkeys(ADAPTIVE_KERNELS, 0)
+    report = []
+    build = os.path.join(ROOT, "spatialflink_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        _adaptive_runs(card, tmp, device, counters, launches, report)
+    return launches, report
+
+
+def _adaptive_runs(card, tmp, device, counters, launches, report):
+    """The runs of :func:`adaptive_phase`, their files in ``tmp``."""
+    import torch
+
+    from spatialflink_tpu_torch import driver as D
+    from spatialflink_tpu_torch.operators.base import SpatialOperator
+    from spatialflink_tpu_torch.runtime.repartition import \
+        RepartitionController
+    from spatialflink_tpu_torch.utils import metrics
+
+    conf = adaptive_config(tmp)
+    host = {"epoch_s": (RepartitionController, "epoch"),
+            "prefilter_s": (SpatialOperator, "_prefilter")}
+
+    def run(path, opt, multi, adaptive):
+        argv = ["--config", conf, "--option", str(opt), "--input1", path,
+                "--device", device] + (["--multi-query"] if multi else []) \
+            + (ADAPTIVE_FLAGS if adaptive else [])
+        for fn in counters.values():
+            fn.launches = 0
+        with _driver_capture() as (wins, err), _batch_capacities() as caps, \
+                _controllers_made() as made, _host_seconds(host) as spent, \
+                metrics.scoped_registry() as reg:
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rc = D.main(argv)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"adaptive {opt}: driver.main gave {rc}: "
+                                 f"{err.getvalue()[-2000:]}")
+        got = {k: fn.launches for k, fn in counters.items()}
+        snap = {k: reg.counter(k).count for k in (
+            "prefilter-records", "prefilter-kept",
+            "prefilter-windows-skipped", "prefilter-mask-recomputes",
+            "repartitions", "grid-splits", "grid-merges")}
+        snap.update(spent)
+        return wins, wall, got, caps, (made[0] if made else None), snap
+
+    for hot in ADAPTIVE_HOT:
+        t0 = time.perf_counter()
+        lines = skew_lines(hot)
+        path = os.path.join(tmp, f"skew-{hot}.csv")
+        with open(path, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        log(f"adaptive: {len(lines)} CSV rows, hot share {hot} "
+            f"({time.perf_counter() - t0:.1f} s to generate and write)")
+        for label, opt, multi, kernels in ADAPTIVE_RUNS:
+            uw, uwall, ugot, ucaps, _, _ = run(path, opt, multi, False)
+            aw, awall, agot, acaps, ctl, snap = run(path, opt, multi, True)
+            if len(aw) != len(uw) or not aw or not all(
+                    _kequal(_empty_as_one(a), _empty_as_one(u))
+                    for a, u in zip(aw, uw)):
+                raise AssertionError(f"adaptive {label} at hot {hot}: the "
+                                     "windows differ from the uniform run's")
+            if device == "cuda" and any(agot[k] <= 0 or ugot[k] <= 0
+                                        for k in kernels):
+                raise AssertionError(f"adaptive {label} at hot {hot}: "
+                                     f"kernels of its path not launched: "
+                                     f"adaptive {agot}, uniform {ugot}")
+            for k in ADAPTIVE_KERNELS:
+                launches[k] += agot[k] + ugot[k]
+            n = len(lines)
+            row = {"run": label, "option": opt, "multi_query": multi,
+                   "hot_share": hot, "records": n, "windows": len(aw),
+                   "records_per_s": n / awall,
+                   "uniform_records_per_s": n / uwall,
+                   "speedup": uwall / awall, "wall_s": awall,
+                   "uniform_wall_s": uwall,
+                   "kept_share": snap["prefilter-kept"]
+                   / max(1, snap["prefilter-records"]),
+                   "windows_skipped": snap["prefilter-windows-skipped"],
+                   "mask_recomputes": snap["prefilter-mask-recomputes"],
+                   "epochs": ctl.epochs, "repartitions": snap["repartitions"],
+                   "splits": len(ctl.grid.split_cells()),
+                   "grid_splits": snap["grid-splits"],
+                   "grid_merges": snap["grid-merges"],
+                   "grid_version": ctl.grid.version,
+                   "leaves": ctl.grid.num_leaves,
+                   "epoch_s": snap["epoch_s"],
+                   "prefilter_s": snap["prefilter_s"],
+                   "median_batch": _pct(acaps, 50),
+                   "uniform_median_batch": _pct(ucaps, 50),
+                   "launches": {k: v for k, v in agot.items() if v},
+                   "uniform_launches": {k: v for k, v in ugot.items() if v},
+                   "card": card}
+            log("adaptive", json.dumps(row))
+            report.append(row)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+
+#: the straddling resume: crash at this fresh window (a checkpoint every 2
+#: windows; the first epoch closes past record 25,000, in window 5 of
+#: 5,000 records, so the commit after window 8 holds the split layout)
+STRADDLE_CRASH_AT = 10
+
+
+def adaptive_straddle_phase(card: str, tmp: str, device: str = "cuda"):
+    """A crash and resume of ``--kafka --option 1 --adaptive-grid 8
+    --repartition-interval 25000 --checkpoint-dir`` (a checkpoint every 2
+    windows) over bench_skew's high-skew stream in an in-memory topic,
+    the query point at the hotspot: the crash comes after the first
+    committed repartition (the manifest's ``grid`` component holds
+    version >= 1 and split cells), the resumed run restores that layout
+    (never a lower version) and launches K1, and the window table equals
+    the uninterrupted uniform run's, each window marked once; the crashed
+    and resumed runs' windows together are the uniform run's."""
+    import torch
+    import yaml
+
+    from spatialflink_tpu_torch import driver as D
+    from spatialflink_tpu_torch.ops import range as R
+    from spatialflink_tpu_torch.runtime.checkpoint import \
+        CheckpointCoordinator
+    from spatialflink_tpu_torch.streams.kafka import resolve_broker
+
+    lines = skew_lines(ADAPTIVE_HOT[0])
+    url = "memory://straddle"
+    broker = resolve_broker(url)
+    broker.produce_many("skewed", lines)
+    with open(CONF) as f:
+        d = yaml.safe_load(f)
+    d["kafkaBootStrapServers"] = url
+    d["inputStream1"].update(topicName="skewed", format="CSV")
+    d["query"].update(radius=ADAPTIVE_RADIUS,
+                      queryPoints=[list(skew_hotspot())])
+
+    def run(name, extra, crash_at=None):
+        d["outputStream"]["topicName"] = f"out-{name}"
+        cfg = os.path.join(tmp, f"{name}.yml")
+        with open(cfg, "w") as f:
+            yaml.safe_dump(d, f)
+        R.range_mask_stats.launches = 0
+        with contextlib.ExitStack() as stack:
+            if crash_at is not None:
+                stack.enter_context(_crash_at_fresh_window(crash_at))
+            wins, err = stack.enter_context(_driver_capture())
+            made = stack.enter_context(_controllers_made())
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                rc = D.main(["--config", cfg, "--option", "1", "--kafka",
+                             "--kafka-group", f"g-{name}", "--device",
+                             device, *extra])
+            except RuntimeError as e:
+                if crash_at is None or "injected crash" not in str(e):
+                    raise
+                rc = "crashed"
+            wall = time.perf_counter() - t0
+        if rc != (0 if crash_at is None else "crashed"):
+            raise AssertionError(f"straddle {name}: driver.main gave {rc}: "
+                                 f"{err.getvalue()[-2000:]}")
+        return wins, wall, R.range_mask_stats.launches, made
+
+    ref, ref_wall, _, _ = run("skew", [])
+    ref_table = _window_table(broker, "out-skew")
+    ckdir = os.path.join(tmp, "ck-skew")
+    flags = ADAPTIVE_FLAGS + ["--checkpoint-dir", ckdir,
+                              "--checkpoint-every", "2"]
+    crashed, crash_wall, crash_launches, _ = run(
+        "skew-crash", flags, crash_at=STRADDLE_CRASH_AT)
+    probe = CheckpointCoordinator(ckdir, job=None)
+    if not probe.load() or "grid" not in probe._pending:
+        raise AssertionError("straddle: no manifest with a grid component")
+    saved = probe._pending["grid"][1]
+    if saved["version"] < 1 or not saved["split_cells"]:
+        raise AssertionError(f"straddle: the crash came before a committed "
+                             f"repartition ({saved})")
+    rwins, rwall, launches, made = run("skew-crash", flags + ["--resume"])
+    if device == "cuda" and launches <= 0:
+        raise AssertionError("straddle: K1 not launched after the resume")
+    if made[0].grid.version < saved["version"]:
+        raise AssertionError(f"straddle: the resume rewound the grid to "
+                             f"version {made[0].grid.version}")
+    table = _window_table(broker, "out-skew-crash")
+    if any(len(v) != 1 for v in table.values()) or table != ref_table:
+        raise AssertionError("straddle: the window table is not the "
+                             "uninterrupted run's, each window marked once")
+    merged = {w[:2]: w for w in crashed + rwins}
+    if len(ref) < STRADDLE_CRASH_AT or not all(
+            _kequal(merged.get(w[:2]), w) for w in ref):
+        raise AssertionError("straddle: the crashed and resumed windows "
+                             "are not the uniform run's")
+    row = {"run": "1-adaptive-straddle", "records": len(lines),
+           "windows": len(ref), "crash_at_window": STRADDLE_CRASH_AT,
+           "crashed_windows": len(crashed), "resumed_windows": len(rwins),
+           "saved_grid_version": saved["version"],
+           "saved_split_cells": len(saved["split_cells"]),
+           "resumed_grid_version": made[0].grid.version,
+           "resumed_epochs": made[0].epochs,
+           "records_per_s_uniform": len(lines) / ref_wall,
+           "crash_wall_s": crash_wall, "resume_wall_s": rwall,
+           "k1_launches_before_crash": crash_launches,
+           "k1_launches_after_resume": launches, "card": card}
+    log("recovery", json.dumps(row))
+    return row
+
+
 KAFKA_URL = "memory://chip"
 N_TRAJ_CKPT = N_TRAJ_RT    # 205's legacy --checkpoint: the realtime prefix
 #: (label, option, extra flags, input topics, query overrides, kernels of
@@ -4386,11 +4791,20 @@ def apps_serde_child(seed: int, tmp: str) -> None:
 
 
 def kafka_recovery_child(seed: int, tmp: str) -> None:
-    """:func:`kafka_recovery_phase` as a :class:`PhaseProcess`; called
-    alone, it gives the phase's figures with nothing beside it."""
+    """:func:`kafka_recovery_phase`, then the adaptive grid's straddling
+    resume (:func:`adaptive_straddle_phase`), as a :class:`PhaseProcess`;
+    called alone, it gives the phases' figures with nothing beside
+    them."""
     _child_setup()
     t0 = time.perf_counter()
-    rep = kafka_recovery_phase(card_line(), seed, tmp)
+    card = card_line()
+    rep = kafka_recovery_phase(card, seed, tmp)
+    row = adaptive_straddle_phase(card, tmp)
+    rep["recovery"].append(row)
+    launches = rep["launches"]
+    launches["range_mask_stats"] = (launches.get("range_mask_stats", 0)
+                                    + row["k1_launches_before_crash"]
+                                    + row["k1_launches_after_resume"])
     _child_report(tmp, "kafka-recovery", rep, t0)
 
 
@@ -5003,6 +5417,8 @@ def main(argv=None) -> int:
     phase("cli-geom", geom_cli_phase, glines["Polygon"][:N_GEOM_CLI])
     phase("cli", cli_phase, args.seed)
     phase("cli-queries", queries_cli_phase, args.seed)
+    adaptive_launches, adaptive_report = phase("adaptive", adaptive_phase,
+                                               card)
     kafka_report = phase("kafka-recovery-wait", kafka_proc.result)
     phases["kafka-recovery"] = kafka_report["wall_s"]
     # the bulk phase writes the first N_BULK_GEOMS of each as GeoJSON
@@ -5072,7 +5488,7 @@ def main(argv=None) -> int:
     for more in (rt_launches, short_launches, count_launches, geom_launches,
                  other_launches, pane_launches, gpane_launches, dyn_launches,
                  join_launches, jrt_launches, traj_launches, jp_launches,
-                 bulk_launches, kafka_report["launches"]):
+                 bulk_launches, kafka_report["launches"], adaptive_launches):
         for name in KERNELS:
             launches[name] += more.get(name, 0)
     for name in K8:
@@ -5227,6 +5643,8 @@ def main(argv=None) -> int:
                       "dynamic": dyn_report,
                       "trajectory": traj_report,
                       "kafka": kafka_report["topology"],
+                      "adaptive": adaptive_report,
+                      "adaptive_launches": adaptive_launches,
                       "recovery": kafka_report["recovery"],
                       "trajectory_pane_err_share_of_bound": traj_pane_err,
                       "geom_host": geom_host, "breakdown": breakdown,

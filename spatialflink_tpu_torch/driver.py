@@ -65,7 +65,15 @@ tAggregate through ``runtime.checkpoint.CheckpointCoordinator``, in the
 JAX package's manifest format; a resumed file replay skips the records the
 checkpoint reflects and suppresses the windows already printed (the
 checkpoint directory's journal). ``--checkpoint`` is the legacy state file
-of realtime tStats 205 and tAggregate 207. A control tuple in a stream
+of realtime tStats 205 and tAggregate 207. ``--adaptive-grid [K]``
+(``--repartition-interval N``) refines hot cells K x K in epochs of N
+decoded records (``runtime.repartition.RepartitionController``) and
+prefilters the point-stream range queries' windows on the host against
+the leaf masks (``operators.base.SpatialOperator._prefilter``): the same
+results, fewer records to the kernels; every other option accepts it and
+runs unchanged, the epochs counting all the same, and the layout rides
+``--checkpoint-dir`` as the component ``grid``. ``--shard-order`` is
+accepted and its value dropped: one card has no shards to place. A control tuple in a stream
 stops the run (exit 0); a SIGTERM drains the records read and writes a
 final checkpoint. Every other option, and every flag or config feature
 not ported yet (``--kafka-follow``, ``--chaos``, ``--retry``, ``--dlq``,
@@ -83,7 +91,8 @@ geometry type is dropped and counted (``decode_chunks.off_type_dropped``).
         [--input2 queries.csv --format2 CSV] [--bulk] [--limit N] \\
         [--output out.geojson] [--output-format GeoJSON|WKT|CSV|TSV] \\
         [--kafka [--kafka-group G] [--kafka-bootstrap URL]] \\
-        [--checkpoint-dir DIR [--resume]] [--device cuda|cpu]
+        [--checkpoint-dir DIR [--resume]] [--adaptive-grid [K]
+        [--repartition-interval N]] [--device cuda|cpu]
 
 stdout carries one line per window as the JAX driver prints it:
 ``{'window': [start, end], 'count': n}`` plus the result's extras (``k``
@@ -404,6 +413,9 @@ def _query_conf(params: Params, spec: CaseSpec) -> QueryConfiguration:
         pane_device_merge=params.query.pane_device_merge,
         k=params.query.k,
         checkpointer=getattr(params, "checkpointer", None),
+        # --adaptive-grid: the run's AdaptiveGrid, whose leaf masks drive
+        # the point-stream range operators' prefilter
+        adaptive_grid=getattr(params, "adaptive_grid", None),
     )
 
 
@@ -1361,6 +1373,31 @@ def _make_parser() -> argparse.ArgumentParser:
                          "since the last one")
     ap.add_argument("--checkpoint-retain", type=int, default=3,
                     help="checkpoint manifests kept in --checkpoint-dir")
+    ap.add_argument("--adaptive-grid", nargs="?", const=4, type=int,
+                    default=None, metavar="K", dest="adaptive_grid",
+                    help="skew-adaptive grid: refine hot cells KxK (default "
+                         "K=4) and coarsen cold neighborhoods, with "
+                         "epoch-based split/merge decisions driven by the "
+                         "decoded cells. Records keep their base cells and "
+                         "the kernels are unchanged; the refined GN∪CN "
+                         "leaf masks select a window's records on the host "
+                         "before the kernel, so exact-mode results are the "
+                         "uniform grid's and the gain is the smaller batch "
+                         "on skewed streams (point-stream range queries; "
+                         "the layout rides coordinated checkpoints)")
+    ap.add_argument("--repartition-interval", type=int, default=50_000,
+                    metavar="N",
+                    help="records per repartition epoch for "
+                         "--adaptive-grid (default 50000): each epoch "
+                         "re-evaluates split/merge thresholds with "
+                         "hysteresis (split at 5%% epoch share, merge "
+                         "back below 1.25%% for 2 consecutive epochs)")
+    ap.add_argument("--shard-order", choices=["arrival", "cell"],
+                    default="arrival",
+                    help="mesh shard placement for distributed window "
+                         "batches ('cell' co-locates whole grid cells per "
+                         "shard); one card has no shards, so both give "
+                         "the same run")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "PyTorch versions)")
@@ -1448,6 +1485,38 @@ def _coordinator(ap, args, params: Params, spec: CaseSpec,
             print("# --resume: no valid checkpoint in "
                   f"{args.checkpoint_dir}; starting fresh", file=sys.stderr)
     params.checkpointer = coord
+
+
+def _adaptive_grid(ap, args, params: Params) -> None:
+    """``--adaptive-grid``: the run's AdaptiveGrid and its repartition
+    controller on ``params`` (registered with the checkpoint coordinator,
+    which restores a checkpointed layout here), or a note under
+    ``--bulk``, whose batches are built before any window."""
+    from spatialflink_tpu_torch.index import AdaptiveGrid
+    from spatialflink_tpu_torch.runtime.repartition import (
+        RepartitionController)
+
+    if args.bulk:
+        print("--adaptive-grid ignored with --bulk (whole-replay "
+              "batches bypass the window-time prefilter); the default "
+              "batched path supports it", file=sys.stderr)
+        return
+    try:
+        agrid = AdaptiveGrid(params.grids()[0], refine=args.adaptive_grid)
+    except ValueError as e:
+        ap.error(f"--adaptive-grid: {e}")
+    ctl = RepartitionController(agrid,
+                                interval_records=args.repartition_interval)
+    coord = getattr(params, "checkpointer", None)
+    if coord is not None:
+        ctl.register_checkpoint(coord)
+    # attributes, not Params fields: they stay out of the job fingerprint
+    params.adaptive_grid = agrid
+    params.repartitioner = ctl
+    print(f"# adaptive grid: hot cells split "
+          f"{args.adaptive_grid}x{args.adaptive_grid}, repartition "
+          f"epoch every {args.repartition_interval} records",
+          file=sys.stderr)
 
 
 def _dynamic_plane(args, params: Params, spec: CaseSpec) -> Optional[str]:
@@ -1540,6 +1609,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         ap.error("--resume requires --checkpoint-dir")
     if args.checkpoint_dir and spec is not None:
         _coordinator(ap, args, params, spec, dynamic)
+    if args.adaptive_grid is not None:
+        _adaptive_grid(ap, args, params)
     if not args.kafka and args.seed_scan_limit is not None:
         ap.error("--seed-scan-limit bounds the output topic's dedup scan "
                  "and needs --kafka")
@@ -1695,6 +1766,13 @@ def _run_cli(ap, args, params: Params, spec, skip1: int,
         prev = signal.signal(signal.SIGTERM,
                              lambda signum, frame: metrics.request_shutdown())
         stack.callback(signal.signal, signal.SIGTERM, prev)
+    repartitioner = getattr(params, "repartitioner", None)
+    if repartitioner is not None:
+        # the decode's cell assignments feed the epochs from here on; the
+        # chain is restored on every exit, so an in-process run never
+        # leaks it
+        repartitioner.install()
+        stack.callback(repartitioner.uninstall)
     n = 0
     stopped = graceful = False
     try:

@@ -10,18 +10,61 @@ assignment, the reference's layer math, and the dense GN/CN/NB cell masks.
   guaranteed cells); candidate layers = ceil(r / cellLength).
 - ``radius == 0`` in :meth:`UniformGrid.neighboring_cells_mask` selects all
   cells.
+- ``_CELL_OBSERVER``: when set, every :meth:`UniformGrid.assign_cell`
+  result is handed to it (the adaptive grid's repartition controller
+  counts each decoded chunk's cells through it).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Iterable, Set, Tuple, Union
+from typing import Callable, Iterable, Optional, Set, Tuple, Union
 
 import numpy as np
 import torch
 
 #: Chebyshev layer of a pair with an invalid (-1) cell: never within reach
 NO_LAYER = 2 ** 30
+
+#: the cell observer: None (the default) leaves :meth:`UniformGrid.
+#: assign_cell` as it is; ``runtime.repartition.RepartitionController.
+#: install`` chains itself here, so each assignment's cell ids feed its
+#: epoch counts
+_CELL_OBSERVER: Optional[Callable[[np.ndarray], None]] = None
+
+
+def observe_cells(cells: np.ndarray) -> None:
+    """Hand already assigned ``cells`` to the observer. The JAX package
+    assigns the cells of some batches a second time, from the window's
+    materialized records (count windows of the unfiltered families, the
+    trajectory families' windows); the port reuses the decoded cells there
+    and reports them here, so the repartition epochs see what they see in
+    the JAX package."""
+    if _CELL_OBSERVER is not None:
+        _CELL_OBSERVER(cells)
+
+
+def observe_each(cells: np.ndarray) -> None:
+    """Hand ``cells`` to the observer as if one by one: restored window
+    records, which the JAX package decodes one by one (each ``Point.
+    create`` assigning its cell), where the port decodes them in one
+    parse; an epoch then closes at the same record in both."""
+    hand_each(_CELL_OBSERVER, cells)
+
+
+def hand_each(observer: Optional[Callable[[np.ndarray], None]],
+              cells: np.ndarray) -> None:
+    """Call ``observer`` on each of ``cells`` alone, or once on all of
+    them where it carries an ``each`` that gives the same result (the
+    repartition controller's: it cuts the array where epochs close)."""
+    if observer is None:
+        return
+    each = getattr(observer, "each", None)
+    if each is not None:
+        each(cells)
+        return
+    for i in range(len(cells)):
+        observer(cells[i:i + 1])
 
 
 class UniformGrid:
@@ -79,14 +122,31 @@ class UniformGrid:
         return (cx >= 0) & (cy >= 0) & (cx < self.n) & (cy < self.n)
 
     def assign_cell(self, x, y) -> Tuple[np.ndarray, np.ndarray]:
-        """Coordinates -> (cell id int32, valid bool); cell is -1 if invalid."""
+        """Coordinates -> (cell id int32, valid bool); cell is -1 if
+        invalid. The cell observer sees the cells."""
+        cell, valid = self.cell_ids(x, y)
+        if _CELL_OBSERVER is not None:
+            _CELL_OBSERVER(cell)
+        return cell, valid
+
+    def cell_ids(self, x, y) -> Tuple[np.ndarray, np.ndarray]:
+        """:meth:`assign_cell` without the observer."""
         cx, cy = self.cell_indices(x, y)
         valid = self.valid_indices(cx, cy)
-        cell = np.where(valid, cx * self.n + cy, -1).astype(np.int32)
-        return cell, valid
+        return np.where(valid, cx * self.n + cy, -1).astype(np.int32), valid
 
     def cell_id(self, cx: int, cy: int) -> int:
         return int(cx) * self.n + int(cy)
+
+    def cell_key(self, cell: int) -> str:
+        """Reference wire format: two 5-digit zero-padded indices
+        concatenated (``CELLINDEXSTRLENGTH = 5``, ``UniformGrid.java:40,
+        92``)."""
+        cx, cy = int(cell) // self.n, int(cell) % self.n
+        return f"{cx:05d}{cy:05d}"
+
+    def cell_from_key(self, key: str) -> int:
+        return self.cell_id(int(key[:5]), int(key[5:]))
 
     def bbox_cells(self, min_x: float, min_y: float, max_x: float,
                    max_y: float) -> Set[int]:

@@ -39,10 +39,19 @@ and commits. Restored pane partials come back on the host; where the
 family merges on the device (kNN), they go onto the device at the first
 window that reads them and take the device merge with the fresh ones.
 
-Not yet ported: the device mesh, the adaptive grid (ROADMAP Queue 1 item
-4), and the drive loop's telemetry, latency-plane, governor and accounting
-hooks (item 5). The
-JAX package's single-device seams around the mesh
+The adaptive grid (``conf.adaptive_grid``, an ``index.AdaptiveGrid``): the
+point-stream range operators keep each query's GN ∪ CN leaf mask
+(:class:`_LeafMaskCache`, rebuilt when the grid's version moves), and
+:meth:`SpatialOperator._prefilter` keeps only a window's records whose leaf
+is in it, on the host, before the batch is built: K1 / K4 / K4x run on the
+kept rows (base cells, as ever), and a window that keeps nothing launches
+nothing. The leaf masks over-approximate the kernels' own selection for
+every layout, so exact-mode results are those of the uniform grid.
+
+Not yet ported: the device mesh (with it the JAX package's
+``conf.shard_order``; the driver accepts ``--shard-order`` and drops it,
+as one device has no shards to place), and the drive loop's telemetry,
+latency-plane, governor and accounting hooks (ROADMAP Queue 1 item 5). The JAX package's single-device seams around the mesh
 (``_multi_filter_stream``, ``_knn_multi_result``) have no mesh to route
 here, so the port calls the per-batch closures directly.
 """
@@ -60,6 +69,7 @@ import torch
 
 from spatialflink_tpu_torch.device import resolve_device
 from spatialflink_tpu_torch.index import UniformGrid
+from spatialflink_tpu_torch.index.uniform_grid import observe_cells
 from spatialflink_tpu_torch.models import (EdgeGeomBatch, MultiPolygon,
                                             Point, PointBatch, Polygon,
                                             single_query_edges)
@@ -67,10 +77,11 @@ from spatialflink_tpu_torch.models.batches import to_device
 from spatialflink_tpu_torch.runtime import (MicroBatcher, PaneBuffer,
                                             WindowAssembler, WindowSpec,
                                             count_windows)
-from spatialflink_tpu_torch.streams.bulk import (BulkStream, GeomChunk,
-                                                 LazyRecords, PointChunk,
-                                                 PointRows, points_to_parsed)
-from spatialflink_tpu_torch.utils import IdInterner
+from spatialflink_tpu_torch.streams.bulk import (BulkStream, BulkWindow,
+                                                 GeomChunk, LazyRecords,
+                                                 PointChunk, PointRows,
+                                                 points_to_parsed)
+from spatialflink_tpu_torch.utils import IdInterner, metrics
 from spatialflink_tpu_torch.utils.metrics import ControlTupleExit
 
 NOT_PORTED = "not yet ported to spatialflink_tpu_torch"
@@ -112,6 +123,12 @@ class QueryConfiguration:
     # it and barriers between processing units; None = no checkpoints
     checkpointer: Optional[Any] = field(default=None, repr=False,
                                         compare=False)
+    # the skew-adaptive refinement layer (--adaptive-grid): an
+    # index.AdaptiveGrid whose GN ∪ CN leaf masks select a window's records
+    # on the host before the point-stream range kernels run; results are
+    # the uniform grid's. None = the uniform grid alone
+    adaptive_grid: Optional[Any] = field(default=None, repr=False,
+                                         compare=False)
 
     def window_spec(self) -> WindowSpec:
         return WindowSpec.sliding(self.window_size_ms, self.slide_ms)
@@ -270,6 +287,41 @@ class PanePartial:
         return self.value
 
 
+class _LeafMaskCache:
+    """One query's (or a fleet's union) leaf mask under the adaptive grid,
+    stamped with the grid's version: after a repartition the next window
+    rebuilds it (counted in ``prefilter-mask-recomputes``)."""
+
+    __slots__ = ("grid", "build", "version", "mask")
+
+    def __init__(self, grid, build):
+        self.grid = grid
+        self.build = build
+        self.version = -1
+        self.mask = None
+
+    def get(self) -> np.ndarray:
+        if self.mask is None or self.version != self.grid.version:
+            if self.mask is not None:
+                metrics.REGISTRY.counter("prefilter-mask-recomputes").inc()
+            self.mask = self.build()
+            self.version = self.grid.version
+        return self.mask
+
+
+def _take_many(records, idx_lists) -> List:
+    """The records at each list of window positions: ``take_many`` of a
+    columnar window, else lists of the records."""
+    take_many = getattr(records, "take_many", None)
+    if take_many is not None:
+        return take_many(idx_lists)
+    return [[records[int(i)] for i in idx] for idx in idx_lists]
+
+
+def _take(records, idx) -> List:
+    return _take_many(records, [idx])[0]
+
+
 def _record_chunks(stream: Iterable, grid: UniformGrid,
                    chunk: int = 4096) -> Iterator:
     """The stream as decoded chunks: a chunked decode stream passes its
@@ -317,6 +369,8 @@ class SpatialOperator:
         self._pane_resident = False
 
     def _point_batch(self, records: LazyRecords, ts_base: int) -> PointBatch:
+        if self.conf.query_type is QueryType.CountBased:
+            observe_cells(records.columns()[4])
         return records.point_batch(ts_base, self.device)[0]
 
     def _geom_batch(self, records, ts_base: int) -> EdgeGeomBatch:
@@ -400,6 +454,130 @@ class SpatialOperator:
         if coord is not None:
             coord.barrier()
 
+    # --------------------- adaptive-grid prefilter -------------------- #
+
+    def _leaf_mask_cache(self, build) -> Optional[_LeafMaskCache]:
+        """A version-stamped cache of ``build()``'s leaf mask, or None when
+        the adaptive grid is off: the one gate of every prefiltering
+        evaluator."""
+        ag = self.conf.adaptive_grid
+        return _LeafMaskCache(ag, build) if ag is not None else None
+
+    @staticmethod
+    def _record_arrays(records):
+        """(x, y, ts, obj_id, cell) arrays of a window's records: the
+        columns of a :class:`LazyRecords`, else one pass over the records'
+        fields (obj_id None: the kept batch of such records carries no
+        ids, which the range kernels do not read)."""
+        if isinstance(records, LazyRecords):
+            return records.columns()[:5]
+        return (np.array([r.x for r in records], np.float64),
+                np.array([r.y for r in records], np.float64),
+                np.array([r.timestamp for r in records], np.int64), None,
+                np.array([r.cell for r in records], np.int32))
+
+    @staticmethod
+    def _chunk_leaves(chunk: PointChunk, ag) -> np.ndarray:
+        """A chunk's leaf ids under the grid's current layout, assigned
+        once per chunk and version (a sliding window revisits a chunk
+        size / slide times) and kept in ``chunk.leaf_cache``."""
+        cache = chunk.leaf_cache
+        if cache is not None and cache[0] == ag.version:
+            return cache[1]
+        leaf = ag.assign_leaf(chunk.parsed.x, chunk.parsed.y)
+        chunk.leaf_cache = (ag.version, leaf)
+        return leaf
+
+    def _prefilter(self, records, mask_cache: Optional[_LeafMaskCache],
+                   ts_base: int):
+        """The pre-kernel prefilter over the leaf space: keep exactly the
+        records whose leaf is in ``mask_cache``'s mask, and build the
+        (smaller) device batch from them. Returns ``(keep, batch)``, the
+        kept window positions, ascending, and their batch (None when no
+        record is kept: the window launches nothing), or None when the
+        adaptive grid is off or the window is a bulk replay's (whose
+        batches are built before any window, as in the JAX package).
+
+        The mask and the leaves are read at one grid version, here, between
+        two pulls of the window source (where epochs fire), whatever is in
+        flight. Counts ``prefilter-records``, ``prefilter-kept`` and
+        ``prefilter-windows-skipped``."""
+        if mask_cache is None or isinstance(records, BulkWindow):
+            return None
+        ag = self.conf.adaptive_grid
+        mask = mask_cache.get()
+        reg = metrics.REGISTRY
+        if isinstance(records, LazyRecords):
+            total = off = 0
+            keep_pos: List[np.ndarray] = []
+            cols: List[Tuple[np.ndarray, ...]] = []
+            for chunk, idx in records._segs:
+                leaf = self._chunk_leaves(chunk, ag)[idx]
+                # one gather and one AND (an invalid leaf reads slot 0)
+                k = mask[np.where(leaf >= 0, leaf, 0)] & (leaf >= 0)
+                total += int(idx.size)
+                kp = np.nonzero(k)[0]
+                if kp.size:
+                    keep_pos.append(off + kp)
+                    sel = idx[kp]
+                    p = chunk.parsed
+                    cols.append((p.x[sel], p.y[sel], p.ts[sel],
+                                 p.obj_id[sel], chunk.cells[sel]))
+                off += int(idx.size)
+            reg.counter("prefilter-records").inc(total)
+            if not keep_pos:
+                reg.counter("prefilter-windows-skipped").inc()
+                return np.empty(0, np.int64), None
+            keep = np.concatenate(keep_pos)
+            reg.counter("prefilter-kept").inc(int(keep.size))
+            x, y, ts, oid, cell = (np.concatenate(c) for c in zip(*cols))
+        else:
+            x, y, ts, oid, cell = self._record_arrays(records)
+            leaf = ag.assign_leaf(x, y)
+            k = np.zeros(leaf.shape, bool)
+            v = leaf >= 0
+            k[v] = mask[leaf[v]]
+            keep = np.nonzero(k)[0]
+            reg.counter("prefilter-records").inc(int(leaf.size))
+            reg.counter("prefilter-kept").inc(int(keep.size))
+            if keep.size == 0:
+                reg.counter("prefilter-windows-skipped").inc()
+                return keep, None
+            x, y, ts, cell = x[keep], y[keep], ts[keep], cell[keep]
+            oid = None if oid is None else oid[keep]
+        return keep, PointBatch.from_arrays(
+            x, y, device=self.device, obj_id=oid, ts=ts, ts_base=ts_base,
+            cell=cell)
+
+    def _defer_mask_select_at(self, mask, records, keep: np.ndarray,
+                              stats) -> Deferred:
+        """:meth:`_defer_mask_select` over a prefiltered batch: the mask's
+        positions index ``keep``, the kept window positions."""
+        def rows(m):
+            sel = np.nonzero(m)[0]
+            return _take(records, keep[sel[sel < keep.size]])
+        return self._defer_with_stats(mask, stats, rows)
+
+    def _filter_eval(self, mask_stats, mask_cache=None):
+        """The window evaluator of a single-query point-stream filter: the
+        prefilter's kept rows (``mask_cache`` set) or the whole window as
+        one batch, through ``mask_stats``, selected at collect time."""
+        def eval_batch(records, ts_base):
+            if not len(records):
+                return []
+            pre = self._prefilter(records, mask_cache, ts_base)
+            if pre is not None:
+                keep, batch = pre
+                if batch is None:  # no candidate leaf in this window
+                    return []
+                mask, gn_c, evals = self._filter_stream(batch, mask_stats)
+                return self._defer_mask_select_at(mask, records, keep,
+                                                  (gn_c, evals))
+            batch = self._point_batch(records, ts_base)
+            mask, gn_c, evals = self._filter_stream(batch, mask_stats)
+            return self._defer_mask_select(mask, records, (gn_c, evals))
+        return eval_batch
+
     def _filter_stream(self, batch: PointBatch, mask_stats_fn):
         """(mask, gn_bypassed, dist_evals) for one batch on one device."""
         return mask_stats_fn(batch)
@@ -464,27 +642,55 @@ class SpatialOperator:
                 to_device([q.y for q in query_points], np.float32, device),
                 to_device([q.cell for q in query_points], np.int32, device))
 
+    @staticmethod
+    def _multi_rows(records, keep: Optional[np.ndarray], live: int):
+        """``rows`` of a multi-query window: the first ``live`` rows of the
+        (Q, N) host masks as per-query records; a prefiltered batch's mask
+        positions index ``keep``, the kept window positions."""
+        limit = keep.size if keep is not None else len(records)
+
+        def rows(m):
+            out = []
+            for r in m[:live]:
+                idx = np.nonzero(r)[0]
+                idx = idx[idx < limit]
+                out.append(keep[idx] if keep is not None else idx)
+            return _take_many(records, out)
+        return rows
+
     def _run_multi_filter(self, stream: Iterable, n_queries: int,
-                          multi_mask_stats, batch_fn=None
+                          multi_mask_stats, batch_fn=None,
+                          leaf_mask_builder=None
                           ) -> Iterator[WindowResult]:
         """Shared run_multi driver for the range operators:
         ``multi_mask_stats(batch) -> (masks (Q, N), gn (Q,), evals (Q,))``
         in one dispatch per window over ``batch_fn(records, ts_base)``'s
         batch (a point batch by default); records become Q per-query record
-        lists, pruning counters sum over the queries."""
+        lists, pruning counters sum over the queries.
+
+        ``leaf_mask_builder`` (point streams, adaptive grid only) builds
+        the UNION of the Q queries' GN ∪ CN leaf masks: a record outside
+        every query's candidate leaves is in no query's result, so the
+        (Q, N) launch shrinks to (Q, kept)."""
         batch_fn = batch_fn or self._point_batch
+        mask_cache = (self._leaf_mask_cache(leaf_mask_builder)
+                      if leaf_mask_builder is not None else None)
 
         def eval_batch(records, ts_base):
             if not len(records):
                 return [[] for _ in range(n_queries)]
-            batch = batch_fn(records, ts_base)
+            pre = self._prefilter(records, mask_cache, ts_base)
+            if pre is not None:
+                keep, batch = pre
+                if batch is None:
+                    return [[] for _ in range(n_queries)]
+            else:
+                keep, batch = None, batch_fn(records, ts_base)
             masks, gn_c, evals = multi_mask_stats(batch)
-
-            def rows(m):  # ONE (Q, N) device->host transfer
-                n = len(records)
-                return records.take_many(
-                    [idx[idx < n] for idx in (np.nonzero(r)[0] for r in m)])
-            return self._defer_with_stats(masks, (gn_c, evals), rows)
+            # ONE (Q, N) device->host transfer
+            return self._defer_with_stats(
+                masks, (gn_c, evals),
+                self._multi_rows(records, keep, n_queries))
 
         for result in self._multi_results(
                 stream, eval_batch,
@@ -620,7 +826,8 @@ class SpatialOperator:
     # ------------------------ the dynamic plane ----------------------- #
 
     def _run_dynamic_filter(self, stream: Iterable, registry, radius: float,
-                            multi_mask_builder, batch_fn=None
+                            multi_mask_builder, batch_fn=None,
+                            leaf_union_builder=None
                             ) -> Iterator[WindowResult]:
         """The standing-query driver of the range families: the Q axis is
         the live fleet of ``registry`` (``runtime.queryplane``). Per
@@ -632,15 +839,20 @@ class SpatialOperator:
         and the pruning counters scaled by it, so padded slots select and
         count nothing; only the live slots become per-query records, and
         each window carries ``extras["query_ids"]``, its fleet at
-        dispatch. Panes do not engage: partials are fleet-shaped."""
+        dispatch. Panes do not engage: partials are fleet-shaped.
+        ``leaf_union_builder(live_points)`` (point streams, adaptive grid
+        only) gives the live fleet's union leaf mask for the prefilter; its
+        cache is rebuilt with the closure on a fleet bump, and on a grid
+        version bump like every leaf mask."""
         batch_fn = batch_fn or self._point_batch
-        state: dict = {"v": -1, "entries": [], "fn": None}
+        state: dict = {"v": -1, "entries": [], "fn": None,
+                       "mask_cache": None}
 
         def ensure() -> None:
             if state["v"] == registry.fleet_version:
                 return
             entries, qpts, valid = registry.padded_fleet(self.grid)
-            fn = None
+            fn = mask_cache = None
             if entries:
                 base = multi_mask_builder(qpts, radius)
                 gate = to_device(valid, np.bool_, self.device)
@@ -648,7 +860,12 @@ class SpatialOperator:
                 def fn(b, _base=base, _g=gate):
                     masks, gn_c, evals = _base(b)
                     return masks & _g[:, None], gn_c * _g, evals * _g
-            state.update(v=registry.fleet_version, entries=entries, fn=fn)
+                if leaf_union_builder is not None:
+                    live_pts = qpts[:len(entries)]
+                    mask_cache = self._leaf_mask_cache(
+                        lambda: leaf_union_builder(live_pts))
+            state.update(v=registry.fleet_version, entries=entries, fn=fn,
+                         mask_cache=mask_cache)
 
         window_ids: dict = {}
 
@@ -661,14 +878,17 @@ class SpatialOperator:
                 return []
             if not len(records):
                 return [[] for _ in range(live)]
-            masks, gn_c, evals = state["fn"](batch_fn(records, ts_base))
-
-            def rows(m):  # ONE (B, N) device->host transfer
-                n = len(records)
-                return records.take_many(
-                    [idx[idx < n] for idx in
-                     (np.nonzero(r)[0] for r in m[:live])])
-            return self._defer_with_stats(masks, (gn_c, evals), rows)
+            pre = self._prefilter(records, state["mask_cache"], ts_base)
+            if pre is not None:
+                keep, batch = pre
+                if batch is None:
+                    return [[] for _ in range(live)]
+            else:
+                keep, batch = None, batch_fn(records, ts_base)
+            masks, gn_c, evals = state["fn"](batch)
+            # ONE (B, N) device->host transfer
+            return self._defer_with_stats(
+                masks, (gn_c, evals), self._multi_rows(records, keep, live))
 
         for result in self._drive(stream, eval_batch):
             ids = window_ids.pop(result.window_start, [])

@@ -1,8 +1,7 @@
 """Continuous range queries, windowed and realtime (port of ``run`` and
 ``run_multi`` of ``PointPointRangeQuery``, ``PointGeomRangeQuery``,
 ``GeomPointRangeQuery`` and ``GeomGeomRangeQuery`` of
-``spatialflink_tpu.operators.range_query``, without the adaptive-grid leaf
-prefilter, which the port does not have).
+``spatialflink_tpu.operators.range_query``).
 
 Point streams: guaranteed-cell points are emitted without a distance
 computation; candidate-cell points pass iff their exact distance is <= r;
@@ -24,7 +23,16 @@ query axis; ``run`` is its Q = 1 row.
 ``run_multi`` evaluates each pane once and concatenates a window's pane
 selections in pane order (``merge_partials``). ``run_dynamic`` (point
 queries, over a point or a polygon/linestring stream) serves the live
-fleet of a ``runtime.queryplane.QueryRegistry``. The device ops are looked up on their modules
+fleet of a ``runtime.queryplane.QueryRegistry``.
+
+With ``conf.adaptive_grid`` the point-stream operators prefilter each
+window on the host (``SpatialOperator._prefilter``): ``run`` against the
+query's GN ∪ CN leaf mask (a query point's tightened to its fine cell
+inside a split cell), ``run_multi`` and ``run_dynamic`` against the union
+of the queries' masks; the kernels run on the kept rows. The
+geometry-stream operators do not prefilter, as in the JAX package.
+
+The device ops are looked up on their modules
 at call time (``R.range_filter_point_stats``,
 ``G.points_to_single_geom_dist``, ...), so a caller can run the same
 pipeline with the plain versions by setting those module attributes.
@@ -54,17 +62,17 @@ class PointPointRangeQuery(BulkReplay, SpatialOperator):
 
     def run(self, stream: Iterable, query_point: Point, radius: float
             ) -> Iterator[WindowResult]:
-        mask_stats = self._mask_stats_fn(query_point, radius)
-
-        def eval_batch(records, ts_base):
-            if not len(records):
-                return []
-            batch = self._point_batch(records, ts_base)
-            mask, gn_c, evals = self._filter_stream(batch, mask_stats)
-            return self._defer_mask_select(mask, records, (gn_c, evals))
-
-        return self._drive(stream, eval_batch,
-                           pane_merge=self.merge_partials)
+        # --adaptive-grid: the query's GN ∪ CN leaf mask, tightened to the
+        # point's fine cell inside a split cell
+        mask_cache = self._leaf_mask_cache(
+            lambda: self.conf.adaptive_grid.neighboring_leaf_mask(
+                radius, query_point.cell,
+                point=(query_point.x, query_point.y)))
+        return self._drive(
+            stream, self._filter_eval(self._mask_stats_fn(query_point,
+                                                          radius),
+                                      mask_cache),
+            pane_merge=self.merge_partials)
 
     def _mask_stats_fn(self, query_point: Point, radius: float):
         """Per-batch (mask, gn_bypassed, dist_evals) closure."""
@@ -97,9 +105,14 @@ class PointPointRangeQuery(BulkReplay, SpatialOperator):
                   radius: float) -> Iterator[WindowResult]:
         """Q query points over ONE stream in ONE dispatch per window; all
         queries share ``radius``."""
+        def union_leaf_mask():
+            return self.conf.adaptive_grid.union_neighboring_leaf_mask(
+                radius, [(q.cell, (q.x, q.y)) for q in query_points])
+
         return self._run_multi_filter(
             stream, len(query_points),
-            self._multi_mask_stats(query_points, radius))
+            self._multi_mask_stats(query_points, radius),
+            leaf_mask_builder=union_leaf_mask)
 
     def run_dynamic(self, stream: Iterable, registry, radius: float
                     ) -> Iterator[WindowResult]:
@@ -107,8 +120,16 @@ class PointPointRangeQuery(BulkReplay, SpatialOperator):
         and retired while the stream runs, each change landing at the next
         window (``_run_dynamic_filter``); ``records[q]`` is the selection
         of ``extras["query_ids"][q]``."""
+        ag = self.conf.adaptive_grid
+        leaf_union = None
+        if ag is not None:
+            def leaf_union(pts):
+                return ag.union_neighboring_leaf_mask(
+                    radius, [(p.cell, (p.x, p.y)) for p in pts])
+
         return self._run_dynamic_filter(stream, registry, radius,
-                                        self._multi_mask_stats)
+                                        self._multi_mask_stats,
+                                        leaf_union_builder=leaf_union)
 
 
 class PointGeomRangeQuery(BulkReplay, SpatialOperator, GeomQueryMixin):
@@ -136,17 +157,16 @@ class PointGeomRangeQuery(BulkReplay, SpatialOperator, GeomQueryMixin):
 
     def run(self, stream: Iterable, query_geom, radius: float
             ) -> Iterator[WindowResult]:
-        mask_stats = self._mask_stats_fn(query_geom, radius)
-
-        def eval_batch(records, ts_base):
-            if not len(records):
-                return []
-            batch = self._point_batch(records, ts_base)
-            mask, gn_c, evals = self._filter_stream(batch, mask_stats)
-            return self._defer_mask_select(mask, records, (gn_c, evals))
-
-        return self._drive(stream, eval_batch,
-                           pane_merge=self.merge_partials)
+        # --adaptive-grid: the leaf mask over the union of the geometry's
+        # base cells
+        mask_cache = self._leaf_mask_cache(
+            lambda: self.conf.adaptive_grid.neighboring_leaf_mask(
+                radius, self._query_cells(query_geom)))
+        return self._drive(
+            stream, self._filter_eval(self._mask_stats_fn(query_geom,
+                                                          radius),
+                                      mask_cache),
+            pane_merge=self.merge_partials)
 
     def _multi_mask_stats(self, query_geoms, radius: float):
         qgb = self._query_geom_batch(query_geoms)
@@ -158,9 +178,14 @@ class PointGeomRangeQuery(BulkReplay, SpatialOperator, GeomQueryMixin):
                   ) -> Iterator[WindowResult]:
         """Q polygon/linestring queries over ONE point stream in ONE
         dispatch per window (the K4x lattice, then K1's mask mode)."""
+        def union_leaf_mask():
+            return self.conf.adaptive_grid.union_neighboring_leaf_mask(
+                radius, [(self._query_cells(q), None) for q in query_geoms])
+
         return self._run_multi_filter(
             stream, len(query_geoms),
-            self._multi_mask_stats(query_geoms, radius))
+            self._multi_mask_stats(query_geoms, radius),
+            leaf_mask_builder=union_leaf_mask)
 
 
 class _GeomStreamRange(BulkReplay, SpatialOperator, GeomQueryMixin):

@@ -59,6 +59,7 @@ from typing import Dict, Iterable, Iterator, List, Optional, Set, Tuple
 
 import numpy as np
 
+from spatialflink_tpu_torch.index.uniform_grid import observe_cells
 from spatialflink_tpu_torch.models import (EdgeGeomBatch, LineString, Point,
                                             PointBatch)
 from spatialflink_tpu_torch.operators.base import (PaneCache, QueryType,
@@ -192,6 +193,7 @@ class _TrajOperator(SpatialOperator):
 
     def _point_batch(self, rows: PointRows, ts_base: int) -> PointBatch:
         x, y, ts, _, cell, _ = rows.columns()
+        observe_cells(cell)
         return PointBatch.from_arrays(x, y, device=self.device,
                                       obj_id=self._op_ids(rows), ts=ts,
                                       ts_base=ts_base, cell=cell)

@@ -100,8 +100,10 @@ def record_codec(grid):
 
     def points(recs):
         """Encoded point records -> one columnar chunk in one native parse
-        (cells on ``grid``, as the record decode assigns them); None when
-        a record is not a point."""
+        (cells on ``grid``, as the record decode assigns them, and handed
+        to the cell observer one by one, as the record decode does); None
+        when a record is not a point."""
+        from spatialflink_tpu_torch.index.uniform_grid import observe_each
         from spatialflink_tpu_torch.streams import bulk
         from spatialflink_tpu_torch.utils import IdInterner
 
@@ -112,7 +114,10 @@ def record_codec(grid):
             return None
         if len(parsed) != len(recs):
             return None
-        return bulk.PointChunk.build(parsed, grid)
+        cells = grid.cell_ids(parsed.x, parsed.y)[0]
+        observe_each(cells)
+        return bulk.PointChunk(parsed=parsed, cells=cells,
+                               ingest_ms=int(time.time() * 1000))
 
     #: the columnar paths of the window snapshots (the same text, and the
     #: same records, as encode / decode one by one)

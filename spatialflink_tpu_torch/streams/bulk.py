@@ -30,7 +30,7 @@ from __future__ import annotations
 import ctypes
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -283,11 +283,15 @@ def points_to_parsed(points: Sequence[Point],
 @dataclass
 class PointChunk:
     """One decoded chunk: the columnar parse plus its cell assignment;
-    ``ingest_ms`` is the wall clock it was decoded at."""
+    ``ingest_ms`` is the wall clock it was decoded at. ``leaf_cache`` is
+    the adaptive grid's ``(version, leaf ids)`` of the chunk, assigned once
+    per layout by the prefilter (``SpatialOperator._chunk_leaves``)."""
 
     parsed: ParsedPoints
     cells: np.ndarray  # (N,) i32, -1 = outside grid
     ingest_ms: int = 0
+    leaf_cache: Optional[Tuple[int, np.ndarray]] = field(
+        default=None, repr=False, compare=False)
 
     def __len__(self) -> int:
         return len(self.parsed)

@@ -10,14 +10,26 @@ driver ends the run with exit code 0. A SIGTERM sets the process-wide
 shutdown flag; the decode sees it at the next record and raises
 :class:`GracefulShutdown`, and the driver writes a final checkpoint.
 
-The JAX module's counters, meters and degradation digest wait for the
-telemetry plane (ROADMAP Queue 1 item 5).
+The registry (port of ``Counter``, ``Meter``, ``MetricsRegistry``,
+``REGISTRY``, ``set_registry`` and ``scoped_registry``): named counters and
+meters, read at call time through ``metrics.REGISTRY`` so that
+:func:`scoped_registry` can give a run or a test a registry of its own. The
+adaptive grid counts into it: the prefilter's ``prefilter-records``,
+``prefilter-kept``, ``prefilter-windows-skipped`` and
+``prefilter-mask-recomputes``, and the repartition controller's
+``repartitions``, ``grid-splits`` and ``grid-merges``. The degradation
+digest, the trace annotations and the telemetry session wait for the
+telemetry plane.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import threading
+import time
+from collections import deque
+from typing import Dict, Iterator, Optional
 
 
 class ControlTupleExit(Exception):
@@ -68,3 +80,117 @@ def check_exit_control_tuple(record) -> None:
         geom = obj.get("geometry", obj)
         if isinstance(geom, dict) and geom.get("type") == "control":
             raise ControlTupleExit("control tuple received")
+
+
+class Counter:
+    __slots__ = ("name", "count")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+    def inc(self, n: int = 1) -> None:
+        self.count += n
+
+
+class Meter:
+    """Events per second over a sliding time window (default 60 s), in
+    one-second buckets (at most ``window_s`` of them)."""
+
+    def __init__(self, name: str, window_s: float = 60.0):
+        self.name = name
+        self.window_s = window_s
+        self.count = 0
+        self._buckets = deque()  # [whole_second, n], ascending
+
+    def mark(self, n: int = 1, now: Optional[float] = None) -> None:
+        now = time.monotonic() if now is None else now
+        self.count += n
+        sec = int(now)
+        if self._buckets and self._buckets[-1][0] == sec:
+            self._buckets[-1][1] += n
+        else:
+            self._buckets.append([sec, n])
+            self._evict(now)
+
+    def _evict(self, now: float) -> None:
+        horizon = now - self.window_s - 1
+        while self._buckets and self._buckets[0][0] < horizon:
+            self._buckets.popleft()
+
+    def rate(self, now: Optional[float] = None) -> float:
+        now = time.monotonic() if now is None else now
+        self._evict(now)
+        if not self._buckets:
+            return 0.0
+        span = max(now - self._buckets[0][0], 1.0)
+        return sum(n for _, n in self._buckets) / span
+
+
+class MetricsRegistry:
+    """Named counters and meters; :meth:`snapshot` reads them all. Handle
+    creation, reset and snapshot hold the instance lock; ``inc`` and
+    ``mark`` do not."""
+
+    def __init__(self):
+        self.counters: Dict[str, Counter] = {}
+        self.meters: Dict[str, Meter] = {}
+        self._lock = threading.Lock()
+
+    def reset(self) -> None:
+        """Drop every counter and meter (handles taken before stay usable
+        but are no longer read)."""
+        with self._lock:
+            self.counters.clear()
+            self.meters.clear()
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            if name not in self.counters:
+                self.counters[name] = Counter(name)
+            return self.counters[name]
+
+    def meter(self, name: str, window_s: float = 60.0) -> Meter:
+        with self._lock:
+            if name not in self.meters:
+                self.meters[name] = Meter(name, window_s)
+            return self.meters[name]
+
+    def snapshot(self) -> Dict[str, float]:
+        with self._lock:
+            counters = list(self.counters.items())
+            meters = list(self.meters.items())
+        out: Dict[str, float] = {}
+        for n, c in counters:
+            out[n] = c.count
+        for n, m in meters:
+            out[f"{n}.count"] = m.count
+            out[f"{n}.rate"] = m.rate()
+        return out
+
+
+#: the process-wide default registry; read it as ``metrics.REGISTRY`` at
+#: call time (a ``from ... import REGISTRY`` binds the registry of that
+#: moment)
+REGISTRY = MetricsRegistry()
+
+
+def set_registry(registry: MetricsRegistry) -> MetricsRegistry:
+    """Install ``registry`` as the default; returns the previous one."""
+    global REGISTRY
+    old = REGISTRY
+    REGISTRY = registry
+    return old
+
+
+@contextlib.contextmanager
+def scoped_registry(registry: Optional[MetricsRegistry] = None
+                    ) -> Iterator[MetricsRegistry]:
+    """Run the block against a fresh (or the given) registry and restore
+    the previous one on exit."""
+    reg = MetricsRegistry() if registry is None else registry
+    old = set_registry(reg)
+    try:
+        yield reg
+    finally:
+        set_registry(old)

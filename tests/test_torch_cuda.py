@@ -2215,3 +2215,73 @@ def test_bulk_equals_plain(card, monkeypatch, tmp_path, option, multi,
     plain = _windows(TD.run_option_bulk(p, src, str(queries),
                                         device="cuda"))
     assert got == plain and got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option,multi", [(1, False), (6, False), (1, True),
+                                          (6, True)])
+def test_adaptive_grid_equals_plain(card, monkeypatch, option, multi):
+    """``--adaptive-grid`` on the card: option 1 (K1), 6 (K4) and their
+    multiQuery forms (K1's query axis, K4x) over a clustered stream whose
+    epochs split the hot cells mid-run, the kernels launched on the
+    prefiltered batches; the windows equal the same run with every kernel
+    swapped for its plain version, and the uniform grid's run."""
+    import dataclasses
+
+    from spatialflink_tpu_torch import driver as TD
+    from spatialflink_tpu_torch.config import Params
+    from spatialflink_tpu_torch.index import AdaptiveGrid
+    from spatialflink_tpu_torch.runtime.repartition import \
+        RepartitionController
+    from spatialflink_tpu_torch.streams.synthetic import clustered_lines
+    from spatialflink_tpu_torch.utils import metrics
+
+    grid = UniformGrid(115.5, 117.6, 39.6, 41.1, num_grid_partitions=100)
+    lines = clustered_lines(grid, 20_000, 0.8, seed=7, fmt="csv", dt_ms=1)
+    hx = (grid.min_x + grid.max_x) / 2 + grid.cell_length / 3
+    hy = (grid.min_y + grid.max_y) / 2 + grid.cell_length / 3
+    p = Params.from_yaml(CONF_PATH)
+    p.query.option, p.query.radius, p.query.multi_query = option, 0.004, \
+        multi
+    p.query.query_points = [[hx, hy], [hx + 0.006, hy], [116.0, 40.0]]
+    p.query.query_polygons = [[(hx - 0.01, hy - 0.01), (hx + 0.01, hy - 0.01),
+                               (hx + 0.01, hy + 0.01), (hx - 0.01, hy - 0.01)]]
+    p = dataclasses.replace(p, input1=dataclasses.replace(p.input1,
+                                                          format="CSV"))
+    monkeypatch.setenv("SPATIALFLINK_DECODE_CHUNK", "2048")
+
+    def rows(recs):
+        # each record's fields, without its chunk's decode wall time
+        return [(r.obj_id, r.timestamp, r.x, r.y, r.cell) for r in recs]
+
+    def windows(results):
+        return [(w.window_start, w.window_end,
+                 [rows(q) for q in w.records] if multi else rows(w.records))
+                for w in results]
+
+    uniform = windows(TD.run_option(p, lines, device="cuda"))
+
+    def adaptive():
+        ag = AdaptiveGrid(grid, refine=8)
+        p.adaptive_grid = ag
+        ctl = RepartitionController(ag, interval_records=5_000)
+        with metrics.scoped_registry() as reg:
+            out = TD.run_option(p, lines, device="cuda")
+            ctl.install()
+            try:
+                wins = windows(out)
+            finally:
+                ctl.uninstall()
+        return wins, reg, ag
+
+    kernels = ((HK.pip_lattice,) if multi and option == 6
+               else (HK.pip_dist,) if option == 6 else (R.range_mask_stats,))
+    for k in kernels:
+        k.launches = 0
+    got, reg, ag = adaptive()
+    assert all(k.launches > 0 for k in kernels)
+    assert ag.version >= 1 and reg.counter("prefilter-kept").count < \
+        reg.counter("prefilter-records").count
+    _plain_everywhere(monkeypatch)
+    plain, _, _ = adaptive()
+    assert got == plain == uniform and any(w[2] for w in got)
