@@ -82,6 +82,24 @@ its wall seconds):
    started before its in-process reference, which runs beside it). (The
    point stream was cut from 2,097,152 points to
    make room for the geometry phase within the time limit.)
+   The telemetry plane: options 6 and 51 over the whole stream run once
+   more under ``telemetry_session()`` beside runs without it, 5 of each
+   interleaved (without, with, with, without, ...), every run's windows
+   equal to the main path's, with both records/s (medians), the median
+   and range of the pairs' ratios, the plain runs' spread and one status
+   snapshot's wall time and size
+   (``telemetry_session`` in their main-path rows). Beside the CLI runs
+   above: 6 and 51 again with ``--telemetry-dir --trace-dir
+   --postmortem-dir --strict-recompile --live-stats --metrics``
+   (``--sentinel-warmup`` the window count after which the in-process
+   run compiled nothing; stdout the plain CLI's, >= 2 JSONL snapshots, a
+   device block on the gpu platform with the card's name, a memory peak,
+   no recompile and the kernel libraries that ran, a ``metrics.prom`` that
+   parses, one trace per window), 6 read from a FIFO and sent SIGUSR1
+   twice mid-stream (two post-mortem bundles, each read by ``python -m
+   spatialflink_tpu_torch.doctor summarize``, the two by ``diff``), and
+   6 under ``--profile`` (its trace names K1's and K4's kernels; up to 3
+   runs): the ``telemetry`` block of the result line.
 4. The polygon and linestring streams: two seeded streams of 262,144
    GeoJSON geometries over 20 s with 100,000 object ids (polygon rings of
    4-32 vertices with radii 0.002-0.02 degrees; linestring walks of 2-16
@@ -306,6 +324,7 @@ import io
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -361,13 +380,17 @@ class CliRun:
     ``tmp``. :meth:`stdout` waits for it (exit 0 required); leaving the
     ``with`` block stops a run still going (the caller failed first)."""
 
-    def __init__(self, tmp: str, name: str, argv):
+    def __init__(self, tmp: str, name: str, argv, env=None):
         self.paths = [os.path.join(tmp, f"cli-{name}.{s}")
                       for s in ("out", "err")]
         with open(self.paths[0], "w") as out, open(self.paths[1], "w") as err:
             self.proc = subprocess.Popen(
                 [sys.executable, "-m", "spatialflink_tpu_torch.driver",
-                 *argv], cwd=ROOT, stdout=out, stderr=err)
+                 *argv], cwd=ROOT, stdout=out, stderr=err,
+                env=None if env is None else {**os.environ, **env})
+
+    def stderr(self) -> str:
+        return open(self.paths[1]).read()
 
     def __enter__(self) -> "CliRun":
         return self
@@ -1455,6 +1478,10 @@ def main_path_phase(card: str, lines, runs, window=None):
                 _selected(w[2][0]) for w in wins):
             raise AssertionError(f"option {label}: {len(rec_lat)} record "
                                  "latencies for the selected records")
+        session = None
+        if (window is None and not multi and opt in (6, 51)
+                and len(lines) == N_STREAM):
+            session = session_run(params, lines, wins)
         row = {"option": opt, "mode": mode, "multi_query": multi,
                "queries": len(wins[0][2]), "k": query.k
                if opt >= 51 else None, "points": len(lines),
@@ -1477,12 +1504,60 @@ def main_path_phase(card: str, lines, runs, window=None):
             row["record_latencies"] = len(rec_lat)
         if opt >= 51:
             row["first_list"] = wins[min(2, len(wins) - 1)][2][0][:3]
+        if session is not None:
+            row["telemetry_session"] = session
         if mode == "window" and len(lines) == N_STREAM:
             FULL_WINDOWS[(opt, multi, query.k)] = wins
         log("main-path", json.dumps(row))
         report.append(row)
         torch.cuda.empty_cache()
     return launches, report
+
+
+def session_run(params, lines, wins, pairs: int = 5) -> dict:
+    """The run under ``telemetry_session()`` (no reporter: the
+    instrumented drive loop, cell observer, cost, latency and tenant
+    planes) against the same run without one, ``pairs`` of each
+    interleaved as without, with, with, without, without, with, ...:
+    every run's windows must be the main path's. Reports each pair's
+    records/s ratio (session over plain), their median, least and
+    greatest, the plain runs' own spread (greatest over least wall, less
+    one), the session's span counts and one status snapshot's wall time
+    and size."""
+    from spatialflink_tpu_torch.utils import telemetry as T
+
+    walls = {"plain": [], "session": []}
+    order = [("plain", "session")[(i + 1) // 2 % 2] for i in range(2 * pairs)]
+    for kind in order:
+        if kind == "plain":
+            got, _, _, wall = run_pipeline(params, lines)
+        else:
+            with T.telemetry_session(device="cuda") as tel:
+                got, _, _, wall = run_pipeline(params, lines)
+                t0 = time.perf_counter()
+                snap = T.status_snapshot(tel)
+                snap_ms = (time.perf_counter() - t0) * 1e3
+        walls[kind].append(wall)
+        if len(got) != len(wins) or not all(
+                a[:2] == b[:2] and _equal(a[2], b[2])
+                for a, b in zip(got, wins)):
+            raise AssertionError(f"option {params.query.option}: a {kind} "
+                                 "run's windows differ from the main path's")
+    if snap["device"]["backend"]["platform"] != "gpu":
+        raise AssertionError("the session's device block is not on the gpu")
+    ratios = [p / t for p, t in zip(walls["plain"], walls["session"])]
+    rate = {k: len(lines) / float(np.median(v)) for k, v in walls.items()}
+    return {"points_per_s": rate["session"],
+            "plain_points_per_s": rate["plain"],
+            "ratio_median": float(np.median(ratios)),
+            "ratio_min": min(ratios), "ratio_max": max(ratios),
+            "plain_spread": max(walls["plain"]) / min(walls["plain"]) - 1,
+            "order": order,
+            "wall_s": walls["session"], "plain_wall_s": walls["plain"],
+            "snapshot_ms": snap_ms,
+            "snapshot_bytes": len(json.dumps(snap)),
+            "spans": {k: v["count"] for k, v in snap["spans"].items()},
+            "mem_peak_bytes": snap["device"]["mem_peak_bytes"]}
 
 
 @contextlib.contextmanager
@@ -1668,12 +1743,16 @@ def profile_phase(lines, option: int) -> dict:
     return out
 
 
-def cli_phase(seed: int) -> None:
+def cli_phase(seed: int) -> dict:
     """The CLI on a CSV file: options 6 and 51 (k from the conf) with the
     conf's own query objects; stdout, extras included, must equal an
-    in-process run's lines (computed while the CLI runs)."""
+    in-process run's lines (computed while the CLI runs). Beside them,
+    the telemetry runs (:func:`telemetry_cli_checks`): 6 and 51 again
+    with every telemetry flag, 6 fed through a FIFO and sent SIGUSR1
+    twice mid-stream, and 6 under ``--profile``."""
     from spatialflink_tpu_torch.config import Params
     from spatialflink_tpu_torch.driver import _emit, run_option
+    from spatialflink_tpu_torch.utils import deviceplane
 
     class Lines:
         def __init__(self):
@@ -1690,20 +1769,41 @@ def cli_phase(seed: int) -> None:
         path = os.path.join(tmp, "points.csv")
         with open(path, "w") as f:
             f.write("\n".join(lines) + "\n")
-        clis = {opt: stack.enter_context(CliRun(tmp, str(opt), [
-            "--config", CONF, "--option", str(opt), "--input1", path,
-            "--format", "CSV", "--device", "cuda"])) for opt in (6, 51)}
-        for opt, cli in clis.items():
+        argv = {opt: ["--config", CONF, "--option", str(opt), "--input1",
+                      path, "--format", "CSV", "--device", "cuda"]
+                for opt in (6, 51)}
+        clis = {opt: stack.enter_context(CliRun(tmp, str(opt), argv[opt]))
+                for opt in (6, 51)}
+        prof = stack.enter_context(ProfiledCli(tmp, argv[6]))
+        fifo = os.path.join(tmp, "points.fifo")
+        os.mkfifo(fifo)
+        sig = stack.enter_context(CliRun(
+            tmp, "sigusr1", [*argv[6][:5], fifo, *argv[6][6:],
+                             "--postmortem-dir", os.path.join(tmp, "pm")],
+            env={"PYTHONUNBUFFERED": "1"}))
+        wants, warmups = {}, {}
+        reg = deviceplane.registry()
+        for opt in (6, 51):
             params = Params.from_yaml(CONF)
             params = dataclasses.replace(
                 params, input1=dataclasses.replace(params.input1,
                                                    format="CSV"))
             params.query.option = opt
             sink = Lines()
+            # every kernel signature counts anew here, so that the last
+            # window count at which one compiles gives the CLI's warmup
+            for entry in reg.entries.values():
+                if entry.kind == "kernel":
+                    entry.seen.clear()
+            seen, last, emitted = reg.total_compiles, 0, 0
             for w in run_option(params, lines, device="cuda"):
+                if reg.total_compiles != seen:
+                    seen, last = reg.total_compiles, emitted
                 _emit(w, sink)
-            want = sink.out.getvalue()
-            got = cli.stdout()
+                emitted += 1
+            want = wants[opt] = sink.out.getvalue()
+            warmups[opt] = last + 1
+            got = clis[opt].stdout()
             if got != want or not want:
                 raise AssertionError(f"CLI option {opt} stdout "
                                      f"{got[:200]!r} != in-process "
@@ -1711,7 +1811,206 @@ def cli_phase(seed: int) -> None:
             first = want.splitlines()[0]
             log(f"cli: option {opt} over {N_CLI} CSV rows -> "
                 f"{want.count(chr(10))} windows, stdout equals the "
-                f"in-process run ({first})")
+                f"in-process run ({first}); the sentinel's warmup "
+                f"{warmups[opt]} window(s)")
+        return telemetry_cli_checks(tmp, stack, argv, wants, warmups, lines,
+                                    fifo, sig, prof)
+
+
+class ProfiledCli:
+    """Option 6's CLI under ``--profile``, started beside the other CLI
+    runs; :meth:`kernels` waits for it and reads the Chrome trace's kernel
+    names, running it again (up to ``tries`` in all) while a trace lacks
+    K1's or K4's kernel (a torch.profiler session can lose device
+    events)."""
+
+    WANT = ("range_mask_kernel", "pip_dist")
+
+    def __init__(self, tmp: str, argv, tries: int = 3):
+        self.tmp, self.argv, self.tries = tmp, argv, tries
+        self.runs = 0
+        self.cli = self._start()
+
+    def _start(self) -> CliRun:
+        self.runs += 1
+        self.dir = os.path.join(self.tmp, f"prof-{self.runs}")
+        return CliRun(self.tmp, f"prof-{self.runs}",
+                      [*self.argv, "--profile", self.dir])
+
+    def __enter__(self) -> "ProfiledCli":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.cli.__exit__(*exc)
+
+    def kernels(self, want_out: str) -> dict:
+        while True:
+            if self.cli.stdout() != want_out:
+                raise AssertionError("--profile CLI stdout differs")
+            with open(os.path.join(self.dir, "trace.json")) as f:
+                trace = json.load(f)
+            names = sorted({e.get("name", "") for e in trace["traceEvents"]
+                            if e.get("cat") == "kernel"})
+            found = {w: [n for n in names if w in n] for w in self.WANT}
+            if all(found.values()) or self.runs >= self.tries:
+                break
+            self.cli = self._start()
+        if not all(found.values()):
+            raise AssertionError(f"--profile trace of option 6 names no "
+                                 f"kernel of {found} in {self.runs} tries")
+        return {"tries": self.runs, "kernels": found,
+                "trace_bytes": os.path.getsize(
+                    os.path.join(self.dir, "trace.json"))}
+
+
+def _wait_for(pred, what: str, proc, timeout: float = 120.0):
+    t0 = time.perf_counter()
+    while not pred():
+        if proc.poll() is not None:
+            raise AssertionError(f"the CLI exited while waiting for {what}")
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _prom_ok(text: str) -> int:
+    """The sample count of a Prometheus text exposition, which must parse:
+    ``# TYPE`` lines and ``name{labels} value`` samples."""
+    n = 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            continue
+        name, brace, rest = line.partition("{")
+        labels, close, value = rest.rpartition("} ")
+        if not (name and brace and close):
+            raise AssertionError(f"metrics.prom line {line!r}")
+        float(value)
+        n += 1
+    return n
+
+
+def telemetry_cli_checks(tmp, stack, argv, wants, warmups, lines, fifo, sig,
+                         prof) -> dict:
+    """The telemetry CLI runs of :func:`cli_phase` (a)-(c):
+
+    (a) options 6 and 51 with ``--telemetry-dir --trace-dir
+        --postmortem-dir --strict-recompile --live-stats --metrics``
+        (``--sentinel-warmup`` the window count after which the in-process
+        run compiled nothing): stdout the uninstrumented run's, >= 2 JSONL
+        snapshots, a ``device`` block on the gpu platform with the card's
+        name, a non-zero memory peak, no recompile and the kernel
+        libraries that ran, a ``metrics.prom`` that parses, one trace per
+        emitted window;
+    (b) option 6 read from a FIFO, sent SIGUSR1 after 60 % of the rows
+        and again after the first bundle: two bundles, read by the
+        port's doctor (``summarize`` of each, ``diff`` of the two);
+    (c) option 6 under ``--profile``, whose trace names K1's and K4's
+        kernels."""
+    import torch
+
+    kind = torch.cuda.get_device_name(0)
+    tel = {}
+    for opt in (6, 51):
+        d = {k: os.path.join(tmp, f"{k}-{opt}") for k in ("t", "tr", "pmt")}
+        tel[opt] = (d, stack.enter_context(CliRun(tmp, f"tel{opt}", [
+            *argv[opt], "--telemetry-dir", d["t"], "--trace-dir", d["tr"],
+            "--postmortem-dir", d["pmt"], "--strict-recompile",
+            "--sentinel-warmup", str(warmups[opt]), "--live-stats",
+            "--metrics", "--telemetry-interval", "1"])))
+    # (b): the FIFO opens when the CLI reads it (its handler is installed
+    # by then); 60 % of the rows seal the first windows
+    pm = os.path.join(tmp, "pm")
+    cut = len(lines) * 3 // 5
+
+    def bundles():
+        if not os.path.isdir(pm):
+            return []
+        return sorted(b for b in os.listdir(pm) if os.path.exists(
+            os.path.join(pm, b, "manifest.json")))
+
+    with open(fifo, "w") as f:
+        f.write("\n".join(lines[:cut]) + "\n")
+        f.flush()
+        _wait_for(lambda: os.path.getsize(sig.paths[0]) > 0,
+                  "the FIFO run's first window", sig.proc)
+        for n in (1, 2):
+            os.kill(sig.proc.pid, signal.SIGUSR1)
+            _wait_for(lambda: len(bundles()) >= n, f"bundle {n}", sig.proc)
+        f.write("\n".join(lines[cut:]) + "\n")
+    if sig.stdout() != wants[6]:
+        raise AssertionError("the SIGUSR1 run's stdout differs")
+    paths = [os.path.join(pm, b) for b in bundles()]
+    doctor = {}
+    for args in (["summarize", paths[0]], ["summarize", paths[1]],
+                 ["diff", *paths]):
+        out = subprocess.run(
+            [sys.executable, "-m", "spatialflink_tpu_torch.doctor", *args],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        if out.returncode != 0 or not out.stdout:
+            raise AssertionError(f"doctor {args[0]}: {out.stderr}")
+        doctor.setdefault(args[0], []).append(out.stdout)
+    if not all("reason     signal" in o for o in doctor["summarize"]):
+        raise AssertionError("doctor summarize: no signal bundle")
+    if "backend    gpu" not in doctor["summarize"][0]:
+        raise AssertionError("the bundle's backend is not gpu")
+    log("telemetry (b): SIGUSR1 x 2 mid-stream -> bundles "
+        f"{[os.path.basename(p) for p in paths]} "
+        f"({[_du(p) for p in paths]} bytes); doctor summarize:\n"
+        + doctor["summarize"][0] + "doctor diff:\n" + doctor["diff"][0])
+    report = {"bundle_bytes": [_du(p) for p in paths]}
+    for opt, (d, cli) in tel.items():
+        if cli.stdout() != wants[opt]:
+            raise AssertionError(f"telemetry CLI {opt}: stdout differs from "
+                                 "the uninstrumented run's")
+        err = cli.stderr()
+        with open(os.path.join(d["t"], "telemetry.jsonl")) as f:
+            snaps = [json.loads(x) for x in f]
+        if len(snaps) < 2:
+            raise AssertionError(f"telemetry CLI {opt}: {len(snaps)} "
+                                 "snapshot(s)")
+        dev = snaps[-1]["device"]
+        be = dev["backend"]
+        libs = dev.get("libraries") or []
+        need = {6: ("pip_dist", "range_mask"), 51: ("knn_topk",)}[opt]
+        if (be["platform"] != "gpu" or be["device_kind"] != kind
+                or not dev["mem_peak_bytes"] or dev["recompiles"] != 0
+                or not set(need) <= set(libs)):
+            raise AssertionError(f"telemetry CLI {opt}: device block {dev}")
+        with open(os.path.join(d["t"], "metrics.prom")) as f:
+            samples = _prom_ok(f.read())
+        with open(os.path.join(d["tr"], "trace.json")) as f:
+            trace = json.load(f)
+        ids = {e["args"]["trace_id"] for e in trace["traceEvents"]
+               if e.get("ph") != "M"}
+        windows = wants[opt].count("\n")
+        if len(ids) != windows:
+            raise AssertionError(f"telemetry CLI {opt}: {len(ids)} traces "
+                                 f"for {windows} windows")
+        if "# live: " not in err or '"metrics"' not in err:
+            raise AssertionError(f"telemetry CLI {opt}: no digest / metrics")
+        sizes = {name: os.path.getsize(os.path.join(d[k], name))
+                 for k, name in (("t", "telemetry.jsonl"),
+                                 ("t", "metrics.prom"), ("tr", "trace.json"))}
+        spans = snaps[-1]["spans"]
+        row = {"option": opt, "snapshots": len(snaps), "windows": windows,
+               "warmup": warmups[opt], "compiles": dev["compiles"],
+               "recompiles": dev["recompiles"], "libraries": libs,
+               "mem_peak_bytes": dev["mem_peak_bytes"],
+               "prom_samples": samples, "traces": len(ids), "bytes": sizes,
+               "kernel_spans": {k: v["count"] for k, v in spans.items()
+                                if k.endswith(".kernel")},
+               "digest": [x for x in err.splitlines()
+                          if x.startswith("# live: ")][-1]}
+        report[f"option_{opt}"] = row
+        log("telemetry (a)", json.dumps(row))
+    report["profile"] = prof.kernels(wants[6])
+    log("telemetry (c)", json.dumps(report["profile"]))
+    return report
+
+
+def _du(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs in os.walk(path) for f in fs)
 
 
 # ------------------------------------------------------------------------ #
@@ -5415,7 +5714,7 @@ def main(argv=None) -> int:
                              glines["Polygon"][:N_GEOM_LINES],
                              geoms["Polygon"][:N_GEOM_LINES]))
     phase("cli-geom", geom_cli_phase, glines["Polygon"][:N_GEOM_CLI])
-    phase("cli", cli_phase, args.seed)
+    telemetry = phase("cli", cli_phase, args.seed)
     phase("cli-queries", queries_cli_phase, args.seed)
     adaptive_launches, adaptive_report = phase("adaptive", adaptive_phase,
                                                card)
@@ -5647,6 +5946,7 @@ def main(argv=None) -> int:
                       "adaptive_launches": adaptive_launches,
                       "recovery": kafka_report["recovery"],
                       "trajectory_pane_err_share_of_bound": traj_pane_err,
+                      "telemetry": telemetry,
                       "geom_host": geom_host, "breakdown": breakdown,
                       "profile": prof, "phases_s": phases}), flush=True)
     print(json.dumps({"ok": True, "device": {

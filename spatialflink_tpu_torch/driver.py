@@ -75,10 +75,21 @@ runs unchanged, the epochs counting all the same, and the layout rides
 ``--checkpoint-dir`` as the component ``grid``. ``--shard-order`` is
 accepted and its value dropped: one card has no shards to place. A control tuple in a stream
 stops the run (exit 0); a SIGTERM drains the records read and writes a
-final checkpoint. Every other option, and every flag or config feature
-not ported yet (``--kafka-follow``, ``--chaos``, ``--retry``, ``--dlq``,
-the operations planes), is refused with "not yet ported to
-spatialflink_tpu_torch" — never silently ignored.
+final checkpoint. The telemetry flags (``utils.telemetry``): ``--metrics``
+prints the registry as one JSON object on stderr at exit;
+``--telemetry-dir`` (``--telemetry-interval``) writes JSONL snapshots and
+``metrics.prom``; ``--trace-dir`` the per-window Chrome trace;
+``--live-stats`` the stderr digest; ``--postmortem-dir`` arms the flight
+recorder (bundles on a crash, a strict-recompile abort or SIGUSR1, read by
+``python -m spatialflink_tpu_torch.doctor``); ``--strict-recompile``
+(``--sentinel-warmup``) exits 3 when a kernel meets a new signature after
+the warmup; ``--profile`` writes a ``torch.profiler`` trace. Every other
+option, and every flag or config feature not ported yet
+(``--kafka-follow``, ``--chaos``, ``--retry``, ``--dlq``,
+``--status-port``, ``--slo``, ``--controller``, ``--latency-class``, the
+``--tenant-*`` quotas, ``--devices``, ``--hosts``, ``--fleet*``), is
+refused with "not yet ported to spatialflink_tpu_torch" — never silently
+ignored.
 
 A point stream in CSV/TSV/GeoJSON decodes through the native columnar
 parser; a polygon or linestring stream (GeoJSON, WKT, CSV/TSV) is parsed
@@ -92,7 +103,10 @@ geometry type is dropped and counted (``decode_chunks.off_type_dropped``).
         [--output out.geojson] [--output-format GeoJSON|WKT|CSV|TSV] \\
         [--kafka [--kafka-group G] [--kafka-bootstrap URL]] \\
         [--checkpoint-dir DIR [--resume]] [--adaptive-grid [K]
-        [--repartition-interval N]] [--device cuda|cpu]
+        [--repartition-interval N]] [--metrics] [--telemetry-dir DIR
+        [--telemetry-interval S]] [--trace-dir DIR] [--live-stats]
+        [--postmortem-dir DIR] [--strict-recompile [--sentinel-warmup N]]
+        [--profile DIR] [--device cuda|cpu]
 
 stdout carries one line per window as the JAX driver prints it:
 ``{'window': [start, end], 'count': n}`` plus the result's extras (``k``
@@ -315,6 +329,7 @@ def _decode_geoms(raws: List, cfg: StreamConfig, grid: UniformGrid,
             kept.append(obj)
         else:
             decode_chunks.off_type_dropped += 1
+            metrics.REGISTRY.counter("off-type-dropped").inc()
             warn(type(obj).__name__)
     return GeomChunk(kept) if kept else None
 
@@ -334,10 +349,23 @@ def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
     stream where it stands: the records before it are decoded and handed
     on, then :class:`ControlTupleExit` propagates. A shutdown request
     (SIGTERM) does the same after the record in hand, as
-    :class:`GracefulShutdown`."""
+    :class:`GracefulShutdown`.
+
+    The registry's ``ingest-throughput`` meter marks every record and
+    ``off-type-dropped`` counts the dropped ones; with a telemetry session
+    each chunk's decode is one ``ingest`` observation and sets the
+    ``decode.buffer-depth`` gauge."""
+    from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+    meter = metrics.REGISTRY.meter("ingest-throughput")
+    metrics.REGISTRY.counter("off-type-dropped")
+    tel = _telemetry.active()
+    depth_gauge = (tel.gauge("decode.buffer-depth")
+                   if tel is not None else None)
     src_chunks = getattr(records, "chunks", None)
     if src_chunks is not None:
         for ch in src_chunks():
+            meter.mark(len(ch))
             if len(ch):
                 yield ch
         return
@@ -345,9 +373,18 @@ def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
     warn = _off_type_warner(geometry)
 
     def decode(buf):
+        if tel is not None:
+            t0 = time.perf_counter()
+            depth_gauge.set(len(buf))
         if geometry == "Point":
-            return _decode_chunk(buf, cfg, grid, interner)
-        return _decode_geoms(buf, cfg, grid, geometry, warn)
+            out = _decode_chunk(buf, cfg, grid, interner)
+        else:
+            out = _decode_geoms(buf, cfg, grid, geometry, warn)
+        if tel is not None:
+            # one ingest observation per chunk: the parse cost amortized
+            tel.observe("ingest", time.perf_counter() - t0)
+        meter.mark(len(buf))
+        return out
 
     stop_requested = metrics.shutdown_requested
     buf: List = []
@@ -455,7 +492,12 @@ def _with_latency(results: Iterator[WindowResult]
     ``HelperClass.java:455-529``); a record's ingestion time is its decode
     chunk's stamp, and a join pair's is its first record's. kNN records
     are (objID, distance) pairs with no ingestion time, so their list is
-    empty."""
+    empty. With a telemetry session the values also feed the
+    ``record-latency-ms`` histogram."""
+    from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+    tel = _telemetry.active()
+    hist = tel.histogram("record-latency-ms") if tel is not None else None
     for r in results:
         now = int(time.time() * 1000)
         cols = getattr(r.records, "columns", None)
@@ -463,6 +505,9 @@ def _with_latency(results: Iterator[WindowResult]
         ingest = (cols()[5] if cols is not None else
                   first() if first is not None else None)
         lats = [] if ingest is None else (now - ingest[ingest > 0]).tolist()
+        if hist is not None:
+            for v in lats:
+                hist.record(v)
         r.extras["latency_ms"] = lats
         yield r
 
@@ -1185,6 +1230,11 @@ def _wire_kafka(params: Params, spec: CaseSpec, args, skip1: int
         print(f"# resume: consumer group sought to checkpointed offsets; "
               f"{depth} records past the checkpoint to (re)process",
               file=sys.stderr)
+        from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+        tel = _telemetry.active()
+        if tel is not None:
+            tel.gauge("recovery.replay-depth").set(depth)
     u_grid, q_grid = params.grids()
     size_ms, step_ms = params.window_ms()
     geom1 = spec.stream if spec.family in ("range", "knn", "join") \
@@ -1398,6 +1448,73 @@ def _make_parser() -> argparse.ArgumentParser:
                          "batches ('cell' co-locates whole grid cells per "
                          "shard); one card has no shards, so both give "
                          "the same run")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print a sorted-JSON metrics snapshot (counters, "
+                         "meters, degradation digest) to stderr at exit")
+    ap.add_argument("--telemetry-dir", metavar="DIR", default=None,
+                    help="enable structured telemetry: per-stage spans "
+                         "(ingest/window/kernel/merge/sink), latency "
+                         "histograms, watermark-lag/backlog/grid-skew "
+                         "gauges, the device block and the degradation "
+                         "counters, emitted as JSONL snapshots to "
+                         "DIR/telemetry.jsonl (one immediately, one per "
+                         "--telemetry-interval, one at exit) plus the "
+                         "Prometheus text dump DIR/metrics.prom, rewritten "
+                         "at each snapshot. Off by default — the record "
+                         "loop runs uninstrumented")
+    ap.add_argument("--telemetry-interval", type=float, default=5.0,
+                    metavar="SECONDS",
+                    help="seconds between periodic telemetry snapshots "
+                         "(default 5.0); also the --live-stats digest "
+                         "cadence")
+    ap.add_argument("--trace-dir", metavar="DIR", default=None,
+                    help="record per-window TRACE LINEAGE (first-record "
+                         "ingest, assembly, pane seals, kernel dispatch, "
+                         "merge/readback, emit, sink, Kafka sink commit — "
+                         "stable trace ids derived from (query, "
+                         "window_start), bounded ring of the last 256 "
+                         "windows) and export it at exit as Chrome "
+                         "trace-event JSON to DIR/trace.json — load it in "
+                         "Perfetto (ui.perfetto.dev) or chrome://tracing. "
+                         "Activates a telemetry session")
+    ap.add_argument("--live-stats", action="store_true",
+                    help="print a one-line pipeline digest (throughput, "
+                         "windows, latency p99, watermark lag, backlog, "
+                         "checkpoint age, device, degradation) to stderr "
+                         "every --telemetry-interval seconds; activates a "
+                         "telemetry session")
+    ap.add_argument("--postmortem-dir", metavar="DIR", default=None,
+                    help="arm the flight recorder: a bounded ring of run "
+                         "lifecycle notes that dumps a post-mortem bundle "
+                         "directory (status snapshot, event ring, compile "
+                         "registry, recent window traces, device memory, "
+                         "config fingerprint) to DIR on crash, "
+                         "strict-recompile abort or SIGUSR1 — read it with "
+                         "'python -m spatialflink_tpu_torch.doctor "
+                         "summarize/diff'. Activates a telemetry session")
+    ap.add_argument("--strict-recompile", action="store_true",
+                    help="abort the run (exit 3, post-mortem bundle if "
+                         "--postmortem-dir) when a kernel entry point meets "
+                         "a new signature (padded shapes, dtypes, static "
+                         "arguments) or a kernel library is built or loaded "
+                         "AFTER the declared warmup. Observational without "
+                         "this flag: post-warmup compiles still count "
+                         "('device-recompiles', 'recompile' events)")
+    ap.add_argument("--sentinel-warmup", type=int, default=1,
+                    metavar="WINDOWS",
+                    help="recompile-sentinel warmup: compiles stop being "
+                         "expected after this many emitted windows "
+                         "(default 1). Streams whose batch sizes keep "
+                         "growing into fresh padding buckets late in the "
+                         "run may need a larger value before "
+                         "--strict-recompile is safe")
+    ap.add_argument("--profile", metavar="DIR", default=None,
+                    help="capture a torch.profiler trace of the run (CPU "
+                         "and CUDA activity) to DIR/trace.json (Chrome "
+                         "trace format) with per-operator dispatch/"
+                         "readback ranges — the reference's Flink web UI "
+                         "observability as a trace (StreamingJob.java:"
+                         "70-72)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "PyTorch versions)")
@@ -1645,6 +1762,29 @@ def main(argv: Optional[List[str]] = None) -> int:
     limit1 = args.limit
     if skip1 and limit1 is not None:
         limit1 = max(0, limit1 - skip1)
+    if (args.telemetry_dir or args.live_stats or args.trace_dir
+            or args.postmortem_dir):
+        from spatialflink_tpu_torch.utils.telemetry import telemetry_session
+
+        # the session wraps the Kafka wiring too (taps and sinks take
+        # their gauges at construction); --live-stats, --trace-dir and
+        # --postmortem-dir without --telemetry-dir run a session with no
+        # reporter
+        with telemetry_session(args.telemetry_dir or None,
+                               args.telemetry_interval,
+                               trace_dir=args.trace_dir,
+                               device=args.device):
+            if args.telemetry_dir:
+                print(f"# telemetry: JSONL snapshots every "
+                      f"{args.telemetry_interval:g}s -> "
+                      f"{os.path.join(args.telemetry_dir, 'telemetry.jsonl')}",
+                      file=sys.stderr)
+            if args.trace_dir:
+                print("# tracing: per-window lineage -> "
+                      f"{os.path.join(args.trace_dir, 'trace.json')} "
+                      "(Chrome trace-event JSON; open in Perfetto)",
+                      file=sys.stderr)
+            return _run_cli(ap, args, params, spec, skip1, limit1)
     return _run_cli(ap, args, params, spec, skip1, limit1)
 
 
@@ -1766,6 +1906,44 @@ def _run_cli(ap, args, params: Params, spec, skip1: int,
         prev = signal.signal(signal.SIGTERM,
                              lambda signum, frame: metrics.request_shutdown())
         stack.callback(signal.signal, signal.SIGTERM, prev)
+    from spatialflink_tpu_torch.utils import deviceplane
+    from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+    # the recompile sentinel: warmup re-opens for this run; after
+    # --sentinel-warmup emitted windows every new kernel signature or
+    # library is a 'recompile' event and count, and an abort under
+    # --strict-recompile; end_run on the stack, so a later run in the
+    # process starts cold
+    sentinel = deviceplane.registry()
+    sentinel.begin_run(strict=args.strict_recompile)
+    stack.callback(sentinel.end_run)
+    recorder = None
+    if args.postmortem_dir:
+        recorder = deviceplane.FlightRecorder(
+            args.postmortem_dir,
+            config={
+                "job_fingerprint": params.job_fingerprint(),
+                "option": params.query.option,
+                "family": spec.family if spec is not None else None,
+                "mode": spec.mode if spec is not None else None,
+                "backend": deviceplane.backend_provenance(
+                    device=args.device),
+                "flags": {
+                    "kafka": bool(args.kafka),
+                    "chaos": False,
+                    "panes": bool(args.panes),
+                    "strict_recompile": args.strict_recompile,
+                    "sentinel_warmup": args.sentinel_warmup,
+                    "slo": None,
+                },
+            })
+        recorder.install_signal()
+        stack.callback(recorder.close)
+        recorder.note("run-start", option=params.query.option,
+                      family=spec.family if spec is not None else None)
+        print(f"# flight recorder armed: post-mortem bundles -> "
+              f"{args.postmortem_dir} (crash / SIGUSR1; read with "
+              "python -m spatialflink_tpu_torch.doctor)", file=sys.stderr)
     repartitioner = getattr(params, "repartitioner", None)
     if repartitioner is not None:
         # the decode's cell assignments feed the epochs from here on; the
@@ -1773,40 +1951,105 @@ def _run_cli(ap, args, params: Params, spec, skip1: int,
         # leaks it
         repartitioner.install()
         stack.callback(repartitioner.uninstall)
+    if registry is not None:
+        registry.install()
+        stack.callback(registry.uninstall)
+    if args.profile:
+        stack.enter_context(metrics.profile_to(args.profile,
+                                               device=args.device))
+        print(f"# profiling to {os.path.join(args.profile, 'trace.json')} "
+              "(Chrome trace; open in Perfetto)", file=sys.stderr)
+    tel = _telemetry.active()
+    if args.live_stats:
+        from spatialflink_tpu_torch.runtime.opserver import LiveStats
+
+        live = LiveStats(interval_s=args.telemetry_interval).start()
+        stack.callback(live.close)
+    # per-window pipeline latency: the wall clock from asking the pipeline
+    # for its next result to receiving it
+    win_hist = (tel.histogram("window-latency-ms")
+                if tel is not None else None)
+
+    def emit_result(result) -> None:
+        _emit(result, sink)
+        if kafka is not None:
+            kafka.emit(result)
+        if router is not None and isinstance(result, WindowResult) \
+                and "query_ids" in result.extras:
+            # per-query demux: the SLO verdict always, one JSON document
+            # per (window, query) on file: / kafka: routes
+            router.route(result)
+        if out_sink is not None:
+            if isinstance(result, WindowResult):
+                for rec in result.flat_records():
+                    out_sink.emit(rec)
+            elif (isinstance(result, tuple) and len(result) == 2
+                    and isinstance(result[0], SpatialObject)):
+                out_sink.emit(result[0])  # a ser/de pair's record
+            else:
+                out_sink.emit(result)
+
     n = 0
-    stopped = graceful = False
+    stopped = graceful = strict_abort = False
+    it = iter(results)
     try:
-        for result in results:
+        while True:
+            t0 = time.perf_counter() if tel is not None else 0.0
+            try:
+                result = next(it)
+            except StopIteration:
+                break
+            if win_hist is not None:
+                win_hist.record((time.perf_counter() - t0) * 1e3)
             if (journal is not None and isinstance(result, WindowResult)
                     and journal.seen(result)):
                 continue  # emitted by the run before the crash
-            _emit(result, sink)
-            if kafka is not None:
-                kafka.emit(result)
-            if router is not None and isinstance(result, WindowResult) \
-                    and "query_ids" in result.extras:
-                # per-query demux: the SLO verdict always, one JSON
-                # document per (window, query) on file: / kafka: routes
-                router.route(result)
-            if out_sink is not None:
+            if tel is not None:
+                s0 = time.time()
+                with tel.span("sink"):
+                    emit_result(result)
+                s1 = time.time()
                 if isinstance(result, WindowResult):
-                    for rec in result.flat_records():
-                        out_sink.emit(rec)
-                elif (isinstance(result, tuple) and len(result) == 2
-                        and isinstance(result[0], SpatialObject)):
-                    out_sink.emit(result[0])  # a ser/de pair's record
-                else:
-                    out_sink.emit(result)
+                    # the driver's emission, by window_start: the latency
+                    # plane's downstream "sink" stage and the trace note
+                    tel.latency.note_downstream(
+                        "sink", result.window_start, s0, s1)
+                    if tel.traces is not None:
+                        tel.traces.note_any(result.window_start, "sink",
+                                            s0, s1)
+            else:
+                emit_result(result)
             if journal is not None and isinstance(result, WindowResult):
                 journal.record(result)
             n += 1
+            if (not sentinel.warm and isinstance(result, WindowResult)
+                    and n >= args.sentinel_warmup):
+                # declared warmup done: any later compile is an event
+                sentinel.mark_warm(
+                    f"{n} window(s) emitted (--sentinel-warmup "
+                    f"{args.sentinel_warmup})")
+            if recorder is not None and isinstance(result, WindowResult):
+                recorder.note("window", start=result.window_start,
+                              records=len(result.records))
     except metrics.ControlTupleExit as e:
         # the remote stop (HelperClass.checkExitControlTuple) ends the run
         # gracefully, exit code 0
         stopped = True
         graceful = isinstance(e, metrics.GracefulShutdown)
+    except deviceplane.RecompileError as e:
+        # --strict-recompile: the zero-recompile contract was violated;
+        # the moment is captured and the run exits 3
+        if recorder is not None:
+            recorder.dump("strict-recompile", error=e)
+        print(f"# STRICT-RECOMPILE ABORT: {e}", file=sys.stderr)
+        strict_abort = True
+    except BaseException as e:
+        # any other crash: the post-mortem bundle, then the error as it was
+        if recorder is not None:
+            recorder.dump("crash", error=e)
+        raise
     finally:
-        stack.close()
+        stack.close()  # the profiler's trace is written before the summary
         sink.close()
         if out_sink is not None:
             out_sink.close()
@@ -1833,7 +2076,14 @@ def _run_cli(ap, args, params: Params, spec, skip1: int,
     if out_sink is not None:
         print(f"# wrote {out_sink.records_written} records to {args.output} "
               f"({args.output_format})", file=sys.stderr)
-    return 0
+    if args.metrics:
+        import json
+
+        # one sorted-JSON object on stderr, with the degradation digest
+        print(json.dumps({"metrics": metrics.REGISTRY.snapshot(),
+                          "degradation": metrics.degradation_snapshot()},
+                         sort_keys=True), file=sys.stderr)
+    return 3 if strict_abort else 0
 
 
 if __name__ == "__main__":

@@ -12,7 +12,8 @@ assignment, the reference's layer math, and the dense GN/CN/NB cell masks.
   cells.
 - ``_CELL_OBSERVER``: when set, every :meth:`UniformGrid.assign_cell`
   result is handed to it (the adaptive grid's repartition controller
-  counts each decoded chunk's cells through it).
+  counts each decoded chunk's cells through it, and a telemetry session
+  its cell occupancy and cost).
 """
 
 from __future__ import annotations
@@ -27,9 +28,11 @@ import torch
 NO_LAYER = 2 ** 30
 
 #: the cell observer: None (the default) leaves :meth:`UniformGrid.
-#: assign_cell` as it is; ``runtime.repartition.RepartitionController.
-#: install`` chains itself here, so each assignment's cell ids feed its
-#: epoch counts
+#: assign_cell` as it is; ``utils.telemetry.telemetry_session`` (cell
+#: occupancy and cost) and ``runtime.repartition.RepartitionController.
+#: install`` (epoch counts) chain themselves here, each keeping the one
+#: installed before it first in line, and restore it on exit. Observers
+#: see host (numpy) arrays of whole chunks, never device tensors
 _CELL_OBSERVER: Optional[Callable[[np.ndarray], None]] = None
 
 

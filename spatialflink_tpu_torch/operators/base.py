@@ -48,10 +48,24 @@ kept rows (base cells, as ever), and a window that keeps nothing launches
 nothing. The leaf masks over-approximate the kernels' own selection for
 every layout, so exact-mode results are those of the uniform grid.
 
+Telemetry (``utils.telemetry``): the drive loop reads
+``telemetry.active()`` once per loop. With a session it times each
+window's assembly pull, dispatch and readback as ``window`` / ``kernel``
+/ ``merge`` spans under the family label (``range.kernel``), sets the
+``window-backlog`` gauge, records the ``dispatch-overlap-ratio``
+histogram, the latency plane's stage budget, the trace book's notes
+(``--trace-dir``), the cost profiles' attribution and the tenant ledger's
+dispatch; ``kernel`` spans time the host's dispatch (no device sync), and
+``merge`` is where ``Deferred.finish`` already waits. One loop serves
+both cases: each hook is guarded by ``tel is not None``, as in the JAX
+package. The registry counters (``batches-evaluated``, ``records-evaluated``,
+``gn-bypassed``, ``distance-computations``, the pane cache's and the pane
+readbacks') are always on, as in the JAX package.
+
 Not yet ported: the device mesh (with it the JAX package's
 ``conf.shard_order``; the driver accepts ``--shard-order`` and drops it,
-as one device has no shards to place), and the drive loop's telemetry,
-latency-plane, governor and accounting hooks (ROADMAP Queue 1 item 5). The JAX package's single-device seams around the mesh
+as one device has no shards to place) and the chunk governor's drain
+depth. The JAX package's single-device seams around the mesh
 (``_multi_filter_stream``, ``_knn_multi_result``) have no mesh to route
 here, so the port calls the per-batch closures directly.
 """
@@ -60,6 +74,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Iterator, List, Optional, Tuple
@@ -82,6 +97,7 @@ from spatialflink_tpu_torch.streams.bulk import (BulkStream, BulkWindow,
                                                  PointChunk, PointRows,
                                                  points_to_parsed)
 from spatialflink_tpu_torch.utils import IdInterner, metrics
+from spatialflink_tpu_torch.utils import telemetry as _telemetry
 from spatialflink_tpu_torch.utils.metrics import ControlTupleExit
 
 NOT_PORTED = "not yet ported to spatialflink_tpu_torch"
@@ -205,22 +221,29 @@ class PaneCache:
     hit and miss counts, and eviction in ascending window order (once
     window ``s`` has looked its panes up, no later window needs a key
     whose floor is below ``s + slide``). :meth:`snapshot` /
-    :meth:`restore` carry the partials across a checkpoint."""
+    :meth:`restore` carry the partials across a checkpoint. Hits and
+    misses also count in the registry's ``pane-cache-hits`` /
+    ``pane-cache-misses``."""
 
-    __slots__ = ("slide", "cache", "hits", "misses", "key_floor")
+    __slots__ = ("slide", "cache", "hits", "misses", "key_floor",
+                 "_hits_c", "_misses_c")
 
     def __init__(self, slide_ms: int, key_floor=None):
         self.slide = slide_ms
         self.cache: dict = {}
         self.hits = self.misses = 0
+        self._hits_c = metrics.REGISTRY.counter("pane-cache-hits")
+        self._misses_c = metrics.REGISTRY.counter("pane-cache-misses")
         self.key_floor = key_floor if key_floor is not None else (
             lambda k: k)
 
     def get(self, key, evaluate):
         if key in self.cache:
             self.hits += 1
+            self._hits_c.inc()
             return self.cache[key]
         self.misses += 1
+        self._misses_c.inc()
         value = self.cache[key] = evaluate()
         return value
 
@@ -239,11 +262,13 @@ class PaneCache:
         import json as _json
 
         entries = []
+        skipped = metrics.REGISTRY.counter("pane-cache-snapshot-skipped")
         for key, value in self.cache.items():
             wrapped = isinstance(value, PanePartial)
             try:
                 enc = encode_value(value.peek() if wrapped else value)
             except TypeError:
+                skipped.inc()
                 continue
             entries.append([_json.dumps(key), wrapped, enc])
         return {"entries": entries}
@@ -262,6 +287,23 @@ class PaneCache:
             self.cache[key] = PanePartial(value) if wrapped else value
 
 
+def _device_nbytes(x) -> int:
+    """Summed ``nbytes`` over the tensors of a deferred device payload
+    (tuples, named tuples, lists): the pane readback bytes."""
+    total = 0
+    stack = [x]
+    while stack:
+        v = stack.pop()
+        if v is None:
+            continue
+        nb = getattr(v, "nbytes", None)
+        if nb is not None:
+            total += int(nb)
+        elif isinstance(v, (tuple, list)):
+            stack.extend(v)
+    return total
+
+
 class PanePartial:
     """One pane's cached partial: the evaluator's raw output (a
     :class:`Deferred` or a final host value), read back at most once
@@ -276,6 +318,10 @@ class PanePartial:
 
     def resolve(self):
         if isinstance(self.value, Deferred):
+            reg = metrics.REGISTRY
+            reg.counter("pane-partial-readbacks").inc()
+            reg.counter("pane-partial-readback-bytes").inc(
+                _device_nbytes(self.value.device_result))
             self.value = self.value.finish()
         return self.value
 
@@ -353,6 +399,10 @@ def _record_chunks(stream: Iterable, grid: UniformGrid,
 class SpatialOperator:
     """Shared driver: turns a record stream into point-window batches on
     ``device`` and pipelines their evaluation."""
+
+    #: the query family that scopes telemetry span names (``knn.kernel``);
+    #: None falls back to the class name
+    telemetry_label: Optional[str] = None
 
     def __init__(self, conf: QueryConfiguration, grid: UniformGrid, *,
                  device="cuda"):
@@ -582,6 +632,17 @@ class SpatialOperator:
         """(mask, gn_bypassed, dist_evals) for one batch on one device."""
         return mask_stats_fn(batch)
 
+    def _record_pruning_stats(self, gn_bypassed: int, dist_evals: int
+                              ) -> None:
+        """The pruning counters (the reference's "Distance Computation
+        Count" and its complement): the operator's :attr:`pruning` and the
+        registry's ``gn-bypassed`` / ``distance-computations``."""
+        self.pruning["gn-bypassed"] += gn_bypassed
+        self.pruning["distance-computations"] += dist_evals
+        reg = metrics.REGISTRY
+        reg.counter("gn-bypassed").inc(gn_bypassed)
+        reg.counter("distance-computations").inc(dist_evals)
+
     def _defer_with_stats(self, dev, stats, rows) -> Deferred:
         """``stats`` = (gn_bypassed, dist_evals) device counts — scalars, or
         per-query (Q,) rows summed here — ride the same readback as the
@@ -589,8 +650,7 @@ class SpatialOperator:
         turns the result into records."""
         def collect(host):
             main, gn, evals = host
-            self.pruning["gn-bypassed"] += int(gn.sum())
-            self.pruning["distance-computations"] += int(evals.sum())
+            self._record_pruning_stats(int(gn.sum()), int(evals.sum()))
             return rows(main)
         return Deferred((dev, *stats), collect)
 
@@ -610,18 +670,21 @@ class SpatialOperator:
         candidate-cell point costs one distance."""
         def collect(host):
             oid, dist, valid, evals = host
-            self.pruning["distance-computations"] += int(evals.sum())
+            self._record_pruning_stats(0, int(evals.sum()))
             return _knn_pairs(oid, dist, valid, ids)
         return self._knn_deferred((*res, dist_evals), collect, ids)
 
     def _defer_knn_multi(self, res, ids, dist_evals,
-                         live: Optional[int] = None) -> Deferred:
+                         live: Optional[int] = None, weigh=None) -> Deferred:
         """Deferred per-query (objID, distance) lists from a (Q, k)
         KnnResult, the first ``live`` rows (all by default); ``dist_evals``
-        (Q,) is summed into the counter."""
+        (Q,) is summed into the counter. ``weigh(valid)`` (the dynamic
+        plane's tenant ledger) sees the live rows' host valid flags."""
         def collect(host):
             oid, dist, valid, evals = host
-            self.pruning["distance-computations"] += int(evals.sum())
+            self._record_pruning_stats(0, int(evals.sum()))
+            if weigh is not None:
+                weigh(valid[:live])
             return [_knn_pairs(o, d, v, ids)
                     for o, d, v in zip(oid[:live], dist[:live],
                                        valid[:live])]
@@ -779,8 +842,12 @@ class SpatialOperator:
         merges the partials where they lie on the device and returns a
         :class:`Deferred` of the merged window, or None where the JAX
         package falls back to the host merge (partials of different id
-        spaces): the results are the same. ``conf.pane_device_merge`` None picks the device merge on
-        CUDA (the JAX package picks it off its CPU backend)."""
+        spaces): the results are the same. ``conf.pane_device_merge`` None
+        picks the device merge on CUDA (the JAX package picks it off its
+        CPU backend). With a telemetry session, each pane sealing is a
+        ``pane-seal`` trace note, the cache's hits and misses go to the
+        cost profiles, and the merge is a ``pane-merge`` span with its
+        readback bytes."""
         cache = self.pane_cache = PaneCache(self.conf.slide_ms)
         self._register_ckpt_pane_cache("pane-cache", cache)
         want = self.conf.pane_device_merge
@@ -788,18 +855,57 @@ class SpatialOperator:
             want = self.device.type == "cuda"
         use_device = device_merge is not None and want
         self._pane_resident = use_device
+        tel = _telemetry.active()
+        label = self.telemetry_label or type(self).__name__
+        book = tel.traces if tel is not None else None
+        costs = tel.costs if tel is not None else None
+        reg = metrics.REGISTRY
+        rb_bytes = reg.counter("pane-partial-readback-bytes")
+
+        def seal_pane(p_start, payload, ts_base):
+            if book is None:
+                return PanePartial(pane_partial(payload, p_start))
+            t0 = time.time()
+            part = PanePartial(pane_partial(payload, p_start))
+            book.note(label, ts_base, "pane-seal", t0, time.time(),
+                      pane=int(p_start), records=int(len(payload)))
+            return part
 
         def eval_batch(panes, ts_base):
+            h0, m0 = cache.hits, cache.misses
             parts = [cache.get(p_start,
-                               lambda: PanePartial(pane_partial(payload,
-                                                                p_start)))
+                               lambda: seal_pane(p_start, payload, ts_base))
                      for p_start, payload in panes]
             cache.evict_before(ts_base)
+            if costs is not None:
+                costs.note_pane(label, cache.hits - h0, cache.misses - m0)
             merged = device_merge(parts) if use_device else None
             if merged is not None:
-                return merged
-            return Deferred((), lambda _: merge_partials(
-                [h.resolve() for h in parts]))
+                def collect_dev(_):
+                    # the partials stay on the device: only the merged
+                    # window crosses, counted as the window's readback
+                    nb = _device_nbytes(merged.device_result)
+                    reg.counter("pane-merged-readbacks").inc()
+                    reg.counter("pane-merged-readback-bytes").inc(nb)
+                    if tel is None:
+                        return merged.finish()
+                    with tel.span("pane-merge", query=label):
+                        out = merged.finish()
+                    costs.note_readback(label, nb)
+                    return out
+
+                return Deferred((), collect_dev)
+
+            def collect(_):
+                if tel is None:
+                    return merge_partials([h.resolve() for h in parts])
+                b0 = rb_bytes.count
+                with tel.span("pane-merge", query=label):
+                    out = merge_partials([h.resolve() for h in parts])
+                costs.note_readback(label, rb_bytes.count - b0)
+                return out
+
+            return Deferred((), collect)
 
         return eval_batch
 
@@ -886,9 +992,18 @@ class SpatialOperator:
             else:
                 keep, batch = None, batch_fn(records, ts_base)
             masks, gn_c, evals = state["fn"](batch)
+            rows = self._multi_rows(records, keep, live)
+            limit = keep.size if keep is not None else len(records)
+            weigh = self._tenant_weigh(state["entries"], ts_base,
+                                       lambda m: m[:live, :limit].sum(1))
+            if weigh is not None:
+                plain_rows = rows
+
+                def rows(m):
+                    weigh(m)
+                    return plain_rows(m)
             # ONE (B, N) device->host transfer
-            return self._defer_with_stats(
-                masks, (gn_c, evals), self._multi_rows(records, keep, live))
+            return self._defer_with_stats(masks, (gn_c, evals), rows)
 
         for result in self._drive(stream, eval_batch):
             ids = window_ids.pop(result.window_start, [])
@@ -896,21 +1011,106 @@ class SpatialOperator:
             result.extras["queries"] = len(ids)
             yield result
 
+    def _tenant_weigh(self, entries, ts_base: int, weights):
+        """With a telemetry session, ``weigh(host_result)``: the window's
+        parked dispatch span resolved on the tenant ledger across the live
+        slots (``(query id, tenant)`` captured now: a later ``apply()`` may
+        repad before the readback) in proportion to ``weights(host_result)``
+        per slot (mask-true candidates, valid neighbours); None without a
+        session."""
+        tel = _telemetry.active()
+        if tel is None:
+            return None
+        acct = tel.tenants
+        label = self.telemetry_label or type(self).__name__
+        slots = [(e.id, e.spec.tenant) for e in entries]
+
+        def weigh(host) -> None:
+            acct.resolve(label, ts_base, [
+                (qid, tenant, int(c))
+                for (qid, tenant), c in zip(slots, weights(host))])
+        return weigh
+
     def _drive_batched(self, batched: Iterable, eval_batch, *,
                        realtime: bool = False) -> Iterator[WindowResult]:
+        """Pipelined evaluation of (start, end, payload) windows; the
+        registry's ``batches-evaluated`` / ``records-evaluated`` count
+        them. The dispatch and readback are named ranges of a ``--profile``
+        capture (:func:`~spatialflink_tpu_torch.utils.metrics.trace`, a
+        shared null context otherwise). With a telemetry session (read once
+        here) they are also ``window`` / ``kernel`` / ``merge`` spans under
+        the family label, with the ``window-backlog`` gauge, the
+        ``dispatch-overlap-ratio`` histogram (1 - blocked / round trip of
+        each window), the latency plane's stage budget and in-flight notes,
+        the trace book's notes, the cost profiles' kernel and merge
+        attribution and the tenant ledger's dispatch. ``kernel`` times the
+        host's dispatch; ``merge`` is the readback's wait."""
+        reg = metrics.REGISTRY
+        batches = reg.counter("batches-evaluated")
+        records_c = reg.counter("records-evaluated")
         depth = max(1, self.conf.pipeline_depth)
-        pending: deque = deque()  # (start, end, Deferred)
+        pending: deque = deque()  # (start, end, Deferred, t_disp, meta)
+        op_name = type(self).__name__
+        tel = _telemetry.active()
+        label = self.telemetry_label or op_name
+        book = tel.traces if tel is not None else None
+        costs = tel.costs if tel is not None else None
+        lat = tel.latency if tel is not None else None
+        acct = tel.tenants if tel is not None else None
+        if tel is not None:
+            backlog = tel.gauge("window-backlog")
+            overlap_hist = tel.histogram("dispatch-overlap-ratio")
+            batched = self._spanned_batches(batched, tel, label)
 
         def emit(start, end, sel) -> Iterator[WindowResult]:
             # realtime mode fires only on a non-empty selection (the
             # reference's fire-per-element trigger never emits empties)
             if sel or not realtime:
+                if book is not None:
+                    book.seal(label, start, end)
                 yield WindowResult(start, end, sel)
+
+        def note_budget(start, end, meta, m0, m1) -> None:
+            # consecutive wall-clock intervals from first-record ingest to
+            # emission: the stages sum to record->emit by construction.
+            # meta = (first_ingest_ms, last_ingest_ms, t_seal, t_kernel0,
+            # t_kernel1); m0 / m1 bound the merge
+            fi, li, t_seal, k0, k1 = meta
+            t_emit = time.time()
+            if fi is not None and fi > t_seal * 1e3:
+                fi = None  # an int-ms ingest stamp past the seal clock
+            lat.window_complete(label, start, end, fi, {
+                "buffer": (t_seal * 1e3 - fi) if fi is not None else 0.0,
+                "queue": (k0 - t_seal) * 1e3,
+                "dispatch": (k1 - k0) * 1e3,
+                "inflight": (m0 - k1) * 1e3,
+                "merge": (m1 - m0) * 1e3,
+                "emit": (t_emit - m1) * 1e3,
+            }, t_emit, last_ingest_ms=li)
 
         def drain(n: int) -> Iterator[WindowResult]:
             while len(pending) > n:
-                start, end, dfd = pending.popleft()
-                yield from emit(start, end, dfd.finish())
+                start, end, dfd, t_disp, meta = pending.popleft()
+                if tel is not None:
+                    w0 = time.time()
+                    with tel.span("merge", query=label), \
+                            metrics.trace(f"{op_name}.readback"):
+                        sel = dfd.finish()
+                    w1 = time.time()
+                    if book is not None:
+                        book.note(label, start, "merge", w0, w1)
+                    costs.attribute_merge(label, w1 - w0)
+                    total = w1 - t_disp
+                    if total > 0:
+                        overlap_hist.record(
+                            max(0.0, 1.0 - (w1 - w0) / total))
+                    backlog.set(len(pending))
+                    if not realtime or sel:
+                        note_budget(start, end, meta, w0, w1)
+                else:
+                    with metrics.trace(f"{op_name}.readback"):
+                        sel = dfd.finish()
+                yield from emit(start, end, sel)
 
         coord = self.conf.checkpointer
         batched = iter(batched)
@@ -925,12 +1125,46 @@ class SpatialOperator:
                 # none of the records read
                 yield from drain(0)
                 raise
-            sel = eval_batch(payload, start)
+            batches.inc()
+            n_rec = _payload_count(payload)
+            records_c.inc(n_rec)
+            if tel is not None:
+                w0 = time.time()
+                # the chain's seal point: the assembler's sweep noted the
+                # true seal wall clock of every ready window before the
+                # first yielded; without one the pull time stands (queue 0)
+                t_seal = lat.pop_seal(start, w0)
+                fi = self._first_ingest_ms(payload)
+                li = self._last_ingest_ms(payload) if fi is not None \
+                    else None
+                with tel.span("kernel", query=label), \
+                        metrics.trace(f"{op_name}.dispatch"):
+                    sel = eval_batch(payload, start)
+                w1 = time.time()
+                if book is not None:
+                    book.note(label, start, "kernel", w0, w1)
+                nb = self._payload_nbytes(payload)
+                costs.attribute_kernel(label, w1 - w0, records=n_rec,
+                                       nbytes=nb)
+                # parked on the tenant ledger: the dynamic demux resolves
+                # it across the live slots, static paths age into the
+                # default tenant
+                acct.note_dispatch(label, start, w1 - w0, n_rec, nb)
+                meta = (fi, li, min(t_seal, w0), w0, w1)
+            else:
+                w1, meta = 0.0, None
+                with metrics.trace(f"{op_name}.dispatch"):
+                    sel = eval_batch(payload, start)
             if isinstance(sel, Deferred):
-                pending.append((start, end, sel))
+                pending.append((start, end, sel, w1, meta))
+                if tel is not None:
+                    lat.note_dispatch(start, w1)
+                    backlog.set(len(pending))
                 yield from drain(depth - 1)
             else:
                 yield from drain(0)  # keep window order
+                if tel is not None and (sel or not realtime):
+                    note_budget(start, end, meta, w1, w1)
                 yield from emit(start, end, sel)
             if coord is not None:
                 # the checkpoint barrier: drain the windows in flight first
@@ -941,6 +1175,108 @@ class SpatialOperator:
                     yield from drain(0)
                     coord.commit()
         yield from drain(0)
+
+    @classmethod
+    def _spanned_batches(cls, batched: Iterable, tel, label: str
+                         ) -> Iterator:
+        """Each pull of the (start, end, payload) source timed as the
+        ``window`` stage (assembly and buffering, the host half the kernel
+        spans do not see); with tracing on, each pull also opens the
+        window's trace record with its first record's ingest clock. A stop
+        raised by the pull propagates unchanged."""
+        it = iter(batched)
+        book = tel.traces
+        while True:
+            try:
+                t0 = time.time()
+                with tel.span("window", query=label):
+                    item = next(it)
+            except StopIteration:
+                return
+            if book is not None:
+                book.note(label, item[0], "window", t0, time.time())
+                ing = cls._first_ingest_ms(item[2])
+                if ing is not None:
+                    book.first_record(label, item[0], ing)
+            yield item
+
+    @staticmethod
+    def _first_ingest_ms(payload):
+        """The first record's ingest wall clock (ms): a decoded chunk's
+        stamp for columnar windows, a record's ``ingestion_time``
+        otherwise; None for payloads without one (bulk replay batches)."""
+        return _ingest_ms(payload, 0)
+
+    @staticmethod
+    def _last_ingest_ms(payload):
+        """The last record's ingest wall clock (ms): with the first one it
+        bounds the window's buffer residency."""
+        return _ingest_ms(payload, -1)
+
+    @staticmethod
+    def _payload_nbytes(payload) -> int:
+        """Approximate host-to-device bytes of one window payload: the
+        arrays' bytes where it carries arrays (bulk ``(idx, batch)``), 32
+        bytes a record for host records — an estimate of data motion for
+        the cost profiles, not a measured transfer."""
+        try:
+            if isinstance(payload, tuple) and len(payload) == 2:
+                idx, batch = payload
+                total = int(getattr(idx, "nbytes", 0) or 0)
+                parts = (batch if isinstance(batch, tuple)
+                         else [getattr(batch, f, None)
+                               for f in getattr(batch, "_fields", ())])
+                for a in parts:
+                    total += int(getattr(a, "nbytes", 0) or 0)
+                return total
+            if _is_pane_payload(payload):
+                return sum(SpatialOperator._payload_nbytes(p)
+                           for _, p in payload)
+            return 32 * len(payload)
+        except Exception:
+            return 0
+
+
+def _is_pane_payload(payload) -> bool:
+    return (isinstance(payload, list) and bool(payload)
+            and isinstance(payload[0], tuple) and len(payload[0]) == 2
+            and not isinstance(payload[0][1], (int, float)))
+
+
+def _payload_count(payload) -> int:
+    """A window payload's record count (the ``records-evaluated``
+    counter): a pane payload's panes summed, a bulk ``(idx, batch)``
+    payload's index length, else its length."""
+    if isinstance(payload, tuple) and len(payload) == 2 \
+            and isinstance(payload[0], np.ndarray):
+        return int(payload[0].size)
+    if _is_pane_payload(payload):
+        return sum(_payload_count(p) for _, p in payload)
+    return len(payload)
+
+
+def _ingest_ms(payload, pos: int):
+    """The first (``pos`` 0) or last (-1) record's ingest stamp of a window
+    payload, reading one chunk stamp or one record; None when there is
+    none."""
+    try:
+        recs = payload
+        if _is_pane_payload(recs):
+            recs = recs[pos][1]
+        segs = getattr(recs, "_segs", None)
+        if segs is not None:
+            if not segs:
+                return None
+            ing = getattr(segs[pos][0], "ingest_ms", None)
+        else:
+            if not isinstance(recs, list) or not recs:
+                return None
+            ing = getattr(recs[pos], "ingestion_time", None)
+        if isinstance(ing, (int, float)) and ing > 0:
+            return int(ing)
+    except Exception:
+        pass
+    return None
 
 
 class BulkReplay:

@@ -173,6 +173,7 @@ def _keep(ai, bi, recs_a, recs_b, max_dt):
 
 class PointPointJoinQuery(SpatialOperator):
     """Point stream x point query stream (``PointPointJoinQuery.java``)."""
+    telemetry_label = "join"
 
     #: the naive twins (the trajectory join's 2090) turn the grid pruning
     #: off: every cell is a neighbour, the exact distance filter stays

@@ -160,8 +160,7 @@ def _knn_device_merge(op, k: int, n_queries: Optional[int] = None):
 
         def collect(host):
             oid, dist, valid, *ev = host
-            op.pruning["distance-computations"] += sum(int(e.sum())
-                                                       for e in ev)
+            op._record_pruning_stats(0, sum(int(e.sum()) for e in ev))
             if n_queries is None:
                 return _knn_pairs(oid, dist, valid, ids)
             return [_knn_pairs(o, d, v, ids)
@@ -176,6 +175,7 @@ class _KnnOperator(BulkReplay, SpatialOperator):
     """The kNN drive loops shared by the point and geometry query forms:
     per run, a closure ``local(batch, num_ids) -> (KnnResult, dist_evals)``
     evaluates one window batch."""
+    telemetry_label = "knn"
 
     @property
     def _id_space(self):
@@ -306,8 +306,10 @@ class PointPointKNNQuery(_KnnOperator):
                 return [[] for _ in range(live)]
             batch, ids = self._knn_batch(records, ts_base)
             res, evals = state["local"](batch, len(ids))
-            return self._defer_knn_multi(res, ids, evals * state["gate"],
-                                         live)
+            return self._defer_knn_multi(
+                res, ids, evals * state["gate"], live,
+                weigh=self._tenant_weigh(state["entries"], ts_base,
+                                         lambda valid: valid.sum(1)))
 
         for result in self._drive(stream, eval_batch):
             ids = window_ids.pop(result.window_start, [])

@@ -54,6 +54,7 @@ from spatialflink_tpu_torch.ops import range as R
 
 class PointPointRangeQuery(BulkReplay, SpatialOperator):
     """Point stream x point query."""
+    telemetry_label = "range"
 
     bulk_panes = True
 
@@ -134,6 +135,7 @@ class PointPointRangeQuery(BulkReplay, SpatialOperator):
 
 class PointGeomRangeQuery(BulkReplay, SpatialOperator, GeomQueryMixin):
     """Point stream x polygon/linestring query."""
+    telemetry_label = "range"
 
     bulk_panes = True
 
@@ -191,6 +193,7 @@ class PointGeomRangeQuery(BulkReplay, SpatialOperator, GeomQueryMixin):
 class _GeomStreamRange(BulkReplay, SpatialOperator, GeomQueryMixin):
     """Polygon/linestring stream x any query: the subclass gives the
     per-run closure ``batch -> (masks (Q, G), gn (Q,), evals (Q,))``."""
+    telemetry_label = "range"
 
     merge_partials = staticmethod(SpatialOperator._pane_concat)
 

@@ -47,8 +47,9 @@ every ``checkpoint_every`` micro-batches and at the end) writes the JAX
 package's files; a restored tStats state goes back to the operator's
 device in fresh tensors, and K8a carries it on.
 
-Not ported: the device mesh, and the self-join ``run_single`` (ROADMAP
-Queue 1, with item 4).
+The trajectory self-join (:meth:`PointPointTJoinQuery.run_single`) joins
+a stream with itself through the same K6 / K7 path and drops the pairs of
+one object with itself. Not ported: the device mesh.
 """
 
 from __future__ import annotations
@@ -220,6 +221,7 @@ class _TrajOperator(SpatialOperator):
 class PointTFilterQuery(_TrajOperator):
     """Keep only trajectories whose objID is in ``traj_ids`` (empty =>
     all); windows emit each kept trajectory as a sub-trajectory."""
+    telemetry_label = "tfilter"
 
     def run(self, stream: Iterable, traj_ids: Set[str]
             ) -> Iterator[WindowResult]:
@@ -238,6 +240,7 @@ class PointTFilterQuery(_TrajOperator):
 
 class PointPolygonTRangeQuery(_TrajOperator):
     """Trajectories passing through any of a set of query polygons."""
+    telemetry_label = "trange"
 
     def _prepare(self, polygons):
         """The query side, once per run: the polygons' edge batch (their
@@ -347,6 +350,7 @@ class PointTStatsQuery(_TrajOperator):
     offsets rebased between batches; windowed mode recomputes each window
     from fresh state (``tStats/TStatsQuery.java:153-197``) and reports one
     tuple per trajectory: (objID, spatial, temporal ms, speed)."""
+    telemetry_label = "tstats"
 
     #: device ts offsets are int32: a micro-batch spanning more event time
     #: is split on the host first
@@ -572,6 +576,7 @@ class PointTAggregateQuery(_TrajOperator):
     group extents into host state with stale-trajectory eviction after
     ``traj_deletion_threshold_ms``; CountBased mode runs per-cell count
     windows (``TAggregateQuery.java:381-494``)."""
+    telemetry_label = "taggregate"
 
     def run(self, stream: Iterable, aggregate: str = "SUM",
             traj_deletion_threshold_ms: int = 0, *,
@@ -978,6 +983,22 @@ class _CapturingJoin(PointPointJoinQuery):
         return res
 
 
+def _drop_self_pairs(pairs: PairRecords) -> PairRecords:
+    """``pairs`` without the pairs whose two records carry the same object
+    id (the two sides intern ids apart: they compare as strings)."""
+    parts = []
+    for recs_a, recs_b, ai, bi in pairs._parts:
+        names = []
+        for recs, idx in ((recs_a, ai), (recs_b, bi)):
+            ids, inv = np.unique(recs.columns()[3][idx], return_inverse=True)
+            look = recs.interner.lookup
+            names.append(np.array([look(int(o)) for o in ids],
+                                  dtype=object)[inv.reshape(-1)])
+        keep = names[0] != names[1]
+        parts.append((recs_a, recs_b, ai[keep], bi[keep]))
+    return PairRecords(parts)
+
+
 class PointPointTJoinQuery(_TrajOperator):
     """Trajectory x trajectory proximity join: one output per (trajectory,
     partner) pair per window, keeping the pair with the LATEST co-located
@@ -986,6 +1007,7 @@ class PointPointTJoinQuery(_TrajOperator):
     where both trajectories have >= 2 points in the window
     (``TJoinQuery.java:184``); realtime mode emits point pairs. Count
     windows are refused, as for the point join."""
+    telemetry_label = "tjoin"
 
     def __init__(self, conf, grid, grid2=None, *, device="cuda"):
         if conf.query_type is QueryType.CountBased:
@@ -1013,6 +1035,17 @@ class PointPointTJoinQuery(_TrajOperator):
         61-155``); the exact distance filter still applies."""
         inner = self._inner(prune_cells=False)
         for res in inner.run(ordinary, query_stream, radius):
+            yield self._post(res, inner.windowed)
+
+    def run_single(self, stream: Iterable, radius: float
+                   ) -> Iterator[WindowResult]:
+        """The self-join (``tJoin/PointPointTJoinQuery.java:341-435``): the
+        stream joined with itself, each window's pairs of one object with
+        itself dropped before the dedup."""
+        records = list(stream)
+        inner = self._inner()
+        for res in inner.run(iter(records), iter(list(records)), radius):
+            res.records = _drop_self_pairs(res.records)
             yield self._post(res, inner.windowed)
 
     def _post(self, res: WindowResult, windowed: bool) -> WindowResult:
@@ -1094,6 +1127,7 @@ class PointPointTKNNQuery(_TrajOperator):
     """The k nearest *trajectories* to a query point within ``radius``
     (exact radius enforced, unlike plain kNN: K2's radius filter): each
     window's (objID, min distance, sub-trajectory) triples."""
+    telemetry_label = "tknn"
 
     def run(self, stream: Iterable, query_point: Point, radius: float,
             k: Optional[int] = None) -> Iterator[WindowResult]:

@@ -38,6 +38,7 @@ import torch
 from spatialflink_tpu_torch.ops import distances as D
 from spatialflink_tpu_torch.ops import native
 from spatialflink_tpu_torch.ops import range as R
+from spatialflink_tpu_torch.utils.deviceplane import instrumented_kernel
 
 _BIG = 3.4e38  # "infinitely far" sentinel that survives f32 math
 
@@ -93,6 +94,7 @@ def points_to_edges_dist(px, py, edges, edge_mask):
     return torch.sqrt(torch.cat([d2, pad], dim=2).amin(dim=2))
 
 
+@instrumented_kernel
 def points_to_geoms_dist(points, geoms):
     """(N, G) JTS-style distance from each point to each geometry of an
     :class:`EdgeGeomBatch`, through the K4x kernel wrapper."""
@@ -120,6 +122,7 @@ def _bbox_rows(points, geoms):
                              b[:, 3, None])
 
 
+@instrumented_kernel(static=("k", "approximate"))
 def knn_points_to_geom_queries(points, geoms, nb_masks, *, k: int,
                                num_ids=None, approximate: bool = False):
     """kNN of each of Q geometry QUERIES (``geoms``, one row each) over one
@@ -134,6 +137,7 @@ def knn_points_to_geom_queries(points, geoms, nb_masks, *, k: int,
     return K.knn_masked_stats(points, d, nb_masks, k=k, num_ids=num_ids)
 
 
+@instrumented_kernel(static=("approximate",))
 def range_points_to_geom_queries(points, queries, gn_masks, cn_masks, radius,
                                  *, approximate: bool = False):
     """Range filter of Q geometry QUERIES over one point-window batch:
@@ -207,6 +211,7 @@ def point_to_geoms_dist(px, py, geoms):
     return torch.where(inside & geoms.is_areal, 0.0, bdist)
 
 
+@instrumented_kernel
 def geoms_to_single_geom_dist(geoms, q_edges, q_mask, q_areal):
     """(G,) distance from each geometry to ONE query geometry (q_edges
     (Eq, 4), q_mask (Eq,), q_areal a bool or 0-d bool tensor). A crossing
@@ -366,6 +371,7 @@ def _require(t, name, dtype, shape, dev):
     return t.data_ptr()
 
 
+@instrumented_kernel(static=("mode", "approximate"))
 def geom_stream_dist(geoms, *, mode: int, nb, gn=None, qx=None, qy=None,
                      queries=None, radius: float = 0.0,
                      approximate: bool = False):

@@ -48,6 +48,7 @@ import torch
 from spatialflink_tpu_torch.ops import distances as D
 from spatialflink_tpu_torch.ops import geom as G
 from spatialflink_tpu_torch.ops import native
+from spatialflink_tpu_torch.utils.deviceplane import instrumented_kernel
 
 #: edges staged in shared memory per pass of the kernel's edge loop
 EDGE_CHUNK = 512
@@ -201,6 +202,7 @@ def _check_table_args(px, edges, edge_mask, is_areal, cell, table) -> None:
                          f"{px.device}")
 
 
+@instrumented_kernel
 def pip_dist(px, py, edges, edge_mask, is_areal: bool, cell=None,
              table=None):
     """(N,) JTS-style distance from each point to ONE query geometry (0
@@ -594,6 +596,7 @@ def cell_order_plain(cell, num_cells: int, px, py):
     return perm.to(torch.int32), px[perm], py[perm]
 
 
+@instrumented_kernel
 def cell_order(cell, num_cells: int, px, py):
     """The cell order of a window's points (see :func:`cell_order_plain`).
     CPU tensors run the plain version; CUDA tensors launch
@@ -624,6 +627,7 @@ def cell_order(cell, num_cells: int, px, py):
 cell_order.launches = 0
 
 
+@instrumented_kernel(static=("num_cells", "parity"))
 def pip_lattice(px, py, edges, edge_mask, is_areal, cell=None,
                 num_cells: int = 0, parity: bool = False):
     """(G, N) JTS-style distance from each point to each of G geometries,

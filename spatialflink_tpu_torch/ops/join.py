@@ -52,6 +52,7 @@ import torch
 
 from spatialflink_tpu_torch.index.uniform_grid import NO_LAYER, cheb_layers
 from spatialflink_tpu_torch.ops import native
+from spatialflink_tpu_torch.utils.deviceplane import instrumented_kernel
 
 _BIG = 3.4e38
 #: b points per lattice tile: the pair order is (tile, a, b)
@@ -136,6 +137,7 @@ def _pair_cell_ok(cell_a, cell_b, nb_layers, n):
         <= _layers(nb_layers)
 
 
+@instrumented_kernel(static=("n",))
 def join_mask(a, b, radius, nb_layers, center_x, center_y, *, n: int):
     """The (Na, Nb) boolean join lattice of two point batches."""
     d2 = pairwise_dist2(a.x, a.y, b.x, b.y, center_x, center_y)
@@ -364,6 +366,7 @@ _INDEX_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    *(ctypes.c_void_p,) * 3)
 
 
+@instrumented_kernel
 def join_index(b, n: int, tile: int = JOIN_TILE) -> JoinIndex:
     """The join index of a window's b batch (:class:`JoinIndex`), which K7
     and K6 walk. CPU tensors run :func:`join_index_plain`; CUDA tensors
@@ -474,6 +477,7 @@ def _check_points(what, p, dev, name):
                              f"({n},) tensor, got {tuple(t.shape)}")
 
 
+@instrumented_kernel(static=("n", "tile"))
 def join_reduce(a, b, radius, nb_layers, *, n: int, tile: int = JOIN_TILE,
                 index=None):
     """Per a point against the whole b batch: ``(count (Na,) int32,
@@ -514,6 +518,7 @@ def join_reduce(a, b, radius, nb_layers, *, n: int, tile: int = JOIN_TILE,
 join_reduce.launches = 0
 
 
+@instrumented_kernel(static=("n", "tile"))
 def join_lattice(a, b, radius, nb_layers, center_x, center_y, *, n: int,
                  tile: int = JOIN_TILE, rows=None, index=None):
     """The window's point x point pairs ``(a_index (P,) int32, b_index (P,)
@@ -615,6 +620,7 @@ def join_pairs_host(a, b, radius, grid, tile: int = JOIN_TILE,
     return ai.cpu().numpy().astype(np.int64), bi.cpu().numpy().astype(np.int64)
 
 
+@instrumented_kernel(static=("n",))
 def join_point_geom_rows(points, geoms, radius, nb_layers, *, n: int):
     """(G, N) join lattice of a point batch and a geometry batch, one row
     per geometry: the cell gate, K4x's JTS distance (``geom._lattice``, in
@@ -633,6 +639,7 @@ def join_point_geom_mask(points, geoms, radius, nb_layers, *, n: int):
     return join_point_geom_rows(points, geoms, radius, nb_layers, n=n).T
 
 
+@instrumented_kernel(static=("n",))
 def join_geom_geom_mask(a, b, radius, nb_layers, *, n: int):
     """(Ga, Gb) geometry x geometry join lattice: K5 in kNN mode with the
     b geometries as its queries and each b geometry's neighbouring-cells

@@ -57,6 +57,7 @@ from spatialflink_tpu_torch.index.uniform_grid import cheb_layers
 from spatialflink_tpu_torch.models.batches import to_device
 from spatialflink_tpu_torch.ops import distances as D
 from spatialflink_tpu_torch.ops import native
+from spatialflink_tpu_torch.utils.deviceplane import instrumented_kernel
 
 _BIG = 3.4e38  # "infinitely far" sentinel that survives f32 math
 _OID_SENTINEL = 2 ** 31 - 1
@@ -288,6 +289,7 @@ def _query_array(v, np_dtype, device) -> torch.Tensor:
     return to_device(np.atleast_1d(np.asarray(v, np_dtype)), np_dtype, device)
 
 
+@instrumented_kernel(static=("n", "k"))
 def knn_point_multi_stats(points, qx, qy, q_cell, nb_layers, *, n: int,
                           k: int, num_ids: Optional[int] = None,
                           radius: Optional[float] = None):
@@ -298,6 +300,15 @@ def knn_point_multi_stats(points, qx, qy, q_cell, nb_layers, *, n: int,
     trajectory kNN (``enforce_radius`` in the JAX package): only points
     within it of a query enter its list; ``dist_evals`` still counts the
     cell-eligible slots."""
+    return _knn_point_multi(points, qx, qy, q_cell, nb_layers, n, k,
+                            num_ids, radius)
+
+
+def _knn_point_multi(points, qx, qy, q_cell, nb_layers, n: int, k: int,
+                     num_ids: Optional[int], radius: Optional[float]):
+    """The body of :func:`knn_point_multi_stats`, shared by the single-query
+    entry points (each entry point counts its own signatures in the
+    compile registry)."""
     dev = points.x.device
     out = _knn(points.obj_id, mode=MODE_POINT, k=k, num_ids=num_ids,
                x=points.x, y=points.y, cell=points.cell, valid=points.valid,
@@ -308,17 +319,18 @@ def knn_point_multi_stats(points, qx, qy, q_cell, nb_layers, *, n: int,
     return KnnResult(*out[:3]), out[3]
 
 
+@instrumented_kernel(static=("n", "k"))
 def knn_point_stats(points, qx, qy, q_cell, nb_layers, *, n: int, k: int,
                     num_ids: Optional[int] = None,
                     radius: Optional[float] = None):
     """kNN of ONE query point: ``(KnnResult with (k,) fields, dist_evals)``
     (the Q = 1 row of :func:`knn_point_multi_stats`)."""
-    res, evals = knn_point_multi_stats(points, qx, qy, q_cell, nb_layers,
-                                       n=n, k=k, num_ids=num_ids,
-                                       radius=radius)
+    res, evals = _knn_point_multi(points, qx, qy, q_cell, nb_layers, n, k,
+                                  num_ids, radius)
     return KnnResult(*(t[0] for t in res)), evals[0]
 
 
+@instrumented_kernel(static=("n", "k", "enforce_radius"))
 def knn_point(points, qx, qy, q_cell, radius, nb_layers, *, n: int, k: int,
               enforce_radius: bool = False,
               num_ids: Optional[int] = None) -> KnnResult:
@@ -326,11 +338,12 @@ def knn_point(points, qx, qy, q_cell, radius, nb_layers, *, n: int, k: int,
     ``knn_point``, its argument order): ``nb_layers`` the candidate layer
     count (``n`` disables the cell pruning); with ``enforce_radius`` only
     points within ``radius`` of the query count (the trajectory kNN)."""
-    return knn_point_stats(points, qx, qy, q_cell, nb_layers, n=n, k=k,
-                           num_ids=num_ids,
-                           radius=radius if enforce_radius else None)[0]
+    res, _ = _knn_point_multi(points, qx, qy, q_cell, nb_layers, n, k,
+                              num_ids, radius if enforce_radius else None)
+    return KnnResult(*(t[0] for t in res))
 
 
+@instrumented_kernel(static=("k",))
 def knn_masked_stats(points, dists, nb_mask, *, k: int,
                      num_ids: Optional[int] = None):
     """kNN over caller-computed distances with the point-stream eligibility
@@ -347,6 +360,7 @@ def knn_masked_stats(points, dists, nb_mask, *, k: int,
     return KnnResult(*out[:3]), out[3]
 
 
+@instrumented_kernel(static=("k",))
 def knn_eligible_stats(obj_id, dists, eligible, *, k: int,
                        num_ids: Optional[int] = None):
     """Dedup + top-k over caller-computed eligibility and distances, plus
@@ -483,6 +497,7 @@ def _merge_launch(ptrs, p: int, q: int, k: int, dev, single: bool):
     return out
 
 
+@instrumented_kernel
 def knn_merge(obj_id, dist, valid, k: int) -> KnnResult:
     """Launch the K3 kernel on CUDA tensors: stacked partials ``obj_id``
     (P, Q, k) int32, ``dist`` f32 and ``valid`` bool, all contiguous, give
@@ -544,6 +559,7 @@ def merge_topk_parts_plain(results, k: int) -> KnnResult:
           for f in KnnResult._fields), k)
 
 
+@instrumented_kernel
 def knn_merge_parts(results, k: int) -> KnnResult:
     """K3 over a window's pane partials as they lie (the device pane merge
     of the kNN operators): ``results``, P

@@ -14,7 +14,9 @@ registers, shared memory and spills, which :func:`ptxas_report` reads.
 Concurrent first builds (several test workers) each compile into a file of
 their own and ``os.replace`` it into place, so no process loads a
 half-written library. A missing compiler or a failed compile raises with
-the compiler's output; nothing falls back.
+the compiler's output; nothing falls back. Each CUDA library that comes
+into the process, compiled or loaded, is counted in the compile registry
+(``utils.deviceplane``) with its nvcc seconds and ``ptxas`` report.
 
 Flags: ``sm_90a`` (Hopper), ``--fmad=false`` so that no ``a*b+c`` is fused
 into an FMA (each operation rounds once, as the plain PyTorch versions'
@@ -36,6 +38,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Sequence
+
+from spatialflink_tpu_torch.utils import deviceplane
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -129,6 +133,8 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, float]:
             continue
         out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a concurrent loader never sees half
+        if name not in HOST_SOURCES:
+            deviceplane.registry().note_library(name, seconds[name], log)
     if failed:
         raise RuntimeError("\n".join(failed))
     return seconds
@@ -208,6 +214,8 @@ def load(name: str) -> ctypes.CDLL:
         if not path.exists():
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(path))
+        if name not in HOST_SOURCES:
+            deviceplane.registry().note_library(name)
     return lib
 
 

@@ -37,6 +37,7 @@ import torch
 from spatialflink_tpu_torch.index.uniform_grid import cheb_layers
 from spatialflink_tpu_torch.ops import distances as D
 from spatialflink_tpu_torch.ops import native
+from spatialflink_tpu_torch.utils.deviceplane import instrumented_kernel
 
 MODE_POINT = 0
 MODE_MASKS = 1
@@ -173,6 +174,7 @@ def range_filter_point_stats_plain(points, qx, qy, q_cell, radius,
             _count(points.valid & in_gn), dist_evals)
 
 
+@instrumented_kernel(static=("n", "approximate", "return_dists"))
 def range_filter_point_stats(points, qx, qy, q_cell, radius, gn_layers,
                              cn_layers, *, n: int, approximate: bool = False,
                              return_dists: bool = True):
@@ -208,6 +210,7 @@ def range_filter_point_multi_masks_plain(points, qx, qy, q_cell, radius,
     return mask, gn, evals
 
 
+@instrumented_kernel(static=("n", "approximate"))
 def range_filter_point_multi_masks(points, qx, qy, q_cell, radius, gn_layers,
                                    cn_layers, *, n: int,
                                    approximate: bool = False):
@@ -251,6 +254,7 @@ def range_filter_masks_stats_plain(points, gn_mask, cn_mask, dists, radius,
     return mask, _count(points.valid & in_gn), dist_evals
 
 
+@instrumented_kernel(static=("approximate",))
 def range_filter_masks_stats(points, gn_mask, cn_mask, dists, radius, *,
                              approximate: bool = False):
     """Range filter with dense (n*n,) GN/CN cell masks and precomputed
@@ -271,6 +275,7 @@ def _geom_stream_mask(all_gn, any_nb, dists, radius, valid):
     return valid & (all_gn | (any_nb & ~all_gn & (dists <= radius)))
 
 
+@instrumented_kernel
 def range_filter_geom_stream(all_gn, any_nb, dists, radius, valid):
     """Range filter for polygon/linestring STREAMS against any query (plain
     version; on the card it is fused into K5, ``ops/geom.py``
@@ -283,6 +288,7 @@ def range_filter_geom_stream(all_gn, any_nb, dists, radius, valid):
     return _geom_stream_mask(all_gn, any_nb, dists, radius, valid)
 
 
+@instrumented_kernel
 def range_filter_geom_stream_stats(all_gn, any_nb, dists, radius, valid):
     """:func:`range_filter_geom_stream` with its (gn_bypassed, dist_evals)
     counts: geometries passing on the all-GN rule consult no distance;

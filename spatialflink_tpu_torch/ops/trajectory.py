@@ -47,6 +47,7 @@ import torch
 
 from spatialflink_tpu_torch.ops import distances as D
 from spatialflink_tpu_torch.ops import native
+from spatialflink_tpu_torch.utils.deviceplane import instrumented_kernel
 
 INT32_MIN = -(2 ** 31)
 INT32_MAX = 2 ** 31 - 1
@@ -502,6 +503,7 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+@instrumented_kernel
 def tstats_update(state: TrajStatsState, batch,
                   ts_range: Optional[Tuple[int, int]] = None):
     """-> (state, :class:`TStatsOut`): K8a. The batch's obj_id must lie in
@@ -551,6 +553,7 @@ def tstats_update(state: TrajStatsState, batch,
 tstats_update.launches = 0
 
 
+@instrumented_kernel(static=("m",))
 def tstats_window_summary(batch, *, m: int,
                           ts_range: Optional[Tuple[int, int]] = None
                           ) -> TStatsWindowSummary:
@@ -589,6 +592,7 @@ def tstats_window_summary(batch, *, m: int,
 tstats_window_summary.launches = 0
 
 
+@instrumented_kernel(static=("num_cells",))
 def taggregate_group_extents(batch, *, num_cells: int,
                              num_ids: Optional[int] = None
                              ) -> TAggregateExtents:
@@ -636,6 +640,7 @@ def taggregate_groups(batch, *, num_cells: int,
                             length=e.max_ts - e.min_ts, first=e.first)
 
 
+@instrumented_kernel(static=("num_cells", "agg"))
 def taggregate_heatmap(groups: TAggregateGroups, *, num_cells: int,
                        agg: str) -> torch.Tensor:
     """Dense (num_cells,) f32 heatmap from (cell, objID) groups in K8c's

@@ -24,9 +24,13 @@ are emitted again on resume with the same contents and suppressed by the
 marker-seeded ``streams.kafka.KafkaWindowSink`` (or, on the file path, by
 the :class:`EmittedWindowJournal`): exactly-once output.
 
-The JAX module's telemetry (write-time histograms, the age gauge, the
-fallback and restore counters) waits for the telemetry plane (ROADMAP
-Queue 1 item 5), and its injected-stall check for ``--chaos`` (item 6b).
+Telemetry, as in the JAX module: the registry's ``checkpoints-written``,
+``checkpoint-fallbacks`` and ``checkpoint-restores`` counters, and with a
+session the ``checkpoint-write-ms`` and ``checkpoint-size-bytes``
+histograms, the ``checkpoint.age-s`` and ``checkpoint.seq`` gauges, and
+the ``checkpoint-committed``, ``checkpoint-fallback`` and
+``checkpoint-restored`` events. The JAX module's injected-stall check for
+``--chaos`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ import numpy as np
 
 from spatialflink_tpu_torch.runtime.state import (CheckpointableState,
                                                   CheckpointCorrupt)
+from spatialflink_tpu_torch.utils import metrics
+from spatialflink_tpu_torch.utils import telemetry as _telemetry
 
 #: manifest layout version (independent of the file envelope's)
 MANIFEST_SCHEMA_VERSION = 1
@@ -276,17 +282,11 @@ class EmittedWindowJournal:
 
 
 def _provenance(device) -> dict:
-    """The manifest's ``device`` entry: which device wrote the state."""
-    import torch
+    """The manifest's ``device`` entry: which device wrote the state (the
+    device plane's provenance, as the JAX manifest carries it)."""
+    from spatialflink_tpu_torch.utils import deviceplane
 
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        return {"platform": "gpu",
-                "device_kind": torch.cuda.get_device_name(dev),
-                "device_count": torch.cuda.device_count(),
-                "torch_version": torch.__version__}
-    return {"platform": "cpu", "device_kind": "cpu", "device_count": 1,
-            "torch_version": torch.__version__}
+    return deviceplane.backend_provenance(device=device)
 
 
 class CheckpointCoordinator:
@@ -322,6 +322,7 @@ class CheckpointCoordinator:
         self.device = device
         self.restored = False
         self.written = 0
+        self._age_gauge_installed = False
         self.commit_ms: List[float] = []
         self.manifest_bytes: List[int] = []
         self._lock = threading.RLock()
@@ -412,12 +413,28 @@ class CheckpointCoordinator:
         path = self._path(self.seq)
         cp.save(path)
         self._prune()
+        write_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(path)
         with self._lock:
             self.written += 1
             self._last_batches = self._batches
             self._last_time = time.monotonic()
-            self.commit_ms.append((time.perf_counter() - t0) * 1e3)
-            self.manifest_bytes.append(os.path.getsize(path))
+            self.commit_ms.append(write_ms)
+            self.manifest_bytes.append(size)
+        metrics.REGISTRY.counter("checkpoints-written").inc()
+        tel = _telemetry.active()
+        if tel is not None:
+            tel.histogram("checkpoint-write-ms").record(write_ms)
+            tel.histogram("checkpoint-size-bytes").record(size)
+            tel.event("checkpoint-committed", seq=self.seq,
+                      write_ms=round(write_ms, 3), size_bytes=size)
+            if not self._age_gauge_installed:
+                # pull gauges: a snapshot reads the current age
+                tel.gauge("checkpoint.age-s",
+                          lambda: time.monotonic() - self._last_time)
+                tel.gauge("checkpoint.seq", lambda: float(self.seq))
+                with self._lock:
+                    self._age_gauge_installed = True
         return path
 
     def _manifests(self) -> List[Tuple[int, str]]:
@@ -466,6 +483,9 @@ class CheckpointCoordinator:
                         f"{path}: manifest schema {schema!r} != "
                         f"{MANIFEST_SCHEMA_VERSION}")
             except CheckpointCorrupt as e:
+                metrics.REGISTRY.counter("checkpoint-fallbacks").inc()
+                _telemetry.emit_event("checkpoint-fallback", path=path,
+                                      error=str(e))
                 print(f"warning: {e}; falling back to the previous "
                       "retained checkpoint", file=sys.stderr)
                 continue
@@ -501,6 +521,9 @@ class CheckpointCoordinator:
                       "read back at snapshot time)", file=sys.stderr)
             with self._lock:
                 self.restored = True
+            metrics.REGISTRY.counter("checkpoint-restores").inc()
+            _telemetry.emit_event("checkpoint-restored", seq=self.seq,
+                                  positions=dict(self._positions))
             return True
         return False
 

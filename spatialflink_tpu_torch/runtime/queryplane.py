@@ -23,10 +23,19 @@ from in-process calls).
   restores its fleet, mid-drain entries, staged updates and the control
   topic's position.
 
+Telemetry, as in the JAX module: each demultiplexed window counts in
+``windows-emitted@<id>`` / ``records-out@<id>`` (and routed ones in
+``query-windows-routed``), an SLO breach in ``query-slo-breaches`` with a
+``query-slo-breach`` / ``query-slo-recovered`` event; with a session the
+router observes each query's record→emit latency (``record-emit-ms@<id>``,
+which the ``p99_emit_ms`` SLO reads), the routed records' ingest latency
+and the ``window-records@<id>`` histogram, and the tenant ledger takes the
+window and the breach. :func:`active_registry` is the installed registry
+(the latency plane reads its staged changes).
+
 Not yet ported: tenant quotas and admission shedding, the operations
-server's surfaces, the lifecycle events and the per-query metrics counters
-(ROADMAP Queue 1 item 5). A tenant quota is refused with "not yet
-ported", never dropped.
+server's surfaces and the admission lifecycle events. A tenant quota is
+refused with "not yet ported", never dropped.
 """
 
 from __future__ import annotations
@@ -44,6 +53,21 @@ import numpy as np
 NOT_PORTED = "not yet ported to spatialflink_tpu_torch"
 #: the accounting principal of a spec that names none
 DEFAULT_TENANT = "default"
+
+_ACTIVE: Optional["QueryRegistry"] = None
+
+
+def active_registry() -> Optional["QueryRegistry"]:
+    """The process's installed :class:`QueryRegistry`, or None."""
+    return _ACTIVE
+
+
+def _emit(kind: str, **fields) -> None:
+    """A lifecycle event on the telemetry session's ring (nothing without
+    a session)."""
+    from spatialflink_tpu_torch.utils.telemetry import emit_event
+
+    emit_event(kind, **fields)
 
 
 def bucket_size(n: int) -> int:
@@ -490,12 +514,33 @@ class QueryRegistry:
                 else:
                     self._restored_control_pos = int(pos)
 
+    def install(self) -> "QueryRegistry":
+        global _ACTIVE
+        _ACTIVE = self
+        return self
+
+    def uninstall(self) -> None:
+        global _ACTIVE
+        if _ACTIVE is self:
+            _ACTIVE = None
+
     def note_window(self, entry: QueryEntry, n_records: int,
                     emit_p99_ms: Optional[float] = None) -> None:
-        """The per-query SLO verdict for one demultiplexed window (counted
-        on transitions). ``p99_emit_ms`` needs the telemetry session, which
-        the port does not have: its check counts healthy, as the JAX
-        package's does without one."""
+        """Per-query accounting for one demultiplexed window: the registry
+        counters, with a session the ``window-records@<id>`` histogram and
+        the tenant ledger, and the SLO verdict (counted on transitions).
+        ``emit_p99_ms`` is the query's record→emit p99 from the latency
+        plane; None (no session, no ingest stamps yet) counts healthy."""
+        from spatialflink_tpu_torch.utils import metrics
+        from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+        qid = entry.id
+        metrics.REGISTRY.counter(f"windows-emitted@{qid}").inc()
+        metrics.REGISTRY.counter(f"records-out@{qid}").inc(n_records)
+        tel = _telemetry.active()
+        if tel is not None:
+            tel.histogram(f"window-records@{qid}").record(n_records)
+            tel.tenants.note_window(entry.spec.tenant, qid, n_records)
         slo = entry.spec.slo
         if not slo:
             return
@@ -512,6 +557,12 @@ class QueryRegistry:
         if ok is not entry.slo_ok:
             if not ok:
                 entry.slo_breaches += 1
+                metrics.REGISTRY.counter("query-slo-breaches").inc()
+                _emit("query-slo-breach", id=qid, records=n_records)
+                if tel is not None:
+                    tel.tenants.note_breach(entry.spec.tenant)
+            elif entry.slo_ok is False:
+                _emit("query-slo-recovered", id=qid)
             entry.slo_ok = ok
 
     def status(self) -> dict:
@@ -619,9 +670,12 @@ class QueryRouter:
     are shared by the queries that name them."""
 
     def __init__(self, registry: QueryRegistry, broker=None):
+        from spatialflink_tpu_torch.utils import metrics
+
         self.registry = registry
         self.broker = broker
         self._files: Dict[str, Any] = {}
+        self.routed = metrics.REGISTRY.counter("query-windows-routed")
 
     @staticmethod
     def _doc(qid: str, result, recs) -> str:
@@ -643,17 +697,35 @@ class QueryRouter:
 
     def route(self, result) -> None:
         """Account and fan out one WindowResult carrying
-        ``extras['query_ids']``."""
+        ``extras['query_ids']``. This demultiplexing point is where every
+        route passes, so with a session it is also where per-query latency
+        is observed: the window's record→emit on ``record-emit-ms@<id>``
+        (its first ingest stamp from the latency plane's completed-window
+        ring) and each routed record's ``now - ingestion_time`` on
+        ``record-latency-ms``."""
+        from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
         ids = result.extras.get("query_ids") or []
         entries = {e.id: e for e in self.registry.active_entries()}
+        tel = _telemetry.active()
+        rec_hist = (tel.histogram("record-latency-ms")
+                    if tel is not None else None)
+        now_s = time.time() if tel is not None else 0.0
         for qid, recs in zip(ids, result.records):
             entry = entries.get(qid)
             if entry is None:
                 continue  # retired between dispatch and readback
-            self.registry.note_window(entry, len(recs))
+            emit_p99 = None
+            if tel is not None:
+                tel.latency.query_emit(qid, result.window_start, now_s)
+                emit_p99 = tel.latency.query_p99(qid)
+                if len(recs):
+                    _record_latencies(rec_hist, recs, now_s * 1e3)
+            self.registry.note_window(entry, len(recs), emit_p99_ms=emit_p99)
             route = entry.spec.route
             if route == "stdout":
                 continue  # the driver's own sinks carry it
+            self.routed.inc()
             doc = self._doc(qid, result, recs)
             if route.startswith("file:"):
                 path = route[5:]
@@ -672,6 +744,23 @@ class QueryRouter:
             except OSError:
                 pass
         self._files.clear()
+
+
+def _record_latencies(hist, recs, now_ms: float) -> None:
+    """``now - ingestion_time`` of each routed record onto ``hist``: the
+    columns' ingest stamps of selected point rows, else each record's
+    ``ingestion_time``."""
+    cols = getattr(recs, "columns", None)
+    if cols is not None:
+        for base in cols()[5].tolist():
+            if base > 0:
+                hist.record(now_ms - base)
+        return
+    for rec in recs:
+        obj = rec[0] if isinstance(rec, tuple) else rec
+        base = getattr(obj, "ingestion_time", None)
+        if isinstance(base, (int, float)) and base > 0:
+            hist.record(now_ms - base)
 
 
 def load_queries_file(path: str, family: str,

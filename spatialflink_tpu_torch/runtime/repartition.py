@@ -20,9 +20,11 @@ cells the decode assigns.
 - The layout is a coordinated-checkpoint participant (component ``grid``):
   ``--resume`` restores the layout and its version; epoch counts restart.
 
-The split score is the record share alone: the JAX controller blends in a
-telemetry session's attributed kernel cost when one is active, and the
-port has no telemetry session. The fleet's leaf placement
+With a telemetry session the split score blends in the session's
+attributed kernel cost per cell (:meth:`RepartitionController.
+_cost_shares`), each applied change is a ``repartition`` event, and the
+``grid.version`` / ``grid.leaves`` gauges follow the layout; without one
+the score is the record share alone. The fleet's leaf placement
 (``balance_leaves``, ``pick_rebalance``) comes with multi-GPU serving.
 """
 
@@ -199,11 +201,23 @@ class RepartitionController:
     # decisions
 
     def _cost_shares(self) -> Optional[np.ndarray]:
-        """Per-base-cell attributed-cost shares: None, since the port has no
-        telemetry session to attribute kernel cost to cells (the split
-        score is then the record share alone, as in a JAX run without
-        one)."""
-        return None
+        """Per-base-cell attributed-cost shares from the active telemetry
+        session's cost profiles (``utils.telemetry.CostProfiles``), or None
+        without a session or before any cost was attributed (the split
+        score is then the record share alone). Cumulative, so cost ratchets
+        toward persistently hot cells. The attribution is measured wall
+        clock, so under a session the layouts depend on timing, in either
+        package."""
+        from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+        tel = _telemetry.active()
+        if tel is None:
+            return None
+        cost = tel.costs.cell_costs(self._counts.size)
+        total = float(cost.sum())
+        if total <= 0:
+            return None
+        return cost / total
 
     def epoch(self) -> bool:
         """Close one epoch: evaluate split/merge/coarsen with hysteresis and
@@ -315,6 +329,16 @@ class RepartitionController:
         with self._lock:
             self.decisions.append(decision)
             del self.decisions[:-32]
+        from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+        _telemetry.emit_event(
+            "repartition", version=self.grid.version, epoch=epoch_no,
+            split=new_splits, merged=merged, coarsened=len(coarsened),
+            uncoarsened=len(uncoarsened), num_leaves=self.grid.num_leaves)
+        tel = _telemetry.active()
+        if tel is not None:
+            tel.gauge("grid.version").set(float(self.grid.version))
+            tel.gauge("grid.leaves").set(float(self.grid.num_leaves))
 
     # ------------------------------------------------------------------ #
     # serving / checkpointing

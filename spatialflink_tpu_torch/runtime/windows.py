@@ -204,6 +204,22 @@ class _Restorable:
         return out
 
 
+def _note_seals(starts) -> None:
+    """Stamp the seal wall clock of every window a watermark sweep made
+    ready, before any of them yields, on the telemetry session's latency
+    plane (windows pulled later then count their wait behind earlier
+    windows as ``queue``). One session check per sweep; nothing runs
+    without a session."""
+    from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+    tel = _telemetry.active()
+    if tel is None or not starts:
+        return
+    now = time.time()
+    for s in starts:
+        tel.latency.note_seal(s, now)
+
+
 def _keep_mask(watermarker: BoundedOutOfOrderness, ts: np.ndarray):
     """Per-record lateness decisions for one chunk against the per-record
     PREFIX watermark — identical to feeding the chunk one record at a
@@ -259,6 +275,7 @@ class WindowAssembler(_Restorable):
     def _seal_until(self, watermark: int):
         ready = sorted(s for s in self._buffers
                        if s + self.spec.size_ms <= watermark)
+        _note_seals(ready)
         for start in ready:
             yield (start, start + self.spec.size_ms,
                    _view(self._buffers.pop(start)))
@@ -266,7 +283,9 @@ class WindowAssembler(_Restorable):
     def flush(self):
         """Seal every remaining window (end of a bounded stream)."""
         self._adopt()
-        for start in sorted(self._buffers):
+        ready = sorted(self._buffers)
+        _note_seals(ready)
+        for start in ready:
             yield (start, start + self.spec.size_ms,
                    _view(self._buffers.pop(start)))
 
@@ -379,6 +398,7 @@ class PaneBuffer(_Restorable):
             while s <= s1:
                 starts.add(s)
                 s += slide
+        _note_seals(sorted(starts))
         for s in sorted(starts):
             panes = [(p, _view(self._panes[p]))
                      for p in range(s, s + size, slide) if p in self._panes]

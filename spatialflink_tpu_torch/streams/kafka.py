@@ -178,10 +178,19 @@ class KafkaSource:
     def _polls(self) -> Iterator[List[BrokerRecord]]:
         """Resequenced poll batches from the committed offset, within
         ``limit``, until the topic's end."""
+        from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
         pos = self.position = self.broker.committed(self.topic, self.group)
         handed = 0
+        # one ``kafka.fetch`` span per poll with a telemetry session
+        tel = _telemetry.active()
         while self.limit is None or handed < self.limit:
-            batch = self.broker.fetch(self.topic, pos, self.poll_batch)
+            if tel is not None:
+                with tel.span("fetch", query="kafka"):
+                    batch = self.broker.fetch(self.topic, pos,
+                                              self.poll_batch)
+            else:
+                batch = self.broker.fetch(self.topic, pos, self.poll_batch)
             if not batch:
                 return
             cleaned = resequence_batch(batch, pos)
@@ -375,6 +384,17 @@ class WindowCommitTap:
         self.checkpointer = checkpointer
         self._ckpt_key = f"kafka:{source.topic}"
         self._pending: deque = deque()  # (position, lwe), arrival order
+        # telemetry gauges (watermark lag = wall clock minus the newest
+        # event time; commit backlog = records awaiting a covering window),
+        # set once per chunk, only when a session was active when the
+        # driver wired the tap
+        from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+        tel = self._tel = _telemetry.active()
+        self._lag_gauge = (tel.gauge("kafka.watermark-lag-ms")
+                           if tel is not None else None)
+        self._backlog_gauge = (tel.gauge("kafka.commit-backlog")
+                               if tel is not None else None)
 
     # ------------------------------ decode ------------------------------ #
 
@@ -400,6 +420,9 @@ class WindowCommitTap:
 
             dropped = [o for o in objs if not isinstance(o, want)]
             driver.decode_chunks.off_type_dropped += len(dropped)
+            from spatialflink_tpu_torch.utils import metrics
+
+            metrics.REGISTRY.counter("off-type-dropped").inc(len(dropped))
             print(f"warning: dropping off-type "
                   f"{type(dropped[0]).__name__} record(s) from declared "
                   f"{self.geometry} stream (off-type-dropped="
@@ -440,14 +463,21 @@ class WindowCommitTap:
         raws: List = []
         poss: List[int] = []
 
+        tel = self._tel
+
         def flush():
             if not raws:
                 return
+            t0 = time.perf_counter() if tel is not None else 0.0
             chunk = self._decode(raws, poss)
             if self.checkpointer is not None:
                 self.checkpointer.note_position(self._ckpt_key, poss[-1])
             raws.clear()
             poss.clear()
+            if tel is not None:
+                # one ingest observation per decoded chunk, and the gauges
+                tel.observe("ingest", time.perf_counter() - t0)
+                self._note_gauges(chunk)
             if chunk is not None and len(chunk):
                 yield chunk
 
@@ -475,6 +505,14 @@ class WindowCommitTap:
                 if len(raws) >= self.bulk_chunk:
                     yield from flush()
         yield from flush()
+
+    def _note_gauges(self, chunk) -> None:
+        """The watermark lag (now minus the chunk's last event time) and
+        the commit backlog, once per chunk."""
+        ts = getattr(chunk, "ts", None) if chunk is not None else None
+        if ts is not None and len(ts):
+            self._lag_gauge.set(time.time() * 1000 - int(ts[-1]))
+        self._backlog_gauge.set(len(self._pending))
 
     # ------------------------------ commits ----------------------------- #
 
@@ -542,6 +580,9 @@ class KafkaWindowSink:
         self.seed_scan_limit = seed_scan_limit
         self.seed_scan_warn = seed_scan_warn
         self._enc = KafkaSink(broker, topic, fmt, date_format, delimiter)
+        from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+        self._tel = _telemetry.active()
         self.delivered = self._seed_from_log()
         self.duplicates_suppressed = 0
         self.windows_produced = 0
@@ -566,6 +607,10 @@ class KafkaWindowSink:
         while True:
             batch = self.broker.fetch(self.topic, off)
             if not batch:
+                from spatialflink_tpu_torch.utils import metrics
+
+                metrics.REGISTRY.counter("sink-seed-scan-records").inc(
+                    scanned)
                 return seen
             for r in batch:
                 if isinstance(r.key, str) and r.key.startswith(self.MARKER):
@@ -588,6 +633,26 @@ class KafkaWindowSink:
         return f"{self.job_id}:{base}" if self.job_id else base
 
     def emit(self, result) -> None:
+        """Produce one window (or suppress a delivered one). With a
+        telemetry session it is a ``kafka.sink`` span, the window's
+        downstream ``sink-commit`` budget and, with tracing, its last trace
+        note."""
+        tel = self._tel
+        if tel is None:
+            self._emit(result)
+            return
+        t0 = time.time()
+        with tel.span("sink", query="kafka"):
+            self._emit(result)
+        t1 = time.time()
+        if hasattr(result, "window_start"):
+            tel.latency.note_downstream("sink-commit", result.window_start,
+                                        t0, t1)
+            if tel.traces is not None:
+                tel.traces.note_any(result.window_start, "sink-commit",
+                                    t0, t1)
+
+    def _emit(self, result) -> None:
         wk = self.window_key(result)
         if wk in self.delivered or (
                 self.job_id and wk.split(":", 1)[1] in self.delivered):

@@ -17,9 +17,15 @@ meters, read at call time through ``metrics.REGISTRY`` so that
 adaptive grid counts into it: the prefilter's ``prefilter-records``,
 ``prefilter-kept``, ``prefilter-windows-skipped`` and
 ``prefilter-mask-recomputes``, and the repartition controller's
-``repartitions``, ``grid-splits`` and ``grid-merges``. The degradation
-digest, the trace annotations and the telemetry session wait for the
-telemetry plane.
+``repartitions``, ``grid-splits`` and ``grid-merges``.
+
+The rest (port of ``degradation_snapshot``, ``metered``, ``trace`` and
+``profile_to``): the degradation digest of the run summary, a metered
+record stream, and the profiler. :func:`profile_to` runs a
+``torch.profiler`` capture (CPU and CUDA activities) and writes its Chrome
+trace; while it runs, :func:`trace` is a ``torch.profiler.record_function``
+annotation, and a shared null context otherwise (one module flag read
+per call), so a run without a capture opens no profiler range.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import json
 import threading
 import time
 from collections import deque
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional
 
 
 class ControlTupleExit(Exception):
@@ -194,3 +200,77 @@ def scoped_registry(registry: Optional[MetricsRegistry] = None
         yield reg
     finally:
         set_registry(old)
+
+
+#: counter-name prefixes that mean "the transport or pipeline degraded and
+#: recovery machinery engaged" (the JAX package's chaos, retry, breaker,
+#: dead-letter and verified-produce counters; the port bumps them once those
+#: planes are ported)
+DEGRADATION_PREFIXES = ("chaos-", "retry-", "breaker-", "dlq-",
+                        "produce-verified")
+
+
+def degradation_snapshot(registry: Optional[MetricsRegistry] = None
+                         ) -> Dict[str, int]:
+    """The non-zero degradation counters (:data:`DEGRADATION_PREFIXES`):
+    the run summary's digest of how rough the transport was."""
+    reg = REGISTRY if registry is None else registry
+    with reg._lock:
+        counters = sorted(reg.counters.items())
+    return {n: c.count for n, c in counters
+            if c.count and n.startswith(DEGRADATION_PREFIXES)}
+
+
+def metered(stream: Iterable, meter: Meter,
+            control_check: bool = False) -> Iterator:
+    """A record stream that marks ``meter`` per record and, with
+    ``control_check``, raises on a control tuple."""
+    for rec in stream:
+        if control_check:
+            check_exit_control_tuple(rec)
+        meter.mark()
+        yield rec
+
+
+_PROFILING = False
+_NULL_CM = contextlib.nullcontext()
+
+
+def trace(name: str):
+    """A named ``torch.profiler.record_function`` range while a
+    :func:`profile_to` capture runs; a shared null context otherwise. An
+    exception raised in the block propagates unchanged."""
+    if not _PROFILING:
+        return _NULL_CM
+    from torch.profiler import record_function
+
+    return record_function(name)
+
+
+@contextlib.contextmanager
+def profile_to(log_dir: str, device=None):
+    """Capture a ``torch.profiler`` trace of the block (CPU activity, and
+    CUDA activity when ``device`` is a CUDA device or, with ``device``
+    None, when CUDA is available) and write it to
+    ``<log_dir>/trace.json`` (Chrome trace format, Perfetto-loadable).
+    Annotations from :func:`trace` name the operators' stages in it."""
+    global _PROFILING
+    import os
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = None if device is None else torch.device(device)
+    cuda = (dev.type == "cuda" if dev is not None
+            else torch.cuda.is_available())
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=acts)
+    prof.__enter__()
+    _PROFILING = True
+    try:
+        yield prof
+    finally:
+        _PROFILING = False
+        prof.__exit__(None, None, None)
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))

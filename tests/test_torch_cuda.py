@@ -2285,3 +2285,147 @@ def test_adaptive_grid_equals_plain(card, monkeypatch, option, multi):
     _plain_everywhere(monkeypatch)
     plain, _, _ = adaptive()
     assert got == plain == uniform and any(w[2] for w in got)
+
+
+@pytest.mark.cuda
+def test_device_plane_on_the_card(card):
+    """Provenance says gpu with the card's name; memory rows come from
+    ``torch.cuda.memory_stats`` (a tensor allocated shows in use and in
+    the peak); the status block carries them, with no device sync."""
+    from spatialflink_tpu_torch.utils import deviceplane as DP
+
+    prov = DP.backend_provenance(device=card)
+    assert prov["platform"] == "gpu" and prov["valid_for_target"]
+    assert prov["device_kind"] == torch.cuda.get_device_name(0)
+    assert prov["device_count"] == torch.cuda.device_count()
+    assert prov["cuda_version"] == torch.version.cuda
+    x = torch.empty(64 << 20, dtype=torch.uint8, device=card)
+    rows = DP.device_memory(card)
+    assert len(rows) == torch.cuda.device_count() and rows[0]["available"]
+    assert rows[0]["bytes_in_use"] >= x.numel()
+    assert rows[0]["peak_bytes_in_use"] >= rows[0]["bytes_in_use"]
+    assert rows[0]["bytes_limit"] == \
+        torch.cuda.get_device_properties(0).total_memory
+
+    class _Tel:
+        device = card
+
+    block = DP.status_block(_Tel())
+    assert block["backend"]["platform"] == "gpu" and block["mem_available"]
+    assert block["mem_peak_bytes"] >= x.numel()
+    del x
+
+
+@pytest.mark.cuda
+def test_instrumented_kernels_count_one_signature_per_bucket(card):
+    """K1 (range_filter_point_stats), K2 (knn_point_stats) and K4
+    (pip_dist): windows of 100 and 200 points share the 256 bucket, 300
+    and 500 the 512 one, 600 the 1,024 one: three signatures each, five
+    launches each."""
+    grid = UniformGrid(0.0, 10.0, 0.0, 10.0, num_grid_partitions=10)
+    e, m = (torch.from_numpy(a).to(card)
+            for a in single_query_edges(GEOMS["polygon"]()))
+    calls = (
+        (R.range_filter_point_stats, R.range_mask_stats,
+         lambda b: R.range_filter_point_stats(
+             b, 5.0, 5.0, 55, 1.0, 0, 1, n=10)),
+        (K.knn_point_stats, K.knn_topk,
+         lambda b: K.knn_point_stats(b, 5.0, 5.0, 55, 2, n=10, k=8,
+                                     num_ids=b.x.shape[0])),
+        (HK.pip_dist, HK.pip_dist,
+         lambda b: HK.pip_dist(b.x, b.y, e, m, True)),
+    )
+    rng = np.random.default_rng(3)
+    for entry_fn, launched, call in calls:
+        entry = entry_fn.compile_entry
+        entry.seen.clear()
+        c0, l0 = entry.compiles, launched.launches
+        for n in (100, 200, 300, 500, 600):
+            b = PointBatch.from_arrays(rng.uniform(0, 10, n),
+                                       rng.uniform(0, 10, n), device=card,
+                                       grid=grid)
+            call(b)
+        assert entry.compiles - c0 == 3, entry.signatures
+        assert launched.launches - l0 == 5
+        assert [s["signature"].split(",")[0] for s in
+                list(entry.signatures)[-3:]] == \
+            ["(float32[256]", "(float32[512]", "(float32[1024]"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", [1, 6, 51])
+def test_instrumented_window_launches_equal_the_plain_runs(card, option,
+                                                           tmp_path):
+    """Options 1 (K1), 6 (K4) and 51 (K2) through ``driver.main`` with a
+    telemetry session, traces and the recorder on the card: stdout and
+    every kernel's launch count equal the run without them."""
+    import contextlib
+    import io
+
+    from spatialflink_tpu_torch import driver as TD
+    from spatialflink_tpu_torch.utils import metrics
+
+    path = tmp_path / "in.csv"
+    path.write_text("\n".join(_csv_points(11, 6_000)) + "\n")
+    counters = (R.range_mask_stats, HK.pip_dist, K.knn_topk)
+
+    def run(*extra):
+        before = [c.launches for c in counters]
+        out = io.StringIO()
+        with metrics.scoped_registry() as reg, \
+                contextlib.redirect_stdout(out):
+            rc = TD.main(["--config", CONF_PATH, "--option", str(option),
+                          "--input1", str(path), "--format", "CSV",
+                          "--device", "cuda", *extra])
+        assert rc == 0
+        return (out.getvalue(), [c.launches - b for c, b in
+                                 zip(counters, before)], reg.snapshot())
+
+    plain = run()
+    inst = run("--telemetry-dir", str(tmp_path / "t"), "--trace-dir",
+               str(tmp_path / "tr"), "--postmortem-dir", str(tmp_path / "pm"),
+               "--telemetry-interval", "1000")
+    assert inst[0] == plain[0] and plain[0]
+    assert inst[1] == plain[1] and sum(plain[1]) > 0
+    assert inst[2]["batches-evaluated"] == plain[2]["batches-evaluated"]
+    import json
+
+    last = json.loads(open(tmp_path / "t" / "telemetry.jsonl").read()
+                      .splitlines()[-1])
+    assert last["device"]["backend"]["platform"] == "gpu"
+    assert last["device"]["mem_peak_bytes"] > 0
+
+
+@pytest.mark.cuda
+def test_self_join_run_single_on_the_card(card, monkeypatch):
+    """The trajectory self-join through K7 / K6 on the card equals the same
+    run with every kernel swapped for its plain version; no pair joins an
+    object with itself."""
+    from spatialflink_tpu_torch.operators import (PointPointTJoinQuery,
+                                                  QueryConfiguration)
+    from spatialflink_tpu_torch.ops import join as J
+
+    grid = UniformGrid(115.5, 117.6, 39.6, 41.1, num_grid_partitions=100)
+    rng = np.random.default_rng(12)
+    n = 3_000
+    oid = rng.integers(0, 40, n)
+    ts = _T0 + np.sort(rng.integers(0, 40_000, n))
+    xs, ys = 116.5 + rng.normal(0, 0.01, n), 40.5 + rng.normal(0, 0.01, n)
+    pts = [Point.create(float(xs[i]), float(ys[i]), grid, f"t{oid[i]}",
+                        int(ts[i])) for i in range(n)]
+
+    def run():
+        op = PointPointTJoinQuery(
+            QueryConfiguration(window_size_ms=10_000, slide_ms=5_000), grid,
+            device="cuda")
+        return [(w.window_start, w.window_end,
+                 [(a.obj_id, b.obj_id, a.timestamp, b.timestamp)
+                  for a, b in w.records])
+                for w in op.run_single(iter(pts), 0.005)]
+
+    l0 = J.join_lattice.launches + J.join_reduce.launches
+    got = run()
+    assert J.join_lattice.launches + J.join_reduce.launches > l0
+    _plain_everywhere(monkeypatch)
+    assert got == run() and any(w[2] for w in got)
+    assert all(a != b for w in got for a, b, _, _ in w[2])

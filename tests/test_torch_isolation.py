@@ -120,6 +120,71 @@ def test_port_loads_no_jax():
     assert "LOADED []" in proc.stdout
 
 
+def test_telemetry_and_doctor_load_no_jax(tmp_path):
+    """In a fresh interpreter: option 51 through the port's CLI with every
+    telemetry flag of its slice (a session, traces, a SIGUSR1 bundle
+    through the flight recorder, --live-stats, --metrics), then
+    ``python -m spatialflink_tpu_torch.doctor`` summarizing and diffing
+    the bundle; neither loads jax or the JAX package."""
+    inp = tmp_path / "in.csv"
+    inp.write_text("\n".join(
+        f"o{i % 40},{1700000000000 + 37 * i},{116.2 + i * 1e-3},40.5"
+        for i in range(800)) + "\n")
+    code = textwrap.dedent("""
+        import os, signal, sys
+        from spatialflink_tpu_torch import driver as TD
+        d = sys.argv[2]
+        orig = TD._emit
+        def emit(result, sink, fired=[]):
+            if not fired:
+                fired.append(1)
+                os.kill(os.getpid(), signal.SIGUSR1)
+            orig(result, sink)
+        TD._emit = emit
+        rc = TD.main(["--config", sys.argv[1], "--option", "51",
+                      "--input1", sys.argv[3], "--format", "CSV",
+                      "--device", "cpu", "--telemetry-dir", d + "/t",
+                      "--trace-dir", d + "/tr", "--postmortem-dir", d + "/pm",
+                      "--live-stats", "--metrics", "--strict-recompile",
+                      "--sentinel-warmup", "3"])
+        assert rc == 0, rc
+        bad = sorted(m for m in sys.modules
+                     if m in ("jax", "spatialflink_tpu")
+                     or m.startswith(("jax.", "spatialflink_tpu.")))
+        print("LOADED", bad)
+        sys.exit(1 if bad else 0)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, CONF,
+                           str(tmp_path), str(inp)], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+    assert "# live: " in proc.stderr
+    (bundle,) = os.listdir(tmp_path / "pm")
+    bundle = str(tmp_path / "pm" / bundle)
+    doc = textwrap.dedent("""
+        import sys
+        from spatialflink_tpu_torch import doctor
+        b = sys.argv[1]
+        for args in (["summarize", b], ["diff", b, b], ["tenants", b]):
+            assert doctor.main(args) == 0
+        bad = sorted(m for m in sys.modules
+                     if m in ("jax", "spatialflink_tpu")
+                     or m.startswith(("jax.", "spatialflink_tpu.")))
+        print("LOADED", bad)
+    """)
+    proc = subprocess.run([sys.executable, "-c", doc, bundle], cwd=REPO,
+                          env=env, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 0, proc.stderr
+    assert "reason     signal" in proc.stdout and "LOADED []" in proc.stdout
+    proc = subprocess.run([sys.executable, "-m",
+                           "spatialflink_tpu_torch.doctor", "summarize",
+                           bundle], cwd=REPO, env=env, capture_output=True,
+                          text=True, timeout=60)
+    assert proc.returncode == 0 and "reason     signal" in proc.stdout
+
+
 def _imported_modules(path: str):
     """Every module an import statement (or a constant-string
     importlib.import_module / __import__ call) in ``path`` names, with
@@ -161,7 +226,10 @@ def test_no_source_imports_jax_or_the_jax_package():
                    "apps/check_in.py", "streams/shapefile.py",
                    "streams/bulk.py", "native/__init__.py",
                    "streams/kafka.py", "runtime/checkpoint.py",
-                   "runtime/state.py", "utils/metrics.py"):
+                   "runtime/state.py", "utils/metrics.py",
+                   "utils/telemetry.py", "utils/deviceplane.py",
+                   "utils/latencyplane.py", "utils/accounting.py",
+                   "runtime/opserver.py", "doctor.py"):
         assert os.path.join("spatialflink_tpu_torch", module) in rel
     bad = [(os.path.relpath(f, REPO), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]

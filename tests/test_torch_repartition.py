@@ -101,6 +101,39 @@ def _hot_epoch(pair, hot_cell, n=1000, hot_share=0.6, seed=0):
                                 tail))
 
 
+def test_attributed_cost_steers_splits_alike_in_both_packages():
+    """Under a telemetry session the split score blends in the session's
+    attributed kernel cost per cell (``_cost_shares``): the same injected
+    cost in both packages' sessions splits a cell whose record share
+    alone would not, in both, with the same ``repartition`` event and
+    ``grid.*`` gauges; without a session the same epoch splits nothing."""
+    from spatialflink_tpu.utils import telemetry as JT
+
+    from spatialflink_tpu_torch.utils import telemetry as TT
+
+    plain = _pair()
+    t = _hot_epoch(plain, 4242, hot_share=0.15)
+    assert t.grid.split_cells() == []
+    pair = _pair()
+    with JM.scoped_registry(), TM.scoped_registry(), \
+            JT.telemetry_session() as jtel, TT.telemetry_session() as ttel:
+        for tel in (jtel, ttel):
+            # all the attributed kernel time lands on cell 4242
+            tel.costs.record_cells(np.full(10, 4242))
+            tel.costs.attribute_kernel("range", 0.5, records=10)
+        t = _hot_epoch(pair, 4242, hot_share=0.15)
+        assert t.grid.split_cells() == [4242]
+        assert [e["kind"] for e in jtel.events.list()] == \
+            [e["kind"] for e in ttel.events.list()] == ["repartition"]
+        strip = [{k: v for k, v in e.items()
+                  if k not in ("ts_ms", "mono_ms")}
+                 for e in (jtel.events.list()[0], ttel.events.list()[0])]
+        assert strip[0] == strip[1]
+        assert {k: g.get() for k, g in jtel.gauges.items()} == \
+            {k: g.get() for k, g in ttel.gauges.items()} == \
+            {"grid.version": 1.0, "grid.leaves": float(t.grid.num_leaves)}
+
+
 def test_policy_validation_matches_jax():
     for mod in (JR, TR):
         with pytest.raises(ValueError, match="hysteresis"):

@@ -209,7 +209,8 @@ def test_realtime_knn_is_refused(option):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--option", "6", "--metrics"], "--metrics: not yet ported"),
+    (["--option", "6", "--status-port", "0"],
+     "--status-port: not yet ported"),
     (["--option", "2000", "--chaos", "seed=1"], "--chaos: not yet ported"),
     (["--option", "101"], "queryOption 101 (join) needs --input2"),
     (["--option", "6", "--kafka", "--kafka-follow"],
@@ -224,8 +225,10 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, message):
     before, run since their slice: tests/test_torch_apps.py,
     test_torch_join_panes.py, test_torch_bulk.py; so do --kafka,
     --checkpoint-dir and --resume: tests/test_torch_kafka.py,
-    test_torch_recovery.py; and --adaptive-grid:
-    tests/test_torch_adaptive_grid.py, test_torch_repartition.py)."""
+    test_torch_recovery.py; --adaptive-grid:
+    tests/test_torch_adaptive_grid.py, test_torch_repartition.py; and
+    --metrics and the other telemetry flags:
+    tests/test_torch_telemetry_driver.py)."""
     inp = tmp_path / "in.csv"
     inp.write_text("\n".join(_stream(n=10)[0]) + "\n")
     rc = TD.main(["--config", CONF, "--input1", str(inp), "--format", "CSV",

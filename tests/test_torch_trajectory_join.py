@@ -137,3 +137,52 @@ def test_cli_matches_jax(tmp_path, capsys):
                   "cpu"])
     assert rc == 2 and "--chaos: not yet ported" in \
         capsys.readouterr().err
+
+
+def _self_join_points(pkg_point, grid, seed=12, n=240, trajs=9):
+    """A seeded stream of ``trajs`` trajectories that cross each other and
+    revisit their own cells, as Point objects of one package."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    base = 1_700_000_000_000
+    oid = rng.integers(0, trajs, n)
+    ts = base + np.sort(rng.integers(0, 40_000, n))
+    x = 116.5 + rng.normal(0, 0.01, n)
+    y = 40.5 + rng.normal(0, 0.01, n)
+    return [pkg_point.create(float(x[i]), float(y[i]), grid, f"t{oid[i]}",
+                             int(ts[i])) for i in range(n)]
+
+
+@pytest.mark.parametrize("realtime", [False, True])
+def test_self_join_run_single_matches_jax(realtime):
+    """``PointPointTJoinQuery.run_single`` against the JAX method (JAX
+    ``tests/test_trajectory.py:442``'s case, on a seeded stream): the same
+    windows and pairs, none of one object with itself."""
+    from spatialflink_tpu.index import UniformGrid as JGrid
+    from spatialflink_tpu.models import Point as JPoint
+    from spatialflink_tpu.operators import (PointPointTJoinQuery as JTJ,
+                                            QueryConfiguration as JQC,
+                                            QueryType as JQT)
+
+    from spatialflink_tpu_torch.index import UniformGrid as TGrid
+    from spatialflink_tpu_torch.models import Point as TPoint
+    from spatialflink_tpu_torch.operators import (
+        PointPointTJoinQuery as TTJ, QueryConfiguration as TQC,
+        QueryType as TQT)
+
+    bbox = (115.5, 117.6, 39.6, 41.1)
+    out = []
+    for grid_cls, point, op_cls, qc, qt, kw in (
+            (JGrid, JPoint, JTJ, JQC, JQT, {}),
+            (TGrid, TPoint, TTJ, TQC, TQT, {"device": "cpu"})):
+        grid = grid_cls(*bbox, num_grid_partitions=100)
+        conf = (qc(query_type=qt.RealTime, realtime_batch_size=60)
+                if realtime else qc(window_size_ms=10_000, slide_ms=5_000))
+        op = op_cls(conf, grid, **kw)
+        out.append(list(op.run_single(iter(_self_join_points(point, grid)),
+                                      0.01)))
+    want, got = out
+    _assert_same(want, got)
+    pairs = [p for w in got for p in w.records]
+    assert pairs and all(a.obj_id != b.obj_id for a, b in pairs)
