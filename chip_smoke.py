@@ -152,7 +152,22 @@ its wall seconds):
    run_multi of the nine queries), with records/s and the median and p99
    wall time per window. Last, the CLI runs option 51 with
    ``--queries-file`` (five queries, one on a ``file:`` route) on the
-   65,536-row CSV against an in-process run of the same fleet.
+   65,536-row CSV against an in-process run of the same fleet. Then the
+   operations plane (``ops-plane``, :func:`ops_plane_phase`): options 1
+   and 51 with the dynamic plane's scripted fleet, its admissions and
+   retirements POSTed and DELETEd to the port's status server on
+   127.0.0.1 from the input iterator (each answered before the next
+   record), every window equal to the dynamic phase's registry-scripted
+   run; every route read once mid-run against its schema, ``/healthz``
+   200 -> 503 -> 200 on an injected watermark lag, ``/device``'s card
+   memory, ``/compile``'s K1 and K2 libraries; options 6 and 51 under the
+   chunk governor ticked by a 10 ms reporter, the recompile sentinel
+   strict after two windows: the chunk steps both ways, no recompile,
+   range windows equal to the ungoverned run's (object ids as strings),
+   kNN lists the same distances and the same objects below the last;
+   option 1 with a tenant quota (a second admission 429, no entry) and
+   forced shedding (a parked admission, 429, serving from the window
+   after its release).
 6. The spatial joins at a radius of 0.002 degrees, against four seeded
    query streams over the same 20 s (16,384 and 256 CSV query points:
    8,192 and 128 per window; 1,024 GeoJSON polygons and linestrings
@@ -2769,6 +2784,8 @@ def dynamic_phase(card: str, runs, base):
         if any(pgot.values()):
             raise AssertionError(f"dynamic {opt}: the plain run launched "
                                  f"{pgot}")
+        if opt in (1, 51):
+            DYN_WINDOWS[opt] = wins
         fleets = [len(w[3] or ()) for w in wins]
         want = [DYN_SEEDS, DYN_SEEDS + DYN_ADMIT, n_q, n_q - DYN_RETIRE,
                 n_q - DYN_RETIRE]
@@ -2831,6 +2848,443 @@ def dynamic_phase(card: str, runs, base):
                "card": card}
         log("dynamic", json.dumps(row))
         report.append(row)
+        torch.cuda.empty_cache()
+    return launches, report
+
+
+#: the dynamic phase's registry-scripted windows of options 1 and 51 (the
+#: operations plane's HTTP runs are held against them)
+DYN_WINDOWS: dict = {}
+#: the chunk governor's policy in the operations-plane runs: no p99
+#: breach (so a non-stalled bucket votes grow) and one bucket to confirm,
+#: no cooldown (so a stalled one shrinks at once); admissions never shed
+OPS_POLICY = ("confirm_ticks=1,cooldown_ticks=0,target_p99_ms=60000,"
+              "min_chunk=512,max_chunk=8192,shed_after_stalls=1000000")
+#: the reporter interval of the governed runs: each snapshot closes a
+#: latency-plane bucket, which ticks the governor
+OPS_INTERVAL_S = 0.01
+#: GET route -> (code, keys its JSON holds; None: Prometheus text)
+OPS_ROUTES = {
+    "/healthz": (200, {"healthy", "status", "checks"}),
+    "/status": (200, {"ts_ms", "status", "counters", "device", "health",
+                      "latency", "tenants", "run_id", "snapshot_seq"}),
+    "/metrics": (200, None),
+    "/events": (200, {"events", "total", "latest_seq"}),
+    "/events?since=1": (200, {"events", "total", "latest_seq"}),
+    "/trace/recent": (200, {"traces", "total", "evicted", "latest_seq"}),
+    "/profile/cells": (200, {"cells", "families", "series",
+                             "total_kernel_ms"}),
+    "/latency": (200, {"stages", "controller", "recent", "record_emit",
+                       "backpressure", "sum_check", "queries"}),
+    "/partition": (200, {"adaptive", "note"}),
+    "/queries": (200, {"fleet", "live", "bucket", "queries", "shedding",
+                       "tenant_quotas", "fleet_version"}),
+    "/queries/q0": (200, {"id", "state", "spec", "tenant",
+                          "windows_emitted", "records_out"}),
+    "/tenants": (200, {"schema", "tenants", "fairness", "series"}),
+    "/tenants/default": (200, {"schema", "tenant", "kernel_ms",
+                               "query_ids"}),
+    "/device": (200, {"backend", "memory", "transfer", "compile",
+                      "recorder"}),
+    "/compile": (200, {"functions", "entries", "post_warmup_compiles"}),
+    "/fleet": (200, {"fleet", "note"}),
+    "/fleet/latency": (200, {"stages", "recent", "note"}),
+    "/fleet/timeline": (200, {"events", "lanes", "total", "note"}),
+    "/fleet/events": (200, {"events", "total", "latest_seq", "note"}),
+    "/fleet/metrics": (200, None),
+    "/fleet/tenants": (200, {"tenants", "n", "workers", "note"}),
+}
+
+
+def _http(url: str, method: str = "GET", body=None):
+    """(code, JSON or text) of one request to the status server on this
+    host, 4xx/5xx included."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, method=method, data=data)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as resp:
+            code, raw = resp.status, resp.read()
+            ctype = resp.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        code, raw = e.code, e.read()
+        ctype = e.headers.get("Content-Type", "")
+    return code, (json.loads(raw) if "json" in ctype else raw.decode())
+
+
+def _routes_read(url: str, tel, device: str = "cuda") -> dict:
+    """Every route read once and held against OPS_ROUTES (and
+    ``/trace/<id>`` of the newest trace); on the card, /device's memory
+    and /compile's K1 and K2 libraries; the /healthz flip: 200, then 503
+    with the injected watermark lag, then 200 again."""
+    seen = {}
+    for path, (want_code, keys) in OPS_ROUTES.items():
+        code, body = _http(url + path)
+        if code != want_code:
+            raise AssertionError(f"ops-plane: GET {path} answered {code}")
+        if keys is None:
+            if not isinstance(body, str) or (
+                    path == "/metrics"
+                    and 'spatialflink_counter{name="batches-evaluated"}'
+                    not in body):
+                raise AssertionError(f"ops-plane: GET {path} text {body!r}")
+        elif not keys <= set(body):
+            raise AssertionError(f"ops-plane: GET {path} lacks "
+                                 f"{sorted(keys - set(body))}")
+        seen[path] = body
+    tid = seen["/trace/recent"]["traces"][0]["trace_id"]
+    code, tr = _http(url + "/trace/" + tid)
+    if code != 200 or tr.get("trace_id") != tid:
+        raise AssertionError(f"ops-plane: /trace/{tid} answered {code}")
+    mem = seen["/device"]["memory"]
+    libs = {e["name"] for e in seen["/compile"]["entries"]
+            if e["kind"] == "library"}
+    if device == "cuda":
+        if not (mem["available"] and mem["bytes_in_use"] > 0
+                and seen["/device"]["backend"]["platform"] == "gpu"):
+            raise AssertionError(f"ops-plane: /device memory {mem}")
+        if not {"range_mask", "knn_topk"} <= libs:
+            raise AssertionError(f"ops-plane: /compile libraries {libs}")
+    flips = []
+    for lag in (0.0, 5000.0, 0.0):
+        tel.gauge("kafka.watermark-lag-ms").set(lag)
+        flips.append(_http(url + "/healthz")[0])
+    if flips != [200, 503, 200]:
+        raise AssertionError(f"ops-plane: /healthz {flips}, want "
+                             "200, 503, 200")
+    return {"routes": len(seen) + 1, "healthz": flips,
+            "libraries": sorted(libs),
+            "mem_bytes_in_use": mem["bytes_in_use"],
+            "status_bytes": len(json.dumps(seen["/status"]))}
+
+
+def _ops_http_run(params, records, family, points, device="cuda",
+                  routes=False):
+    """The dynamic phase's scripted fleet (:func:`_dyn_script`) through
+    run_option, its admissions and retirements POSTed and DELETEd to the
+    port's status server on 127.0.0.1, each answered before the reader
+    takes the next record; under a telemetry session with tracing and an
+    SLO. (windows, wall s, launches, replies, route report, the median
+    request ms)."""
+    from spatialflink_tpu_torch.runtime.health import HealthEvaluator
+    from spatialflink_tpu_torch.runtime.opserver import OpServer
+    from spatialflink_tpu_torch.runtime.queryplane import QueryRegistry
+    from spatialflink_tpu_torch.utils import telemetry as T
+
+    reg = QueryRegistry(family, radius=params.query.radius,
+                        k=params.query.k)
+    for i in range(DYN_SEEDS):
+        reg.admit({"id": f"q{i}", "x": points[i][0], "y": points[i][1]})
+    reg.apply()
+    params.query_registry = reg
+    todo = {at: changes for at, changes in
+            _dyn_script(len(records), params.query.allowed_lateness_s)}
+    # the route reads two decode chunks after the second change: the
+    # windows before it were read back, so the tenant ledger has rows
+    read_at = sorted(todo)[1] + 8192 if routes else None
+    health = HealthEvaluator.from_spec("watermark_lag_ms=1000")
+    replies, req_ms, report = [], [], {}
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    with T.telemetry_session(device=device, trace=True,
+                             health=health) as tel:
+        reg.install()
+        srv = OpServer(port=0, health=health).start()
+        try:
+            def gated():
+                for i, rec in enumerate(records):
+                    for op, qid in todo.get(i, ()):
+                        t0 = time.perf_counter()
+                        if op == "admit":
+                            j = int(qid[1:])
+                            reply = _http(srv.url + "/queries", "POST", {
+                                "id": qid, "x": points[j][0],
+                                "y": points[j][1]})
+                        else:
+                            reply = _http(srv.url + "/queries/" + qid,
+                                          "DELETE")
+                        req_ms.append((time.perf_counter() - t0) * 1e3)
+                        replies.append((i, op, qid, reply[0],
+                                        reply[1]["query"]["state"]))
+                    if i == read_at:
+                        report.update(_routes_read(srv.url, tel, device))
+                    yield rec
+
+            wins, wall = _ops_windows(params, gated(), device)
+        finally:
+            srv.close()
+            reg.uninstall()
+            del params.query_registry
+    got = {n: fn.launches for n, fn in counters.items()}
+    return wins, wall, got, replies, report, _pct(req_ms, 50)
+
+
+def _named(recs):
+    """:func:`_payload` with the point columns' object ids as their
+    strings: two runs at other decode chunks intern ids apart."""
+    form = _kform(recs)
+    return list(form[1:]) if form[0] == "cols" else form[1]
+
+
+def _ops_windows(params, records, device="cuda", on_window=None,
+                 form=_payload):
+    """run_option's windows as run_pipeline forms them (each query's
+    result through ``form``), and wall s; ``on_window(n)`` after the
+    n-th."""
+    import torch
+
+    from spatialflink_tpu_torch.driver import run_option
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wins = []
+    for w in run_option(params, records, device=device):
+        per_query = w.records if "queries" in w.extras else [w.records]
+        wins.append((w.window_start, w.window_end,
+                     [form(r) for r in per_query],
+                     w.extras.get("query_ids")))
+        if on_window is not None:
+            on_window(len(wins))
+    return wins, time.perf_counter() - t0
+
+
+def _ops_same(got, want, knn: bool) -> bool:
+    """Two runs' windows equal: range payloads exactly, kNN lists by
+    :func:`_knn_equal` where ``knn`` (a resized decode chunk interns ids
+    in another order, so ties at the k-th distance may differ)."""
+    if len(got) != len(want):
+        return False
+    for a, b in zip(got, want):
+        if a[0::3] != b[0::3] or a[1] != b[1] or len(a[2]) != len(b[2]):
+            return False
+        for p, q in zip(a[2], b[2]):
+            if not (_knn_equal(p, q) if knn else _equal(p, q)):
+                return False
+    return True
+
+
+def _ops_governed(params, lines, device="cuda", warmup: int = 2):
+    """One run under the chunk governor (OPS_POLICY) in a telemetry
+    session whose reporter snapshots every OPS_INTERVAL_S (each snapshot
+    closes a latency-plane bucket: the governor's tick), the recompile
+    sentinel strict after ``warmup`` windows, and the same run without
+    the governor: (windows, wall s, the ungoverned run's windows and wall
+    s, governor status, the chunk at each snapshot where it changed, the
+    snapshots, recompiles, launches of the governed run). Windows carry
+    object id strings (:func:`_named`)."""
+    from spatialflink_tpu_torch.ops import hopper_kernels as HK
+    from spatialflink_tpu_torch.ops import knn as K
+    from spatialflink_tpu_torch.ops import range as R
+    from spatialflink_tpu_torch.runtime.control import (ChunkGovernor,
+                                                        GovernorPolicy)
+    from spatialflink_tpu_torch.utils import deviceplane
+    from spatialflink_tpu_torch.utils import telemetry as T
+
+    counters = {"pip_dist": HK.pip_dist, "range_mask_stats":
+                R.range_mask_stats, "knn_topk": K.knn_topk}
+    for fn in counters.values():
+        fn.launches = 0
+    gov = ChunkGovernor(policy=GovernorPolicy.from_spec(OPS_POLICY))
+    sentinel = deviceplane.registry()
+    sentinel.begin_run(strict=True)
+    build = os.path.join(ROOT, "spatialflink_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            with T.telemetry_session(tmp, OPS_INTERVAL_S,
+                                     device=device) as tel:
+                tel.latency.tick_interval_s = OPS_INTERVAL_S
+                gov.install()
+                try:
+                    def warm(n):
+                        if n == warmup:
+                            sentinel.mark_warm(f"{n} windows emitted")
+                    wins, wall = _ops_windows(params, lines, device, warm,
+                                              form=_named)
+                finally:
+                    gov.uninstall()
+            with open(os.path.join(tmp, "telemetry.jsonl")) as f:
+                chunks = [json.loads(ln)["status"]["controller"]["chunk"]
+                          for ln in f]
+        recompiles = sentinel.run_recompiles
+    finally:
+        sentinel.end_run()
+    got = {n: fn.launches for n, fn in counters.items()}
+    # the first snapshot is the session's, before the governor installs
+    chunks = [c for c in chunks if c is not None]
+    trail = [c for i, c in enumerate(chunks) if i == 0 or c != chunks[i - 1]]
+    base, base_wall = _ops_windows(params, lines, device, form=_named)
+    return (wins, wall, base, base_wall, gov.status(), trail, len(chunks),
+            recompiles, got)
+
+
+def _ops_quota_shed(params, records, points, device="cuda"):
+    """Option 1 over ``records`` with ``--tenant-quota acme:1``: a second
+    acme admission is refused 429 and makes no entry; under forced
+    shedding an admission is parked (429, state shed) and, released after
+    the window ending at 10 s sealed, serves from the next window (the
+    third): its selections equal q0's (the same point). (report,
+    launches)"""
+    from spatialflink_tpu_torch.runtime.opserver import OpServer
+    from spatialflink_tpu_torch.runtime.queryplane import QueryRegistry
+
+    reg = QueryRegistry("range", radius=params.query.radius,
+                        tenant_quotas={"acme": {"max_active": 1}})
+    reg.admit({"id": "q0", "x": points[0][0], "y": points[0][1]})
+    reg.apply()
+    params.query_registry = reg
+    lateness = params.query.allowed_lateness_s
+    n = len(records)
+
+    def after(end_s):
+        return int((end_s + lateness) * 1000 / SPAN_MS * n) + 4096
+
+    codes, released_at = [], None
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    srv = OpServer(port=0).start()
+    reg.install()
+    try:
+        def gated():
+            nonlocal released_at
+            for i, rec in enumerate(records):
+                if i == after(0):
+                    for qid in ("acme1", "acme2"):
+                        codes.append(_http(srv.url + "/queries", "POST", {
+                            "id": qid, "x": points[1][0], "y": points[1][1],
+                            "tenant": "acme"})[0])
+                    reg.set_shedding(True)
+                    code, body = _http(srv.url + "/queries", "POST", {
+                        "id": "parked", "x": points[0][0],
+                        "y": points[0][1]})
+                    codes.append((code, body["query"]["state"]))
+                elif i == after(10):
+                    reg.set_shedding(False)
+                    released_at = i
+                yield rec
+
+        wins, _ = _ops_windows(params, gated(), device)
+        ids = {e["id"] for e in reg.status()["queries"]}
+    finally:
+        srv.close()
+        reg.uninstall()
+        del params.query_registry
+    if codes != [200, 429, (429, "shed")] or "acme2" in ids:
+        raise AssertionError(f"ops-plane quota/shed: replies {codes}, "
+                             f"entries {sorted(ids)}")
+    fleets = [w[3] for w in wins]
+    first = next(i for i, f in enumerate(fleets) if "parked" in f)
+    if any("parked" in f for f in fleets[:first]) or first != 2 or \
+            not all("parked" in f for f in fleets[first:]):
+        raise AssertionError(f"ops-plane: the parked query's fleets "
+                             f"{fleets}")
+    for w in wins[first:]:
+        if not _equal(w[2][w[3].index("parked")], w[2][w[3].index("q0")]):
+            raise AssertionError("ops-plane: the released query's window "
+                                 f"{w[:2]} differs from q0's")
+    got = {n: fn.launches for n, fn in counters.items()}
+    return ({"replies": [str(c) for c in codes], "fleets": fleets,
+             "released_at_record": released_at, "first_window": first,
+             "launches": {n: v for n, v in got.items() if v}}, got)
+
+
+def ops_plane_phase(card: str, lines, base, device="cuda"):
+    """The operations plane on the card. Options 1 and 51 with the
+    dynamic phase's scripted fleet, admitted and retired by HTTP against
+    the port's status server (each window equal to the dynamic phase's
+    registry-scripted run, the admissions' replies 200; every route read
+    once mid-run and held against its schema, /healthz 200 -> 503 -> 200
+    on an injected watermark lag, /device's card memory, /compile's K1
+    and K2 libraries); options 6 and 51 under the chunk governor ticked
+    at the reporter's cadence, the sentinel strict after two windows
+    (the chunk steps both ways, no recompile, range windows equal to the
+    main path's, kNN by :func:`_knn_equal`); the quota refusal and the
+    parked-then-released admission of :func:`_ops_quota_shed`."""
+    import torch
+
+    launches = dict.fromkeys(KERNELS, 0)
+    report = {"http": [], "governor": []}
+    points = _dyn_points(DYN_SEEDS + DYN_ADMIT + DYN_ADMIT_MORE)
+    for opt, path in ((1, "range_mask_stats"), (51, "knn_topk")):
+        query = dataclasses.replace(base.query, option=opt, k=50)
+        params = dataclasses.replace(base, query=query)
+        fam = "knn" if opt == 51 else "range"
+        wins, wall, got, replies, routes, req_ms = _ops_http_run(
+            params, lines, fam, points, device, routes=opt == 1)
+        for name, v in got.items():
+            launches[name] = launches.get(name, 0) + v
+        if device == "cuda" and got.get(path, 0) <= 0:
+            raise AssertionError(f"ops-plane {opt}: {path} not launched "
+                                 f"{got}")
+        if any(r[3] != 200 for r in replies) or len(replies) != 10:
+            raise AssertionError(f"ops-plane {opt}: replies {replies}")
+        want = DYN_WINDOWS.get(opt)
+        if want is None or not _ops_same(wins, want, knn=False):
+            raise AssertionError(f"ops-plane {opt}: the HTTP-admitted "
+                                 "windows differ from the dynamic phase's")
+        row = {"option": opt, "records": len(lines), "windows": len(wins),
+               "fleet_per_window": [len(w[3]) for w in wins],
+               "records_per_s": len(lines) / wall, "wall_s": wall,
+               "request_ms_p50": req_ms,
+               "replies": [list(r) for r in replies],
+               "launches": {n: v for n, v in got.items() if v},
+               "card": card, **routes}
+        log("ops-plane", json.dumps(row))
+        report["http"].append(row)
+    for opt, want_key, knn, path in (
+            (6, (6, False, base.query.k), False,
+             ("pip_dist", "range_mask_stats")),
+            (51, (51, False, 50), True, ("knn_topk",))):
+        # the governed run against the same run without the governor (the
+        # window bounds also the main path's: FULL_WINDOWS)
+        query = dataclasses.replace(base.query, option=opt, k=want_key[2])
+        params = dataclasses.replace(base, query=query)
+        (wins, wall, want, base_wall, st, trail, snaps, recompiles,
+         got) = _ops_governed(params, lines, device)
+        for name, v in got.items():
+            launches[name] = launches.get(name, 0) + v
+        if device == "cuda" and any(got[name] <= 0 for name in path):
+            raise AssertionError(f"ops-plane governor {opt}: kernels of "
+                                 f"its path not launched {got}")
+        if st["grows"] < 1 or st["shrinks"] < 1:
+            raise AssertionError(f"ops-plane governor {opt}: grows "
+                                 f"{st['grows']}, shrinks {st['shrinks']}")
+        if recompiles:
+            raise AssertionError(f"ops-plane governor {opt}: {recompiles} "
+                                 "recompiles after the warmup")
+        main = FULL_WINDOWS.get(want_key)
+        if (main is None or [w[:2] for w in main] != [w[:2] for w in want]
+                or not _ops_same(wins, want, knn)):
+            raise AssertionError(f"ops-plane governor {opt}: windows differ "
+                                 "from the run without the governor")
+        row = {"option": opt, "records": len(lines), "windows": len(wins),
+               "records_per_s": len(lines) / wall, "wall_s": wall,
+               "ungoverned_records_per_s": len(lines) / base_wall,
+               "policy": OPS_POLICY, "interval_s": OPS_INTERVAL_S,
+               "ticks": st["ticks"], "grows": st["grows"],
+               "shrinks": st["shrinks"], "chunk_trajectory": trail,
+               "snapshots": snaps,
+               "recompiles_after_warmup": recompiles,
+               "launches": {n: v for n, v in got.items() if v},
+               "card": card}
+        log("ops-plane", json.dumps(row))
+        report["governor"].append(row)
+    query = dataclasses.replace(base.query, option=1)
+    q, got = _ops_quota_shed(dataclasses.replace(base, query=query),
+                             lines, points, device)
+    for name, v in got.items():
+        launches[name] = launches.get(name, 0) + v
+    if device == "cuda" and got["range_mask_stats"] <= 0:
+        raise AssertionError(f"ops-plane quota/shed: K1 not launched {got}")
+    q["card"] = card
+    log("ops-plane", json.dumps(q))
+    report["quota_shed"] = q
+    if device == "cuda":
         torch.cuda.empty_cache()
     return launches, report
 
@@ -5744,6 +6198,12 @@ def main(argv=None) -> int:
         [(1, lines, ("range_mask_stats",)), (51, lines, ("knn_topk",)),
          (16, spread["Polygon"], ("geom_stream_dist",)),
          (31, spread["LineString"], ("geom_stream_dist",))], base_params())
+    # the operations plane: HTTP admissions against the dynamic phase's
+    # windows, the governed runs against their ungoverned twins (the main
+    # path's windows are still in FULL_WINDOWS), quotas and shedding
+    ops_launches, ops_report = phase("ops-plane", ops_plane_phase, card,
+                                     lines, base_params())
+    DYN_WINDOWS.clear()
     apps = phase("apps-serde-wait", apps_proc.result)
     apps_report = apps["apps"]
     phases["apps-serde"] = apps["wall_s"]
@@ -5786,8 +6246,9 @@ def main(argv=None) -> int:
     del tlines, tqlines
     for more in (rt_launches, short_launches, count_launches, geom_launches,
                  other_launches, pane_launches, gpane_launches, dyn_launches,
-                 join_launches, jrt_launches, traj_launches, jp_launches,
-                 bulk_launches, kafka_report["launches"], adaptive_launches):
+                 ops_launches, join_launches, jrt_launches, traj_launches,
+                 jp_launches, bulk_launches, kafka_report["launches"],
+                 adaptive_launches):
         for name in KERNELS:
             launches[name] += more.get(name, 0)
     for name in K8:
@@ -5940,6 +6401,7 @@ def main(argv=None) -> int:
                       "apps_serde": apps_report,
                       "panes": pane_report + gpane_report,
                       "dynamic": dyn_report,
+                      "ops_plane": ops_report,
                       "trajectory": traj_report,
                       "kafka": kafka_report["topology"],
                       "adaptive": adaptive_report,

@@ -83,13 +83,20 @@ prints the registry as one JSON object on stderr at exit;
 recorder (bundles on a crash, a strict-recompile abort or SIGUSR1, read by
 ``python -m spatialflink_tpu_torch.doctor``); ``--strict-recompile``
 (``--sentinel-warmup``) exits 3 when a kernel meets a new signature after
-the warmup; ``--profile`` writes a ``torch.profiler`` trace. Every other
-option, and every flag or config feature not ported yet
-(``--kafka-follow``, ``--chaos``, ``--retry``, ``--dlq``,
-``--status-port``, ``--slo``, ``--controller``, ``--latency-class``, the
-``--tenant-*`` quotas, ``--devices``, ``--hosts``, ``--fleet*``), is
-refused with "not yet ported to spatialflink_tpu_torch" — never silently
-ignored.
+the warmup; ``--profile`` writes a ``torch.profiler`` trace. The
+operations plane (``runtime.opserver``, ``runtime.health``,
+``runtime.control``): ``--status-port`` serves the status server
+(``/healthz``, ``/status``, ``/metrics``, ``/events``, ``/trace``,
+``/profile/cells``, ``/latency``, ``/partition``, ``/queries`` with POST
+and DELETE, ``/tenants``, ``/device``, ``/compile``); ``--slo`` the health
+checks behind ``/healthz``, the snapshots' verdict and the recorder's
+breach bundle; ``--controller`` the decode-chunk governor, ticked by the
+latency plane; ``--latency-class``, ``--tenant-default`` and
+``--tenant-quota`` the registry's defaults and admission quotas. Every
+other option, and every flag or config feature not ported yet
+(``--kafka-follow``, ``--chaos``, ``--retry``, ``--dlq``, ``--devices``,
+``--hosts``, ``--fleet*``), is refused with "not yet ported to
+spatialflink_tpu_torch" — never silently ignored.
 
 A point stream in CSV/TSV/GeoJSON decodes through the native columnar
 parser; a polygon or linestring stream (GeoJSON, WKT, CSV/TSV) is parsed
@@ -106,7 +113,10 @@ geometry type is dropped and counted (``decode_chunks.off_type_dropped``).
         [--repartition-interval N]] [--metrics] [--telemetry-dir DIR
         [--telemetry-interval S]] [--trace-dir DIR] [--live-stats]
         [--postmortem-dir DIR] [--strict-recompile [--sentinel-warmup N]]
-        [--profile DIR] [--device cuda|cpu]
+        [--status-port PORT] [--slo SPEC] [--controller [SPEC]]
+        [--latency-class interactive|batch] [--tenant-default T]
+        [--tenant-quota T:N[,kernel_ms_s=X]] [--profile DIR]
+        [--device cuda|cpu]
 
 stdout carries one line per window as the JAX driver prints it:
 ``{'window': [start, end], 'count': n}`` plus the result's extras (``k``
@@ -251,6 +261,23 @@ def _decode_chunk_env(default: int) -> int:
     return max(1, int(v)) if v else default
 
 
+def _governed_chunk(dchunk: int, pinned: bool = False):
+    """The decode chunk's actuator seam: a per-flush size callback that
+    reads the installed chunk governor (``--controller``) at each buffer
+    start, so the wiring order does not matter and a governor installed
+    mid-run takes effect at the next flush; without one the callback
+    returns ``dchunk``. A ``pinned`` size (count windows' step alignment)
+    and ``SPATIALFLINK_DECODE_CHUNK`` stay fixed ints."""
+    if pinned or os.environ.get("SPATIALFLINK_DECODE_CHUNK"):
+        return dchunk
+    from spatialflink_tpu_torch.runtime.control import active_governor
+
+    def _resolve() -> int:
+        gov = active_governor()
+        return gov.chunk() if gov is not None else dchunk
+    return _resolve
+
+
 def _stream_interner(params: Params, side: int, stream) -> IdInterner:
     """The decode interner of stream ``side``: the source's own (the Kafka
     commit tap's) or a new one. Under a checkpoint coordinator it is the
@@ -335,7 +362,7 @@ def _decode_geoms(raws: List, cfg: StreamConfig, grid: UniformGrid,
 
 
 def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
-                  chunk: int = 4096, geometry: str = "Point",
+                  chunk=4096, geometry: str = "Point",
                   interner: Optional[IdInterner] = None) -> Iterator:
     """Raw records (CSV/TSV lines, GeoJSON str/dict, WKT lines, or parsed
     objects) -> decoded chunks of up to ``chunk`` records, cells assigned
@@ -350,6 +377,11 @@ def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
     on, then :class:`ControlTupleExit` propagates. A shutdown request
     (SIGTERM) does the same after the record in hand, as
     :class:`GracefulShutdown`.
+
+    ``chunk`` is an int or a zero-argument size callback (the chunk
+    governor's actuator, :func:`_governed_chunk`): a callback is read once
+    at each buffer start, so a resize lands between chunks, never inside
+    one.
 
     The registry's ``ingest-throughput`` meter marks every record and
     ``off-type-dropped`` counts the dropped ones; with a telemetry session
@@ -387,6 +419,8 @@ def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
         return out
 
     stop_requested = metrics.shutdown_requested
+    chunk_fn = chunk if callable(chunk) else None
+    size = chunk if chunk_fn is None else 1
     buf: List = []
     for rec in records:
         if not isinstance(rec, str) or '"control"' in rec:
@@ -398,8 +432,10 @@ def decode_chunks(records: Iterable, cfg: StreamConfig, grid: UniformGrid,
                     if out is not None:
                         yield out
                 raise
+        if chunk_fn is not None and not buf:
+            size = max(1, int(chunk_fn()))
         buf.append(rec)
-        if len(buf) >= chunk or stop_requested():
+        if len(buf) >= size or stop_requested():
             out = decode(buf)
             if out is not None:
                 yield out
@@ -552,13 +588,17 @@ def run_option(params: Params, stream1: Iterable,
     else:
         op = cls(conf, u_grid, device=device)
     # decode chunks: a realtime chunk is one micro-batch, a count window's
-    # at most one slide, otherwise 4,096 records
+    # at most one slide (pinned: fires stay step-aligned), otherwise 4,096
+    # records; the chunk governor, when installed, sizes the first and the
+    # last per flush (the micro-batcher cuts every realtime_batch_size
+    # records whatever the chunk)
     if conf.query_type is QueryType.RealTime:
-        chunk = conf.realtime_batch_size
+        chunk = _governed_chunk(max(1, conf.realtime_batch_size))
     elif conf.query_type is QueryType.CountBased:
-        chunk = max(1, min(4096, conf.slide_ms))
+        chunk = _governed_chunk(max(1, min(4096, conf.slide_ms)),
+                                pinned=True)
     else:
-        chunk = _decode_chunk_env(4096)
+        chunk = _governed_chunk(_decode_chunk_env(4096))
     s1 = ChunkedStream(decode_chunks(
         stream1, params.input1, u_grid, chunk, geometry=spec.stream,
         interner=_stream_interner(params, 1, stream1)))
@@ -791,7 +831,8 @@ def _run_trajectory(params: Params, spec: CaseSpec, conf, u_grid, q_grid,
     """The trajectory options: stream 1 decoded in chunks of a micro-batch
     (realtime) or 4,096 records, the operator of the family on ``device``
     (the JAX driver's ``_run_trajectory``)."""
-    chunk = (conf.realtime_batch_size if spec.mode == "realtime" else 4096)
+    chunk = _governed_chunk(conf.realtime_batch_size
+                            if spec.mode == "realtime" else 4096)
     s1 = ChunkedStream(decode_chunks(
         stream1, params.input1, u_grid, chunk,
         interner=_stream_interner(params, 1, stream1)))
@@ -929,14 +970,20 @@ def _seed_registry(params: Params, spec: CaseSpec, path: Optional[str],
     if registry is None:
         registry = QueryRegistry(spec.family, radius=params.query.radius,
                                  k=params.query.k)
+    lclass = registry.default_latency_class
     seeds = []
     try:
         if path:
-            seeds = load_queries_file(path, spec.family)
+            seeds = load_queries_file(
+                path, spec.family, default_latency_class=lclass,
+                default_tenant=registry.default_tenant)
     except (OSError, ValueError) as e:
         raise ValueError(f"--queries-file: {e}") from e
     if not seeds and params.query.query_points:
-        seeds = [QuerySpec(id=f"q{i}", family=spec.family, x=x, y=y)
+        # the config's queryPoints: the run's latency class, the default
+        # tenant (as the JAX driver seeds them)
+        seeds = [QuerySpec(id=f"q{i}", family=spec.family, x=x, y=y,
+                           latency_class=lclass)
                  for i, (x, y) in enumerate(params.query.query_points)]
     try:
         for s in seeds:
@@ -1250,7 +1297,8 @@ def _wire_kafka(params: Params, spec: CaseSpec, args, skip1: int
         src2 = KafkaSource(broker, t2, group, auto_commit=False,
                            limit=args.limit, commit_lag=commit_lag)
         sources.append(src2)
-    chunk = _decode_chunk_env(2048)
+    # the chunk governor, when installed, sizes the tap's chunks per flush
+    chunk = _governed_chunk(_decode_chunk_env(2048))
     taps: List = []
     stream1: Iterable = src1
     stream2: Optional[Iterable] = src2
@@ -1508,6 +1556,76 @@ def _make_parser() -> argparse.ArgumentParser:
                          "growing into fresh padding buckets late in the "
                          "run may need a larger value before "
                          "--strict-recompile is safe")
+    ap.add_argument("--status-port", type=int, default=None, metavar="PORT",
+                    help="serve a live in-run status plane on "
+                         "127.0.0.1:PORT (0 = ephemeral, bound port "
+                         "printed): GET /healthz (SLO verdict, 200/503), "
+                         "/status (full JSON snapshot), /metrics (live "
+                         "Prometheus text), /events, /trace, /profile/"
+                         "cells, /latency, /partition, /queries (GET, "
+                         "POST; /queries/<id> GET, DELETE), /tenants, "
+                         "/device, /compile. Snapshots are built per "
+                         "request only; without a telemetry session the "
+                         "record loop is unchanged and the plane serves "
+                         "the always-on registry counters")
+    ap.add_argument("--slo", metavar="SPEC", default=None,
+                    help="health/SLO thresholds as comma-joined key=value "
+                         "pairs, e.g. 'watermark_lag_ms=5000,"
+                         "p99_window_ms=250,commit_backlog=10000,"
+                         "checkpoint_age_s=60,recompiles=0,"
+                         "device_mem_bytes=8e9'. Drives /healthz (503 on "
+                         "breach), stamps a 'health' verdict into every "
+                         "telemetry snapshot and digest line, counts "
+                         "breach transitions in the slo-breaches counter, "
+                         "and emits slo-breach/slo-recovered (and "
+                         "watermark-stall) lifecycle events")
+    ap.add_argument("--controller", metavar="SPEC", nargs="?", const="",
+                    default=None,
+                    help="closed-loop decode-chunk governor: tick on the "
+                         "telemetry-reporter cadence, read the live stage "
+                         "budget, and resize the decode chunk one "
+                         "power-of-two bucket at a time between flushes — "
+                         "shrink when queue/buffer wait dominates and the "
+                         "record→emit p99 breaches, grow when dispatch-"
+                         "bound or idle; no kernel signature changes. SPEC "
+                         "tunes the policy as comma key=value pairs over "
+                         "target_p99_ms/min_chunk/max_chunk/"
+                         "interactive_max_chunk/fast_lane_depth/"
+                         "confirm_ticks/cooldown_ticks/shed_after_stalls/"
+                         "unshed_after_clean/idle_headroom (bare "
+                         "--controller = defaults). Needs a telemetry "
+                         "session for the tick source; live state in the "
+                         "controller block of GET /latency and the stderr "
+                         "digest")
+    ap.add_argument("--latency-class", choices=["interactive", "batch"],
+                    default="batch", dest="latency_class",
+                    help="latency class for this run's standing queries "
+                         "(default batch; also the default class for "
+                         "--queries-file/--control-topic/POST admissions "
+                         "that omit 'latency_class'). While any "
+                         "interactive query serves, the --controller fast "
+                         "lane caps the decode chunk at "
+                         "interactive_max_chunk and bounds the pipeline "
+                         "queue depth to fast_lane_depth")
+    ap.add_argument("--tenant-default", metavar="NAME", default="default",
+                    dest="tenant_default",
+                    help="tenant charged for queries that omit 'tenant' "
+                         "(and for dispatch cost no standing query claims). "
+                         "Per-tenant attributed kernel-ms/bytes, records, "
+                         "windows, SLO/shed/quota counters and the "
+                         "fairness summary serve at GET /tenants (+ "
+                         "/tenants/<id>, tenant=\"T\" Prometheus labels)")
+    ap.add_argument("--tenant-quota", metavar="SPEC", action="append",
+                    default=None, dest="tenant_quota",
+                    help="admission quota per tenant as "
+                         "'T:max_active[,kernel_ms_s=X]' (repeatable, or "
+                         "';'-separated). max_active caps the tenant's "
+                         "held query slots (pending+active+draining+shed); "
+                         "kernel_ms_s caps its recent attributed kernel-ms "
+                         "per second. A breach answers POST /queries with "
+                         "429 quota-exceeded and creates NO entry — unlike "
+                         "backpressure shedding, which parks the spec and "
+                         "admits it when pressure clears")
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="capture a torch.profiler trace of the run (CPU "
                          "and CUDA activity) to DIR/trace.json (Chrome "
@@ -1636,7 +1754,8 @@ def _adaptive_grid(ap, args, params: Params) -> None:
           file=sys.stderr)
 
 
-def _dynamic_plane(args, params: Params, spec: CaseSpec) -> Optional[str]:
+def _dynamic_plane(args, params: Params, spec: CaseSpec,
+                   tenant_quotas: Optional[dict] = None) -> Optional[str]:
     """``--queries-file`` / ``--control-topic``: the run's registry on
     ``params``, restored from the checkpoint's ``queries`` component or
     seeded from the file (or the config's queryPoints); else why the case
@@ -1660,7 +1779,10 @@ def _dynamic_plane(args, params: Params, spec: CaseSpec) -> Optional[str]:
               file=sys.stderr)
     coord = getattr(params, "checkpointer", None)
     registry = QueryRegistry(spec.family, radius=params.query.radius,
-                             k=params.query.k)
+                             k=params.query.k,
+                             default_latency_class=args.latency_class,
+                             default_tenant=args.tenant_default,
+                             tenant_quotas=tenant_quotas)
     if coord is not None and registry.register_checkpoint(coord):
         print(f"# resume: restored standing-query fleet (version "
               f"{registry.fleet_version}, "
@@ -1678,12 +1800,12 @@ def _dynamic_plane(args, params: Params, spec: CaseSpec) -> Optional[str]:
                 return (f"queries {kafka_routes} route 'kafka:' topics "
                         "and need --kafka")
     params.query_registry = registry
-    surfaces = ([f"control topic '{args.control_topic}'"]
-                if args.control_topic else [])
+    surfaces = ["POST/DELETE /queries (--status-port)"]
+    if args.control_topic:
+        surfaces.append(f"control topic '{args.control_topic}'")
     print(f"# query plane: dynamic {spec.family} fleet, "
-          f"{len(registry.active_entries())} live"
-          + (f" (admission via {' + '.join(surfaces)})" if surfaces else ""),
-          file=sys.stderr)
+          f"{len(registry.active_entries())} live "
+          f"(admission via {' + '.join(surfaces)})", file=sys.stderr)
     return None
 
 
@@ -1728,6 +1850,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         _coordinator(ap, args, params, spec, dynamic)
     if args.adaptive_grid is not None:
         _adaptive_grid(ap, args, params)
+    # tenant quotas parse up front: a malformed spec is a flag error, not
+    # a surprise at the first admission
+    tenant_quotas = {}
+    if args.tenant_quota:
+        from spatialflink_tpu_torch.utils.accounting import (
+            parse_tenant_quotas)
+
+        try:
+            tenant_quotas = parse_tenant_quotas(";".join(args.tenant_quota))
+        except ValueError as e:
+            ap.error(f"--tenant-quota: {e}")
     if not args.kafka and args.seed_scan_limit is not None:
         ap.error("--seed-scan-limit bounds the output topic's dedup scan "
                  "and needs --kafka")
@@ -1744,7 +1877,7 @@ def main(argv: Optional[List[str]] = None) -> int:
               "--input2", file=sys.stderr)
         return 2
     if dynamic and spec is not None:
-        why = _dynamic_plane(args, params, spec)
+        why = _dynamic_plane(args, params, spec, tenant_quotas)
         if why is not None:
             print(f"error: {why}", file=sys.stderr)
             return 2
@@ -1762,6 +1895,37 @@ def main(argv: Optional[List[str]] = None) -> int:
     limit1 = args.limit
     if skip1 and limit1 is not None:
         limit1 = max(0, limit1 - skip1)
+    health = None
+    if args.slo is not None:
+        from spatialflink_tpu_torch.runtime.health import HealthEvaluator
+
+        try:
+            health = HealthEvaluator.from_spec(args.slo)
+        except ValueError as e:
+            ap.error(str(e))
+        if (args.status_port is None and not args.telemetry_dir
+                and not args.live_stats):
+            print("warning: --slo has no consumer without --status-port, "
+                  "--telemetry-dir, or --live-stats (nothing evaluates "
+                  "the thresholds)", file=sys.stderr)
+    if args.controller is not None:
+        from spatialflink_tpu_torch.runtime.control import (ChunkGovernor,
+                                                            GovernorPolicy)
+
+        try:
+            policy = GovernorPolicy.from_spec(args.controller)
+        except ValueError as e:
+            ap.error(str(e))
+        # an attribute, not a Params field: it stays out of the job
+        # fingerprint
+        params.chunk_governor = ChunkGovernor(policy=policy)
+        if not (args.telemetry_dir or args.live_stats or args.trace_dir
+                or args.postmortem_dir):
+            print("warning: --controller has no tick source without a "
+                  "telemetry session (--telemetry-dir/--live-stats/"
+                  "--trace-dir/--postmortem-dir): the latency plane's "
+                  "bucket close drives the control law, so the chunk "
+                  "stays at its seed", file=sys.stderr)
     if (args.telemetry_dir or args.live_stats or args.trace_dir
             or args.postmortem_dir):
         from spatialflink_tpu_torch.utils.telemetry import telemetry_session
@@ -1771,7 +1935,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         # --postmortem-dir without --telemetry-dir run a session with no
         # reporter
         with telemetry_session(args.telemetry_dir or None,
-                               args.telemetry_interval,
+                               args.telemetry_interval, health=health,
                                trace_dir=args.trace_dir,
                                device=args.device):
             if args.telemetry_dir:
@@ -1784,8 +1948,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                       f"{os.path.join(args.trace_dir, 'trace.json')} "
                       "(Chrome trace-event JSON; open in Perfetto)",
                       file=sys.stderr)
-            return _run_cli(ap, args, params, spec, skip1, limit1)
-    return _run_cli(ap, args, params, spec, skip1, limit1)
+            return _run_cli(ap, args, params, spec, skip1, limit1, health)
+    return _run_cli(ap, args, params, spec, skip1, limit1, health)
 
 
 def _file_streams(args, params: Params, spec, skip1: int,
@@ -1819,7 +1983,7 @@ def _file_streams(args, params: Params, spec, skip1: int,
 
 
 def _run_cli(ap, args, params: Params, spec, skip1: int,
-             limit1: Optional[int]) -> int:
+             limit1: Optional[int], health=None) -> int:
     """The run after validation: wire the transport, run the pipeline,
     drain its results into the sinks, print the summaries."""
     import contextlib
@@ -1828,8 +1992,16 @@ def _run_cli(ap, args, params: Params, spec, skip1: int,
 
     from spatialflink_tpu_torch.runtime.checkpoint import EmittedWindowJournal
     from spatialflink_tpu_torch.streams.sinks import FileSink, StdoutSink
+    from spatialflink_tpu_torch.utils import telemetry as _telemetry
 
     coord = getattr(params, "checkpointer", None)
+    tel = _telemetry.active()
+    if tel is not None:
+        # the ledger's catch-all tenant follows the flag; a resume
+        # restores the cumulative attribution (component 'tenants')
+        tel.tenants.default_tenant = args.tenant_default or "default"
+        if coord is not None:
+            tel.tenants.register_checkpoint(coord)
     kafka = None
     try:
         resolve_device(args.device)
@@ -1907,7 +2079,6 @@ def _run_cli(ap, args, params: Params, spec, skip1: int,
                              lambda signum, frame: metrics.request_shutdown())
         stack.callback(signal.signal, signal.SIGTERM, prev)
     from spatialflink_tpu_torch.utils import deviceplane
-    from spatialflink_tpu_torch.utils import telemetry as _telemetry
 
     # the recompile sentinel: warmup re-opens for this run; after
     # --sentinel-warmup emitted windows every new kernel signature or
@@ -1934,16 +2105,19 @@ def _run_cli(ap, args, params: Params, spec, skip1: int,
                     "panes": bool(args.panes),
                     "strict_recompile": args.strict_recompile,
                     "sentinel_warmup": args.sentinel_warmup,
-                    "slo": None,
+                    "slo": args.slo,
                 },
             })
         recorder.install_signal()
+        if health is not None:
+            recorder.attach_health(health)
         stack.callback(recorder.close)
         recorder.note("run-start", option=params.query.option,
                       family=spec.family if spec is not None else None)
         print(f"# flight recorder armed: post-mortem bundles -> "
-              f"{args.postmortem_dir} (crash / SIGUSR1; read with "
-              "python -m spatialflink_tpu_torch.doctor)", file=sys.stderr)
+              f"{args.postmortem_dir} (crash / SLO breach / SIGUSR1; "
+              "read with python -m spatialflink_tpu_torch.doctor)",
+              file=sys.stderr)
     repartitioner = getattr(params, "repartitioner", None)
     if repartitioner is not None:
         # the decode's cell assignments feed the epochs from here on; the
@@ -1951,7 +2125,25 @@ def _run_cli(ap, args, params: Params, spec, skip1: int,
         # leaks it
         repartitioner.install()
         stack.callback(repartitioner.uninstall)
+    governor = getattr(params, "chunk_governor", None)
+    if governor is not None:
+        # the decode reads the governor per flush (_governed_chunk), so
+        # installing it here, uninstalled on every exit, is safe whatever
+        # the wiring order; a checkpointed run carries its state as the
+        # component 'controller'
+        governor.install()
+        stack.callback(governor.uninstall)
+        if coord is not None:
+            governor.register_checkpoint(coord)
+        pol = governor.policy
+        print(f"# controller: decode-chunk governor on "
+              f"(seed {governor.chunk()}, bounds "
+              f"[{pol.min_chunk}, {pol.max_chunk}], target p99 "
+              f"{pol.target_p99_ms:g}ms; live state at GET /latency)",
+              file=sys.stderr)
     if registry is not None:
+        # installed before the server starts: POST/DELETE/GET /queries
+        # find it through queryplane.active_registry()
         registry.install()
         stack.callback(registry.uninstall)
     if args.profile:
@@ -1960,10 +2152,21 @@ def _run_cli(ap, args, params: Params, spec, skip1: int,
         print(f"# profiling to {os.path.join(args.profile, 'trace.json')} "
               "(Chrome trace; open in Perfetto)", file=sys.stderr)
     tel = _telemetry.active()
+    if args.status_port is not None:
+        from spatialflink_tpu_torch.runtime.opserver import OpServer
+
+        # reads the active session (or the registry alone) per request;
+        # closed by the stack on every exit path (a control-tuple stop, a
+        # crash), so the port never outlives the run; a failed bind raises
+        opserver = OpServer(port=args.status_port, health=health).start()
+        stack.callback(opserver.close)
+        print(f"# status server: {opserver.url} "
+              "(/healthz /status /metrics /events)", file=sys.stderr)
     if args.live_stats:
         from spatialflink_tpu_torch.runtime.opserver import LiveStats
 
-        live = LiveStats(interval_s=args.telemetry_interval).start()
+        live = LiveStats(interval_s=args.telemetry_interval,
+                         health=health).start()
         stack.callback(live.close)
     # per-window pipeline latency: the wall clock from asking the pipeline
     # for its next result to receiving it

@@ -1044,11 +1044,19 @@ class SpatialOperator:
         each window), the latency plane's stage budget and in-flight notes,
         the trace book's notes, the cost profiles' kernel and merge
         attribution and the tenant ledger's dispatch. ``kernel`` times the
-        host's dispatch; ``merge`` is the readback's wait."""
+        host's dispatch; ``merge`` is the readback's wait. An installed
+        chunk governor's fast lane bounds the windows in flight
+        (``ChunkGovernor.drain_depth``); the results do not change."""
         reg = metrics.REGISTRY
         batches = reg.counter("batches-evaluated")
         records_c = reg.counter("records-evaluated")
         depth = max(1, self.conf.pipeline_depth)
+        # the fast lane: while an interactive query serves, the chunk
+        # governor bounds the windows in flight here (read per window, a
+        # plain bool inside drain_depth)
+        from spatialflink_tpu_torch.runtime.control import active_governor
+
+        gov = active_governor()
         pending: deque = deque()  # (start, end, Deferred, t_disp, meta)
         op_name = type(self).__name__
         tel = _telemetry.active()
@@ -1160,7 +1168,8 @@ class SpatialOperator:
                 if tel is not None:
                     lat.note_dispatch(start, w1)
                     backlog.set(len(pending))
-                yield from drain(depth - 1)
+                eff = depth if gov is None else gov.drain_depth(depth)
+                yield from drain(eff - 1)
             else:
                 yield from drain(0)  # keep window order
                 if tel is not None and (sel or not realtime):

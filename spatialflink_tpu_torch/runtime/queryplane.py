@@ -6,10 +6,17 @@ from in-process calls).
   spec (id, family, point, route, optional SLO over window record counts)
   and its lifecycle (``pending -> active -> draining -> retired``).
 - :class:`QueryRegistry`: what runs. Admissions, updates and retirements
-  are staged and land only at :meth:`QueryRegistry.apply`, which the
-  dynamic drive loop calls once per window, so a window is never evaluated
+  arrive from any thread (the status server's ``POST /queries`` /
+  ``DELETE /queries/<id>``, the control topic, in-process calls), are
+  staged and land only at :meth:`QueryRegistry.apply`, which the dynamic
+  drive loop calls once per window, so a window is never evaluated
   against a half-applied fleet. Each applied change bumps
   ``fleet_version``; the operators rebuild their query arrays on the bump.
+  Tenant quotas (``--tenant-quota``) refuse a new admission outright
+  (:class:`~spatialflink_tpu_torch.utils.accounting.QuotaExceeded`, no
+  entry made); admission shedding (the chunk governor's stall verdict,
+  ``runtime/control.py``) parks new admissions in the ``shed`` state
+  until it is lifted.
 - :func:`bucket_size`: the fleet pads to the next power of two (the
   kernels' Q axis), padded slots forced empty by a valid gate.
 - :class:`QueryRouter`: per-query demultiplexing of a dynamic window to
@@ -23,19 +30,20 @@ from in-process calls).
   restores its fleet, mid-drain entries, staged updates and the control
   topic's position.
 
-Telemetry, as in the JAX module: each demultiplexed window counts in
+Telemetry, as in the JAX module: the lifecycle counts in
+``queries-admitted`` / ``-updated`` / ``-retired`` / ``-shed`` /
+``-quota-rejected`` / ``-restored`` and ``fleet-repads``, with a
+``query-*`` event at each step; each demultiplexed window counts in
 ``windows-emitted@<id>`` / ``records-out@<id>`` (and routed ones in
 ``query-windows-routed``), an SLO breach in ``query-slo-breaches`` with a
-``query-slo-breach`` / ``query-slo-recovered`` event; with a session the
+``query-slo-breach`` / ``query-slo-recovered`` event (and, with a flight
+recorder, one bundle per query id); with a session the
 router observes each query's record→emit latency (``record-emit-ms@<id>``,
 which the ``p99_emit_ms`` SLO reads), the routed records' ingest latency
 and the ``window-records@<id>`` histogram, and the tenant ledger takes the
 window and the breach. :func:`active_registry` is the installed registry
-(the latency plane reads its staged changes).
-
-Not yet ported: tenant quotas and admission shedding, the operations
-server's surfaces and the admission lifecycle events. A tenant quota is
-refused with "not yet ported", never dropped.
+(the latency plane reads its staged changes, the status server its
+ledger, the governor its latency classes).
 """
 
 from __future__ import annotations
@@ -50,9 +58,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-NOT_PORTED = "not yet ported to spatialflink_tpu_torch"
-#: the accounting principal of a spec that names none
-DEFAULT_TENANT = "default"
+from spatialflink_tpu_torch.utils import metrics as _metrics
+from spatialflink_tpu_torch.utils.accounting import (DEFAULT_TENANT,
+                                                     QuotaExceeded)
 
 _ACTIVE: Optional["QueryRegistry"] = None
 
@@ -68,6 +76,13 @@ def _emit(kind: str, **fields) -> None:
     from spatialflink_tpu_torch.utils.telemetry import emit_event
 
     emit_event(kind, **fields)
+
+
+def _telemetry_active():
+    """The active telemetry session (lazily imported)."""
+    from spatialflink_tpu_torch.utils import telemetry as _telemetry
+
+    return _telemetry.active()
 
 
 def bucket_size(n: int) -> int:
@@ -88,6 +103,9 @@ class QueryState(enum.Enum):
     ACTIVE = "active"        # serving: owns a slot on the Q axis
     DRAINING = "draining"    # retirement requested; serves until apply()
     RETIRED = "retired"      # left the fleet
+    #: admitted while the governor was shedding: parked outside the
+    #: apply() pipeline until un-shedding releases it to PENDING
+    SHED = "shed"
 
 
 _FAMILIES = ("range", "knn")
@@ -102,9 +120,9 @@ class QuerySpec:
     default to the run's and must equal them when given (the fleet shares
     one launch per window); ``route`` names where this query's windows go;
     ``slo`` is an optional verdict over per-window record counts.
-    ``latency_class`` and ``tenant`` are validated and carried as the JAX
-    package carries them; the port has no governor or accounting that
-    reads them."""
+    ``latency_class`` (``interactive`` engages the chunk governor's fast
+    lane) and ``tenant`` (the accounting principal the quotas key on)
+    default to the run's ``--latency-class`` / ``--tenant-default``."""
 
     id: str
     family: str
@@ -224,12 +242,22 @@ class QueryEntry:
     def id(self) -> str:
         return self.spec.id
 
+    @property
+    def serving(self) -> bool:
+        """In the fleet now (a draining query serves until the next
+        apply)."""
+        return self.state in (QueryState.ACTIVE, QueryState.DRAINING)
+
     def to_dict(self) -> dict:
+        reg = _metrics.REGISTRY
         d = {"id": self.id, "state": self.state.value,
              "spec": self.spec.to_dict(),
              "tenant": self.spec.tenant,
              "admitted_ms": self.admitted_ms,
-             "since_version": self.since_version}
+             "since_version": self.since_version,
+             "windows_emitted":
+                 reg.counter(f"windows-emitted@{self.id}").count,
+             "records_out": reg.counter(f"records-out@{self.id}").count}
         if self.retired_ms is not None:
             d["retired_ms"] = self.retired_ms
         if self.spec.slo:
@@ -256,13 +284,17 @@ class QueryRegistry:
         if default_latency_class not in _LATENCY_CLASSES:
             raise ValueError(
                 f"default_latency_class must be one of {_LATENCY_CLASSES}")
-        if tenant_quotas:
-            raise NotImplementedError(f"tenant quotas: {NOT_PORTED}")
         self.family = family
         self.radius = float(radius)
         self.k = k
         self.default_latency_class = default_latency_class
         self.default_tenant = str(default_tenant or DEFAULT_TENANT)
+        #: per-tenant admission ceilings (``--tenant-quota``), checked at
+        #: admit(); distinct from the governor's shedding
+        self.tenant_quotas: Dict[str, dict] = dict(tenant_quotas or {})
+        #: the governor's admission shedding: while True, new admissions
+        #: park in QueryState.SHED
+        self.shedding = False
         self._lock = threading.RLock()
         self._entries: Dict[str, QueryEntry] = {}
         #: ACTIVE/DRAINING ids in slot (admission) order: the Q axis
@@ -275,6 +307,7 @@ class QueryRegistry:
         #: a checkpoint-restored control position, applied when the
         #: consumer attaches
         self._restored_control_pos: Optional[int] = None
+        self.repads = _metrics.REGISTRY.counter("fleet-repads")
 
     # ------------------------------ admission ------------------------- #
 
@@ -295,9 +328,48 @@ class QueryRegistry:
                 "(the Q-axis shares one top-k width; omit 'k' to inherit)")
         return spec
 
+    def _check_quota_locked(self, spec: QuerySpec) -> None:
+        """The tenant's ``--tenant-quota`` ceilings on a NEW admission (the
+        caller holds the lock): its held slots over the live states and,
+        with a telemetry session, the ledger's recent attributed kernel-ms
+        rate. Raises :class:`QuotaExceeded`."""
+        quota = self.tenant_quotas.get(spec.tenant)
+        if not quota:
+            return
+        reason = None
+        max_active = quota.get("max_active")
+        if max_active is not None:
+            held = sum(
+                1 for e in self._entries.values()
+                if e.spec.tenant == spec.tenant
+                and e.state in (QueryState.PENDING, QueryState.ACTIVE,
+                                QueryState.DRAINING, QueryState.SHED))
+            if held >= int(max_active):
+                reason = (f"max_active {int(max_active)} reached "
+                          f"({held} queries held)")
+        rate_cap = quota.get("kernel_ms_s")
+        tel = _telemetry_active()
+        if reason is None and rate_cap is not None and tel is not None:
+            rate = tel.tenants.kernel_ms_rate(spec.tenant)
+            if rate > float(rate_cap):
+                reason = (f"kernel_ms_s {float(rate_cap):g} exceeded "
+                          f"(attributed {rate:.1f} ms/s)")
+        if reason is None:
+            return
+        _metrics.REGISTRY.counter("queries-quota-rejected").inc()
+        _emit("query-quota-rejected", id=spec.id, tenant=spec.tenant,
+              reason=reason)
+        if tel is not None:
+            tel.tenants.note_quota_rejection(spec.tenant)
+        raise QuotaExceeded(spec.tenant, reason)
+
     def admit(self, spec) -> QueryEntry:
         """Admit a new standing query (PENDING until the next apply), or,
-        when the id names a live query, stage an UPDATE of it."""
+        when the id names a live query, stage an UPDATE of it. While
+        :attr:`shedding`, a NEW query lands in the ``shed`` state instead
+        (updates of live queries still stage). A tenant over its quota
+        raises :class:`QuotaExceeded` and no entry is made. Callable from
+        any thread."""
         if not isinstance(spec, QuerySpec):
             spec = QuerySpec.from_dict(
                 spec, default_family=self.family,
@@ -306,12 +378,31 @@ class QueryRegistry:
         self._validate(spec)
         with self._lock:
             cur = self._entries.get(spec.id)
+            if cur is not None and cur.state is QueryState.SHED:
+                cur.spec = spec  # re-admission while shed: refresh in place
+                return cur
             if cur is not None and cur.state is not QueryState.RETIRED:
                 return self._stage_update(cur, spec)
-            entry = QueryEntry(spec=spec,
-                               admitted_ms=int(time.time() * 1000))
+            # a new admission: the tenant's ceiling applies before a slot
+            # is taken (a quota refusal makes no entry; shed parks one)
+            self._check_quota_locked(spec)
+            shed = self.shedding
+            entry = QueryEntry(
+                spec=spec,
+                state=QueryState.SHED if shed else QueryState.PENDING,
+                admitted_ms=int(time.time() * 1000))
             self._entries[spec.id] = entry
-            self._dirty = True
+            if not shed:
+                self._dirty = True
+        if shed:
+            _metrics.REGISTRY.counter("queries-shed").inc()
+            _emit("query-shed", id=spec.id, route=spec.route)
+            tel = _telemetry_active()
+            if tel is not None:
+                tel.tenants.note_shed(spec.tenant)
+            return entry
+        _metrics.REGISTRY.counter("queries-admitted").inc()
+        _emit("query-admitted", id=spec.id, route=spec.route)
         return entry
 
     def update(self, qid: str, changes: dict) -> QueryEntry:
@@ -328,6 +419,9 @@ class QueryRegistry:
                 merged, default_family=self.family,
                 default_latency_class=self.default_latency_class,
                 default_tenant=entry.spec.tenant))
+            if entry.state is QueryState.SHED:
+                entry.spec = spec  # parked: nothing staged to swap
+                return entry
             return self._stage_update(entry, spec)
 
     def _stage_update(self, entry: QueryEntry, spec: QuerySpec
@@ -335,20 +429,25 @@ class QueryRegistry:
         with self._lock:
             entry.pending_spec = spec
             self._dirty = True
+        _metrics.REGISTRY.counter("queries-updated").inc()
+        _emit("query-updated", id=entry.id)
         return entry
 
     def retire(self, qid: str) -> QueryEntry:
         """Request retirement: an ACTIVE query turns DRAINING (it serves
-        until the next apply); a still-PENDING query retires at once."""
+        until the next apply); a still-PENDING or parked query retires at
+        once."""
         with self._lock:
             entry = self._entries.get(qid)
             if entry is None or entry.state is QueryState.RETIRED:
                 raise KeyError(qid)
-            if entry.state is QueryState.PENDING:
+            if entry.state in (QueryState.PENDING, QueryState.SHED):
                 self._retire_now(entry)
             elif entry.state is QueryState.ACTIVE:
                 entry.state = QueryState.DRAINING
                 self._dirty = True
+                _emit("query-draining", id=qid)
+        _metrics.REGISTRY.counter("queries-retired").inc()
         return entry
 
     def _retire_now(self, entry: QueryEntry) -> None:
@@ -356,6 +455,7 @@ class QueryRegistry:
         entry.retired_ms = int(time.time() * 1000)
         entry.pending_spec = None
         self._retired.append(entry.id)
+        _emit("query-retired", id=entry.id)
         # bound the retired ledger (ids stay queryable for a while)
         while len(self._retired) > self._retain_retired:
             dead = self._retired.pop(0)
@@ -386,6 +486,7 @@ class QueryRegistry:
                     entry.since_version = self._version + 1
                     self._fleet.append(entry.id)
                     changed = True
+                    _emit("query-active", id=entry.id)
                 elif entry.state is QueryState.DRAINING:
                     self._fleet.remove(entry.id)
                     self._retire_now(entry)
@@ -399,12 +500,43 @@ class QueryRegistry:
             self._dirty = False
             if changed:
                 self._version += 1
+                self.repads.inc()
             return changed
 
     def active_entries(self) -> List[QueryEntry]:
         """The serving fleet in slot order (ACTIVE and DRAINING)."""
         with self._lock:
             return [self._entries[q] for q in self._fleet]
+
+    def has_interactive(self) -> bool:
+        """Any serving query of ``latency_class: interactive``: the chunk
+        governor's fast-lane signal (read once per tick)."""
+        with self._lock:
+            return any(
+                self._entries[q].spec.latency_class == "interactive"
+                for q in self._fleet)
+
+    def set_shedding(self, shedding: bool) -> bool:
+        """Set admission shedding (the governor's stall verdict). Lifting
+        it releases every parked ``shed`` entry to PENDING (they join the
+        fleet at the next apply). True when the flag changed."""
+        shedding = bool(shedding)
+        released = []
+        with self._lock:
+            if shedding == self.shedding:
+                return False
+            self.shedding = shedding
+            if not shedding:
+                for entry in self._entries.values():
+                    if entry.state is QueryState.SHED:
+                        entry.state = QueryState.PENDING
+                        released.append(entry.id)
+                if released:
+                    self._dirty = True
+        for qid in released:
+            _metrics.REGISTRY.counter("queries-admitted").inc()
+            _emit("query-admitted", id=qid, released_from_shed=True)
+        return True
 
     def staged_count(self) -> int:
         """Fleet changes staged but not landed yet (PENDING admissions,
@@ -456,9 +588,10 @@ class QueryRegistry:
         with self._lock:
             return {
                 "fleet_version": self._version,
-                "shedding": False,
+                "shedding": self.shedding,
                 "default_tenant": self.default_tenant,
-                "tenant_quotas": {},
+                "tenant_quotas": {t: dict(q)
+                                  for t, q in self.tenant_quotas.items()},
                 "fleet": list(self._fleet),
                 "entries": [
                     {"spec": e.spec.to_dict(), "state": e.state.value,
@@ -473,16 +606,18 @@ class QueryRegistry:
             }
 
     def restore(self, meta: dict) -> None:
-        """Rebuild the live fleet (mid-drain entries and staged updates
-        too) from the checkpoint component; a manifest with tenant quotas
-        or shedding on is refused (not ported)."""
-        if meta.get("tenant_quotas") or meta.get("shedding"):
-            raise NotImplementedError(
-                f"tenant quotas and admission shedding: {NOT_PORTED}")
+        """Rebuild the live fleet (mid-drain entries, staged updates,
+        parked entries, the shed state and the quotas too) from the
+        checkpoint component."""
         with self._lock:
             self._entries = {}
+            self.shedding = bool(meta.get("shedding", False))
             self.default_tenant = str(meta.get("default_tenant")
                                       or self.default_tenant)
+            if meta.get("tenant_quotas") is not None:
+                self.tenant_quotas = {
+                    str(t): dict(q or {})
+                    for t, q in meta["tenant_quotas"].items()}
             for row in meta.get("entries", []):
                 spec = QuerySpec.from_dict(
                     row["spec"], default_family=self.family,
@@ -513,6 +648,7 @@ class QueryRegistry:
                     self._control.seek(int(pos))
                 else:
                     self._restored_control_pos = int(pos)
+        _metrics.REGISTRY.counter("queries-restored").inc(len(self._entries))
 
     def install(self) -> "QueryRegistry":
         global _ACTIVE
@@ -531,12 +667,11 @@ class QueryRegistry:
         the tenant ledger, and the SLO verdict (counted on transitions).
         ``emit_p99_ms`` is the query's record→emit p99 from the latency
         plane; None (no session, no ingest stamps yet) counts healthy."""
-        from spatialflink_tpu_torch.utils import metrics
         from spatialflink_tpu_torch.utils import telemetry as _telemetry
 
         qid = entry.id
-        metrics.REGISTRY.counter(f"windows-emitted@{qid}").inc()
-        metrics.REGISTRY.counter(f"records-out@{qid}").inc(n_records)
+        _metrics.REGISTRY.counter(f"windows-emitted@{qid}").inc()
+        _metrics.REGISTRY.counter(f"records-out@{qid}").inc(n_records)
         tel = _telemetry.active()
         if tel is not None:
             tel.histogram(f"window-records@{qid}").record(n_records)
@@ -557,17 +692,37 @@ class QueryRegistry:
         if ok is not entry.slo_ok:
             if not ok:
                 entry.slo_breaches += 1
-                metrics.REGISTRY.counter("query-slo-breaches").inc()
+                _metrics.REGISTRY.counter("query-slo-breaches").inc()
                 _emit("query-slo-breach", id=qid, records=n_records)
                 if tel is not None:
                     tel.tenants.note_breach(entry.spec.tenant)
+                self._recorder_breach(entry, n_records, emit_p99_ms)
             elif entry.slo_ok is False:
                 _emit("query-slo-recovered", id=qid)
             entry.slo_ok = ok
 
+    @staticmethod
+    def _recorder_breach(entry: QueryEntry, n_records: int,
+                         emit_p99_ms: Optional[float]) -> None:
+        """A per-query breach transition dumps one flight-recorder bundle
+        per query id per run (nothing without a recorder)."""
+        from spatialflink_tpu_torch.utils.deviceplane import active_recorder
+
+        rec = active_recorder()
+        if rec is None:
+            return
+        qid = entry.id
+        detail = {"query": qid, "records": n_records,
+                  "latency_class": entry.spec.latency_class,
+                  "p99_emit_ms": emit_p99_ms,
+                  "slo": dict(entry.spec.slo or {})}
+        rec.note("query-slo-breach", **detail)
+        rec.dump_once(f"query-slo-{qid}", "query-slo-breach", detail=detail)
+
     def status(self) -> dict:
-        """The fleet's ledger (live and recently retired), composition,
-        version and padding bucket."""
+        """The ``GET /queries`` payload: the ledger (live and recently
+        retired), composition, version, padding bucket, shed state,
+        quotas and the control topic's position."""
         with self._lock:
             entries = [e.to_dict() for e in self._entries.values()]
             fleet = list(self._fleet)
@@ -576,8 +731,13 @@ class QueryRegistry:
                 "fleet_version": self._version,
                 "fleet": fleet, "live": live,
                 "bucket": bucket_size(live),
+                "shedding": self.shedding,
                 "default_tenant": self.default_tenant,
-                "queries": entries}
+                "tenant_quotas": {t: dict(q)
+                                  for t, q in self.tenant_quotas.items()},
+                "queries": entries,
+                "control_position":
+                    None if self._control is None else self._control.position}
 
 
 class ControlTopicConsumer:
@@ -590,8 +750,10 @@ class ControlTopicConsumer:
 
     :meth:`poll` (inside :meth:`QueryRegistry.apply`, at window
     boundaries) applies every record past ``position``; a malformed or
-    rejected record is counted in ``rejected`` and warned about, never
-    fatal to the queries already serving. The position commits to the
+    rejected record (a quota refusal too) is counted (``rejected``, the
+    ``control-records-rejected`` counter, a ``control-record-rejected``
+    event) and warned about, never fatal to the queries already
+    serving. The position commits to the
     group ``<group>-control`` after each poll that applied something, and
     rides the ``queries`` checkpoint component."""
 
@@ -614,6 +776,8 @@ class ControlTopicConsumer:
             try:
                 batch = self.broker.fetch(self.topic, self.position, 256)
             except Exception as e:  # the control plane never stalls data
+                _metrics.REGISTRY.counter("control-fetch-errors").inc()
+                _emit("control-fetch-error", error=str(e)[:200])
                 print(f"warning: control topic {self.topic!r}: fetch "
                       f"failed ({str(e)[:200]})", file=sys.stderr)
                 return n
@@ -650,13 +814,15 @@ class ControlTopicConsumer:
             return 1
         except KeyError as e:
             self._reject(f"unknown query id {e}", value)
-        except (QuerySpecError, json.JSONDecodeError,
+        except (QuerySpecError, QuotaExceeded, json.JSONDecodeError,
                 UnicodeDecodeError) as e:
             self._reject(str(e), value)
         return 0
 
     def _reject(self, reason: str, value) -> None:
         self.rejected += 1
+        _metrics.REGISTRY.counter("control-records-rejected").inc()
+        _emit("control-record-rejected", reason=reason[:200])
         print(f"warning: control topic {self.topic!r}: rejected record "
               f"({reason}): {str(value)[:120]}", file=sys.stderr)
 
@@ -670,12 +836,10 @@ class QueryRouter:
     are shared by the queries that name them."""
 
     def __init__(self, registry: QueryRegistry, broker=None):
-        from spatialflink_tpu_torch.utils import metrics
-
         self.registry = registry
         self.broker = broker
         self._files: Dict[str, Any] = {}
-        self.routed = metrics.REGISTRY.counter("query-windows-routed")
+        self.routed = _metrics.REGISTRY.counter("query-windows-routed")
 
     @staticmethod
     def _doc(qid: str, result, recs) -> str:

@@ -355,7 +355,8 @@ class WindowCommitTap:
 
     :meth:`chunks` yields the port's chunks: a point stream through
     ``bulk_decode(raws) -> PointChunk`` (one native parse per chunk of
-    ``bulk_chunk`` records), else record by record through ``parse``
+    ``bulk_chunk`` records: an int, or the chunk governor's callback read
+    at every take), else record by record through ``parse``
     (points into a columnar chunk interned through :attr:`interner`,
     polygons and linestrings into a geometry chunk, other records dropped
     as off-type after they were noted). Control tuples are checked before
@@ -368,7 +369,7 @@ class WindowCommitTap:
     def __init__(self, source: KafkaSource, size_ms: int, slide_ms: int,
                  parse: Callable[[Any], Any], geometry: str = "Point",
                  bulk_decode: Optional[Callable[[List[str]], Any]] = None,
-                 bulk_chunk: int = 2048, checkpointer=None, interner=None):
+                 bulk_chunk=2048, checkpointer=None, interner=None):
         from spatialflink_tpu_torch.utils import IdInterner
 
         self.source = source
@@ -377,7 +378,10 @@ class WindowCommitTap:
         self.parse = parse
         self.geometry = geometry
         self.bulk_decode = bulk_decode
-        self.bulk_chunk = max(1, int(bulk_chunk))
+        #: an int or a zero-argument size callback (the chunk governor's
+        #: actuator), read through :attr:`bulk_chunk` at every take, so a
+        #: resize lands between chunks
+        self._bulk_chunk = bulk_chunk
         #: the stream's id space (the bulk decode's, when there is one)
         self.interner = (getattr(bulk_decode, "interner", None) or interner
                          or IdInterner())
@@ -395,6 +399,12 @@ class WindowCommitTap:
                            if tel is not None else None)
         self._backlog_gauge = (tel.gauge("kafka.commit-backlog")
                                if tel is not None else None)
+
+    @property
+    def bulk_chunk(self) -> int:
+        """The decode chunk now (a callback is resolved afresh)."""
+        c = self._bulk_chunk
+        return max(1, int(c() if callable(c) else c))
 
     # ------------------------------ decode ------------------------------ #
 
@@ -487,7 +497,7 @@ class WindowCommitTap:
                 # a poll of plain records: appended in chunk-sized slices
                 i = 0
                 while i < len(vals):
-                    take = self.bulk_chunk - len(raws)
+                    take = max(self.bulk_chunk - len(raws), 1)
                     raws.extend(vals[i:i + take])
                     poss.extend(positions[i:i + take])
                     i += take

@@ -21,9 +21,9 @@ is behind the session check, so a run without a session never builds a
 ledger. Every instance-attribute write outside ``__init__`` holds
 ``self._lock`` (the record loop and the reporter thread share it).
 
-:func:`parse_tenant_quotas` and :class:`QuotaExceeded` are here so the
-module is whole; the port's driver refuses the ``--tenant-*`` flags until
-the quotas and shedding are ported.
+:func:`parse_tenant_quotas` reads ``--tenant-quota``; the query registry
+(``runtime/queryplane.py``) enforces the ceilings at admission and raises
+:class:`QuotaExceeded`.
 """
 from __future__ import annotations
 

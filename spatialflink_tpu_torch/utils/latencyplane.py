@@ -24,8 +24,9 @@ query router's demux. The backpressure series closes one bucket per
 ``tick_interval_s`` (whoever snapshots first) with the decode buffer
 depth, the window backlog and its residency, the control and sink queue
 depths and the watermark slope, and emits one ``stage-budget`` event per
-bucket. The JAX package's chunk governor (``runtime/control.py``) reads
-these buckets; the port has none yet, so nothing is fed to it.
+bucket. Each closed bucket, with the live record→emit p99, goes to the
+installed chunk governor (``runtime/control.py``), whose ``status()`` is
+the ``controller`` block of ``GET /latency``.
 
 The plane lives on the session (:class:`~.telemetry.Telemetry`); without
 one nothing here runs. Every method is called per window or per tick,
@@ -303,6 +304,18 @@ class LatencyPlane:
         if stall and not was_stalled:
             _telemetry.emit_event("backpressure-stall",
                                   event_time_ms=wm, records_in=records_in)
+        # the closed bucket is the chunk governor's sensor input: one hook
+        # per tick, never per window
+        try:
+            from spatialflink_tpu_torch.runtime.control import active_governor
+
+            gov = active_governor()
+            if gov is not None:
+                p99 = (self.record_emit.percentile(99)
+                       if self.record_emit.count else None)
+                gov.on_tick(bucket, p99)
+        except Exception:
+            pass  # a controller fault never breaks the sensor plane
         return bucket
 
     # ------------------------------ readers ---------------------------- #
@@ -351,8 +364,15 @@ class LatencyPlane:
             stages = {s: h.to_dict() for s, h in self.stages.items()}
             queries = {qid: h.to_dict() for qid, h in self.queries.items()}
             series = [dict(b) for b in self.series]
-        # the JAX package's chunk governor status: no governor in the port
         controller = None
+        try:
+            from spatialflink_tpu_torch.runtime.control import active_governor
+
+            gov = active_governor()
+            if gov is not None:
+                controller = gov.status()
+        except Exception:
+            pass
         return {
             "ts_ms": int(time.time() * 1000),
             "controller": controller,

@@ -317,11 +317,16 @@ class CellOccupancy:
         return float((2.0 * (idx * nz).sum() / (m * total)) - (m + 1) / m)
 
     def to_dict(self, k: int = 8) -> dict:
-        occ = int((self._counts > 0).sum())
-        return {"occupied_cells": occ, "skew": round(self.skew(), 3),
-                "top_share": round(self.top_share(), 4),
-                "gini": round(self.gini(), 4),
-                "top_cells": self.top_k(k)}
+        # read one copy: the decode thread keeps counting (and may swap in
+        # a grown array) while the reporter or a scrape reads, and
+        # np.nonzero over an array that changes under it raises
+        view = CellOccupancy.__new__(CellOccupancy)
+        view._np, view._counts = self._np, self._counts.copy()
+        occ = int((view._counts > 0).sum())
+        return {"occupied_cells": occ, "skew": round(view.skew(), 3),
+                "top_share": round(view.top_share(), 4),
+                "gini": round(view.gini(), 4),
+                "top_cells": view.top_k(k)}
 
 
 def normalize_cells(cells, np):

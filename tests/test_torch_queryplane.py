@@ -97,8 +97,10 @@ def test_fleet_validation_matches_jax():
 
 def test_kafka_routes_and_quotas_are_refused():
     """``kafka:`` routes, refused until the Kafka slice, are admitted and
-    updated to now (tests/test_torch_kafka.py routes them); tenant quotas
-    stay refused."""
+    updated to now (tests/test_torch_kafka.py routes them); tenant quotas,
+    refused until the operations plane, are taken too and refuse a tenant
+    over its ceiling as the JAX registry does
+    (tests/test_torch_control.py holds them against it)."""
     reg = TQ.QueryRegistry("range", radius=0.5)
     reg.admit({"id": "a", "x": 1, "y": 2, "route": "kafka:out"})
     reg.admit({"id": "b", "x": 1, "y": 2})
@@ -107,8 +109,10 @@ def test_kafka_routes_and_quotas_are_refused():
     reg.apply()
     assert [e.spec.route for e in reg.active_entries()] == [
         "kafka:out", "kafka:out2"]
-    with pytest.raises(NotImplementedError, match="tenant quotas: not yet"):
-        TQ.QueryRegistry("range", tenant_quotas={"t": {"max_active": 1}})
+    quota = TQ.QueryRegistry("range", tenant_quotas={"t": {"max_active": 1}})
+    quota.admit({"id": "a", "x": 1, "y": 2, "tenant": "t"})
+    with pytest.raises(TQ.QuotaExceeded, match="max_active 1 reached"):
+        quota.admit({"id": "b", "x": 1, "y": 2, "tenant": "t"})
 
 
 def _states(reg):

@@ -209,8 +209,7 @@ def test_realtime_knn_is_refused(option):
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--option", "6", "--status-port", "0"],
-     "--status-port: not yet ported"),
+    (["--option", "6", "--fleet", "2"], "--fleet: not yet ported"),
     (["--option", "2000", "--chaos", "seed=1"], "--chaos: not yet ported"),
     (["--option", "101"], "queryOption 101 (join) needs --input2"),
     (["--option", "6", "--kafka", "--kafka-follow"],
@@ -226,9 +225,12 @@ def test_cli_refuses_what_is_not_ported(tmp_path, capsys, argv, message):
     test_torch_join_panes.py, test_torch_bulk.py; so do --kafka,
     --checkpoint-dir and --resume: tests/test_torch_kafka.py,
     test_torch_recovery.py; --adaptive-grid:
-    tests/test_torch_adaptive_grid.py, test_torch_repartition.py; and
+    tests/test_torch_adaptive_grid.py, test_torch_repartition.py;
     --metrics and the other telemetry flags:
-    tests/test_torch_telemetry_driver.py)."""
+    tests/test_torch_telemetry_driver.py; and --status-port, which held
+    this case until the operations plane was ported, with --slo,
+    --controller and the tenant flags: tests/test_torch_opserver.py,
+    test_torch_ops_driver.py)."""
     inp = tmp_path / "in.csv"
     inp.write_text("\n".join(_stream(n=10)[0]) + "\n")
     rc = TD.main(["--config", CONF, "--input1", str(inp), "--format", "CSV",
